@@ -3,27 +3,39 @@
 
     python3 chip_smoke.py
 
-Drives ``flamingo_mini_tpu_torch`` through its main path once and checks it:
+Drives ``flamingo_mini_tpu_torch`` through both of its greedy decode paths
+once and checks them:
 
 1. device and build: prints the card's name and power limit (nvidia-smi)
-   and builds the hand-written kernels from ``flamingo_mini_tpu_torch/csrc``;
+   and builds the hand-written kernels from ``flamingo_mini_tpu_torch/csrc``
+   (one nvcc per source, all at once);
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it: ``decode_attention`` at b=32, D=1024, H=16, T=192
-   (left-padded rows, several ``cur`` and ``kv_limit``, bf16 and float32)
-   and ``lm_head_argmax`` at B=32, D=1024, V=50258 (padded to 51200), with
-   an exact tie planted across chunks;
+   (left-padded rows, several ``cur`` and ``kv_limit``, bf16 and float32),
+   ``lm_head_argmax`` at B=32, D=1024, V=50258 (padded to 51200), with an
+   exact tie planted across chunks, and ``decode_step_megakernel`` at
+   D=1024, H=16, XI=512, 64 latents, T=192: b in {1, 3, 32}, a left-padded
+   row, a row with text_time 0, several ``cur``/``kv_limit``, xattn every
+   layer and every other layer, 1 and 2 layers (2 bf16 ulps at the
+   output's scale, hidden row and every layer's written K/V row) and 24
+   layers (normwise relative error <= 1e-2: roundings compound over
+   layers). Each kernel is timed beside its plain version and its bound,
+   ``decode_attention`` also beside ``scaled_dot_product_attention``;
 3. greedy captioning end to end through ``FlamingoModel.generate`` at the
    full width of flamingo-mini (GPT-2-medium with gated xattn before every
    layer, CLIP ViT-L/14), random weights from a fixed seed, int8 trunk and
    xattn, bf16, batch 32, one image + 4-token prompt, 128 new tokens,
-   ``prefix_block=32``, EOS unreachable. Asserts the shape, the id range and
-   the kernels' launch counts, then runs the same program through the
-   plain versions and compares tokens up to each row's first near-tie;
-4. timing on the card: ms per decode step and captions/s of phase 3, and
-   each kernel's time beside its plain version's.
+   ``prefix_block=32``, EOS unreachable; first per layer (``megakernel``
+   off), then with the whole-step megakernel. Each path's launch counts are
+   set to 0 before it and read after it. Each path is compared with the
+   same program run through the plain versions, and the megakernel path
+   with the per-layer path, up to each row's first near-tie (the reference
+   run's top-2 logit gap <= 8 bf16 ulps there);
+4. timing on the card: ms per decode step and captions/s of both paths.
 
 Any failure raises and exits nonzero. Without a CUDA device it exits 1 and
-prints no result. The last line is ``{"ok": true, "device": ...}``.
+prints no result. The line before the last lists the kernels as JSON; the
+last line is ``{"ok": true, "device": ...}``.
 """
 import contextlib
 import json
@@ -40,11 +52,21 @@ BATCH, PROMPT_LEN, NEW_TOKENS, PREFIX_BLOCK = 32, 4, 128, 32
 MAX_LENGTH = PROMPT_LEN + NEW_TOKENS
 ATTN_B, ATTN_D, ATTN_H, ATTN_T = 32, 1024, 16, 192
 HEAD_B, HEAD_D, HEAD_V = 32, 1024, 50258
+# the megakernel at flamingo-mini width: GPT-2-medium, xattn 8 heads of 64
+MEGA_D, MEGA_H, MEGA_XI, MEGA_XH, MEGA_NV, MEGA_T = 1024, 16, 512, 8, 64, 192
+# NVIDIA H100 SXM data sheet: device memory rate, dense bf16 tensor cores
+HBM_BYTES_PER_S, BF16_OPS_PER_S = 3.35e12, 989e12
 
 
 def bf16_ulps(ref: torch.Tensor, n: int) -> float:
     """n bf16 ulps at the scale of the largest |value| (8 significant bits)."""
     return n * 2.0 ** (np.floor(np.log2(float(ref.abs().max()))) - 7)
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(least ms the card could take, what bounds it)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def card_line() -> str:
@@ -102,11 +124,31 @@ def phase2_decode_attention(dev, flush):
     print(f"[phase 2] decode_attention vs plain: max abs err {worst} "
           "(tolerance: f32 1e-5, bf16 2 ulp of the output scale)")
     q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
-    kw = dict(n_head=ATTN_H, scale=scale, kv_limit=132)
-    ms = time_ms(lambda: decode_attention(q, k, v, npad, 131, **kw), 50, flush)
-    plain_ms = time_ms(lambda: decode_attention_plain(q, k, v, npad, 131, **kw),
+    t_lim, cur = 132, 131
+    kw = dict(n_head=ATTN_H, scale=scale, kv_limit=t_lim)
+    ms = time_ms(lambda: decode_attention(q, k, v, npad, cur, **kw), 50, flush)
+    plain_ms = time_ms(lambda: decode_attention_plain(q, k, v, npad, cur, **kw),
                        50, flush)
-    return max(worst.values()), ms, plain_ms
+    # the same function as one library call, on the same cache (views)
+    dh = ATTN_D // ATTN_H
+    q4 = q.view(ATTN_B, ATTN_H, 1, dh)
+    k4, v4 = (c[:t_lim].view(t_lim, ATTN_B, ATTN_H, dh).permute(1, 2, 0, 3)
+              for c in (k, v))
+    pos = torch.arange(t_lim, device=dev)
+    mask = ((pos[None, :] >= npad[:, None]) & (pos[None, :] <= cur))[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_out = sdpa(q4, k4, v4, attn_mask=mask, scale=scale).reshape(ATTN_B, ATTN_D)
+    lib_err = float((lib_out.float() - decode_attention(q, k, v, npad, cur, **kw)
+                     .float()).abs().max())
+    library_ms = time_ms(lambda: sdpa(q4, k4, v4, attn_mask=mask, scale=scale),
+                         50, flush)
+    print(f"[phase 2] scaled_dot_product_attention at decode_attention's shape: "
+          f"max abs diff to the kernel {lib_err}")
+    n_bytes = 2 * 2 * t_lim * ATTN_B * ATTN_D + 2 * 2 * ATTN_B * ATTN_D + 4 * ATTN_B
+    n_ops = 4 * ATTN_B * (cur + 1) * ATTN_D
+    return dict(max_abs_err=max(worst.values()), ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, **dict(zip(("bound_ms", "bound_by"),
+                                                  bound(n_bytes, n_ops))))
 
 
 def phase2_lm_head(dev, flush):
@@ -123,7 +165,8 @@ def phase2_lm_head(dev, flush):
     scale[[7, 40000]] = 1.0
     head = pad_head_weights({"w8": torch.tensor(w8, device=dev),
                              "scale": torch.tensor(scale, device=dev)}, 2048)
-    assert head["w8"].shape == (51200, HEAD_D)
+    Vp = head["w8"].shape[0]
+    assert Vp == 51200
     xt = torch.tensor(x, device=dev).to(torch.bfloat16)
     got = lm_head_argmax(head["w8"], head["scale"], xt, n_valid=HEAD_V)
     want = lm_head_argmax_plain(head["w8"], head["scale"], xt, n_valid=HEAD_V)
@@ -143,31 +186,240 @@ def phase2_lm_head(dev, flush):
                                         n_valid=HEAD_V), 50, flush)
     plain_ms = time_ms(lambda: lm_head_argmax_plain(
         head["w8"], head["scale"], xt, n_valid=HEAD_V), 50, flush)
-    return float(gap.max()), ms, plain_ms
+    n_bytes = Vp * HEAD_D + 4 * Vp + 2 * HEAD_B * HEAD_D + 4 * HEAD_B
+    return dict(max_abs_err=float(gap.max()), ms=ms, plain_ms=plain_ms,
+                library_ms=None, **dict(zip(("bound_ms", "bound_by"), bound(
+                    n_bytes, 2 * HEAD_B * Vp * HEAD_D))))
+
+
+def random_trunk(dev, *, n_layer: int, xattn_every: int, seed: int, D=MEGA_D,
+                 H=MEGA_H, XI=MEGA_XI, XH=MEGA_XH, n_visual=MEGA_NV):
+    """(config, packed weights) for the megakernel: a random int8 GPT-2
+    trunk and gated xattn blocks with random biases and LayerNorm params
+    and open gates, from a seed."""
+    from flamingo_mini_tpu_torch import FlamingoConfig
+    from flamingo_mini_tpu_torch.models import gpt2
+    from flamingo_mini_tpu_torch.models.xattn import init_gated_xattn_block
+    from flamingo_mini_tpu_torch.ops import megadecode, quant
+    cfg = FlamingoConfig(
+        lm="gpt2", dim=D, xattn_every=xattn_every, xattn_heads=XH,
+        xattn_dim_head=XI // XH, resampler_num_latents=n_visual,
+        compute_dtype="bfloat16",
+        lm_arch_overrides=dict(vocab_size=512, n_positions=256, n_embd=D,
+                               n_layer=n_layer, n_head=H))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lm = gpt2.init_gpt2(gen, cfg.lm_arch)
+    xattn = {str(i): init_gated_xattn_block(gen, dim=D, dim_visual=64,
+                                            dim_head=XI // XH, heads=XH,
+                                            ff_mult=4)
+             for i in range(0, n_layer, xattn_every)}
+
+    def randn_like(t, std, mean=0.0):
+        return mean + std * torch.randn(t.shape, generator=gen, device=dev)
+
+    norms = [blk[k] for blk in lm["blocks"] for k in ("ln_1", "ln_2")]
+    norms += [x[k]["norm"] for x in xattn.values() for k in ("attn", "ffw")]
+    for ln in norms:
+        ln["scale"], ln["bias"] = randn_like(ln["scale"], 0.1, 1.0), randn_like(ln["bias"], 0.02)
+    for blk in lm["blocks"]:
+        for k in ("c_attn", "c_proj", "mlp_fc", "mlp_proj"):
+            blk[k]["b"] = randn_like(blk[k]["b"], 0.02)
+    for x in xattn.values():
+        x["alpha_attn"].fill_(0.5)
+        x["alpha_ffw"].fill_(0.3)
+    params = quant.cast_params_bf16({"lm": quant.quantize_gpt2_lm(lm),
+                                     "xattn": quant.quantize_xattn_blocks(xattn)})
+    return cfg, megadecode.pack_decode_weights(params, cfg)
+
+
+def mega_inputs(dev, cfg, b: int, seed: int, *, T=MEGA_T, NMNV=MEGA_NV):
+    """Random (xk, xv, kc, vc, x_emb, npad, text_time) for one step: rows
+    left-padded by r % 4 slots (row 0 of a single row by 2), row 1 without
+    an image (text_time 0)."""
+    from flamingo_mini_tpu_torch.ops import megadecode
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    L, D = cfg.lm_arch.n_layer, cfg.lm_arch.n_embd
+    XH, xdh = cfg.xattn_heads, cfg.xattn_dim_head
+
+    def rnd(*shape):
+        return (0.5 * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+
+    kv = {str(i): (rnd(b, XH, NMNV, xdh), rnd(b, XH, NMNV, xdh))
+          for i in range(0, L, cfg.xattn_every)}
+    xk, xv = megadecode.pack_xattn_kv_flat(kv, L)
+    npad = torch.tensor([2] if b == 1 else np.arange(b) % 4, dtype=torch.int32,
+                        device=dev)
+    tt = torch.ones(b, dtype=torch.int32, device=dev)
+    if b > 1:
+        tt[1] = 0
+    return xk, xv, rnd(L, T, b, D), rnd(L, T, b, D), rnd(b, D), npad, tt
+
+
+def mega_errors(cfg, packed, inputs, cur, kv_limit):
+    """Kernel and plain version on the same inputs -> {name: (got, want)}
+    for the hidden row and every layer's K and V rows at ``cur``."""
+    from flamingo_mini_tpu_torch.ops.megadecode import (
+        decode_step_megakernel, decode_step_megakernel_plain)
+    xk, xv, kc, vc, x, npad, tt = inputs
+    kc1, vc1, kc2, vc2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    got = decode_step_megakernel(packed, xk, xv, kc1, vc1, x, npad, tt, cur,
+                                 config=cfg, kv_limit=kv_limit)
+    want = decode_step_megakernel_plain(packed, xk, xv, kc2, vc2, x, npad, tt,
+                                        cur, config=cfg, kv_limit=kv_limit)
+    torch.cuda.synchronize()
+    return {"hidden": (got.float(), want.float()),
+            "k rows": (kc1[:, cur].float(), kc2[:, cur].float()),
+            "v rows": (vc1[:, cur].float(), vc2[:, cur].float())}
+
+
+def plain_errors_on_cpu(cfg, packed, inputs, cur, kv_limit):
+    """The plain version on CPU copies of the inputs -> {name: result} in
+    the layout of ``mega_errors``."""
+    from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel_plain
+    host = {k: (t.cpu() if isinstance(t, torch.Tensor) else t) for k, t in packed.items()}
+    xk, xv, kc, vc, x, npad, tt = (t.cpu() for t in inputs)
+    hidden = decode_step_megakernel_plain(host, xk, xv, kc, vc, x, npad, tt, cur,
+                                          config=cfg, kv_limit=kv_limit)
+    return {"hidden": hidden.float(), "k rows": kc[:, cur].float(),
+            "v rows": vc[:, cur].float()}
+
+
+def phase2_megakernel(dev, flush):
+    from flamingo_mini_tpu_torch.ops.megadecode import (
+        decode_step_megakernel, decode_step_megakernel_plain, kernel_args,
+        kernel_grid)
+    pairs = ((4, 36), (35, 36), (70, 100), (131, 132))
+    worst_ulps, worst_abs, case = 0.0, 0.0, 0
+    for n_layer, every in ((1, 1), (2, 1), (2, 2)):
+        cfg, packed = random_trunk(dev, n_layer=n_layer, xattn_every=every,
+                                   seed=10 * n_layer + every)
+        for b in (1, 3, 32):
+            inputs = mega_inputs(dev, cfg, b, seed=case)
+            for cur, kv_limit in (pairs[case % 4], pairs[(case + 1) % 4]):
+                for name, (got, want) in mega_errors(cfg, packed, inputs, cur,
+                                                     kv_limit).items():
+                    assert bool(torch.isfinite(got).all()), (n_layer, every, b, name)
+                    err = float((got - want).abs().max())
+                    ulps = err / bf16_ulps(want, 1)
+                    worst_ulps, worst_abs = max(worst_ulps, ulps), max(worst_abs, err)
+                    assert ulps <= 2, f"megakernel layers={n_layer} every={every} " \
+                        f"b={b} cur={cur} kv_limit={kv_limit} {name}: {ulps} ulp"
+            case += 1
+    print(f"[phase 2] decode_step_megakernel vs plain, 1-2 layers, b in "
+          f"{{1, 3, 32}}, xattn every 1 and 2, {2 * case} (cur, kv_limit) "
+          f"cases: max error {worst_ulps} bf16 ulp at the output's scale "
+          f"(tolerance 2), max abs error {worst_abs}")
+
+    # 24 layers at the slice's shape, then the timing. The roundings
+    # compound over layers; the plain version computed on the CPU (float32
+    # sums in another order) measures how far that alone moves the result,
+    # and the kernel may differ from the plain version on the card by 1e-2
+    # or by 1.25 times that spread, whichever is larger.
+    cfg, packed = random_trunk(dev, n_layer=24, xattn_every=1, seed=24)
+    inputs = mega_inputs(dev, cfg, BATCH, seed=99)
+    cpu = plain_errors_on_cpu(cfg, packed, inputs, 131, 132)
+    rel, spread = {}, {}
+    for name, (got, want) in mega_errors(cfg, packed, inputs, 131, 132).items():
+        rel[name] = float((got - want).norm() / want.norm())
+        spread[name] = float((cpu[name] - want.cpu()).norm() / want.norm())
+        assert bool(torch.isfinite(got).all()), name
+        assert rel[name] <= max(1e-2, 1.25 * spread[name]), (name, rel, spread)
+    print(f"[phase 2] decode_step_megakernel vs plain, 24 layers, b=32: "
+          f"normwise relative error {rel}; the plain version on the CPU vs "
+          f"on the card {spread} (tolerance: the larger of 1e-2 and 1.25 x "
+          "that spread)")
+    xk, xv, kc, vc, x, npad, tt = inputs
+    npad.zero_()
+    call = dict(config=cfg, kv_limit=132)
+    args, _, _ = kernel_args(packed, xk, xv, kc, vc, x, npad, tt, 131, **call)
+    blocks, smem = kernel_grid(args)
+    print(f"[phase 2] decode_step_megakernel grid: {blocks} blocks of 256 "
+          f"threads, {smem} bytes of shared memory each")
+    ms = time_ms(lambda: decode_step_megakernel(packed, xk, xv, kc, vc, x, npad,
+                                                tt, 131, **call), 50, flush)
+    plain_ms = time_ms(lambda: decode_step_megakernel_plain(
+        packed, xk, xv, kc, vc, x, npad, tt, 131, **call), 50, flush)
+    # bytes this call must move: every weight, scale, bias and LN param
+    # once; the xattn K/V of each row's image; K/V rows [npad, cur] read,
+    # the new K/V rows written; the hidden rows in and out
+    weights = sum(t.numel() * t.element_size() for k, t in packed.items()
+                  if isinstance(t, torch.Tensor))
+    n_img = int((tt > 0).sum())
+    x_kv = len(packed["xlayers"]) * 2 * n_img * MEGA_NV * MEGA_XI * 2
+    self_kv = 24 * 2 * int((132 - npad).sum()) * MEGA_D * 2
+    n_bytes = weights + x_kv + self_kv + 24 * 2 * BATCH * MEGA_D * 2 + 2 * 2 * BATCH * MEGA_D
+    n_mac = sum(t.numel() for k, t in packed.items() if k.startswith("w_"))
+    n_ops = 2 * BATCH * n_mac + 24 * 4 * int((132 - npad).sum()) * MEGA_D
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    print(f"[phase 2] decode_step_megakernel bound at b=32, 24 layers, "
+          f"kv_limit 132: {n_bytes / 1e9:.4f} GB, {n_ops / 1e9:.3f} GFLOP -> "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 @contextlib.contextmanager
-def plain_kernels(gaps):
-    """Route the main path through the kernels' plain versions, recording
-    the plain head's top-2 logit gap (in bf16 ulps) at every step."""
-    from flamingo_mini_tpu_torch import generation
-    from flamingo_mini_tpu_torch.models import gpt2
-    from flamingo_mini_tpu_torch.ops.decode_attention import decode_attention_plain
-    from flamingo_mini_tpu_torch.ops.lm_head import lm_head_argmax_plain
+def patched(module, name, fn):
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
 
+
+def gap_recorder(gaps, pick):
+    """A stand-in for ``lm_head_argmax`` that records the plain head's top-2
+    logit gap (in bf16 ulps) at every step and returns ``pick``'s token."""
     def head(w8, scale, x, *, n_valid):
         logits = torch.matmul(x.float(), w8.float().t()) * scale
         top2 = logits.to(torch.bfloat16).float()[:, :n_valid].topk(2).values
         ulp = 2.0 ** (torch.floor(torch.log2(top2[:, 0].abs())) - 7)
         gaps.append(((top2[:, 0] - top2[:, 1]) / ulp).cpu())
-        return lm_head_argmax_plain(w8, scale, x, n_valid=n_valid)
+        return pick(w8, scale, x, n_valid=n_valid)
+    return head
 
-    saved = gpt2.decode_attention, generation.lm_head_argmax
-    gpt2.decode_attention, generation.lm_head_argmax = decode_attention_plain, head
-    try:
+
+@contextlib.contextmanager
+def plain_kernels(gaps):
+    """Route both decode paths through the kernels' plain versions,
+    recording the plain head's top-2 logit gap at every step."""
+    from flamingo_mini_tpu_torch import generation
+    from flamingo_mini_tpu_torch.models import gpt2
+    from flamingo_mini_tpu_torch.ops import megadecode
+    from flamingo_mini_tpu_torch.ops.decode_attention import decode_attention_plain
+    from flamingo_mini_tpu_torch.ops.lm_head import lm_head_argmax_plain
+    with patched(gpt2, "decode_attention", decode_attention_plain), \
+            patched(megadecode, "decode_step_megakernel",
+                    megadecode.decode_step_megakernel_plain), \
+            patched(generation, "lm_head_argmax",
+                    gap_recorder(gaps, lm_head_argmax_plain)):
         yield
-    finally:
-        gpt2.decode_attention, generation.lm_head_argmax = saved
+
+
+def compare_tokens(label, gen, ref_gen, ref_gaps):
+    """Rows equal up to the first near-tie of the reference run (top-2 gap
+    <= 8 bf16 ulps at the step that parts) -> tokens compared."""
+    assert torch.equal(gen[:, 0], ref_gen[:, 0]), f"{label}: prefill picks differ"
+    agreed = 0
+    for r in range(gen.shape[0]):
+        diff = torch.nonzero(gen[r] != ref_gen[r]).flatten()
+        if len(diff) == 0:
+            agreed += gen.shape[1]
+            continue
+        j = int(diff[0])          # generated index; decode step j - 1
+        agreed += j
+        gap = float(ref_gaps[j - 1][r])
+        print(f"[phase 3] {label}: row {r} first differs at generated token "
+              f"{j}, reference top-2 gap {gap:.1f} bf16 ulp")
+        # the runs' logits differ by rounding (a few bf16 ulps); a wrong
+        # kernel parts rows where the top two are far apart
+        assert gap <= 8.0, f"{label}: row {r} parts at a gap of {gap} bf16 ulp"
+    full_rows = int((gen == ref_gen).all(dim=1).sum())
+    n = gen.numel()
+    print(f"[phase 3] {label}: {agreed}/{n} tokens agree up to each row's "
+          f"first near-tie ({agreed / n:.4f}); {full_rows}/{gen.shape[0]} rows "
+          "identical")
 
 
 def main() -> int:
@@ -176,10 +428,11 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel
+    from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel, generation
     from flamingo_mini_tpu_torch.ops import cuda_build
     from flamingo_mini_tpu_torch.ops.decode_attention import decode_attention
     from flamingo_mini_tpu_torch.ops.lm_head import lm_head_argmax
+    from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel
 
     # the numerics the port states: full float32 products, float32 reductions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -202,11 +455,13 @@ def main() -> int:
 
     # phase 2: kernels against their plain versions on the card
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    attn_err, attn_ms, attn_plain_ms = phase2_decode_attention(dev, flush)
-    head_err, head_ms, head_plain_ms = phase2_lm_head(dev, flush)
+    attn = phase2_decode_attention(dev, flush)
+    head = phase2_lm_head(dev, flush)
+    mega = phase2_megakernel(dev, flush)
     del flush
+    torch.cuda.empty_cache()
 
-    # phase 3: the slice end to end at flamingo-mini width
+    # phase 3: the slice end to end at flamingo-mini width, both paths
     config = FlamingoConfig(lm="gpt2-medium",
                             clip_model_type="openai/clip-vit-large-patch14",
                             dim=1024, dim_visual=1024, compute_dtype="bfloat16")
@@ -225,95 +480,105 @@ def main() -> int:
     pixels = torch.tensor(rs.randn(BATCH, 1, 3, arch.image_size, arch.image_size),
                           dtype=torch.float32, device=dev).to(torch.bfloat16)
     vocab = config.lm_arch.vocab_size + 1
+    steps = NEW_TOKENS - 1
+    n_layer = config.lm_arch.n_layer
 
-    def run(new_tokens=NEW_TOKENS):
+    def run(megakernel, new_tokens=NEW_TOKENS):
         return model.generate(ids, media_locations=media, attention_mask=mask,
                               pixel_values=pixels, max_length=MAX_LENGTH,
                               max_new_tokens=new_tokens,
                               prefix_block=PREFIX_BLOCK, eos_token_id=vocab,
-                              pad_token_id=0)
+                              pad_token_id=0, megakernel=megakernel)
 
-    decode_attention.launches = 0
-    lm_head_argmax.launches = 0
-    tokens = run()
-    torch.cuda.synchronize()
-    n_attn, n_head = decode_attention.launches, lm_head_argmax.launches
-    steps = NEW_TOKENS - 1
-    n_layer = config.lm_arch.n_layer
-    print(f"[phase 3] launches: decode_attention {n_attn} "
-          f"(expected {n_layer} x {steps}), lm_head_argmax {n_head} "
-          f"(expected {steps})")
-    assert n_attn == n_layer * steps and n_head == steps
-    assert tokens.shape == (BATCH, MAX_LENGTH), tokens.shape
-    assert bool(((tokens >= 0) & (tokens < vocab)).all())
-    assert torch.equal(tokens[:, :PROMPT_LEN], ids)
+    def counted_run(megakernel, gaps):
+        """The path with every launch count at 0 before it -> (tokens,
+        counts); the head's top-2 gaps are recorded beside the kernel."""
+        for fn in (decode_attention, lm_head_argmax, decode_step_megakernel):
+            fn.launches = 0
+        with patched(generation, "lm_head_argmax", gap_recorder(gaps, lm_head_argmax)):
+            tokens = run(megakernel)
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in
+                  (decode_attention, lm_head_argmax, decode_step_megakernel)}
+        assert tokens.shape == (BATCH, MAX_LENGTH), tokens.shape
+        assert bool(((tokens >= 0) & (tokens < vocab)).all())
+        assert torch.equal(tokens[:, :PROMPT_LEN], ids)
+        return tokens[:, PROMPT_LEN:].cpu(), counts
 
-    gaps = []
-    with plain_kernels(gaps):
-        plain_tokens = run()
-    torch.cuda.synchronize()
-    gen, plain_gen = tokens[:, PROMPT_LEN:].cpu(), plain_tokens[:, PROMPT_LEN:].cpu()
-    assert torch.equal(gen[:, 0], plain_gen[:, 0]), "prefill picks differ"
-    agreed = 0
-    for r in range(BATCH):
-        diff = torch.nonzero(gen[r] != plain_gen[r]).flatten()
-        if len(diff) == 0:
-            agreed += NEW_TOKENS
-            continue
-        j = int(diff[0])          # generated index; decode step j - 1
-        agreed += j
-        gap = float(gaps[j - 1][r])
-        print(f"[phase 3] row {r}: first difference at generated token {j}, "
-              f"plain top-2 gap {gap:.1f} bf16 ulp")
-        # the two runs' logits differ by the kernels' rounding (a few bf16
-        # ulps); a wrong kernel parts rows where the top two are far apart
-        assert gap <= 8.0, f"row {r} parts at a gap of {gap} bf16 ulp"
-    full_rows = int((gen == plain_gen).all(dim=1).sum())
-    print(f"[phase 3] kernels vs plain: {agreed}/{BATCH * NEW_TOKENS} tokens "
-          f"agree up to each row's first near-tie "
-          f"({agreed / (BATCH * NEW_TOKENS):.4f}); {full_rows}/{BATCH} rows "
-          "identical")
+    layer_gaps, mega_gaps = [], []
+    layer_tokens, layer_counts = counted_run(False, layer_gaps)
+    print(f"[phase 3] per-layer path launches: {layer_counts} (expected "
+          f"decode_attention {n_layer} x {steps}, lm_head_argmax {steps}, "
+          "decode_step_megakernel 0)")
+    assert layer_counts == {"decode_attention": n_layer * steps,
+                            "lm_head_argmax": steps, "decode_step_megakernel": 0}
+    mega_tokens, mega_counts = counted_run(True, mega_gaps)
+    print(f"[phase 3] megakernel path launches: {mega_counts} (expected "
+          f"decode_attention 0, lm_head_argmax {steps}, decode_step_megakernel "
+          f"{steps})")
+    assert mega_counts == {"decode_attention": 0, "lm_head_argmax": steps,
+                           "decode_step_megakernel": steps}
+
+    for megakernel, tokens, label in ((False, layer_tokens, "per-layer kernels vs plain"),
+                                      (True, mega_tokens, "megakernel vs plain")):
+        gaps = []
+        with plain_kernels(gaps):
+            plain_tokens = run(megakernel)
+        torch.cuda.synchronize()
+        compare_tokens(label, tokens, plain_tokens[:, PROMPT_LEN:].cpu(), gaps)
+    compare_tokens("megakernel path vs per-layer path", mega_tokens, layer_tokens,
+                   layer_gaps)
 
     # phase 4: timing (CUDA events around whole generate calls)
-    def timed(new_tokens):
-        run(new_tokens)
+    def timed(megakernel, new_tokens):
+        run(megakernel, new_tokens)
         times = []
         for _ in range(5):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
-            run(new_tokens)
+            run(megakernel, new_tokens)
             e1.record()
             e1.synchronize()
             times.append(e0.elapsed_time(e1))
         return statistics.median(times), times
 
-    full_ms, full_all = timed(NEW_TOKENS)
-    half_ms, half_all = timed(NEW_TOKENS // 2)
-    step_ms = (full_ms - half_ms) / (NEW_TOKENS - NEW_TOKENS // 2)
-    print(f"[phase 4] {card}: generate {BATCH}x{NEW_TOKENS} median {full_ms} ms "
-          f"(runs {full_all}); {NEW_TOKENS // 2} tokens median {half_ms} ms "
-          f"(runs {half_all})")
-    print(f"[phase 4] {card}: {step_ms} ms per decode step, "
-          f"{BATCH / (full_ms / 1000.0)} captions/s, "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"[phase 4] {card}: decode_attention {attn_ms} ms vs plain "
-          f"{attn_plain_ms} ms; lm_head_argmax {head_ms} ms vs plain "
-          f"{head_plain_ms} ms (median per call, L2 flushed)")
+    for megakernel, label in ((False, "per-layer"), (True, "megakernel")):
+        torch.cuda.reset_peak_memory_stats()
+        full_ms, full_all = timed(megakernel, NEW_TOKENS)
+        half_ms, half_all = timed(megakernel, NEW_TOKENS // 2)
+        step_ms = (full_ms - half_ms) / (NEW_TOKENS - NEW_TOKENS // 2)
+        print(f"[phase 4] {card}: {label} path: generate {BATCH}x{NEW_TOKENS} "
+              f"median {full_ms} ms (runs {full_all}); {NEW_TOKENS // 2} tokens "
+              f"median {half_ms} ms (runs {half_all})")
+        print(f"[phase 4] {card}: {label} path: {step_ms} ms per decode step, "
+              f"{BATCH / (full_ms / 1000.0)} captions/s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name, k in (("decode_attention", attn), ("lm_head_argmax", head),
+                    ("decode_step_megakernel", mega)):
+        print(f"[phase 4] {card}: {name} {k['ms']} ms vs plain {k['plain_ms']} "
+              f"ms, library {k['library_ms']} ms, bound {k['bound_ms']} ms "
+              f"({k['bound_by']}) (median per call, L2 flushed)")
 
+    rows = []
+    for name, source, replaces, launches, k in (
+            ("decode_attention", "decode_attention.cu",
+             "flamingo_mini_tpu/ops/pallas_decode.py:153",
+             layer_counts["decode_attention"], attn),
+            ("lm_head_argmax", "lm_head_argmax.cu",
+             "flamingo_mini_tpu/ops/pallas_lmhead.py:71",
+             mega_counts["lm_head_argmax"], head),
+            ("decode_step_megakernel", "decode_megakernel.cu",
+             "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
+             mega_counts["decode_step_megakernel"], mega)):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"flamingo_mini_tpu_torch/csrc/{source}",
+                     "replaces": replaces, "launches": launches,
+                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                     "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
     print(card)
-    print(json.dumps({"kernels": [
-        {"name": "decode_attention", "route": "cuda",
-         "source": "flamingo_mini_tpu_torch/csrc/decode_attention.cu",
-         "replaces": "flamingo_mini_tpu/ops/pallas_decode.py:153",
-         "launches": n_attn, "max_abs_err": attn_err, "ms": attn_ms,
-         "plain_ms": attn_plain_ms},
-        {"name": "lm_head_argmax", "route": "cuda",
-         "source": "flamingo_mini_tpu_torch/csrc/lm_head_argmax.cu",
-         "replaces": "flamingo_mini_tpu/ops/pallas_lmhead.py:71",
-         "launches": n_head, "max_abs_err": head_err, "ms": head_ms,
-         "plain_ms": head_plain_ms},
-    ]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

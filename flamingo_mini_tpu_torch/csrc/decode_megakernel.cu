@@ -1,0 +1,580 @@
+// One whole greedy decode step in one launch: for every layer the gated
+// cross-attention block (where the layer has one) and the GPT-2 block.
+//
+// Replaces flamingo_mini_tpu/ops/pallas_megadecode.py::decode_step_megakernel
+// (_mega_call -> _build_kernel) in its greedy weight-only mode (kb=1,
+// act_quant=False). Per layer l, on the residual stream x (b, D) bf16:
+//
+//   gated xattn, if hasx[l]:
+//     y  = LN(x);  q = bf16(lin(y, to_q) * bf16(xdh^-0.5))
+//     s  = bf16(q . k) per (row, head), valid iff latent / n_visual + 1 ==
+//          text_time[row], else -FLT_MAX; softmax; bf16(p) . v, normalised;
+//          rows with text_time == 0 give 0
+//     x += bf16(g_attn * lin(att, to_out))
+//     x += bf16(g_ffw * lin(gelu_erf_rational(lin(LN(x), fc1)), fc2))
+//   GPT-2 block:
+//     q, k, v = lin(LN1(x), c_attn) + b;  K/V rows written at slot `cur`
+//     att = softmax(q . K[t] * dh^-0.5 over npad <= t <= cur) . bf16(p) V
+//     x += lin(att, c_proj) + b
+//     x += lin(act(lin(LN2(x), mlp_fc) + b), mlp_proj) + b
+//
+// where lin(a, W) = bf16((a . W^T)_f32 * scale): int8 weights converted to
+// bf16 exactly, bf16 products accumulated in float32, the float32
+// per-output-channel scale, one rounding; a bias is added in bf16, and every
+// residual add is a bf16 add. LayerNorm takes float32 statistics, eps 1e-5.
+//
+// Bound: device memory. A step at flamingo-mini width (b=32, D=1024,
+// Dff=4096, XI=512, 24 layers, 64 latents, kv_limit 132) reads 528.5 MB of
+// int8 weights, 100.7 MB of xattn K/V and 415.2 MB of self K/V, 1.044 GB in
+// all: 0.312 ms at 3.35 TB/s. Its 34 GFLOP (two per weight per batch row)
+// take 0.035 ms at the tensor cores' 989 TFLOP/s.
+//
+// Design (the simple version: right first). One persistent cooperative
+// grid (at most 2 blocks of 8 warps per SM, fixed by the occupancy
+// calculator) runs the layer loop that the TPU ran as its sequential grid;
+// a grid-wide barrier separates the ten phases of a layer:
+//
+//   LN+to_q | xattn | to_out+gate | LN+fc1+GELU | fc2+gate |
+//   LN1+qkv+K/V write | attention | c_proj+residual | LN2+fc+act |
+//   mlp_proj+residual
+//
+// * Linears: a block owns 8 output columns at a time (one mma n-tile); its
+//   8 warps split K in 64-wide chunks and run mma.sync m16n8k16 (bf16 in,
+//   float32 accumulate) over 32-row groups of the batch, rows past b read
+//   as zeros and never stored. Each lane loads 16 contiguous int8 weights
+//   of one output column and converts them to bf16 in registers, so the
+//   weights are read once, 16 bytes a lane, and never widened in memory;
+//   the k order inside a 64-chunk is permuted identically for A and B,
+//   which a dot product does not see. The partial sums meet in shared
+//   memory and the owner of a column applies scale, bias, activation and
+//   the residual add, so no phase reads a column that another block writes
+//   in it. A phase after a LayerNorm normalises the whole (b, D) stream into
+//   shared memory first (each working block redundantly: b*D*2 bytes, 64 KB
+//   at b=32); the others read their A operand through L2.
+// * Attention (head dim 64): one warp per (row, head). Scores a lane per
+//   position into shared memory, the row's global max, then the V product
+//   over 4 positions at a time, 8 lanes x 8 dims each, in 16-byte loads.
+//   Masked positions are never loaded and contribute an exact 0, so stale
+//   or uninitialised cache rows cannot leak a NaN.
+// * Everything written inside the step (x, q, the K/V rows, h) is read with
+//   plain coherent loads after a grid barrier; only weights use the
+//   read-only path.
+//
+// What holds it back (later work): about 240 grid barriers a step, weight
+// reads that are not prefetched across phases or layers (no TMA, no
+// cp.async ring), the A operand re-read through L2 for every 8 columns, and
+// one warp walking each attention row serially.
+#include <cfloat>
+#include <cstdint>
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxBlocksPerSm = 2;
+constexpr int kKChunk = 64;    // k values per warp iteration: 16 int8 a lane
+constexpr int kGroupRows = 32; // batch rows per pass: two 16-row m-tiles
+constexpr int kRedBytes = kWarps * kGroupRows * 8 * 4;
+constexpr int kHeadDim = 64;   // attention head dim, self and cross
+
+enum { ACT_GELU_TANH = 0, ACT_GELU_ERF = 1 };
+enum { EPI_STORE = 0, EPI_XQ = 1, EPI_RESID = 2, EPI_GATED = 3, EPI_QKV = 4 };
+
+}  // namespace
+
+// Field for field the ctypes structure _Args in ops/megadecode.py.
+struct MegaArgs {
+  const int8_t* w_qkv; const float* s_qkv; const bf16* b_qkv;
+  const int8_t* w_o; const float* s_o; const bf16* b_o;
+  const int8_t* w_fc; const float* s_fc; const bf16* b_fc;
+  const int8_t* w_pr; const float* s_pr; const bf16* b_pr;
+  const float* ln1_s; const float* ln1_b; const float* ln2_s; const float* ln2_b;
+  const int8_t* w_xq; const float* s_xq;
+  const int8_t* w_xo; const float* s_xo;
+  const int8_t* w_xf1; const float* s_xf1;
+  const int8_t* w_xf2; const float* s_xf2;
+  const float* xn_s; const float* xn_b; const float* xfn_s; const float* xfn_b;
+  const float* gates;            // (NX, 2) bf16-rounded tanh(alpha)
+  const int* hasx;               // (L,)
+  const bf16* xk; const bf16* xv;  // (L, NMNV, b, XI)
+  bf16* kc; bf16* vc;            // (L, T, b, D), row `cur` written in place
+  const bf16* x_emb;             // (b, D)
+  const int* npad; const int* text_time;  // (b,)
+  bf16* x;                       // (b, D): the residual stream and the output
+  bf16* scratch;                 // q (b, QW) | att (b, QW) | h (b, HW)
+  int b, D, Dff, Dffx, XI, n_layer, n_head, x_heads, n_visual, NMNV, T, cur,
+      t_lim, act, xact;
+  float attn_scale;              // dh^-0.5, applied to the scores
+  float xq_scale;                // bf16(xdh^-0.5), applied to the xattn query
+};
+
+namespace {
+
+struct Epi {
+  int kind;
+  const float* scale;  // (N,)
+  const bf16* bias;    // (N,) or null
+  bf16* out;           // EPI_STORE / EPI_XQ: (b, ld)
+  int ld;
+  int act;             // EPI_STORE: activation code, or -1
+  float mul;           // EPI_XQ: the query scale; EPI_GATED: the gate
+  bf16* q; bf16* krow; bf16* vrow;  // EPI_QKV targets, each (b, D)
+};
+
+// floats of shared memory per warp in an attention phase: q, then scores
+__device__ __host__ __forceinline__ int att_stride(const MegaArgs& a) {
+  return (kHeadDim + (a.t_lim > a.NMNV ? a.t_lim : a.NMNV) + 3) & ~3;
+}
+
+__device__ __forceinline__ float rbf(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float ldf(const bf16* p) { return __bfloat162float(*p); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// HF gelu_new / torch gelu(approximate="tanh"), in float32
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float kBeta = 0.7978845608028654f;  // sqrt(2 / pi)
+  const float x3 = x * x * x;
+  const float inner = kBeta * (x + 0.044715f * x3);
+  return 0.5f * x * (1.f + tanhf(inner));
+}
+
+// exact-erf GELU through the Abramowitz-Stegun 7.1.26 rational erf, as
+// pallas_megadecode.py's _gelu_erf_mosaic computes it
+__device__ __forceinline__ float gelu_erf_rational(float x) {
+  const float z = x * 0.70710678118654752f;
+  const float a = fabsf(z);
+  const float t = 1.f / (1.f + 0.3275911f * a);
+  const float poly = t * (0.254829592f + t * (-0.284496736f + t * (1.421413741f
+                     + t * (-1.453152027f + t * 1.061405429f))));
+  float erf = 1.f - poly * expf(-a * a);
+  erf = z > 0.f ? erf : (z < 0.f ? -erf : 0.f);
+  return 0.5f * x * (1.f + erf);
+}
+
+__device__ __forceinline__ float activate(float v, int act) {
+  return act == ACT_GELU_TANH ? gelu_tanh(v) : gelu_erf_rational(v);
+}
+
+// two consecutive int8 weights -> packed bf16x2 (low half = lower k)
+__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t v) {
+  const float lo = static_cast<float>(static_cast<int8_t>(v & 0xffu));
+  const float hi = static_cast<float>(static_cast<int8_t>((v >> 8) & 0xffu));
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// 16 bf16 activations of one row (32 bytes), or zeros past the batch
+__device__ __forceinline__ void load_a(const bf16* p, bool ok, uint32_t* w) {
+  if (ok) {
+    const uint4 u0 = reinterpret_cast<const uint4*>(p)[0];
+    const uint4 u1 = reinterpret_cast<const uint4*>(p)[1];
+    w[0] = u0.x; w[1] = u0.y; w[2] = u0.z; w[3] = u0.w;
+    w[4] = u1.x; w[5] = u1.y; w[6] = u1.z; w[7] = u1.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) w[i] = 0u;
+  }
+}
+
+__device__ void epilogue(const Epi& e, bf16* x, int D, int row, int n, float acc) {
+  float y = rbf(acc * e.scale[n]);
+  if (e.bias != nullptr) y = rbf(y + ldf(e.bias + n));
+  switch (e.kind) {
+    case EPI_STORE:
+      if (e.act >= 0) y = activate(y, e.act);
+      e.out[row * e.ld + n] = __float2bfloat16_rn(y);
+      break;
+    case EPI_XQ:
+      e.out[row * e.ld + n] = __float2bfloat16_rn(y * e.mul);
+      break;
+    case EPI_RESID: {
+      bf16* p = x + row * D + n;
+      *p = __float2bfloat16_rn(ldf(p) + y);
+      break;
+    }
+    case EPI_GATED: {
+      bf16* p = x + row * D + n;
+      *p = __float2bfloat16_rn(ldf(p) + rbf(e.mul * y));
+      break;
+    }
+    default: {  // EPI_QKV
+      const bf16 v = __float2bfloat16_rn(y);
+      if (n < D) e.q[row * D + n] = v;
+      else if (n < 2 * D) e.krow[row * D + n - D] = v;
+      else e.vrow[row * D + n - 2 * D] = v;
+    }
+  }
+}
+
+// y[r][n] = sum_k A[r][k] W[n][k] for r < b, n < N, handed to the
+// epilogue by the column's owner. A: (b, K) bf16, shared or global memory;
+// W: (N, K) int8. N % 8 == 0, K % 64 == 0.
+__device__ void linear(const bf16* A, const int8_t* __restrict__ W, int N, int K,
+                       int b, const Epi& e, bf16* x, int D, float* red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;   // mma groupID: A/C row, B column
+  const int t = lane & 3;    // mma thread-in-group
+  const int n_chunks = K / kKChunk;
+  for (int unit = blockIdx.x; unit < N / 8; unit += gridDim.x) {
+    const int n0 = unit * 8;
+    const int8_t* wrow = W + static_cast<long long>(n0 + g) * K + 16 * t;
+    for (int b0 = 0; b0 < b; b0 += kGroupRows) {
+      float acc[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][i] = 0.f;
+      // lane (g, t) holds k = k0 + 16t + 4j + {0,1} in the mma's k-slots
+      // {2t, 2t+1} of step j, and k0 + 16t + 4j + {2,3} in {2t+8, 2t+9},
+      // for A and B alike
+#pragma unroll 2
+      for (int c = warp; c < n_chunks; c += kWarps) {
+        const int k0 = c * kKChunk;
+        const uint4 wv = __ldg(reinterpret_cast<const uint4*>(wrow + k0));
+        const uint32_t wq[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const int r0 = b0 + mt * 16 + g;
+          uint32_t a_lo[8], a_hi[8];
+          load_a(A + static_cast<long long>(r0) * K + k0 + 16 * t, r0 < b, a_lo);
+          load_a(A + static_cast<long long>(r0 + 8) * K + k0 + 16 * t, r0 + 8 < b,
+                 a_hi);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            mma_bf16(acc[mt], a_lo[2 * j], a_hi[2 * j], a_lo[2 * j + 1],
+                     a_hi[2 * j + 1], i8x2_to_bf16x2(wq[j] & 0xffffu),
+                     i8x2_to_bf16x2(wq[j] >> 16));
+          }
+        }
+      }
+      // C fragment: acc[mt][2h + i] is row mt*16 + g + 8h, column 2t + i
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          red[(warp * kGroupRows + mt * 16 + g + 8 * (i >> 1)) * 8 + 2 * t + (i & 1)] =
+              acc[mt][i];
+      __syncthreads();
+      {
+        const int row = threadIdx.x >> 3;  // kThreads == kGroupRows * 8
+        const int col = threadIdx.x & 7;
+        float s = 0.f;
+        for (int w = 0; w < kWarps; ++w) s += red[(w * kGroupRows + row) * 8 + col];
+        if (b0 + row < b) epilogue(e, x, D, b0 + row, n0 + col, s);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// LayerNorm (float32 statistics, eps 1e-5) of every row of x into shared
+// memory: one warp per row
+__device__ void layer_norm_rows(const bf16* x, const float* __restrict__ s,
+                                const float* __restrict__ bias, bf16* out, int b,
+                                int D) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int r = warp; r < b; r += kWarps) {
+    const bf16* xr = x + static_cast<long long>(r) * D;
+    float sum = 0.f;
+    for (int i = lane; i < D; i += 32) sum += ldf(xr + i);
+    const float mean = warp_sum(sum) / D;
+    float sq = 0.f;
+    for (int i = lane; i < D; i += 32) {
+      const float d = ldf(xr + i) - mean;
+      sq += d * d;
+    }
+    const float rstd = rsqrtf(warp_sum(sq) / D + 1e-5f);
+    for (int i = lane; i < D; i += 32)
+      out[r * D + i] = __float2bfloat16_rn((ldf(xr + i) - mean) * rstd * s[i] + bias[i]);
+  }
+}
+
+// LN of the stream, then a linear from it (K = D); blocks without columns
+// to own skip both
+__device__ void ln_linear(const MegaArgs& a, const float* s, const float* bias,
+                          const int8_t* W, int N, const Epi& e, char* smem) {
+  if (static_cast<int>(blockIdx.x) >= N / 8) return;
+  bf16* sA = reinterpret_cast<bf16*>(smem);
+  float* red = reinterpret_cast<float*>(smem + ((a.b * a.D * 2 + 15) & ~15));
+  layer_norm_rows(a.x, s, bias, sA, a.b, a.D);
+  __syncthreads();
+  linear(sA, W, N, a.D, a.b, e, a.x, a.D, red);
+}
+
+// One warp per (row, head), head dim 64: softmax over the positions
+// t < t_lim of (q . K[t]) * scale (rounded to bf16 for xattn), positions
+// outside [lo, hi] at -FLT_MAX; out = sum_t bf16(p_t) V[t] / sum_t p_t.
+// Row `row` of position t is at (t * b + row) * ld_kv + head * 64.
+// Self-attention: lo = npad[row], hi = cur. Cross-attention: the latents of
+// image text_time[row]; rows with text_time == 0 give 0. Positions outside
+// [lo, hi] are never read (their weight is exactly 0), unless the range is
+// empty: then every weight is 1, as the reference's all-masked softmax has.
+__device__ void attention(const MegaArgs& a, const bf16* q, int ld, const bf16* K,
+                          const bf16* V, int n_head, int t_lim, float scale,
+                          bool xattn, bf16* out, float* smem) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* qs = smem + warp * att_stride(a);
+  float* sc = qs + kHeadDim;
+  const int n_warps = gridDim.x * kWarps;
+  const long long t_stride = static_cast<long long>(a.b) * ld;
+  for (int u = blockIdx.x * kWarps + warp; u < a.b * n_head; u += n_warps) {
+    const int row = u / n_head;
+    const int head = u % n_head;
+    int lo, hi;
+    if (xattn) {
+      const int tt = a.text_time[row];
+      lo = (tt - 1) * a.n_visual;
+      hi = tt <= 0 ? -1 : min(tt * a.n_visual, t_lim) - 1;
+    } else {
+      lo = a.npad[row];
+      hi = min(a.cur, t_lim - 1);
+    }
+    const long long off = static_cast<long long>(row) * ld + head * kHeadDim;
+    qs[2 * lane] = ldf(q + off + 2 * lane);
+    qs[2 * lane + 1] = ldf(q + off + 2 * lane + 1);
+    __syncwarp();
+
+    // scores: a lane per position, the head's 128 bytes of K in 16-byte loads
+    float m = -FLT_MAX;
+    for (int t = lane; t < t_lim; t += 32) {
+      float s = -FLT_MAX;
+      if (t >= lo && t <= hi) {
+        const uint4* kp = reinterpret_cast<const uint4*>(K + t * t_stride + off);
+        uint4 kv[kHeadDim / 8];
+#pragma unroll
+        for (int i = 0; i < kHeadDim / 8; ++i) kv[i] = kp[i];
+        float dot = 0.f;
+#pragma unroll
+        for (int i = 0; i < kHeadDim / 8; ++i) {
+          const uint32_t w[4] = {kv[i].x, kv[i].y, kv[i].z, kv[i].w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+            dot += qs[8 * i + 2 * j] * f.x;
+            dot += qs[8 * i + 2 * j + 1] * f.y;
+          }
+        }
+        s = dot * scale;
+        if (xattn) s = rbf(s);
+      }
+      sc[t] = s;
+      m = fmaxf(m, s);
+    }
+    m = warp_max(m);
+    float l = 0.f;
+    for (int t = lane; t < t_lim; t += 32) {
+      const float p = expf(sc[t] - m);
+      sc[t] = p;
+      l += p;
+    }
+    l = fmaxf(warp_sum(l), 1e-30f);
+    __syncwarp();
+
+    // V product: 4 positions at a time, 8 lanes x 8 dims each
+    const bool zero = xattn && a.text_time[row] == 0;
+    const int grp = lane >> 3;
+    const int dim = (lane & 7) * 8;
+    float acc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+    const int t0 = lo <= hi ? lo : 0;
+    const int t1 = lo <= hi ? hi : t_lim - 1;
+    if (!zero) {
+#pragma unroll 4
+      for (int t = t0 + grp; t <= t1; t += 4) {
+        const uint4 vv = *reinterpret_cast<const uint4*>(V + t * t_stride + off + dim);
+        const float p = rbf(sc[t]);
+        const uint32_t w[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+          acc[2 * j] += p * f.x;
+          acc[2 * j + 1] += p * f.y;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 8);
+      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 16);
+    }
+    if (grp == 0) {
+      uint32_t o[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(zero ? 0.f : acc[2 * j] / l,
+                                                       zero ? 0.f : acc[2 * j + 1] / l);
+        o[j] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+      *reinterpret_cast<uint4*>(out + off + dim) = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+    __syncwarp();  // qs / sc are rewritten by the warp's next unit
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kMaxBlocksPerSm)
+decode_megakernel(const MegaArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) char smem[];
+  const int D = a.D;
+  const int QW = max(a.D, a.XI);
+  bf16* qbuf = a.scratch;
+  bf16* abuf = a.scratch + a.b * QW;
+  bf16* hbuf = a.scratch + 2 * a.b * QW;
+  float* red = reinterpret_cast<float*>(smem);
+
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < a.b * D; i += gridDim.x * kThreads)
+    a.x[i] = a.x_emb[i];
+  grid.sync();
+
+  int xs = 0;  // this layer's slot in the xattn weight stacks
+  for (int l = 0; l < a.n_layer; ++l) {
+    if (a.hasx[l]) {
+      const long long DX = static_cast<long long>(D) * a.XI;
+      const long long DF = static_cast<long long>(D) * a.Dffx;
+      const bf16* xk = a.xk + static_cast<long long>(l) * a.NMNV * a.b * a.XI;
+      const bf16* xv = a.xv + static_cast<long long>(l) * a.NMNV * a.b * a.XI;
+      Epi e{};
+      e.kind = EPI_XQ; e.scale = a.s_xq + xs * a.XI; e.out = qbuf; e.ld = a.XI;
+      e.mul = a.xq_scale;
+      ln_linear(a, a.xn_s + xs * D, a.xn_b + xs * D, a.w_xq + xs * DX, a.XI, e, smem);
+      grid.sync();
+      attention(a, qbuf, a.XI, xk, xv, a.x_heads, a.NMNV, 1.f, true, abuf,
+                reinterpret_cast<float*>(smem));
+      grid.sync();
+      e = Epi{};
+      e.kind = EPI_GATED; e.scale = a.s_xo + xs * D; e.mul = a.gates[2 * xs];
+      linear(abuf, a.w_xo + xs * DX, D, a.XI, a.b, e, a.x, D, red);
+      grid.sync();
+      e = Epi{};
+      e.kind = EPI_STORE; e.scale = a.s_xf1 + xs * a.Dffx; e.out = hbuf; e.ld = a.Dffx;
+      e.act = a.xact;
+      ln_linear(a, a.xfn_s + xs * D, a.xfn_b + xs * D, a.w_xf1 + xs * DF, a.Dffx, e, smem);
+      grid.sync();
+      e = Epi{};
+      e.kind = EPI_GATED; e.scale = a.s_xf2 + xs * D; e.mul = a.gates[2 * xs + 1];
+      linear(hbuf, a.w_xf2 + xs * DF, D, a.Dffx, a.b, e, a.x, D, red);
+      grid.sync();
+      ++xs;
+    }
+    const long long DD = static_cast<long long>(D) * D;
+    const long long DF = static_cast<long long>(D) * a.Dff;
+    const long long slab = static_cast<long long>(a.b) * D;
+    bf16* krow = a.kc + (static_cast<long long>(l) * a.T + a.cur) * slab;
+    bf16* vrow = a.vc + (static_cast<long long>(l) * a.T + a.cur) * slab;
+    Epi e{};
+    e.kind = EPI_QKV; e.scale = a.s_qkv + l * 3 * D; e.bias = a.b_qkv + l * 3 * D;
+    e.q = qbuf; e.krow = krow; e.vrow = vrow;
+    ln_linear(a, a.ln1_s + l * D, a.ln1_b + l * D, a.w_qkv + 3 * l * DD, 3 * D, e, smem);
+    grid.sync();
+    attention(a, qbuf, D, a.kc + static_cast<long long>(l) * a.T * slab,
+              a.vc + static_cast<long long>(l) * a.T * slab, a.n_head, a.t_lim,
+              a.attn_scale, false, abuf, reinterpret_cast<float*>(smem));
+    grid.sync();
+    e = Epi{};
+    e.kind = EPI_RESID; e.scale = a.s_o + l * D; e.bias = a.b_o + l * D;
+    linear(abuf, a.w_o + l * DD, D, D, a.b, e, a.x, D, red);
+    grid.sync();
+    e = Epi{};
+    e.kind = EPI_STORE; e.scale = a.s_fc + l * a.Dff; e.bias = a.b_fc + l * a.Dff;
+    e.out = hbuf; e.ld = a.Dff; e.act = a.act;
+    ln_linear(a, a.ln2_s + l * D, a.ln2_b + l * D, a.w_fc + l * DF, a.Dff, e, smem);
+    grid.sync();
+    e = Epi{};
+    e.kind = EPI_RESID; e.scale = a.s_pr + l * D; e.bias = a.b_pr + l * D;
+    linear(hbuf, a.w_pr + l * DF, D, a.Dff, a.b, e, a.x, D, red);
+    grid.sync();
+  }
+}
+
+size_t smem_bytes(const MegaArgs& a) {
+  const size_t ln = ((static_cast<size_t>(a.b) * a.D * 2 + 15) & ~size_t(15)) + kRedBytes;
+  const size_t att = static_cast<size_t>(kWarps) * att_stride(a) * 4;
+  return ln > att ? ln : att;
+}
+
+// blocks of the cooperative grid, or 0 if the kernel cannot be co-resident
+cudaError_t grid_size(const MegaArgs& a, int* blocks, size_t* smem) {
+  *smem = smem_bytes(a);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(decode_megakernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(*smem));
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_megakernel,
+                                                      kThreads, *smem);
+  if (err != cudaSuccess) return err;
+  *blocks = min(per_sm, kMaxBlocksPerSm) * sms;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" int fmt_decode_megakernel(const MegaArgs* args, void* stream) {
+  int blocks = 0;
+  size_t smem = 0;
+  cudaError_t err = grid_size(*args, &blocks, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (blocks == 0) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  void* params[] = {const_cast<MegaArgs*>(args)};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(decode_megakernel),
+                                    dim3(blocks), dim3(kThreads), params, smem,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the cooperative grid's block count and dynamic shared memory for these
+// arguments (for reports); returns the CUDA error code
+extern "C" int fmt_decode_megakernel_grid(const MegaArgs* args, int* blocks,
+                                          int* smem) {
+  size_t s = 0;
+  const cudaError_t err = grid_size(*args, blocks, &s);
+  *smem = static_cast<int>(s);
+  return static_cast<int>(err);
+}
+
+// sizeof(MegaArgs): the wrapper checks its ctypes structure against it
+extern "C" int fmt_decode_megakernel_args_size() {
+  return static_cast<int>(sizeof(MegaArgs));
+}

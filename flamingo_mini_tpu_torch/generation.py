@@ -1,15 +1,18 @@
 """Greedy batched generation over the flat KV cache.
 
-Port of the greedy per-layer path of ``flamingo_mini_tpu/generation.py``
-(``_prefill`` and ``_generate_impl`` with the megakernel off):
+Port of the greedy path of ``flamingo_mini_tpu/generation.py`` (``_prefill``
+and ``_generate_impl``):
 
 * prefill runs the (left-padded) prompt through the model once, filling the
   flat cache; the xattn K/V are computed once and stay constant;
 * the first token is the argmax of the full ``lm_head`` at the last slot;
-* each decode step runs embed -> 24 x (gated xattn, GPT-2 block with
-  ``decode_attention``) -> ``ln_f`` -> head. On the plain-greedy bf16 int8
-  path the head is ``lm_head_argmax``, which returns the token without
-  writing the logits; otherwise the full ``lm_head`` + argmax;
+* each decode step runs embed -> trunk -> ``ln_f`` -> head. The trunk is
+  either per layer (the default: 24 x (gated xattn, GPT-2 block with
+  ``decode_attention``)) or, with ``megakernel``, one
+  ``decode_step_megakernel`` launch over the stacked cache (int8 weights
+  packed once per call). On the plain-greedy bf16 int8 path the head is
+  ``lm_head_argmax``, which returns the token without writing the logits;
+  otherwise the full ``lm_head`` + argmax;
 * with ``prefix_block > 0`` the steps run in segments that attend only the
   live cache prefix ``[0, seg_end)``; every segment, and the whole loop,
   stops once every row has emitted EOS.
@@ -27,8 +30,10 @@ import torch
 
 from .configuration_flamingo import FlamingoConfig
 from .models import flamingo, gpt2
-from .ops.layers import Policy
+from .ops import megadecode
+from .ops.layers import Policy, layer_norm
 from .ops.lm_head import lm_head_argmax, pad_head_weights
+from .ops.quant import embed_lookup
 
 Params = Dict[str, Any]
 HEAD_BLOCK_V = 2048
@@ -45,6 +50,8 @@ class DecodeConfig:
     prefix_block: int = 0
     flat_kv_cache: bool = True
     fused_head: bool = True
+    # whole-step megakernel: int8 weights, bf16 policy, GPT-2 trunk
+    megakernel: bool = False
 
     def __post_init__(self):
         if self.max_new_tokens is not None and self.max_new_tokens < 1:
@@ -72,7 +79,8 @@ def _prefill(params: Params, config: FlamingoConfig, dc: DecodeConfig,
     xattn_kv = flamingo.compute_xattn_kv(params, config,
                                          policy.cast(visual_features))
     hook = flamingo.make_layer_hook(params, config, xattn_kv, text_time)
-    cache = gpt2.init_cache(config.lm_arch, b, dc.max_length, policy.dtype, dev)
+    kc, vc, cache = gpt2.init_cache(config.lm_arch, b, dc.max_length,
+                                    policy.dtype, dev)
     # position ids from the attention mask (pads do not advance positions)
     pos = torch.clamp(torch.cumsum(attention_mask.to(torch.int32), dim=-1) - 1,
                       min=0)
@@ -83,6 +91,8 @@ def _prefill(params: Params, config: FlamingoConfig, dc: DecodeConfig,
         "tokens": tokens,
         "mask": mask_buf,
         "cache": cache,
+        "kc": kc,
+        "vc": vc,
         "media_count": text_time[:, -1:],
         "pos_next": attention_mask.to(torch.int32).sum(-1, keepdim=True),
     }
@@ -106,11 +116,20 @@ def generate_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
         attention_mask, visual_features)
     decode_hook = flamingo.make_layer_hook(params, config, xattn_kv,
                                            st["media_count"])
+    lm = params["lm"]
+    if dc.megakernel:
+        if policy.dtype != torch.bfloat16:
+            raise ValueError("the megakernel runs the bf16 compute policy")
+        packed = megadecode.pack_decode_weights(params, config)
+        xk, xv = megadecode.pack_xattn_kv_flat(xattn_kv, config.lm_arch.n_layer)
+        npad0 = st["mask"].argmax(dim=-1).to(torch.int32)
+        text_time = st["media_count"][:, 0].to(torch.int32).contiguous()
+        eps = config.lm_arch.layer_norm_epsilon
 
     # fused int8 head + argmax: plain greedy under the bf16 policy with an
     # int8 tied embedding (the kernel takes a bf16 hidden row)
     head = None
-    wq = params["lm"].get("wte_q")
+    wq = lm.get("wte_q")
     if dc.fused_head and policy.dtype == torch.bfloat16 and wq is not None:
         head_nvalid = min(int(wq["w8"].shape[0]), config.lm_arch.vocab_size + 1)
         head = pad_head_weights(wq, HEAD_BLOCK_V)
@@ -134,11 +153,23 @@ def generate_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
     for seg_end in seg_ends:
         kv_limit = min(seg_end, dc.max_length) if dc.prefix_block > 0 else None
         while cur < seg_end and not bool(finished.all()):
-            logits, _, hid = flamingo.apply_lm(
-                params, config, tok[:, None], policy=policy,
-                layer_hook=decode_hook, attention_mask=st["mask"],
-                position_ids=st["pos_next"], cache=st["cache"],
-                cache_index=cur, kv_limit=kv_limit, skip_head=head is not None)
+            if dc.megakernel:
+                emb = (embed_lookup(wq, tok, policy.dtype) if wq is not None
+                       else lm["wte"].to(policy.dtype)[tok])
+                x = emb + lm["wpe"].to(policy.dtype)[st["pos_next"][:, 0]]
+                hidden = megadecode.decode_step_megakernel(
+                    packed, xk, xv, st["kc"], st["vc"], x, npad0,
+                    text_time, cur, config=config, kv_limit=kv_limit)
+                hid = layer_norm(hidden, lm["ln_f"], eps)[:, None]
+                logits = None if head is not None else gpt2.lm_head(
+                    lm, hid, n_valid=config.lm_arch.vocab_size + 1)
+            else:
+                logits, _, hid = flamingo.apply_lm(
+                    params, config, tok[:, None], policy=policy,
+                    layer_hook=decode_hook, attention_mask=st["mask"],
+                    position_ids=st["pos_next"], cache=st["cache"],
+                    cache_index=cur, kv_limit=kv_limit,
+                    skip_head=head is not None)
             st["pos_next"] = st["pos_next"] + 1
             if head is not None:
                 nxt = lm_head_argmax(head["w8"], head["scale"],

@@ -1,10 +1,11 @@
 """FlamingoModel: the public entry point, cut to greedy generation.
 
-Port of ``flamingo_mini_tpu/modeling_flamingo.py::FlamingoModel`` for the
-greedy per-layer decode. Holds (config, params, policy, device); params are
-a nested dict of tensors in the JAX package's layout, made by
-``models.flamingo.init_flamingo`` from a seed or bridged from JAX by
-``utils.params_bridge.from_jax_numpy``.
+Port of ``flamingo_mini_tpu/modeling_flamingo.py::FlamingoModel`` for greedy
+decoding, per layer or through the whole-step megakernel. Holds (config,
+params, policy, device); params are a nested dict of tensors in the JAX
+package's layout, made by ``models.flamingo.init_flamingo`` from a seed or
+bridged from JAX by ``utils.params_bridge.from_jax_numpy``. The model runs
+on the card unless the caller asks for another device.
 """
 from __future__ import annotations
 
@@ -25,14 +26,15 @@ class FlamingoModel:
     """Stateful wrapper over the functional core."""
 
     def __init__(self, config: FlamingoConfig, params: Optional[Params] = None,
-                 *, device="cpu", seed: int = 0):
+                 *, device="cuda", seed: int = 0):
+        """``params`` on another device are moved to ``device``."""
         self.config = config
         self.device = torch.device(device)
         self.policy: Policy = policy_for(config.compute_dtype)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = F.init_flamingo(gen, config)
-        self.params = params
+        self.params = _to_device(params, self.device)
 
     def to_bf16(self) -> "FlamingoModel":
         """Store float weights as bf16 (int8 scales stay float32). In place."""
@@ -51,10 +53,13 @@ class FlamingoModel:
                  max_length: int = 150, max_new_tokens: Optional[int] = None,
                  eos_token_id: Optional[int] = None,
                  pad_token_id: Optional[int] = None, prefix_block: int = 0,
-                 fused_head: bool = True, **unsupported) -> torch.Tensor:
+                 fused_head: bool = True, megakernel: bool = False,
+                 **unsupported) -> torch.Tensor:
         """Greedy token ids (b, max_length): prompt, generated tokens, pads
-        after EOS. Other JAX ``generate`` options (sampling, beams, scores,
-        megakernel, w8a8, int8 KV, meshes, ...) are not ported yet and raise
+        after EOS. ``megakernel`` runs each decode step's trunk as one
+        ``decode_step_megakernel`` launch (int8 weights, bf16 policy, GPT-2
+        trunk). Other JAX ``generate`` options (sampling, beams, scores,
+        w8a8, int8 KV, meshes, ...) are not ported yet and raise
         ``NotImplementedError``."""
         if unsupported:
             raise NotImplementedError(
@@ -81,7 +86,17 @@ class FlamingoModel:
         dc = DecodeConfig(max_length=max_length, max_new_tokens=max_new_tokens,
                           eos_token_id=eos,
                           pad_token_id=eos if pad_token_id is None else pad_token_id,
-                          prefix_block=prefix_block, fused_head=fused_head)
+                          prefix_block=prefix_block, fused_head=fused_head,
+                          megakernel=megakernel)
         return generate_impl(self.params, self.config, dc, self.policy, ids,
                              media, mask, visual_features=visual_features,
                              pixel_values=pixel_values)
+
+
+def _to_device(tree, device: torch.device):
+    """The same nested dicts / lists of tensors, each on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    return tree.to(device)

@@ -8,9 +8,11 @@ sqrt(d_head), causal fill with finfo.min, additive padding bias, softmax.
 The cache is the JAX package's flat layout: per layer ``{"kf", "vf"}`` of
 shape ``(T, b, D)`` with T the max length rounded up to a multiple of 64, so
 that a decode step's write is one contiguous ``(b, D)`` slab and the
-decode-attention kernel streams the live prefix contiguously. Unlike the
-JAX package, the port writes the cache in place (one buffer per layer for
-the whole generation, no copy per step).
+decode-attention kernel streams the live prefix contiguously. The layers'
+caches are views of two stacked ``(n_layer, T, b, D)`` buffers, which the
+whole-step megakernel reads as they are. Unlike the JAX package, the port
+writes the cache in place: no copy per step, and no stacking copy after
+prefill.
 """
 from __future__ import annotations
 
@@ -56,12 +58,14 @@ def init_gpt2(gen: torch.Generator, arch: GPT2Arch,
 
 
 def init_cache(arch: GPT2Arch, batch: int, max_len: int, dtype,
-               device) -> Cache:
-    """Zeroed flat T-major cache, T = max_len rounded up to a multiple of 64."""
-    shape = (-(-max_len // 64) * 64, batch, arch.n_embd)
-    return [{"kf": torch.zeros(shape, dtype=dtype, device=device),
-             "vf": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in range(arch.n_layer)]
+               device) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
+    """Zeroed flat T-major caches, T = max_len rounded up to a multiple of
+    64: the stacked K and V buffers ``(n_layer, T, batch, D)`` and the
+    per-layer ``{"kf", "vf"}`` views of them (no copy)."""
+    shape = (arch.n_layer, -(-max_len // 64) * 64, batch, arch.n_embd)
+    kc = torch.zeros(shape, dtype=dtype, device=device)
+    vc = torch.zeros(shape, dtype=dtype, device=device)
+    return kc, vc, [{"kf": kc[i], "vf": vc[i]} for i in range(arch.n_layer)]
 
 
 def _self_attention(bp: Params, x: torch.Tensor, *, n_head: int,

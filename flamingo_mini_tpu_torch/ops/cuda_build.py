@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, at first use, and loaded with
-``ctypes``. The library lands in ``build/kernels/`` at the repository root
-(git-ignored), named by a hash of the sources and flags, so an edit to a
-source rebuilds it and an unchanged tree reuses it. There is no fallback: a
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` for ``sm_90a``,
+all at once, and the objects are linked into one shared library with a
+plain C interface, at first use, and loaded with ``ctypes``. The library
+lands in ``build/kernels/`` at the repository root (git-ignored), named by
+a hash of the sources and flags, so an edit to a source rebuilds it and an
+unchanged tree reuses it. There is no fallback: a
 CUDA machine without ``nvcc`` raises.
 """
 from __future__ import annotations
@@ -21,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argument types; each returns cudaGetLastError()
@@ -32,6 +33,11 @@ SIGNATURES = {
     # w8, scale, x, part_max, part_idx, out, Vp, D, B, n_valid, stream
     "fmt_lm_head_argmax": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fmt_lm_head_rows_per_block": [],
+    # &MegaArgs (ops/megadecode._Args), stream
+    "fmt_decode_megakernel": [_P, _P],
+    # &MegaArgs, &blocks, &smem_bytes
+    "fmt_decode_megakernel_grid": [_P, _P, _P],
+    "fmt_decode_megakernel_args_size": [],
 }
 
 
@@ -62,6 +68,18 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libfmt_kernels-{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds):
+    """Run the commands concurrently -> [(cmd, returncode, output)]."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    results = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        results.append((cmd, proc.returncode, out))
+    return results
+
+
 def build() -> str:
     """Compile the kernels unless the library for these sources exists.
     Returns the library path; nvcc's output (registers, shared memory and
@@ -70,15 +88,26 @@ def build() -> str:
     if os.path.isfile(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in sources() if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = find_nvcc()
+    tmp = f"{lib}.{os.getpid()}"
+    cus = [s for s in sources() if s.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(cu)}.o" for cu in cus]
+    results = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, cu]
+                        for cu, obj in zip(cus, objs)])
+    if all(rc == 0 for _, rc, _ in results):
+        results += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp + ".so",
+                              *objs]])
     with open(lib[:-3] + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
+        for cmd, _, out in results:
+            f.write(" ".join(cmd) + "\n" + out)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    failed = [(cmd, rc, out) for cmd, rc, out in results if rc != 0]
+    if failed:
+        cmd, rc, out = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+    os.replace(tmp + ".so", lib)
     return lib
 
 

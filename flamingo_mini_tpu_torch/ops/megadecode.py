@@ -1,0 +1,390 @@
+"""Whole-decode-step megakernel: every gated-xattn and GPT-2 layer in one
+launch per token.
+
+Port of ``flamingo_mini_tpu/ops/pallas_megadecode.py`` in its greedy
+weight-only mode (``decode_step_megakernel`` with ``kb=1``,
+``act_quant=False``). The CUDA kernel is ``csrc/decode_megakernel.cu``; its
+source note says what bounds it on the card and how the design answers
+that.
+
+``decode_step_megakernel`` launches the kernel for CUDA tensors and runs
+``decode_step_megakernel_plain`` for CPU tensors; nothing else picks the
+path. Both compute, per layer, the gated xattn block (where the layer has
+one) and the GPT-2 block with these roundings (``pallas_megadecode.py``'s
+kernel body):
+
+* every int8 linear: int8 -> bf16 exactly, bf16 products accumulated in
+  float32, x the float32 per-channel scale, one rounding to bf16, the bias
+  added in bf16; every residual add is a bf16 add;
+* LayerNorm with float32 statistics, eps fixed at 1e-5;
+* xattn: ``q * bf16(xdh**-0.5)`` in bf16; float32 scores rounded to bf16,
+  valid iff ``latent // n_visual + 1 == text_time``; float32 softmax,
+  probabilities cast to bf16 before the V product; rows with
+  ``text_time == 0`` zeroed; ``x += bf16(g * f32(out))`` with the gate
+  ``bf16(tanh(alpha))``; the gated FFW's activation is ``config.xattn_act``,
+  ``"gelu"`` through the rational erf ``gelu_erf_rational``;
+* self-attention: ``dh**-0.5`` after the dot, valid iff
+  ``npad <= t <= cur`` over ``[0, kv_limit)``, as ``decode_attention``; the
+  step's K/V rows are written at ``cur`` in place first.
+
+Packing (``pack_decode_weights``, once per ``generate``): the TPU's D x D
+chunks and its ``small`` row do not carry over. Each int8 projection is
+transposed to ``(d_out, d_in)``, so that an output column's weights are
+contiguous, and stacked: the trunk's over all layers, the xattn blocks'
+over the layers that have one (the ragged ``hasx`` schedule: a layer
+without xattn packs no xattn weights). Float32 scales, bf16 biases, float32
+LayerNorm params and the gates go beside them.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..configuration_flamingo import GPT2Arch
+from . import cuda_build
+from .decode_attention import decode_attention_plain
+from .layers import const, gelu_tanh, layer_norm
+
+Params = Dict[str, Any]
+NEG = float(torch.finfo(torch.float32).min)
+HEAD_DIM = 64       # the CUDA kernel's attention head dim (self and cross)
+K_CHUNK = 64        # the CUDA kernel's K step: every d_in is a multiple
+# activation name -> the kernel's code; "gelu" is the rational-erf GELU
+ACT_CODES = {"gelu_new": 0, "gelu": 1, "gelu_erf": 1}
+
+
+def trunk_dims(arch) -> Tuple[int, int, int, int]:
+    """(D, Dff, n_layer, n_head) of a GPT-2 trunk."""
+    if not isinstance(arch, GPT2Arch):
+        raise NotImplementedError(
+            f"the megakernel port covers GPT-2 trunks only, got {type(arch).__name__}")
+    return arch.n_embd, 4 * arch.n_embd, arch.n_layer, arch.n_head
+
+
+def supports_arch(arch) -> bool:
+    """Whether the megakernel takes this trunk: GPT-2 with n_embd a
+    multiple of the kernel's 64-wide K step. Other trunks raise
+    ``NotImplementedError``."""
+    D, _Dff, _L, _H = trunk_dims(arch)
+    return D % K_CHUNK == 0
+
+
+def gelu_erf_rational(x: torch.Tensor) -> torch.Tensor:
+    """Exact-erf GELU through the Abramowitz-Stegun 7.1.26 rational erf
+    (|erf error| <= 1.5e-7), in float32, returned in x's dtype: the formula
+    of ``pallas_megadecode.py``'s ``_gelu_erf_mosaic``."""
+    x32 = x.float()
+    z = x32 * (2.0 ** -0.5)
+    s = torch.sign(z)
+    a = torch.abs(z)
+    t = 1.0 / (1.0 + 0.3275911 * a)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (1.421413741
+                + t * (-1.453152027 + t * 1.061405429))))
+    erf = s * (1.0 - poly * torch.exp(-a * a))
+    return (0.5 * x32 * (1.0 + erf)).to(x.dtype)
+
+
+def _activation(name: str):
+    if name not in ACT_CODES:
+        raise NotImplementedError(
+            f"megakernel activation must be one of {sorted(ACT_CODES)}, got {name!r}")
+    return gelu_tanh if name == "gelu_new" else gelu_erf_rational
+
+
+def _wt(p: Params) -> torch.Tensor:
+    """int8 (d_in, d_out) -> (d_out, d_in), contiguous."""
+    if "w8" not in p:
+        raise ValueError("the megakernel needs int8-quantized weights "
+                         "(FlamingoModel.quantize_int8)")
+    return p["w8"].t().contiguous()
+
+
+def pack_decode_weights(params: Params, config) -> Params:
+    """Stack the quantized trunk and xattn weights into the kernel's layout
+    (module docstring). Runs once per generate call."""
+    arch = config.lm_arch
+    D, Dff, L, _H = trunk_dims(arch)
+    if not supports_arch(arch):
+        raise ValueError(f"megakernel needs n_embd % {K_CHUNK} == 0, got {D}")
+    if abs(arch.layer_norm_epsilon - 1e-5) > 1e-12:
+        raise ValueError("the megakernel's LayerNorm has eps fixed at 1e-5")
+    _activation(arch.activation)
+    _activation(config.xattn_act)
+    blocks = params["lm"]["blocks"]
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def stack(fn, items):
+        return torch.stack([fn(it) for it in items]).contiguous()
+
+    packed: Params = {
+        "w_qkv": stack(lambda b: _wt(b["c_attn"]), blocks),
+        "w_o": stack(lambda b: _wt(b["c_proj"]), blocks),
+        "w_fc": stack(lambda b: _wt(b["mlp_fc"]), blocks),
+        "w_pr": stack(lambda b: _wt(b["mlp_proj"]), blocks),
+    }
+    for name, key in (("qkv", "c_attn"), ("o", "c_proj"), ("fc", "mlp_fc"),
+                      ("pr", "mlp_proj")):
+        packed["s_" + name] = stack(lambda b: b[key]["scale"].to(f32), blocks)
+        packed["b_" + name] = stack(lambda b: b[key]["b"].to(bf16), blocks)
+    for name, key in (("ln1", "ln_1"), ("ln2", "ln_2")):
+        packed[name + "_s"] = stack(lambda b: b[key]["scale"].to(f32), blocks)
+        packed[name + "_b"] = stack(lambda b: b[key]["bias"].to(f32), blocks)
+
+    # ragged schedule: only the layers with a gated xattn block pack one
+    xlayers = tuple(l for l in range(L) if str(l) in params["xattn"])
+    xblocks = [params["xattn"][str(l)] for l in xlayers]
+    xlin = {"xq": lambda x: x["attn"]["to_q"], "xo": lambda x: x["attn"]["to_out"],
+            "xf1": lambda x: x["ffw"]["fc1"], "xf2": lambda x: x["ffw"]["fc2"]}
+    for name, get in xlin.items():
+        packed["w_" + name] = stack(lambda x: _wt(get(x)), xblocks)
+        packed["s_" + name] = stack(lambda x: get(x)["scale"].to(f32), xblocks)
+    for name, get in (("xn", lambda x: x["attn"]["norm"]),
+                      ("xfn", lambda x: x["ffw"]["norm"])):
+        packed[name + "_s"] = stack(lambda x: get(x)["scale"].to(f32), xblocks)
+        packed[name + "_b"] = stack(lambda x: get(x)["bias"].to(f32), xblocks)
+    # the gates are rounded to bf16, so that the float32 product with the
+    # branch output rounds as a bf16 x bf16 multiply does
+    packed["gates"] = stack(
+        lambda x: torch.cat([torch.tanh(x["alpha_attn"].float().reshape(1)),
+                             torch.tanh(x["alpha_ffw"].float().reshape(1))]
+                            ).to(bf16).to(f32), xblocks)
+    dev = packed["w_qkv"].device
+    packed["hasx"] = torch.tensor([int(l in xlayers) for l in range(L)],
+                                  dtype=torch.int32, device=dev)
+    packed["xlayers"] = xlayers
+    return packed
+
+
+def pack_xattn_kv_flat(xattn_kv: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
+                       n_layer: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """{layer: (k, v)} with k (b, XH, NMNV, dh) -> flat T-major stacks
+    (n_layer, NMNV, b, XI) bf16, zeros for layers without xattn."""
+    k0 = next(iter(xattn_kv.values()))[0]
+    b, XH, NMNV, dh = k0.shape
+    shape = (n_layer, NMNV, b, XH * dh)
+    ks = torch.zeros(shape, dtype=torch.bfloat16, device=k0.device)
+    vs = torch.zeros(shape, dtype=torch.bfloat16, device=k0.device)
+    for key, (k, v) in xattn_kv.items():
+        ks[int(key)] = k.permute(2, 0, 1, 3).reshape(shape[1:])
+        vs[int(key)] = v.permute(2, 0, 1, 3).reshape(shape[1:])
+    return ks, vs
+
+
+# ---------------------------------------------------------------------------
+# the plain version
+# ---------------------------------------------------------------------------
+
+
+def _lin(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
+         b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """bf16((x . w^T)_f32 * s) (+ b in bf16), w (d_out, d_in) int8."""
+    y = (torch.matmul(x.float(), w.float().t()) * s).to(torch.bfloat16)
+    return y if b is None else y + b
+
+
+def _cross_attention(q, k, v, text_time, *, n_visual: int, heads: int):
+    """q (b, XI) bf16, pre-scaled; k, v (NMNV, b, XI) -> (b, XI) bf16."""
+    NMNV, b, XI = k.shape
+    dh = XI // heads
+    qh = q.reshape(b, heads, 1, dh).float()
+    kh = k.reshape(NMNV, b, heads, dh).permute(1, 2, 3, 0).float()
+    s = torch.matmul(qh, kh).to(torch.bfloat16).float()         # (b, h, 1, NMNV)
+    latent = torch.arange(NMNV, device=q.device)
+    valid = (latent[None, :] // n_visual + 1) == text_time[:, None]
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    vh = v.reshape(NMNV, b, heads, dh).permute(1, 2, 0, 3).float()
+    o = torch.matmul(p.to(torch.bfloat16).float(), vh) / torch.clamp(l, min=1e-30)
+    o = torch.where((text_time > 0)[:, None], o.reshape(b, XI), 0.0)
+    return o.to(torch.bfloat16)
+
+
+def decode_step_megakernel_plain(packed: Params, xk, xv, kc, vc, x_emb, npad,
+                                 text_time, cur: int, *, config,
+                                 kv_limit: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version: the kernel's oracle, arguments as the kernel's."""
+    arch = config.lm_arch
+    D, _Dff, L, H = trunk_dims(arch)
+    t_lim = kc.shape[1] if kv_limit is None else min(kv_limit, kc.shape[1])
+    act, xact = _activation(arch.activation), _activation(config.xattn_act)
+    xq_scale = const(config.xattn_dim_head ** -0.5, torch.bfloat16)
+    P = packed
+    x = x_emb
+    for l in range(L):
+        if l in P["xlayers"]:
+            i = P["xlayers"].index(l)
+            q = _lin(layer_norm(x, {"scale": P["xn_s"][i], "bias": P["xn_b"][i]}),
+                     P["w_xq"][i], P["s_xq"][i]) * xq_scale
+            att = _cross_attention(q, xk[l], xv[l], text_time,
+                                   n_visual=config.resampler_num_latents,
+                                   heads=config.xattn_heads)
+            xo = _lin(att, P["w_xo"][i], P["s_xo"][i])
+            x = x + (P["gates"][i, 0] * xo.float()).to(torch.bfloat16)
+            h = layer_norm(x, {"scale": P["xfn_s"][i], "bias": P["xfn_b"][i]})
+            h = xact(_lin(h, P["w_xf1"][i], P["s_xf1"][i]))
+            xf = _lin(h, P["w_xf2"][i], P["s_xf2"][i])
+            x = x + (P["gates"][i, 1] * xf.float()).to(torch.bfloat16)
+        h = layer_norm(x, {"scale": P["ln1_s"][l], "bias": P["ln1_b"][l]})
+        q, k, v = _lin(h, P["w_qkv"][l], P["s_qkv"][l], P["b_qkv"][l]).split(D, dim=-1)
+        kc[l, cur] = k
+        vc[l, cur] = v
+        att = decode_attention_plain(q, kc[l], vc[l], npad, cur, n_head=H,
+                                     scale=(D // H) ** -0.5, kv_limit=t_lim)
+        x = x + _lin(att, P["w_o"][l], P["s_o"][l], P["b_o"][l])
+        h = layer_norm(x, {"scale": P["ln2_s"][l], "bias": P["ln2_b"][l]})
+        h = act(_lin(h, P["w_fc"][l], P["s_fc"][l], P["b_fc"][l]))
+        x = x + _lin(h, P["w_pr"][l], P["s_pr"][l], P["b_pr"][l])
+    return x
+
+
+# ---------------------------------------------------------------------------
+# the kernel
+# ---------------------------------------------------------------------------
+
+_POINTERS = ("w_qkv", "s_qkv", "b_qkv", "w_o", "s_o", "b_o", "w_fc", "s_fc",
+             "b_fc", "w_pr", "s_pr", "b_pr", "ln1_s", "ln1_b", "ln2_s", "ln2_b",
+             "w_xq", "s_xq", "w_xo", "s_xo", "w_xf1", "s_xf1", "w_xf2", "s_xf2",
+             "xn_s", "xn_b", "xfn_s", "xfn_b", "gates", "hasx")
+_CALL_POINTERS = ("xk", "xv", "kc", "vc", "x_emb", "npad", "text_time", "x",
+                  "scratch")
+_INTS = ("b", "D", "Dff", "Dffx", "XI", "n_layer", "n_head", "x_heads",
+         "n_visual", "NMNV", "T", "cur", "t_lim", "act", "xact")
+
+
+class _Args(ctypes.Structure):
+    """``struct MegaArgs`` of csrc/decode_megakernel.cu, field for field."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in _POINTERS + _CALL_POINTERS]
+                + [(n, ctypes.c_int) for n in _INTS]
+                + [("attn_scale", ctypes.c_float), ("xq_scale", ctypes.c_float)])
+
+
+@functools.lru_cache(maxsize=None)
+def _checked_lib() -> ctypes.CDLL:
+    lib = cuda_build.kernels()
+    if lib.fmt_decode_megakernel_args_size() != ctypes.sizeof(_Args):
+        raise RuntimeError("decode_megakernel: ctypes _Args does not match "
+                           "struct MegaArgs")
+    return lib
+
+
+def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device \
+            or not t.is_contiguous():
+        raise ValueError(f"decode_step_megakernel: {name} must be contiguous "
+                         f"{dtype} {tuple(shape)} on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def kernel_args(packed: Params, xk, xv, kc, vc, x_emb, npad, text_time,
+                cur: int, *, config, kv_limit: Optional[int] = None
+                ) -> Tuple[_Args, torch.Tensor, torch.Tensor]:
+    """Check the CUDA kernel's inputs -> (arguments, output, scratch)."""
+    arch = config.lm_arch
+    D, Dff, L, H = trunk_dims(arch)
+    dev = x_emb.device
+    b = x_emb.shape[0]
+    T = kc.shape[1]
+    NMNV, XI = xk.shape[1], xk.shape[3]
+    XH = config.xattn_heads
+    NX, Dffx = packed["w_xf1"].shape[:2]
+    t_lim = T if kv_limit is None else min(kv_limit, T)
+    if D // H != HEAD_DIM or XI // XH != HEAD_DIM or D % H or XI % XH:
+        raise ValueError(f"decode_step_megakernel: the CUDA kernel takes head "
+                         f"dim {HEAD_DIM}, got D={D}/{H} heads, XI={XI}/{XH} heads")
+    if D % K_CHUNK or Dff % K_CHUNK or Dffx % K_CHUNK or XI % K_CHUNK:
+        raise ValueError(f"decode_step_megakernel: D, Dff and XI must be "
+                         f"multiples of {K_CHUNK}")
+    if not 0 <= cur < t_lim:
+        raise ValueError(f"decode_step_megakernel: cur={cur} outside "
+                         f"[0, {t_lim})")
+    bf16, i32, f32, i8 = torch.bfloat16, torch.int32, torch.float32, torch.int8
+    _require(x_emb, "x_emb", bf16, (b, D), dev)
+    for name, t in (("kc", kc), ("vc", vc)):
+        _require(t, name, bf16, (L, T, b, D), dev)
+    for name, t in (("xk", xk), ("xv", xv)):
+        _require(t, name, bf16, (L, NMNV, b, XI), dev)
+    for name, t in (("npad", npad), ("text_time", text_time)):
+        _require(t, name, i32, (b,), dev)
+    shapes = {"w_qkv": (i8, (L, 3 * D, D)), "w_o": (i8, (L, D, D)),
+              "w_fc": (i8, (L, Dff, D)), "w_pr": (i8, (L, D, Dff)),
+              "w_xq": (i8, (NX, XI, D)), "w_xo": (i8, (NX, D, XI)),
+              "w_xf1": (i8, (NX, Dffx, D)), "w_xf2": (i8, (NX, D, Dffx)),
+              "gates": (f32, (NX, 2)), "hasx": (i32, (L,))}
+    for name in ("qkv", "o", "fc", "pr"):
+        n = shapes["w_" + name][1][1]
+        shapes["s_" + name] = (f32, (L, n))
+        shapes["b_" + name] = (bf16, (L, n))
+    for name in ("xq", "xo", "xf1", "xf2"):
+        shapes["s_" + name] = (f32, (NX, shapes["w_" + name][1][1]))
+    for name in ("ln1", "ln2"):
+        shapes[name + "_s"] = shapes[name + "_b"] = (f32, (L, D))
+    for name in ("xn", "xfn"):
+        shapes[name + "_s"] = shapes[name + "_b"] = (f32, (NX, D))
+    for name in _POINTERS:
+        _require(packed[name], name, *shapes[name], dev)
+
+    out = torch.empty((b, D), dtype=bf16, device=dev)
+    scratch = torch.empty(b * (2 * max(D, XI) + max(Dff, Dffx)), dtype=bf16,
+                          device=dev)
+    tensors = dict(xk=xk, xv=xv, kc=kc, vc=vc, x_emb=x_emb, npad=npad,
+                   text_time=text_time, x=out, scratch=scratch)
+    args = _Args(
+        **{n: packed[n].data_ptr() for n in _POINTERS},
+        **{n: t.data_ptr() for n, t in tensors.items()},
+        b=b, D=D, Dff=Dff, Dffx=Dffx, XI=XI, n_layer=L, n_head=H, x_heads=XH,
+        n_visual=config.resampler_num_latents, NMNV=NMNV, T=T, cur=cur,
+        t_lim=t_lim, act=ACT_CODES[arch.activation],
+        xact=ACT_CODES[config.xattn_act], attn_scale=(D // H) ** -0.5,
+        xq_scale=const(config.xattn_dim_head ** -0.5, torch.bfloat16))
+    return args, out, scratch
+
+
+def kernel_grid(args: _Args) -> Tuple[int, int]:
+    """(blocks, dynamic shared memory bytes) of the cooperative grid that
+    ``decode_step_megakernel`` launches for these arguments."""
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    err = _checked_lib().fmt_decode_megakernel_grid(
+        ctypes.addressof(args), ctypes.addressof(blocks), ctypes.addressof(smem))
+    cuda_build.check(err, "decode_step_megakernel grid")
+    return blocks.value, smem.value
+
+
+def decode_step_megakernel(packed: Params, xk: torch.Tensor, xv: torch.Tensor,
+                           kc: torch.Tensor, vc: torch.Tensor,
+                           x_emb: torch.Tensor, npad: torch.Tensor,
+                           text_time: torch.Tensor, cur: int, *, config,
+                           kv_limit: Optional[int] = None) -> torch.Tensor:
+    """One greedy decode step through every layer -> hidden (b, D) bf16,
+    before ``ln_f``. Writes each layer's K/V row at ``cur`` into the stacked
+    caches in place.
+
+    packed: ``pack_decode_weights``; xk/xv: (n_layer, NMNV, b, XI) bf16
+    (``pack_xattn_kv_flat``); kc/vc: (n_layer, T, b, D) bf16; x_emb: (b, D)
+    bf16 token + position embeddings; npad: (b,) int32 first real slot;
+    text_time: (b,) int32 media count; only the cache prefix
+    ``[0, min(kv_limit, T))`` is read.
+    """
+    cur = int(cur)
+    if x_emb.device.type == "cpu":
+        return decode_step_megakernel_plain(packed, xk, xv, kc, vc, x_emb, npad,
+                                            text_time, cur, config=config,
+                                            kv_limit=kv_limit)
+    if x_emb.device.type != "cuda":
+        raise ValueError(f"decode_step_megakernel: unsupported device {x_emb.device}")
+    args, out, _scratch = kernel_args(packed, xk, xv, kc, vc, x_emb, npad,
+                                      text_time, cur, config=config,
+                                      kv_limit=kv_limit)
+    lib = _checked_lib()
+    decode_step_megakernel.launches += 1
+    err = lib.fmt_decode_megakernel(
+        ctypes.addressof(args), torch.cuda.current_stream(x_emb.device).cuda_stream)
+    cuda_build.check(err, "decode_step_megakernel")
+    return out
+
+
+decode_step_megakernel.launches = 0

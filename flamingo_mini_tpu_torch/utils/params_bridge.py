@@ -4,7 +4,8 @@
 ``jax.tree_util.tree_map(np.asarray, params)`` (nested dicts and lists of
 numpy arrays) and returns the same tree of torch tensors. Layouts are kept
 as they are: the port's functions read the JAX layouts. bfloat16 arrays
-(numpy's ``bfloat16`` extension dtype) are carried over bit for bit.
+(numpy's ``bfloat16`` extension dtype) are carried over bit for bit. The
+tensors land on the card unless the caller asks for another device.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return t.to(device)
 
 
-def from_jax_numpy(tree: Any, device="cpu") -> Any:
+def from_jax_numpy(tree: Any, device="cuda") -> Any:
     """Nested dicts / lists / tuples of numpy arrays -> the same of tensors."""
     if isinstance(tree, dict):
         return {k: from_jax_numpy(v, device) for k, v in tree.items()}

@@ -1,0 +1,167 @@
+#!/usr/bin/env python3
+"""Where the decode time goes on one CUDA card.
+
+    python3 profile_decode.py
+
+Two measurements of the PyTorch port at flamingo-mini width (GPT-2-medium
+trunk with xattn before every layer, int8 weights, bf16; random weights from
+chip_smoke.py's seeds):
+
+1. ``decode_step_megakernel`` alone, median of 30 calls with L2 flushed, over
+   a sweep that isolates its parts: batch 1 vs 32 (the activation and
+   attention work), kv_limit 36 vs 132 (the self-attention read), 12 vs 24
+   layers (the per-layer cost), xattn every layer vs every other layer;
+   each beside its bound at 3.35 TB/s;
+2. ``torch.profiler`` over one ``generate`` of each decode path (batch 32,
+   one image + 4-token prompt, 17 new tokens): device (kernel) time and its
+   share of the wall window, the same share for the decode loop alone (the
+   trace of a 1-token generate subtracted), kernel launches per decode
+   step, and the device time by kernel.
+
+Prints one line per measurement and writes them all to
+``chiprun_out/profile_decode.json``. Needs a card; exits 1 without one.
+"""
+import json
+import os
+import sys
+import time
+
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(REPO, "chiprun_out", "profile_decode.json")
+PROFILE_NEW_TOKENS = 17
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaLaunchKernelExC")
+
+
+def sweep(dev, card):
+    import chip_smoke as cs
+    from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    # (batch, layers, xattn_every, kv_limit)
+    for b, n_layer, every, kv_limit in ((32, 24, 1, 132), (1, 24, 1, 132),
+                                        (32, 24, 1, 36), (32, 12, 1, 132),
+                                        (32, 24, 2, 132), (1, 24, 1, 36)):
+        cfg, packed = cs.random_trunk(dev, n_layer=n_layer, xattn_every=every,
+                                      seed=24)
+        xk, xv, kc, vc, x, npad, tt = cs.mega_inputs(dev, cfg, b, seed=99)
+        npad.zero_()
+        tt.fill_(1)
+        cur = kv_limit - 1
+        ms = cs.time_ms(lambda: decode_step_megakernel(
+            packed, xk, xv, kc, vc, x, npad, tt, cur, config=cfg,
+            kv_limit=kv_limit), 30, flush)
+        weights = sum(t.numel() * t.element_size() for t in packed.values()
+                      if isinstance(t, torch.Tensor))
+        n_x = len(packed["xlayers"])
+        n_bytes = (weights + n_x * 2 * b * cs.MEGA_NV * cs.MEGA_XI * 2
+                   + n_layer * 2 * b * (kv_limit + 1) * cs.MEGA_D * 2)
+        bound_ms, _ = cs.bound(n_bytes, 0)
+        row = dict(b=b, n_layer=n_layer, xattn_every=every, kv_limit=kv_limit,
+                   ms=ms, bound_ms=bound_ms, ms_per_layer=ms / n_layer)
+        print(f"[sweep] {card}: megakernel b={b} layers={n_layer} "
+              f"xattn_every={every} kv_limit={kv_limit}: {ms} ms per call "
+              f"({ms / n_layer * 1e3:.1f} us per layer), bound {bound_ms:.4f} ms")
+        rows.append(row)
+        del packed, xk, xv, kc, vc
+        torch.cuda.empty_cache()
+    return rows
+
+
+def profile_paths(dev, card):
+    import chip_smoke as cs
+    from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    config = FlamingoConfig(lm="gpt2-medium",
+                            clip_model_type="openai/clip-vit-large-patch14",
+                            dim=1024, dim_visual=1024, compute_dtype="bfloat16")
+    model = FlamingoModel(config, device=dev, seed=0)
+    for blk in model.params["xattn"].values():
+        blk["alpha_attn"].fill_(0.5)
+        blk["alpha_ffw"].fill_(0.5)
+    model.quantize_int8().to_bf16()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, L = cs.BATCH, cs.PROMPT_LEN
+    ids = torch.randint(0, 1000, (b, L), generator=gen, device=dev)
+    media = torch.zeros((b, L), dtype=torch.int32, device=dev)
+    media[:, 0] = 1
+    size = config.vision_arch.image_size
+    pixels = torch.randn((b, 1, 3, size, size), generator=gen,
+                         device=dev).to(torch.bfloat16)
+
+    def run(megakernel, new_tokens):
+        return model.generate(ids, media_locations=media, pixel_values=pixels,
+                              max_length=L + new_tokens, max_new_tokens=new_tokens,
+                              prefix_block=cs.PREFIX_BLOCK,
+                              eos_token_id=config.lm_arch.vocab_size + 1,
+                              pad_token_id=0, megakernel=megakernel)
+
+    def traced(megakernel, new_tokens):
+        """(wall ms, device ms, launches, kernel events) of one generate."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(megakernel, new_tokens)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        launches = sum(e.count for e in events if e.key in LAUNCH_CALLS)
+        return window_ms, device_ms, launches, kernels
+
+    rows = []
+    steps = PROFILE_NEW_TOKENS - 1
+    for megakernel, label in ((False, "per-layer"), (True, "megakernel")):
+        run(megakernel, PROFILE_NEW_TOKENS)           # warm-up
+        torch.cuda.synchronize()
+        window_ms, device_ms, launches, kernels = traced(megakernel,
+                                                         PROFILE_NEW_TOKENS)
+        # the same generate with 1 new token: vision, resampler, prefill and
+        # the first token, to take out of the decode loop's share
+        window_1, device_1, launches_1, _ = traced(megakernel, 1)
+        by_kernel = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                            for e in kernels), key=lambda r: -r[1])[:10]
+        row = dict(path=label, new_tokens=PROFILE_NEW_TOKENS, window_ms=window_ms,
+                   device_ms=device_ms, busy=device_ms / window_ms,
+                   decode_busy=(device_ms - device_1) / (window_ms - window_1),
+                   launches=launches,
+                   launches_per_step=(launches - launches_1) / steps,
+                   by_kernel=[dict(name=k, ms=ms, count=c) for k, ms, c in by_kernel])
+        print(f"[profile] {card}: {label} path, generate of {PROFILE_NEW_TOKENS} "
+              f"tokens: window {window_ms:.1f} ms, device {device_ms:.1f} ms "
+              f"(busy {100 * row['busy']:.1f} %); decode loop busy "
+              f"{100 * row['decode_busy']:.1f} %, "
+              f"{row['launches_per_step']:.1f} launches per decode step")
+        for r in row["by_kernel"]:
+            print(f"[profile]   {r['ms']:9.3f} ms  x{r['count']:<6} {r['name'][:90]}")
+        rows.append(row)
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_decode: no CUDA device; this script runs on the card only",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+    from flamingo_mini_tpu_torch.ops import cuda_build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = cs.card_line()
+    print(card)
+    cuda_build.kernels()
+    result = {"card": card, "sweep": sweep(dev, card),
+              "profile": profile_paths(dev, card)}
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
+    with open(OUT, "w") as f:
+        json.dump(result, f, indent=1)
+    print(f"wrote {os.path.relpath(OUT, REPO)}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

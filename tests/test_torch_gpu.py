@@ -12,7 +12,11 @@ float32 attention 1e-5 absolute (summation order); bf16 attention 2 bf16
 ulps of the output scale (the kernel's online softmax rounds its
 probabilities to bf16 against a running max, the plain version against the
 global max); the head's tokens are equal, a planted exact tie across
-chunks resolving to the first index.
+chunks resolving to the first index; the whole-step megakernel's hidden row
+and written K/V rows, 2 layers at a small width (D=256) and at
+flamingo-mini's (D=1024, XI=512), 2 bf16 ulps of the output scale (float32
+sums in another order round a few bf16 intermediates the other way). The
+random trunks and inputs are chip_smoke.py's.
 """
 import numpy as np
 import pytest
@@ -23,6 +27,7 @@ from flamingo_mini_tpu_torch.ops.decode_attention import (
 from flamingo_mini_tpu_torch.ops.lm_head import (lm_head_argmax,
                                                  lm_head_argmax_plain,
                                                  pad_head_weights)
+from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel
 
 pytestmark = pytest.mark.gpu
 
@@ -93,3 +98,63 @@ def test_kernels_refuse_bad_input(cuda):
         lm_head_argmax(torch.zeros((2048, 256), dtype=torch.int8, device=cuda),
                        torch.zeros((1, 2048), device=cuda),
                        torch.zeros((2, 256), device=cuda), n_valid=2000)
+
+
+# the small width keeps head dim 64 (the kernel's) with fewer heads
+MEGA_WIDTHS = {"small": dict(D=256, H=4, XI=128, XH=2, n_visual=16),
+               "full": dict()}
+
+
+def _mega(cuda, width, *, n_layer, xattn_every, b, seed):
+    """chip_smoke.py's random trunk and one step's inputs at this width."""
+    import chip_smoke
+    dims = MEGA_WIDTHS[width]
+    cfg, packed = chip_smoke.random_trunk(cuda, n_layer=n_layer,
+                                          xattn_every=xattn_every, seed=seed, **dims)
+    T, NMNV = (64, 16) if width == "small" else (192, 64)
+    return cfg, packed, chip_smoke.mega_inputs(cuda, cfg, b, seed, T=T, NMNV=NMNV)
+
+
+@pytest.mark.parametrize("b", [1, 3, 32])
+@pytest.mark.parametrize("width", ["small", "full"])
+def test_megakernel_matches_plain(cuda, width, b):
+    """2 layers, xattn on the first only at the small width (the ragged
+    schedule) and on both at full width; a left-padded row, a row with no
+    image (b > 1), the live prefix ending before the cache does."""
+    import chip_smoke
+    cfg, packed, inputs = _mega(cuda, width, n_layer=2, b=b, seed=b,
+                                xattn_every=2 if width == "small" else 1)
+    cur, kv_limit = (35, 40) if width == "small" else (131, 132)
+    before = decode_step_megakernel.launches
+    errs = chip_smoke.mega_errors(cfg, packed, inputs, cur, kv_limit)
+    assert decode_step_megakernel.launches == before + 1
+    for name, (got, want) in errs.items():
+        assert bool(torch.isfinite(got).all()), name
+        err = float((got - want).abs().max())
+        assert err <= 2 * 2.0 ** (np.floor(np.log2(float(want.abs().max()))) - 7), \
+            (name, err)
+
+
+def test_megakernel_refuses_bad_input(cuda):
+    cfg, packed, inputs = _mega(cuda, "small", n_layer=1, xattn_every=1, b=2,
+                                seed=0)
+    names = ("xk", "xv", "kc", "vc", "x_emb", "npad", "text_time")
+
+    def call(cur=5, config=cfg, **over):
+        args = [over.get(n, t) for n, t in zip(names, inputs)]
+        return decode_step_megakernel(packed, *args, cur, config=config)
+
+    call()                                   # the unchanged inputs run
+    xk, xv, kc, vc, x, npad, tt = inputs
+    bad = [dict(x_emb=x.float()),                              # dtype
+           dict(npad=npad.cpu()),                              # device
+           dict(kc=kc[:, :32].contiguous()),                   # shape
+           dict(vc=vc.transpose(2, 3).contiguous().transpose(2, 3)),  # layout
+           dict(text_time=tt.to(torch.int64)),                 # dtype
+           dict(cur=64)]                                       # past the cache
+    for over in bad:
+        with pytest.raises(ValueError):
+            call(**over)
+    narrow = type(cfg)(**{**cfg.__dict__, "xattn_heads": 4, "xattn_dim_head": 32})
+    with pytest.raises(ValueError):          # xattn head dim 32: not the kernel's 64
+        call(config=narrow)

@@ -18,6 +18,7 @@ ulps; the test asserts that at the first difference of each row and stops
 comparing that row there.
 """
 import functools
+import inspect
 import os
 import subprocess
 import sys
@@ -77,7 +78,7 @@ def _small(compute_dtype):
         pols = jl.FAST, pl.FAST
     else:
         pols = jl.PARITY, pl.PARITY
-    tp = from_jax_numpy(jax.tree_util.tree_map(np.asarray, params))
+    tp = from_jax_numpy(jax.tree_util.tree_map(np.asarray, params), device="cpu")
     return (jc, pc, params, tp) + pols
 
 
@@ -126,7 +127,7 @@ def _jax_next_logits(params, ids, media, mask, pixels, *, jc, pol):
 
 
 def _port_generate(pc, tp, ids, media, mask, pixels, eos=EOS):
-    model = port.FlamingoModel(pc, params=tp)
+    model = port.FlamingoModel(pc, params=tp, device="cpu")
     out = model.generate(ids, media_locations=media, attention_mask=mask,
                          pixel_values=pixels, max_length=MAX_LENGTH,
                          eos_token_id=eos, pad_token_id=0,
@@ -275,26 +276,41 @@ def test_greedy_slice_bf16_int8_fused_head(bf16):
 
 def test_generate_rejects_unported_options(f32):
     jc, pc, params, tp, jpol, ppol = f32
-    model = port.FlamingoModel(pc, params=tp)
+    model = port.FlamingoModel(pc, params=tp, device="cpu")
     for knob in (dict(do_sample=True), dict(num_beams=3),
-                 dict(return_scores=True), dict(megakernel=True),
+                 dict(return_scores=True),
                  dict(w8a8=True), dict(int8_kv_cache=True)):
         with pytest.raises(NotImplementedError):
             model.generate(np.ones((1, 3), np.int32), max_length=8, **knob)
 
 
 def test_import_without_jax():
+    """The port imports no jax and loads no file of the JAX package, by
+    import or by path."""
+    jax_pkg = os.path.join(REPO, "flamingo_mini_tpu") + os.sep
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['flamingo_mini_tpu'] = None; "
             "import flamingo_mini_tpu_torch as p; "
             "import flamingo_mini_tpu_torch.generation, "
+            "flamingo_mini_tpu_torch.ops.megadecode, "
             "flamingo_mini_tpu_torch.utils.params_bridge; "
             "assert 'jax' not in {m.split('.')[0] for m in sys.modules "
-            "if sys.modules[m] is not None}; print(p.FlamingoModel.__name__)")
+            "if sys.modules[m] is not None}; "
+            f"bad = [m for m, v in list(sys.modules.items()) if "
+            f"(getattr(v, '__file__', None) or '').startswith({jax_pkg!r})]; "
+            "assert not bad, bad; print(p.FlamingoModel.__name__)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "FlamingoModel"
+
+
+def test_entry_points_default_to_the_card():
+    """``FlamingoModel`` and ``from_jax_numpy`` run on the card unless the
+    caller asks for another device (checked on the signatures: this test
+    needs no card)."""
+    for fn in (port.FlamingoModel.__init__, from_jax_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
