@@ -1,0 +1,72 @@
+#!/usr/bin/env python3
+"""Time the port's greedy kernels in two checkouts on one card, in turns.
+
+    python3 ab_kernels.py A_DIR B_DIR
+
+Runs each checkout in a process of its own (each builds its own kernels
+from its own sources) in the order A, B, B, A and prints, for each run, the
+median device time of ``decode_attention`` (b=32, D=1024, H=16, T=192,
+cur 131, kv_limit 132, bf16) and of ``decode_step_megakernel``
+(flamingo-mini width, b=32, 24 layers, kv_limit 132), L2 flushed, on the
+inputs of each checkout's ``chip_smoke.py``. Writes the runs to
+``chiprun_out/ab_kernels.json``. Needs a card; exits 1 without one.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def one(tree: str) -> dict:
+    """Both kernels' times in the checkout ``tree`` (run in its own process)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import chip_smoke as cs
+    from flamingo_mini_tpu_torch.ops.decode_attention import decode_attention
+    from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel
+    dev = torch.device("cuda", 0)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    rs = np.random.RandomState(0)
+    q, k, v = (torch.tensor(rs.randn(*s) * 0.3, dtype=torch.float32, device=dev)
+               .to(torch.bfloat16) for s in ((32, 1024), (192, 32, 1024), (192, 32, 1024)))
+    npad = torch.tensor(np.arange(32) % 4, dtype=torch.int32, device=dev)
+    attn_ms = cs.time_ms(lambda: decode_attention(q, k, v, npad, 131, n_head=16,
+                                                  scale=0.125, kv_limit=132), 100, flush)
+    cfg, packed = cs.random_trunk(dev, n_layer=24, xattn_every=1, seed=24)
+    xk, xv, kc, vc, x, npad, tt = cs.mega_inputs(dev, cfg, 32, seed=99)
+    npad.zero_()
+    mega_ms = cs.time_ms(lambda: decode_step_megakernel(
+        packed, xk, xv, kc, vc, x, npad, tt, 131, config=cfg, kv_limit=132), 30, flush)
+    return {"tree": tree, "decode_attention_ms": attn_ms,
+            "decode_step_megakernel_ms": mega_ms}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("ab_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    if sys.argv[1] == "--one":
+        print(json.dumps(one(sys.argv[2])))
+        return 0
+    a, b = sys.argv[1:3]
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader", "-i", "0"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    runs = []
+    for tree in (a, b, b, a):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
+                             capture_output=True, text=True, check=True, cwd=tree)
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+        print(f"{card}: {runs[-1]}", flush=True)
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "ab_kernels.json"), "w") as f:
+        json.dump({"card": card, "runs": runs}, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

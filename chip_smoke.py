@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives ``flamingo_mini_tpu_torch`` through both of its greedy decode paths
-once and checks them:
+Drives ``flamingo_mini_tpu_torch`` through both of its decode paths, greedy
+and with beam search, and checks them:
 
 1. device and build: prints the card's name and power limit (nvidia-smi)
    and builds the hand-written kernels from ``flamingo_mini_tpu_torch/csrc``
@@ -19,8 +19,17 @@ once and checks them:
    layer and every other layer, 1 and 2 layers (2 bf16 ulps at the
    output's scale, hidden row and every layer's written K/V row) and 24
    layers (normwise relative error <= 1e-2: roundings compound over
-   layers). Each kernel is timed beside its plain version and its bound,
-   ``decode_attention`` also beside ``scaled_dot_product_attention``;
+   layers). The beam kernels: ``decode_attention_beam`` at 96 rows (32
+   families of 3), D=1024, H=16, T=128, a random valid ancestry table of 68
+   slots, left-padded families, several ``cur``/``kv_limit`` (one where some
+   rows attend nothing, one past the table), bf16 and float32; the
+   megakernel's beam mode at 1 and 2 layers and 3, 24, 96 and 160 rows
+   (families of 3, 3, 3, 5) at 2 bf16 ulps, and at 24 layers and 96 rows
+   under the normwise rule, with its grid at 96 and 160 rows. Each kernel is
+   timed beside its plain version and its bound, ``decode_attention`` also
+   beside ``scaled_dot_product_attention`` and ``decode_attention_beam``
+   beside one SDPA call over each family's 3 x T keys under the ancestry as
+   a boolean mask;
 3. greedy captioning end to end through ``FlamingoModel.generate`` at the
    full width of flamingo-mini (GPT-2-medium with gated xattn before every
    layer, CLIP ViT-L/14), random weights from a fixed seed, int8 trunk and
@@ -30,8 +39,19 @@ once and checks them:
    set to 0 before it and read after it. Each path is compared with the
    same program run through the plain versions, and the megakernel path
    with the per-layer path, up to each row's first near-tie (the reference
-   run's top-2 logit gap <= 8 bf16 ulps there);
-4. timing on the card: ms per decode step and captions/s of both paths.
+   run's top-2 logit gap <= 8 bf16 ulps there). Then beam search on both
+   paths: ``num_beams=3``, 64 new tokens, ``length_penalty=1.0``,
+   ``early_stopping``, the lazy reorder; launch counts (per layer: 24 x 63
+   ``decode_attention_beam``, every other kernel 0; megakernel: 63
+   ``decode_step_megakernel``, every other 0), output (32, 68) with the
+   prompts intact. Beam near-tie rule: rows agree up to the first step where
+   the two runs' chosen candidates differ (the top 3 as a set; at the last
+   step also the best), where the reference run's gap between its 3rd and
+   4th candidate scores (at the last step: 1st and 2nd) is <= 8 bf16 ulps
+   of the score;
+4. timing on the card: ms per decode step (two lengths) and captions/s of
+   the four paths, peak memory, and the beam step's full head (``lm_head``
+   at 96 rows) and candidate selection.
 
 Any failure raises and exits nonzero. Without a CUDA device it exits 1 and
 prints no result. The line before the last lists the kernels as JSON; the
@@ -50,6 +70,12 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH, PROMPT_LEN, NEW_TOKENS, PREFIX_BLOCK = 32, 4, 128, 32
 MAX_LENGTH = PROMPT_LEN + NEW_TOKENS
+# beam search: 3 beams, 64 new tokens; the flat cache rounds 68 up to 128
+BEAMS, BEAM_NEW_TOKENS = 3, 64
+BEAM_MAX_LENGTH = PROMPT_LEN + BEAM_NEW_TOKENS
+BEAM_T = 128
+# (cur, kv_limit) pairs the beam loop reaches: segments end at 37 and 68
+BEAM_PAIRS = ((4, 37), (35, 37), (50, 68), (66, 68))
 ATTN_B, ATTN_D, ATTN_H, ATTN_T = 32, 1024, 16, 192
 HEAD_B, HEAD_D, HEAD_V = 32, 1024, 50258
 # the megakernel at flamingo-mini width: GPT-2-medium, xattn 8 heads of 64
@@ -255,7 +281,22 @@ def mega_inputs(dev, cfg, b: int, seed: int, *, T=MEGA_T, NMNV=MEGA_NV):
     return xk, xv, rnd(L, T, b, D), rnd(L, T, b, D), rnd(b, D), npad, tt
 
 
-def mega_errors(cfg, packed, inputs, cur, kv_limit):
+def random_ancestry(dev, families: int, kb: int, seed: int,
+                    anc_len: int = BEAM_MAX_LENGTH) -> torch.Tensor:
+    """A random valid lazy-beam ancestry table (families, kb, anc_len)
+    int32: every entry names a row of its family."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, kb, (families, kb, anc_len), generator=gen,
+                         device=dev, dtype=torch.int32)
+
+
+def family_npad(dev, families: int, kb: int) -> torch.Tensor:
+    """Families left-padded by f % 4 slots, every beam as its family."""
+    return torch.tensor(np.repeat(np.arange(families) % 4, kb), dtype=torch.int32,
+                        device=dev)
+
+
+def mega_errors(cfg, packed, inputs, cur, kv_limit, beam_anc=None):
     """Kernel and plain version on the same inputs -> {name: (got, want)}
     for the hidden row and every layer's K and V rows at ``cur``."""
     from flamingo_mini_tpu_torch.ops.megadecode import (
@@ -263,23 +304,25 @@ def mega_errors(cfg, packed, inputs, cur, kv_limit):
     xk, xv, kc, vc, x, npad, tt = inputs
     kc1, vc1, kc2, vc2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
     got = decode_step_megakernel(packed, xk, xv, kc1, vc1, x, npad, tt, cur,
-                                 config=cfg, kv_limit=kv_limit)
+                                 config=cfg, kv_limit=kv_limit, beam_anc=beam_anc)
     want = decode_step_megakernel_plain(packed, xk, xv, kc2, vc2, x, npad, tt,
-                                        cur, config=cfg, kv_limit=kv_limit)
+                                        cur, config=cfg, kv_limit=kv_limit,
+                                        beam_anc=beam_anc)
     torch.cuda.synchronize()
     return {"hidden": (got.float(), want.float()),
             "k rows": (kc1[:, cur].float(), kc2[:, cur].float()),
             "v rows": (vc1[:, cur].float(), vc2[:, cur].float())}
 
 
-def plain_errors_on_cpu(cfg, packed, inputs, cur, kv_limit):
+def plain_errors_on_cpu(cfg, packed, inputs, cur, kv_limit, beam_anc=None):
     """The plain version on CPU copies of the inputs -> {name: result} in
     the layout of ``mega_errors``."""
     from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel_plain
     host = {k: (t.cpu() if isinstance(t, torch.Tensor) else t) for k, t in packed.items()}
     xk, xv, kc, vc, x, npad, tt = (t.cpu() for t in inputs)
-    hidden = decode_step_megakernel_plain(host, xk, xv, kc, vc, x, npad, tt, cur,
-                                          config=cfg, kv_limit=kv_limit)
+    hidden = decode_step_megakernel_plain(
+        host, xk, xv, kc, vc, x, npad, tt, cur, config=cfg, kv_limit=kv_limit,
+        beam_anc=None if beam_anc is None else beam_anc.cpu())
     return {"hidden": hidden.float(), "k rows": kc[:, cur].float(),
             "v rows": vc[:, cur].float()}
 
@@ -358,6 +401,178 @@ def phase2_megakernel(dev, flush):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def ancestor_reads(anc, npad, cur: int, kb: int):
+    """(distinct family (row, slot) pairs that the rows' valid positions
+    [npad, cur] read, number of valid (row, position) pairs)."""
+    families = anc.shape[0]
+    t = torch.arange(cur + 1, device=anc.device)
+    a = anc[:, :, :cur + 1]
+    valid = t >= npad.view(families, kb)[:, :, None]                # (f, i, t)
+    touched = torch.stack([((a == j) & valid).any(dim=1) for j in range(kb)])
+    return int(touched.sum()), int(valid.sum())
+
+
+def phase2_decode_attention_beam(dev, flush):
+    from flamingo_mini_tpu_torch.ops.decode_attention import (
+        decode_attention_beam, decode_attention_beam_plain)
+    b, kb = BATCH, BEAMS
+    B = b * kb
+    rs = np.random.RandomState(2)
+    shape = (BEAM_T, B, ATTN_D)
+    q32 = torch.tensor(rs.randn(B, ATTN_D) * 0.3, dtype=torch.float32, device=dev)
+    k32 = torch.tensor(rs.randn(*shape) * 0.3, dtype=torch.float32, device=dev)
+    v32 = torch.tensor(rs.randn(*shape) * 0.3, dtype=torch.float32, device=dev)
+    npad = family_npad(dev, b, kb)
+    anc = random_ancestry(dev, b, kb, seed=3)     # 68 slots: shorter than the cache
+    scale = 1.0 / 8.0
+    # cur 2: the families padded by 3 attend nothing (uniform over the
+    # family); cur 127: past the table's 68 slots (ancestor 0)
+    cases = BEAM_PAIRS + ((2, 37), (127, 128))
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+        for cur, kv_limit in cases:
+            kw = dict(n_head=ATTN_H, scale=scale, kb=kb, kv_limit=kv_limit)
+            got = decode_attention_beam(q, k, v, anc, npad, cur, **kw)
+            want = decode_attention_beam_plain(q, k, v, anc, npad, cur, **kw)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            tol = 1e-5 if dtype == torch.float32 else bf16_ulps(want.float(), 2)
+            assert bool(torch.isfinite(got).all()), (dtype, cur, kv_limit)
+            assert err <= tol, f"decode_attention_beam {dtype} cur={cur} " \
+                f"kv_limit={kv_limit}: max err {err} > {tol}"
+            worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
+    print(f"[phase 2] decode_attention_beam vs plain, {B} rows in families of "
+          f"{kb}, {len(cases)} (cur, kv_limit) cases: max abs err {worst} "
+          "(tolerance: f32 1e-5, bf16 2 ulp of the output scale)")
+    # the beam loop's last step
+    q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
+    cur, t_lim = 66, 68
+    kw = dict(n_head=ATTN_H, scale=scale, kb=kb, kv_limit=t_lim)
+    ms = time_ms(lambda: decode_attention_beam(q, k, v, anc, npad, cur, **kw), 50, flush)
+    plain_ms = time_ms(lambda: decode_attention_beam_plain(q, k, v, anc, npad, cur, **kw),
+                       20, flush)
+    # yardstick: one SDPA call over each family's kb x t_lim keys, the
+    # ancestry as a boolean mask (all built outside the timed region)
+    dh = ATTN_D // ATTN_H
+    qf = q.view(b, kb, ATTN_H, dh).permute(0, 2, 1, 3).contiguous()
+    kf, vf = (c[:t_lim].view(t_lim, b, kb, ATTN_H, dh).permute(1, 3, 2, 0, 4)
+              .reshape(b, ATTN_H, kb * t_lim, dh).contiguous() for c in (k, v))
+    t = torch.arange(t_lim, device=dev)
+    ok = (t >= npad.view(b, kb)[:, :, None]) & (t <= cur)            # (b, i, t)
+    own = anc[:, :, :t_lim, None] == torch.arange(kb, device=dev)    # (b, i, t, j)
+    mask = (own & ok[..., None]).permute(0, 1, 3, 2).reshape(b, 1, kb, kb * t_lim)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_out = sdpa(qf, kf, vf, attn_mask=mask, scale=scale)
+    lib_err = float((lib_out.permute(0, 2, 1, 3).reshape(B, ATTN_D).float()
+                     - decode_attention_beam(q, k, v, anc, npad, cur, **kw).float())
+                    .abs().max())
+    library_ms = time_ms(lambda: sdpa(qf, kf, vf, attn_mask=mask, scale=scale), 50, flush)
+    print(f"[phase 2] scaled_dot_product_attention over each family's {kb} x "
+          f"{t_lim} keys, ancestry mask: max abs diff to the kernel {lib_err}")
+    slots, n_pos = ancestor_reads(anc, npad, cur, kb)
+    n_bytes = 2 * 2 * slots * ATTN_D + 2 * 2 * B * ATTN_D + 4 * B + 4 * n_pos
+    bound_ms, bound_by = bound(n_bytes, 4 * n_pos * ATTN_D)
+    print(f"[phase 2] decode_attention_beam bound at {B} rows, cur {cur}: "
+          f"{slots} distinct ancestor slots of {b * kb * (cur + 1)}, "
+          f"{n_bytes / 1e6:.3f} MB -> {bound_ms:.5f} ms ({bound_by})")
+    return dict(max_abs_err=max(worst.values()), ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def beam_trunk_inputs(dev, cfg, rows: int, kb: int, seed: int):
+    """mega_inputs at the beam cache length with family padding, and a
+    random ancestry table."""
+    inputs = list(mega_inputs(dev, cfg, rows, seed, T=BEAM_T))
+    inputs[5] = family_npad(dev, rows // kb, kb)
+    return tuple(inputs), random_ancestry(dev, rows // kb, kb, seed)
+
+
+def phase2_megakernel_beam(dev, flush):
+    from flamingo_mini_tpu_torch.ops.megadecode import (
+        decode_step_megakernel, decode_step_megakernel_plain, kernel_args,
+        kernel_grid, max_rows)
+    worst_ulps, worst_abs, n_cases, grids = 0.0, 0.0, 0, {}
+    for n_layer, every in ((1, 1), (2, 1), (2, 2)):
+        cfg, packed = random_trunk(dev, n_layer=n_layer, xattn_every=every,
+                                   seed=100 + 10 * n_layer + every)
+        for rows, kb in ((3, 3), (24, 3), (96, 3), (160, 5)):
+            inputs, anc = beam_trunk_inputs(dev, cfg, rows, kb, seed=rows + n_layer)
+            args, _, _ = kernel_args(packed, *inputs, 66, config=cfg, kv_limit=68,
+                                     beam_anc=anc)
+            grids[rows] = kernel_grid(args)
+            for i in (n_cases % 4, (n_cases + 1) % 4):
+                cur, kv_limit = BEAM_PAIRS[i]
+                errs = mega_errors(cfg, packed, inputs, cur, kv_limit, beam_anc=anc)
+                for name, (got, want) in errs.items():
+                    assert bool(torch.isfinite(got).all()), (n_layer, every, rows, name)
+                    err = float((got - want).abs().max())
+                    ulps = err / bf16_ulps(want, 1)
+                    worst_ulps, worst_abs = max(worst_ulps, ulps), max(worst_abs, err)
+                    assert ulps <= 2, f"megakernel beam layers={n_layer} " \
+                        f"every={every} rows={rows} kb={kb} cur={cur} " \
+                        f"kv_limit={kv_limit} {name}: {ulps} ulp"
+            n_cases += 1
+    print(f"[phase 2] decode_step_megakernel beam mode vs plain, 1-2 layers, "
+          f"rows (kb) in 3 (3), 24 (3), 96 (3), 160 (5), xattn every 1 and 2, "
+          f"{2 * n_cases} (cur, kv_limit) cases: max error {worst_ulps} bf16 ulp "
+          f"at the output's scale (tolerance 2), max abs error {worst_abs}")
+    for rows, (blocks, smem) in sorted(grids.items()):
+        print(f"[phase 2] decode_step_megakernel grid at {rows} rows: {blocks} "
+              f"blocks of 256 threads, {smem} bytes of shared memory each")
+
+    # 24 layers at the slice's 96 rows: the normwise criterion of the
+    # greedy mode (phase 2 above)
+    cfg, packed = random_trunk(dev, n_layer=24, xattn_every=1, seed=24)
+    print(f"[phase 2] decode_step_megakernel row limit at flamingo-mini width: "
+          f"{max_rows(packed, cfg)} rows")
+    rows = BATCH * BEAMS
+    inputs, anc = beam_trunk_inputs(dev, cfg, rows, BEAMS, seed=97)
+    cpu = plain_errors_on_cpu(cfg, packed, inputs, 66, 68, beam_anc=anc)
+    rel, spread = {}, {}
+    for name, (got, want) in mega_errors(cfg, packed, inputs, 66, 68, beam_anc=anc).items():
+        rel[name] = float((got - want).norm() / want.norm())
+        spread[name] = float((cpu[name] - want.cpu()).norm() / want.norm())
+        assert bool(torch.isfinite(got).all()), name
+        assert rel[name] <= max(1e-2, 1.25 * spread[name]), (name, rel, spread)
+    print(f"[phase 2] decode_step_megakernel beam mode vs plain, 24 layers, "
+          f"{rows} rows: normwise relative error {rel}; the plain version on "
+          f"the CPU vs on the card {spread} (tolerance: the larger of 1e-2 and "
+          "1.25 x that spread)")
+    xk, xv, kc, vc, x, npad, tt = inputs
+    call = dict(config=cfg, kv_limit=68, beam_anc=anc)
+    ms = time_ms(lambda: decode_step_megakernel(packed, xk, xv, kc, vc, x, npad,
+                                                tt, 66, **call), 30, flush)
+    plain_ms = time_ms(lambda: decode_step_megakernel_plain(
+        packed, xk, xv, kc, vc, x, npad, tt, 66, **call), 10, flush)
+    # bytes this call must move: every weight, scale, bias and LN param
+    # once; the xattn K/V of each row's image; each distinct ancestor slot's
+    # K/V once per layer; the new K/V rows; the hidden rows in and out; the
+    # ancestry entries read
+    weights = sum(t.numel() * t.element_size() for k, t in packed.items()
+                  if isinstance(t, torch.Tensor))
+    n_img = int((tt > 0).sum())
+    x_kv = len(packed["xlayers"]) * 2 * n_img * MEGA_NV * MEGA_XI * 2
+    slots, n_pos = ancestor_reads(anc, npad, 66, BEAMS)
+    n_bytes = (weights + x_kv + 24 * 2 * slots * MEGA_D * 2
+               + 24 * 2 * rows * MEGA_D * 2 + 2 * 2 * rows * MEGA_D + 4 * n_pos)
+    n_mac = sum(t.numel() for k, t in packed.items() if k.startswith("w_"))
+    n_ops = 2 * rows * n_mac + 24 * 4 * n_pos * MEGA_D
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    print(f"[phase 2] decode_step_megakernel beam mode bound at {rows} rows, 24 "
+          f"layers, cur 66, kv_limit 68: {n_bytes / 1e9:.4f} GB, "
+          f"{n_ops / 1e9:.3f} GFLOP -> {bound_ms:.4f} ms ({bound_by})")
+    # scaling past the slice: 160 rows (32 x 5 beams), the same step
+    inputs160, anc160 = beam_trunk_inputs(dev, cfg, 160, 5, seed=96)
+    ms160 = time_ms(lambda: decode_step_megakernel(
+        packed, *inputs160, 66, config=cfg, kv_limit=68, beam_anc=anc160), 30, flush)
+    print(f"[phase 2] decode_step_megakernel beam mode, 24 layers, kv_limit 68: "
+          f"{ms} ms at {rows} rows, {ms160} ms at 160 rows (median per call, "
+          "L2 flushed)")
+    return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by, ms160=ms160)
+
+
 @contextlib.contextmanager
 def patched(module, name, fn):
     saved = getattr(module, name)
@@ -387,9 +602,11 @@ def plain_kernels(gaps):
     from flamingo_mini_tpu_torch import generation
     from flamingo_mini_tpu_torch.models import gpt2
     from flamingo_mini_tpu_torch.ops import megadecode
-    from flamingo_mini_tpu_torch.ops.decode_attention import decode_attention_plain
+    from flamingo_mini_tpu_torch.ops.decode_attention import (
+        decode_attention_beam_plain, decode_attention_plain)
     from flamingo_mini_tpu_torch.ops.lm_head import lm_head_argmax_plain
     with patched(gpt2, "decode_attention", decode_attention_plain), \
+            patched(gpt2, "decode_attention_beam", decode_attention_beam_plain), \
             patched(megadecode, "decode_step_megakernel",
                     megadecode.decode_step_megakernel_plain), \
             patched(generation, "lm_head_argmax",
@@ -422,15 +639,86 @@ def compare_tokens(label, gen, ref_gen, ref_gaps):
           "identical")
 
 
+def beam_candidates(cands, k: int, vocab: int):
+    """A beam run's recorded ``select_candidates`` results -> per step, per
+    row, the ordered candidate sequences (generated tokens). EOS is
+    unreachable, so the running beams after a step are its top k."""
+    b = cands[0][0].shape[0]
+    beams = [[()] * k for _ in range(b)]
+    steps = []
+    for _lp, idx in cands:
+        parent, tok = (idx // vocab).tolist(), (idx % vocab).tolist()
+        step = [[beams[r][p] + (t,) for p, t in zip(parent[r], tok[r])]
+                for r in range(b)]
+        steps.append(step)
+        beams = [row[:k] for row in step]
+    return steps
+
+
+def compare_beams(label, gen, cands, ref_gen, ref_cands, k: int, vocab: int):
+    """Rows equal up to the first near-tie of the reference run: at the
+    first step where the two runs' chosen candidates differ (the top-k as a
+    set; at the last step also the best), the reference's gap between its
+    k-th and (k+1)-th candidate scores (at the last step: its best and
+    second) is <= 8 bf16 ulps of the score."""
+    assert len(cands) == len(ref_cands), (len(cands), len(ref_cands))
+    got_c, ref_c = beam_candidates(cands, k, vocab), beam_candidates(ref_cands, k, vocab)
+    last = len(ref_c) - 1
+    agreed, parted = 0, 0
+    for r in range(gen.shape[0]):
+        parts = False
+        for s in range(len(ref_c)):
+            g, w = got_c[s][r], ref_c[s][r]
+            parts = set(g[:k]) != set(w[:k]) or (s == last and g[0] != w[0])
+            if parts:
+                j = k - 1 if set(g[:k]) != set(w[:k]) else 0
+                lp = ref_cands[s][0][r]
+                gap = float(lp[j] - lp[j + 1])
+                ulp = 2.0 ** (np.floor(np.log2(abs(float(lp[j])))) - 7)
+                print(f"[phase 3] {label}: row {r} candidates part at step {s}, "
+                      f"reference gap between ranks {j} and {j + 1}: {gap} "
+                      f"({gap / ulp:.2f} bf16 ulp of the score {float(lp[j])})")
+                assert gap <= 8 * ulp, f"{label}: row {r} parts at a gap of " \
+                    f"{gap / ulp} bf16 ulp"
+                parted += 1
+                break
+        diff = torch.nonzero(gen[r] != ref_gen[r]).flatten()
+        assert parts or not len(diff), f"{label}: row {r} differs without parting"
+        agreed += gen.shape[1] if len(diff) == 0 else int(diff[0])
+    full_rows = int((gen == ref_gen).all(dim=1).sum())
+    n = gen.numel()
+    print(f"[phase 3] {label}: {agreed}/{n} tokens agree up to each row's "
+          f"first near-tie ({agreed / n:.4f}); {full_rows}/{gen.shape[0]} rows "
+          f"identical; candidates parted in {parted} rows")
+
+
+def timed(fn):
+    """(median ms, all ms) of 5 calls after a warm-up, CUDA events."""
+    fn()
+    times = []
+    for _ in range(5):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times), times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel, generation
+    from flamingo_mini_tpu_torch import (FlamingoConfig, FlamingoModel, beam_search,
+                                         generation)
+    from flamingo_mini_tpu_torch.models import gpt2
     from flamingo_mini_tpu_torch.ops import cuda_build
-    from flamingo_mini_tpu_torch.ops.decode_attention import decode_attention
+    from flamingo_mini_tpu_torch.ops.decode_attention import (decode_attention,
+                                                              decode_attention_beam)
     from flamingo_mini_tpu_torch.ops.lm_head import lm_head_argmax
     from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel
 
@@ -458,6 +746,8 @@ def main() -> int:
     attn = phase2_decode_attention(dev, flush)
     head = phase2_lm_head(dev, flush)
     mega = phase2_megakernel(dev, flush)
+    attn_beam = phase2_decode_attention_beam(dev, flush)
+    mega_beam = phase2_megakernel_beam(dev, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -490,16 +780,18 @@ def main() -> int:
                               prefix_block=PREFIX_BLOCK, eos_token_id=vocab,
                               pad_token_id=0, megakernel=megakernel)
 
+    kernels = (decode_attention, decode_attention_beam, lm_head_argmax,
+               decode_step_megakernel)
+
     def counted_run(megakernel, gaps):
         """The path with every launch count at 0 before it -> (tokens,
         counts); the head's top-2 gaps are recorded beside the kernel."""
-        for fn in (decode_attention, lm_head_argmax, decode_step_megakernel):
+        for fn in kernels:
             fn.launches = 0
         with patched(generation, "lm_head_argmax", gap_recorder(gaps, lm_head_argmax)):
             tokens = run(megakernel)
         torch.cuda.synchronize()
-        counts = {fn.__name__: fn.launches for fn in
-                  (decode_attention, lm_head_argmax, decode_step_megakernel)}
+        counts = {fn.__name__: fn.launches for fn in kernels}
         assert tokens.shape == (BATCH, MAX_LENGTH), tokens.shape
         assert bool(((tokens >= 0) & (tokens < vocab)).all())
         assert torch.equal(tokens[:, :PROMPT_LEN], ids)
@@ -511,13 +803,14 @@ def main() -> int:
           f"decode_attention {n_layer} x {steps}, lm_head_argmax {steps}, "
           "decode_step_megakernel 0)")
     assert layer_counts == {"decode_attention": n_layer * steps,
-                            "lm_head_argmax": steps, "decode_step_megakernel": 0}
+                            "decode_attention_beam": 0, "lm_head_argmax": steps,
+                            "decode_step_megakernel": 0}
     mega_tokens, mega_counts = counted_run(True, mega_gaps)
     print(f"[phase 3] megakernel path launches: {mega_counts} (expected "
           f"decode_attention 0, lm_head_argmax {steps}, decode_step_megakernel "
           f"{steps})")
-    assert mega_counts == {"decode_attention": 0, "lm_head_argmax": steps,
-                           "decode_step_megakernel": steps}
+    assert mega_counts == {"decode_attention": 0, "decode_attention_beam": 0,
+                           "lm_head_argmax": steps, "decode_step_megakernel": steps}
 
     for megakernel, tokens, label in ((False, layer_tokens, "per-layer kernels vs plain"),
                                       (True, mega_tokens, "megakernel vs plain")):
@@ -529,33 +822,93 @@ def main() -> int:
     compare_tokens("megakernel path vs per-layer path", mega_tokens, layer_tokens,
                    layer_gaps)
 
-    # phase 4: timing (CUDA events around whole generate calls)
-    def timed(megakernel, new_tokens):
-        run(megakernel, new_tokens)
-        times = []
-        for _ in range(5):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            run(megakernel, new_tokens)
-            e1.record()
-            e1.synchronize()
-            times.append(e0.elapsed_time(e1))
-        return statistics.median(times), times
+    # phase 3, beams: batch 32 x 3 beams, 64 new tokens, lazy reorder
+    def beam_run(megakernel, new_tokens=BEAM_NEW_TOKENS):
+        return model.generate(ids, media_locations=media, attention_mask=mask,
+                              pixel_values=pixels, max_length=BEAM_MAX_LENGTH,
+                              max_new_tokens=new_tokens, prefix_block=PREFIX_BLOCK,
+                              eos_token_id=vocab, pad_token_id=0,
+                              megakernel=megakernel, num_beams=BEAMS,
+                              length_penalty=1.0, early_stopping=True,
+                              beam_reorder="lazy")
 
-    for megakernel, label in ((False, "per-layer"), (True, "megakernel")):
+    def recorded_beam_run(megakernel, plain=False):
+        """The beam path with every launch count at 0 before it ->
+        (generated tokens, counts, each step's candidates)."""
+        cands = []
+        select = beam_search.select_candidates
+
+        def record(flat, n):
+            out = select(flat, n)
+            cands.append(tuple(t.cpu() for t in out))
+            return out
+        for fn in kernels:
+            fn.launches = 0
+        with patched(beam_search, "select_candidates", record), \
+                (plain_kernels([]) if plain else contextlib.nullcontext()):
+            tokens = beam_run(megakernel)
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in kernels}
+        assert tokens.shape == (BATCH, BEAM_MAX_LENGTH), tokens.shape
+        assert bool(((tokens >= 0) & (tokens < vocab)).all())
+        assert torch.equal(tokens[:, :PROMPT_LEN], ids)
+        assert len(cands) == BEAM_NEW_TOKENS, len(cands)
+        return tokens[:, PROMPT_LEN:].cpu(), counts, cands
+
+    beam_steps = BEAM_NEW_TOKENS - 1
+    layer_b_tokens, layer_b_counts, layer_b_cands = recorded_beam_run(False)
+    print(f"[phase 3] beam per-layer path launches: {layer_b_counts} (expected "
+          f"decode_attention_beam {n_layer} x {beam_steps}, every other 0)")
+    assert layer_b_counts == {"decode_attention": 0,
+                              "decode_attention_beam": n_layer * beam_steps,
+                              "lm_head_argmax": 0, "decode_step_megakernel": 0}
+    mega_b_tokens, mega_b_counts, mega_b_cands = recorded_beam_run(True)
+    print(f"[phase 3] beam megakernel path launches: {mega_b_counts} (expected "
+          f"decode_step_megakernel {beam_steps}, every other 0)")
+    assert mega_b_counts == {"decode_attention": 0, "decode_attention_beam": 0,
+                             "lm_head_argmax": 0, "decode_step_megakernel": beam_steps}
+    for megakernel, tokens, cands, label in (
+            (False, layer_b_tokens, layer_b_cands, "beam per-layer kernels vs plain"),
+            (True, mega_b_tokens, mega_b_cands, "beam megakernel vs plain")):
+        plain_tokens, _, plain_cands = recorded_beam_run(megakernel, plain=True)
+        compare_beams(label, tokens, cands, plain_tokens, plain_cands, BEAMS, vocab)
+    compare_beams("beam megakernel path vs per-layer path", mega_b_tokens,
+                  mega_b_cands, layer_b_tokens, layer_b_cands, BEAMS, vocab)
+
+    # phase 4: timing (CUDA events around whole generate calls)
+    for name, fn, new_tokens in (
+            ("per-layer", lambda n: run(False, n), NEW_TOKENS),
+            ("megakernel", lambda n: run(True, n), NEW_TOKENS),
+            ("beam per-layer", lambda n: beam_run(False, n), BEAM_NEW_TOKENS),
+            ("beam megakernel", lambda n: beam_run(True, n), BEAM_NEW_TOKENS)):
         torch.cuda.reset_peak_memory_stats()
-        full_ms, full_all = timed(megakernel, NEW_TOKENS)
-        half_ms, half_all = timed(megakernel, NEW_TOKENS // 2)
-        step_ms = (full_ms - half_ms) / (NEW_TOKENS - NEW_TOKENS // 2)
-        print(f"[phase 4] {card}: {label} path: generate {BATCH}x{NEW_TOKENS} "
-              f"median {full_ms} ms (runs {full_all}); {NEW_TOKENS // 2} tokens "
+        full_ms, full_all = timed(lambda: fn(new_tokens))
+        half_ms, half_all = timed(lambda: fn(new_tokens // 2))
+        step_ms = (full_ms - half_ms) / (new_tokens - new_tokens // 2)
+        print(f"[phase 4] {card}: {name} path: generate {BATCH}x{new_tokens} "
+              f"median {full_ms} ms (runs {full_all}); {new_tokens // 2} tokens "
               f"median {half_ms} ms (runs {half_all})")
-        print(f"[phase 4] {card}: {label} path: {step_ms} ms per decode step, "
+        print(f"[phase 4] {card}: {name} path: {step_ms} ms per decode step, "
               f"{BATCH / (full_ms / 1000.0)} captions/s, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # the beam step's head: the full int8 lm_head at 96 rows (its float32
+    # copy of the weights included) and the candidate selection
+    lm = model.params["lm"]
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    h = torch.randn((BATCH * BEAMS, 1, config.dim), device=dev).to(torch.bfloat16)
+    head_ms = time_ms(lambda: gpt2.lm_head(lm, h, n_valid=vocab), 20, flush)
+    flat = torch.randn((BATCH, BEAMS * vocab), device=dev)
+    select_ms = time_ms(lambda: beam_search.select_candidates(flat, 2 * BEAMS), 20, flush)
+    del flush
+    print(f"[phase 4] {card}: beam step head: lm_head at {BATCH * BEAMS} rows "
+          f"{head_ms} ms, candidate selection (stable sort of {BATCH} x "
+          f"{BEAMS * vocab}) {select_ms} ms (median per call, L2 flushed)")
+    print(f"[phase 4] {card}: decode_step_megakernel beam mode at 160 rows "
+          f"{mega_beam['ms160']} ms vs {mega_beam['ms']} ms at {BATCH * BEAMS} rows")
     for name, k in (("decode_attention", attn), ("lm_head_argmax", head),
-                    ("decode_step_megakernel", mega)):
+                    ("decode_step_megakernel", mega),
+                    ("decode_attention_beam", attn_beam),
+                    ("decode_step_megakernel beam mode", mega_beam)):
         print(f"[phase 4] {card}: {name} {k['ms']} ms vs plain {k['plain_ms']} "
               f"ms, library {k['library_ms']} ms, bound {k['bound_ms']} ms "
               f"({k['bound_by']}) (median per call, L2 flushed)")
@@ -570,7 +923,13 @@ def main() -> int:
              mega_counts["lm_head_argmax"], head),
             ("decode_step_megakernel", "decode_megakernel.cu",
              "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
-             mega_counts["decode_step_megakernel"], mega)):
+             mega_counts["decode_step_megakernel"], mega),
+            ("decode_attention_beam", "decode_attention.cu",
+             "flamingo_mini_tpu/ops/pallas_decode.py:350",
+             layer_b_counts["decode_attention_beam"], attn_beam),
+            ("decode_step_megakernel (beam mode)", "decode_megakernel.cu",
+             "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
+             mega_b_counts["decode_step_megakernel"], mega_beam)):
         rows.append({"name": name, "route": "cuda",
                      "source": f"flamingo_mini_tpu_torch/csrc/{source}",
                      "replaces": replaces, "launches": launches,

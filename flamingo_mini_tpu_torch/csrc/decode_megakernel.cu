@@ -1,9 +1,10 @@
-// One whole greedy decode step in one launch: for every layer the gated
+// One whole decode step in one launch: for every layer the gated
 // cross-attention block (where the layer has one) and the GPT-2 block.
 //
 // Replaces flamingo_mini_tpu/ops/pallas_megadecode.py::decode_step_megakernel
-// (_mega_call -> _build_kernel) in its greedy weight-only mode (kb=1,
-// act_quant=False). Per layer l, on the residual stream x (b, D) bf16:
+// (_mega_call -> _build_kernel) in its weight-only modes (act_quant=False):
+// greedy (kb=1, anc null) and lazy beam (beam_anc, kb > 1). Per layer l, on
+// the residual stream x (b, D) bf16:
 //
 //   gated xattn, if hasx[l]:
 //     y  = LN(x);  q = bf16(lin(y, to_q) * bf16(xdh^-0.5))
@@ -15,6 +16,10 @@
 //   GPT-2 block:
 //     q, k, v = lin(LN1(x), c_attn) + b;  K/V rows written at slot `cur`
 //     att = softmax(q . K[t] * dh^-0.5 over npad <= t <= cur) . bf16(p) V
+//     (beam mode: K[t], V[t] of row r are those of the family row
+//     (r / kb) * kb + anc[r * anc_len + t]: the ancestry of the lazy beam
+//     reorder, read as a gather where the TPU kernel built a family mask
+//     with an exact 0/1 selection matmul; see decode_attention.cu)
 //     x += lin(att, c_proj) + b
 //     x += lin(act(lin(LN2(x), mlp_fc) + b), mlp_proj) + b
 //
@@ -48,9 +53,18 @@
 //   which a dot product does not see. The partial sums meet in shared
 //   memory and the owner of a column applies scale, bias, activation and
 //   the residual add, so no phase reads a column that another block writes
-//   in it. A phase after a LayerNorm normalises the whole (b, D) stream into
-//   shared memory first (each working block redundantly: b*D*2 bytes, 64 KB
-//   at b=32); the others read their A operand through L2.
+//   in it. A phase after a LayerNorm walks the batch one 32-row group at a
+//   time: it normalises the group into shared memory (each working block
+//   redundantly: 32*D*2 bytes, 64 KB at D=1024), then runs its columns over
+//   that group. Shared memory so stays at 73,728 bytes at D=1024 whatever
+//   the batch (2 blocks per SM); the cost is one more block barrier per
+//   group and the block's weights re-read from L1/L2 for every group, which
+//   the other phases' group loop pays too. The others read their A operand
+//   through L2.
+// * Rows: nothing on the card grows with b but device memory; the kernel's
+//   32-bit element offsets into the (b, width) activation buffers are the
+//   one limit, b * max(2 * max(D, XI), max(Dff, Dffx)) < 2^31 (524,287 rows
+//   at flamingo-mini width), which the wrapper checks.
 // * Attention (head dim 64): one warp per (row, head). Scores a lane per
 //   position into shared memory, the row's global max, then the V product
 //   over 4 positions at a time, 8 lanes x 8 dims each, in 16-byte loads.
@@ -109,8 +123,9 @@ struct MegaArgs {
   const int* npad; const int* text_time;  // (b,)
   bf16* x;                       // (b, D): the residual stream and the output
   bf16* scratch;                 // q (b, QW) | att (b, QW) | h (b, HW)
+  const int* anc;                // (b / kb, kb, anc_len) beam ancestry, or null
   int b, D, Dff, Dffx, XI, n_layer, n_head, x_heads, n_visual, NMNV, T, cur,
-      t_lim, act, xact;
+      t_lim, act, xact, kb, anc_len;
   float attn_scale;              // dh^-0.5, applied to the scores
   float xq_scale;                // bf16(xdh^-0.5), applied to the xattn query
 };
@@ -238,10 +253,11 @@ __device__ void epilogue(const Epi& e, bf16* x, int D, int row, int n, float acc
 }
 
 // y[r][n] = sum_k A[r][k] W[n][k] for r < b, n < N, handed to the
-// epilogue by the column's owner. A: (b, K) bf16, shared or global memory;
-// W: (N, K) int8. N % 8 == 0, K % 64 == 0.
+// epilogue by the column's owner as batch row row0 + r. A: (b, K) bf16,
+// shared or global memory; W: (N, K) int8. N % 8 == 0, K % 64 == 0.
 __device__ void linear(const bf16* A, const int8_t* __restrict__ W, int N, int K,
-                       int b, const Epi& e, bf16* x, int D, float* red) {
+                       int b, const Epi& e, bf16* x, int D, float* red,
+                       int row0 = 0) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;   // mma groupID: A/C row, B column
@@ -292,7 +308,7 @@ __device__ void linear(const bf16* A, const int8_t* __restrict__ W, int N, int K
         const int col = threadIdx.x & 7;
         float s = 0.f;
         for (int w = 0; w < kWarps; ++w) s += red[(w * kGroupRows + row) * 8 + col];
-        if (b0 + row < b) epilogue(e, x, D, b0 + row, n0 + col, s);
+        if (b0 + row < b) epilogue(e, x, D, row0 + b0 + row, n0 + col, s);
       }
       __syncthreads();
     }
@@ -322,26 +338,40 @@ __device__ void layer_norm_rows(const bf16* x, const float* __restrict__ s,
   }
 }
 
-// LN of the stream, then a linear from it (K = D); blocks without columns
-// to own skip both
+// bytes of shared memory an LN phase stages: one group of rows of (., D)
+__device__ __host__ __forceinline__ int ln_stage_bytes(const MegaArgs& a) {
+  return ((a.b < kGroupRows ? a.b : kGroupRows) * a.D * 2 + 15) & ~15;
+}
+
+// LN of the stream, then a linear from it (K = D), one 32-row group at a
+// time (the epilogues of these phases never write x); blocks without
+// columns to own skip both
 __device__ void ln_linear(const MegaArgs& a, const float* s, const float* bias,
                           const int8_t* W, int N, const Epi& e, char* smem) {
   if (static_cast<int>(blockIdx.x) >= N / 8) return;
   bf16* sA = reinterpret_cast<bf16*>(smem);
-  float* red = reinterpret_cast<float*>(smem + ((a.b * a.D * 2 + 15) & ~15));
-  layer_norm_rows(a.x, s, bias, sA, a.b, a.D);
-  __syncthreads();
-  linear(sA, W, N, a.D, a.b, e, a.x, a.D, red);
+  float* red = reinterpret_cast<float*>(smem + ln_stage_bytes(a));
+  for (int b0 = 0; b0 < a.b; b0 += kGroupRows) {
+    const int rows = min(kGroupRows, a.b - b0);
+    layer_norm_rows(a.x + static_cast<long long>(b0) * a.D, s, bias, sA, rows, a.D);
+    __syncthreads();
+    linear(sA, W, N, a.D, rows, e, a.x, a.D, red, b0);
+    __syncthreads();  // sA is rewritten by the next group
+  }
 }
 
 // One warp per (row, head), head dim 64: softmax over the positions
 // t < t_lim of (q . K[t]) * scale (rounded to bf16 for xattn), positions
 // outside [lo, hi] at -FLT_MAX; out = sum_t bf16(p_t) V[t] / sum_t p_t.
 // Row `row` of position t is at (t * b + row) * ld_kv + head * 64.
-// Self-attention: lo = npad[row], hi = cur. Cross-attention: the latents of
-// image text_time[row]; rows with text_time == 0 give 0. Positions outside
-// [lo, hi] are never read (their weight is exactly 0), unless the range is
-// empty: then every weight is 1, as the reference's all-masked softmax has.
+// Self-attention: lo = npad[row], hi = cur; in beam mode (a.anc set)
+// position t is read from the family row (row / kb) * kb + anc[row, t]
+// (anc = 0 past anc_len; entries outside [0, kb) are masked and not read).
+// Cross-attention: the latents of image text_time[row]; rows with
+// text_time == 0 give 0. Positions outside [lo, hi] are never read (their
+// weight is exactly 0), unless the range is empty: then every weight is 1,
+// as the reference's all-masked softmax has, over t < t_lim of the row, or
+// in beam mode of every family row.
 __device__ void attention(const MegaArgs& a, const bf16* q, int ld, const bf16* K,
                           const bf16* V, int n_head, int t_lim, float scale,
                           bool xattn, bf16* out, float* smem) {
@@ -364,6 +394,15 @@ __device__ void attention(const MegaArgs& a, const bf16* q, int ld, const bf16* 
       hi = min(a.cur, t_lim - 1);
     }
     const long long off = static_cast<long long>(row) * ld + head * kHeadDim;
+    // beam mode: the physical row of position t, or -1
+    const bool beam = !xattn && a.anc != nullptr;
+    const int fam0 = beam ? (row / a.kb) * a.kb : row;
+    const int* anc_row = beam ? a.anc + static_cast<long long>(row) * a.anc_len : nullptr;
+    auto phys = [&](int t) -> int {
+      if (!beam) return row;
+      const int j = t < a.anc_len ? anc_row[t] : 0;
+      return (j >= 0 && j < a.kb) ? fam0 + j : -1;
+    };
     qs[2 * lane] = ldf(q + off + 2 * lane);
     qs[2 * lane + 1] = ldf(q + off + 2 * lane + 1);
     __syncwarp();
@@ -372,8 +411,10 @@ __device__ void attention(const MegaArgs& a, const bf16* q, int ld, const bf16* 
     float m = -FLT_MAX;
     for (int t = lane; t < t_lim; t += 32) {
       float s = -FLT_MAX;
-      if (t >= lo && t <= hi) {
-        const uint4* kp = reinterpret_cast<const uint4*>(K + t * t_stride + off);
+      const int prow = (t >= lo && t <= hi) ? phys(t) : -1;
+      if (prow >= 0) {
+        const uint4* kp = reinterpret_cast<const uint4*>(
+            K + t * t_stride + off + static_cast<long long>(prow - row) * ld);
         uint4 kv[kHeadDim / 8];
 #pragma unroll
         for (int i = 0; i < kHeadDim / 8; ++i) kv[i] = kp[i];
@@ -401,7 +442,11 @@ __device__ void attention(const MegaArgs& a, const bf16* q, int ld, const bf16* 
       sc[t] = p;
       l += p;
     }
-    l = fmaxf(warp_sum(l), 1e-30f);
+    l = warp_sum(l);
+    // beam mode, empty range: every family row's t_lim positions weigh 1
+    const bool spread = beam && lo > hi;
+    if (spread) l *= a.kb;
+    l = fmaxf(l, 1e-30f);
     __syncwarp();
 
     // V product: 4 positions at a time, 8 lanes x 8 dims each
@@ -411,12 +456,18 @@ __device__ void attention(const MegaArgs& a, const bf16* q, int ld, const bf16* 
     float acc[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[i] = 0.f;
-    const int t0 = lo <= hi ? lo : 0;
-    const int t1 = lo <= hi ? hi : t_lim - 1;
+    // walk u in [u0, u1]: slot t = u of row phys(t), or, spread, slot
+    // u % t_lim of family row u / t_lim
+    const int u0 = lo <= hi ? lo : 0;
+    const int u1 = lo <= hi ? hi : (spread ? a.kb * t_lim : t_lim) - 1;
     if (!zero) {
 #pragma unroll 4
-      for (int t = t0 + grp; t <= t1; t += 4) {
-        const uint4 vv = *reinterpret_cast<const uint4*>(V + t * t_stride + off + dim);
+      for (int u = u0 + grp; u <= u1; u += 4) {
+        const int t = spread ? u % t_lim : u;
+        const int prow = spread ? fam0 + u / t_lim : (lo <= hi ? phys(t) : row);
+        if (prow < 0) continue;
+        const uint4 vv = *reinterpret_cast<const uint4*>(
+            V + t * t_stride + off + static_cast<long long>(prow - row) * ld + dim);
         const float p = rbf(sc[t]);
         const uint32_t w[4] = {vv.x, vv.y, vv.z, vv.w};
 #pragma unroll
@@ -522,7 +573,7 @@ decode_megakernel(const MegaArgs a) {
 }
 
 size_t smem_bytes(const MegaArgs& a) {
-  const size_t ln = ((static_cast<size_t>(a.b) * a.D * 2 + 15) & ~size_t(15)) + kRedBytes;
+  const size_t ln = static_cast<size_t>(ln_stage_bytes(a)) + kRedBytes;
   const size_t att = static_cast<size_t>(kWarps) * att_stride(a) * 4;
   return ln > att ? ln : att;
 }

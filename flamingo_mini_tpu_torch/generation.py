@@ -1,7 +1,9 @@
-"""Greedy batched generation over the flat KV cache.
+"""Batched generation over the flat KV cache: greedy here, beams in
+``beam_search.py``.
 
 Port of the greedy path of ``flamingo_mini_tpu/generation.py`` (``_prefill``
-and ``_generate_impl``):
+and ``_generate_impl``); ``generate_impl`` hands ``num_beams > 1`` to
+``beam_search.beam_generate``:
 
 * prefill runs the (left-padded) prompt through the model once, filling the
   flat cache; the xattn K/V are computed once and stay constant;
@@ -41,7 +43,9 @@ HEAD_BLOCK_V = 2048
 
 @dataclass(frozen=True)
 class DecodeConfig:
-    """The greedy subset of the JAX package's DecodeConfig."""
+    """The greedy and beam subset of the JAX package's DecodeConfig, with
+    its defaults. None of the logits-processor options is ported yet, so
+    the chain (``process_logits`` there) is the identity here."""
 
     max_length: int = 150
     max_new_tokens: Optional[int] = None
@@ -52,6 +56,16 @@ class DecodeConfig:
     fused_head: bool = True
     # whole-step megakernel: int8 weights, bf16 policy, GPT-2 trunk
     megakernel: bool = False
+    # beam search (HF semantics, beam_search.py)
+    num_beams: int = 1
+    length_penalty: float = 1.0
+    early_stopping: bool = True
+    num_return_sequences: int = 1     # top n hypotheses per row, interleaved
+    num_beam_groups: int = 1          # diverse beams: per layer only
+    diversity_penalty: float = 0.0
+    # "lazy": cache rows never move, an ancestry table is permuted instead
+    beam_reorder: str = "lazy"
+    return_scores: bool = False       # beams: HF sequences_scores
 
     def __post_init__(self):
         if self.max_new_tokens is not None and self.max_new_tokens < 1:
@@ -61,6 +75,24 @@ class DecodeConfig:
             raise ValueError(f"max_length must be >= 2, got {self.max_length}")
         if not self.flat_kv_cache:
             raise NotImplementedError("only the flat KV cache is ported")
+        if self.beam_reorder not in ("gather", "lazy"):
+            raise ValueError(f"beam_reorder must be 'gather' or 'lazy', "
+                             f"got {self.beam_reorder!r}")
+        if self.beam_reorder == "gather":
+            raise NotImplementedError("beam_reorder='gather' is not ported; "
+                                      "the lazy reorder is")
+        if self.num_beam_groups > 1 and self.num_beams % self.num_beam_groups:
+            raise ValueError(f"num_beams ({self.num_beams}) must be divisible "
+                             f"by num_beam_groups ({self.num_beam_groups})")
+        if self.diversity_penalty != 0.0 and self.num_beam_groups <= 1:
+            raise ValueError("diversity_penalty requires num_beam_groups > 1")
+        if self.num_beams == 1:
+            if self.return_scores:
+                raise NotImplementedError(
+                    "return_scores is ported for beam search only")
+            if self.num_return_sequences > 1:
+                raise ValueError("num_return_sequences > 1 requires "
+                                 "num_beams >= num_return_sequences")
 
 
 def _prefill(params: Params, config: FlamingoConfig, dc: DecodeConfig,
@@ -99,14 +131,52 @@ def _prefill(params: Params, config: FlamingoConfig, dc: DecodeConfig,
     return logits[:, -1], xattn_kv, state
 
 
+def _mega_prepare(params: Params, config: FlamingoConfig, policy: Policy,
+                  xattn_kv, mask: torch.Tensor, media_count: torch.Tensor
+                  ) -> Dict[str, torch.Tensor]:
+    """The megakernel's per-generate inputs: packed weights and xattn K/V,
+    each row's first real slot and its media count."""
+    if policy.dtype != torch.bfloat16:
+        raise ValueError("the megakernel runs the bf16 compute policy")
+    xk, xv = megadecode.pack_xattn_kv_flat(xattn_kv, config.lm_arch.n_layer)
+    return dict(packed=megadecode.pack_decode_weights(params, config), xk=xk,
+                xv=xv, npad=mask.argmax(dim=-1).to(torch.int32),
+                text_time=media_count[:, 0].to(torch.int32).contiguous())
+
+
+def _mega_hidden(params: Params, config: FlamingoConfig, policy: Policy,
+                 mega: Dict[str, torch.Tensor], kc, vc, tok: torch.Tensor,
+                 pos: torch.Tensor, cur: int, kv_limit: Optional[int],
+                 beam_anc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One megakernel decode step: embed ``tok`` (b,) at positions ``pos``
+    (b,), run every layer (K/V written at slot ``cur`` of kc/vc) ->
+    final-LN hidden (b, D)."""
+    lm = params["lm"]
+    wq = lm.get("wte_q")
+    emb = (embed_lookup(wq, tok, policy.dtype) if wq is not None
+           else lm["wte"].to(policy.dtype)[tok])
+    x = emb + lm["wpe"].to(policy.dtype)[pos]
+    hidden = megadecode.decode_step_megakernel(
+        mega["packed"], mega["xk"], mega["xv"], kc, vc, x, mega["npad"],
+        mega["text_time"], cur, config=config, kv_limit=kv_limit,
+        beam_anc=beam_anc)
+    return layer_norm(hidden, lm["ln_f"], config.lm_arch.layer_norm_epsilon)
+
+
 def generate_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
                   policy: Policy, input_ids: torch.Tensor,
                   media_locations: torch.Tensor, attention_mask: torch.Tensor,
                   visual_features: Optional[torch.Tensor] = None,
-                  pixel_values: Optional[torch.Tensor] = None,
-                  ) -> torch.Tensor:
+                  pixel_values: Optional[torch.Tensor] = None):
     """Greedy decode -> tokens (b, max_length) int64: prompt, generated
-    tokens, pad after EOS."""
+    tokens, pad after EOS. ``dc.num_beams > 1``: ``beam_search.beam_generate``
+    (its returns), on the batch as given."""
+    if dc.num_beams > 1:
+        from .beam_search import beam_generate   # beam_search imports _prefill
+        return beam_generate(params, config, dc, policy, input_ids,
+                             media_locations, attention_mask,
+                             visual_features=visual_features,
+                             pixel_values=pixel_values)
     b, L = input_ids.shape
     if pixel_values is not None:
         visual_features = flamingo.encode_resample_visuals(
@@ -118,13 +188,8 @@ def generate_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
                                            st["media_count"])
     lm = params["lm"]
     if dc.megakernel:
-        if policy.dtype != torch.bfloat16:
-            raise ValueError("the megakernel runs the bf16 compute policy")
-        packed = megadecode.pack_decode_weights(params, config)
-        xk, xv = megadecode.pack_xattn_kv_flat(xattn_kv, config.lm_arch.n_layer)
-        npad0 = st["mask"].argmax(dim=-1).to(torch.int32)
-        text_time = st["media_count"][:, 0].to(torch.int32).contiguous()
-        eps = config.lm_arch.layer_norm_epsilon
+        mega = _mega_prepare(params, config, policy, xattn_kv, st["mask"],
+                             st["media_count"])
 
     # fused int8 head + argmax: plain greedy under the bf16 policy with an
     # int8 tied embedding (the kernel takes a bf16 hidden row)
@@ -154,13 +219,9 @@ def generate_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
         kv_limit = min(seg_end, dc.max_length) if dc.prefix_block > 0 else None
         while cur < seg_end and not bool(finished.all()):
             if dc.megakernel:
-                emb = (embed_lookup(wq, tok, policy.dtype) if wq is not None
-                       else lm["wte"].to(policy.dtype)[tok])
-                x = emb + lm["wpe"].to(policy.dtype)[st["pos_next"][:, 0]]
-                hidden = megadecode.decode_step_megakernel(
-                    packed, xk, xv, st["kc"], st["vc"], x, npad0,
-                    text_time, cur, config=config, kv_limit=kv_limit)
-                hid = layer_norm(hidden, lm["ln_f"], eps)[:, None]
+                hid = _mega_hidden(params, config, policy, mega, st["kc"],
+                                   st["vc"], tok, st["pos_next"][:, 0], cur,
+                                   kv_limit)[:, None]
                 logits = None if head is not None else gpt2.lm_head(
                     lm, hid, n_valid=config.lm_arch.vocab_size + 1)
             else:

@@ -1,7 +1,7 @@
-"""FlamingoModel: the public entry point, cut to greedy generation.
+"""FlamingoModel: the public entry point, cut to greedy and beam generation.
 
 Port of ``flamingo_mini_tpu/modeling_flamingo.py::FlamingoModel`` for greedy
-decoding, per layer or through the whole-step megakernel. Holds (config,
+and beam decoding, per layer or through the whole-step megakernel. Holds (config,
 params, policy, device); params are a nested dict of tensors in the JAX
 package's layout, made by ``models.flamingo.init_flamingo`` from a seed or
 bridged from JAX by ``utils.params_bridge.from_jax_numpy``. The model runs
@@ -54,13 +54,21 @@ class FlamingoModel:
                  eos_token_id: Optional[int] = None,
                  pad_token_id: Optional[int] = None, prefix_block: int = 0,
                  fused_head: bool = True, megakernel: bool = False,
-                 **unsupported) -> torch.Tensor:
-        """Greedy token ids (b, max_length): prompt, generated tokens, pads
-        after EOS. ``megakernel`` runs each decode step's trunk as one
-        ``decode_step_megakernel`` launch (int8 weights, bf16 policy, GPT-2
-        trunk). Other JAX ``generate`` options (sampling, beams, scores,
-        w8a8, int8 KV, meshes, ...) are not ported yet and raise
-        ``NotImplementedError``."""
+                 num_beams: int = 1, length_penalty: float = 1.0,
+                 early_stopping: bool = True, num_return_sequences: int = 1,
+                 num_beam_groups: int = 1, diversity_penalty: float = 0.0,
+                 beam_reorder: str = "lazy", return_scores: bool = False,
+                 **unsupported):
+        """Token ids (b, max_length): prompt, generated tokens, pads after
+        EOS. Greedy, or beam search with ``num_beams > 1`` (HF semantics,
+        ``beam_search.py``): then ``(b * n, max_length)`` with
+        ``num_return_sequences=n``, and ``(tokens, sequences_scores)`` with
+        ``return_scores``. ``megakernel`` runs each decode step's trunk as
+        one ``decode_step_megakernel`` launch (int8 weights, bf16 policy,
+        GPT-2 trunk); diverse beams (``num_beam_groups > 1``) run per layer.
+        Other JAX ``generate`` options (sampling, logits processors, the
+        gather beam reorder, greedy scores, w8a8, int8 KV, meshes, ...) are
+        not ported yet and raise ``NotImplementedError``."""
         if unsupported:
             raise NotImplementedError(
                 f"generate options not ported yet: {sorted(unsupported)}")
@@ -87,7 +95,13 @@ class FlamingoModel:
                           eos_token_id=eos,
                           pad_token_id=eos if pad_token_id is None else pad_token_id,
                           prefix_block=prefix_block, fused_head=fused_head,
-                          megakernel=megakernel)
+                          megakernel=megakernel, num_beams=num_beams,
+                          length_penalty=length_penalty,
+                          early_stopping=early_stopping,
+                          num_return_sequences=num_return_sequences,
+                          num_beam_groups=num_beam_groups,
+                          diversity_penalty=diversity_penalty,
+                          beam_reorder=beam_reorder, return_scores=return_scores)
         return generate_impl(self.params, self.config, dc, self.policy, ids,
                              media, mask, visual_features=visual_features,
                              pixel_values=pixel_values)

@@ -113,15 +113,17 @@ def apply_lm(params: Params, config: FlamingoConfig, input_ids: torch.Tensor,
              *, policy: Policy, layer_hook, attention_mask: Optional[torch.Tensor],
              position_ids: Optional[torch.Tensor] = None, cache=None,
              cache_index: Optional[int] = None, kv_limit: Optional[int] = None,
-             skip_head: bool = False) -> Tuple[Optional[torch.Tensor], Any, torch.Tensor]:
+             skip_head: bool = False, beam_anc: Optional[torch.Tensor] = None
+             ) -> Tuple[Optional[torch.Tensor], Any, torch.Tensor]:
     """Trunk + tied head -> (logits or None with ``skip_head``, cache,
-    final-LN hidden)."""
+    final-LN hidden). ``beam_anc``: the lazy-beam ancestry table of a
+    decode step (``gpt2.apply_gpt2``)."""
     arch = _gpt2_arch(config)
     hidden, cache = gpt2.apply_gpt2(
         params["lm"], input_ids, arch=arch, policy=policy,
         position_ids=position_ids, attention_mask=attention_mask,
         layer_hook=layer_hook, cache=cache, cache_index=cache_index,
-        kv_limit=kv_limit)
+        kv_limit=kv_limit, beam_anc=beam_anc)
     logits = None if skip_head else gpt2.lm_head(
         params["lm"], hidden, n_valid=arch.vocab_size + 1)
     return logits, cache, hidden

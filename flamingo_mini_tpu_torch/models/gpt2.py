@@ -1,6 +1,7 @@
 """GPT-2 decoder trunk with the T-major flat KV cache.
 
-Port of ``flamingo_mini_tpu/models/gpt2.py`` for the greedy decode path.
+Port of ``flamingo_mini_tpu/models/gpt2.py`` for the greedy and lazy-beam
+decode paths.
 Gated cross-attention enters through ``layer_hook`` before every block.
 Attention follows HF GPT-2 eager numerics: QK product, divide by
 sqrt(d_head), causal fill with finfo.min, additive padding bias, softmax.
@@ -22,7 +23,7 @@ import torch
 
 from ..configuration_flamingo import GPT2Arch
 from ..ops.attention import attend, merge_heads, split_heads
-from ..ops.decode_attention import decode_attention
+from ..ops.decode_attention import decode_attention, decode_attention_beam
 from ..ops.layers import (Policy, dot, get_activation, init_layer_norm,
                           init_linear, layer_norm, linear, normal)
 from ..ops.quant import embed_lookup
@@ -74,7 +75,8 @@ def _self_attention(bp: Params, x: torch.Tensor, *, n_head: int,
                     layer_cache: Optional[Dict[str, torch.Tensor]],
                     cache_index: Optional[int], eps: float,
                     kv_limit: Optional[int],
-                    npad: Optional[torch.Tensor]) -> torch.Tensor:
+                    npad: Optional[torch.Tensor],
+                    beam_anc: Optional[torch.Tensor] = None) -> torch.Tensor:
     h = layer_norm(x, bp["ln_1"], eps)
     qkv = linear(h, bp["c_attn"])
     d_model = qkv.shape[-1] // 3
@@ -85,10 +87,16 @@ def _self_attention(bp: Params, x: torch.Tensor, *, n_head: int,
         layer_cache["kf"][cache_index:cache_index + n] = k.transpose(0, 1)
         layer_cache["vf"][cache_index:cache_index + n] = v.transpose(0, 1)
         if n == 1:
-            out2d = decode_attention(
-                q[:, 0].contiguous(), layer_cache["kf"], layer_cache["vf"],
-                npad, cache_index, n_head=n_head, scale=scale,
-                kv_limit=kv_limit)
+            if beam_anc is None:
+                out2d = decode_attention(
+                    q[:, 0].contiguous(), layer_cache["kf"], layer_cache["vf"],
+                    npad, cache_index, n_head=n_head, scale=scale,
+                    kv_limit=kv_limit)
+            else:
+                out2d = decode_attention_beam(
+                    q[:, 0].contiguous(), layer_cache["kf"], layer_cache["vf"],
+                    beam_anc, npad, cache_index, n_head=n_head, scale=scale,
+                    kb=beam_anc.shape[1], kv_limit=kv_limit)
             return linear(out2d[:, None, :], bp["c_proj"])
     # prefill (cache_index == 0) or uncached: attend over the fresh K/V
     out = attend(split_heads(q, n_head), split_heads(k, n_head),
@@ -109,6 +117,7 @@ def apply_gpt2(
     cache: Optional[Cache] = None,
     cache_index: Optional[int] = None,             # write offset
     kv_limit: Optional[int] = None,                # attend only cache[:kv_limit]
+    beam_anc: Optional[torch.Tensor] = None,       # (b // kb, kb, max_len) int32
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Run the trunk -> (final-LN hidden (b, n, d), cache).
 
@@ -116,7 +125,10 @@ def apply_gpt2(
     start at slot 0 and attends over itself; a single token (n == 1) attends
     over the cache slots ``npad <= t <= cache_index`` through
     ``decode_attention``, npad being each row's first real slot
-    (left-padded prompts).
+    (left-padded prompts); with ``beam_anc`` (lazy beam search: rows in
+    families of kb whose cache rows never move) through
+    ``decode_attention_beam``, which reads each slot from the row the
+    ancestry table names.
     """
     b, n = input_ids.shape
     if position_ids is None:
@@ -150,7 +162,8 @@ def apply_gpt2(
         x = x + _self_attention(
             bp, x, n_head=arch.n_head, causal_mask=causal, pad_bias=pad_bias,
             layer_cache=None if cache is None else cache[i],
-            cache_index=cache_index, eps=eps, kv_limit=kv_limit, npad=npad)
+            cache_index=cache_index, eps=eps, kv_limit=kv_limit, npad=npad,
+            beam_anc=beam_anc)
         h = layer_norm(x, bp["ln_2"], eps)
         h = linear(act(linear(h, bp["mlp_fc"])), bp["mlp_proj"])
         x = x + h

@@ -30,6 +30,10 @@ SIGNATURES = {
     # q, k, v, npad, out, b, D, n_head, t_lim, cur, scale, is_bf16, stream
     "fmt_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                              _P],
+    # q, k, v, npad, anc, out, b, D, n_head, t_lim, cur, scale, kb, anc_len,
+    # is_bf16, stream
+    "fmt_decode_attention_beam": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _F, _I, _I, _I, _P],
     # w8, scale, x, part_max, part_idx, out, Vp, D, B, n_valid, stream
     "fmt_lm_head_argmax": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fmt_lm_head_rows_per_block": [],

@@ -1,11 +1,11 @@
 """Whole-decode-step megakernel: every gated-xattn and GPT-2 layer in one
 launch per token.
 
-Port of ``flamingo_mini_tpu/ops/pallas_megadecode.py`` in its greedy
-weight-only mode (``decode_step_megakernel`` with ``kb=1``,
-``act_quant=False``). The CUDA kernel is ``csrc/decode_megakernel.cu``; its
-source note says what bounds it on the card and how the design answers
-that.
+Port of ``flamingo_mini_tpu/ops/pallas_megadecode.py`` in its weight-only
+modes (``act_quant=False``): greedy (``beam_anc=None``) and lazy beam
+(``beam_anc`` of shape ``(b, kb, anc_len)``). The CUDA kernel is
+``csrc/decode_megakernel.cu``; its source note says what bounds it on the
+card and how the design answers that.
 
 ``decode_step_megakernel`` launches the kernel for CUDA tensors and runs
 ``decode_step_megakernel_plain`` for CPU tensors; nothing else picks the
@@ -24,8 +24,10 @@ kernel body):
   ``bf16(tanh(alpha))``; the gated FFW's activation is ``config.xattn_act``,
   ``"gelu"`` through the rational erf ``gelu_erf_rational``;
 * self-attention: ``dh**-0.5`` after the dot, valid iff
-  ``npad <= t <= cur`` over ``[0, kv_limit)``, as ``decode_attention``; the
-  step's K/V rows are written at ``cur`` in place first.
+  ``npad <= t <= cur`` over ``[0, kv_limit)``, as ``decode_attention``, or
+  in beam mode as ``decode_attention_beam`` (row ``r`` reads position ``t``
+  of the family row ``beam_anc[r // kb, r % kb, t]``); the step's K/V rows
+  are written at ``cur`` in place first.
 
 Packing (``pack_decode_weights``, once per ``generate``): the TPU's D x D
 chunks and its ``small`` row do not carry over. Each int8 projection is
@@ -45,13 +47,14 @@ import torch
 
 from ..configuration_flamingo import GPT2Arch
 from . import cuda_build
-from .decode_attention import decode_attention_plain
+from .decode_attention import decode_attention_beam_plain, decode_attention_plain
 from .layers import const, gelu_tanh, layer_norm
 
 Params = Dict[str, Any]
 NEG = float(torch.finfo(torch.float32).min)
 HEAD_DIM = 64       # the CUDA kernel's attention head dim (self and cross)
 K_CHUNK = 64        # the CUDA kernel's K step: every d_in is a multiple
+INDEX_LIMIT = 2 ** 31 - 1   # the CUDA kernel's element offsets are 32-bit ints
 # activation name -> the kernel's code; "gelu" is the rational-erf GELU
 ACT_CODES = {"gelu_new": 0, "gelu": 1, "gelu_erf": 1}
 
@@ -205,7 +208,9 @@ def _cross_attention(q, k, v, text_time, *, n_visual: int, heads: int):
 
 def decode_step_megakernel_plain(packed: Params, xk, xv, kc, vc, x_emb, npad,
                                  text_time, cur: int, *, config,
-                                 kv_limit: Optional[int] = None) -> torch.Tensor:
+                                 kv_limit: Optional[int] = None,
+                                 beam_anc: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
     """Plain PyTorch version: the kernel's oracle, arguments as the kernel's."""
     arch = config.lm_arch
     D, _Dff, L, H = trunk_dims(arch)
@@ -232,8 +237,13 @@ def decode_step_megakernel_plain(packed: Params, xk, xv, kc, vc, x_emb, npad,
         q, k, v = _lin(h, P["w_qkv"][l], P["s_qkv"][l], P["b_qkv"][l]).split(D, dim=-1)
         kc[l, cur] = k
         vc[l, cur] = v
-        att = decode_attention_plain(q, kc[l], vc[l], npad, cur, n_head=H,
-                                     scale=(D // H) ** -0.5, kv_limit=t_lim)
+        if beam_anc is None:
+            att = decode_attention_plain(q, kc[l], vc[l], npad, cur, n_head=H,
+                                         scale=(D // H) ** -0.5, kv_limit=t_lim)
+        else:
+            att = decode_attention_beam_plain(
+                q, kc[l], vc[l], beam_anc, npad, cur, n_head=H,
+                scale=(D // H) ** -0.5, kb=beam_anc.shape[1], kv_limit=t_lim)
         x = x + _lin(att, P["w_o"][l], P["s_o"][l], P["b_o"][l])
         h = layer_norm(x, {"scale": P["ln2_s"][l], "bias": P["ln2_b"][l]})
         h = act(_lin(h, P["w_fc"][l], P["s_fc"][l], P["b_fc"][l]))
@@ -250,9 +260,10 @@ _POINTERS = ("w_qkv", "s_qkv", "b_qkv", "w_o", "s_o", "b_o", "w_fc", "s_fc",
              "w_xq", "s_xq", "w_xo", "s_xo", "w_xf1", "s_xf1", "w_xf2", "s_xf2",
              "xn_s", "xn_b", "xfn_s", "xfn_b", "gates", "hasx")
 _CALL_POINTERS = ("xk", "xv", "kc", "vc", "x_emb", "npad", "text_time", "x",
-                  "scratch")
+                  "scratch", "anc")
 _INTS = ("b", "D", "Dff", "Dffx", "XI", "n_layer", "n_head", "x_heads",
-         "n_visual", "NMNV", "T", "cur", "t_lim", "act", "xact")
+         "n_visual", "NMNV", "T", "cur", "t_lim", "act", "xact", "kb",
+         "anc_len")
 
 
 class _Args(ctypes.Structure):
@@ -280,14 +291,38 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
                          f"{tuple(t.shape)} on {t.device}")
 
 
+def _check_anc(beam_anc: torch.Tensor, b: int) -> None:
+    if beam_anc.dtype != torch.int32 or beam_anc.dim() != 3 \
+            or beam_anc.shape[1] < 1 or beam_anc.shape[0] * beam_anc.shape[1] != b:
+        raise ValueError(f"decode_step_megakernel: beam_anc must be int32 "
+                         f"(families, kb, anc_len) with families * kb = {b}, "
+                         f"got {beam_anc.dtype} {tuple(beam_anc.shape)}")
+
+
+def max_rows(packed: Params, config) -> int:
+    """The most batch rows the CUDA kernel takes: its offsets into the
+    (rows, width) activation buffers are 32-bit ints (module docstring of
+    csrc/decode_megakernel.cu). Shared memory does not grow with the rows."""
+    D, Dff, _L, _H = trunk_dims(config.lm_arch)
+    XI = config.xattn_heads * config.xattn_dim_head
+    Dffx = packed["w_xf1"].shape[1]
+    return INDEX_LIMIT // max(2 * max(D, XI), Dff, Dffx)
+
+
 def kernel_args(packed: Params, xk, xv, kc, vc, x_emb, npad, text_time,
-                cur: int, *, config, kv_limit: Optional[int] = None
+                cur: int, *, config, kv_limit: Optional[int] = None,
+                beam_anc: Optional[torch.Tensor] = None
                 ) -> Tuple[_Args, torch.Tensor, torch.Tensor]:
     """Check the CUDA kernel's inputs -> (arguments, output, scratch)."""
     arch = config.lm_arch
     D, Dff, L, H = trunk_dims(arch)
     dev = x_emb.device
     b = x_emb.shape[0]
+    limit = max_rows(packed, config)
+    if b > limit:
+        raise ValueError(f"decode_step_megakernel: {b} rows exceed the "
+                         f"kernel's limit of {limit} rows (32-bit offsets "
+                         f"into the (rows, width) activation buffers)")
     T = kc.shape[1]
     NMNV, XI = xk.shape[1], xk.shape[3]
     XH = config.xattn_heads
@@ -327,19 +362,25 @@ def kernel_args(packed: Params, xk, xv, kc, vc, x_emb, npad, text_time,
         shapes[name + "_s"] = shapes[name + "_b"] = (f32, (NX, D))
     for name in _POINTERS:
         _require(packed[name], name, *shapes[name], dev)
+    kb, anc_len = 1, 0
+    if beam_anc is not None:
+        _check_anc(beam_anc, b)
+        kb, anc_len = beam_anc.shape[1], beam_anc.shape[2]
+        _require(beam_anc, "beam_anc", i32, beam_anc.shape, dev)
 
     out = torch.empty((b, D), dtype=bf16, device=dev)
     scratch = torch.empty(b * (2 * max(D, XI) + max(Dff, Dffx)), dtype=bf16,
                           device=dev)
     tensors = dict(xk=xk, xv=xv, kc=kc, vc=vc, x_emb=x_emb, npad=npad,
-                   text_time=text_time, x=out, scratch=scratch)
+                   text_time=text_time, x=out, scratch=scratch, anc=beam_anc)
     args = _Args(
         **{n: packed[n].data_ptr() for n in _POINTERS},
-        **{n: t.data_ptr() for n, t in tensors.items()},
+        **{n: None if t is None else t.data_ptr() for n, t in tensors.items()},
         b=b, D=D, Dff=Dff, Dffx=Dffx, XI=XI, n_layer=L, n_head=H, x_heads=XH,
         n_visual=config.resampler_num_latents, NMNV=NMNV, T=T, cur=cur,
         t_lim=t_lim, act=ACT_CODES[arch.activation],
-        xact=ACT_CODES[config.xattn_act], attn_scale=(D // H) ** -0.5,
+        xact=ACT_CODES[config.xattn_act], kb=kb, anc_len=anc_len,
+        attn_scale=(D // H) ** -0.5,
         xq_scale=const(config.xattn_dim_head ** -0.5, torch.bfloat16))
     return args, out, scratch
 
@@ -358,27 +399,33 @@ def decode_step_megakernel(packed: Params, xk: torch.Tensor, xv: torch.Tensor,
                            kc: torch.Tensor, vc: torch.Tensor,
                            x_emb: torch.Tensor, npad: torch.Tensor,
                            text_time: torch.Tensor, cur: int, *, config,
-                           kv_limit: Optional[int] = None) -> torch.Tensor:
-    """One greedy decode step through every layer -> hidden (b, D) bf16,
-    before ``ln_f``. Writes each layer's K/V row at ``cur`` into the stacked
-    caches in place.
+                           kv_limit: Optional[int] = None,
+                           beam_anc: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """One decode step through every layer -> hidden (b, D) bf16, before
+    ``ln_f``. Writes each layer's K/V row at ``cur`` into the stacked caches
+    in place.
 
     packed: ``pack_decode_weights``; xk/xv: (n_layer, NMNV, b, XI) bf16
     (``pack_xattn_kv_flat``); kc/vc: (n_layer, T, b, D) bf16; x_emb: (b, D)
     bf16 token + position embeddings; npad: (b,) int32 first real slot;
     text_time: (b,) int32 media count; only the cache prefix
-    ``[0, min(kv_limit, T))`` is read.
+    ``[0, min(kv_limit, T))`` is read. beam_anc: None (greedy) or the
+    lazy-beam ancestry table (b // kb, kb, anc_len) int32; rows come in
+    families of kb that never move (``decode_attention_beam``).
     """
     cur = int(cur)
+    if beam_anc is not None:
+        _check_anc(beam_anc, x_emb.shape[0])
     if x_emb.device.type == "cpu":
         return decode_step_megakernel_plain(packed, xk, xv, kc, vc, x_emb, npad,
                                             text_time, cur, config=config,
-                                            kv_limit=kv_limit)
+                                            kv_limit=kv_limit, beam_anc=beam_anc)
     if x_emb.device.type != "cuda":
         raise ValueError(f"decode_step_megakernel: unsupported device {x_emb.device}")
     args, out, _scratch = kernel_args(packed, xk, xv, kc, vc, x_emb, npad,
                                       text_time, cur, config=config,
-                                      kv_limit=kv_limit)
+                                      kv_limit=kv_limit, beam_anc=beam_anc)
     lib = _checked_lib()
     decode_step_megakernel.launches += 1
     err = lib.fmt_decode_megakernel(

@@ -10,13 +10,15 @@ chip_smoke.py's seeds):
 1. ``decode_step_megakernel`` alone, median of 30 calls with L2 flushed, over
    a sweep that isolates its parts: batch 1 vs 32 (the activation and
    attention work), kv_limit 36 vs 132 (the self-attention read), 12 vs 24
-   layers (the per-layer cost), xattn every layer vs every other layer;
-   each beside its bound at 3.35 TB/s;
-2. ``torch.profiler`` over one ``generate`` of each decode path (batch 32,
-   one image + 4-token prompt, 17 new tokens): device (kernel) time and its
-   share of the wall window, the same share for the decode loop alone (the
-   trace of a 1-token generate subtracted), kernel launches per decode
-   step, and the device time by kernel.
+   layers (the per-layer cost), xattn every layer vs every other layer,
+   and at the beam loop's last segment (kv_limit 68) 32 vs 96 rows and the
+   beam mode at 96 rows (32 x 3 beams) and 160 rows (32 x 5); each beside
+   its bound at 3.35 TB/s;
+2. ``torch.profiler`` over one ``generate`` of each decode path, greedy and
+   with 3 beams (batch 32, one image + 4-token prompt, 17 new tokens):
+   device (kernel) time and its share of the wall window, the same share
+   for the decode loop alone (the trace of a 1-token generate subtracted),
+   kernel launches per decode step, and the device time by kernel.
 
 Prints one line per measurement and writes them all to
 ``chiprun_out/profile_decode.json``. Needs a card; exits 1 without one.
@@ -40,32 +42,45 @@ def sweep(dev, card):
     from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     rows = []
-    # (batch, layers, xattn_every, kv_limit)
-    for b, n_layer, every, kv_limit in ((32, 24, 1, 132), (1, 24, 1, 132),
-                                        (32, 24, 1, 36), (32, 12, 1, 132),
-                                        (32, 24, 2, 132), (1, 24, 1, 36)):
+    # (rows, beams per family, layers, xattn_every, kv_limit); kb > 1 runs
+    # the beam mode over a random ancestry table; the last four share the
+    # beam loop's last segment (kv_limit 68) to split rows from ancestry
+    for b, kb, n_layer, every, kv_limit in (
+            (32, 1, 24, 1, 132), (1, 1, 24, 1, 132), (32, 1, 24, 1, 36),
+            (32, 1, 12, 1, 132), (32, 1, 24, 2, 132), (1, 1, 24, 1, 36),
+            (32, 1, 24, 1, 68), (96, 1, 24, 1, 68), (96, 3, 24, 1, 68),
+            (160, 5, 24, 1, 68)):
         cfg, packed = cs.random_trunk(dev, n_layer=n_layer, xattn_every=every,
                                       seed=24)
-        xk, xv, kc, vc, x, npad, tt = cs.mega_inputs(dev, cfg, b, seed=99)
+        anc = None
+        if kb > 1:
+            inputs, anc = cs.beam_trunk_inputs(dev, cfg, b, kb, seed=99)
+        else:
+            inputs = cs.mega_inputs(dev, cfg, b, seed=99)
+        xk, xv, kc, vc, x, npad, tt = inputs
         npad.zero_()
         tt.fill_(1)
         cur = kv_limit - 1
         ms = cs.time_ms(lambda: decode_step_megakernel(
             packed, xk, xv, kc, vc, x, npad, tt, cur, config=cfg,
-            kv_limit=kv_limit), 30, flush)
+            kv_limit=kv_limit, beam_anc=anc), 30, flush)
         weights = sum(t.numel() * t.element_size() for t in packed.values()
                       if isinstance(t, torch.Tensor))
         n_x = len(packed["xlayers"])
+        # self K/V slots read: every row's own, or each distinct ancestor's
+        slots = b * (kv_limit + 1) if anc is None else \
+            cs.ancestor_reads(anc, npad, cur, kb)[0] + b
         n_bytes = (weights + n_x * 2 * b * cs.MEGA_NV * cs.MEGA_XI * 2
-                   + n_layer * 2 * b * (kv_limit + 1) * cs.MEGA_D * 2)
+                   + n_layer * 2 * slots * cs.MEGA_D * 2)
         bound_ms, _ = cs.bound(n_bytes, 0)
-        row = dict(b=b, n_layer=n_layer, xattn_every=every, kv_limit=kv_limit,
-                   ms=ms, bound_ms=bound_ms, ms_per_layer=ms / n_layer)
-        print(f"[sweep] {card}: megakernel b={b} layers={n_layer} "
+        row = dict(b=b, kb=kb, n_layer=n_layer, xattn_every=every,
+                   kv_limit=kv_limit, ms=ms, bound_ms=bound_ms,
+                   ms_per_layer=ms / n_layer)
+        print(f"[sweep] {card}: megakernel b={b} kb={kb} layers={n_layer} "
               f"xattn_every={every} kv_limit={kv_limit}: {ms} ms per call "
               f"({ms / n_layer * 1e3:.1f} us per layer), bound {bound_ms:.4f} ms")
         rows.append(row)
-        del packed, xk, xv, kc, vc
+        del packed, inputs, xk, xv, kc, vc
         torch.cuda.empty_cache()
     return rows
 
@@ -92,18 +107,19 @@ def profile_paths(dev, card):
     pixels = torch.randn((b, 1, 3, size, size), generator=gen,
                          device=dev).to(torch.bfloat16)
 
-    def run(megakernel, new_tokens):
+    def run(megakernel, beams, new_tokens):
         return model.generate(ids, media_locations=media, pixel_values=pixels,
                               max_length=L + new_tokens, max_new_tokens=new_tokens,
                               prefix_block=cs.PREFIX_BLOCK,
                               eos_token_id=config.lm_arch.vocab_size + 1,
-                              pad_token_id=0, megakernel=megakernel)
+                              pad_token_id=0, megakernel=megakernel,
+                              num_beams=beams)
 
-    def traced(megakernel, new_tokens):
+    def traced(megakernel, beams, new_tokens):
         """(wall ms, device ms, launches, kernel events) of one generate."""
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            run(megakernel, new_tokens)
+            run(megakernel, beams, new_tokens)
             torch.cuda.synchronize()
             window_ms = (time.perf_counter() - t0) * 1e3
         events = prof.key_averages()
@@ -114,17 +130,20 @@ def profile_paths(dev, card):
 
     rows = []
     steps = PROFILE_NEW_TOKENS - 1
-    for megakernel, label in ((False, "per-layer"), (True, "megakernel")):
-        run(megakernel, PROFILE_NEW_TOKENS)           # warm-up
+    for megakernel, beams, label in ((False, 1, "per-layer"), (True, 1, "megakernel"),
+                                     (False, cs.BEAMS, "beam per-layer"),
+                                     (True, cs.BEAMS, "beam megakernel")):
+        run(megakernel, beams, PROFILE_NEW_TOKENS)           # warm-up
         torch.cuda.synchronize()
-        window_ms, device_ms, launches, kernels = traced(megakernel,
+        window_ms, device_ms, launches, kernels = traced(megakernel, beams,
                                                          PROFILE_NEW_TOKENS)
         # the same generate with 1 new token: vision, resampler, prefill and
         # the first token, to take out of the decode loop's share
-        window_1, device_1, launches_1, _ = traced(megakernel, 1)
+        window_1, device_1, launches_1, _ = traced(megakernel, beams, 1)
         by_kernel = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                             for e in kernels), key=lambda r: -r[1])[:10]
-        row = dict(path=label, new_tokens=PROFILE_NEW_TOKENS, window_ms=window_ms,
+        row = dict(path=label, num_beams=beams, new_tokens=PROFILE_NEW_TOKENS,
+                   window_ms=window_ms,
                    device_ms=device_ms, busy=device_ms / window_ms,
                    decode_busy=(device_ms - device_1) / (window_ms - window_1),
                    launches=launches,

@@ -16,18 +16,22 @@ chunks resolving to the first index; the whole-step megakernel's hidden row
 and written K/V rows, 2 layers at a small width (D=256) and at
 flamingo-mini's (D=1024, XI=512), 2 bf16 ulps of the output scale (float32
 sums in another order round a few bf16 intermediates the other way). The
-random trunks and inputs are chip_smoke.py's.
+beam kernels (``decode_attention_beam``, the megakernel's beam mode) are
+held to the same tolerances at the beam path's shapes (96 rows in families
+of 3, 160 in families of 5, a 128-slot cache, a 68-slot ancestry table).
+The random trunks and inputs are chip_smoke.py's.
 """
 import numpy as np
 import pytest
 import torch
 
 from flamingo_mini_tpu_torch.ops.decode_attention import (
-    decode_attention, decode_attention_plain)
+    decode_attention, decode_attention_beam, decode_attention_beam_plain,
+    decode_attention_plain)
 from flamingo_mini_tpu_torch.ops.lm_head import (lm_head_argmax,
                                                  lm_head_argmax_plain,
                                                  pad_head_weights)
-from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel
+from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel, max_rows
 
 pytestmark = pytest.mark.gpu
 
@@ -158,3 +162,105 @@ def test_megakernel_refuses_bad_input(cuda):
     narrow = type(cfg)(**{**cfg.__dict__, "xattn_heads": 4, "xattn_dim_head": 32})
     with pytest.raises(ValueError):          # xattn head dim 32: not the kernel's 64
         call(config=narrow)
+
+
+# ---------------------------------------------------------------------------
+# beams
+# ---------------------------------------------------------------------------
+
+
+def _beam_attention_inputs(cuda, dtype, seed):
+    """96 rows in 32 families of 3, D=1024, H=16, a 128-slot cache, a random
+    valid 68-slot ancestry table, families left-padded by 0-3 slots."""
+    import chip_smoke
+    B, T, D = 96, 128, 1024
+    rs = np.random.RandomState(seed)
+    q, k, v = (torch.tensor(rs.randn(*s) * 0.3, dtype=torch.float32)
+               .to(cuda, dtype) for s in ((B, D), (T, B, D), (T, B, D)))
+    return (q, k, v, chip_smoke.random_ancestry(cuda, 32, 3, seed),
+            chip_smoke.family_npad(cuda, 32, 3))
+
+
+# (kv_limit, cur): the beam loop's segments end at 37 and 68; cur 2 leaves
+# the families padded by 3 nothing to attend; cur 127 is past the table
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_limit,cur", [(37, 4), (68, 66), (37, 2), (128, 127)])
+def test_decode_attention_beam_kernel_matches_plain(cuda, dtype, kv_limit, cur):
+    q, k, v, anc, npad = _beam_attention_inputs(cuda, dtype, seed=cur)
+    kw = dict(n_head=16, scale=0.125, kb=3, kv_limit=kv_limit)
+    before = decode_attention_beam.launches
+    got = decode_attention_beam(q, k, v, anc, npad, cur, **kw)
+    want = decode_attention_beam_plain(q, k, v, anc, npad, cur, **kw)
+    torch.cuda.synchronize()
+    assert decode_attention_beam.launches == before + 1
+    want = want.float().cpu().numpy()
+    tol = 1e-5 if dtype == torch.float32 else _bf16_ulps(want, 2)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want, atol=tol, rtol=0)
+
+
+def test_decode_attention_beam_reads_only_ancestors(cuda):
+    """Cache entries that no beam's ancestry names in [npad, cur], and
+    slots past cur, hold NaN: the kernel never reads them."""
+    q, k, v, anc, npad = _beam_attention_inputs(cuda, torch.bfloat16, seed=9)
+    cur = 50
+    kw = dict(n_head=16, scale=0.125, kb=3, kv_limit=68)
+    ref = decode_attention_beam(q, k, v, anc, npad, cur, **kw)
+    t = torch.arange(128, device=cuda)
+    a = torch.nn.functional.pad(anc, (0, 60))                  # (32, 3, 128)
+    named = torch.zeros((32, 3, 128), dtype=torch.bool, device=cuda)
+    ok = (t <= cur) & (t >= npad.view(32, 3)[:, :1, None])     # (32, 1, 128)
+    for j in range(3):
+        named[:, j] = ((a == j) & ok).any(dim=1)
+    dead = ~named.reshape(96, 128).t()                          # (T, rows)
+    for c in (k, v):
+        c[dead] = float("nan")
+    got = decode_attention_beam(q, k, v, anc, npad, cur, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("rows,kb", [(3, 3), (96, 3), (160, 5)])
+def test_megakernel_beam_matches_plain(cuda, rows, kb):
+    """Flamingo-mini width, 2 layers with xattn, beam mode: hidden row and
+    written K/V rows within 2 bf16 ulps, at rows up to 160 (32 x 5 beams)."""
+    import chip_smoke
+    cfg, packed = chip_smoke.random_trunk(cuda, n_layer=2, xattn_every=1, seed=rows)
+    inputs, anc = chip_smoke.beam_trunk_inputs(cuda, cfg, rows, kb, seed=rows)
+    for cur, kv_limit in ((35, 37), (66, 68)):
+        before = decode_step_megakernel.launches
+        errs = chip_smoke.mega_errors(cfg, packed, inputs, cur, kv_limit, beam_anc=anc)
+        assert decode_step_megakernel.launches == before + 1
+        for name, (got, want) in errs.items():
+            assert bool(torch.isfinite(got).all()), name
+            err = float((got - want).abs().max())
+            assert err <= 2 * 2.0 ** (np.floor(np.log2(float(want.abs().max()))) - 7), \
+                (name, cur, err)
+
+
+def test_beam_kernels_refuse_bad_ancestry(cuda):
+    import chip_smoke
+    q, k, v, anc, npad = _beam_attention_inputs(cuda, torch.bfloat16, seed=1)
+    kw = dict(n_head=16, scale=0.125, kb=3)
+    cfg, packed = _mega(cuda, "small", n_layer=1, xattn_every=1, b=6, seed=0)[:2]
+    inputs, manc = chip_smoke.beam_trunk_inputs(cuda, cfg, 6, 3, seed=0)
+    for bad in (anc.long(), anc[:16], anc.reshape(48, 2, -1)):
+        with pytest.raises(ValueError):
+            decode_attention_beam(q, k, v, bad, npad, 5, **kw)
+    for bad in (manc.long(), manc[:1], manc.reshape(2, 3, 2, -1), manc.cpu(),
+                manc.transpose(0, 1)):
+        with pytest.raises(ValueError):
+            decode_step_megakernel(packed, *inputs, 5, config=cfg, beam_anc=bad)
+
+
+def test_megakernel_refuses_rows_past_its_limit(cuda):
+    """Past its row limit the megakernel raises, naming the limit; it never
+    takes another path."""
+    cfg, packed, inputs = _mega(cuda, "small", n_layer=1, xattn_every=1, b=2, seed=0)
+    limit = max_rows(packed, cfg)
+    x = torch.zeros((limit + 1, 256), dtype=torch.bfloat16, device=cuda)
+    before = decode_step_megakernel.launches
+    with pytest.raises(ValueError, match=str(limit)):
+        decode_step_megakernel(packed, inputs[0], inputs[1], inputs[2], inputs[3],
+                               x, inputs[5], inputs[6], 5, config=cfg)
+    assert decode_step_megakernel.launches == before

@@ -277,7 +277,8 @@ def test_greedy_slice_bf16_int8_fused_head(bf16):
 def test_generate_rejects_unported_options(f32):
     jc, pc, params, tp, jpol, ppol = f32
     model = port.FlamingoModel(pc, params=tp, device="cpu")
-    for knob in (dict(do_sample=True), dict(num_beams=3),
+    for knob in (dict(do_sample=True), dict(num_beams=3, do_sample=True),
+                 dict(num_beams=3, beam_reorder="gather"),
                  dict(return_scores=True),
                  dict(w8a8=True), dict(int8_kv_cache=True)):
         with pytest.raises(NotImplementedError):
@@ -292,6 +293,7 @@ def test_import_without_jax():
             "sys.modules['flamingo_mini_tpu'] = None; "
             "import flamingo_mini_tpu_torch as p; "
             "import flamingo_mini_tpu_torch.generation, "
+            "flamingo_mini_tpu_torch.beam_search, "
             "flamingo_mini_tpu_torch.ops.megadecode, "
             "flamingo_mini_tpu_torch.utils.params_bridge; "
             "assert 'jax' not in {m.split('.')[0] for m in sys.modules "
