@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives ``flamingo_mini_tpu_torch`` through both of its decode paths, greedy
-and with beam search, and checks them:
+and with beam search, the ``use_pallas`` configuration's generate, and the
+uncached forward with its loss, and checks them:
 
 1. device and build: prints the card's name and power limit (nvidia-smi)
    and builds the hand-written kernels from ``flamingo_mini_tpu_torch/csrc``
@@ -29,7 +30,17 @@ and with beam search, and checks them:
    timed beside its plain version and its bound, ``decode_attention`` also
    beside ``scaled_dot_product_attention`` and ``decode_attention_beam``
    beside one SDPA call over each family's 3 x T keys under the ancestry as
-   a boolean mask;
+   a boolean mask. The attention kernels of ``use_pallas``:
+   ``fused_attention`` at the ViT (32, 16, 257, 64), resampler (32, 8, 64
+   queries, 321 keys) and causal GPT-2 forward (8, 16, 64, 64) shapes, the
+   last with two rows left-padded by 8 (fully masked pad queries); its
+   streaming kernel ``flash_attention`` at (2, 16, 4000, 64) (keys padded to
+   4096), causal and not, a left-padded row; ``fused_media_xattn`` at the
+   prefill (32, 8, 4 tokens, 64 keys) and forward (8, 8, 64, 64 and 128)
+   shapes with text_time 0, in range and past the media count; float32
+   within 1e-5 of the output's scale, bf16 within 2 bf16 ulps; each timed
+   beside its plain version, SDPA (for the media kernel under the media
+   mask as a boolean mask, without the zeroing) and its bound;
 3. greedy captioning end to end through ``FlamingoModel.generate`` at the
    full width of flamingo-mini (GPT-2-medium with gated xattn before every
    layer, CLIP ViT-L/14), random weights from a fixed seed, int8 trunk and
@@ -48,10 +59,23 @@ and with beam search, and checks them:
    the two runs' chosen candidates differ (the top 3 as a set; at the last
    step also the best), where the reference run's gap between its 3rd and
    4th candidate scores (at the last step: 1st and 2nd) is <= 8 bf16 ulps
-   of the score;
+   of the score. Then ``use_pallas`` (the same weights): the megakernel
+   generate with the ViT, the resampler and the xattn prefill on the
+   attention kernels, launch counts exactly ``fused_attention`` 30,
+   ``fused_media_xattn`` 24, ``decode_step_megakernel`` 127,
+   ``lm_head_argmax`` 127 and every other 0, tokens compared with the
+   plain-version run and with the use_pallas=False run (near-ties as above,
+   the prefill's pick included). Last the uncached forward with its loss
+   (bf16 weights, not quantized; batch 8 x 64, one image per row at its
+   first real token, rows 0 and 1 left-padded by 8): ``fused_attention`` 54
+   and ``fused_media_xattn`` 24 launches and nothing else; logits (all
+   rows, and the left-padded rows) and loss within max(1e-2, 1.25 x the
+   plain version's CPU-vs-card spread) of the plain-version run;
 4. timing on the card: ms per decode step (two lengths) and captions/s of
-   the four paths, peak memory, and the beam step's full head (``lm_head``
-   at 96 rows) and candidate selection.
+   the five generate paths, peak memory, the beam step's full head
+   (``lm_head`` at 96 rows) and candidate selection, encode + resample at
+   batch 32 with and without the attention kernels, and the forward's ms
+   and tokens/s.
 
 Any failure raises and exits nonzero. Without a CUDA device it exits 1 and
 prints no result. The line before the last lists the kernels as JSON; the
@@ -63,6 +87,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -80,6 +105,23 @@ ATTN_B, ATTN_D, ATTN_H, ATTN_T = 32, 1024, 16, 192
 HEAD_B, HEAD_D, HEAD_V = 32, 1024, 50258
 # the megakernel at flamingo-mini width: GPT-2-medium, xattn 8 heads of 64
 MEGA_D, MEGA_H, MEGA_XI, MEGA_XH, MEGA_NV, MEGA_T = 1024, 16, 512, 8, 64, 192
+# the attention kernels of the use_pallas path, (b, h, n_q, n_kv): the ViT's
+# 24 self-attentions and the resampler's 6 per generate (one image per row),
+# the uncached GPT-2 forward's 24 at batch 8 x 64 tokens
+HEAD_DIM = 64
+ATT_SHAPES = {"vit": (32, 16, 257, 257), "resampler": (32, 8, 64, 321),
+              "gpt2 forward": (8, 16, 64, 64)}
+GPT2_PAD = 8
+FLASH_SHAPE = (2, 16, 4000)
+# media xattn (b, n_token, n_media), 8 heads: the generate prefill (4-token
+# prompts, one image), the forward (64 tokens, one image), and two images
+MEDIA_SHAPES = {"prefill": (32, 4, 1), "forward": (8, 64, 1),
+                "two images": (8, 64, 2)}
+# flamingo-mini: GPT-2-medium with xattn before every layer, CLIP ViT-L/14
+MINI = dict(lm="gpt2-medium", clip_model_type="openai/clip-vit-large-patch14",
+            dim=1024, dim_visual=1024, compute_dtype="bfloat16")
+# the uncached forward: batch 8 x 64 tokens (bench_train.py's shape)
+FWD_B, FWD_N = 8, 64
 # NVIDIA H100 SXM data sheet: device memory rate, dense bf16 tensor cores
 HBM_BYTES_PER_S, BF16_OPS_PER_S = 3.35e12, 989e12
 
@@ -573,6 +615,176 @@ def phase2_megakernel_beam(dev, flush):
                 bound_ms=bound_ms, bound_by=bound_by, ms160=ms160)
 
 
+def attention_inputs(dev, dtype, b, h, n_q, n_kv, seed):
+    """q (b, h, n_q, 64) and k, v (b, h, n_kv, 64) as the models hand them
+    to the kernels: ``split_heads`` views of (b, n, h * 64) projections."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def proj(n):
+        x = (0.5 * torch.randn((b, n, h * HEAD_DIM), generator=gen, device=dev)).to(dtype)
+        return x.view(b, n, h, HEAD_DIM).transpose(1, 2)
+    return proj(n_q), proj(n_kv), proj(n_kv)
+
+
+def left_pad_bias(dev, dtype, b, n, pads):
+    """GPT-2's (b, n) padding bias for rows left-padded by ``pads[r]``
+    slots: 0 on real tokens, float32 min cast to ``dtype`` on pads (in bf16
+    that is -inf). A causal pad query sees only pads at or before itself:
+    a fully masked row."""
+    real = torch.arange(n, device=dev)[None, :] >= torch.tensor(pads, device=dev)[:, None]
+    return torch.where(real, 0.0, torch.finfo(torch.float32).min).to(dtype)
+
+
+def media_text_time(dev, b, n_q, n_media, seed):
+    """(b, n_q) int32 media counts: every row holds 0 (no image yet), each
+    of 1..n_media, and n_media + 1 (past the media count)."""
+    rs = np.random.RandomState(seed)
+    tt = rs.randint(0, n_media + 2, (b, n_q))
+    tt[:, :n_media + 2] = np.arange(n_media + 2)[:n_q]
+    return torch.tensor(tt, dtype=torch.int32, device=dev)
+
+
+def held_to_plain(label, got, want, dtype):
+    """Max abs error of a kernel against its plain version; float32 within
+    1e-5 of the output's scale, bf16 within 2 bf16 ulps of it."""
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    assert bool(torch.isfinite(got).all()), label
+    err = float((got - want).abs().max())
+    tol = (1e-5 * float(want.abs().max()) if dtype == torch.float32
+           else bf16_ulps(want, 2))
+    assert err <= tol, f"{label}: max err {err} > {tol}"
+    return err
+
+
+def attention_bound(b, h, n_q, n_kv, itemsize, extra_bytes=0, pairs=None):
+    """(bound ms, what bounds it): q, k, v read and the output written once;
+    two multiply-adds per (query, key, dim) pair for QK^T and PV."""
+    n_bytes = itemsize * HEAD_DIM * b * h * (2 * n_q + 2 * n_kv) + extra_bytes
+    pairs = b * h * n_q * n_kv if pairs is None else pairs
+    return bound(n_bytes, 4 * pairs * HEAD_DIM)
+
+
+def phase2_fused_attention(dev, flush):
+    from flamingo_mini_tpu_torch.ops.fused_attention import (
+        fused_attention, fused_attention_plain)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (b, h, n_q, n_kv) in ATT_SHAPES.items():
+            q, k, v = attention_inputs(dev, dtype, b, h, n_q, n_kv, seed=n_kv)
+            kw = dict(scale=HEAD_DIM ** -0.5)
+            if name == "gpt2 forward":     # causal, rows 0 and 1 left-padded by 8
+                kw.update(causal=True, row_bias=left_pad_bias(
+                    dev, dtype, b, n_q, [GPT2_PAD, GPT2_PAD] + [0] * (b - 2)))
+            got = fused_attention(q, k, v, **kw)
+            worst = max(worst, held_to_plain(f"fused_attention {name} {dtype}", got,
+                                             fused_attention_plain(q, k, v, **kw), dtype))
+    print(f"[phase 2] fused_attention vs plain at the ViT {ATT_SHAPES['vit']}, "
+          f"resampler {ATT_SHAPES['resampler']} and causal GPT-2 forward "
+          f"{ATT_SHAPES['gpt2 forward']} shapes (b, h, n_q, n_kv), the latter with "
+          f"two rows left-padded by {GPT2_PAD} (fully masked pad queries), bf16 and "
+          f"float32: max abs err {worst} (tolerance: f32 1e-5 of the output "
+          "scale, bf16 2 ulp of it)")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for name, (b, h, n_q, n_kv) in ATT_SHAPES.items():
+        q, k, v = attention_inputs(dev, torch.bfloat16, b, h, n_q, n_kv, seed=1)
+        kw, lib_kw = dict(scale=HEAD_DIM ** -0.5), dict(scale=HEAD_DIM ** -0.5)
+        extra, pairs = 0, None
+        if name == "gpt2 forward":
+            rb = left_pad_bias(dev, torch.bfloat16, b, n_q, [GPT2_PAD, GPT2_PAD] + [0] * (b - 2))
+            kw.update(causal=True, row_bias=rb)
+            causal = torch.ones(n_q, n_kv, dtype=torch.bool, device=dev).tril()
+            lib_kw["attn_mask"] = torch.where(causal, rb[:, None, None, :].float(),
+                                              float("-inf")).to(torch.bfloat16)
+            extra, pairs = 2 * b * n_kv, b * h * n_q * (n_q + 1) // 2
+        ms = time_ms(lambda: fused_attention(q, k, v, **kw), 50, flush)
+        plain_ms = time_ms(lambda: fused_attention_plain(q, k, v, **kw), 20, flush)
+        library_ms = time_ms(lambda: sdpa(q, k, v, **lib_kw), 50, flush)
+        bound_ms, bound_by = attention_bound(b, h, n_q, n_kv, 2, extra, pairs)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst)
+        print(f"[phase 2] fused_attention {name} {(b, h, n_q, n_kv)} bf16: {ms} ms, "
+              f"plain {plain_ms} ms, scaled_dot_product_attention {library_ms} ms, "
+              f"bound {bound_ms:.5f} ms ({bound_by}) (median per call, L2 flushed)")
+    return out
+
+
+def phase2_flash_attention(dev, flush):
+    from flamingo_mini_tpu_torch.ops.fused_attention import (
+        flash_attention, flash_attention_plain)
+    b, h, n = FLASH_SHAPE
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = attention_inputs(dev, dtype, b, h, n, n, seed=7)
+        for causal in (False, True):
+            # row 0 left-padded by 8: with causal, its first queries are
+            # fully masked; the 4000 keys pad to 4096 (blocks of 256)
+            kw = dict(scale=HEAD_DIM ** -0.5, causal=causal,
+                      row_bias=left_pad_bias(dev, dtype, b, n, [GPT2_PAD, 0]))
+            got = flash_attention(q, k, v, **kw)
+            worst = max(worst, held_to_plain(f"flash_attention causal={causal} {dtype}",
+                                             got, flash_attention_plain(q, k, v, **kw),
+                                             dtype))
+    print(f"[phase 2] flash_attention (streaming) vs plain at (b, h, n) = "
+          f"{FLASH_SHAPE}, keys padded to 4096, causal and not, row 0 "
+          f"left-padded by {GPT2_PAD}, bf16 and float32: max abs err {worst}")
+    q, k, v = attention_inputs(dev, torch.bfloat16, b, h, n, n, seed=8)
+    kw = dict(scale=HEAD_DIM ** -0.5)
+    ms = time_ms(lambda: flash_attention(q, k, v, **kw), 20, flush)
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, **kw), 5, flush)
+    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, **kw), 20, flush)
+    bound_ms, bound_by = attention_bound(b, h, n, n, 2)
+    print(f"[phase 2] flash_attention {FLASH_SHAPE} bf16, not causal: {ms} ms, plain "
+          f"{plain_ms} ms, scaled_dot_product_attention {library_ms} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}) (median per call, L2 flushed)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=worst)
+
+
+def phase2_media_xattn(dev, flush):
+    from flamingo_mini_tpu_torch.ops.media_xattn import (
+        fused_media_xattn, fused_media_xattn_plain)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (b, n_q, n_media) in MEDIA_SHAPES.items():
+            q, k, v = attention_inputs(dev, dtype, b, MEGA_XH, n_q,
+                                       n_media * MEGA_NV, seed=n_q)
+            tt = media_text_time(dev, b, n_q, n_media, seed=n_media)
+            kw = dict(scale=1.0, n_visual=MEGA_NV)
+            got = fused_media_xattn(q, k, v, tt, **kw)
+            want = fused_media_xattn_plain(q, k, v, tt, **kw)
+            worst = max(worst, held_to_plain(f"fused_media_xattn {name} {dtype}",
+                                             got, want, dtype))
+            assert bool((got[tt[:, None, :].expand_as(got[..., 0]) == 0] == 0).all())
+    print(f"[phase 2] fused_media_xattn vs plain at the shapes (b, n_token, n_media) "
+          f"{MEDIA_SHAPES}, "
+          f"{MEGA_XH} heads, {MEGA_NV} latents per image, text_time 0, in range and "
+          f"past the media count, bf16 and float32: max abs err {worst}; rows "
+          "with text_time 0 exactly 0")
+    b, n_q, n_media = MEDIA_SHAPES["prefill"]
+    q, k, v = attention_inputs(dev, torch.bfloat16, b, MEGA_XH, n_q, n_media * MEGA_NV, 2)
+    tt = torch.ones((b, n_q), dtype=torch.int32, device=dev)
+    kw = dict(scale=1.0, n_visual=MEGA_NV)
+    ms = time_ms(lambda: fused_media_xattn(q, k, v, tt, **kw), 50, flush)
+    plain_ms = time_ms(lambda: fused_media_xattn_plain(q, k, v, tt, **kw), 50, flush)
+    # yardstick: SDPA under the media mask as a boolean mask; it has no
+    # zeroing of rows without media (none here: every text_time is 1)
+    media_time = torch.arange(n_media * MEGA_NV, device=dev) // MEGA_NV + 1
+    mask = (tt[:, :, None] == media_time)[:, None]
+    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=1.0), 50, flush)
+    bound_ms, bound_by = attention_bound(b, MEGA_XH, n_q, n_media * MEGA_NV, 2,
+                                         extra_bytes=4 * b * n_q)
+    print(f"[phase 2] fused_media_xattn prefill {(b, MEGA_XH, n_q, n_media * MEGA_NV)} "
+          f"bf16: {ms} ms, plain {plain_ms} ms, scaled_dot_product_attention under "
+          f"the media mask (no zeroing) {library_ms} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by}) (median per call, L2 flushed)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=worst)
+
+
 @contextlib.contextmanager
 def patched(module, name, fn):
     saved = getattr(module, name)
@@ -583,23 +795,61 @@ def patched(module, name, fn):
         setattr(module, name, saved)
 
 
+def logit_gap(logits: torch.Tensor) -> torch.Tensor:
+    """(b, V) logits -> each row's top-2 gap in bf16 ulps of its top logit."""
+    top2 = logits.to(torch.bfloat16).float().topk(2).values
+    ulp = 2.0 ** (torch.floor(torch.log2(top2[:, 0].abs())) - 7)
+    return ((top2[:, 0] - top2[:, 1]) / ulp).cpu()
+
+
 def gap_recorder(gaps, pick):
     """A stand-in for ``lm_head_argmax`` that records the plain head's top-2
     logit gap (in bf16 ulps) at every step and returns ``pick``'s token."""
     def head(w8, scale, x, *, n_valid):
         logits = torch.matmul(x.float(), w8.float().t()) * scale
-        top2 = logits.to(torch.bfloat16).float()[:, :n_valid].topk(2).values
-        ulp = 2.0 ** (torch.floor(torch.log2(top2[:, 0].abs())) - 7)
-        gaps.append(((top2[:, 0] - top2[:, 1]) / ulp).cpu())
+        gaps.append(logit_gap(logits[:, :n_valid]))
         return pick(w8, scale, x, n_valid=n_valid)
     return head
 
 
+def prefill_recorder(gaps, prefill):
+    """A stand-in for ``generation._prefill`` that records the top-2 gap of
+    the logits that pick the first generated token."""
+    def run(*args, **kw):
+        out = prefill(*args, **kw)
+        gaps.append(logit_gap(out[0]))
+        return out
+    return run
+
+
+@contextlib.contextmanager
+def recorded(gaps, head):
+    """Greedy generate with ``head`` as its fused head, recording the top-2
+    gap of every pick: gaps[0] the prefill's, gaps[j] decode step j's."""
+    from flamingo_mini_tpu_torch import generation
+    with patched(generation, "_prefill", prefill_recorder(gaps, generation._prefill)), \
+            patched(generation, "lm_head_argmax", gap_recorder(gaps, head)):
+        yield
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route the attention kernels of the use_pallas path through their
+    plain versions."""
+    from flamingo_mini_tpu_torch.models import clip_vit, gpt2, resampler, xattn
+    from flamingo_mini_tpu_torch.ops.fused_attention import fused_attention_plain
+    from flamingo_mini_tpu_torch.ops.media_xattn import fused_media_xattn_plain
+    with patched(clip_vit, "fused_attention", fused_attention_plain), \
+            patched(resampler, "fused_attention", fused_attention_plain), \
+            patched(gpt2, "fused_attention", fused_attention_plain), \
+            patched(xattn, "fused_media_xattn", fused_media_xattn_plain):
+        yield
+
+
 @contextlib.contextmanager
 def plain_kernels(gaps):
-    """Route both decode paths through the kernels' plain versions,
-    recording the plain head's top-2 logit gap at every step."""
-    from flamingo_mini_tpu_torch import generation
+    """Route every path through the kernels' plain versions, recording the
+    plain picks' top-2 logit gaps (``recorded``)."""
     from flamingo_mini_tpu_torch.models import gpt2
     from flamingo_mini_tpu_torch.ops import megadecode
     from flamingo_mini_tpu_torch.ops.decode_attention import (
@@ -609,24 +859,23 @@ def plain_kernels(gaps):
             patched(gpt2, "decode_attention_beam", decode_attention_beam_plain), \
             patched(megadecode, "decode_step_megakernel",
                     megadecode.decode_step_megakernel_plain), \
-            patched(generation, "lm_head_argmax",
-                    gap_recorder(gaps, lm_head_argmax_plain)):
+            recorded(gaps, lm_head_argmax_plain), plain_attention():
         yield
 
 
 def compare_tokens(label, gen, ref_gen, ref_gaps):
     """Rows equal up to the first near-tie of the reference run (top-2 gap
-    <= 8 bf16 ulps at the step that parts) -> tokens compared."""
-    assert torch.equal(gen[:, 0], ref_gen[:, 0]), f"{label}: prefill picks differ"
+    <= 8 bf16 ulps at the pick that parts: ref_gaps[j] for generated token
+    j, the prefill's for j = 0) -> tokens compared."""
     agreed = 0
     for r in range(gen.shape[0]):
         diff = torch.nonzero(gen[r] != ref_gen[r]).flatten()
         if len(diff) == 0:
             agreed += gen.shape[1]
             continue
-        j = int(diff[0])          # generated index; decode step j - 1
+        j = int(diff[0])          # generated index: the prefill's pick or decode step j
         agreed += j
-        gap = float(ref_gaps[j - 1][r])
+        gap = float(ref_gaps[j][r])
         print(f"[phase 3] {label}: row {r} first differs at generated token "
               f"{j}, reference top-2 gap {gap:.1f} bf16 ulp")
         # the runs' logits differ by rounding (a few bf16 ulps); a wrong
@@ -692,6 +941,12 @@ def compare_beams(label, gen, cands, ref_gen, ref_cands, k: int, vocab: int):
           f"identical; candidates parted in {parted} rows")
 
 
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Normwise relative error ||got - want|| / ||want|| in float32."""
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
 def timed(fn):
     """(median ms, all ms) of 5 calls after a warm-up, CUDA events."""
     fn()
@@ -713,13 +968,15 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from flamingo_mini_tpu_torch import (FlamingoConfig, FlamingoModel, beam_search,
-                                         generation)
+    from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel, beam_search
     from flamingo_mini_tpu_torch.models import gpt2
     from flamingo_mini_tpu_torch.ops import cuda_build
     from flamingo_mini_tpu_torch.ops.decode_attention import (decode_attention,
                                                               decode_attention_beam)
+    from flamingo_mini_tpu_torch.ops.fused_attention import (flash_attention,
+                                                             fused_attention)
     from flamingo_mini_tpu_torch.ops.lm_head import lm_head_argmax
+    from flamingo_mini_tpu_torch.ops.media_xattn import fused_media_xattn
     from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel
 
     # the numerics the port states: full float32 products, float32 reductions
@@ -748,13 +1005,14 @@ def main() -> int:
     mega = phase2_megakernel(dev, flush)
     attn_beam = phase2_decode_attention_beam(dev, flush)
     mega_beam = phase2_megakernel_beam(dev, flush)
+    fa = phase2_fused_attention(dev, flush)
+    flash = phase2_flash_attention(dev, flush)
+    mx = phase2_media_xattn(dev, flush)
     del flush
     torch.cuda.empty_cache()
 
     # phase 3: the slice end to end at flamingo-mini width, both paths
-    config = FlamingoConfig(lm="gpt2-medium",
-                            clip_model_type="openai/clip-vit-large-patch14",
-                            dim=1024, dim_visual=1024, compute_dtype="bfloat16")
+    config = FlamingoConfig(**MINI)
     model = FlamingoModel(config, device=dev, seed=0)
     for blk in model.params["xattn"].values():
         # open the gates: at init they are 0 and xattn is the identity
@@ -773,25 +1031,39 @@ def main() -> int:
     steps = NEW_TOKENS - 1
     n_layer = config.lm_arch.n_layer
 
-    def run(megakernel, new_tokens=NEW_TOKENS):
-        return model.generate(ids, media_locations=media, attention_mask=mask,
+    def run(megakernel, new_tokens=NEW_TOKENS, m=model):
+        return m.generate(ids, media_locations=media, attention_mask=mask,
                               pixel_values=pixels, max_length=MAX_LENGTH,
                               max_new_tokens=new_tokens,
                               prefix_block=PREFIX_BLOCK, eos_token_id=vocab,
                               pad_token_id=0, megakernel=megakernel)
 
     kernels = (decode_attention, decode_attention_beam, lm_head_argmax,
-               decode_step_megakernel)
+               decode_step_megakernel, fused_attention, flash_attention,
+               fused_media_xattn)
 
-    def counted_run(megakernel, gaps):
-        """The path with every launch count at 0 before it -> (tokens,
-        counts); the head's top-2 gaps are recorded beside the kernel."""
+    def zero_counts():
         for fn in kernels:
             fn.launches = 0
-        with patched(generation, "lm_head_argmax", gap_recorder(gaps, lm_head_argmax)):
-            tokens = run(megakernel)
+
+    def read_counts():
         torch.cuda.synchronize()
-        counts = {fn.__name__: fn.launches for fn in kernels}
+        return {fn.__name__: fn.launches for fn in kernels}
+
+    def expect(label, counts, **nonzero):
+        """Every count 0 but those named, which must be as given."""
+        print(f"[phase 3] {label} launches: {counts} (expected {nonzero}, every "
+              "other 0)")
+        assert counts == {fn.__name__: nonzero.get(fn.__name__, 0)
+                          for fn in kernels}, (label, counts)
+
+    def counted_run(megakernel, gaps, m=model):
+        """The path with every launch count at 0 before it -> (tokens,
+        counts); each pick's top-2 gap is recorded (``recorded``)."""
+        zero_counts()
+        with recorded(gaps, lm_head_argmax):
+            tokens = run(megakernel, m=m)
+        counts = read_counts()
         assert tokens.shape == (BATCH, MAX_LENGTH), tokens.shape
         assert bool(((tokens >= 0) & (tokens < vocab)).all())
         assert torch.equal(tokens[:, :PROMPT_LEN], ids)
@@ -799,18 +1071,11 @@ def main() -> int:
 
     layer_gaps, mega_gaps = [], []
     layer_tokens, layer_counts = counted_run(False, layer_gaps)
-    print(f"[phase 3] per-layer path launches: {layer_counts} (expected "
-          f"decode_attention {n_layer} x {steps}, lm_head_argmax {steps}, "
-          "decode_step_megakernel 0)")
-    assert layer_counts == {"decode_attention": n_layer * steps,
-                            "decode_attention_beam": 0, "lm_head_argmax": steps,
-                            "decode_step_megakernel": 0}
+    expect("per-layer path", layer_counts, decode_attention=n_layer * steps,
+           lm_head_argmax=steps)
     mega_tokens, mega_counts = counted_run(True, mega_gaps)
-    print(f"[phase 3] megakernel path launches: {mega_counts} (expected "
-          f"decode_attention 0, lm_head_argmax {steps}, decode_step_megakernel "
-          f"{steps})")
-    assert mega_counts == {"decode_attention": 0, "decode_attention_beam": 0,
-                           "lm_head_argmax": steps, "decode_step_megakernel": steps}
+    expect("megakernel path", mega_counts, lm_head_argmax=steps,
+           decode_step_megakernel=steps)
 
     for megakernel, tokens, label in ((False, layer_tokens, "per-layer kernels vs plain"),
                                       (True, mega_tokens, "megakernel vs plain")):
@@ -821,6 +1086,75 @@ def main() -> int:
         compare_tokens(label, tokens, plain_tokens[:, PROMPT_LEN:].cpu(), gaps)
     compare_tokens("megakernel path vs per-layer path", mega_tokens, layer_tokens,
                    layer_gaps)
+
+    # phase 3, use_pallas: the same weights; the ViT, the resampler and the
+    # xattn prefill run the attention kernels (the GPT-2 prefill writes the
+    # cache and stays on attend, as in the JAX package)
+    model_p = FlamingoModel(FlamingoConfig(**MINI, use_pallas=True),
+                            params=model.params, device=dev)
+    n_vit, n_res = config.vision_arch.num_hidden_layers, config.resampler_depth
+    n_x = len(model.params["xattn"])
+    pallas_gaps = []
+    pallas_tokens, pallas_counts = counted_run(True, pallas_gaps, m=model_p)
+    expect("use_pallas megakernel path", pallas_counts,
+           fused_attention=n_vit + n_res, fused_media_xattn=n_x,
+           decode_step_megakernel=steps, lm_head_argmax=steps)
+    gaps = []
+    with plain_kernels(gaps):
+        plain_tokens = run(True, m=model_p)
+    torch.cuda.synchronize()
+    compare_tokens("use_pallas megakernel path vs plain", pallas_tokens,
+                   plain_tokens[:, PROMPT_LEN:].cpu(), gaps)
+    compare_tokens("use_pallas megakernel path vs use_pallas=False", pallas_tokens,
+                   mega_tokens, mega_gaps)
+
+    # phase 3, the uncached forward with its loss: the same weights in bf16,
+    # not quantized; batch 8 x 64, one image per row at its first real token,
+    # rows 0 and 1 left-padded by 8
+    model_f = FlamingoModel(FlamingoConfig(**MINI, use_pallas=True), device=dev, seed=0)
+    for blk in model_f.params["xattn"].values():
+        blk["alpha_attn"].fill_(0.5)
+        blk["alpha_ffw"].fill_(0.5)
+    model_f.to_bf16()
+    f_ids = torch.tensor(rs.randint(0, 1000, (FWD_B, FWD_N)), device=dev)
+    f_mask = torch.ones((FWD_B, FWD_N), dtype=torch.int32, device=dev)
+    f_ids[:2, :GPT2_PAD], f_mask[:2, :GPT2_PAD] = 0, 0
+    f_media = torch.zeros((FWD_B, FWD_N), dtype=torch.int32, device=dev)
+    f_media[:2, GPT2_PAD], f_media[2:, 0] = 1, 1
+    f_pixels = torch.tensor(rs.randn(FWD_B, 1, 3, arch.image_size, arch.image_size),
+                            dtype=torch.float32, device=dev).to(torch.bfloat16)
+    fwd = dict(media_locations=f_media, attention_mask=f_mask, pixel_values=f_pixels,
+               labels=f_ids)
+    zero_counts()
+    out_k = model_f(f_ids, **fwd)
+    expect("forward", read_counts(), fused_attention=n_vit + n_res + n_layer,
+           fused_media_xattn=n_x)
+    assert out_k.logits.shape == (FWD_B, FWD_N, vocab), out_k.logits.shape
+    assert bool(torch.isfinite(out_k.logits).all()) and bool(torch.isfinite(out_k.loss))
+    with plain_attention():
+        out_p = model_f(f_ids, **fwd)
+    # the plain versions on the CPU: how far float32 sums in another order
+    # move this bf16 program; the kernels may differ from the plain versions
+    # on the card by 1e-2 or 1.25 times that spread, whichever is larger
+    t0 = time.perf_counter()
+    out_c = FlamingoModel(FlamingoConfig(**MINI, use_pallas=True), params=model_f.params,
+                          device="cpu")(f_ids.cpu(), **{k: t.cpu() for k, t in fwd.items()})
+    cpu_s = time.perf_counter() - t0
+    for part, rows in (("logits, all rows", slice(None)), ("logits, left-padded rows",
+                                                           slice(0, 2))):
+        err = rel_err(out_k.logits[rows], out_p.logits[rows])
+        spread = rel_err(out_c.logits[rows], out_p.logits[rows].cpu())
+        print(f"[phase 3] forward {part}: normwise relative error of the kernels "
+              f"vs plain {err}; plain on the CPU vs on the card {spread}")
+        assert err <= max(1e-2, 1.25 * spread), (part, err, spread)
+    err = rel_err(out_k.loss, out_p.loss)
+    spread = rel_err(out_c.loss, out_p.loss.cpu())
+    print(f"[phase 3] forward loss: kernels {float(out_k.loss)}, plain "
+          f"{float(out_p.loss)}, plain on the CPU {float(out_c.loss)} ({cpu_s:.1f} s); "
+          f"relative error {err}, spread {spread} (tolerance: the larger of 1e-2 "
+          "and 1.25 x the spread)")
+    assert err <= max(1e-2, 1.25 * spread), (err, spread)
+    del out_c
 
     # phase 3, beams: batch 32 x 3 beams, 64 new tokens, lazy reorder
     def beam_run(megakernel, new_tokens=BEAM_NEW_TOKENS):
@@ -842,13 +1176,11 @@ def main() -> int:
             out = select(flat, n)
             cands.append(tuple(t.cpu() for t in out))
             return out
-        for fn in kernels:
-            fn.launches = 0
+        zero_counts()
         with patched(beam_search, "select_candidates", record), \
                 (plain_kernels([]) if plain else contextlib.nullcontext()):
             tokens = beam_run(megakernel)
-        torch.cuda.synchronize()
-        counts = {fn.__name__: fn.launches for fn in kernels}
+        counts = read_counts()
         assert tokens.shape == (BATCH, BEAM_MAX_LENGTH), tokens.shape
         assert bool(((tokens >= 0) & (tokens < vocab)).all())
         assert torch.equal(tokens[:, :PROMPT_LEN], ids)
@@ -857,16 +1189,10 @@ def main() -> int:
 
     beam_steps = BEAM_NEW_TOKENS - 1
     layer_b_tokens, layer_b_counts, layer_b_cands = recorded_beam_run(False)
-    print(f"[phase 3] beam per-layer path launches: {layer_b_counts} (expected "
-          f"decode_attention_beam {n_layer} x {beam_steps}, every other 0)")
-    assert layer_b_counts == {"decode_attention": 0,
-                              "decode_attention_beam": n_layer * beam_steps,
-                              "lm_head_argmax": 0, "decode_step_megakernel": 0}
+    expect("beam per-layer path", layer_b_counts,
+           decode_attention_beam=n_layer * beam_steps)
     mega_b_tokens, mega_b_counts, mega_b_cands = recorded_beam_run(True)
-    print(f"[phase 3] beam megakernel path launches: {mega_b_counts} (expected "
-          f"decode_step_megakernel {beam_steps}, every other 0)")
-    assert mega_b_counts == {"decode_attention": 0, "decode_attention_beam": 0,
-                             "lm_head_argmax": 0, "decode_step_megakernel": beam_steps}
+    expect("beam megakernel path", mega_b_counts, decode_step_megakernel=beam_steps)
     for megakernel, tokens, cands, label in (
             (False, layer_b_tokens, layer_b_cands, "beam per-layer kernels vs plain"),
             (True, mega_b_tokens, mega_b_cands, "beam megakernel vs plain")):
@@ -880,7 +1206,8 @@ def main() -> int:
             ("per-layer", lambda n: run(False, n), NEW_TOKENS),
             ("megakernel", lambda n: run(True, n), NEW_TOKENS),
             ("beam per-layer", lambda n: beam_run(False, n), BEAM_NEW_TOKENS),
-            ("beam megakernel", lambda n: beam_run(True, n), BEAM_NEW_TOKENS)):
+            ("beam megakernel", lambda n: beam_run(True, n), BEAM_NEW_TOKENS),
+            ("use_pallas megakernel", lambda n: run(True, n, m=model_p), NEW_TOKENS)):
         torch.cuda.reset_peak_memory_stats()
         full_ms, full_all = timed(lambda: fn(new_tokens))
         half_ms, half_all = timed(lambda: fn(new_tokens // 2))
@@ -905,10 +1232,23 @@ def main() -> int:
           f"{BEAMS * vocab}) {select_ms} ms (median per call, L2 flushed)")
     print(f"[phase 4] {card}: decode_step_megakernel beam mode at 160 rows "
           f"{mega_beam['ms160']} ms vs {mega_beam['ms']} ms at {BATCH * BEAMS} rows")
+    # the fixed cost of a generate: encode + resample at batch 32
+    for label, m in (("use_pallas=False", model), ("use_pallas", model_p)):
+        enc_ms, enc_all = timed(lambda: m.encode_resample_visuals(pixels))
+        print(f"[phase 4] {card}: encode + resample, {BATCH} images, {label}: median "
+              f"{enc_ms} ms (runs {enc_all})")
+    fwd_ms, fwd_all = timed(lambda: model_f(f_ids, **fwd))
+    print(f"[phase 4] {card}: forward with loss, {FWD_B}x{FWD_N} tokens, use_pallas: "
+          f"median {fwd_ms} ms (runs {fwd_all}), {FWD_B * FWD_N / (fwd_ms / 1e3)} "
+          "tokens/s")
     for name, k in (("decode_attention", attn), ("lm_head_argmax", head),
                     ("decode_step_megakernel", mega),
                     ("decode_attention_beam", attn_beam),
-                    ("decode_step_megakernel beam mode", mega_beam)):
+                    ("decode_step_megakernel beam mode", mega_beam),
+                    ("fused_attention (ViT shape)", fa["vit"]),
+                    ("fused_attention (resampler shape)", fa["resampler"]),
+                    ("fused_attention (GPT-2 forward shape)", fa["gpt2 forward"]),
+                    ("flash_attention", flash), ("fused_media_xattn", mx)):
         print(f"[phase 4] {card}: {name} {k['ms']} ms vs plain {k['plain_ms']} "
               f"ms, library {k['library_ms']} ms, bound {k['bound_ms']} ms "
               f"({k['bound_by']}) (median per call, L2 flushed)")
@@ -929,7 +1269,16 @@ def main() -> int:
              layer_b_counts["decode_attention_beam"], attn_beam),
             ("decode_step_megakernel (beam mode)", "decode_megakernel.cu",
              "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
-             mega_b_counts["decode_step_megakernel"], mega_beam)):
+             mega_b_counts["decode_step_megakernel"], mega_beam),
+            ("fused_attention", "fused_attention.cu",
+             "flamingo_mini_tpu/ops/pallas_attn.py:270",
+             pallas_counts["fused_attention"], fa["vit"]),
+            ("flash_attention (fused_attention's streaming variant)",
+             "fused_attention.cu", "flamingo_mini_tpu/ops/pallas_attn.py:156",
+             pallas_counts["flash_attention"], flash),
+            ("fused_media_xattn", "media_xattn.cu",
+             "flamingo_mini_tpu/ops/pallas_xattn.py:122",
+             pallas_counts["fused_media_xattn"], mx)):
         rows.append({"name": name, "route": "cuda",
                      "source": f"flamingo_mini_tpu_torch/csrc/{source}",
                      "replaces": replaces, "launches": launches,

@@ -127,7 +127,7 @@ class _Decoder:
                                       self.mask, media_count)
         else:
             self.hook = flamingo.make_layer_hook(params, config, xattn_kv,
-                                                 media_count)
+                                                 media_count, policy=policy)
 
     def logp(self, cur: int, lim: Optional[int], anc: torch.Tensor) -> torch.Tensor:
         """Feed the token at ``cur - 1`` (written into each beam's own cache

@@ -108,9 +108,10 @@ def _prefill(params: Params, config: FlamingoConfig, dc: DecodeConfig,
     tokens[:, :L] = input_ids
 
     text_time = torch.cumsum(media_locations.to(torch.int32), dim=-1)
-    xattn_kv = flamingo.compute_xattn_kv(params, config,
-                                         policy.cast(visual_features))
-    hook = flamingo.make_layer_hook(params, config, xattn_kv, text_time)
+    xattn_kv = flamingo.compute_xattn_kv(params, config, visual_features,
+                                         policy=policy)
+    hook = flamingo.make_layer_hook(params, config, xattn_kv, text_time,
+                                    policy=policy)
     kc, vc, cache = gpt2.init_cache(config.lm_arch, b, dc.max_length,
                                     policy.dtype, dev)
     # position ids from the attention mask (pads do not advance positions)
@@ -185,7 +186,7 @@ def generate_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
         params, config, dc, policy, input_ids, media_locations,
         attention_mask, visual_features)
     decode_hook = flamingo.make_layer_hook(params, config, xattn_kv,
-                                           st["media_count"])
+                                           st["media_count"], policy=policy)
     lm = params["lm"]
     if dc.megakernel:
         mega = _mega_prepare(params, config, policy, xattn_kv, st["mask"],

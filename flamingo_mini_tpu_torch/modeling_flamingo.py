@@ -1,7 +1,9 @@
-"""FlamingoModel: the public entry point, cut to greedy and beam generation.
+"""FlamingoModel: the public entry point, cut to generation and the forward.
 
 Port of ``flamingo_mini_tpu/modeling_flamingo.py::FlamingoModel`` for greedy
-and beam decoding, per layer or through the whole-step megakernel. Holds (config,
+and beam decoding, per layer or through the whole-step megakernel, and the
+uncached forward with its loss. The policy follows ``compute_dtype`` and
+``use_pallas`` (bf16 with ``use_pallas``: the attention kernels). Holds (config,
 params, policy, device); params are a nested dict of tensors in the JAX
 package's layout, made by ``models.flamingo.init_flamingo`` from a seed or
 bridged from JAX by ``utils.params_bridge.from_jax_numpy``. The model runs
@@ -30,7 +32,7 @@ class FlamingoModel:
         """``params`` on another device are moved to ``device``."""
         self.config = config
         self.device = torch.device(device)
-        self.policy: Policy = policy_for(config.compute_dtype)
+        self.policy: Policy = policy_for(config.compute_dtype, config.use_pallas)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = F.init_flamingo(gen, config)
@@ -46,6 +48,36 @@ class FlamingoModel:
         self.params["lm"] = quantize_gpt2_lm(self.params["lm"])
         self.params["xattn"] = quantize_xattn_blocks(self.params["xattn"])
         return self
+
+    def __call__(self, input_ids, **kw) -> F.FlamingoOutput:
+        return self.forward(input_ids, **kw)
+
+    def forward(self, input_ids, *, media_locations=None, attention_mask=None,
+                pixel_values=None, visual_features=None, labels=None,
+                loss_reduction: str = "mean",
+                context_mesh=None) -> F.FlamingoOutput:
+        """The uncached forward -> ``FlamingoOutput(logits, loss, xattn_kv)``;
+        ``loss`` is the shifted cross-entropy when ``labels`` are given.
+        Context parallelism (``context_mesh``) is not ported yet and
+        raises ``NotImplementedError``."""
+        if context_mesh is not None:
+            raise NotImplementedError("context_mesh (ring attention) is not ported")
+        dev = self.device
+
+        def put(x, dtype=None):
+            return None if x is None else torch.as_tensor(x, device=dev, dtype=dtype)
+        return F.forward(
+            self.params, self.config, put(input_ids, torch.long),
+            policy=self.policy, media_locations=put(media_locations, torch.int32),
+            attention_mask=put(attention_mask, torch.int32),
+            pixel_values=put(pixel_values), visual_features=put(visual_features),
+            labels=put(labels, torch.long), loss_reduction=loss_reduction)
+
+    def encode_resample_visuals(self, pixel_values) -> torch.Tensor:
+        """Pixels -> resampled visual features (b, N, q, d_visual)."""
+        return F.encode_resample_visuals(
+            self.params, self.config, torch.as_tensor(pixel_values, device=self.device),
+            policy=self.policy)
 
     @torch.inference_mode()
     def generate(self, input_ids, *, media_locations=None, attention_mask=None,

@@ -2,7 +2,10 @@
 
 The patch convolution is patch extraction by reshape followed by one GEMM
 (stride == kernel size), with the patch rows ordered (ph, pw, c) as in the
-JAX package. Returns HF ``last_hidden_state`` (no post_layernorm).
+JAX package. Returns HF ``last_hidden_state`` (no post_layernorm). Under a
+``pallas`` policy the self-attention is ``fused_attention`` on unscaled q,
+the scale applied to the float32 scores inside the kernel; otherwise
+``attend`` on q pre-scaled in the compute dtype.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import torch
 
 from ..configuration_flamingo import CLIPViTArch
 from ..ops.attention import attend, merge_heads, split_heads
+from ..ops.fused_attention import fused_attention
 from ..ops.layers import (Policy, const, get_activation, init_layer_norm,
                           init_linear, layer_norm, linear, normal)
 
@@ -76,7 +80,10 @@ def apply_clip_vit(p: Params, pixel_values: torch.Tensor, *,
         q = split_heads(linear(h, bp["q_proj"]), n_head)
         k = split_heads(linear(h, bp["k_proj"]), n_head)
         v = split_heads(linear(h, bp["v_proj"]), n_head)
-        out = attend(q * const(scale, h.dtype), k, v)
+        if policy.pallas:
+            out = fused_attention(q, k, v, scale=scale)
+        else:
+            out = attend(q * const(scale, h.dtype), k, v)
         x = residual + linear(merge_heads(out), bp["out_proj"])
 
         residual = x

@@ -2,11 +2,13 @@
 
 The GPT-2 trunk applies a gated xattn block before every
 ``xattn_every``-th layer through ``layer_hook``; the visual K/V per xattn
-layer and ``text_time`` are explicit arguments. Only the GPT-2 trunk is
-ported so far.
+layer and ``text_time`` are explicit arguments. ``forward`` is the uncached
+full-sequence pass with the shifted cross-entropy (scoring, eval loss).
+Only the GPT-2 trunk is ported so far.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -81,20 +83,24 @@ def encode_resample_visuals(params: Params, config: FlamingoConfig,
     resampled = apply_resampler(
         params["resampler"], feats.reshape(b * N, T, v, d),
         heads=config.resampler_heads, dim_head=config.resampler_dim_head,
-        act=config.resampler_act)
+        act=config.resampler_act, policy=policy)
     return resampled.reshape(b, N, resampled.shape[-2], config.dim_visual)
 
 
 def compute_xattn_kv(params: Params, config: FlamingoConfig,
-                     visual_features: torch.Tensor) -> Dict[str, KV]:
-    """Per-xattn-layer visual K/V, constant over the decode steps."""
+                     visual_features: torch.Tensor, *,
+                     policy: Policy) -> Dict[str, KV]:
+    """Per-xattn-layer visual K/V from the features in the policy's dtype,
+    constant over the decode steps."""
+    visual_features = policy.cast(visual_features)
     return {idx: compute_visual_kv(block["attn"], visual_features,
                                    heads=config.xattn_heads)
             for idx, block in params["xattn"].items()}
 
 
 def make_layer_hook(params: Params, config: FlamingoConfig,
-                    xattn_kv: Dict[str, KV], text_time: torch.Tensor):
+                    xattn_kv: Dict[str, KV], text_time: torch.Tensor, *,
+                    policy: Policy):
     """The decoder layer_hook applying gated xattn at the hijacked layers."""
 
     def hook(i: int, x: torch.Tensor) -> torch.Tensor:
@@ -104,7 +110,7 @@ def make_layer_hook(params: Params, config: FlamingoConfig,
         return apply_gated_xattn_block(
             params["xattn"][key], x, xattn_kv[key], text_time,
             n_visual=config.resampler_num_latents, heads=config.xattn_heads,
-            dim_head=config.xattn_dim_head, act=config.xattn_act)
+            dim_head=config.xattn_dim_head, act=config.xattn_act, policy=policy)
 
     return hook
 
@@ -127,3 +133,66 @@ def apply_lm(params: Params, config: FlamingoConfig, input_ids: torch.Tensor,
     logits = None if skip_head else gpt2.lm_head(
         params["lm"], hidden, n_valid=arch.vocab_size + 1)
     return logits, cache, hidden
+
+
+@dataclass
+class FlamingoOutput:
+    logits: torch.Tensor
+    loss: Optional[torch.Tensor] = None
+    xattn_kv: Optional[Dict[str, KV]] = None
+
+
+def forward(params: Params, config: FlamingoConfig, input_ids: torch.Tensor,
+            *, policy: Policy, media_locations: Optional[torch.Tensor] = None,
+            attention_mask: Optional[torch.Tensor] = None,
+            pixel_values: Optional[torch.Tensor] = None,
+            visual_features: Optional[torch.Tensor] = None,
+            labels: Optional[torch.Tensor] = None,
+            loss_reduction: str = "mean") -> FlamingoOutput:
+    """The uncached full-sequence forward: visual encode + resample (unless
+    features are given; without either, zero features and no media),
+    per-layer conditioning, trunk, tied head, and the shifted cross-entropy
+    when ``labels`` are given. input_ids, media_locations, attention_mask,
+    labels: (b, n)."""
+    b, n = input_ids.shape
+    dev = input_ids.device
+    if visual_features is None:
+        if pixel_values is not None:
+            visual_features = encode_resample_visuals(params, config, pixel_values,
+                                                      policy=policy)
+        else:
+            visual_features = torch.zeros(
+                (b, 1, config.resampler_num_latents, config.dim_visual),
+                dtype=policy.dtype, device=dev)
+    if media_locations is None:
+        media_locations = torch.zeros((b, n), dtype=torch.int32, device=dev)
+    text_time = torch.cumsum(media_locations.to(torch.int32), dim=-1)
+    xattn_kv = compute_xattn_kv(params, config, visual_features, policy=policy)
+    hook = make_layer_hook(params, config, xattn_kv, text_time, policy=policy)
+    logits, _, _ = apply_lm(params, config, input_ids, policy=policy,
+                            layer_hook=hook, attention_mask=attention_mask)
+    loss = None
+    if labels is not None:
+        loss = cross_entropy_loss(logits, labels, reduction=loss_reduction)
+    return FlamingoOutput(logits=logits, loss=loss, xattn_kv=xattn_kv)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       reduction: str = "mean",
+                       weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Shifted next-token cross-entropy in float32 over every position, pads
+    included (the reference's loss). ``reduction``: "mean" or "none" (per
+    token, flattened to (b * (n - 1),)); ``weights`` (b, n) masks tokens,
+    and "mean" then divides by their sum (at least 1)."""
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    token_loss = -torch.gather(logp, -1, labels[:, 1:, None].long())[..., 0]
+    if weights is not None:
+        w = weights[:, 1:].to(token_loss.dtype)
+        token_loss = token_loss * w
+        if reduction == "mean":
+            return token_loss.sum() / torch.clamp(w.sum(), min=1)
+    if reduction == "mean":
+        return token_loss.mean()
+    if reduction == "none":
+        return token_loss.reshape(-1)
+    raise ValueError(f"unknown reduction {reduction!r}")

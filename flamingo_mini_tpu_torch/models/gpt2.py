@@ -1,10 +1,14 @@
 """GPT-2 decoder trunk with the T-major flat KV cache.
 
 Port of ``flamingo_mini_tpu/models/gpt2.py`` for the greedy and lazy-beam
-decode paths.
+decode paths and the uncached forward.
 Gated cross-attention enters through ``layer_hook`` before every block.
 Attention follows HF GPT-2 eager numerics: QK product, divide by
 sqrt(d_head), causal fill with finfo.min, additive padding bias, softmax.
+Under a ``pallas`` policy the uncached forward's attention is
+``fused_attention`` (causal in the kernel, the padding bias as its per-row
+``row_bias``); a prefill that writes the cache stays on ``attend``, as in
+the JAX package.
 
 The cache is the JAX package's flat layout: per layer ``{"kf", "vf"}`` of
 shape ``(T, b, D)`` with T the max length rounded up to a multiple of 64, so
@@ -24,6 +28,7 @@ import torch
 from ..configuration_flamingo import GPT2Arch
 from ..ops.attention import attend, merge_heads, split_heads
 from ..ops.decode_attention import decode_attention, decode_attention_beam
+from ..ops.fused_attention import fused_attention
 from ..ops.layers import (Policy, dot, get_activation, init_layer_norm,
                           init_linear, layer_norm, linear, normal)
 from ..ops.quant import embed_lookup
@@ -75,7 +80,7 @@ def _self_attention(bp: Params, x: torch.Tensor, *, n_head: int,
                     layer_cache: Optional[Dict[str, torch.Tensor]],
                     cache_index: Optional[int], eps: float,
                     kv_limit: Optional[int],
-                    npad: Optional[torch.Tensor],
+                    npad: Optional[torch.Tensor], policy: Policy,
                     beam_anc: Optional[torch.Tensor] = None) -> torch.Tensor:
     h = layer_norm(x, bp["ln_1"], eps)
     qkv = linear(h, bp["c_attn"])
@@ -98,10 +103,13 @@ def _self_attention(bp: Params, x: torch.Tensor, *, n_head: int,
                     beam_anc, npad, cache_index, n_head=n_head, scale=scale,
                     kb=beam_anc.shape[1], kv_limit=kv_limit)
             return linear(out2d[:, None, :], bp["c_proj"])
-    # prefill (cache_index == 0) or uncached: attend over the fresh K/V
-    out = attend(split_heads(q, n_head), split_heads(k, n_head),
-                 split_heads(v, n_head), scale=scale, mask=causal_mask,
-                 bias=pad_bias)
+    qh, kh, vh = (split_heads(t, n_head) for t in (q, k, v))
+    if layer_cache is None and policy.pallas:
+        row = None if pad_bias is None else pad_bias[:, 0, 0, :]
+        out = fused_attention(qh, kh, vh, scale=scale, causal=True, row_bias=row)
+    else:
+        # prefill (cache_index == 0) or uncached: attend over the fresh K/V
+        out = attend(qh, kh, vh, scale=scale, mask=causal_mask, bias=pad_bias)
     return linear(merge_heads(out), bp["c_proj"])
 
 
@@ -163,7 +171,7 @@ def apply_gpt2(
             bp, x, n_head=arch.n_head, causal_mask=causal, pad_bias=pad_bias,
             layer_cache=None if cache is None else cache[i],
             cache_index=cache_index, eps=eps, kv_limit=kv_limit, npad=npad,
-            beam_anc=beam_anc)
+            policy=policy, beam_anc=beam_anc)
         h = layer_norm(x, bp["ln_2"], eps)
         h = linear(act(linear(h, bp["mlp_fc"])), bp["mlp_proj"])
         x = x + h

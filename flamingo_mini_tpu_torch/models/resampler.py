@@ -3,7 +3,8 @@
 Latents cross-attend to ``concat(features, latents)``, q scaled by
 ``dim_head**-0.5`` before the product, max-subtracted softmax; ``depth`` x
 (attention + FeedForward) with residuals, then a final LayerNorm. Input is
-``(b, T, v, d)``: images are videos with T=1.
+``(b, T, v, d)``: images are videos with T=1. Under a ``pallas`` policy the
+attention is ``fused_attention`` on unscaled q with ``scale=dim_head**-0.5``.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from typing import Any, Dict
 import torch
 
 from ..ops.attention import attend, merge_heads, split_heads
-from ..ops.layers import (const, feed_forward, init_feed_forward,
+from ..ops.fused_attention import fused_attention
+from ..ops.layers import (Policy, const, feed_forward, init_feed_forward,
                           init_layer_norm, init_linear, layer_norm, linear,
                           normal)
 
@@ -47,7 +49,7 @@ def init_resampler(gen: torch.Generator, *, dim: int, depth: int,
 
 def apply_perceiver_attention(p: Params, features: torch.Tensor,
                               latents: torch.Tensor, *, heads: int,
-                              dim_head: int) -> torch.Tensor:
+                              dim_head: int, policy: Policy) -> torch.Tensor:
     """features (b, f, dim), latents (b, q, dim) -> (b, q, dim)."""
     x = layer_norm(features, p["norm_media"])
     lat = layer_norm(latents, p["norm_latents"])
@@ -55,13 +57,15 @@ def apply_perceiver_attention(p: Params, features: torch.Tensor,
     kv_in = torch.cat([x, lat], dim=1)
     k = split_heads(linear(kv_in, p["to_k"]), heads)
     v = split_heads(linear(kv_in, p["to_v"]), heads)
-    q = q * const(dim_head ** -0.5, q.dtype)
-    out = attend(q, k, v, stabilize=True)
+    if policy.pallas:
+        out = fused_attention(q, k, v, scale=dim_head ** -0.5)
+    else:
+        out = attend(q * const(dim_head ** -0.5, q.dtype), k, v, stabilize=True)
     return linear(merge_heads(out), p["to_out"])
 
 
 def apply_resampler(p: Params, x_f: torch.Tensor, *, heads: int,
-                    dim_head: int, act: str) -> torch.Tensor:
+                    dim_head: int, act: str, policy: Policy) -> torch.Tensor:
     """Compress ``(b, T, v, d)`` to ``(b, num_latents, d)``."""
     b, T, v, d = x_f.shape
     x_f = x_f + p["time_pos_emb"][:T].to(x_f.dtype)
@@ -69,6 +73,6 @@ def apply_resampler(p: Params, x_f: torch.Tensor, *, heads: int,
     x = p["latents"].to(x_f.dtype).expand(b, *p["latents"].shape)
     for layer in p["layers"]:
         x = x + apply_perceiver_attention(layer["attn"], x_f, x, heads=heads,
-                                          dim_head=dim_head)
+                                          dim_head=dim_head, policy=policy)
         x = x + feed_forward(x, layer["ffw"], act)
     return layer_norm(x, p["norm"])

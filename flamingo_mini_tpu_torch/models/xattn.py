@@ -7,6 +7,10 @@
   max-subtracted, and tokens with ``text_time == 0`` get zero alphas.
 * gating: ``y += tanh(alpha_attn) * attn(y); y += tanh(alpha_ffw) * ffw(y)``,
   both alphas 0 at init (identity).
+* under a ``pallas`` policy, more than one token (prefill, the uncached
+  forward) goes through ``fused_media_xattn``, which fills with float32
+  min on float32 scores as the TPU kernel does; q is pre-scaled in the
+  compute dtype as on the plain path, and the kernel's scale is 1.
 
 The visual K/V are computed once per sequence (``compute_visual_kv``) and
 passed to every call.
@@ -18,8 +22,9 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..ops.attention import merge_heads, softmax_f32, split_heads
-from ..ops.layers import (const, feed_forward, init_feed_forward,
+from ..ops.layers import (Policy, const, feed_forward, init_feed_forward,
                           init_layer_norm, init_linear, layer_norm, linear)
+from ..ops.media_xattn import fused_media_xattn
 
 Params = Dict[str, Any]
 KV = Tuple[torch.Tensor, torch.Tensor]  # each (b, h, n_media*n_visual, d)
@@ -52,7 +57,7 @@ def compute_visual_kv(p: Params, visual_features: torch.Tensor, *,
 
 def apply_masked_xattn(p: Params, y: torch.Tensor, kv: KV,
                        text_time: torch.Tensor, *, n_visual: int, heads: int,
-                       dim_head: int) -> torch.Tensor:
+                       dim_head: int, policy: Policy) -> torch.Tensor:
     """y (b, n_token, dim), text_time (b, n_token) -> (b, n_token, dim)."""
     k, v = kv
     n_media = k.shape[2] // n_visual
@@ -60,6 +65,9 @@ def apply_masked_xattn(p: Params, y: torch.Tensor, kv: KV,
     q = linear(y_n, p["to_q"])
     q = q * const(dim_head ** -0.5, q.dtype)
     q = split_heads(q, heads)
+    if policy.pallas and y.shape[1] > 1:
+        out = fused_media_xattn(q, k, v, text_time, scale=1.0, n_visual=n_visual)
+        return linear(merge_heads(out), p["to_out"])
 
     media_time = torch.arange(1, n_media + 1, dtype=text_time.dtype,
                               device=text_time.device).repeat_interleave(n_visual)
@@ -77,12 +85,12 @@ def apply_masked_xattn(p: Params, y: torch.Tensor, kv: KV,
 
 def apply_gated_xattn_block(p: Params, y: torch.Tensor, kv: KV,
                             text_time: torch.Tensor, *, n_visual: int,
-                            heads: int, dim_head: int,
-                            act: str) -> torch.Tensor:
+                            heads: int, dim_head: int, act: str,
+                            policy: Policy) -> torch.Tensor:
     """tanh-gated residual xattn + tanh-gated residual FFW."""
     attn_out = apply_masked_xattn(p["attn"], y, kv, text_time,
                                   n_visual=n_visual, heads=heads,
-                                  dim_head=dim_head)
+                                  dim_head=dim_head, policy=policy)
     y = y + torch.tanh(p["alpha_attn"]).to(y.dtype) * attn_out
     y = y + torch.tanh(p["alpha_ffw"]).to(y.dtype) * feed_forward(y, p["ffw"], act)
     return y

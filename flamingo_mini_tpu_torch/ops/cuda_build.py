@@ -42,6 +42,11 @@ SIGNATURES = {
     # &MegaArgs, &blocks, &smem_bytes
     "fmt_decode_megakernel_grid": [_P, _P, _P],
     "fmt_decode_megakernel_args_size": [],
+    # &AttnArgs (ops/fused_attention._Args), is_bf16, stream
+    "fmt_fused_attention": [_P, _I, _P],
+    "fmt_flash_attention": [_P, _I, _P],
+    "fmt_media_xattn": [_P, _I, _P],
+    "fmt_attention_args_size": [],
 }
 
 

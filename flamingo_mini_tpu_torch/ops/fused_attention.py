@@ -1,0 +1,235 @@
+"""Fused softmax attention: the full-KV kernel and its streaming variant.
+
+Port of ``flamingo_mini_tpu/ops/pallas_attn.py::fused_attention``. Both CUDA
+kernels are ``csrc/fused_attention.cu`` (the tile machinery is
+``csrc/attention_tile.cuh``, whose note says what bounds them on the card
+and how the design answers that).
+
+Semantics, as the TPU kernels': scores ``scale * q.k`` in float32, then
+``+ bias`` and ``+ row_bias`` (float32), then causal positions set to
+float32 min; softmax in float32; probabilities times V in float32; the
+output rounded once to q's dtype. The streaming variant (``streaming=True``,
+or ``n_kv > 2048`` without ``bias``) computes the same function by online
+softmax, its running max starting at float32 min, over kv blocks of
+``min(block_q, n_kv)`` keys with the tail padded: padded keys score float32
+min and carry V = 0. So a fully masked row averages V over its masked keys
+(and, streaming, the padded ones) instead of giving NaN.
+
+``fused_attention`` and ``flash_attention`` launch their kernel for CUDA
+tensors and run their plain version for CPU tensors; nothing else picks the
+path. Each counts its own launches. On the card the head dim is 64, q/k/v
+are read in place through their strides (the (b, n, h*d) projection layout
+that ``split_heads`` views), and the output is written (b, n, h, d) and
+returned as its (b, h, n, d) view, so ``merge_heads`` copies nothing. Inputs
+that require grad raise: the recompute backward (``pallas_attn.py:249-267``)
+is the training slice's work.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from . import cuda_build
+from .attention import softmax_f32
+
+NEG = float(torch.finfo(torch.float32).min)
+HEAD_DIM = 64
+_BLOCK_Q = 64         # query rows per CUDA block (attention_tile.cuh kBlockQ)
+
+
+class _Args(ctypes.Structure):
+    """``struct AttnArgs`` of csrc/attention_tile.cuh, field for field."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("q", "k", "v", "out", "bias", "row_bias", "text_time")]
+                + [("stride", (ctypes.c_longlong * 3) * 4)]
+                + [(n, ctypes.c_int) for n in
+                   ("b", "h", "n_q", "n_kv", "n_kv_pad", "causal", "n_visual")]
+                + [("scale", ctypes.c_float)])
+
+
+@functools.lru_cache(maxsize=None)
+def _checked_lib() -> ctypes.CDLL:
+    lib = cuda_build.kernels()
+    if lib.fmt_attention_args_size() != ctypes.sizeof(_Args):
+        raise RuntimeError("fused_attention: ctypes _Args does not match "
+                           "struct AttnArgs")
+    return lib
+
+
+def check_cuda(name: str, q, k, v) -> None:
+    """The checks the attention kernels make of q (b, h, n_q, d) and k, v
+    (b, h, n_kv, d) on the card."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: unsupported dtype {q.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"CUDA {name} takes (b, h, n, {HEAD_DIM}) inputs, got "
+                         f"{tuple(q.shape)}")
+    b, h, n_q, d = q.shape
+    if k.shape[:2] != (b, h) or k.shape[3] != d or v.shape != k.shape \
+            or k.shape[2] < 1 or n_q < 1:
+        raise ValueError(f"{name}: k and v must be (b, h, n_kv, d) beside q "
+                         f"{tuple(q.shape)}, got {tuple(k.shape)}, {tuple(v.shape)}")
+    for t in (q, k, v):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name}: q, k and v must share dtype and device")
+        # 16-byte rows: the kernel copies K/V rows 16 bytes at a time
+        if t.stride(3) != 1 or t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+            raise ValueError(f"{name}: each input needs a contiguous head dim, "
+                             "16-byte alignment and strides that are multiples "
+                             f"of 8 elements; got strides {t.stride()}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            f"{name}: no backward on the card yet (the training slice adds "
+            "the recompute backward); call it under torch.no_grad()")
+    if -(-n_q // _BLOCK_Q) > 65535 or b * h >= 2 ** 31:
+        raise ValueError(f"{name}: grid too large for {tuple(q.shape)}")
+
+
+def launch(fn: str, q, k, v, *, scale: float, causal: bool = False,
+           bias=None, row_bias=None, text_time=None, n_visual: int = 0,
+           n_kv_pad: Optional[int] = None) -> torch.Tensor:
+    """Launch one of the attention kernels (``fn``: its C entry point) on
+    checked inputs -> (b, h, n_q, d), a view of a (b, n_q, h, d) tensor."""
+    b, h, n_q, d = q.shape
+    n_kv = k.shape[2]
+    out = torch.empty((b, n_q, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    args = _Args(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
+                 out=out.data_ptr(),
+                 bias=None if bias is None else bias.data_ptr(),
+                 row_bias=None if row_bias is None else row_bias.data_ptr(),
+                 text_time=None if text_time is None else text_time.data_ptr(),
+                 b=b, h=h, n_q=n_q, n_kv=n_kv,
+                 n_kv_pad=n_kv if n_kv_pad is None else n_kv_pad,
+                 causal=int(causal), n_visual=n_visual, scale=float(scale))
+    for i, t in enumerate((q, k, v, out)):
+        args.stride[i][:] = t.stride()[:3]
+    err = getattr(_checked_lib(), fn)(
+        ctypes.byref(args), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check(err, fn)
+    return out
+
+
+def _row_bias_f32(row_bias, b: int, n_kv: int, device) -> Optional[torch.Tensor]:
+    """(b, n_kv) padding bias as the kernels read it: float32, contiguous
+    (exact for bf16 values; a bf16 -inf stays -inf)."""
+    if row_bias is None:
+        return None
+    if row_bias.shape != (b, n_kv):
+        raise ValueError(f"row_bias must be ({b}, {n_kv}), got {tuple(row_bias.shape)}")
+    return row_bias.to(device=device, dtype=torch.float32).contiguous()
+
+
+def fused_attention_plain(q, k, v, *, scale: float = 1.0, bias=None,
+                          row_bias=None, causal: bool = False) -> torch.Tensor:
+    """Plain version of the full-KV kernel (``_reference_attention``):
+    float32 scores and probabilities, float32 V product, one rounding."""
+    b, h, n_q, _ = q.shape
+    n_kv = k.shape[2]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    if row_bias is not None:
+        s = s + row_bias.float().reshape(b, 1, 1, n_kv)
+    if causal:
+        keep = torch.ones(n_q, n_kv, dtype=torch.bool, device=q.device).tril()
+        s = torch.where(keep, s, NEG)
+    return torch.matmul(softmax_f32(s), v.float()).to(q.dtype)
+
+
+def flash_attention_plain(q, k, v, *, scale: float = 1.0, row_bias=None,
+                          causal: bool = False, block_q: int = 256) -> torch.Tensor:
+    """Plain version of the streaming kernel (``_flash_kernel``): online
+    softmax over kv blocks of ``min(block_q, n_kv)`` keys, the tail padded
+    with zero keys whose row bias is float32 min; running max from float32
+    min; ``acc / max(l, 1e-30)``."""
+    b, h, n_q, d = q.shape
+    n_kv = k.shape[2]
+    block_kv = min(block_q, n_kv)
+    n_kv_pad = -(-n_kv // block_kv) * block_kv
+    pad = n_kv_pad - n_kv
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
+    rb = (torch.zeros(b, n_kv, device=q.device) if row_bias is None
+          else row_bias.float())
+    rb = torch.nn.functional.pad(rb, (0, pad), value=NEG)[:, None, None, :]
+    qf = q.float()
+    q_pos = torch.arange(n_q, device=q.device)[:, None]
+    m = torch.full((b, h, n_q, 1), NEG, device=q.device)
+    l = torch.zeros((b, h, n_q, 1), device=q.device)
+    acc = torch.zeros((b, h, n_q, d), device=q.device)
+    for j0 in range(0, n_kv_pad, block_kv):
+        js = slice(j0, j0 + block_kv)
+        s = torch.matmul(qf, kf[:, :, js].transpose(-1, -2)) * scale + rb[..., js]
+        if causal:
+            kv_pos = torch.arange(j0, j0 + block_kv, device=q.device)[None, :]
+            s = torch.where(kv_pos <= q_pos, s, NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p, vf[:, :, js])
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float = 1.0, row_bias: Optional[torch.Tensor] = None,
+                    causal: bool = False, block_q: int = 256) -> torch.Tensor:
+    """The streaming kernel (``_flash_attention_fwd_impl``) -> (b, h, n_q, d);
+    ``block_q`` sets the padded kv length as the TPU kernel's blocks do."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale=scale, row_bias=row_bias,
+                                     causal=causal, block_q=block_q)
+    check_cuda("flash_attention", q, k, v)
+    b, h, n_q, _ = q.shape
+    n_kv = k.shape[2]
+    block_kv = min(block_q, n_kv)
+    rb = _row_bias_f32(row_bias, b, n_kv, q.device)
+    flash_attention.launches += 1
+    return launch("fmt_flash_attention", q, k, v, scale=scale, causal=causal,
+                  row_bias=rb, n_kv_pad=-(-n_kv // block_kv) * block_kv)
+
+
+flash_attention.launches = 0
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float = 1.0, bias: Optional[torch.Tensor] = None,
+                    row_bias: Optional[torch.Tensor] = None, causal: bool = False,
+                    block_q: int = 256,
+                    streaming: Optional[bool] = None) -> torch.Tensor:
+    """softmax(scale * q k^T + bias + row_bias) v -> (b, h, n_q, d).
+
+    q (b, h, n_q, d), k/v (b, h, n_kv, d); ``bias`` broadcastable to
+    (b, h, n_q, n_kv); ``row_bias`` (b, n_kv) padding bias shared by every
+    head and query row. Dispatches as the JAX function does: the streaming
+    kernel (``flash_attention``) when ``streaming`` is set, or when it is
+    None and ``n_kv > 2048``, and ``bias`` is None; else the full-KV kernel.
+    """
+    b, h, n_q, _ = q.shape
+    n_kv = k.shape[2]
+    if streaming is None:
+        streaming = n_kv > 2048 and bias is None
+    if streaming and bias is None:
+        return flash_attention(q, k, v, scale=scale, row_bias=row_bias,
+                               causal=causal, block_q=block_q)
+    if q.device.type == "cpu":
+        return fused_attention_plain(q, k, v, scale=scale, bias=bias,
+                                     row_bias=row_bias, causal=causal)
+    check_cuda("fused_attention", q, k, v)
+    bf = None if bias is None else \
+        bias.to(q.device).expand(b, h, n_q, n_kv).float().contiguous()
+    rb = _row_bias_f32(row_bias, b, n_kv, q.device)
+    fused_attention.launches += 1
+    return launch("fmt_fused_attention", q, k, v, scale=scale, causal=causal,
+                  bias=bf, row_bias=rb)
+
+
+fused_attention.launches = 0

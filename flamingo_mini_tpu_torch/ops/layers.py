@@ -9,6 +9,10 @@ Two compute policies, as in the JAX package:
 * ``PARITY``: float32 activations, full float32 matmuls.
 * ``FAST``: bfloat16 activations; every matmul accumulates in float32 and
   rounds its product once to bfloat16.
+* ``FAST_PALLAS``: ``FAST`` with the attention kernels on: the ViT, the
+  resampler, the gated xattn over more than one token and the uncached
+  GPT-2 forward run ``fused_attention`` / ``fused_media_xattn`` instead of
+  the plain ``attend`` chain (the JAX package's ``use_pallas``).
 
 Scalar constants that JAX folds into a bfloat16 op as a weakly typed value
 are rounded to the compute dtype first here too (``const``), so that both
@@ -28,9 +32,11 @@ Params = Dict[str, Any]
 
 @dataclass(frozen=True)
 class Policy:
-    """Compute policy threaded through all apply functions."""
+    """Compute policy threaded through all apply functions. ``pallas``:
+    route the big attention ops through the attention kernels."""
 
     dtype: torch.dtype = torch.float32
+    pallas: bool = False
 
     def cast(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(self.dtype)
@@ -38,14 +44,16 @@ class Policy:
 
 PARITY = Policy(dtype=torch.float32)
 FAST = Policy(dtype=torch.bfloat16)
+FAST_PALLAS = Policy(dtype=torch.bfloat16, pallas=True)
 
 
-def policy_for(compute_dtype: str) -> Policy:
-    """Map a FlamingoConfig.compute_dtype string to a Policy."""
+def policy_for(compute_dtype: str, use_pallas: bool = False) -> Policy:
+    """Map a FlamingoConfig.compute_dtype string to a Policy. float32 is
+    PARITY even with ``use_pallas``, as in the JAX package."""
     if compute_dtype in ("float32", "fp32"):
         return PARITY
     if compute_dtype in ("bfloat16", "bf16"):
-        return FAST
+        return FAST_PALLAS if use_pallas else FAST
     raise ValueError(f"unknown compute dtype {compute_dtype!r}")
 
 

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Where the decode time goes on one CUDA card.
 
-    python3 profile_decode.py
+    python3 profile_decode.py [sweep] [paths] [fixed] [forward]
 
-Two measurements of the PyTorch port at flamingo-mini width (GPT-2-medium
+Four measurements of the PyTorch port at flamingo-mini width (GPT-2-medium
 trunk with xattn before every layer, int8 weights, bf16; random weights from
-chip_smoke.py's seeds):
+chip_smoke.py's seeds), all of them unless some are named:
 
 1. ``decode_step_megakernel`` alone, median of 30 calls with L2 flushed, over
    a sweep that isolates its parts: batch 1 vs 32 (the activation and
@@ -18,7 +18,15 @@ chip_smoke.py's seeds):
    with 3 beams (batch 32, one image + 4-token prompt, 17 new tokens):
    device (kernel) time and its share of the wall window, the same share
    for the decode loop alone (the trace of a 1-token generate subtracted),
-   kernel launches per decode step, and the device time by kernel.
+   kernel launches per decode step, and the device time by kernel;
+3. ``fixed``: ``torch.profiler`` over each stage of a generate's fixed cost
+   at batch 32 (ViT, resampler, xattn K/V, prefill with its first token),
+   with the attention kernels off and on (``use_pallas``): device time,
+   wall time, launches and the leading kernels of each stage;
+4. ``forward``: ``torch.profiler`` over the uncached forward with its loss
+   (chip_smoke.py's batch of 8 x 64 tokens, bf16 weights, not quantized),
+   use_pallas off and on: device time and its share of the wall window,
+   launches, the leading kernels.
 
 Prints one line per measurement and writes them all to
 ``chiprun_out/profile_decode.json``. Needs a card; exits 1 without one.
@@ -85,14 +93,12 @@ def sweep(dev, card):
     return rows
 
 
-def profile_paths(dev, card):
+def mini_model(dev):
+    """chip_smoke.py's flamingo-mini (gates open, int8 trunk and xattn,
+    bf16) and a batch of 32 prompts with one image each."""
     import chip_smoke as cs
     from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    config = FlamingoConfig(lm="gpt2-medium",
-                            clip_model_type="openai/clip-vit-large-patch14",
-                            dim=1024, dim_visual=1024, compute_dtype="bfloat16")
+    config = FlamingoConfig(**cs.MINI)
     model = FlamingoModel(config, device=dev, seed=0)
     for blk in model.params["xattn"].values():
         blk["alpha_attn"].fill_(0.5)
@@ -106,6 +112,123 @@ def profile_paths(dev, card):
     size = config.vision_arch.image_size
     pixels = torch.randn((b, 1, 3, size, size), generator=gen,
                          device=dev).to(torch.bfloat16)
+    return config, model, ids, media, pixels
+
+
+def traced_device(fn):
+    """(wall ms, device ms, launches, kernel events) of ``fn`` under
+    torch.profiler, ending in a synchronize."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in events if e.key in LAUNCH_CALLS)
+    return window_ms, device_ms, launches, kernels
+
+
+def top_kernels(kernels, n=10):
+    return [dict(name=k, ms=ms, count=c) for k, ms, c in sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in kernels),
+        key=lambda r: -r[1])[:n]]
+
+
+def fixed_cost(dev, card):
+    """Each stage of a generate's fixed cost, use_pallas off and on."""
+    from flamingo_mini_tpu_torch import generation
+    from flamingo_mini_tpu_torch.models import clip_vit
+    from flamingo_mini_tpu_torch.models import flamingo as F
+    from flamingo_mini_tpu_torch.models.resampler import apply_resampler
+    from flamingo_mini_tpu_torch.ops.layers import policy_for
+    config, model, ids, media, pixels = mini_model(dev)
+    p, b = model.params, ids.shape[0]
+    mask = torch.ones_like(media)
+    dc = generation.DecodeConfig(max_length=ids.shape[1] + 1)
+    rows = []
+    with torch.inference_mode():
+        for use_pallas in (False, True):
+            pol = policy_for("bfloat16", use_pallas)
+            feats = clip_vit.apply_clip_vit(p["vision"], pixels[:, 0], arch=config.vision_arch,
+                                            policy=pol)
+            vf = F.encode_resample_visuals(p, config, pixels, policy=pol)
+            stages = (
+                ("vit", lambda: clip_vit.apply_clip_vit(
+                    p["vision"], pixels[:, 0], arch=config.vision_arch, policy=pol)),
+                ("resampler", lambda: apply_resampler(
+                    p["resampler"], feats[:, None], heads=config.resampler_heads,
+                    dim_head=config.resampler_dim_head, act=config.resampler_act,
+                    policy=pol)),
+                ("xattn K/V", lambda: F.compute_xattn_kv(p, config, vf, policy=pol)),
+                ("prefill (xattn K/V included)", lambda: generation._prefill(
+                    p, config, dc, pol, ids, media, mask, vf)))
+            for stage, fn in stages:
+                fn()                                          # warm-up
+                torch.cuda.synchronize()
+                window_ms, device_ms, launches, kernels = traced_device(fn)
+                row = dict(use_pallas=use_pallas, stage=stage, batch=b,
+                           window_ms=window_ms, device_ms=device_ms,
+                           launches=launches, by_kernel=top_kernels(kernels, 6))
+                print(f"[fixed] {card}: use_pallas={use_pallas} {stage}, batch {b}: "
+                      f"window {window_ms:.2f} ms, device {device_ms:.2f} ms, "
+                      f"{launches} launches")
+                for r in row["by_kernel"]:
+                    print(f"[fixed]   {r['ms']:9.3f} ms  x{r['count']:<6} {r['name'][:90]}")
+                rows.append(row)
+    return rows
+
+
+def profile_forward(dev, card):
+    """The uncached forward with its loss, use_pallas off and on."""
+    import chip_smoke as cs
+    from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel
+    model = FlamingoModel(FlamingoConfig(**cs.MINI), device=dev, seed=0)
+    for blk in model.params["xattn"].values():
+        blk["alpha_attn"].fill_(0.5)
+        blk["alpha_ffw"].fill_(0.5)
+    model.to_bf16()
+    b, n, pad = cs.FWD_B, cs.FWD_N, cs.GPT2_PAD
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ids = torch.randint(0, 1000, (b, n), generator=gen, device=dev)
+    mask = torch.ones((b, n), dtype=torch.int32, device=dev)
+    ids[:2, :pad], mask[:2, :pad] = 0, 0
+    media = torch.zeros((b, n), dtype=torch.int32, device=dev)
+    media[:2, pad], media[2:, 0] = 1, 1
+    size = model.config.vision_arch.image_size
+    pixels = torch.randn((b, 1, 3, size, size), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    rows = []
+    with torch.inference_mode():
+        for use_pallas in (False, True):
+            m = FlamingoModel(FlamingoConfig(**cs.MINI, use_pallas=use_pallas),
+                              params=model.params, device=dev)
+
+            def fwd():
+                return m(ids, media_locations=media, attention_mask=mask,
+                         pixel_values=pixels, labels=ids)
+            fwd()                                             # warm-up
+            torch.cuda.synchronize()
+            window_ms, device_ms, launches, kernels = traced_device(fwd)
+            row = dict(use_pallas=use_pallas, batch=b, tokens=n, window_ms=window_ms,
+                       device_ms=device_ms, busy=device_ms / window_ms,
+                       launches=launches, by_kernel=top_kernels(kernels, 8))
+            print(f"[forward] {card}: use_pallas={use_pallas}, {b}x{n} tokens: window "
+                  f"{window_ms:.2f} ms, device {device_ms:.2f} ms (busy "
+                  f"{100 * row['busy']:.1f} %), {launches} launches")
+            for r in row["by_kernel"]:
+                print(f"[forward]   {r['ms']:9.3f} ms  x{r['count']:<6} {r['name'][:90]}")
+            rows.append(row)
+    return rows
+
+
+def profile_paths(dev, card):
+    import chip_smoke as cs
+    config, model, ids, media, pixels = mini_model(dev)
+    b, L = ids.shape
 
     def run(megakernel, beams, new_tokens):
         return model.generate(ids, media_locations=media, pixel_values=pixels,
@@ -117,16 +240,7 @@ def profile_paths(dev, card):
 
     def traced(megakernel, beams, new_tokens):
         """(wall ms, device ms, launches, kernel events) of one generate."""
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run(megakernel, beams, new_tokens)
-            torch.cuda.synchronize()
-            window_ms = (time.perf_counter() - t0) * 1e3
-        events = prof.key_averages()
-        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        launches = sum(e.count for e in events if e.key in LAUNCH_CALLS)
-        return window_ms, device_ms, launches, kernels
+        return traced_device(lambda: run(megakernel, beams, new_tokens))
 
     rows = []
     steps = PROFILE_NEW_TOKENS - 1
@@ -140,15 +254,13 @@ def profile_paths(dev, card):
         # the same generate with 1 new token: vision, resampler, prefill and
         # the first token, to take out of the decode loop's share
         window_1, device_1, launches_1, _ = traced(megakernel, beams, 1)
-        by_kernel = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                            for e in kernels), key=lambda r: -r[1])[:10]
         row = dict(path=label, num_beams=beams, new_tokens=PROFILE_NEW_TOKENS,
                    window_ms=window_ms,
                    device_ms=device_ms, busy=device_ms / window_ms,
                    decode_busy=(device_ms - device_1) / (window_ms - window_1),
                    launches=launches,
                    launches_per_step=(launches - launches_1) / steps,
-                   by_kernel=[dict(name=k, ms=ms, count=c) for k, ms, c in by_kernel])
+                   by_kernel=top_kernels(kernels))
         print(f"[profile] {card}: {label} path, generate of {PROFILE_NEW_TOKENS} "
               f"tokens: window {window_ms:.1f} ms, device {device_ms:.1f} ms "
               f"(busy {100 * row['busy']:.1f} %); decode loop busy "
@@ -173,8 +285,17 @@ def main() -> int:
     card = cs.card_line()
     print(card)
     cuda_build.kernels()
-    result = {"card": card, "sweep": sweep(dev, card),
-              "profile": profile_paths(dev, card)}
+    sections = {"sweep": sweep, "paths": profile_paths, "fixed": fixed_cost,
+                "forward": profile_forward}
+    names = sys.argv[1:] or list(sections)
+    unknown = set(names) - set(sections)
+    if unknown:
+        print(f"profile_decode: unknown sections {sorted(unknown)}; choose from "
+              f"{list(sections)}", file=sys.stderr)
+        return 2
+    result = {"card": card}
+    for name in names:
+        result[name] = sections[name](dev, card)
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump(result, f, indent=1)

@@ -19,7 +19,12 @@ sums in another order round a few bf16 intermediates the other way). The
 beam kernels (``decode_attention_beam``, the megakernel's beam mode) are
 held to the same tolerances at the beam path's shapes (96 rows in families
 of 3, 160 in families of 5, a 128-slot cache, a 68-slot ancestry table).
-The random trunks and inputs are chip_smoke.py's.
+The attention kernels of the use_pallas path (``fused_attention``, its
+streaming kernel, ``fused_media_xattn``) are held at the ViT, resampler,
+GPT-2 forward, media prefill and forward shapes, with fully masked rows
+(left-padded causal queries, text_time past the media count) and rows
+zeroed (text_time 0): float32 within 1e-5 of the output's scale, bf16
+within 2 bf16 ulps. The random trunks and inputs are chip_smoke.py's.
 """
 import numpy as np
 import pytest
@@ -264,3 +269,116 @@ def test_megakernel_refuses_rows_past_its_limit(cuda):
         decode_step_megakernel(packed, inputs[0], inputs[1], inputs[2], inputs[3],
                                x, inputs[5], inputs[6], 5, config=cfg)
     assert decode_step_megakernel.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the attention kernels of the use_pallas path
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ["vit", "resampler", "gpt2 forward"])
+def test_fused_attention_kernel_matches_plain(cuda, dtype, shape):
+    """The ViT, resampler and GPT-2 forward shapes; the forward causal with
+    two rows left-padded by 8, whose pad queries are fully masked (bf16:
+    -inf before them, float32 min after)."""
+    import chip_smoke
+    from flamingo_mini_tpu_torch.ops.fused_attention import (
+        fused_attention, fused_attention_plain)
+    b, h, n_q, n_kv = chip_smoke.ATT_SHAPES[shape]
+    q, k, v = chip_smoke.attention_inputs(cuda, dtype, b, h, n_q, n_kv, seed=3)
+    kw = dict(scale=0.125)
+    if shape == "gpt2 forward":
+        kw.update(causal=True, row_bias=chip_smoke.left_pad_bias(
+            cuda, dtype, b, n_q, [8, 8] + [0] * (b - 2)))
+    before = fused_attention.launches
+    got = fused_attention(q, k, v, **kw)
+    assert fused_attention.launches == before + 1
+    chip_smoke.held_to_plain(f"fused_attention {shape} {dtype}", got,
+                             fused_attention_plain(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_kernel_bias_and_ragged_rows(cuda, dtype):
+    """A full (b, h, n_q, n_kv) bias broadcast from (b, 1, n_q, n_kv), a row
+    bias and causal together, n_q and n_kv not tile multiples."""
+    import chip_smoke
+    from flamingo_mini_tpu_torch.ops.fused_attention import (
+        fused_attention, fused_attention_plain)
+    b, h, n_q, n_kv = 3, 2, 70, 100
+    q, k, v = chip_smoke.attention_inputs(cuda, dtype, b, h, n_q, n_kv, seed=4)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    bias = torch.randn((b, 1, n_q, n_kv), generator=gen, device=cuda).to(dtype)
+    kw = dict(scale=0.3, bias=bias, causal=True,
+              row_bias=chip_smoke.left_pad_bias(cuda, dtype, b, n_kv, [0, 5, 90]))
+    chip_smoke.held_to_plain(f"fused_attention with bias {dtype}",
+                             fused_attention(q, k, v, **kw),
+                             fused_attention_plain(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, causal):
+    """(2, 16, 4000, 64): 4000 keys pad to 4096 (blocks of 256); row 0 is
+    left-padded by 8. fused_attention dispatches to it past 2048 keys."""
+    import chip_smoke
+    from flamingo_mini_tpu_torch.ops.fused_attention import (
+        flash_attention, flash_attention_plain, fused_attention)
+    b, h, n = chip_smoke.FLASH_SHAPE
+    q, k, v = chip_smoke.attention_inputs(cuda, dtype, b, h, n, n, seed=6)
+    kw = dict(scale=0.125, causal=causal,
+              row_bias=chip_smoke.left_pad_bias(cuda, dtype, b, n, [8, 0]))
+    before = (flash_attention.launches, fused_attention.launches)
+    got = fused_attention(q, k, v, **kw)
+    assert (flash_attention.launches, fused_attention.launches) == \
+        (before[0] + 1, before[1])
+    chip_smoke.held_to_plain(f"flash_attention causal={causal} {dtype}", got,
+                             flash_attention_plain(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ["prefill", "forward", "two images"])
+def test_media_xattn_kernel_matches_plain(cuda, dtype, shape):
+    """text_time 0 (rows zeroed), in range, and past the media count (rows
+    fully masked: the mean of V)."""
+    import chip_smoke
+    from flamingo_mini_tpu_torch.ops.media_xattn import (
+        fused_media_xattn, fused_media_xattn_plain)
+    b, n_q, n_media = chip_smoke.MEDIA_SHAPES[shape]
+    q, k, v = chip_smoke.attention_inputs(cuda, dtype, b, 8, n_q, 64 * n_media, seed=7)
+    tt = chip_smoke.media_text_time(cuda, b, n_q, n_media, seed=8)
+    before = fused_media_xattn.launches
+    got = fused_media_xattn(q, k, v, tt, scale=1.0, n_visual=64)
+    assert fused_media_xattn.launches == before + 1
+    chip_smoke.held_to_plain(f"fused_media_xattn {shape} {dtype}", got,
+                             fused_media_xattn_plain(q, k, v, tt, scale=1.0, n_visual=64),
+                             dtype)
+    past = (tt == n_media + 1)[:, None, :, None].expand_as(got)
+    mean_v = v.float().mean(dim=2, keepdim=True).expand_as(got)
+    chip_smoke.held_to_plain("rows past the media count", got.float()[past], mean_v[past],
+                             dtype)
+    assert bool((got[(tt == 0)[:, None, :, None].expand_as(got)] == 0).all())
+
+
+def test_attention_kernels_refuse_bad_input(cuda):
+    """Head dim 32, a head dim that is not contiguous, misaligned strides,
+    and inputs that require grad (built on the CPU, moved to the card)."""
+    from flamingo_mini_tpu_torch.ops.fused_attention import fused_attention
+    from flamingo_mini_tpu_torch.ops.media_xattn import fused_media_xattn
+    tt = torch.ones((2, 8), dtype=torch.int32, device=cuda)
+    x = torch.zeros((2, 2, 8, 64), device=cuda)
+    bad = [torch.zeros((2, 2, 8, 32), device=cuda),
+           torch.zeros((2, 2, 64, 8), device=cuda).transpose(2, 3),
+           torch.zeros((2, 2, 8, 70), device=cuda)[..., 3:67]]
+    for t in bad:
+        with pytest.raises(ValueError):
+            fused_attention(t, t, t, scale=1.0)
+        with pytest.raises(ValueError):
+            fused_media_xattn(t, t, t, tt, scale=1.0, n_visual=4)
+    g = torch.zeros((2, 2, 8, 64), requires_grad=True).to(cuda)
+    with pytest.raises(NotImplementedError):
+        fused_attention(g, x, x, scale=1.0)
+    with pytest.raises(NotImplementedError):
+        fused_attention(x, g, x, scale=1.0, streaming=True)
+    with pytest.raises(NotImplementedError):
+        fused_media_xattn(x, x, g, tt, scale=1.0, n_visual=4)

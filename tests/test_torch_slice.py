@@ -163,7 +163,7 @@ def test_resampler_matches_jax(f32, frames):
               act=jc.resampler_act)
     want = jres.apply_resampler(params["resampler"], jnp.asarray(feats),
                                 policy=jpol, **kw)
-    got = pres.apply_resampler(tp["resampler"], _t(feats), **kw)
+    got = pres.apply_resampler(tp["resampler"], _t(feats), policy=ppol, **kw)
     assert got.shape == (2, 8, 64)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
@@ -188,7 +188,8 @@ def test_gated_xattn_block_matches_jax(f32):
                                       jnp.asarray(text_time), policy=jpol, **kw)
     pblk = tp["xattn"]["0"]
     pkv = px.compute_visual_kv(pblk["attn"], _t(vis), heads=jc.xattn_heads)
-    got = px.apply_gated_xattn_block(pblk, _t(y), pkv, _t(text_time), **kw)
+    got = px.apply_gated_xattn_block(pblk, _t(y), pkv, _t(text_time),
+                                     policy=ppol, **kw)
     for g, w in zip(pkv, jkv):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5)
     assert not np.allclose(np.asarray(want), y)   # the gates are open
