@@ -5,7 +5,8 @@
 
 Drives ``flamingo_mini_tpu_torch`` through both of its decode paths, greedy
 and with beam search, the ``use_pallas`` configuration's generate, and the
-uncached forward with its loss, and checks them:
+uncached forward with its loss, for flamingo-mini (GPT-2-medium) and for
+OPT-1.3B and opt-350m trunks, and checks them:
 
 1. device and build: prints the card's name and power limit (nvidia-smi)
    and builds the hand-written kernels from ``flamingo_mini_tpu_torch/csrc``
@@ -26,14 +27,23 @@ uncached forward with its loss, and checks them:
    rows attend nothing, one past the table), bf16 and float32; the
    megakernel's beam mode at 1 and 2 layers and 3, 24, 96 and 160 rows
    (families of 3, 3, 3, 5) at 2 bf16 ulps, and at 24 layers and 96 rows
-   under the normwise rule, with its grid at 96 and 160 rows. Each kernel is
+   under the normwise rule, with its grid at 96 and 160 rows. The
+   megakernel's OPT mode at OPT-1.3B width (D=2048, 32 heads, ffn 8192,
+   XI=512, xattn before every other layer, a 128-slot cache): 1 and 2
+   layers, b in {1, 3, 8, 32}, at 2 bf16 ulps, printing where the largest
+   error lies, and the same cases with GELU in place of ReLU (printed, not
+   held to a limit); 24 layers at b=8 under the normwise rule; its grid at
+   b=8 and 32. ``decode_attention`` and
+   ``lm_head_argmax`` also at OPT-1.3B's shapes (b=8, D=2048, 32 heads,
+   T=128; V=50273 padded to 51200). Each kernel is
    timed beside its plain version and its bound, ``decode_attention`` also
    beside ``scaled_dot_product_attention`` and ``decode_attention_beam``
    beside one SDPA call over each family's 3 x T keys under the ancestry as
    a boolean mask. The attention kernels of ``use_pallas``:
    ``fused_attention`` at the ViT (32, 16, 257, 64), resampler (32, 8, 64
-   queries, 321 keys) and causal GPT-2 forward (8, 16, 64, 64) shapes, the
-   last with two rows left-padded by 8 (fully masked pad queries); its
+   queries, 321 keys) and causal GPT-2 and OPT-1.3B forward (8, 16 or 32,
+   64, 64) shapes, the last two with two rows left-padded by 8 (fully
+   masked pad queries); its
    streaming kernel ``flash_attention`` at (2, 16, 4000, 64) (keys padded to
    4096), causal and not, a left-padded row; ``fused_media_xattn`` at the
    prefill (32, 8, 4 tokens, 64 keys) and forward (8, 8, 64, 64 and 128)
@@ -70,15 +80,29 @@ uncached forward with its loss, and checks them:
    first real token, rows 0 and 1 left-padded by 8): ``fused_attention`` 54
    and ``fused_media_xattn`` 24 launches and nothing else; logits (all
    rows, and the left-padded rows) and loss within max(1e-2, 1.25 x the
-   plain version's CPU-vs-card spread) of the plain-version run;
+   plain version's CPU-vs-card spread) of the plain-version run.
+   OPT-1.3B (BASELINE config 3's shape, greedy: ViT-L/14, xattn every
+   other layer, int8 trunk and xattn, bf16, batch 8, one image + 8-token
+   prompt with rows 0 and 1 left-padded by 2, 64 new tokens,
+   ``prefix_block=32``, EOS unreachable): per layer (24 x 63
+   ``decode_attention``, 63 ``lm_head_argmax``) and on the megakernel (63
+   ``decode_step_megakernel``, 63 ``lm_head_argmax``), each against its
+   plain-version run and the two paths against each other (near-ties as
+   above); beams on the megakernel (3 beams, 32 new tokens: 31
+   ``decode_step_megakernel`` and nothing else, output (8, 40), against the
+   plain-version run); the use_pallas forward (54 ``fused_attention``, 12
+   ``fused_media_xattn``, the forward rule). opt-350m (post-norm with
+   project_in/out): per layer, 16 new tokens, batch 8, against the
+   plain-version run; ``megakernel=True`` must raise ``ValueError``;
 4. timing on the card: ms per decode step (two lengths) and captions/s of
-   the five generate paths, peak memory, the beam step's full head
-   (``lm_head`` at 96 rows) and candidate selection, encode + resample at
-   batch 32 with and without the attention kernels, and the forward's ms
-   and tokens/s.
+   the five flamingo-mini generate paths and the two OPT-1.3B paths, peak
+   memory, the beam step's full head (``lm_head`` at 96 rows) and
+   candidate selection, encode + resample at batch 32 with and without the
+   attention kernels, and both forwards' ms and tokens/s.
 
 Any failure raises and exits nonzero. Without a CUDA device it exits 1 and
-prints no result. The line before the last lists the kernels as JSON; the
+prints no result. The line before the last lists the kernels as JSON
+(each of the seven, with its OPT mode and shapes where it has them); the
 last line is ``{"ok": true, "device": ...}``.
 """
 import contextlib
@@ -107,10 +131,11 @@ HEAD_B, HEAD_D, HEAD_V = 32, 1024, 50258
 MEGA_D, MEGA_H, MEGA_XI, MEGA_XH, MEGA_NV, MEGA_T = 1024, 16, 512, 8, 64, 192
 # the attention kernels of the use_pallas path, (b, h, n_q, n_kv): the ViT's
 # 24 self-attentions and the resampler's 6 per generate (one image per row),
-# the uncached GPT-2 forward's 24 at batch 8 x 64 tokens
+# the uncached GPT-2 forward's 24 at batch 8 x 64 tokens, OPT-1.3B's 24
+# (causal, two rows left-padded)
 HEAD_DIM = 64
 ATT_SHAPES = {"vit": (32, 16, 257, 257), "resampler": (32, 8, 64, 321),
-              "gpt2 forward": (8, 16, 64, 64)}
+              "gpt2 forward": (8, 16, 64, 64), "opt forward": (8, 32, 64, 64)}
 GPT2_PAD = 8
 FLASH_SHAPE = (2, 16, 4000)
 # media xattn (b, n_token, n_media), 8 heads: the generate prefill (4-token
@@ -122,6 +147,21 @@ MINI = dict(lm="gpt2-medium", clip_model_type="openai/clip-vit-large-patch14",
             dim=1024, dim_visual=1024, compute_dtype="bfloat16")
 # the uncached forward: batch 8 x 64 tokens (bench_train.py's shape)
 FWD_B, FWD_N = 8, 64
+# OPT-1.3B captioning, BASELINE config 3's shape (bench_extended.py:214-216,
+# :233-235) run greedy: ViT-L/14, xattn every other layer, batch 8, one image
+# + 8-token prompt with rows 0 and 1 left-padded by 2, 64 new tokens (the
+# flat cache rounds 72 up to 128); beams: 3, 32 new tokens
+OPT13 = dict(lm="facebook/opt-1.3b", clip_model_type="openai/clip-vit-large-patch14",
+             dim=2048, dim_visual=1024, xattn_every=2, compute_dtype="bfloat16")
+OPT_B, OPT_PROMPT, OPT_PAD, OPT_NEW, OPT_BEAM_NEW = 8, 8, 2, 64, 32
+OPT_MAX = OPT_PROMPT + OPT_NEW
+OPT_D, OPT_H, OPT_T, OPT_V = 2048, 32, 128, 50273
+# (cur, kv_limit) pairs the OPT loop reaches: segments end at 40 and 71
+OPT_PAIRS = ((8, 40), (39, 40), (40, 71), (70, 71))
+# opt-350m: post-norm with project_in/out, per layer only, 16 new tokens
+OPT350 = dict(lm="facebook/opt-350m", clip_model_type="openai/clip-vit-large-patch14",
+              dim=1024, dim_visual=1024, compute_dtype="bfloat16")
+OPT350_NEW = 16
 # NVIDIA H100 SXM data sheet: device memory rate, dense bf16 tensor cores
 HBM_BYTES_PER_S, BF16_OPS_PER_S = 3.35e12, 989e12
 
@@ -163,24 +203,27 @@ def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
     return statistics.median(times)
 
 
-def phase2_decode_attention(dev, flush):
+def phase2_decode_attention(dev, flush, b=ATTN_B, D=ATTN_D, H=ATTN_H, T=ATTN_T,
+                            curs=(4, 70, 131), limits=(36, 68, 132)):
+    """decode_attention vs plain at (b, D, H heads, a T-slot cache) for each
+    cur and kv_limit; timed at the last of each, beside SDPA and the bound."""
     from flamingo_mini_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_plain)
     rs = np.random.RandomState(0)
-    shape = (ATTN_T, ATTN_B, ATTN_D)
-    q32 = torch.tensor(rs.randn(ATTN_B, ATTN_D) * 0.3, dtype=torch.float32, device=dev)
+    shape = (T, b, D)
+    q32 = torch.tensor(rs.randn(b, D) * 0.3, dtype=torch.float32, device=dev)
     k32 = torch.tensor(rs.randn(*shape) * 0.3, dtype=torch.float32, device=dev)
     v32 = torch.tensor(rs.randn(*shape) * 0.3, dtype=torch.float32, device=dev)
-    npad = torch.tensor(np.arange(ATTN_B) % 4, dtype=torch.int32, device=dev)
+    npad = torch.tensor(np.arange(b) % 4, dtype=torch.int32, device=dev)
     scale = 1.0 / 8.0
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (t.to(dtype) for t in (q32, k32, v32))
-        for cur in (4, 70, 131):
-            for kv_limit in (36, 68, 132):
-                got = decode_attention(q, k, v, npad, cur, n_head=ATTN_H,
+        for cur in curs:
+            for kv_limit in limits:
+                got = decode_attention(q, k, v, npad, cur, n_head=H,
                                        scale=scale, kv_limit=kv_limit)
-                want = decode_attention_plain(q, k, v, npad, cur, n_head=ATTN_H,
+                want = decode_attention_plain(q, k, v, npad, cur, n_head=H,
                                               scale=scale, kv_limit=kv_limit)
                 torch.cuda.synchronize()
                 err = float((got.float() - want.float()).abs().max())
@@ -189,43 +232,44 @@ def phase2_decode_attention(dev, flush):
                 assert err <= tol, f"decode_attention {dtype} cur={cur} " \
                     f"kv_limit={kv_limit}: max err {err} > {tol}"
                 worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
-    print(f"[phase 2] decode_attention vs plain: max abs err {worst} "
-          "(tolerance: f32 1e-5, bf16 2 ulp of the output scale)")
+    print(f"[phase 2] decode_attention vs plain at b={b}, D={D}, {H} heads, T={T}: "
+          f"max abs err {worst} (tolerance: f32 1e-5, bf16 2 ulp of the output scale)")
     q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
-    t_lim, cur = 132, 131
-    kw = dict(n_head=ATTN_H, scale=scale, kv_limit=t_lim)
+    t_lim, cur = limits[-1], curs[-1]
+    kw = dict(n_head=H, scale=scale, kv_limit=t_lim)
     ms = time_ms(lambda: decode_attention(q, k, v, npad, cur, **kw), 50, flush)
     plain_ms = time_ms(lambda: decode_attention_plain(q, k, v, npad, cur, **kw),
                        50, flush)
     # the same function as one library call, on the same cache (views)
-    dh = ATTN_D // ATTN_H
-    q4 = q.view(ATTN_B, ATTN_H, 1, dh)
-    k4, v4 = (c[:t_lim].view(t_lim, ATTN_B, ATTN_H, dh).permute(1, 2, 0, 3)
-              for c in (k, v))
+    dh = D // H
+    q4 = q.view(b, H, 1, dh)
+    k4, v4 = (c[:t_lim].view(t_lim, b, H, dh).permute(1, 2, 0, 3) for c in (k, v))
     pos = torch.arange(t_lim, device=dev)
     mask = ((pos[None, :] >= npad[:, None]) & (pos[None, :] <= cur))[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_out = sdpa(q4, k4, v4, attn_mask=mask, scale=scale).reshape(ATTN_B, ATTN_D)
+    lib_out = sdpa(q4, k4, v4, attn_mask=mask, scale=scale).reshape(b, D)
     lib_err = float((lib_out.float() - decode_attention(q, k, v, npad, cur, **kw)
                      .float()).abs().max())
     library_ms = time_ms(lambda: sdpa(q4, k4, v4, attn_mask=mask, scale=scale),
                          50, flush)
     print(f"[phase 2] scaled_dot_product_attention at decode_attention's shape: "
           f"max abs diff to the kernel {lib_err}")
-    n_bytes = 2 * 2 * t_lim * ATTN_B * ATTN_D + 2 * 2 * ATTN_B * ATTN_D + 4 * ATTN_B
-    n_ops = 4 * ATTN_B * (cur + 1) * ATTN_D
+    n_bytes = 2 * 2 * t_lim * b * D + 2 * 2 * b * D + 4 * b
+    n_ops = 4 * b * (cur + 1) * D
     return dict(max_abs_err=max(worst.values()), ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, **dict(zip(("bound_ms", "bound_by"),
                                                   bound(n_bytes, n_ops))))
 
 
-def phase2_lm_head(dev, flush):
+def phase2_lm_head(dev, flush, B=HEAD_B, D=HEAD_D, V=HEAD_V):
+    """lm_head_argmax vs plain at (B rows, width D, V vocab rows padded to
+    a multiple of 2048), a cross-chunk tie planted; timed beside the bound."""
     from flamingo_mini_tpu_torch.ops.lm_head import (
         lm_head_argmax, lm_head_argmax_plain, pad_head_weights)
     rs = np.random.RandomState(1)
-    w8 = rs.randint(-127, 128, (HEAD_V, HEAD_D)).astype(np.int8)
-    scale = (np.abs(rs.randn(HEAD_V)) * 0.01 + 1e-4).astype(np.float32)
-    x = (rs.randn(HEAD_B, HEAD_D) * 0.1).astype(np.float32)
+    w8 = rs.randint(-127, 128, (V, D)).astype(np.int8)
+    scale = (np.abs(rs.randn(V)) * 0.01 + 1e-4).astype(np.float32)
+    x = (rs.randn(B, D) * 0.1).astype(np.float32)
     # row 0: vocab rows 7 and 40000 (other chunks) tie exactly at the top
     x[0] = 0.0
     x[0, :8] = 1.0 / 127
@@ -234,49 +278,65 @@ def phase2_lm_head(dev, flush):
     head = pad_head_weights({"w8": torch.tensor(w8, device=dev),
                              "scale": torch.tensor(scale, device=dev)}, 2048)
     Vp = head["w8"].shape[0]
-    assert Vp == 51200
+    assert Vp == -(-V // 2048) * 2048
     xt = torch.tensor(x, device=dev).to(torch.bfloat16)
-    got = lm_head_argmax(head["w8"], head["scale"], xt, n_valid=HEAD_V)
-    want = lm_head_argmax_plain(head["w8"], head["scale"], xt, n_valid=HEAD_V)
+    got = lm_head_argmax(head["w8"], head["scale"], xt, n_valid=V)
+    want = lm_head_argmax_plain(head["w8"], head["scale"], xt, n_valid=V)
     torch.cuda.synchronize()
     assert int(got[0]) == 7, f"planted tie resolved to {int(got[0])}, not 7"
     logits = torch.matmul(xt.float(), head["w8"].float().t()) * head["scale"]
-    logits = logits.to(torch.bfloat16).float()[:, :HEAD_V]
-    rows = torch.arange(HEAD_B, device=dev)
+    logits = logits.to(torch.bfloat16).float()[:, :V]
+    rows = torch.arange(B, device=dev)
     gap = (logits[rows, want.long()] - logits[rows, got.long()]).abs()
     ulp = 2.0 ** (torch.floor(torch.log2(logits[rows, want.long()].abs())) - 7)
     mismatch = int((got != want).sum())
     assert bool((gap <= ulp).all()), "lm_head_argmax picks differ by more " \
         f"than 1 bf16 ulp: {gap.max().item()}"
-    print(f"[phase 2] lm_head_argmax vs plain: {mismatch}/{HEAD_B} tokens "
-          f"differ, all within 1 bf16 ulp; planted cross-chunk tie -> 7")
+    print(f"[phase 2] lm_head_argmax vs plain at B={B}, D={D}, V={V} (padded to "
+          f"{Vp}): {mismatch}/{B} tokens differ, all within 1 bf16 ulp; planted "
+          "cross-chunk tie -> 7")
     ms = time_ms(lambda: lm_head_argmax(head["w8"], head["scale"], xt,
-                                        n_valid=HEAD_V), 50, flush)
+                                        n_valid=V), 50, flush)
     plain_ms = time_ms(lambda: lm_head_argmax_plain(
-        head["w8"], head["scale"], xt, n_valid=HEAD_V), 50, flush)
-    n_bytes = Vp * HEAD_D + 4 * Vp + 2 * HEAD_B * HEAD_D + 4 * HEAD_B
+        head["w8"], head["scale"], xt, n_valid=V), 50, flush)
+    n_bytes = Vp * D + 4 * Vp + 2 * B * D + 4 * B
     return dict(max_abs_err=float(gap.max()), ms=ms, plain_ms=plain_ms,
                 library_ms=None, **dict(zip(("bound_ms", "bound_by"), bound(
-                    n_bytes, 2 * HEAD_B * Vp * HEAD_D))))
+                    n_bytes, 2 * B * Vp * D))))
 
 
 def random_trunk(dev, *, n_layer: int, xattn_every: int, seed: int, D=MEGA_D,
-                 H=MEGA_H, XI=MEGA_XI, XH=MEGA_XH, n_visual=MEGA_NV):
-    """(config, packed weights) for the megakernel: a random int8 GPT-2
-    trunk and gated xattn blocks with random biases and LayerNorm params
-    and open gates, from a seed."""
+                 H=MEGA_H, XI=MEGA_XI, XH=MEGA_XH, n_visual=MEGA_NV,
+                 family="gpt2", activation="relu"):
+    """(config, packed weights) for the megakernel: a random int8 trunk
+    (GPT-2, or pre-norm OPT with ffn 4 D and ``activation``) and gated
+    xattn blocks with random biases and LayerNorm params and open gates,
+    from a seed (the activation does not change the weights)."""
     from flamingo_mini_tpu_torch import FlamingoConfig
-    from flamingo_mini_tpu_torch.models import gpt2
+    from flamingo_mini_tpu_torch.models import gpt2, opt
     from flamingo_mini_tpu_torch.models.xattn import init_gated_xattn_block
     from flamingo_mini_tpu_torch.ops import megadecode, quant
-    cfg = FlamingoConfig(
-        lm="gpt2", dim=D, xattn_every=xattn_every, xattn_heads=XH,
-        xattn_dim_head=XI // XH, resampler_num_latents=n_visual,
-        compute_dtype="bfloat16",
-        lm_arch_overrides=dict(vocab_size=512, n_positions=256, n_embd=D,
-                               n_layer=n_layer, n_head=H))
+    common = dict(dim=D, xattn_every=xattn_every, xattn_heads=XH,
+                  xattn_dim_head=XI // XH, resampler_num_latents=n_visual,
+                  compute_dtype="bfloat16")
+    if family == "gpt2":
+        cfg = FlamingoConfig(lm="gpt2", lm_arch_overrides=dict(
+            vocab_size=512, n_positions=256, n_embd=D, n_layer=n_layer, n_head=H),
+            **common)
+    else:
+        cfg = FlamingoConfig(lm="facebook/opt-1.3b", lm_arch_overrides=dict(
+            vocab_size=512, max_position_embeddings=256, hidden_size=D,
+            ffn_dim=4 * D, num_hidden_layers=n_layer, num_attention_heads=H,
+            word_embed_proj_dim=D, activation=activation), **common)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    lm = gpt2.init_gpt2(gen, cfg.lm_arch)
+    if family == "gpt2":
+        lm = gpt2.init_gpt2(gen, cfg.lm_arch)
+        blocks, lns = lm["blocks"], ("ln_1", "ln_2")
+        lins = ("c_attn", "c_proj", "mlp_fc", "mlp_proj")
+    else:
+        lm = opt.init_opt(gen, cfg.lm_arch)
+        blocks, lns = lm["layers"], ("attn_ln", "final_ln")
+        lins = ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2")
     xattn = {str(i): init_gated_xattn_block(gen, dim=D, dim_visual=64,
                                             dim_head=XI // XH, heads=XH,
                                             ff_mult=4)
@@ -285,17 +345,18 @@ def random_trunk(dev, *, n_layer: int, xattn_every: int, seed: int, D=MEGA_D,
     def randn_like(t, std, mean=0.0):
         return mean + std * torch.randn(t.shape, generator=gen, device=dev)
 
-    norms = [blk[k] for blk in lm["blocks"] for k in ("ln_1", "ln_2")]
+    norms = [blk[k] for blk in blocks for k in lns]
     norms += [x[k]["norm"] for x in xattn.values() for k in ("attn", "ffw")]
     for ln in norms:
         ln["scale"], ln["bias"] = randn_like(ln["scale"], 0.1, 1.0), randn_like(ln["bias"], 0.02)
-    for blk in lm["blocks"]:
-        for k in ("c_attn", "c_proj", "mlp_fc", "mlp_proj"):
+    for blk in blocks:
+        for k in lins:
             blk[k]["b"] = randn_like(blk[k]["b"], 0.02)
     for x in xattn.values():
         x["alpha_attn"].fill_(0.5)
         x["alpha_ffw"].fill_(0.3)
-    params = quant.cast_params_bf16({"lm": quant.quantize_gpt2_lm(lm),
+    quantize = quant.quantize_gpt2_lm if family == "gpt2" else quant.quantize_opt_lm
+    params = quant.cast_params_bf16({"lm": quantize(lm),
                                      "xattn": quant.quantize_xattn_blocks(xattn)})
     return cfg, megadecode.pack_decode_weights(params, cfg)
 
@@ -306,7 +367,7 @@ def mega_inputs(dev, cfg, b: int, seed: int, *, T=MEGA_T, NMNV=MEGA_NV):
     an image (text_time 0)."""
     from flamingo_mini_tpu_torch.ops import megadecode
     gen = torch.Generator(device=dev).manual_seed(seed)
-    L, D = cfg.lm_arch.n_layer, cfg.lm_arch.n_embd
+    D, _Dff, L, _H = megadecode.trunk_dims(cfg.lm_arch)
     XH, xdh = cfg.xattn_heads, cfg.xattn_dim_head
 
     def rnd(*shape):
@@ -356,90 +417,123 @@ def mega_errors(cfg, packed, inputs, cur, kv_limit, beam_anc=None):
             "v rows": (vc1[:, cur].float(), vc2[:, cur].float())}
 
 
-def plain_errors_on_cpu(cfg, packed, inputs, cur, kv_limit, beam_anc=None):
-    """The plain version on CPU copies of the inputs -> {name: result} in
-    the layout of ``mega_errors``."""
+def held_to_ulps(label, errs, worst, limit=2):
+    """Every (got, want) of ``mega_errors`` within ``limit`` bf16 ulps at
+    want's scale; ``worst`` = [ulps, abs error, where] so far, updated:
+    ``where`` names the case, the tensor and index of the largest error
+    ((layer, row, column) for the K/V rows), both values, and how many
+    elements of that tensor differ by 1 ulp or more."""
+    for name, (got, want) in errs.items():
+        assert bool(torch.isfinite(got).all()), (label, name)
+        diff = (got - want).abs()
+        err, ulp = float(diff.max()), bf16_ulps(want, 1)
+        if err / ulp > worst[0]:
+            idx = tuple(int(i) for i in np.unravel_index(int(diff.argmax()), diff.shape))
+            worst[2] = (f"{label} {name}{list(idx)}: kernel {float(got[idx])}, plain "
+                        f"{float(want[idx])}, ulp {ulp}; {int((diff >= ulp).sum())} of "
+                        f"{diff.numel()} elements at 1 ulp or more")
+        worst[0], worst[1] = max(worst[0], err / ulp), max(worst[1], err)
+        assert err / ulp <= limit, f"{label} {name}: {err / ulp} ulp"
+
+
+def held_normwise(label, cfg, packed, inputs, cur, kv_limit, beam_anc=None):
+    """A deep trunk: the kernel against the plain version on the card,
+    normwise. The roundings compound over layers; the plain version on the
+    CPU (float32 sums in another order) measures how far that alone moves
+    the result, and the kernel may differ from the plain version on the
+    card by 1e-2 or by 1.25 times that spread, whichever is larger."""
     from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel_plain
     host = {k: (t.cpu() if isinstance(t, torch.Tensor) else t) for k, t in packed.items()}
     xk, xv, kc, vc, x, npad, tt = (t.cpu() for t in inputs)
-    hidden = decode_step_megakernel_plain(
+    cpu_hidden = decode_step_megakernel_plain(
         host, xk, xv, kc, vc, x, npad, tt, cur, config=cfg, kv_limit=kv_limit,
         beam_anc=None if beam_anc is None else beam_anc.cpu())
-    return {"hidden": hidden.float(), "k rows": kc[:, cur].float(),
-            "v rows": vc[:, cur].float()}
+    cpu = {"hidden": cpu_hidden.float(), "k rows": kc[:, cur].float(),
+           "v rows": vc[:, cur].float()}
+    rel, spread = {}, {}
+    for name, (got, want) in mega_errors(cfg, packed, inputs, cur, kv_limit,
+                                         beam_anc).items():
+        rel[name] = float((got - want).norm() / want.norm())
+        spread[name] = float((cpu[name] - want.cpu()).norm() / want.norm())
+        assert bool(torch.isfinite(got).all()), name
+        assert rel[name] <= max(1e-2, 1.25 * spread[name]), (label, name, rel, spread)
+    print(f"[phase 2] {label}: normwise relative error {rel}; the plain version "
+          f"on the CPU vs on the card {spread} (tolerance: the larger of 1e-2 and "
+          "1.25 x that spread)")
+
+
+def mega_bound(packed, cfg, inputs, kv_slots: int, n_pos: int, extra_bytes=0):
+    """(bound ms, what bounds it) of one megakernel call: every weight,
+    scale, bias and LN param once; the xattn K/V of each row's image; per
+    layer ``kv_slots`` cached K/V rows read and the new ones written; the
+    hidden rows in and out; two multiply-adds per weight per row and four
+    per (row, position, dim) of self-attention over ``n_pos`` pairs."""
+    from flamingo_mini_tpu_torch.ops.megadecode import trunk_dims
+    xk, xv, kc, vc, x, npad, tt = inputs
+    D, _Dff, L, _H = trunk_dims(cfg.lm_arch)
+    b, XI = x.shape[0], xk.shape[3]
+    weights = sum(t.numel() * t.element_size() for t in packed.values()
+                  if isinstance(t, torch.Tensor))
+    x_kv = len(packed["xlayers"]) * 2 * int((tt > 0).sum()) * cfg.resampler_num_latents * XI * 2
+    n_bytes = (weights + x_kv + L * 2 * kv_slots * D * 2 + L * 2 * b * D * 2
+               + 2 * 2 * b * D + extra_bytes)
+    n_mac = sum(t.numel() for k, t in packed.items() if k.startswith("w_"))
+    n_ops = 2 * b * n_mac + L * 4 * n_pos * D
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    return bound_ms, bound_by, n_bytes, n_ops
+
+
+def print_grids(label, packed, cfg, inputs_by_rows, cur, kv_limit):
+    """The cooperative grid the megakernel launches for each {rows:
+    (inputs, beam_anc)}."""
+    from flamingo_mini_tpu_torch.ops.megadecode import kernel_args, kernel_grid
+    for rows, (inputs, anc) in inputs_by_rows.items():
+        args, _, _ = kernel_args(packed, *inputs, cur, config=cfg, kv_limit=kv_limit,
+                                 beam_anc=anc)
+        blocks, smem = kernel_grid(args)
+        print(f"[phase 2] {label} grid at {rows} rows: {blocks} blocks of 256 "
+              f"threads, {smem} bytes of shared memory each")
 
 
 def phase2_megakernel(dev, flush):
     from flamingo_mini_tpu_torch.ops.megadecode import (
-        decode_step_megakernel, decode_step_megakernel_plain, kernel_args,
-        kernel_grid)
+        decode_step_megakernel, decode_step_megakernel_plain)
     pairs = ((4, 36), (35, 36), (70, 100), (131, 132))
-    worst_ulps, worst_abs, case = 0.0, 0.0, 0
+    worst, case = [0.0, 0.0, None], 0
     for n_layer, every in ((1, 1), (2, 1), (2, 2)):
         cfg, packed = random_trunk(dev, n_layer=n_layer, xattn_every=every,
                                    seed=10 * n_layer + every)
         for b in (1, 3, 32):
             inputs = mega_inputs(dev, cfg, b, seed=case)
             for cur, kv_limit in (pairs[case % 4], pairs[(case + 1) % 4]):
-                for name, (got, want) in mega_errors(cfg, packed, inputs, cur,
-                                                     kv_limit).items():
-                    assert bool(torch.isfinite(got).all()), (n_layer, every, b, name)
-                    err = float((got - want).abs().max())
-                    ulps = err / bf16_ulps(want, 1)
-                    worst_ulps, worst_abs = max(worst_ulps, ulps), max(worst_abs, err)
-                    assert ulps <= 2, f"megakernel layers={n_layer} every={every} " \
-                        f"b={b} cur={cur} kv_limit={kv_limit} {name}: {ulps} ulp"
+                held_to_ulps(f"megakernel layers={n_layer} every={every} b={b} "
+                             f"cur={cur} kv_limit={kv_limit}",
+                             mega_errors(cfg, packed, inputs, cur, kv_limit), worst)
             case += 1
     print(f"[phase 2] decode_step_megakernel vs plain, 1-2 layers, b in "
           f"{{1, 3, 32}}, xattn every 1 and 2, {2 * case} (cur, kv_limit) "
-          f"cases: max error {worst_ulps} bf16 ulp at the output's scale "
-          f"(tolerance 2), max abs error {worst_abs}")
+          f"cases: max error {worst[0]} bf16 ulp at the output's scale "
+          f"(tolerance 2), max abs error {worst[1]}; largest at {worst[2]}")
 
-    # 24 layers at the slice's shape, then the timing. The roundings
-    # compound over layers; the plain version computed on the CPU (float32
-    # sums in another order) measures how far that alone moves the result,
-    # and the kernel may differ from the plain version on the card by 1e-2
-    # or by 1.25 times that spread, whichever is larger.
+    # 24 layers at the slice's shape, then the timing
     cfg, packed = random_trunk(dev, n_layer=24, xattn_every=1, seed=24)
     inputs = mega_inputs(dev, cfg, BATCH, seed=99)
-    cpu = plain_errors_on_cpu(cfg, packed, inputs, 131, 132)
-    rel, spread = {}, {}
-    for name, (got, want) in mega_errors(cfg, packed, inputs, 131, 132).items():
-        rel[name] = float((got - want).norm() / want.norm())
-        spread[name] = float((cpu[name] - want.cpu()).norm() / want.norm())
-        assert bool(torch.isfinite(got).all()), name
-        assert rel[name] <= max(1e-2, 1.25 * spread[name]), (name, rel, spread)
-    print(f"[phase 2] decode_step_megakernel vs plain, 24 layers, b=32: "
-          f"normwise relative error {rel}; the plain version on the CPU vs "
-          f"on the card {spread} (tolerance: the larger of 1e-2 and 1.25 x "
-          "that spread)")
+    held_normwise("decode_step_megakernel vs plain, 24 layers, b=32", cfg, packed,
+                  inputs, 131, 132)
     xk, xv, kc, vc, x, npad, tt = inputs
     npad.zero_()
     call = dict(config=cfg, kv_limit=132)
-    args, _, _ = kernel_args(packed, xk, xv, kc, vc, x, npad, tt, 131, **call)
-    blocks, smem = kernel_grid(args)
-    print(f"[phase 2] decode_step_megakernel grid: {blocks} blocks of 256 "
-          f"threads, {smem} bytes of shared memory each")
+    print_grids("decode_step_megakernel", packed, cfg, {BATCH: (inputs, None)}, 131, 132)
     ms = time_ms(lambda: decode_step_megakernel(packed, xk, xv, kc, vc, x, npad,
                                                 tt, 131, **call), 50, flush)
     plain_ms = time_ms(lambda: decode_step_megakernel_plain(
         packed, xk, xv, kc, vc, x, npad, tt, 131, **call), 50, flush)
-    # bytes this call must move: every weight, scale, bias and LN param
-    # once; the xattn K/V of each row's image; K/V rows [npad, cur] read,
-    # the new K/V rows written; the hidden rows in and out
-    weights = sum(t.numel() * t.element_size() for k, t in packed.items()
-                  if isinstance(t, torch.Tensor))
-    n_img = int((tt > 0).sum())
-    x_kv = len(packed["xlayers"]) * 2 * n_img * MEGA_NV * MEGA_XI * 2
-    self_kv = 24 * 2 * int((132 - npad).sum()) * MEGA_D * 2
-    n_bytes = weights + x_kv + self_kv + 24 * 2 * BATCH * MEGA_D * 2 + 2 * 2 * BATCH * MEGA_D
-    n_mac = sum(t.numel() for k, t in packed.items() if k.startswith("w_"))
-    n_ops = 2 * BATCH * n_mac + 24 * 4 * int((132 - npad).sum()) * MEGA_D
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    n_pos = int((132 - npad).sum())
+    bound_ms, bound_by, n_bytes, n_ops = mega_bound(packed, cfg, inputs, n_pos, n_pos)
     print(f"[phase 2] decode_step_megakernel bound at b=32, 24 layers, "
           f"kv_limit 132: {n_bytes / 1e9:.4f} GB, {n_ops / 1e9:.3f} GFLOP -> "
           f"{bound_ms:.4f} ms ({bound_by})")
-    return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms, library_ms=None,
+    return dict(max_abs_err=worst[1], ms=ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -532,36 +626,29 @@ def beam_trunk_inputs(dev, cfg, rows: int, kb: int, seed: int):
 
 def phase2_megakernel_beam(dev, flush):
     from flamingo_mini_tpu_torch.ops.megadecode import (
-        decode_step_megakernel, decode_step_megakernel_plain, kernel_args,
-        kernel_grid, max_rows)
-    worst_ulps, worst_abs, n_cases, grids = 0.0, 0.0, 0, {}
+        decode_step_megakernel, decode_step_megakernel_plain, max_rows)
+    worst, n_cases = [0.0, 0.0, None], 0
     for n_layer, every in ((1, 1), (2, 1), (2, 2)):
         cfg, packed = random_trunk(dev, n_layer=n_layer, xattn_every=every,
                                    seed=100 + 10 * n_layer + every)
+        grids = {}
         for rows, kb in ((3, 3), (24, 3), (96, 3), (160, 5)):
             inputs, anc = beam_trunk_inputs(dev, cfg, rows, kb, seed=rows + n_layer)
-            args, _, _ = kernel_args(packed, *inputs, 66, config=cfg, kv_limit=68,
-                                     beam_anc=anc)
-            grids[rows] = kernel_grid(args)
+            grids[rows] = (inputs, anc)
             for i in (n_cases % 4, (n_cases + 1) % 4):
                 cur, kv_limit = BEAM_PAIRS[i]
-                errs = mega_errors(cfg, packed, inputs, cur, kv_limit, beam_anc=anc)
-                for name, (got, want) in errs.items():
-                    assert bool(torch.isfinite(got).all()), (n_layer, every, rows, name)
-                    err = float((got - want).abs().max())
-                    ulps = err / bf16_ulps(want, 1)
-                    worst_ulps, worst_abs = max(worst_ulps, ulps), max(worst_abs, err)
-                    assert ulps <= 2, f"megakernel beam layers={n_layer} " \
-                        f"every={every} rows={rows} kb={kb} cur={cur} " \
-                        f"kv_limit={kv_limit} {name}: {ulps} ulp"
+                held_to_ulps(f"megakernel beam layers={n_layer} every={every} "
+                             f"rows={rows} kb={kb} cur={cur} kv_limit={kv_limit}",
+                             mega_errors(cfg, packed, inputs, cur, kv_limit,
+                                         beam_anc=anc), worst)
             n_cases += 1
     print(f"[phase 2] decode_step_megakernel beam mode vs plain, 1-2 layers, "
           f"rows (kb) in 3 (3), 24 (3), 96 (3), 160 (5), xattn every 1 and 2, "
-          f"{2 * n_cases} (cur, kv_limit) cases: max error {worst_ulps} bf16 ulp "
-          f"at the output's scale (tolerance 2), max abs error {worst_abs}")
-    for rows, (blocks, smem) in sorted(grids.items()):
-        print(f"[phase 2] decode_step_megakernel grid at {rows} rows: {blocks} "
-              f"blocks of 256 threads, {smem} bytes of shared memory each")
+          f"{2 * n_cases} (cur, kv_limit) cases: max error {worst[0]} bf16 ulp "
+          f"at the output's scale (tolerance 2), max abs error {worst[1]}; "
+          f"largest at {worst[2]}")
+    print_grids("decode_step_megakernel beam mode", packed, cfg,
+                {r: grids[r] for r in (96, 160)}, 66, 68)
 
     # 24 layers at the slice's 96 rows: the normwise criterion of the
     # greedy mode (phase 2 above)
@@ -570,37 +657,18 @@ def phase2_megakernel_beam(dev, flush):
           f"{max_rows(packed, cfg)} rows")
     rows = BATCH * BEAMS
     inputs, anc = beam_trunk_inputs(dev, cfg, rows, BEAMS, seed=97)
-    cpu = plain_errors_on_cpu(cfg, packed, inputs, 66, 68, beam_anc=anc)
-    rel, spread = {}, {}
-    for name, (got, want) in mega_errors(cfg, packed, inputs, 66, 68, beam_anc=anc).items():
-        rel[name] = float((got - want).norm() / want.norm())
-        spread[name] = float((cpu[name] - want.cpu()).norm() / want.norm())
-        assert bool(torch.isfinite(got).all()), name
-        assert rel[name] <= max(1e-2, 1.25 * spread[name]), (name, rel, spread)
-    print(f"[phase 2] decode_step_megakernel beam mode vs plain, 24 layers, "
-          f"{rows} rows: normwise relative error {rel}; the plain version on "
-          f"the CPU vs on the card {spread} (tolerance: the larger of 1e-2 and "
-          "1.25 x that spread)")
+    held_normwise(f"decode_step_megakernel beam mode vs plain, 24 layers, {rows} rows",
+                  cfg, packed, inputs, 66, 68, beam_anc=anc)
     xk, xv, kc, vc, x, npad, tt = inputs
     call = dict(config=cfg, kv_limit=68, beam_anc=anc)
     ms = time_ms(lambda: decode_step_megakernel(packed, xk, xv, kc, vc, x, npad,
                                                 tt, 66, **call), 30, flush)
     plain_ms = time_ms(lambda: decode_step_megakernel_plain(
         packed, xk, xv, kc, vc, x, npad, tt, 66, **call), 10, flush)
-    # bytes this call must move: every weight, scale, bias and LN param
-    # once; the xattn K/V of each row's image; each distinct ancestor slot's
-    # K/V once per layer; the new K/V rows; the hidden rows in and out; the
-    # ancestry entries read
-    weights = sum(t.numel() * t.element_size() for k, t in packed.items()
-                  if isinstance(t, torch.Tensor))
-    n_img = int((tt > 0).sum())
-    x_kv = len(packed["xlayers"]) * 2 * n_img * MEGA_NV * MEGA_XI * 2
+    # each distinct ancestor slot's K/V once per layer, the ancestry read
     slots, n_pos = ancestor_reads(anc, npad, 66, BEAMS)
-    n_bytes = (weights + x_kv + 24 * 2 * slots * MEGA_D * 2
-               + 24 * 2 * rows * MEGA_D * 2 + 2 * 2 * rows * MEGA_D + 4 * n_pos)
-    n_mac = sum(t.numel() for k, t in packed.items() if k.startswith("w_"))
-    n_ops = 2 * rows * n_mac + 24 * 4 * n_pos * MEGA_D
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    bound_ms, bound_by, n_bytes, n_ops = mega_bound(packed, cfg, inputs, slots, n_pos,
+                                                    extra_bytes=4 * n_pos)
     print(f"[phase 2] decode_step_megakernel beam mode bound at {rows} rows, 24 "
           f"layers, cur 66, kv_limit 68: {n_bytes / 1e9:.4f} GB, "
           f"{n_ops / 1e9:.3f} GFLOP -> {bound_ms:.4f} ms ({bound_by})")
@@ -611,8 +679,70 @@ def phase2_megakernel_beam(dev, flush):
     print(f"[phase 2] decode_step_megakernel beam mode, 24 layers, kv_limit 68: "
           f"{ms} ms at {rows} rows, {ms160} ms at 160 rows (median per call, "
           "L2 flushed)")
-    return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms, library_ms=None,
+    return dict(max_abs_err=worst[1], ms=ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=bound_ms, bound_by=bound_by, ms160=ms160)
+
+
+def phase2_megakernel_opt(dev, flush):
+    """The OPT mode at OPT-1.3B width: D=2048, 32 heads, ffn 8192, xattn
+    XI=512 (Dffx 8192) before every other layer, 64 latents, a 128-slot
+    cache."""
+    from flamingo_mini_tpu_torch.ops.megadecode import (
+        decode_step_megakernel, decode_step_megakernel_plain, max_rows)
+    dims = dict(family="opt", D=OPT_D, H=OPT_H, xattn_every=2)
+
+    def shallow(activation, limit):
+        worst, case = [0.0, 0.0, None], 0
+        for n_layer in (1, 2):
+            cfg, packed = random_trunk(dev, n_layer=n_layer, seed=200 + n_layer,
+                                       activation=activation, **dims)
+            for b in (1, 3, 8, 32):
+                inputs = mega_inputs(dev, cfg, b, seed=300 + case, T=OPT_T)
+                for cur, kv_limit in (OPT_PAIRS[case % 4], OPT_PAIRS[(case + 1) % 4]):
+                    held_to_ulps(f"layers={n_layer} b={b} cur={cur} kv_limit={kv_limit}",
+                                 mega_errors(cfg, packed, inputs, cur, kv_limit),
+                                 worst, limit)
+                case += 1
+        return worst, case
+
+    worst, case = shallow("relu", 2)
+    print(f"[phase 2] decode_step_megakernel OPT mode vs plain, 1-2 layers "
+          f"(xattn on the first), b in {{1, 3, 8, 32}}, {2 * case} (cur, kv_limit) "
+          f"cases: max error {worst[0]} bf16 ulp at the output's scale "
+          f"(tolerance 2), max abs error {worst[1]}; largest at {worst[2]}")
+    # the same weights and inputs with GELU in place of ReLU: whether ReLU
+    # is what brings the error to its largest (not checked against a limit)
+    gelu, _ = shallow("gelu_new", float("inf"))
+    print(f"[phase 2] the same cases with GELU (tanh) in place of ReLU: max "
+          f"error {gelu[0]} bf16 ulp; largest at {gelu[2]}")
+
+    cfg, packed = random_trunk(dev, n_layer=24, seed=224, **dims)
+    print(f"[phase 2] decode_step_megakernel row limit at OPT-1.3B width: "
+          f"{max_rows(packed, cfg)} rows")
+    inputs = mega_inputs(dev, cfg, OPT_B, seed=98, T=OPT_T)
+    held_normwise(f"decode_step_megakernel OPT mode vs plain, 24 layers, b={OPT_B}",
+                  cfg, packed, inputs, 70, 71)
+    print_grids("decode_step_megakernel OPT mode", packed, cfg,
+                {OPT_B: (inputs, None),
+                 32: (mega_inputs(dev, cfg, 32, seed=97, T=OPT_T), None)}, 70, 71)
+    torch.cuda.empty_cache()
+    # the greedy loop's last step: rows 0 and 1 left-padded, every row an image
+    xk, xv, kc, vc, x, npad, tt = inputs
+    npad.copy_(torch.tensor([OPT_PAD] * 2 + [0] * (OPT_B - 2), dtype=torch.int32))
+    tt.fill_(1)
+    call = dict(config=cfg, kv_limit=71)
+    ms = time_ms(lambda: decode_step_megakernel(packed, xk, xv, kc, vc, x, npad,
+                                                tt, 70, **call), 50, flush)
+    plain_ms = time_ms(lambda: decode_step_megakernel_plain(
+        packed, xk, xv, kc, vc, x, npad, tt, 70, **call), 10, flush)
+    n_pos = int((71 - npad).sum())
+    bound_ms, bound_by, n_bytes, n_ops = mega_bound(packed, cfg, inputs, n_pos, n_pos)
+    print(f"[phase 2] decode_step_megakernel OPT mode at b={OPT_B}, 24 layers, "
+          f"kv_limit 71: {ms} ms, plain {plain_ms} ms; bound {n_bytes / 1e9:.4f} GB, "
+          f"{n_ops / 1e9:.3f} GFLOP -> {bound_ms:.4f} ms ({bound_by}) (median per "
+          "call, L2 flushed)")
+    return dict(max_abs_err=worst[1], ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def attention_inputs(dev, dtype, b, h, n_q, n_kv, seed):
@@ -673,16 +803,17 @@ def phase2_fused_attention(dev, flush):
         for name, (b, h, n_q, n_kv) in ATT_SHAPES.items():
             q, k, v = attention_inputs(dev, dtype, b, h, n_q, n_kv, seed=n_kv)
             kw = dict(scale=HEAD_DIM ** -0.5)
-            if name == "gpt2 forward":     # causal, rows 0 and 1 left-padded by 8
+            if name.endswith("forward"):   # causal, rows 0 and 1 left-padded by 8
                 kw.update(causal=True, row_bias=left_pad_bias(
                     dev, dtype, b, n_q, [GPT2_PAD, GPT2_PAD] + [0] * (b - 2)))
             got = fused_attention(q, k, v, **kw)
             worst = max(worst, held_to_plain(f"fused_attention {name} {dtype}", got,
                                              fused_attention_plain(q, k, v, **kw), dtype))
     print(f"[phase 2] fused_attention vs plain at the ViT {ATT_SHAPES['vit']}, "
-          f"resampler {ATT_SHAPES['resampler']} and causal GPT-2 forward "
-          f"{ATT_SHAPES['gpt2 forward']} shapes (b, h, n_q, n_kv), the latter with "
-          f"two rows left-padded by {GPT2_PAD} (fully masked pad queries), bf16 and "
+          f"resampler {ATT_SHAPES['resampler']} and causal GPT-2 and OPT-1.3B forward "
+          f"{ATT_SHAPES['gpt2 forward']}, {ATT_SHAPES['opt forward']} shapes (b, h, "
+          f"n_q, n_kv), the last two with two rows left-padded by {GPT2_PAD} (fully "
+          "masked pad queries), bf16 and "
           f"float32: max abs err {worst} (tolerance: f32 1e-5 of the output "
           "scale, bf16 2 ulp of it)")
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -691,7 +822,7 @@ def phase2_fused_attention(dev, flush):
         q, k, v = attention_inputs(dev, torch.bfloat16, b, h, n_q, n_kv, seed=1)
         kw, lib_kw = dict(scale=HEAD_DIM ** -0.5), dict(scale=HEAD_DIM ** -0.5)
         extra, pairs = 0, None
-        if name == "gpt2 forward":
+        if name.endswith("forward"):
             rb = left_pad_bias(dev, torch.bfloat16, b, n_q, [GPT2_PAD, GPT2_PAD] + [0] * (b - 2))
             kw.update(causal=True, row_bias=rb)
             causal = torch.ones(n_q, n_kv, dtype=torch.bool, device=dev).tril()
@@ -836,12 +967,13 @@ def recorded(gaps, head):
 def plain_attention():
     """Route the attention kernels of the use_pallas path through their
     plain versions."""
-    from flamingo_mini_tpu_torch.models import clip_vit, gpt2, resampler, xattn
+    from flamingo_mini_tpu_torch.models import clip_vit, gpt2, opt, resampler, xattn
     from flamingo_mini_tpu_torch.ops.fused_attention import fused_attention_plain
     from flamingo_mini_tpu_torch.ops.media_xattn import fused_media_xattn_plain
     with patched(clip_vit, "fused_attention", fused_attention_plain), \
             patched(resampler, "fused_attention", fused_attention_plain), \
             patched(gpt2, "fused_attention", fused_attention_plain), \
+            patched(opt, "fused_attention", fused_attention_plain), \
             patched(xattn, "fused_media_xattn", fused_media_xattn_plain):
         yield
 
@@ -849,7 +981,8 @@ def plain_attention():
 @contextlib.contextmanager
 def plain_kernels(gaps):
     """Route every path through the kernels' plain versions, recording the
-    plain picks' top-2 logit gaps (``recorded``)."""
+    plain picks' top-2 logit gaps (``recorded``). Both trunks' decode
+    attention is ``gpt2.cached_attention``'s."""
     from flamingo_mini_tpu_torch.models import gpt2
     from flamingo_mini_tpu_torch.ops import megadecode
     from flamingo_mini_tpu_torch.ops.decode_attention import (
@@ -962,6 +1095,271 @@ def timed(fn):
     return statistics.median(times), times
 
 
+def launch_counters():
+    """The wrappers of the port's kernels, each with its ``launches``."""
+    from flamingo_mini_tpu_torch.ops.decode_attention import (decode_attention,
+                                                              decode_attention_beam)
+    from flamingo_mini_tpu_torch.ops.fused_attention import (flash_attention,
+                                                             fused_attention)
+    from flamingo_mini_tpu_torch.ops.lm_head import lm_head_argmax
+    from flamingo_mini_tpu_torch.ops.media_xattn import fused_media_xattn
+    from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel
+    return (decode_attention, decode_attention_beam, lm_head_argmax,
+            decode_step_megakernel, fused_attention, flash_attention,
+            fused_media_xattn)
+
+
+def zero_counts():
+    for fn in launch_counters():
+        fn.launches = 0
+
+
+def read_counts():
+    torch.cuda.synchronize()
+    return {fn.__name__: fn.launches for fn in launch_counters()}
+
+
+def expect(label, counts, **nonzero):
+    """Every count 0 but those named, which must be as given."""
+    print(f"[phase 3] {label} launches: {counts} (expected {nonzero}, every "
+          "other 0)")
+    assert counts == {fn.__name__: nonzero.get(fn.__name__, 0)
+                      for fn in launch_counters()}, (label, counts)
+
+
+def counted(fn, gaps, ids, shape, vocab):
+    """A greedy generate ``fn()`` with every launch count at 0 before it
+    -> (generated tokens on the host, counts); each pick's top-2 gap is
+    recorded (``recorded``). The output must have ``shape``, tokens in
+    [0, vocab) and the prompts ``ids`` intact."""
+    from flamingo_mini_tpu_torch.ops.lm_head import lm_head_argmax
+    zero_counts()
+    with recorded(gaps, lm_head_argmax):
+        tokens = fn()
+    counts = read_counts()
+    check_output(tokens, ids, shape, vocab)
+    return tokens[:, ids.shape[1]:].cpu(), counts
+
+
+def check_output(tokens, ids, shape, vocab):
+    assert tokens.shape == shape, tokens.shape
+    assert bool(((tokens >= 0) & (tokens < vocab)).all())
+    assert torch.equal(tokens[:, :ids.shape[1]], ids)
+
+
+def recorded_beam(fn, ids, shape, vocab, new_tokens, plain=False):
+    """A beam generate ``fn()`` with every launch count at 0 before it ->
+    (generated tokens, counts, each step's candidates); with ``plain``
+    through the kernels' plain versions."""
+    from flamingo_mini_tpu_torch import beam_search
+    cands = []
+    select = beam_search.select_candidates
+
+    def record(flat, n):
+        out = select(flat, n)
+        cands.append(tuple(t.cpu() for t in out))
+        return out
+    zero_counts()
+    with patched(beam_search, "select_candidates", record), \
+            (plain_kernels([]) if plain else contextlib.nullcontext()):
+        tokens = fn()
+    counts = read_counts()
+    check_output(tokens, ids, shape, vocab)
+    assert len(cands) == new_tokens, len(cands)
+    return tokens[:, ids.shape[1]:].cpu(), counts, cands
+
+
+def open_gates(model):
+    """At init the gates are 0 and xattn is the identity: open them."""
+    for blk in model.params["xattn"].values():
+        blk["alpha_attn"].fill_(0.5)
+        blk["alpha_ffw"].fill_(0.5)
+    return model
+
+
+def check_forward(label, model_f, rs, n_layer, n_x):
+    """The use_pallas forward with its loss at FWD_B x FWD_N, one image per
+    row at its first real token, rows 0 and 1 left-padded: exact launch
+    counts; logits (all rows, and the left-padded rows) and the loss within
+    max(1e-2, 1.25 x the plain version's CPU-vs-card spread) of the
+    plain-version run. -> (the forward, for timing; its launch counts)."""
+    from flamingo_mini_tpu_torch import FlamingoModel
+    dev = model_f.device
+    config = model_f.config
+    arch = config.vision_arch
+    vocab = (config.lm_arch.vocab_size + 1)
+    f_ids = torch.tensor(rs.randint(0, 1000, (FWD_B, FWD_N)), device=dev)
+    f_mask = torch.ones((FWD_B, FWD_N), dtype=torch.int32, device=dev)
+    f_ids[:2, :GPT2_PAD], f_mask[:2, :GPT2_PAD] = 0, 0
+    f_media = torch.zeros((FWD_B, FWD_N), dtype=torch.int32, device=dev)
+    f_media[:2, GPT2_PAD], f_media[2:, 0] = 1, 1
+    f_pixels = torch.tensor(rs.randn(FWD_B, 1, 3, arch.image_size, arch.image_size),
+                            dtype=torch.float32, device=dev).to(torch.bfloat16)
+    fwd = dict(media_locations=f_media, attention_mask=f_mask, pixel_values=f_pixels,
+               labels=f_ids)
+    zero_counts()
+    out_k = model_f(f_ids, **fwd)
+    counts = read_counts()
+    expect(f"{label} forward", counts,
+           fused_attention=arch.num_hidden_layers + config.resampler_depth + n_layer,
+           fused_media_xattn=n_x)
+    assert out_k.logits.shape == (FWD_B, FWD_N, vocab), out_k.logits.shape
+    assert bool(torch.isfinite(out_k.logits).all()) and bool(torch.isfinite(out_k.loss))
+    with plain_attention():
+        out_p = model_f(f_ids, **fwd)
+    # the plain versions on the CPU: how far float32 sums in another order
+    # move this bf16 program
+    t0 = time.perf_counter()
+    out_c = FlamingoModel(config, params=model_f.params, device="cpu")(
+        f_ids.cpu(), **{k: t.cpu() for k, t in fwd.items()})
+    cpu_s = time.perf_counter() - t0
+    for part, rows in (("logits, all rows", slice(None)),
+                       ("logits, left-padded rows", slice(0, 2))):
+        err = rel_err(out_k.logits[rows], out_p.logits[rows])
+        spread = rel_err(out_c.logits[rows], out_p.logits[rows].cpu())
+        print(f"[phase 3] {label} forward {part}: normwise relative error of the "
+              f"kernels vs plain {err}; plain on the CPU vs on the card {spread}")
+        assert err <= max(1e-2, 1.25 * spread), (label, part, err, spread)
+    err = rel_err(out_k.loss, out_p.loss)
+    spread = rel_err(out_c.loss, out_p.loss.cpu())
+    print(f"[phase 3] {label} forward loss: kernels {float(out_k.loss)}, plain "
+          f"{float(out_p.loss)}, plain on the CPU {float(out_c.loss)} ({cpu_s:.1f} s); "
+          f"relative error {err}, spread {spread} (tolerance: the larger of 1e-2 "
+          "and 1.25 x the spread)")
+    assert err <= max(1e-2, 1.25 * spread), (label, err, spread)
+    return (lambda: model_f(f_ids, **fwd)), counts
+
+
+def time_generate(card, batch, paths):
+    """ms per decode step ((median at N new tokens - median at N/2) /
+    (N/2)), captions/s and peak memory of each (name, fn(n), N)."""
+    for name, fn, new_tokens in paths:
+        torch.cuda.reset_peak_memory_stats()
+        full_ms, full_all = timed(lambda: fn(new_tokens))
+        half_ms, half_all = timed(lambda: fn(new_tokens // 2))
+        step_ms = (full_ms - half_ms) / (new_tokens - new_tokens // 2)
+        print(f"[phase 4] {card}: {name} path: generate {batch}x{new_tokens} "
+              f"median {full_ms} ms (runs {full_all}); {new_tokens // 2} tokens "
+              f"median {half_ms} ms (runs {half_all})")
+        print(f"[phase 4] {card}: {name} path: {step_ms} ms per decode step, "
+              f"{batch / (full_ms / 1000.0)} captions/s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def opt_setup(dev, rs):
+    """OPT-1.3B (gates open, int8 trunk and xattn, bf16) and its batch:
+    8 prompts of 8 tokens, rows 0 and 1 left-padded by 2, one image each at
+    the first real token -> (config, model, ids, media, mask, pixels)."""
+    from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel
+    config = FlamingoConfig(**OPT13)
+    model = open_gates(FlamingoModel(config, device=dev, seed=1))
+    model.quantize_int8().to_bf16()
+    ids = torch.tensor(rs.randint(4, 1000, (OPT_B, OPT_PROMPT)), device=dev)
+    mask = torch.ones((OPT_B, OPT_PROMPT), dtype=torch.int32, device=dev)
+    media = torch.zeros((OPT_B, OPT_PROMPT), dtype=torch.int32, device=dev)
+    for r, p in enumerate([OPT_PAD] * 2 + [0] * (OPT_B - 2)):
+        ids[r, :p], mask[r, :p], media[r, p] = 1, 0, 1     # OPT's pad id is 1
+    size = config.vision_arch.image_size
+    pixels = torch.tensor(rs.randn(OPT_B, 1, 3, size, size), dtype=torch.float32,
+                          device=dev).to(torch.bfloat16)
+    return config, model, ids, media, mask, pixels
+
+
+def opt_cells(dev, card):
+    """Phase 3 and 4 for OPT-1.3B (greedy per layer and on the megakernel,
+    beams on the megakernel, the use_pallas forward) and opt-350m (per
+    layer) -> the OPT-1.3B runs' launch counts {path: counts}."""
+    from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel
+    rs = np.random.RandomState(1)
+    config, model, ids, media, mask, pixels = opt_setup(dev, rs)
+    vocab = config.lm_arch.vocab_size + 1
+    n_layer = config.lm_arch.num_hidden_layers
+    n_x = len(model.params["xattn"])
+    steps = OPT_NEW - 1
+
+    def run(megakernel, new_tokens=OPT_NEW, m=model, max_length=OPT_MAX, **kw):
+        return m.generate(ids, media_locations=media, attention_mask=mask,
+                          pixel_values=pixels, max_length=max_length,
+                          max_new_tokens=new_tokens, prefix_block=PREFIX_BLOCK,
+                          eos_token_id=vocab, pad_token_id=0, megakernel=megakernel,
+                          **kw)
+
+    counts = {}
+    layer_gaps, mega_gaps = [], []
+    layer_tokens, counts["per layer"] = counted(lambda: run(False), layer_gaps, ids,
+                                                (OPT_B, OPT_MAX), vocab)
+    expect("OPT-1.3B per-layer path", counts["per layer"],
+           decode_attention=n_layer * steps, lm_head_argmax=steps)
+    mega_tokens, counts["megakernel"] = counted(lambda: run(True), mega_gaps, ids,
+                                                (OPT_B, OPT_MAX), vocab)
+    expect("OPT-1.3B megakernel path", counts["megakernel"], lm_head_argmax=steps,
+           decode_step_megakernel=steps)
+    for megakernel, tokens, label in (
+            (False, layer_tokens, "OPT-1.3B per-layer kernels vs plain"),
+            (True, mega_tokens, "OPT-1.3B megakernel vs plain")):
+        gaps = []
+        with plain_kernels(gaps):
+            plain_tokens = run(megakernel)
+        torch.cuda.synchronize()
+        compare_tokens(label, tokens, plain_tokens[:, OPT_PROMPT:].cpu(), gaps)
+    compare_tokens("OPT-1.3B megakernel path vs per-layer path", mega_tokens,
+                   layer_tokens, layer_gaps)
+
+    # beams on the megakernel: 3 beams, 32 new tokens
+    def beam_run(new_tokens=OPT_BEAM_NEW):
+        return run(True, new_tokens, max_length=OPT_PROMPT + OPT_BEAM_NEW,
+                   num_beams=BEAMS, length_penalty=1.0, early_stopping=True,
+                   beam_reorder="lazy")
+    beam_shape = (OPT_B, OPT_PROMPT + OPT_BEAM_NEW)
+    b_tokens, counts["beam megakernel"], b_cands = recorded_beam(
+        beam_run, ids, beam_shape, vocab, OPT_BEAM_NEW)
+    expect("OPT-1.3B beam megakernel path", counts["beam megakernel"],
+           decode_step_megakernel=OPT_BEAM_NEW - 1)
+    p_tokens, _, p_cands = recorded_beam(beam_run, ids, beam_shape, vocab,
+                                         OPT_BEAM_NEW, plain=True)
+    compare_beams("OPT-1.3B beam megakernel vs plain", b_tokens, b_cands, p_tokens,
+                  p_cands, BEAMS, vocab)
+
+    # the uncached forward, bf16 weights not quantized
+    model_f = open_gates(FlamingoModel(FlamingoConfig(**OPT13, use_pallas=True),
+                                       device=dev, seed=1)).to_bf16()
+    fwd, counts["forward"] = check_forward("OPT-1.3B", model_f, rs, n_layer, n_x)
+
+    # opt-350m: post-norm with project_in/out, per layer only
+    c350 = FlamingoConfig(**OPT350)
+    m350 = open_gates(FlamingoModel(c350, device=dev, seed=2))
+    m350.quantize_int8().to_bf16()
+    n350 = c350.lm_arch.num_hidden_layers
+    max350 = OPT_PROMPT + OPT350_NEW
+    gaps350 = []
+    t350, c = counted(lambda: run(False, OPT350_NEW, m=m350, max_length=max350),
+                      gaps350, ids, (OPT_B, max350), vocab)
+    expect("opt-350m per-layer path", c, decode_attention=n350 * (OPT350_NEW - 1),
+           lm_head_argmax=OPT350_NEW - 1)
+    gaps = []
+    with plain_kernels(gaps):
+        plain_tokens = run(False, OPT350_NEW, m=m350, max_length=max350)
+    compare_tokens("opt-350m per-layer kernels vs plain", t350,
+                   plain_tokens[:, OPT_PROMPT:].cpu(), gaps)
+    try:
+        run(True, OPT350_NEW, m=m350, max_length=max350)
+    except ValueError as e:
+        print(f"[phase 3] opt-350m with megakernel=True raises ValueError: {e}")
+    else:
+        raise AssertionError("opt-350m ran on the megakernel")
+    del m350
+
+    # phase 4: the OPT-1.3B paths and forward
+    time_generate(card, OPT_B, (
+        ("OPT-1.3B per-layer", lambda n: run(False, n), OPT_NEW),
+        ("OPT-1.3B megakernel", lambda n: run(True, n), OPT_NEW)))
+    fwd_ms, fwd_all = timed(fwd)
+    print(f"[phase 4] {card}: OPT-1.3B forward with loss, {FWD_B}x{FWD_N} tokens, "
+          f"use_pallas: median {fwd_ms} ms (runs {fwd_all}), "
+          f"{FWD_B * FWD_N / (fwd_ms / 1e3)} tokens/s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -971,13 +1369,6 @@ def main() -> int:
     from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel, beam_search
     from flamingo_mini_tpu_torch.models import gpt2
     from flamingo_mini_tpu_torch.ops import cuda_build
-    from flamingo_mini_tpu_torch.ops.decode_attention import (decode_attention,
-                                                              decode_attention_beam)
-    from flamingo_mini_tpu_torch.ops.fused_attention import (flash_attention,
-                                                             fused_attention)
-    from flamingo_mini_tpu_torch.ops.lm_head import lm_head_argmax
-    from flamingo_mini_tpu_torch.ops.media_xattn import fused_media_xattn
-    from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel
 
     # the numerics the port states: full float32 products, float32 reductions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1001,8 +1392,12 @@ def main() -> int:
     # phase 2: kernels against their plain versions on the card
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     attn = phase2_decode_attention(dev, flush)
+    attn_opt = phase2_decode_attention(dev, flush, b=OPT_B, D=OPT_D, H=OPT_H, T=OPT_T,
+                                       curs=(8, 39, 70), limits=(40, 71))
     head = phase2_lm_head(dev, flush)
+    head_opt = phase2_lm_head(dev, flush, B=OPT_B, D=OPT_D, V=OPT_V)
     mega = phase2_megakernel(dev, flush)
+    mega_opt = phase2_megakernel_opt(dev, flush)
     attn_beam = phase2_decode_attention_beam(dev, flush)
     mega_beam = phase2_megakernel_beam(dev, flush)
     fa = phase2_fused_attention(dev, flush)
@@ -1013,11 +1408,7 @@ def main() -> int:
 
     # phase 3: the slice end to end at flamingo-mini width, both paths
     config = FlamingoConfig(**MINI)
-    model = FlamingoModel(config, device=dev, seed=0)
-    for blk in model.params["xattn"].values():
-        # open the gates: at init they are 0 and xattn is the identity
-        blk["alpha_attn"].fill_(0.5)
-        blk["alpha_ffw"].fill_(0.5)
+    model = open_gates(FlamingoModel(config, device=dev, seed=0))
     model.quantize_int8().to_bf16()
     rs = np.random.RandomState(0)
     ids = torch.tensor(rs.randint(0, 1000, (BATCH, PROMPT_LEN)), device=dev)
@@ -1033,41 +1424,14 @@ def main() -> int:
 
     def run(megakernel, new_tokens=NEW_TOKENS, m=model):
         return m.generate(ids, media_locations=media, attention_mask=mask,
-                              pixel_values=pixels, max_length=MAX_LENGTH,
-                              max_new_tokens=new_tokens,
-                              prefix_block=PREFIX_BLOCK, eos_token_id=vocab,
-                              pad_token_id=0, megakernel=megakernel)
-
-    kernels = (decode_attention, decode_attention_beam, lm_head_argmax,
-               decode_step_megakernel, fused_attention, flash_attention,
-               fused_media_xattn)
-
-    def zero_counts():
-        for fn in kernels:
-            fn.launches = 0
-
-    def read_counts():
-        torch.cuda.synchronize()
-        return {fn.__name__: fn.launches for fn in kernels}
-
-    def expect(label, counts, **nonzero):
-        """Every count 0 but those named, which must be as given."""
-        print(f"[phase 3] {label} launches: {counts} (expected {nonzero}, every "
-              "other 0)")
-        assert counts == {fn.__name__: nonzero.get(fn.__name__, 0)
-                          for fn in kernels}, (label, counts)
+                          pixel_values=pixels, max_length=MAX_LENGTH,
+                          max_new_tokens=new_tokens,
+                          prefix_block=PREFIX_BLOCK, eos_token_id=vocab,
+                          pad_token_id=0, megakernel=megakernel)
 
     def counted_run(megakernel, gaps, m=model):
-        """The path with every launch count at 0 before it -> (tokens,
-        counts); each pick's top-2 gap is recorded (``recorded``)."""
-        zero_counts()
-        with recorded(gaps, lm_head_argmax):
-            tokens = run(megakernel, m=m)
-        counts = read_counts()
-        assert tokens.shape == (BATCH, MAX_LENGTH), tokens.shape
-        assert bool(((tokens >= 0) & (tokens < vocab)).all())
-        assert torch.equal(tokens[:, :PROMPT_LEN], ids)
-        return tokens[:, PROMPT_LEN:].cpu(), counts
+        return counted(lambda: run(megakernel, m=m), gaps, ids, (BATCH, MAX_LENGTH),
+                       vocab)
 
     layer_gaps, mega_gaps = [], []
     layer_tokens, layer_counts = counted_run(False, layer_gaps)
@@ -1109,52 +1473,10 @@ def main() -> int:
                    mega_tokens, mega_gaps)
 
     # phase 3, the uncached forward with its loss: the same weights in bf16,
-    # not quantized; batch 8 x 64, one image per row at its first real token,
-    # rows 0 and 1 left-padded by 8
-    model_f = FlamingoModel(FlamingoConfig(**MINI, use_pallas=True), device=dev, seed=0)
-    for blk in model_f.params["xattn"].values():
-        blk["alpha_attn"].fill_(0.5)
-        blk["alpha_ffw"].fill_(0.5)
-    model_f.to_bf16()
-    f_ids = torch.tensor(rs.randint(0, 1000, (FWD_B, FWD_N)), device=dev)
-    f_mask = torch.ones((FWD_B, FWD_N), dtype=torch.int32, device=dev)
-    f_ids[:2, :GPT2_PAD], f_mask[:2, :GPT2_PAD] = 0, 0
-    f_media = torch.zeros((FWD_B, FWD_N), dtype=torch.int32, device=dev)
-    f_media[:2, GPT2_PAD], f_media[2:, 0] = 1, 1
-    f_pixels = torch.tensor(rs.randn(FWD_B, 1, 3, arch.image_size, arch.image_size),
-                            dtype=torch.float32, device=dev).to(torch.bfloat16)
-    fwd = dict(media_locations=f_media, attention_mask=f_mask, pixel_values=f_pixels,
-               labels=f_ids)
-    zero_counts()
-    out_k = model_f(f_ids, **fwd)
-    expect("forward", read_counts(), fused_attention=n_vit + n_res + n_layer,
-           fused_media_xattn=n_x)
-    assert out_k.logits.shape == (FWD_B, FWD_N, vocab), out_k.logits.shape
-    assert bool(torch.isfinite(out_k.logits).all()) and bool(torch.isfinite(out_k.loss))
-    with plain_attention():
-        out_p = model_f(f_ids, **fwd)
-    # the plain versions on the CPU: how far float32 sums in another order
-    # move this bf16 program; the kernels may differ from the plain versions
-    # on the card by 1e-2 or 1.25 times that spread, whichever is larger
-    t0 = time.perf_counter()
-    out_c = FlamingoModel(FlamingoConfig(**MINI, use_pallas=True), params=model_f.params,
-                          device="cpu")(f_ids.cpu(), **{k: t.cpu() for k, t in fwd.items()})
-    cpu_s = time.perf_counter() - t0
-    for part, rows in (("logits, all rows", slice(None)), ("logits, left-padded rows",
-                                                           slice(0, 2))):
-        err = rel_err(out_k.logits[rows], out_p.logits[rows])
-        spread = rel_err(out_c.logits[rows], out_p.logits[rows].cpu())
-        print(f"[phase 3] forward {part}: normwise relative error of the kernels "
-              f"vs plain {err}; plain on the CPU vs on the card {spread}")
-        assert err <= max(1e-2, 1.25 * spread), (part, err, spread)
-    err = rel_err(out_k.loss, out_p.loss)
-    spread = rel_err(out_c.loss, out_p.loss.cpu())
-    print(f"[phase 3] forward loss: kernels {float(out_k.loss)}, plain "
-          f"{float(out_p.loss)}, plain on the CPU {float(out_c.loss)} ({cpu_s:.1f} s); "
-          f"relative error {err}, spread {spread} (tolerance: the larger of 1e-2 "
-          "and 1.25 x the spread)")
-    assert err <= max(1e-2, 1.25 * spread), (err, spread)
-    del out_c
+    # not quantized
+    model_f = open_gates(FlamingoModel(FlamingoConfig(**MINI, use_pallas=True),
+                                       device=dev, seed=0)).to_bf16()
+    fwd, _ = check_forward("flamingo-mini", model_f, rs, n_layer, n_x)
 
     # phase 3, beams: batch 32 x 3 beams, 64 new tokens, lazy reorder
     def beam_run(megakernel, new_tokens=BEAM_NEW_TOKENS):
@@ -1167,25 +1489,8 @@ def main() -> int:
                               beam_reorder="lazy")
 
     def recorded_beam_run(megakernel, plain=False):
-        """The beam path with every launch count at 0 before it ->
-        (generated tokens, counts, each step's candidates)."""
-        cands = []
-        select = beam_search.select_candidates
-
-        def record(flat, n):
-            out = select(flat, n)
-            cands.append(tuple(t.cpu() for t in out))
-            return out
-        zero_counts()
-        with patched(beam_search, "select_candidates", record), \
-                (plain_kernels([]) if plain else contextlib.nullcontext()):
-            tokens = beam_run(megakernel)
-        counts = read_counts()
-        assert tokens.shape == (BATCH, BEAM_MAX_LENGTH), tokens.shape
-        assert bool(((tokens >= 0) & (tokens < vocab)).all())
-        assert torch.equal(tokens[:, :PROMPT_LEN], ids)
-        assert len(cands) == BEAM_NEW_TOKENS, len(cands)
-        return tokens[:, PROMPT_LEN:].cpu(), counts, cands
+        return recorded_beam(lambda: beam_run(megakernel), ids,
+                             (BATCH, BEAM_MAX_LENGTH), vocab, BEAM_NEW_TOKENS, plain)
 
     beam_steps = BEAM_NEW_TOKENS - 1
     layer_b_tokens, layer_b_counts, layer_b_cands = recorded_beam_run(False)
@@ -1202,22 +1507,12 @@ def main() -> int:
                   mega_b_cands, layer_b_tokens, layer_b_cands, BEAMS, vocab)
 
     # phase 4: timing (CUDA events around whole generate calls)
-    for name, fn, new_tokens in (
-            ("per-layer", lambda n: run(False, n), NEW_TOKENS),
-            ("megakernel", lambda n: run(True, n), NEW_TOKENS),
-            ("beam per-layer", lambda n: beam_run(False, n), BEAM_NEW_TOKENS),
-            ("beam megakernel", lambda n: beam_run(True, n), BEAM_NEW_TOKENS),
-            ("use_pallas megakernel", lambda n: run(True, n, m=model_p), NEW_TOKENS)):
-        torch.cuda.reset_peak_memory_stats()
-        full_ms, full_all = timed(lambda: fn(new_tokens))
-        half_ms, half_all = timed(lambda: fn(new_tokens // 2))
-        step_ms = (full_ms - half_ms) / (new_tokens - new_tokens // 2)
-        print(f"[phase 4] {card}: {name} path: generate {BATCH}x{new_tokens} "
-              f"median {full_ms} ms (runs {full_all}); {new_tokens // 2} tokens "
-              f"median {half_ms} ms (runs {half_all})")
-        print(f"[phase 4] {card}: {name} path: {step_ms} ms per decode step, "
-              f"{BATCH / (full_ms / 1000.0)} captions/s, peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    time_generate(card, BATCH, (
+        ("per-layer", lambda n: run(False, n), NEW_TOKENS),
+        ("megakernel", lambda n: run(True, n), NEW_TOKENS),
+        ("beam per-layer", lambda n: beam_run(False, n), BEAM_NEW_TOKENS),
+        ("beam megakernel", lambda n: beam_run(True, n), BEAM_NEW_TOKENS),
+        ("use_pallas megakernel", lambda n: run(True, n, m=model_p), NEW_TOKENS)))
     # the beam step's head: the full int8 lm_head at 96 rows (its float32
     # copy of the weights included) and the candidate selection
     lm = model.params["lm"]
@@ -1237,18 +1532,31 @@ def main() -> int:
         enc_ms, enc_all = timed(lambda: m.encode_resample_visuals(pixels))
         print(f"[phase 4] {card}: encode + resample, {BATCH} images, {label}: median "
               f"{enc_ms} ms (runs {enc_all})")
-    fwd_ms, fwd_all = timed(lambda: model_f(f_ids, **fwd))
+    fwd_ms, fwd_all = timed(fwd)
     print(f"[phase 4] {card}: forward with loss, {FWD_B}x{FWD_N} tokens, use_pallas: "
           f"median {fwd_ms} ms (runs {fwd_all}), {FWD_B * FWD_N / (fwd_ms / 1e3)} "
           "tokens/s")
-    for name, k in (("decode_attention", attn), ("lm_head_argmax", head),
-                    ("decode_step_megakernel", mega),
-                    ("decode_attention_beam", attn_beam),
-                    ("decode_step_megakernel beam mode", mega_beam),
-                    ("fused_attention (ViT shape)", fa["vit"]),
-                    ("fused_attention (resampler shape)", fa["resampler"]),
-                    ("fused_attention (GPT-2 forward shape)", fa["gpt2 forward"]),
-                    ("flash_attention", flash), ("fused_media_xattn", mx)):
+    del model, model_p, model_f, fwd
+    torch.cuda.empty_cache()
+
+    # phase 3 and 4 of the OPT cells
+    opt_counts = opt_cells(dev, card)
+
+    kernel_rows = (
+        ("decode_attention", attn),
+        ("decode_attention (OPT-1.3B: b=8, D=2048, 32 heads, T=128)", attn_opt),
+        ("lm_head_argmax", head),
+        ("lm_head_argmax (OPT-1.3B: B=8, D=2048, V=50273)", head_opt),
+        ("decode_step_megakernel", mega),
+        ("decode_step_megakernel OPT mode (OPT-1.3B, b=8)", mega_opt),
+        ("decode_attention_beam", attn_beam),
+        ("decode_step_megakernel beam mode", mega_beam),
+        ("fused_attention (ViT shape)", fa["vit"]),
+        ("fused_attention (resampler shape)", fa["resampler"]),
+        ("fused_attention (GPT-2 forward shape)", fa["gpt2 forward"]),
+        ("fused_attention (OPT-1.3B forward shape)", fa["opt forward"]),
+        ("flash_attention", flash), ("fused_media_xattn", mx))
+    for name, k in kernel_rows:
         print(f"[phase 4] {card}: {name} {k['ms']} ms vs plain {k['plain_ms']} "
               f"ms, library {k['library_ms']} ms, bound {k['bound_ms']} ms "
               f"({k['bound_by']}) (median per call, L2 flushed)")
@@ -1258,12 +1566,21 @@ def main() -> int:
             ("decode_attention", "decode_attention.cu",
              "flamingo_mini_tpu/ops/pallas_decode.py:153",
              layer_counts["decode_attention"], attn),
+            ("decode_attention (OPT-1.3B shape)", "decode_attention.cu",
+             "flamingo_mini_tpu/ops/pallas_decode.py:153",
+             opt_counts["per layer"]["decode_attention"], attn_opt),
             ("lm_head_argmax", "lm_head_argmax.cu",
              "flamingo_mini_tpu/ops/pallas_lmhead.py:71",
              mega_counts["lm_head_argmax"], head),
+            ("lm_head_argmax (OPT-1.3B shape)", "lm_head_argmax.cu",
+             "flamingo_mini_tpu/ops/pallas_lmhead.py:71",
+             opt_counts["megakernel"]["lm_head_argmax"], head_opt),
             ("decode_step_megakernel", "decode_megakernel.cu",
              "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
              mega_counts["decode_step_megakernel"], mega),
+            ("decode_step_megakernel (OPT mode)", "decode_megakernel.cu",
+             "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
+             opt_counts["megakernel"]["decode_step_megakernel"], mega_opt),
             ("decode_attention_beam", "decode_attention.cu",
              "flamingo_mini_tpu/ops/pallas_decode.py:350",
              layer_b_counts["decode_attention_beam"], attn_beam),
@@ -1273,6 +1590,9 @@ def main() -> int:
             ("fused_attention", "fused_attention.cu",
              "flamingo_mini_tpu/ops/pallas_attn.py:270",
              pallas_counts["fused_attention"], fa["vit"]),
+            ("fused_attention (OPT-1.3B forward shape)", "fused_attention.cu",
+             "flamingo_mini_tpu/ops/pallas_attn.py:270",
+             opt_counts["forward"]["fused_attention"], fa["opt forward"]),
             ("flash_attention (fused_attention's streaming variant)",
              "fused_attention.cu", "flamingo_mini_tpu/ops/pallas_attn.py:156",
              pallas_counts["flash_attention"], flash),

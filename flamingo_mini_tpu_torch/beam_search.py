@@ -25,12 +25,12 @@ vectorised ``_beam_search`` and its group (diverse) variant:
 Two decode bodies, both ending in the full ``lm_head`` (beams consume the
 whole distribution): per layer, each step's 24 layers run
 ``decode_attention_beam``; with ``megakernel``, each step is embed -> one
-``decode_step_megakernel`` launch in its beam mode -> ``ln_f``. Group beams
-run per layer only, as in the JAX package. The loop is a Python loop with
-one host check of the halting condition per step. The logits-processor
-chain is not ported: for the options the port has it is the identity. Every
-top-k is a stable sort, so ties go to the lower index, as ``lax.top_k``'s
-do.
+``decode_step_megakernel`` launch in its beam mode -> final LayerNorm
+(GPT-2 or pre-norm OPT). Group beams run per layer only, as in the JAX
+package. The loop is a Python loop with one host check of the halting
+condition per step. The logits-processor chain is not ported: for the
+options the port has it is the identity. Every top-k is a stable sort, so
+ties go to the lower index, as ``lax.top_k``'s do.
 """
 from __future__ import annotations
 
@@ -40,7 +40,7 @@ import torch
 
 from .configuration_flamingo import FlamingoConfig
 from .generation import DecodeConfig, _mega_hidden, _mega_prepare, _prefill
-from .models import flamingo, gpt2
+from .models import flamingo
 from .ops.layers import Policy
 
 Params = Dict[str, Any]
@@ -144,8 +144,7 @@ class _Decoder:
         h = _mega_hidden(self.params, self.config, self.policy, self.mega,
                          self.kc, self.vc, prev[:, 0], pos[:, 0], cur - 1, lim,
                          beam_anc=anc)
-        logits = gpt2.lm_head(self.params["lm"], h[:, None],
-                              n_valid=self.config.lm_arch.vocab_size + 1)
+        logits = flamingo.lm_head(self.params, self.config, h[:, None])
         return _log_softmax(logits[:, -1])
 
 

@@ -1,10 +1,15 @@
 // One whole decode step in one launch: for every layer the gated
-// cross-attention block (where the layer has one) and the GPT-2 block.
+// cross-attention block (where the layer has one) and the pre-norm decoder
+// block of a GPT-2 or OPT trunk.
 //
 // Replaces flamingo_mini_tpu/ops/pallas_megadecode.py::decode_step_megakernel
 // (_mega_call -> _build_kernel) in its weight-only modes (act_quant=False):
-// greedy (kb=1, anc null) and lazy beam (beam_anc, kb > 1). Per layer l, on
-// the residual stream x (b, D) bf16:
+// greedy (kb=1, anc null) and lazy beam (beam_anc, kb > 1), GPT-2 and
+// pre-norm OPT alike. One body serves both trunks, as on the TPU: OPT's
+// separate q/k/v projections arrive packed as the qkv projection's three
+// column blocks, attn_ln / final_ln as LN1 / LN2, out_proj / fc1 / fc2 as
+// c_proj / mlp_fc / mlp_proj, and its ReLU as the `act` code (ACT_RELU).
+// Per layer l, on the residual stream x (b, D) bf16:
 //
 //   gated xattn, if hasx[l]:
 //     y  = LN(x);  q = bf16(lin(y, to_q) * bf16(xdh^-0.5))
@@ -13,7 +18,7 @@
 //          rows with text_time == 0 give 0
 //     x += bf16(g_attn * lin(att, to_out))
 //     x += bf16(g_ffw * lin(gelu_erf_rational(lin(LN(x), fc1)), fc2))
-//   GPT-2 block:
+//   decoder block (GPT-2 names):
 //     q, k, v = lin(LN1(x), c_attn) + b;  K/V rows written at slot `cur`
 //     att = softmax(q . K[t] * dh^-0.5 over npad <= t <= cur) . bf16(p) V
 //     (beam mode: K[t], V[t] of row r are those of the family row
@@ -22,6 +27,7 @@
 //     with an exact 0/1 selection matmul; see decode_attention.cu)
 //     x += lin(att, c_proj) + b
 //     x += lin(act(lin(LN2(x), mlp_fc) + b), mlp_proj) + b
+//     act: gelu_new (GPT-2) or ReLU (OPT), on the bf16 value, rounded once
 //
 // where lin(a, W) = bf16((a . W^T)_f32 * scale): int8 weights converted to
 // bf16 exactly, bf16 products accumulated in float32, the float32
@@ -32,7 +38,10 @@
 // Dff=4096, XI=512, 24 layers, 64 latents, kv_limit 132) reads 528.5 MB of
 // int8 weights, 100.7 MB of xattn K/V and 415.2 MB of self K/V, 1.044 GB in
 // all: 0.312 ms at 3.35 TB/s. Its 34 GFLOP (two per weight per batch row)
-// take 0.035 ms at the tensor cores' 989 TFLOP/s.
+// take 0.035 ms at the tensor cores' 989 TFLOP/s. At OPT-1.3B width (b=8,
+// D=2048, Dff=8192, 32 heads, xattn XI=512 with Dffx=8192 on 12 of 24
+// layers) the int8 weights alone are 1.21 GB (trunk) + 0.43 GB (xattn):
+// about 0.49 ms.
 //
 // Design (the simple version: right first). One persistent cooperative
 // grid (at most 2 blocks of 8 warps per SM, fixed by the occupancy
@@ -55,16 +64,20 @@
 //   the residual add, so no phase reads a column that another block writes
 //   in it. A phase after a LayerNorm walks the batch one 32-row group at a
 //   time: it normalises the group into shared memory (each working block
-//   redundantly: 32*D*2 bytes, 64 KB at D=1024), then runs its columns over
-//   that group. Shared memory so stays at 73,728 bytes at D=1024 whatever
-//   the batch (2 blocks per SM); the cost is one more block barrier per
+//   redundantly: min(b, 32)*D*2 bytes, 64 KB at D=1024, 128 KB at D=2048),
+//   then runs its columns over that group. Shared memory so stays at
+//   73,728 bytes at D=1024 whatever the batch (2 blocks per SM) and at
+//   139,264 at D=2048 from 32 rows on (1 block per SM; 40,960 at b=8); the
+//   grid takes as many blocks per SM (at most 2) as the occupancy
+//   calculator grants for that size. The cost is one more block barrier per
 //   group and the block's weights re-read from L1/L2 for every group, which
 //   the other phases' group loop pays too. The others read their A operand
 //   through L2.
 // * Rows: nothing on the card grows with b but device memory; the kernel's
 //   32-bit element offsets into the (b, width) activation buffers are the
 //   one limit, b * max(2 * max(D, XI), max(Dff, Dffx)) < 2^31 (524,287 rows
-//   at flamingo-mini width), which the wrapper checks.
+//   at flamingo-mini width, 262,143 at OPT-1.3B's), which the wrapper
+//   checks. Offsets into the weight and cache stacks are 64-bit.
 // * Attention (head dim 64): one warp per (row, head). Scores a lane per
 //   position into shared memory, the row's global max, then the V product
 //   over 4 positions at a time, 8 lanes x 8 dims each, in 16-byte loads.
@@ -98,7 +111,7 @@ constexpr int kGroupRows = 32; // batch rows per pass: two 16-row m-tiles
 constexpr int kRedBytes = kWarps * kGroupRows * 8 * 4;
 constexpr int kHeadDim = 64;   // attention head dim, self and cross
 
-enum { ACT_GELU_TANH = 0, ACT_GELU_ERF = 1 };
+enum { ACT_GELU_TANH = 0, ACT_GELU_ERF = 1, ACT_RELU = 2 };
 enum { EPI_STORE = 0, EPI_XQ = 1, EPI_RESID = 2, EPI_GATED = 3, EPI_QKV = 4 };
 
 }  // namespace
@@ -188,7 +201,9 @@ __device__ __forceinline__ float gelu_erf_rational(float x) {
 }
 
 __device__ __forceinline__ float activate(float v, int act) {
-  return act == ACT_GELU_TANH ? gelu_tanh(v) : gelu_erf_rational(v);
+  if (act == ACT_GELU_TANH) return gelu_tanh(v);
+  if (act == ACT_GELU_ERF) return gelu_erf_rational(v);
+  return v > 0.f ? v : 0.f;  // ACT_RELU (NaN -> 0; the input is finite)
 }
 
 // two consecutive int8 weights -> packed bf16x2 (low half = lower k)

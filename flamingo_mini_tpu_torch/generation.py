@@ -8,13 +8,14 @@ and ``_generate_impl``); ``generate_impl`` hands ``num_beams > 1`` to
 * prefill runs the (left-padded) prompt through the model once, filling the
   flat cache; the xattn K/V are computed once and stay constant;
 * the first token is the argmax of the full ``lm_head`` at the last slot;
-* each decode step runs embed -> trunk -> ``ln_f`` -> head. The trunk is
-  either per layer (the default: 24 x (gated xattn, GPT-2 block with
-  ``decode_attention``)) or, with ``megakernel``, one
+* each decode step runs embed -> trunk -> final LayerNorm -> head. The
+  trunk (GPT-2 or OPT) runs either per layer (the default: gated xattn
+  where the layer has it, then the decoder block with
+  ``decode_attention``) or, with ``megakernel``, as one
   ``decode_step_megakernel`` launch over the stacked cache (int8 weights
-  packed once per call). On the plain-greedy bf16 int8 path the head is
-  ``lm_head_argmax``, which returns the token without writing the logits;
-  otherwise the full ``lm_head`` + argmax;
+  packed once per call; GPT-2 and pre-norm OPT). On the plain-greedy bf16
+  int8 path the head is ``lm_head_argmax``, which returns the token without
+  writing the logits; otherwise the full ``lm_head`` + argmax;
 * with ``prefix_block > 0`` the steps run in segments that attend only the
   live cache prefix ``[0, seg_end)``; every segment, and the whole loop,
   stops once every row has emitted EOS.
@@ -31,11 +32,10 @@ from typing import Any, Dict, Optional
 import torch
 
 from .configuration_flamingo import FlamingoConfig
-from .models import flamingo, gpt2
+from .models import flamingo
 from .ops import megadecode
 from .ops.layers import Policy, layer_norm
 from .ops.lm_head import lm_head_argmax, pad_head_weights
-from .ops.quant import embed_lookup
 
 Params = Dict[str, Any]
 HEAD_BLOCK_V = 2048
@@ -54,7 +54,8 @@ class DecodeConfig:
     prefix_block: int = 0
     flat_kv_cache: bool = True
     fused_head: bool = True
-    # whole-step megakernel: int8 weights, bf16 policy, GPT-2 trunk
+    # whole-step megakernel: int8 weights, bf16 policy, GPT-2 or pre-norm
+    # OPT trunk
     megakernel: bool = False
     # beam search (HF semantics, beam_search.py)
     num_beams: int = 1
@@ -112,8 +113,8 @@ def _prefill(params: Params, config: FlamingoConfig, dc: DecodeConfig,
                                          policy=policy)
     hook = flamingo.make_layer_hook(params, config, xattn_kv, text_time,
                                     policy=policy)
-    kc, vc, cache = gpt2.init_cache(config.lm_arch, b, dc.max_length,
-                                    policy.dtype, dev)
+    kc, vc, cache = flamingo.trunk(config).init_cache(
+        config.lm_arch, b, dc.max_length, policy.dtype, dev)
     # position ids from the attention mask (pads do not advance positions)
     pos = torch.clamp(torch.cumsum(attention_mask.to(torch.int32), dim=-1) - 1,
                       min=0)
@@ -139,7 +140,7 @@ def _mega_prepare(params: Params, config: FlamingoConfig, policy: Policy,
     each row's first real slot and its media count."""
     if policy.dtype != torch.bfloat16:
         raise ValueError("the megakernel runs the bf16 compute policy")
-    xk, xv = megadecode.pack_xattn_kv_flat(xattn_kv, config.lm_arch.n_layer)
+    xk, xv = megadecode.pack_xattn_kv_flat(xattn_kv, flamingo.n_lm_layers(config))
     return dict(packed=megadecode.pack_decode_weights(params, config), xk=xk,
                 xv=xv, npad=mask.argmax(dim=-1).to(torch.int32),
                 text_time=media_count[:, 0].to(torch.int32).contiguous())
@@ -152,16 +153,13 @@ def _mega_hidden(params: Params, config: FlamingoConfig, policy: Policy,
     """One megakernel decode step: embed ``tok`` (b,) at positions ``pos``
     (b,), run every layer (K/V written at slot ``cur`` of kc/vc) ->
     final-LN hidden (b, D)."""
-    lm = params["lm"]
-    wq = lm.get("wte_q")
-    emb = (embed_lookup(wq, tok, policy.dtype) if wq is not None
-           else lm["wte"].to(policy.dtype)[tok])
-    x = emb + lm["wpe"].to(policy.dtype)[pos]
+    lm, trunk = params["lm"], flamingo.trunk(config)
+    x = trunk.embed(lm, tok, pos, policy.dtype)
     hidden = megadecode.decode_step_megakernel(
         mega["packed"], mega["xk"], mega["xv"], kc, vc, x, mega["npad"],
         mega["text_time"], cur, config=config, kv_limit=kv_limit,
         beam_anc=beam_anc)
-    return layer_norm(hidden, lm["ln_f"], config.lm_arch.layer_norm_epsilon)
+    return layer_norm(hidden, lm[trunk.FINAL_LN], config.lm_arch.layer_norm_epsilon)
 
 
 def generate_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
@@ -172,6 +170,10 @@ def generate_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
     """Greedy decode -> tokens (b, max_length) int64: prompt, generated
     tokens, pad after EOS. ``dc.num_beams > 1``: ``beam_search.beam_generate``
     (its returns), on the batch as given."""
+    if dc.megakernel and not megadecode.supports_arch(config.lm_arch):
+        raise ValueError("the megakernel takes GPT-2 and pre-norm OPT trunks "
+                         f"without project_in/out, width a multiple of "
+                         f"{megadecode.K_CHUNK}; got {config.lm!r}")
     if dc.num_beams > 1:
         from .beam_search import beam_generate   # beam_search imports _prefill
         return beam_generate(params, config, dc, policy, input_ids,
@@ -187,7 +189,6 @@ def generate_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
         attention_mask, visual_features)
     decode_hook = flamingo.make_layer_hook(params, config, xattn_kv,
                                            st["media_count"], policy=policy)
-    lm = params["lm"]
     if dc.megakernel:
         mega = _mega_prepare(params, config, policy, xattn_kv, st["mask"],
                              st["media_count"])
@@ -195,7 +196,7 @@ def generate_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
     # fused int8 head + argmax: plain greedy under the bf16 policy with an
     # int8 tied embedding (the kernel takes a bf16 hidden row)
     head = None
-    wq = lm.get("wte_q")
+    wq = params["lm"].get(flamingo.trunk(config).EMBED + "_q")
     if dc.fused_head and policy.dtype == torch.bfloat16 and wq is not None:
         head_nvalid = min(int(wq["w8"].shape[0]), config.lm_arch.vocab_size + 1)
         head = pad_head_weights(wq, HEAD_BLOCK_V)
@@ -223,8 +224,8 @@ def generate_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
                 hid = _mega_hidden(params, config, policy, mega, st["kc"],
                                    st["vc"], tok, st["pos_next"][:, 0], cur,
                                    kv_limit)[:, None]
-                logits = None if head is not None else gpt2.lm_head(
-                    lm, hid, n_valid=config.lm_arch.vocab_size + 1)
+                logits = None if head is not None else flamingo.lm_head(
+                    params, config, hid)
             else:
                 logits, _, hid = flamingo.apply_lm(
                     params, config, tok[:, None], policy=policy,

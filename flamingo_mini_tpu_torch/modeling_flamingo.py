@@ -1,13 +1,14 @@
 """FlamingoModel: the public entry point, cut to generation and the forward.
 
 Port of ``flamingo_mini_tpu/modeling_flamingo.py::FlamingoModel`` for greedy
-and beam decoding, per layer or through the whole-step megakernel, and the
-uncached forward with its loss. The policy follows ``compute_dtype`` and
-``use_pallas`` (bf16 with ``use_pallas``: the attention kernels). Holds (config,
-params, policy, device); params are a nested dict of tensors in the JAX
-package's layout, made by ``models.flamingo.init_flamingo`` from a seed or
-bridged from JAX by ``utils.params_bridge.from_jax_numpy``. The model runs
-on the card unless the caller asks for another device.
+and beam decoding over a GPT-2 or OPT trunk, per layer or through the
+whole-step megakernel, and the uncached forward with its loss. The policy
+follows ``compute_dtype`` and ``use_pallas`` (bf16 with ``use_pallas``: the
+attention kernels). Holds (config, params, policy, device); params are a
+nested dict of tensors in the JAX package's layout, made by
+``models.flamingo.init_flamingo`` from a seed or bridged from JAX by
+``utils.params_bridge.from_jax_numpy``. The model runs on the card unless
+the caller asks for another device.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from .configuration_flamingo import FlamingoConfig
 from .generation import DecodeConfig, generate_impl
 from .models import flamingo as F
 from .ops.layers import Policy, policy_for
-from .ops.quant import cast_params_bf16, quantize_gpt2_lm, quantize_xattn_blocks
+from .ops.quant import (cast_params_bf16, quantize_gpt2_lm, quantize_opt_lm,
+                        quantize_xattn_blocks)
 
 Params = Dict[str, Any]
 
@@ -44,8 +46,10 @@ class FlamingoModel:
         return self
 
     def quantize_int8(self) -> "FlamingoModel":
-        """Weight-only int8 trunk and xattn blocks. In place."""
-        self.params["lm"] = quantize_gpt2_lm(self.params["lm"])
+        """Weight-only int8 trunk (GPT-2 or OPT) and xattn blocks. In place."""
+        quantize = (quantize_gpt2_lm if F.lm_family(self.config) == "gpt2"
+                    else quantize_opt_lm)
+        self.params["lm"] = quantize(self.params["lm"])
         self.params["xattn"] = quantize_xattn_blocks(self.params["xattn"])
         return self
 
@@ -97,7 +101,9 @@ class FlamingoModel:
         ``num_return_sequences=n``, and ``(tokens, sequences_scores)`` with
         ``return_scores``. ``megakernel`` runs each decode step's trunk as
         one ``decode_step_megakernel`` launch (int8 weights, bf16 policy,
-        GPT-2 trunk); diverse beams (``num_beam_groups > 1``) run per layer.
+        GPT-2 or pre-norm OPT trunk; opt-350m's post-norm trunk with its
+        in/out projections raises ``ValueError``); diverse beams
+        (``num_beam_groups > 1``) run per layer.
         Other JAX ``generate`` options (sampling, logits processors, the
         gather beam reorder, greedy scores, w8a8, int8 KV, meshes, ...) are
         not ported yet and raise ``NotImplementedError``."""

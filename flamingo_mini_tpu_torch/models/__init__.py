@@ -1,1 +1,1 @@
-"""Model pieces of the port: ViT, resampler, gated xattn, GPT-2, assembly."""
+"""Model pieces of the port: ViT, resampler, gated xattn, GPT-2, OPT, assembly."""

@@ -1,10 +1,10 @@
 """Flamingo model assembly, port of ``flamingo_mini_tpu/models/flamingo.py``.
 
-The GPT-2 trunk applies a gated xattn block before every
-``xattn_every``-th layer through ``layer_hook``; the visual K/V per xattn
-layer and ``text_time`` are explicit arguments. ``forward`` is the uncached
-full-sequence pass with the shifted cross-entropy (scoring, eval loss).
-Only the GPT-2 trunk is ported so far.
+The decoder trunk (GPT-2 or OPT, ``lm_family``) applies a gated xattn
+block before every ``xattn_every``-th layer through ``layer_hook``; the
+visual K/V per xattn layer and ``text_time`` are explicit arguments.
+``forward`` is the uncached full-sequence pass with the shifted
+cross-entropy (scoring, eval loss).
 """
 from __future__ import annotations
 
@@ -13,9 +13,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from ..configuration_flamingo import FlamingoConfig, GPT2Arch
+from ..configuration_flamingo import FlamingoConfig
 from ..ops.layers import Policy
-from . import clip_vit, gpt2
+from . import clip_vit, gpt2, opt
 from .resampler import apply_resampler, init_resampler
 from .xattn import (KV, apply_gated_xattn_block, compute_visual_kv,
                     init_gated_xattn_block)
@@ -23,26 +23,37 @@ from .xattn import (KV, apply_gated_xattn_block, compute_visual_kv,
 Params = Dict[str, Any]
 
 
-def _gpt2_arch(config: FlamingoConfig) -> GPT2Arch:
+def lm_family(config: FlamingoConfig) -> str:
+    """"gpt2" or "opt": the trunk's ``family``, which the ``lm`` hub name
+    chose when the config resolved its architecture."""
+    return config.lm_arch.family
+
+
+def trunk(config: FlamingoConfig):
+    """The trunk's module, ``gpt2`` or ``opt``: ``init_cache``, ``embed``,
+    ``lm_head`` and the ``EMBED`` / ``FINAL_LN`` keys under the same names."""
+    return {"gpt2": gpt2, "opt": opt}[lm_family(config)]
+
+
+def n_lm_layers(config: FlamingoConfig) -> int:
     arch = config.lm_arch
-    if not isinstance(arch, GPT2Arch):
-        raise NotImplementedError(f"only GPT-2 trunks are ported, got {config.lm!r}")
-    return arch
+    return arch.n_layer if lm_family(config) == "gpt2" else arch.num_hidden_layers
 
 
 def xattn_layer_indices(config: FlamingoConfig) -> List[int]:
     """LM layers that get a gated xattn block: every xattn_every-th from 0."""
-    return [i for i in range(_gpt2_arch(config).n_layer)
-            if i % config.xattn_every == 0]
+    return [i for i in range(n_lm_layers(config)) if i % config.xattn_every == 0]
 
 
 def init_flamingo(gen: torch.Generator, config: FlamingoConfig) -> Params:
     """Random-init parameter tree {vision, resampler, lm, xattn} on the
     generator's device (float32, alphas 0)."""
-    arch = _gpt2_arch(config)
-    if config.dim != arch.n_embd:
+    arch = config.lm_arch
+    gpt = lm_family(config) == "gpt2"
+    hidden = arch.n_embd if gpt else arch.hidden_size
+    if config.dim != hidden:
         raise ValueError(f"config.dim={config.dim} but {config.lm} hidden "
-                         f"size={arch.n_embd}")
+                         f"size={hidden}")
     return {
         "vision": clip_vit.init_clip_vit(gen, config.vision_arch),
         "resampler": init_resampler(
@@ -51,7 +62,7 @@ def init_flamingo(gen: torch.Generator, config: FlamingoConfig) -> Params:
             num_latents=config.resampler_num_latents,
             num_time_embeds=config.resampler_num_time_embeds,
             ff_mult=config.resampler_ff_mult),
-        "lm": gpt2.init_gpt2(gen, arch),
+        "lm": gpt2.init_gpt2(gen, arch) if gpt else opt.init_opt(gen, arch),
         "xattn": {
             str(i): init_gated_xattn_block(
                 gen, dim=config.dim, dim_visual=config.dim_visual,
@@ -122,17 +133,24 @@ def apply_lm(params: Params, config: FlamingoConfig, input_ids: torch.Tensor,
              skip_head: bool = False, beam_anc: Optional[torch.Tensor] = None
              ) -> Tuple[Optional[torch.Tensor], Any, torch.Tensor]:
     """Trunk + tied head -> (logits or None with ``skip_head``, cache,
-    final-LN hidden). ``beam_anc``: the lazy-beam ancestry table of a
-    decode step (``gpt2.apply_gpt2``)."""
-    arch = _gpt2_arch(config)
-    hidden, cache = gpt2.apply_gpt2(
-        params["lm"], input_ids, arch=arch, policy=policy,
+    the trunk's output: the hidden rows the head reads). ``beam_anc``: the
+    lazy-beam ancestry table of a decode step (``gpt2.apply_gpt2``)."""
+    apply = gpt2.apply_gpt2 if lm_family(config) == "gpt2" else opt.apply_opt
+    hidden, cache = apply(
+        params["lm"], input_ids, arch=config.lm_arch, policy=policy,
         position_ids=position_ids, attention_mask=attention_mask,
         layer_hook=layer_hook, cache=cache, cache_index=cache_index,
         kv_limit=kv_limit, beam_anc=beam_anc)
-    logits = None if skip_head else gpt2.lm_head(
-        params["lm"], hidden, n_valid=arch.vocab_size + 1)
+    logits = None if skip_head else lm_head(params, config, hidden)
     return logits, cache, hidden
+
+
+def lm_head(params: Params, config: FlamingoConfig,
+            hidden: torch.Tensor) -> torch.Tensor:
+    """The family's tied head, the ``<EOC>`` row included and padded vocab
+    rows masked."""
+    return trunk(config).lm_head(params["lm"], hidden,
+                                 n_valid=config.lm_arch.vocab_size + 1)
 
 
 @dataclass

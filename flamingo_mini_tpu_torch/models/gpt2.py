@@ -38,6 +38,7 @@ LayerHook = Callable[[int, torch.Tensor], torch.Tensor]
 Cache = List[Dict[str, torch.Tensor]]
 
 F32_MIN = float(torch.finfo(torch.float32).min)
+EMBED, FINAL_LN = "wte", "ln_f"   # the tied embedding's and the final LayerNorm's keys
 
 
 def init_gpt2(gen: torch.Generator, arch: GPT2Arch,
@@ -63,15 +64,57 @@ def init_gpt2(gen: torch.Generator, arch: GPT2Arch,
     return p
 
 
-def init_cache(arch: GPT2Arch, batch: int, max_len: int, dtype,
+def flat_cache(n_layer: int, width: int, batch: int, max_len: int, dtype,
                device) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
     """Zeroed flat T-major caches, T = max_len rounded up to a multiple of
-    64: the stacked K and V buffers ``(n_layer, T, batch, D)`` and the
+    64: the stacked K and V buffers ``(n_layer, T, batch, width)`` and the
     per-layer ``{"kf", "vf"}`` views of them (no copy)."""
-    shape = (arch.n_layer, -(-max_len // 64) * 64, batch, arch.n_embd)
+    shape = (n_layer, -(-max_len // 64) * 64, batch, width)
     kc = torch.zeros(shape, dtype=dtype, device=device)
     vc = torch.zeros(shape, dtype=dtype, device=device)
-    return kc, vc, [{"kf": kc[i], "vf": vc[i]} for i in range(arch.n_layer)]
+    return kc, vc, [{"kf": kc[i], "vf": vc[i]} for i in range(n_layer)]
+
+
+def init_cache(arch: GPT2Arch, batch: int, max_len: int, dtype,
+               device) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
+    """``flat_cache`` at the trunk's depth and width."""
+    return flat_cache(arch.n_layer, arch.n_embd, batch, max_len, dtype, device)
+
+
+def embed(p: Params, ids: torch.Tensor, pos: torch.Tensor, dtype) -> torch.Tensor:
+    """Token embedding (int8 ``wte_q`` where quantized) plus ``wpe[pos]``."""
+    if "wte_q" in p:
+        tok_emb = embed_lookup(p["wte_q"], ids, dtype)
+    else:
+        tok_emb = p["wte"].to(dtype)[ids]
+    return tok_emb + p["wpe"].to(dtype)[pos]
+
+
+def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     layer_cache: Dict[str, torch.Tensor], cache_index: int, *,
+                     n_head: int, scale: float, kv_limit: Optional[int],
+                     npad: Optional[torch.Tensor],
+                     beam_anc: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Write k, v (b, n, D) into the layer's cache at ``cache_index``. A
+    single token (n == 1) then attends over the cache through
+    ``decode_attention`` (``decode_attention_beam`` with ``beam_anc``) ->
+    (b, 1, D) before the output projection; a prompt -> None (the caller
+    attends over the fresh K/V)."""
+    n = q.shape[1]
+    layer_cache["kf"][cache_index:cache_index + n] = k.transpose(0, 1)
+    layer_cache["vf"][cache_index:cache_index + n] = v.transpose(0, 1)
+    if n != 1:
+        return None
+    if beam_anc is None:
+        out2d = decode_attention(
+            q[:, 0].contiguous(), layer_cache["kf"], layer_cache["vf"],
+            npad, cache_index, n_head=n_head, scale=scale, kv_limit=kv_limit)
+    else:
+        out2d = decode_attention_beam(
+            q[:, 0].contiguous(), layer_cache["kf"], layer_cache["vf"],
+            beam_anc, npad, cache_index, n_head=n_head, scale=scale,
+            kb=beam_anc.shape[1], kv_limit=kv_limit)
+    return out2d[:, None, :]
 
 
 def _self_attention(bp: Params, x: torch.Tensor, *, n_head: int,
@@ -88,21 +131,11 @@ def _self_attention(bp: Params, x: torch.Tensor, *, n_head: int,
     q, k, v = qkv.split(d_model, dim=-1)
     scale = 1.0 / ((d_model // n_head) ** 0.5)
     if layer_cache is not None:
-        n = q.shape[1]
-        layer_cache["kf"][cache_index:cache_index + n] = k.transpose(0, 1)
-        layer_cache["vf"][cache_index:cache_index + n] = v.transpose(0, 1)
-        if n == 1:
-            if beam_anc is None:
-                out2d = decode_attention(
-                    q[:, 0].contiguous(), layer_cache["kf"], layer_cache["vf"],
-                    npad, cache_index, n_head=n_head, scale=scale,
-                    kv_limit=kv_limit)
-            else:
-                out2d = decode_attention_beam(
-                    q[:, 0].contiguous(), layer_cache["kf"], layer_cache["vf"],
-                    beam_anc, npad, cache_index, n_head=n_head, scale=scale,
-                    kb=beam_anc.shape[1], kv_limit=kv_limit)
-            return linear(out2d[:, None, :], bp["c_proj"])
+        out = cached_attention(q, k, v, layer_cache, cache_index, n_head=n_head,
+                               scale=scale, kv_limit=kv_limit, npad=npad,
+                               beam_anc=beam_anc)
+        if out is not None:
+            return linear(out, bp["c_proj"])
     qh, kh, vh = (split_heads(t, n_head) for t in (q, k, v))
     if layer_cache is None and policy.pallas:
         row = None if pad_bias is None else pad_bias[:, 0, 0, :]
@@ -142,11 +175,7 @@ def apply_gpt2(
     if position_ids is None:
         position_ids = torch.arange(n, device=input_ids.device)[None, :] \
             + (cache_index or 0)
-    if "wte_q" in p:
-        tok_emb = embed_lookup(p["wte_q"], input_ids, policy.dtype)
-    else:
-        tok_emb = p["wte"].to(policy.dtype)[input_ids]
-    x = tok_emb + p["wpe"].to(policy.dtype)[position_ids]
+    x = embed(p, input_ids, position_ids, policy.dtype)
 
     npad = causal = pad_bias = None
     if cache is not None and n == 1:
@@ -178,17 +207,23 @@ def apply_gpt2(
     return layer_norm(x, p["ln_f"], eps), cache
 
 
+def tied_head(emb: torch.Tensor, emb_q: Optional[Params], hidden: torch.Tensor,
+              n_valid: Optional[int] = None) -> torch.Tensor:
+    """Tied lm_head: logits = hidden @ emb^T (the int8 ``emb_q`` where
+    given), in hidden's dtype; columns >= n_valid (padded vocab rows) are
+    masked to finfo.min."""
+    if emb_q is not None:
+        logits = torch.matmul(hidden.float(), emb_q["w8"].float().t())
+        logits = (logits * emb_q["scale"]).to(hidden.dtype)
+    else:
+        logits = dot(hidden, emb.t())
+    return _mask_pad_vocab(logits, n_valid)
+
+
 def lm_head(p: Params, hidden: torch.Tensor,
             n_valid: Optional[int] = None) -> torch.Tensor:
-    """Tied lm_head: logits = hidden @ wte^T, in hidden's dtype; columns
-    >= n_valid (padded vocab rows) are masked to finfo.min."""
-    if "wte_q" in p:
-        q = p["wte_q"]
-        logits = torch.matmul(hidden.float(), q["w8"].float().t())
-        logits = (logits * q["scale"]).to(hidden.dtype)
-    else:
-        logits = dot(hidden, p["wte"].t())
-    return _mask_pad_vocab(logits, n_valid)
+    """``tied_head`` over ``wte``."""
+    return tied_head(p.get(EMBED), p.get(EMBED + "_q"), hidden, n_valid)
 
 
 def _mask_pad_vocab(logits: torch.Tensor, n_valid: Optional[int]) -> torch.Tensor:

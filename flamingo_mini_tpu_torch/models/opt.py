@@ -1,0 +1,203 @@
+"""OPT decoder trunk with the T-major flat KV cache.
+
+Port of ``flamingo_mini_tpu/models/opt.py`` for the greedy and lazy-beam
+decode paths and the uncached forward. Gated cross-attention enters
+through ``layer_hook`` before every layer.
+
+Numerics follow HF ``OPTModel``'s eager attention, as the JAX package
+does: scores ``QK^T * d_head**-0.5`` (the scale after the dot), one
+additive causal + padding bias with float32 min where disallowed, float32
+softmax. Learned positions with an offset of 2 (``POS_OFFSET``). The
+activation is ReLU. Two layouts: pre-norm (``do_layer_norm_before``;
+opt-125m, 1.3b, 2.7b, 6.7b) with a final LayerNorm, and post-norm with the
+``project_in`` / ``project_out`` projections between the embedding width
+and the hidden width (opt-350m).
+
+Positions: the generate path passes them explicitly (``clip(cumsum(mask)
+- 1, 0)``); without them they are ``opt_position_ids`` of the attention
+mask, HF's ``cumsum(mask) * mask - 1``, so that a pad reads row 1 of the
+offset table.
+
+The cache, the cached attention and the tied head are GPT-2's
+(``gpt2.flat_cache``, ``gpt2.cached_attention``, ``gpt2.tied_head``): per
+layer ``{"kf", "vf"}`` views ``(T, b, D)`` of two stacked
+``(n_layer, T, b, D)`` buffers, written in place, which the whole-step
+megakernel reads as they are.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from ..configuration_flamingo import OPTArch
+from ..ops.attention import attend, merge_heads, split_heads
+from ..ops.fused_attention import fused_attention
+from ..ops.layers import (Policy, get_activation, init_layer_norm, init_linear,
+                          layer_norm, linear, normal)
+from ..ops.quant import embed_lookup
+from .gpt2 import F32_MIN, cached_attention, flat_cache, tied_head
+
+Params = Dict[str, Any]
+LayerHook = Callable[[int, torch.Tensor], torch.Tensor]
+Cache = List[Dict[str, torch.Tensor]]
+
+POS_OFFSET = 2  # HF OPTLearnedPositionalEmbedding offset
+EMBED, FINAL_LN = "embed_tokens", "final_ln"   # as gpt2.EMBED, gpt2.FINAL_LN
+
+
+def init_opt(gen: torch.Generator, arch: OPTArch, extra_tokens: int = 1) -> Params:
+    """Random-init trunk; ``extra_tokens`` adds embedding rows for ``<EOC>``."""
+    d, w = arch.hidden_size, arch.word_embed_proj_dim
+    dev = gen.device
+    p: Params = {
+        "embed_tokens": normal(gen, (arch.vocab_size + extra_tokens, w), 0.02),
+        "embed_positions": normal(gen, (arch.max_position_embeddings + POS_OFFSET, d),
+                                  0.02),
+        "layers": [{
+            "attn_ln": init_layer_norm(d, dev),
+            "q_proj": init_linear(gen, d, d),
+            "k_proj": init_linear(gen, d, d),
+            "v_proj": init_linear(gen, d, d),
+            "out_proj": init_linear(gen, d, d),
+            "final_ln": init_layer_norm(d, dev),
+            "fc1": init_linear(gen, d, arch.ffn_dim),
+            "fc2": init_linear(gen, arch.ffn_dim, d),
+        } for _ in range(arch.num_hidden_layers)],
+    }
+    if arch.do_layer_norm_before:
+        p["final_ln"] = init_layer_norm(d, dev)
+    if w != d:
+        p["project_in"] = init_linear(gen, w, d, bias=False)
+        p["project_out"] = init_linear(gen, d, w, bias=False)
+    return p
+
+
+def init_cache(arch: OPTArch, batch: int, max_len: int, dtype,
+               device) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
+    """``gpt2.flat_cache`` at the trunk's depth and width."""
+    return flat_cache(arch.num_hidden_layers, arch.hidden_size, batch, max_len,
+                      dtype, device)
+
+
+def embed(p: Params, ids: torch.Tensor, pos: torch.Tensor, dtype) -> torch.Tensor:
+    """Token embedding (int8 ``embed_tokens_q`` where quantized), through
+    ``project_in`` where the model has it, plus ``embed_positions[pos + 2]``."""
+    if "embed_tokens_q" in p:
+        x = embed_lookup(p["embed_tokens_q"], ids, dtype)
+    else:
+        x = p["embed_tokens"].to(dtype)[ids]
+    if "project_in" in p:
+        x = linear(x, p["project_in"])
+    return x + p["embed_positions"].to(dtype)[pos + POS_OFFSET]
+
+
+def opt_position_ids(attention_mask: torch.Tensor) -> torch.Tensor:
+    """HF OPT positions ``cumsum(mask) * mask - 1``: a pad gets -1, which
+    reads row 1 of the offset table."""
+    m = attention_mask.to(torch.int32)
+    return torch.cumsum(m, dim=1) * m - 1
+
+
+def _self_attention(bp: Params, h: torch.Tensor, *, n_head: int,
+                    bias: Optional[torch.Tensor],
+                    row_bias: Optional[torch.Tensor],
+                    layer_cache: Optional[Dict[str, torch.Tensor]],
+                    cache_index: Optional[int], kv_limit: Optional[int],
+                    npad: Optional[torch.Tensor], policy: Policy,
+                    beam_anc: Optional[torch.Tensor]) -> torch.Tensor:
+    q, k, v = (linear(h, bp[name]) for name in ("q_proj", "k_proj", "v_proj"))
+    scale = (q.shape[-1] // n_head) ** -0.5
+    if layer_cache is not None:
+        out = cached_attention(q, k, v, layer_cache, cache_index, n_head=n_head,
+                               scale=scale, kv_limit=kv_limit, npad=npad,
+                               beam_anc=beam_anc)
+        if out is not None:
+            return linear(out, bp["out_proj"])
+    qh, kh, vh = (split_heads(t, n_head) for t in (q, k, v))
+    if layer_cache is None and policy.pallas:
+        out = fused_attention(qh, kh, vh, scale=scale, causal=True, row_bias=row_bias)
+    else:
+        # prefill (cache_index == 0) or uncached: attend over the fresh K/V
+        out = attend(qh, kh, vh, scale=scale, bias=bias)
+    return linear(merge_heads(out), bp["out_proj"])
+
+
+def apply_opt(
+    p: Params,
+    input_ids: torch.Tensor,                       # (b, n)
+    *,
+    arch: OPTArch,
+    policy: Policy,
+    attention_mask: Optional[torch.Tensor] = None,  # (b, n_kv) 1 = real token
+    position_ids: Optional[torch.Tensor] = None,   # (b, n), before the offset
+    layer_hook: Optional[LayerHook] = None,
+    cache: Optional[Cache] = None,
+    cache_index: Optional[int] = None,             # write offset
+    kv_limit: Optional[int] = None,                # attend only cache[:kv_limit]
+    beam_anc: Optional[torch.Tensor] = None,       # (b // kb, kb, max_len) int32
+) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """Run the trunk -> (hidden (b, n, word_embed_proj_dim), cache): after
+    the final LayerNorm (pre-norm) and ``project_out`` (where the model has
+    it).
+
+    With a cache, K/V are written at ``cache_index``. A prompt (n > 1) must
+    start at slot 0 and attends over itself; a single token (n == 1) attends
+    over the cache slots ``npad <= t <= cache_index`` through
+    ``decode_attention``, or with ``beam_anc`` through
+    ``decode_attention_beam`` (``gpt2.apply_gpt2``)."""
+    b, n = input_ids.shape
+    dev = input_ids.device
+    if cache is not None and n > 1 and cache_index != 0:
+        raise NotImplementedError("a multi-token step must start at slot 0")
+    if attention_mask is None:
+        n_full = n if cache is None else cache[0]["kf"].shape[0]
+        attention_mask = torch.ones((b, n_full), dtype=torch.int32, device=dev)
+    if position_ids is None:
+        position_ids = opt_position_ids(attention_mask)
+        if cache is not None:
+            position_ids = position_ids[:, cache_index:cache_index + n]
+
+    x = embed(p, input_ids, position_ids, policy.dtype)
+
+    npad = bias = row_bias = None
+    if cache is not None and n == 1:
+        npad = attention_mask.to(torch.int32).argmax(dim=-1).to(torch.int32)
+    else:
+        # one additive causal + padding bias, HF-style
+        pad_ok = attention_mask[:, :n].bool()
+        causal = torch.ones(n, n, dtype=torch.bool, device=dev).tril()
+        bias = torch.where(causal[None, None] & pad_ok[:, None, None, :], 0.0,
+                           F32_MIN).to(policy.dtype)
+        row_bias = torch.where(pad_ok, 0.0, F32_MIN).to(policy.dtype)
+
+    n_head = arch.num_attention_heads
+    eps = arch.layer_norm_epsilon
+    pre = arch.do_layer_norm_before
+    act = get_activation(arch.activation)
+    for i, bp in enumerate(p["layers"]):
+        if layer_hook is not None:
+            x = layer_hook(i, x)
+        h = layer_norm(x, bp["attn_ln"], eps) if pre else x
+        x = x + _self_attention(
+            bp, h, n_head=n_head, bias=bias, row_bias=row_bias,
+            layer_cache=None if cache is None else cache[i],
+            cache_index=cache_index, kv_limit=kv_limit, npad=npad,
+            policy=policy, beam_anc=beam_anc)
+        if not pre:
+            x = layer_norm(x, bp["attn_ln"], eps)
+        h = layer_norm(x, bp["final_ln"], eps) if pre else x
+        x = x + linear(act(linear(h, bp["fc1"])), bp["fc2"])
+        if not pre:
+            x = layer_norm(x, bp["final_ln"], eps)
+    if "final_ln" in p:
+        x = layer_norm(x, p["final_ln"], eps)
+    if "project_out" in p:
+        x = linear(x, p["project_out"])
+    return x, cache
+
+
+def lm_head(p: Params, hidden: torch.Tensor,
+            n_valid: Optional[int] = None) -> torch.Tensor:
+    """``gpt2.tied_head`` over ``embed_tokens``."""
+    return tied_head(p.get(EMBED), p.get(EMBED + "_q"), hidden, n_valid)

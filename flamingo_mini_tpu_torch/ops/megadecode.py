@@ -1,17 +1,20 @@
-"""Whole-decode-step megakernel: every gated-xattn and GPT-2 layer in one
+"""Whole-decode-step megakernel: every gated-xattn and decoder layer in one
 launch per token.
 
 Port of ``flamingo_mini_tpu/ops/pallas_megadecode.py`` in its weight-only
 modes (``act_quant=False``): greedy (``beam_anc=None``) and lazy beam
-(``beam_anc`` of shape ``(b, kb, anc_len)``). The CUDA kernel is
+(``beam_anc`` of shape ``(b, kb, anc_len)``), over a GPT-2 trunk or a
+pre-norm OPT trunk (the OPT mode: separate q/k/v projections packed as the
+three column blocks of one qkv projection, ReLU, ``attn_ln`` / ``final_ln``
+as the block's two LayerNorms). The CUDA kernel is
 ``csrc/decode_megakernel.cu``; its source note says what bounds it on the
 card and how the design answers that.
 
 ``decode_step_megakernel`` launches the kernel for CUDA tensors and runs
 ``decode_step_megakernel_plain`` for CPU tensors; nothing else picks the
 path. Both compute, per layer, the gated xattn block (where the layer has
-one) and the GPT-2 block with these roundings (``pallas_megadecode.py``'s
-kernel body):
+one) and the pre-norm decoder block with these roundings
+(``pallas_megadecode.py``'s kernel body):
 
 * every int8 linear: int8 -> bf16 exactly, bf16 products accumulated in
   float32, x the float32 per-channel scale, one rounding to bf16, the bias
@@ -23,6 +26,8 @@ kernel body):
   ``text_time == 0`` zeroed; ``x += bf16(g * f32(out))`` with the gate
   ``bf16(tanh(alpha))``; the gated FFW's activation is ``config.xattn_act``,
   ``"gelu"`` through the rational erf ``gelu_erf_rational``;
+* the block's activation is the trunk's, on the bf16 value after the
+  bias: ``gelu_new`` in float32 (GPT-2) or ReLU (OPT), one rounding;
 * self-attention: ``dh**-0.5`` after the dot, valid iff
   ``npad <= t <= cur`` over ``[0, kv_limit)``, as ``decode_attention``, or
   in beam mode as ``decode_attention_beam`` (row ``r`` reads position ``t``
@@ -45,7 +50,6 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..configuration_flamingo import GPT2Arch
 from . import cuda_build
 from .decode_attention import decode_attention_beam_plain, decode_attention_plain
 from .layers import const, gelu_tanh, layer_norm
@@ -56,23 +60,26 @@ HEAD_DIM = 64       # the CUDA kernel's attention head dim (self and cross)
 K_CHUNK = 64        # the CUDA kernel's K step: every d_in is a multiple
 INDEX_LIMIT = 2 ** 31 - 1   # the CUDA kernel's element offsets are 32-bit ints
 # activation name -> the kernel's code; "gelu" is the rational-erf GELU
-ACT_CODES = {"gelu_new": 0, "gelu": 1, "gelu_erf": 1}
+ACT_CODES = {"gelu_new": 0, "gelu": 1, "gelu_erf": 1, "relu": 2}
 
 
 def trunk_dims(arch) -> Tuple[int, int, int, int]:
-    """(D, Dff, n_layer, n_head) of a GPT-2 trunk."""
-    if not isinstance(arch, GPT2Arch):
-        raise NotImplementedError(
-            f"the megakernel port covers GPT-2 trunks only, got {type(arch).__name__}")
-    return arch.n_embd, 4 * arch.n_embd, arch.n_layer, arch.n_head
+    """(D, Dff, n_layer, n_head) of a GPT-2 or OPT trunk."""
+    if arch.family == "gpt2":
+        return arch.n_embd, 4 * arch.n_embd, arch.n_layer, arch.n_head
+    return (arch.hidden_size, arch.ffn_dim, arch.num_hidden_layers,
+            arch.num_attention_heads)
 
 
 def supports_arch(arch) -> bool:
-    """Whether the megakernel takes this trunk: GPT-2 with n_embd a
-    multiple of the kernel's 64-wide K step. Other trunks raise
-    ``NotImplementedError``."""
-    D, _Dff, _L, _H = trunk_dims(arch)
-    return D % K_CHUNK == 0
+    """Whether the megakernel takes this trunk: GPT-2, or pre-norm OPT
+    without opt-350m's project_in/out (word_embed_proj_dim ==
+    hidden_size), with D and Dff multiples of the kernel's 64-wide K step."""
+    if arch.family == "opt" and not (
+            arch.do_layer_norm_before and arch.word_embed_proj_dim == arch.hidden_size):
+        return False
+    D, Dff, _L, _H = trunk_dims(arch)
+    return D % K_CHUNK == 0 and Dff % K_CHUNK == 0
 
 
 def gelu_erf_rational(x: torch.Tensor) -> torch.Tensor:
@@ -94,7 +101,7 @@ def _activation(name: str):
     if name not in ACT_CODES:
         raise NotImplementedError(
             f"megakernel activation must be one of {sorted(ACT_CODES)}, got {name!r}")
-    return gelu_tanh if name == "gelu_new" else gelu_erf_rational
+    return {0: gelu_tanh, 1: gelu_erf_rational, 2: torch.relu}[ACT_CODES[name]]
 
 
 def _wt(p: Params) -> torch.Tensor:
@@ -107,32 +114,43 @@ def _wt(p: Params) -> torch.Tensor:
 
 def pack_decode_weights(params: Params, config) -> Params:
     """Stack the quantized trunk and xattn weights into the kernel's layout
-    (module docstring). Runs once per generate call."""
+    (module docstring). Runs once per generate call. OPT: the q, k and v
+    projections become the qkv projection's three column blocks (their
+    biases concatenated alike); ``attn_ln`` -> ln1, ``final_ln`` -> ln2,
+    ``out_proj`` -> o, ``fc1`` -> fc, ``fc2`` -> pr."""
     arch = config.lm_arch
     D, Dff, L, _H = trunk_dims(arch)
     if not supports_arch(arch):
-        raise ValueError(f"megakernel needs n_embd % {K_CHUNK} == 0, got {D}")
+        raise ValueError(f"the megakernel takes GPT-2 and pre-norm OPT trunks "
+                         f"without project_in/out, D and Dff multiples of "
+                         f"{K_CHUNK}; got {arch}")
     if abs(arch.layer_norm_epsilon - 1e-5) > 1e-12:
         raise ValueError("the megakernel's LayerNorm has eps fixed at 1e-5")
     _activation(arch.activation)
     _activation(config.xattn_act)
-    blocks = params["lm"]["blocks"]
     f32, bf16 = torch.float32, torch.bfloat16
 
     def stack(fn, items):
         return torch.stack([fn(it) for it in items]).contiguous()
 
-    packed: Params = {
-        "w_qkv": stack(lambda b: _wt(b["c_attn"]), blocks),
-        "w_o": stack(lambda b: _wt(b["c_proj"]), blocks),
-        "w_fc": stack(lambda b: _wt(b["mlp_fc"]), blocks),
-        "w_pr": stack(lambda b: _wt(b["mlp_proj"]), blocks),
-    }
-    for name, key in (("qkv", "c_attn"), ("o", "c_proj"), ("fc", "mlp_fc"),
-                      ("pr", "mlp_proj")):
-        packed["s_" + name] = stack(lambda b: b[key]["scale"].to(f32), blocks)
-        packed["b_" + name] = stack(lambda b: b[key]["b"].to(bf16), blocks)
-    for name, key in (("ln1", "ln_1"), ("ln2", "ln_2")):
+    if arch.family == "gpt2":
+        blocks = params["lm"]["blocks"]
+        lin = {"qkv": ("c_attn",), "o": ("c_proj",), "fc": ("mlp_fc",),
+               "pr": ("mlp_proj",)}
+        lns = {"ln1": "ln_1", "ln2": "ln_2"}
+    else:
+        blocks = params["lm"]["layers"]
+        lin = {"qkv": ("q_proj", "k_proj", "v_proj"), "o": ("out_proj",),
+               "fc": ("fc1",), "pr": ("fc2",)}
+        lns = {"ln1": "attn_ln", "ln2": "final_ln"}
+    packed: Params = {}
+    for name, keys in lin.items():
+        packed["w_" + name] = stack(lambda b: torch.cat([_wt(b[k]) for k in keys]), blocks)
+        packed["s_" + name] = stack(
+            lambda b: torch.cat([b[k]["scale"].to(f32) for k in keys]), blocks)
+        packed["b_" + name] = stack(
+            lambda b: torch.cat([b[k]["b"].to(bf16) for k in keys]), blocks)
+    for name, key in lns.items():
         packed[name + "_s"] = stack(lambda b: b[key]["scale"].to(f32), blocks)
         packed[name + "_b"] = stack(lambda b: b[key]["bias"].to(f32), blocks)
 

@@ -97,3 +97,26 @@ def quantize_xattn_blocks(xattn: Params) -> Params:
             "alpha_ffw": blk["alpha_ffw"],
         }
     return out
+
+
+def quantize_opt_lm(lm: Params) -> Params:
+    """Quantize the OPT trunk's decode-path weights (layers + tied
+    embedding). LayerNorms, biases, the position table and opt-350m's
+    ``project_in`` / ``project_out`` stay as they are."""
+    out = dict(lm)
+    out["embed_tokens_q"] = quantize_weight(lm["embed_tokens"], axis=1)
+    out.pop("embed_tokens")
+    out["layers"] = [
+        {
+            "attn_ln": b["attn_ln"],
+            "q_proj": quantize_linear(b["q_proj"]),
+            "k_proj": quantize_linear(b["k_proj"]),
+            "v_proj": quantize_linear(b["v_proj"]),
+            "out_proj": quantize_linear(b["out_proj"]),
+            "final_ln": b["final_ln"],
+            "fc1": quantize_linear(b["fc1"]),
+            "fc2": quantize_linear(b["fc2"]),
+        }
+        for b in lm["layers"]
+    ]
+    return out

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the decode time goes on one CUDA card.
 
-    python3 profile_decode.py [sweep] [paths] [fixed] [forward]
+    python3 profile_decode.py [sweep] [paths] [opt] [fixed] [forward]
 
 Four measurements of the PyTorch port at flamingo-mini width (GPT-2-medium
 trunk with xattn before every layer, int8 weights, bf16; random weights from
@@ -12,13 +12,17 @@ chip_smoke.py's seeds), all of them unless some are named:
    attention work), kv_limit 36 vs 132 (the self-attention read), 12 vs 24
    layers (the per-layer cost), xattn every layer vs every other layer,
    and at the beam loop's last segment (kv_limit 68) 32 vs 96 rows and the
-   beam mode at 96 rows (32 x 3 beams) and 160 rows (32 x 5); each beside
-   its bound at 3.35 TB/s;
+   beam mode at 96 rows (32 x 3 beams) and 160 rows (32 x 5); then the OPT
+   mode at OPT-1.3B width (b=8, 24 layers, D=2048, xattn every other layer,
+   the greedy loop's last segment: kv_limit 71); each beside its bound
+   (``chip_smoke.mega_bound``);
 2. ``torch.profiler`` over one ``generate`` of each decode path, greedy and
    with 3 beams (batch 32, one image + 4-token prompt, 17 new tokens):
    device (kernel) time and its share of the wall window, the same share
    for the decode loop alone (the trace of a 1-token generate subtracted),
    kernel launches per decode step, and the device time by kernel;
+   ``opt``: the same for chip_smoke.py's OPT-1.3B cell (batch 8, two rows
+   left-padded, greedy per layer and on the megakernel);
 3. ``fixed``: ``torch.profiler`` over each stage of a generate's fixed cost
    at batch 32 (ViT, resampler, xattn K/V, prefill with its first token),
    with the attention kernels off and on (``use_pallas``): device time,
@@ -36,6 +40,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -50,21 +55,26 @@ def sweep(dev, card):
     from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     rows = []
-    # (rows, beams per family, layers, xattn_every, kv_limit); kb > 1 runs
-    # the beam mode over a random ancestry table; the last four share the
-    # beam loop's last segment (kv_limit 68) to split rows from ancestry
-    for b, kb, n_layer, every, kv_limit in (
-            (32, 1, 24, 1, 132), (1, 1, 24, 1, 132), (32, 1, 24, 1, 36),
-            (32, 1, 12, 1, 132), (32, 1, 24, 2, 132), (1, 1, 24, 1, 36),
-            (32, 1, 24, 1, 68), (96, 1, 24, 1, 68), (96, 3, 24, 1, 68),
-            (160, 5, 24, 1, 68)):
+    # (trunk, rows, beams per family, layers, xattn_every, kv_limit); kb > 1
+    # runs the beam mode over a random ancestry table; the four rows at
+    # kv_limit 68 share the beam loop's last segment to split rows from
+    # ancestry
+    opt = dict(family="opt", D=cs.OPT_D, H=cs.OPT_H)
+    for trunk, b, kb, n_layer, every, kv_limit in (
+            ("gpt2", 32, 1, 24, 1, 132), ("gpt2", 1, 1, 24, 1, 132),
+            ("gpt2", 32, 1, 24, 1, 36), ("gpt2", 32, 1, 12, 1, 132),
+            ("gpt2", 32, 1, 24, 2, 132), ("gpt2", 1, 1, 24, 1, 36),
+            ("gpt2", 32, 1, 24, 1, 68), ("gpt2", 96, 1, 24, 1, 68),
+            ("gpt2", 96, 3, 24, 1, 68), ("gpt2", 160, 5, 24, 1, 68),
+            ("opt-1.3b", cs.OPT_B, 1, 24, 2, 71)):
         cfg, packed = cs.random_trunk(dev, n_layer=n_layer, xattn_every=every,
-                                      seed=24)
+                                      seed=24, **(opt if trunk != "gpt2" else {}))
         anc = None
         if kb > 1:
             inputs, anc = cs.beam_trunk_inputs(dev, cfg, b, kb, seed=99)
         else:
-            inputs = cs.mega_inputs(dev, cfg, b, seed=99)
+            T = cs.OPT_T if trunk != "gpt2" else cs.MEGA_T
+            inputs = cs.mega_inputs(dev, cfg, b, seed=99, T=T)
         xk, xv, kc, vc, x, npad, tt = inputs
         npad.zero_()
         tt.fill_(1)
@@ -72,21 +82,20 @@ def sweep(dev, card):
         ms = cs.time_ms(lambda: decode_step_megakernel(
             packed, xk, xv, kc, vc, x, npad, tt, cur, config=cfg,
             kv_limit=kv_limit, beam_anc=anc), 30, flush)
-        weights = sum(t.numel() * t.element_size() for t in packed.values()
-                      if isinstance(t, torch.Tensor))
-        n_x = len(packed["xlayers"])
-        # self K/V slots read: every row's own, or each distinct ancestor's
-        slots = b * (kv_limit + 1) if anc is None else \
-            cs.ancestor_reads(anc, npad, cur, kb)[0] + b
-        n_bytes = (weights + n_x * 2 * b * cs.MEGA_NV * cs.MEGA_XI * 2
-                   + n_layer * 2 * slots * cs.MEGA_D * 2)
-        bound_ms, _ = cs.bound(n_bytes, 0)
-        row = dict(b=b, kb=kb, n_layer=n_layer, xattn_every=every,
-                   kv_limit=kv_limit, ms=ms, bound_ms=bound_ms,
+        # self K/V rows read: every row's own, or each distinct ancestor's
+        n_pos = b * kv_limit
+        slots, extra = n_pos, 0
+        if anc is not None:
+            slots, extra = cs.ancestor_reads(anc, npad, cur, kb)[0], 4 * n_pos
+        bound_ms, bound_by, _, _ = cs.mega_bound(packed, cfg, inputs, slots, n_pos,
+                                                 extra_bytes=extra)
+        row = dict(trunk=trunk, b=b, kb=kb, n_layer=n_layer, xattn_every=every,
+                   kv_limit=kv_limit, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
                    ms_per_layer=ms / n_layer)
-        print(f"[sweep] {card}: megakernel b={b} kb={kb} layers={n_layer} "
+        print(f"[sweep] {card}: megakernel {trunk} b={b} kb={kb} layers={n_layer} "
               f"xattn_every={every} kv_limit={kv_limit}: {ms} ms per call "
-              f"({ms / n_layer * 1e3:.1f} us per layer), bound {bound_ms:.4f} ms")
+              f"({ms / n_layer * 1e3:.1f} us per layer), bound {bound_ms:.4f} ms "
+              f"({bound_by})")
         rows.append(row)
         del packed, inputs, xk, xv, kc, vc
         torch.cuda.empty_cache()
@@ -225,13 +234,22 @@ def profile_forward(dev, card):
     return rows
 
 
-def profile_paths(dev, card):
+def profile_paths(dev, card, opt=False):
+    """Each decode path of flamingo-mini, or with ``opt`` of OPT-1.3B."""
     import chip_smoke as cs
-    config, model, ids, media, pixels = mini_model(dev)
+    if opt:
+        config, model, ids, media, mask, pixels = cs.opt_setup(dev, np.random.RandomState(1))
+        paths = ((False, 1, "OPT-1.3B per-layer"), (True, 1, "OPT-1.3B megakernel"))
+    else:
+        config, model, ids, media, pixels = mini_model(dev)
+        mask = None
+        paths = ((False, 1, "per-layer"), (True, 1, "megakernel"),
+                 (False, cs.BEAMS, "beam per-layer"), (True, cs.BEAMS, "beam megakernel"))
     b, L = ids.shape
 
     def run(megakernel, beams, new_tokens):
-        return model.generate(ids, media_locations=media, pixel_values=pixels,
+        return model.generate(ids, media_locations=media, attention_mask=mask,
+                              pixel_values=pixels,
                               max_length=L + new_tokens, max_new_tokens=new_tokens,
                               prefix_block=cs.PREFIX_BLOCK,
                               eos_token_id=config.lm_arch.vocab_size + 1,
@@ -244,9 +262,7 @@ def profile_paths(dev, card):
 
     rows = []
     steps = PROFILE_NEW_TOKENS - 1
-    for megakernel, beams, label in ((False, 1, "per-layer"), (True, 1, "megakernel"),
-                                     (False, cs.BEAMS, "beam per-layer"),
-                                     (True, cs.BEAMS, "beam megakernel")):
+    for megakernel, beams, label in paths:
         run(megakernel, beams, PROFILE_NEW_TOKENS)           # warm-up
         torch.cuda.synchronize()
         window_ms, device_ms, launches, kernels = traced(megakernel, beams,
@@ -285,8 +301,9 @@ def main() -> int:
     card = cs.card_line()
     print(card)
     cuda_build.kernels()
-    sections = {"sweep": sweep, "paths": profile_paths, "fixed": fixed_cost,
-                "forward": profile_forward}
+    sections = {"sweep": sweep, "paths": profile_paths,
+                "opt": lambda dev, card: profile_paths(dev, card, opt=True),
+                "fixed": fixed_cost, "forward": profile_forward}
     names = sys.argv[1:] or list(sections)
     unknown = set(names) - set(sections)
     if unknown:

@@ -15,7 +15,9 @@ global max); the head's tokens are equal, a planted exact tie across
 chunks resolving to the first index; the whole-step megakernel's hidden row
 and written K/V rows, 2 layers at a small width (D=256) and at
 flamingo-mini's (D=1024, XI=512), 2 bf16 ulps of the output scale (float32
-sums in another order round a few bf16 intermediates the other way). The
+sums in another order round a few bf16 intermediates the other way); its
+OPT mode (ReLU, q/k/v packed as one projection) at OPT-1.3B's width
+(D=2048, 32 heads, ffn 8192, XI=512), 1 and 2 layers, to the same 2 ulps. The
 beam kernels (``decode_attention_beam``, the megakernel's beam mode) are
 held to the same tolerances at the beam path's shapes (96 rows in families
 of 3, 160 in families of 5, a 128-slot cache, a 68-slot ancestry table).
@@ -142,6 +144,22 @@ def test_megakernel_matches_plain(cuda, width, b):
         err = float((got - want).abs().max())
         assert err <= 2 * 2.0 ** (np.floor(np.log2(float(want.abs().max()))) - 7), \
             (name, err)
+
+
+@pytest.mark.parametrize("b", [3, 8])
+@pytest.mark.parametrize("n_layer", [1, 2])
+def test_megakernel_opt_mode_matches_plain(cuda, n_layer, b):
+    """xattn before the first layer only, a left-padded row, a row with no
+    image, the greedy OPT-1.3B loop's last step (cur 70, kv_limit 71)."""
+    import chip_smoke
+    cfg, packed = chip_smoke.random_trunk(
+        cuda, n_layer=n_layer, xattn_every=2, seed=b + n_layer, family="opt",
+        D=chip_smoke.OPT_D, H=chip_smoke.OPT_H)
+    inputs = chip_smoke.mega_inputs(cuda, cfg, b, seed=b, T=chip_smoke.OPT_T)
+    before = decode_step_megakernel.launches
+    errs = chip_smoke.mega_errors(cfg, packed, inputs, 70, 71)
+    assert decode_step_megakernel.launches == before + 1
+    chip_smoke.held_to_ulps(f"OPT mode layers={n_layer} b={b}", errs, [0.0, 0.0, None])
 
 
 def test_megakernel_refuses_bad_input(cuda):

@@ -397,8 +397,10 @@ def test_unported_modes_raise(model):
                  dict(int8_kv_cache=True)):
         with pytest.raises(NotImplementedError):
             m.generate(ids, max_length=8, megakernel=True, **knob)
-    with pytest.raises(NotImplementedError):
-        pmega.supports_arch(OPTArch())
-    opt = port.FlamingoConfig(lm="facebook/opt-125m", dim=768)
-    with pytest.raises(NotImplementedError):
-        pmega.pack_decode_weights(tp, opt)
+    # opt-350m: post-norm with project_in/out, which the kernel does not take
+    opt350 = port.FlamingoConfig(lm="facebook/opt-350m", dim=1024)
+    assert not pmega.supports_arch(opt350.lm_arch)
+    assert pmega.supports_arch(OPTArch(hidden_size=2048, ffn_dim=8192,
+                                       word_embed_proj_dim=2048))
+    with pytest.raises(ValueError):
+        pmega.pack_decode_weights(tp, opt350)
