@@ -6,11 +6,14 @@
 Runs each checkout in a process of its own (each builds its own kernels
 from its own sources) in the order A, B, B, A and prints, for each run, the
 median device time of ``decode_attention`` (b=32, D=1024, H=16, T=192,
-cur 131, kv_limit 132, bf16) and of ``decode_step_megakernel``
-(flamingo-mini width, b=32, 24 layers, kv_limit 132), L2 flushed, on the
-inputs of each checkout's ``chip_smoke.py``. Writes the runs to
-``chiprun_out/ab_kernels.json``. Needs a card; exits 1 without one.
+cur 131, kv_limit 132, bf16) and of ``decode_step_megakernel`` at 24
+layers: flamingo-mini width at b=32 (kv_limit 132), its beam mode at 96
+rows (kv_limit 68) and its OPT mode at OPT-1.3B width, b=8 (kv_limit 71),
+each also in the w8a8 mode (``act_quant``) where the checkout has it, L2
+flushed, on the inputs of each checkout's ``chip_smoke.py``. Writes the
+runs to ``chiprun_out/ab_kernels.json``. Needs a card; exits 1 without one.
 """
+import inspect
 import json
 import os
 import subprocess
@@ -23,8 +26,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def one(tree: str) -> dict:
-    """Both kernels' times in the checkout ``tree`` (run in its own process)."""
-    sys.path.insert(0, os.path.abspath(tree))
+    """The kernels' times in the checkout ``tree``, an absolute path (run in
+    its own process, from that directory)."""
+    sys.path.insert(0, tree)
     import chip_smoke as cs
     from flamingo_mini_tpu_torch.ops.decode_attention import decode_attention
     from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel
@@ -36,13 +40,30 @@ def one(tree: str) -> dict:
     npad = torch.tensor(np.arange(32) % 4, dtype=torch.int32, device=dev)
     attn_ms = cs.time_ms(lambda: decode_attention(q, k, v, npad, 131, n_head=16,
                                                   scale=0.125, kv_limit=132), 100, flush)
+    modes = [False]
+    if "act_quant" in inspect.signature(decode_step_megakernel).parameters:
+        modes.append(True)
+    out = {"tree": tree, "decode_attention_ms": attn_ms}
+
+    def mega(label, packed, cfg, inputs, cur, kv_limit, **kw):
+        for act_quant in modes:
+            extra = dict(kw, act_quant=True) if act_quant else kw
+            out[label + ("_w8a8" if act_quant else "") + "_ms"] = cs.time_ms(
+                lambda: decode_step_megakernel(packed, *inputs, cur, config=cfg,
+                                               kv_limit=kv_limit, **extra), 30, flush)
+
     cfg, packed = cs.random_trunk(dev, n_layer=24, xattn_every=1, seed=24)
-    xk, xv, kc, vc, x, npad, tt = cs.mega_inputs(dev, cfg, 32, seed=99)
-    npad.zero_()
-    mega_ms = cs.time_ms(lambda: decode_step_megakernel(
-        packed, xk, xv, kc, vc, x, npad, tt, 131, config=cfg, kv_limit=132), 30, flush)
-    return {"tree": tree, "decode_attention_ms": attn_ms,
-            "decode_step_megakernel_ms": mega_ms}
+    inputs = cs.mega_inputs(dev, cfg, 32, seed=99)
+    inputs[5].zero_()
+    mega("decode_step_megakernel", packed, cfg, inputs, 131, 132)
+    inputs, anc = cs.beam_trunk_inputs(dev, cfg, 96, 3, seed=97)
+    mega("decode_step_megakernel_beam96", packed, cfg, inputs, 66, 68, beam_anc=anc)
+    del packed, inputs
+    cfg, packed = cs.random_trunk(dev, n_layer=24, seed=224, family="opt", D=cs.OPT_D,
+                                  H=cs.OPT_H, xattn_every=2)
+    mega("decode_step_megakernel_opt", packed, cfg,
+         cs.mega_inputs(dev, cfg, cs.OPT_B, seed=98, T=cs.OPT_T), 70, 71)
+    return out
 
 
 def main() -> int:
@@ -52,7 +73,7 @@ def main() -> int:
     if sys.argv[1] == "--one":
         print(json.dumps(one(sys.argv[2])))
         return 0
-    a, b = sys.argv[1:3]
+    a, b = (os.path.abspath(t) for t in sys.argv[1:3])
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader", "-i", "0"],
                           capture_output=True, text=True, check=True).stdout.strip()

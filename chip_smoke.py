@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Drives ``flamingo_mini_tpu_torch`` through both of its decode paths, greedy
-and with beam search, the ``use_pallas`` configuration's generate, and the
-uncached forward with its loss, for flamingo-mini (GPT-2-medium) and for
-OPT-1.3B and opt-350m trunks, and checks them:
+and with beam search, the megakernel's w8a8 tier, the ``use_pallas``
+configuration's generate, and the uncached forward with its loss, for
+flamingo-mini (GPT-2-medium) and for OPT-1.3B and opt-350m trunks, and the
+stream probe, and checks them:
 
 1. device and build: prints the card's name and power limit (nvidia-smi)
    and builds the hand-written kernels from ``flamingo_mini_tpu_torch/csrc``
@@ -50,7 +51,18 @@ OPT-1.3B and opt-350m trunks, and checks them:
    shapes with text_time 0, in range and past the media count; float32
    within 1e-5 of the output's scale, bf16 within 2 bf16 ulps; each timed
    beside its plain version, SDPA (for the media kernel under the media
-   mask as a boolean mask, without the zeroing) and its bound;
+   mask as a boolean mask, without the zeroing) and its bound. The
+   megakernel's w8a8 mode (``act_quant``): its linear alone (``lin_w8a8``,
+   the kernel's own device functions) bitwise against the plain version
+   at ``W8A8_LINEAR``'s shapes, b in {1, 3, 8, 32}, a zero row and .5
+   rounding boundaries planted; the whole step at 1-2 layers (greedy b in
+   {1, 3, 32}, beams at 96 and 160 rows, OPT-1.3B width b in {3, 8}) and
+   at 24 layers (greedy b=32, beams 96 rows, OPT-1.3B b=8) under the
+   normwise rule below, printing where the largest error lies, each 24
+   layer case timed beside its plain version and bound, its grid printed.
+   The shared-memory refusal: a D=4096 trunk at 28 rows (and 10 x 3
+   beams) raises ``ValueError`` before vision and prefill, launching
+   nothing, and 27 rows pass the check;
 3. greedy captioning end to end through ``FlamingoModel.generate`` at the
    full width of flamingo-mini (GPT-2-medium with gated xattn before every
    layer, CLIP ViT-L/14), random weights from a fixed seed, int8 trunk and
@@ -80,7 +92,14 @@ OPT-1.3B and opt-350m trunks, and checks them:
    first real token, rows 0 and 1 left-padded by 8): ``fused_attention`` 54
    and ``fused_media_xattn`` 24 launches and nothing else; logits (all
    rows, and the left-padded rows) and loss within max(1e-2, 1.25 x the
-   plain version's CPU-vs-card spread) of the plain-version run.
+   plain version's CPU-vs-card spread) of the plain-version run. The w8a8
+   tier on the same weights: greedy b=32 (127 ``decode_step_megakernel``,
+   127 ``lm_head_argmax``, every other 0; tokens against the plain-version
+   w8a8 run under the near-tie rule), an odd batch of 3 on the kernel (its
+   tokens against the same rows at b=32), beams 3 x 64 on the megakernel
+   (63 ``decode_step_megakernel`` and nothing else, against the plain
+   version); each run's agreement with its weight-only run printed, not
+   held (another numerics tier).
    OPT-1.3B (BASELINE config 3's shape, greedy: ViT-L/14, xattn every
    other layer, int8 trunk and xattn, bf16, batch 8, one image + 8-token
    prompt with rows 0 and 1 left-padded by 2, 64 new tokens,
@@ -88,22 +107,29 @@ OPT-1.3B and opt-350m trunks, and checks them:
    ``decode_attention``, 63 ``lm_head_argmax``) and on the megakernel (63
    ``decode_step_megakernel``, 63 ``lm_head_argmax``), each against its
    plain-version run and the two paths against each other (near-ties as
-   above); beams on the megakernel (3 beams, 32 new tokens: 31
+   above); w8a8 on the megakernel (63 + 63, against its plain-version
+   run; agreement with the weight-only run printed); beams on the megakernel (3 beams, 32 new tokens: 31
    ``decode_step_megakernel`` and nothing else, output (8, 40), against the
    plain-version run); the use_pallas forward (54 ``fused_attention``, 12
    ``fused_media_xattn``, the forward rule). opt-350m (post-norm with
    project_in/out): per layer, 16 new tokens, batch 8, against the
    plain-version run; ``megakernel=True`` must raise ``ValueError``;
 4. timing on the card: ms per decode step (two lengths) and captions/s of
-   the five flamingo-mini generate paths and the two OPT-1.3B paths, peak
-   memory, the beam step's full head (``lm_head`` at 96 rows) and
-   candidate selection, encode + resample at batch 32 with and without the
-   attention kernels, and both forwards' ms and tokens/s.
+   the seven flamingo-mini generate paths (w8a8 greedy and beams included)
+   and the three OPT-1.3B paths (w8a8 included), peak memory, the beam
+   step's full head (``lm_head`` at 96 rows) and candidate selection,
+   encode + resample at batch 32 with and without the attention kernels,
+   and both forwards' ms and tokens/s. Last the stream probe at 512 MB:
+   ``stream_sum`` against its plain version (float32, 1e-5 relative, a
+   uniform [0, 1) buffer), then its own protocol (marginal time per call
+   over chains of 4 and 36, median of 5): GB/s of the kernel and of
+   ``torch.sum(dim=0)``.
 
 Any failure raises and exits nonzero. Without a CUDA device it exits 1 and
 prints no result. The line before the last lists the kernels as JSON
-(each of the seven, with its OPT mode and shapes where it has them); the
-last line is ``{"ok": true, "device": ...}``.
+(each of the eight, with the megakernel's OPT, beam and w8a8 modes and
+shapes where they have them); the last line is ``{"ok": true, "device":
+...}``.
 """
 import contextlib
 import json
@@ -162,8 +188,16 @@ OPT_PAIRS = ((8, 40), (39, 40), (40, 71), (70, 71))
 OPT350 = dict(lm="facebook/opt-350m", clip_model_type="openai/clip-vit-large-patch14",
               dim=1024, dim_visual=1024, compute_dtype="bfloat16")
 OPT350_NEW = 16
-# NVIDIA H100 SXM data sheet: device memory rate, dense bf16 tensor cores
-HBM_BYTES_PER_S, BF16_OPS_PER_S = 3.35e12, 989e12
+# the w8a8 linear alone, bitwise: (K, N, slice width or None for the
+# column form) at the step's shapes: c_attn and fc at D=1024 and 2048,
+# to_out's K = XI = 512 in both forms, mlp_proj over D-wide slices of Dff
+W8A8_LINEAR = ((1024, 3072, None), (2048, 8192, None), (512, 1024, None),
+               (512, 1024, 1024), (4096, 1024, 1024), (8192, 2048, 2048))
+# the stream probe: a 512 MB buffer, its TPU protocol's middle chunk_rows
+STREAM_MB, STREAM_CHUNK = 512, 1024
+# NVIDIA H100 SXM data sheet: device memory rate, dense bf16 tensor cores,
+# dense int8 tensor cores
+HBM_BYTES_PER_S, BF16_OPS_PER_S, INT8_OPS_PER_S = 3.35e12, 989e12, 1979e12
 
 
 def bf16_ulps(ref: torch.Tensor, n: int) -> float:
@@ -171,9 +205,11 @@ def bf16_ulps(ref: torch.Tensor, n: int) -> float:
     return n * 2.0 ** (np.floor(np.log2(float(ref.abs().max()))) - 7)
 
 
-def bound(n_bytes: float, n_ops: float):
-    """(least ms the card could take, what bounds it)."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_OPS_PER_S
+def bound(n_bytes: float, n_ops: float, n_int8_ops: float = 0.0):
+    """(least ms the card could take, what bounds it): ``n_ops`` at the
+    bf16 rate, ``n_int8_ops`` at the int8 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / BF16_OPS_PER_S + n_int8_ops / INT8_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -399,18 +435,17 @@ def family_npad(dev, families: int, kb: int) -> torch.Tensor:
                         device=dev)
 
 
-def mega_errors(cfg, packed, inputs, cur, kv_limit, beam_anc=None):
+def mega_errors(cfg, packed, inputs, cur, kv_limit, beam_anc=None, act_quant=False):
     """Kernel and plain version on the same inputs -> {name: (got, want)}
     for the hidden row and every layer's K and V rows at ``cur``."""
     from flamingo_mini_tpu_torch.ops.megadecode import (
         decode_step_megakernel, decode_step_megakernel_plain)
     xk, xv, kc, vc, x, npad, tt = inputs
     kc1, vc1, kc2, vc2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-    got = decode_step_megakernel(packed, xk, xv, kc1, vc1, x, npad, tt, cur,
-                                 config=cfg, kv_limit=kv_limit, beam_anc=beam_anc)
+    call = dict(config=cfg, kv_limit=kv_limit, beam_anc=beam_anc, act_quant=act_quant)
+    got = decode_step_megakernel(packed, xk, xv, kc1, vc1, x, npad, tt, cur, **call)
     want = decode_step_megakernel_plain(packed, xk, xv, kc2, vc2, x, npad, tt,
-                                        cur, config=cfg, kv_limit=kv_limit,
-                                        beam_anc=beam_anc)
+                                        cur, **call)
     torch.cuda.synchronize()
     return {"hidden": (got.float(), want.float()),
             "k rows": (kc1[:, cur].float(), kc2[:, cur].float()),
@@ -436,38 +471,57 @@ def held_to_ulps(label, errs, worst, limit=2):
         assert err / ulp <= limit, f"{label} {name}: {err / ulp} ulp"
 
 
-def held_normwise(label, cfg, packed, inputs, cur, kv_limit, beam_anc=None):
-    """A deep trunk: the kernel against the plain version on the card,
-    normwise. The roundings compound over layers; the plain version on the
-    CPU (float32 sums in another order) measures how far that alone moves
-    the result, and the kernel may differ from the plain version on the
-    card by 1e-2 or by 1.25 times that spread, whichever is larger."""
+def held_normwise(label, cfg, packed, inputs, cur, kv_limit, beam_anc=None,
+                  act_quant=False, worst=None):
+    """A deep trunk (or any w8a8 step): the kernel against the plain version
+    on the card, normwise. The roundings compound over layers, and in the
+    w8a8 mode one bf16 element rounded the other way can move its row's
+    quantization scale; the plain version on the CPU (float32 sums in
+    another order) measures how far that alone moves the result, and the
+    kernel may differ from the plain version on the card by 1e-2 or by 1.25
+    times that spread, whichever is larger. ``worst`` (a dict, updated:
+    the largest abs error and where it lies, the largest share of the
+    tolerance used): print one summary instead of a line per case."""
     from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel_plain
     host = {k: (t.cpu() if isinstance(t, torch.Tensor) else t) for k, t in packed.items()}
     xk, xv, kc, vc, x, npad, tt = (t.cpu() for t in inputs)
     cpu_hidden = decode_step_megakernel_plain(
         host, xk, xv, kc, vc, x, npad, tt, cur, config=cfg, kv_limit=kv_limit,
-        beam_anc=None if beam_anc is None else beam_anc.cpu())
+        beam_anc=None if beam_anc is None else beam_anc.cpu(), act_quant=act_quant)
     cpu = {"hidden": cpu_hidden.float(), "k rows": kc[:, cur].float(),
            "v rows": vc[:, cur].float()}
     rel, spread = {}, {}
     for name, (got, want) in mega_errors(cfg, packed, inputs, cur, kv_limit,
-                                         beam_anc).items():
+                                         beam_anc, act_quant).items():
         rel[name] = float((got - want).norm() / want.norm())
         spread[name] = float((cpu[name] - want.cpu()).norm() / want.norm())
         assert bool(torch.isfinite(got).all()), name
         assert rel[name] <= max(1e-2, 1.25 * spread[name]), (label, name, rel, spread)
-    print(f"[phase 2] {label}: normwise relative error {rel}; the plain version "
-          f"on the CPU vs on the card {spread} (tolerance: the larger of 1e-2 and "
-          "1.25 x that spread)")
+        if worst is not None:
+            diff = (got - want).abs()
+            err = float(diff.max())
+            if err > worst.get("err", -1.0):
+                idx = tuple(int(i) for i in np.unravel_index(int(diff.argmax()), diff.shape))
+                worst["err"], worst["where"] = err, (
+                    f"{label} {name}{list(idx)}: kernel {float(got[idx])}, plain "
+                    f"{float(want[idx])}; normwise {rel[name]}, CPU spread {spread[name]}")
+            worst["share"] = max(worst.get("share", 0.0),
+                                 rel[name] / max(1e-2, 1.25 * spread[name]))
+            worst["rel"] = max(worst.get("rel", 0.0), rel[name])
+    if worst is None:
+        print(f"[phase 2] {label}: normwise relative error {rel}; the plain version "
+              f"on the CPU vs on the card {spread} (tolerance: the larger of 1e-2 "
+              "and 1.25 x that spread)")
 
 
-def mega_bound(packed, cfg, inputs, kv_slots: int, n_pos: int, extra_bytes=0):
+def mega_bound(packed, cfg, inputs, kv_slots: int, n_pos: int, extra_bytes=0,
+               act_quant=False):
     """(bound ms, what bounds it) of one megakernel call: every weight,
     scale, bias and LN param once; the xattn K/V of each row's image; per
     layer ``kv_slots`` cached K/V rows read and the new ones written; the
-    hidden rows in and out; two multiply-adds per weight per row and four
-    per (row, position, dim) of self-attention over ``n_pos`` pairs."""
+    hidden rows in and out; two multiply-adds per weight per row (w8a8: at
+    the int8 rate) and four per (row, position, dim) of self-attention over
+    ``n_pos`` pairs."""
     from flamingo_mini_tpu_torch.ops.megadecode import trunk_dims
     xk, xv, kc, vc, x, npad, tt = inputs
     D, _Dff, L, _H = trunk_dims(cfg.lm_arch)
@@ -478,18 +532,20 @@ def mega_bound(packed, cfg, inputs, kv_slots: int, n_pos: int, extra_bytes=0):
     n_bytes = (weights + x_kv + L * 2 * kv_slots * D * 2 + L * 2 * b * D * 2
                + 2 * 2 * b * D + extra_bytes)
     n_mac = sum(t.numel() for k, t in packed.items() if k.startswith("w_"))
-    n_ops = 2 * b * n_mac + L * 4 * n_pos * D
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    lin_ops, att_ops = 2 * b * n_mac, L * 4 * n_pos * D
+    n_ops = lin_ops + att_ops
+    bound_ms, bound_by = (bound(n_bytes, att_ops, lin_ops) if act_quant
+                          else bound(n_bytes, n_ops))
     return bound_ms, bound_by, n_bytes, n_ops
 
 
-def print_grids(label, packed, cfg, inputs_by_rows, cur, kv_limit):
+def print_grids(label, packed, cfg, inputs_by_rows, cur, kv_limit, act_quant=False):
     """The cooperative grid the megakernel launches for each {rows:
     (inputs, beam_anc)}."""
     from flamingo_mini_tpu_torch.ops.megadecode import kernel_args, kernel_grid
     for rows, (inputs, anc) in inputs_by_rows.items():
         args, _, _ = kernel_args(packed, *inputs, cur, config=cfg, kv_limit=kv_limit,
-                                 beam_anc=anc)
+                                 beam_anc=anc, act_quant=act_quant)
         blocks, smem = kernel_grid(args)
         print(f"[phase 2] {label} grid at {rows} rows: {blocks} blocks of 256 "
               f"threads, {smem} bytes of shared memory each")
@@ -743,6 +799,209 @@ def phase2_megakernel_opt(dev, flush):
           "call, L2 flushed)")
     return dict(max_abs_err=worst[1], ms=ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def w8a8_linear_case(dev, b: int, K: int, N: int, width, seed: int):
+    """The megakernel's w8a8 linear (``lin_w8a8``: its own device
+    functions) and its plain version on the card, on the same inputs ->
+    (kernel, plain), (b, N) bf16. Rows of N(0, 0.25); with b >= 3 row 0 is
+    all zeros (amax 0); the last row holds, in each k-slice, 127 (scale
+    exactly 1) and values on a .5 rounding boundary."""
+    from flamingo_mini_tpu_torch.ops.megadecode import _lin_w8a8, lin_w8a8
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = 0.5 * torch.randn((b, K), generator=gen, device=dev)
+    if b >= 3:
+        x[0] = 0.0
+    plant = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5], device=dev)
+    for k0 in range(0, K, K if width is None else width):
+        x[-1, k0:k0 + len(plant)] = plant
+    x = x.to(torch.bfloat16)
+    w = torch.randint(-127, 128, (N, K), generator=gen, device=dev).to(torch.int8)
+    s = 0.01 + 0.01 * torch.rand(N, generator=gen, device=dev)
+    bias = (0.1 * torch.randn(N, generator=gen, device=dev)).to(torch.bfloat16)
+    return lin_w8a8(x, w, s, bias, width=width), _lin_w8a8(x, w, s, bias, width=width)
+
+
+def phase2_w8a8_linear(dev):
+    """The w8a8 linear alone, bitwise against its plain version on the card
+    (the int8 sums are exact on both sides, each slice's sum is cast to
+    float32 once, every later step is one float32 op in the same order)."""
+    n = 0
+    for K, N, width in W8A8_LINEAR:
+        for b in (1, 3, 8, 32):
+            got, want = w8a8_linear_case(dev, b, K, N, width, seed=n)
+            torch.cuda.synchronize()
+            parted = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+            assert parted == 0, f"w8a8 linear K={K} N={N} width={width} b={b}: " \
+                f"{parted} elements part"
+            n += 1
+    print(f"[phase 2] the megakernel's w8a8 linear alone vs plain, (K, N, slice) in "
+          f"{W8A8_LINEAR} (None: column form), b in {{1, 3, 8, 32}}, a zero row and "
+          f".5 rounding boundaries planted: {n} cases, bitwise equal")
+    return n
+
+
+def phase2_megakernel_w8a8(dev, flush):
+    """The act_quant mode against its plain version: greedy (flamingo-mini
+    width), beam (96 and 160 rows) and OPT-1.3B width at 1-2 layers, then
+    at 24 layers each, timed -> {mode: kernel row}."""
+    from flamingo_mini_tpu_torch.ops.megadecode import (
+        decode_step_megakernel, decode_step_megakernel_plain)
+    worst, n = {}, 0
+    for n_layer, every in ((1, 1), (2, 2)):
+        cfg, packed = random_trunk(dev, n_layer=n_layer, xattn_every=every,
+                                   seed=400 + 10 * n_layer + every)
+        for b in (1, 3, 32):
+            cur, kv_limit = ((4, 36), (70, 100), (131, 132))[n % 3]
+            held_normwise(f"greedy layers={n_layer} every={every} b={b} cur={cur}",
+                          cfg, packed, mega_inputs(dev, cfg, b, seed=500 + n), cur,
+                          kv_limit, act_quant=True, worst=worst)
+            n += 1
+        for rows, kb in ((96, 3), (160, 5)):
+            inputs, anc = beam_trunk_inputs(dev, cfg, rows, kb, seed=600 + n)
+            cur, kv_limit = BEAM_PAIRS[n % 4]
+            held_normwise(f"beam layers={n_layer} rows={rows} kb={kb} cur={cur}", cfg,
+                          packed, inputs, cur, kv_limit, beam_anc=anc, act_quant=True,
+                          worst=worst)
+            n += 1
+    for n_layer in (1, 2):
+        cfg, packed = random_trunk(dev, n_layer=n_layer, seed=700 + n_layer,
+                                   family="opt", D=OPT_D, H=OPT_H, xattn_every=2)
+        for b in (3, 8):
+            cur, kv_limit = OPT_PAIRS[n % 4]
+            held_normwise(f"OPT layers={n_layer} b={b} cur={cur}", cfg, packed,
+                          mega_inputs(dev, cfg, b, seed=800 + n, T=OPT_T), cur, kv_limit,
+                          act_quant=True, worst=worst)
+            n += 1
+    print(f"[phase 2] decode_step_megakernel act_quant (w8a8) vs plain, 1-2 layers: "
+          f"greedy b in {{1, 3, 32}}, beam 96 (kb 3) and 160 (kb 5) rows, OPT-1.3B "
+          f"width b in {{3, 8}}, {n} cases: normwise relative error at most "
+          f"{worst['rel']}, {worst['share']:.3f} of each case's tolerance at most "
+          f"(the larger of 1e-2 and 1.25 x the plain version's CPU-vs-card spread); "
+          f"max abs error {worst['err']}, at {worst['where']}")
+    shallow_err = worst["err"]
+
+    rows = {}
+    # 24 layers: greedy b=32 and beams at 96 rows on flamingo-mini's trunk
+    cfg, packed = random_trunk(dev, n_layer=24, xattn_every=1, seed=24)
+    inputs = mega_inputs(dev, cfg, BATCH, seed=99)
+    held_normwise("decode_step_megakernel act_quant vs plain, 24 layers, b=32", cfg,
+                  packed, inputs, 131, 132, act_quant=True)
+    b_inputs, anc = beam_trunk_inputs(dev, cfg, BATCH * BEAMS, BEAMS, seed=97)
+    held_normwise(f"decode_step_megakernel act_quant beam mode vs plain, 24 layers, "
+                  f"{BATCH * BEAMS} rows", cfg, packed, b_inputs, 66, 68, beam_anc=anc,
+                  act_quant=True)
+    print_grids("decode_step_megakernel act_quant", packed, cfg,
+                {BATCH: (inputs, None), BATCH * BEAMS: (b_inputs, anc)}, 66, 68,
+                act_quant=True)
+    inputs[5].zero_()
+    for mode, inp, cur, lim, beam_anc in (("greedy", inputs, 131, 132, None),
+                                          ("beam", b_inputs, 66, 68, anc)):
+        call = dict(config=cfg, kv_limit=lim, act_quant=True, beam_anc=beam_anc)
+        ms = time_ms(lambda: decode_step_megakernel(packed, *inp, cur, **call), 30, flush)
+        plain_ms = time_ms(lambda: decode_step_megakernel_plain(packed, *inp, cur, **call),
+                           5, flush)
+        if beam_anc is not None:
+            slots, n_pos = ancestor_reads(anc, inp[5], cur, BEAMS)
+            bound_ms, bound_by, n_bytes, _ = mega_bound(
+                packed, cfg, inp, slots, n_pos, extra_bytes=4 * n_pos, act_quant=True)
+        else:
+            n_pos = int((lim - inp[5]).sum())
+            bound_ms, bound_by, n_bytes, _ = mega_bound(packed, cfg, inp, n_pos, n_pos,
+                                                        act_quant=True)
+        print(f"[phase 2] decode_step_megakernel act_quant {mode} mode, 24 layers, "
+              f"{inp[4].shape[0]} rows, kv_limit {lim}: {ms} ms, plain {plain_ms} ms; "
+              f"bound {n_bytes / 1e9:.4f} GB -> {bound_ms:.4f} ms ({bound_by}) "
+              "(median per call, L2 flushed)")
+        rows[mode] = dict(max_abs_err=shallow_err, ms=ms, plain_ms=plain_ms,
+                          library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+    del packed, inputs, b_inputs
+    torch.cuda.empty_cache()
+    # 24 layers at OPT-1.3B width, b=8, the greedy loop's last step
+    cfg, packed = random_trunk(dev, n_layer=24, seed=224, family="opt", D=OPT_D,
+                               H=OPT_H, xattn_every=2)
+    inputs = mega_inputs(dev, cfg, OPT_B, seed=98, T=OPT_T)
+    held_normwise(f"decode_step_megakernel act_quant OPT mode vs plain, 24 layers, "
+                  f"b={OPT_B}", cfg, packed, inputs, 70, 71, act_quant=True)
+    print_grids("decode_step_megakernel act_quant OPT mode", packed, cfg,
+                {OPT_B: (inputs, None)}, 70, 71, act_quant=True)
+    inputs[5].copy_(torch.tensor([OPT_PAD] * 2 + [0] * (OPT_B - 2), dtype=torch.int32))
+    inputs[6].fill_(1)
+    call = dict(config=cfg, kv_limit=71, act_quant=True)
+    ms = time_ms(lambda: decode_step_megakernel(packed, *inputs, 70, **call), 30, flush)
+    plain_ms = time_ms(lambda: decode_step_megakernel_plain(packed, *inputs, 70, **call),
+                       5, flush)
+    n_pos = int((71 - inputs[5]).sum())
+    bound_ms, bound_by, n_bytes, _ = mega_bound(packed, cfg, inputs, n_pos, n_pos,
+                                                act_quant=True)
+    print(f"[phase 2] decode_step_megakernel act_quant OPT mode at b={OPT_B}, 24 layers, "
+          f"kv_limit 71: {ms} ms, plain {plain_ms} ms; bound {n_bytes / 1e9:.4f} GB -> "
+          f"{bound_ms:.4f} ms ({bound_by}) (median per call, L2 flushed)")
+    rows["opt"] = dict(max_abs_err=shallow_err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                       bound_ms=bound_ms, bound_by=bound_by)
+    del packed, inputs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def wide_trunk_model(dev):
+    """A 1-layer trunk at opt-6.7b's width (D=4096, ffn 16384, 64 heads of
+    64: the kernel's head dim) with a gated xattn block, a small ViT, int8,
+    bf16: a trunk whose LayerNorm stage outgrows shared memory past 27
+    rows."""
+    from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel
+    config = FlamingoConfig(
+        lm="facebook/opt-1.3b", dim=4096, dim_visual=64, xattn_every=1,
+        compute_dtype="bfloat16", resampler_depth=1, resampler_num_latents=64,
+        lm_arch_overrides=dict(vocab_size=512, max_position_embeddings=64,
+                               hidden_size=4096, ffn_dim=16384, num_hidden_layers=1,
+                               num_attention_heads=64, word_embed_proj_dim=4096),
+        vision_arch_overrides=dict(hidden_size=64, intermediate_size=128,
+                                   num_hidden_layers=1, num_attention_heads=4,
+                                   image_size=32, patch_size=16))
+    model = FlamingoModel(config, device=dev, seed=3)
+    return model.quantize_int8().to_bf16()
+
+
+def phase2_refusal(dev):
+    """The late refusal repaired: at D=4096 a greedy call of 28 rows (and
+    a beam call of 10 x 3) raises ValueError before vision and prefill,
+    launching nothing; 27 rows pass the check."""
+    from flamingo_mini_tpu_torch import generation
+    from flamingo_mini_tpu_torch.models import flamingo
+    from flamingo_mini_tpu_torch.ops import megadecode
+    model = wide_trunk_model(dev)
+    ran = []
+
+    def recorder(name, fn):
+        def run(*a, **k):
+            ran.append(name)
+            return fn(*a, **k)
+        return run
+    messages = []
+    for b, kw in ((28, dict(w8a8=True)), (28, {}), (10, dict(num_beams=3, w8a8=True))):
+        ids = torch.ones((b, 4), dtype=torch.long, device=dev)
+        pixels = torch.zeros((b, 1, 3, 32, 32), device=dev, dtype=torch.bfloat16)
+        zero_counts()
+        with patched(generation, "_prefill", recorder("prefill", generation._prefill)), \
+                patched(flamingo, "encode_resample_visuals",
+                        recorder("vision", flamingo.encode_resample_visuals)):
+            try:
+                model.generate(ids, pixel_values=pixels, max_length=16, megakernel=True,
+                               **kw)
+            except ValueError as e:
+                messages.append(str(e))
+            else:
+                raise AssertionError(f"{b} rows at D=4096 ran on the megakernel")
+        counts = read_counts()
+        assert not ran and not any(counts.values()), (ran, counts)
+    for act_quant in (True, False):
+        megadecode.check_fits(model.config, 27, 16, 64, act_quant=act_quant, device=dev)
+    print(f"[phase 2] refusal at D=4096 before vision and prefill (nothing launched): "
+          f"{messages[0]!r}; weight-only 28 rows and beams 10 x 3 refused too; 27 rows "
+          "pass the check in both modes")
+    del model
+    torch.cuda.empty_cache()
 
 
 def attention_inputs(dev, dtype, b, h, n_q, n_kv, seed):
@@ -1104,9 +1363,10 @@ def launch_counters():
     from flamingo_mini_tpu_torch.ops.lm_head import lm_head_argmax
     from flamingo_mini_tpu_torch.ops.media_xattn import fused_media_xattn
     from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel
+    from flamingo_mini_tpu_torch.tools.probe_stream import stream_sum
     return (decode_attention, decode_attention_beam, lm_head_argmax,
             decode_step_megakernel, fused_attention, flash_attention,
-            fused_media_xattn)
+            fused_media_xattn, stream_sum)
 
 
 def zero_counts():
@@ -1246,6 +1506,49 @@ def time_generate(card, batch, paths):
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+def print_agreement(label, tokens, ref_tokens):
+    """Share of tokens and rows equal between two runs: printed, not held
+    (another numerics tier)."""
+    same = float((tokens == ref_tokens).float().mean())
+    rows = int((tokens == ref_tokens).all(dim=1).sum())
+    print(f"[phase 3] {label}: {same:.4f} of tokens and {rows}/{tokens.shape[0]} "
+          "rows identical (another numerics tier: printed, not held)")
+
+
+def phase4_stream(dev, card):
+    """The stream probe at STREAM_MB: the kernel against its plain version
+    (float32, 1e-5 relative, on a buffer of uniform [0, 1) values so that
+    the sum does not cancel), then the probe's own protocol with the launch
+    count at 0 before it -> the kernel row."""
+    from flamingo_mini_tpu_torch.tools import probe_stream
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n_rows = STREAM_MB * 1024 * 1024 // (2 * probe_stream.COLS)
+    x = torch.rand((n_rows, probe_stream.COLS), generator=gen, device=dev).to(torch.bfloat16)
+    acc = torch.tensor(3.0, device=dev)
+    got = float(probe_stream.stream_sum(x, acc, STREAM_CHUNK))
+    want = float(probe_stream.stream_sum_plain(x, acc, STREAM_CHUNK))
+    err = abs(got - want)
+    assert err <= 1e-5 * abs(want), (got, want)
+    zero_counts()
+    rates = probe_stream.measure(x, STREAM_CHUNK)
+    launches = read_counts()["stream_sum"]
+    plain_ms = probe_stream.marginal_ms(probe_stream.stream_sum_plain, x, STREAM_CHUNK)
+    n_bytes = x.numel() * x.element_size()
+    bound_ms, bound_by = bound(n_bytes, n_rows * 128)
+    print(f"[phase 4] {card}: stream_sum over {STREAM_MB} MB: kernel vs plain "
+          f"{got} vs {want} (relative {err / abs(want)}, tolerance 1e-5); kernel "
+          f"{rates['cuda']['ms']} ms per call, {rates['cuda']['GBps']} GB/s; torch.sum "
+          f"{rates['torch_sum']['ms']} ms, {rates['torch_sum']['GBps']} GB/s; plain "
+          f"{plain_ms} ms; bound {bound_ms} ms ({bound_by}, "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s); {launches} launches (marginal of chains "
+          "of 4 and 36, median of 5)")
+    del x
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=rates["cuda"]["ms"], plain_ms=plain_ms,
+                library_ms=rates["torch_sum"]["ms"], bound_ms=bound_ms,
+                bound_by=bound_by, launches=launches)
+
+
 def opt_setup(dev, rs):
     """OPT-1.3B (gates open, int8 trunk and xattn, bf16) and its batch:
     8 prompts of 8 tokens, rows 0 and 1 left-padded by 2, one image each at
@@ -1305,6 +1608,18 @@ def opt_cells(dev, card):
     compare_tokens("OPT-1.3B megakernel path vs per-layer path", mega_tokens,
                    layer_tokens, layer_gaps)
 
+    # w8a8 on the megakernel: the same batch, rows 0-1 left-padded
+    w8_tokens, counts["w8a8"] = counted(lambda: run(True, w8a8=True), [], ids,
+                                        (OPT_B, OPT_MAX), vocab)
+    expect("OPT-1.3B w8a8 megakernel path", counts["w8a8"], lm_head_argmax=steps,
+           decode_step_megakernel=steps)
+    gaps = []
+    with plain_kernels(gaps):
+        plain_tokens = run(True, w8a8=True)
+    compare_tokens("OPT-1.3B w8a8 megakernel vs plain", w8_tokens,
+                   plain_tokens[:, OPT_PROMPT:].cpu(), gaps)
+    print_agreement("OPT-1.3B w8a8 vs weight-only megakernel", w8_tokens, mega_tokens)
+
     # beams on the megakernel: 3 beams, 32 new tokens
     def beam_run(new_tokens=OPT_BEAM_NEW):
         return run(True, new_tokens, max_length=OPT_PROMPT + OPT_BEAM_NEW,
@@ -1352,7 +1667,8 @@ def opt_cells(dev, card):
     # phase 4: the OPT-1.3B paths and forward
     time_generate(card, OPT_B, (
         ("OPT-1.3B per-layer", lambda n: run(False, n), OPT_NEW),
-        ("OPT-1.3B megakernel", lambda n: run(True, n), OPT_NEW)))
+        ("OPT-1.3B megakernel", lambda n: run(True, n), OPT_NEW),
+        ("OPT-1.3B w8a8 megakernel", lambda n: run(True, n, w8a8=True), OPT_NEW)))
     fwd_ms, fwd_all = timed(fwd)
     print(f"[phase 4] {card}: OPT-1.3B forward with loss, {FWD_B}x{FWD_N} tokens, "
           f"use_pallas: median {fwd_ms} ms (runs {fwd_all}), "
@@ -1403,6 +1719,9 @@ def main() -> int:
     fa = phase2_fused_attention(dev, flush)
     flash = phase2_flash_attention(dev, flush)
     mx = phase2_media_xattn(dev, flush)
+    phase2_w8a8_linear(dev)
+    mega_w8 = phase2_megakernel_w8a8(dev, flush)
+    phase2_refusal(dev)
     del flush
     torch.cuda.empty_cache()
 
@@ -1422,12 +1741,12 @@ def main() -> int:
     steps = NEW_TOKENS - 1
     n_layer = config.lm_arch.n_layer
 
-    def run(megakernel, new_tokens=NEW_TOKENS, m=model):
-        return m.generate(ids, media_locations=media, attention_mask=mask,
-                          pixel_values=pixels, max_length=MAX_LENGTH,
-                          max_new_tokens=new_tokens,
+    def run(megakernel, new_tokens=NEW_TOKENS, m=model, rows=BATCH, **kw):
+        return m.generate(ids[:rows], media_locations=media[:rows],
+                          attention_mask=mask[:rows], pixel_values=pixels[:rows],
+                          max_length=MAX_LENGTH, max_new_tokens=new_tokens,
                           prefix_block=PREFIX_BLOCK, eos_token_id=vocab,
-                          pad_token_id=0, megakernel=megakernel)
+                          pad_token_id=0, megakernel=megakernel, **kw)
 
     def counted_run(megakernel, gaps, m=model):
         return counted(lambda: run(megakernel, m=m), gaps, ids, (BATCH, MAX_LENGTH),
@@ -1450,6 +1769,28 @@ def main() -> int:
         compare_tokens(label, tokens, plain_tokens[:, PROMPT_LEN:].cpu(), gaps)
     compare_tokens("megakernel path vs per-layer path", mega_tokens, layer_tokens,
                    layer_gaps)
+
+    # phase 3, w8a8: the same weights on the megakernel's act_quant mode
+    w8_gaps = []
+    w8_tokens, w8_counts = counted(lambda: run(True, w8a8=True), w8_gaps, ids,
+                                   (BATCH, MAX_LENGTH), vocab)
+    expect("w8a8 megakernel path", w8_counts, lm_head_argmax=steps,
+           decode_step_megakernel=steps)
+    gaps = []
+    with plain_kernels(gaps):
+        plain_tokens = run(True, w8a8=True)
+    torch.cuda.synchronize()
+    compare_tokens("w8a8 megakernel vs plain", w8_tokens,
+                   plain_tokens[:, PROMPT_LEN:].cpu(), gaps)
+    print_agreement("w8a8 vs weight-only megakernel", w8_tokens, mega_tokens)
+    # an odd batch: the first 3 rows, on the kernel as given; quantization
+    # is per row, so they are the batch of 32's first rows
+    odd_tokens, odd_counts = counted(lambda: run(True, rows=3, w8a8=True), [], ids[:3],
+                                     (3, MAX_LENGTH), vocab)
+    expect("w8a8 odd batch (b=3)", odd_counts, lm_head_argmax=steps,
+           decode_step_megakernel=steps)
+    compare_tokens("w8a8 odd batch (b=3) vs the same rows at b=32", odd_tokens,
+                   w8_tokens[:3], [g[:3] for g in w8_gaps])
 
     # phase 3, use_pallas: the same weights; the ViT, the resampler and the
     # xattn prefill run the attention kernels (the GPT-2 prefill writes the
@@ -1479,17 +1820,17 @@ def main() -> int:
     fwd, _ = check_forward("flamingo-mini", model_f, rs, n_layer, n_x)
 
     # phase 3, beams: batch 32 x 3 beams, 64 new tokens, lazy reorder
-    def beam_run(megakernel, new_tokens=BEAM_NEW_TOKENS):
+    def beam_run(megakernel, new_tokens=BEAM_NEW_TOKENS, **kw):
         return model.generate(ids, media_locations=media, attention_mask=mask,
                               pixel_values=pixels, max_length=BEAM_MAX_LENGTH,
                               max_new_tokens=new_tokens, prefix_block=PREFIX_BLOCK,
                               eos_token_id=vocab, pad_token_id=0,
                               megakernel=megakernel, num_beams=BEAMS,
                               length_penalty=1.0, early_stopping=True,
-                              beam_reorder="lazy")
+                              beam_reorder="lazy", **kw)
 
-    def recorded_beam_run(megakernel, plain=False):
-        return recorded_beam(lambda: beam_run(megakernel), ids,
+    def recorded_beam_run(megakernel, plain=False, **kw):
+        return recorded_beam(lambda: beam_run(megakernel, **kw), ids,
                              (BATCH, BEAM_MAX_LENGTH), vocab, BEAM_NEW_TOKENS, plain)
 
     beam_steps = BEAM_NEW_TOKENS - 1
@@ -1505,6 +1846,13 @@ def main() -> int:
         compare_beams(label, tokens, cands, plain_tokens, plain_cands, BEAMS, vocab)
     compare_beams("beam megakernel path vs per-layer path", mega_b_tokens,
                   mega_b_cands, layer_b_tokens, layer_b_cands, BEAMS, vocab)
+    # beams on the megakernel's w8a8 mode
+    w8_b_tokens, w8_b_counts, w8_b_cands = recorded_beam_run(True, w8a8=True)
+    expect("w8a8 beam megakernel path", w8_b_counts, decode_step_megakernel=beam_steps)
+    plain_tokens, _, plain_cands = recorded_beam_run(True, plain=True, w8a8=True)
+    compare_beams("w8a8 beam megakernel vs plain", w8_b_tokens, w8_b_cands, plain_tokens,
+                  plain_cands, BEAMS, vocab)
+    print_agreement("w8a8 vs weight-only beam megakernel", w8_b_tokens, mega_b_tokens)
 
     # phase 4: timing (CUDA events around whole generate calls)
     time_generate(card, BATCH, (
@@ -1512,7 +1860,10 @@ def main() -> int:
         ("megakernel", lambda n: run(True, n), NEW_TOKENS),
         ("beam per-layer", lambda n: beam_run(False, n), BEAM_NEW_TOKENS),
         ("beam megakernel", lambda n: beam_run(True, n), BEAM_NEW_TOKENS),
-        ("use_pallas megakernel", lambda n: run(True, n, m=model_p), NEW_TOKENS)))
+        ("use_pallas megakernel", lambda n: run(True, n, m=model_p), NEW_TOKENS),
+        ("w8a8 megakernel", lambda n: run(True, n, w8a8=True), NEW_TOKENS),
+        ("w8a8 beam megakernel", lambda n: beam_run(True, n, w8a8=True),
+         BEAM_NEW_TOKENS)))
     # the beam step's head: the full int8 lm_head at 96 rows (its float32
     # copy of the weights included) and the candidate selection
     lm = model.params["lm"]
@@ -1541,6 +1892,8 @@ def main() -> int:
 
     # phase 3 and 4 of the OPT cells
     opt_counts = opt_cells(dev, card)
+    # phase 4: the stream probe (its own entry point's path)
+    stream = phase4_stream(dev, card)
 
     kernel_rows = (
         ("decode_attention", attn),
@@ -1555,7 +1908,11 @@ def main() -> int:
         ("fused_attention (resampler shape)", fa["resampler"]),
         ("fused_attention (GPT-2 forward shape)", fa["gpt2 forward"]),
         ("fused_attention (OPT-1.3B forward shape)", fa["opt forward"]),
-        ("flash_attention", flash), ("fused_media_xattn", mx))
+        ("flash_attention", flash), ("fused_media_xattn", mx),
+        ("decode_step_megakernel act_quant (w8a8)", mega_w8["greedy"]),
+        ("decode_step_megakernel act_quant beam mode", mega_w8["beam"]),
+        ("decode_step_megakernel act_quant OPT mode (OPT-1.3B, b=8)", mega_w8["opt"]),
+        ("stream_sum", stream))
     for name, k in kernel_rows:
         print(f"[phase 4] {card}: {name} {k['ms']} ms vs plain {k['plain_ms']} "
               f"ms, library {k['library_ms']} ms, bound {k['bound_ms']} ms "
@@ -1598,7 +1955,18 @@ def main() -> int:
              pallas_counts["flash_attention"], flash),
             ("fused_media_xattn", "media_xattn.cu",
              "flamingo_mini_tpu/ops/pallas_xattn.py:122",
-             pallas_counts["fused_media_xattn"], mx)):
+             pallas_counts["fused_media_xattn"], mx),
+            ("decode_step_megakernel (act_quant: w8a8)", "decode_megakernel.cu",
+             "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
+             w8_counts["decode_step_megakernel"], mega_w8["greedy"]),
+            ("decode_step_megakernel (act_quant, beam mode)", "decode_megakernel.cu",
+             "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
+             w8_b_counts["decode_step_megakernel"], mega_w8["beam"]),
+            ("decode_step_megakernel (act_quant, OPT mode)", "decode_megakernel.cu",
+             "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
+             opt_counts["w8a8"]["decode_step_megakernel"], mega_w8["opt"]),
+            ("stream_sum (bandwidth probe)", "stream_probe.cu",
+             "tools/probe_stream.py:24", stream["launches"], stream)):
         rows.append({"name": name, "route": "cuda",
                      "source": f"flamingo_mini_tpu_torch/csrc/{source}",
                      "replaces": replaces, "launches": launches,

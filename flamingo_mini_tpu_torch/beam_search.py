@@ -26,8 +26,8 @@ Two decode bodies, both ending in the full ``lm_head`` (beams consume the
 whole distribution): per layer, each step's 24 layers run
 ``decode_attention_beam``; with ``megakernel``, each step is embed -> one
 ``decode_step_megakernel`` launch in its beam mode -> final LayerNorm
-(GPT-2 or pre-norm OPT). Group beams run per layer only, as in the JAX
-package. The loop is a Python loop with one host check of the halting
+(GPT-2 or pre-norm OPT), weight-only or w8a8 (``dc.w8a8``). Group beams
+run per layer only, as in the JAX package, and refuse w8a8. The loop is a Python loop with one host check of the halting
 condition per step. The logits-processor chain is not ported: for the
 options the port has it is the identity. Every top-k is a stable sort, so
 ties go to the lower index, as ``lax.top_k``'s do.
@@ -39,7 +39,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from .configuration_flamingo import FlamingoConfig
-from .generation import DecodeConfig, _mega_hidden, _mega_prepare, _prefill
+from .generation import (DecodeConfig, _mega_hidden, _mega_prepare, _prefill,
+                         check_mega_fits)
 from .models import flamingo
 from .ops.layers import Policy
 
@@ -98,6 +99,9 @@ class _Decoder:
                  dc: DecodeConfig, policy: Policy, input_ids, media_locations,
                  attention_mask, visual_features, pixel_values, *,
                  megakernel: bool):
+        if megakernel:
+            check_mega_fits(config, dc, input_ids.shape[0] * dc.num_beams,
+                            visual_features, pixel_values, input_ids.device)
         if pixel_values is not None:
             visual_features = flamingo.encode_resample_visuals(
                 params, config, policy.cast(pixel_values), policy=policy)
@@ -123,7 +127,7 @@ class _Decoder:
         media_count = _tile_beams(st["media_count"], k)
         self.megakernel = megakernel
         if megakernel:
-            self.mega = _mega_prepare(params, config, policy, xattn_kv,
+            self.mega = _mega_prepare(params, config, policy, dc, xattn_kv,
                                       self.mask, media_count)
         else:
             self.hook = flamingo.make_layer_hook(params, config, xattn_kv,

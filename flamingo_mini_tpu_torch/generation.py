@@ -13,7 +13,8 @@ and ``_generate_impl``); ``generate_impl`` hands ``num_beams > 1`` to
   where the layer has it, then the decoder block with
   ``decode_attention``) or, with ``megakernel``, as one
   ``decode_step_megakernel`` launch over the stacked cache (int8 weights
-  packed once per call; GPT-2 and pre-norm OPT). On the plain-greedy bf16
+  packed once per call; GPT-2 and pre-norm OPT), weight-only or, with
+  ``w8a8``, with int8 activations too. On the plain-greedy bf16
   int8 path the head is ``lm_head_argmax``, which returns the token without
   writing the logits; otherwise the full ``lm_head`` + argmax;
 * with ``prefix_block > 0`` the steps run in segments that attend only the
@@ -32,7 +33,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from .configuration_flamingo import FlamingoConfig
-from .models import flamingo
+from .models import flamingo, gpt2
 from .ops import megadecode
 from .ops.layers import Policy, layer_norm
 from .ops.lm_head import lm_head_argmax, pad_head_weights
@@ -57,6 +58,11 @@ class DecodeConfig:
     # whole-step megakernel: int8 weights, bf16 policy, GPT-2 or pre-norm
     # OPT trunk
     megakernel: bool = False
+    # w8a8 tier (needs the megakernel): every trunk and xattn linear of the
+    # step quantizes its activations per row (symmetric absmax int8) and
+    # sums int8 x int8 products; attention stays bf16. Another numerics
+    # tier than weight-only, not an approximation of it.
+    w8a8: bool = False
     # beam search (HF semantics, beam_search.py)
     num_beams: int = 1
     length_penalty: float = 1.0
@@ -85,6 +91,12 @@ class DecodeConfig:
         if self.num_beam_groups > 1 and self.num_beams % self.num_beam_groups:
             raise ValueError(f"num_beams ({self.num_beams}) must be divisible "
                              f"by num_beam_groups ({self.num_beam_groups})")
+        if self.w8a8 and not self.megakernel:
+            raise ValueError("w8a8 (int8 activation quantization) is a "
+                             "megakernel tier: set megakernel=True")
+        if self.w8a8 and self.num_beam_groups > 1:
+            raise ValueError("w8a8 runs on the megakernel, and diverse beams "
+                             "(num_beam_groups > 1) run per layer")
         if self.diversity_penalty != 0.0 and self.num_beam_groups <= 1:
             raise ValueError("diversity_penalty requires num_beam_groups > 1")
         if self.num_beams == 1:
@@ -133,17 +145,35 @@ def _prefill(params: Params, config: FlamingoConfig, dc: DecodeConfig,
     return logits[:, -1], xattn_kv, state
 
 
+def check_mega_fits(config: FlamingoConfig, dc: DecodeConfig, rows: int,
+                    visual_features: Optional[torch.Tensor],
+                    pixel_values: Optional[torch.Tensor], device) -> None:
+    """With ``dc.megakernel`` on a CUDA device, refuse a step the card
+    cannot hold (``megadecode.check_fits``: ``rows`` rows, the flat cache's
+    slots, the media's latents) before vision and prefill run."""
+    if not dc.megakernel:
+        return
+    if pixel_values is not None:
+        n_media = pixel_values.shape[0 if pixel_values.ndim == 4 else 1]
+    else:
+        n_media = visual_features.shape[1]
+    megadecode.check_fits(config, rows, gpt2.cache_len(dc.max_length),
+                          n_media * config.resampler_num_latents,
+                          act_quant=dc.w8a8, device=device)
+
+
 def _mega_prepare(params: Params, config: FlamingoConfig, policy: Policy,
-                  xattn_kv, mask: torch.Tensor, media_count: torch.Tensor
-                  ) -> Dict[str, torch.Tensor]:
+                  dc: DecodeConfig, xattn_kv, mask: torch.Tensor,
+                  media_count: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The megakernel's per-generate inputs: packed weights and xattn K/V,
-    each row's first real slot and its media count."""
+    each row's first real slot and its media count, the w8a8 switch."""
     if policy.dtype != torch.bfloat16:
         raise ValueError("the megakernel runs the bf16 compute policy")
     xk, xv = megadecode.pack_xattn_kv_flat(xattn_kv, flamingo.n_lm_layers(config))
     return dict(packed=megadecode.pack_decode_weights(params, config), xk=xk,
                 xv=xv, npad=mask.argmax(dim=-1).to(torch.int32),
-                text_time=media_count[:, 0].to(torch.int32).contiguous())
+                text_time=media_count[:, 0].to(torch.int32).contiguous(),
+                act_quant=dc.w8a8)
 
 
 def _mega_hidden(params: Params, config: FlamingoConfig, policy: Policy,
@@ -158,7 +188,7 @@ def _mega_hidden(params: Params, config: FlamingoConfig, policy: Policy,
     hidden = megadecode.decode_step_megakernel(
         mega["packed"], mega["xk"], mega["xv"], kc, vc, x, mega["npad"],
         mega["text_time"], cur, config=config, kv_limit=kv_limit,
-        beam_anc=beam_anc)
+        beam_anc=beam_anc, act_quant=mega["act_quant"])
     return layer_norm(hidden, lm[trunk.FINAL_LN], config.lm_arch.layer_norm_epsilon)
 
 
@@ -181,6 +211,7 @@ def generate_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
                              visual_features=visual_features,
                              pixel_values=pixel_values)
     b, L = input_ids.shape
+    check_mega_fits(config, dc, b, visual_features, pixel_values, input_ids.device)
     if pixel_values is not None:
         visual_features = flamingo.encode_resample_visuals(
             params, config, policy.cast(pixel_values), policy=policy)
@@ -190,7 +221,7 @@ def generate_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
     decode_hook = flamingo.make_layer_hook(params, config, xattn_kv,
                                            st["media_count"], policy=policy)
     if dc.megakernel:
-        mega = _mega_prepare(params, config, policy, xattn_kv, st["mask"],
+        mega = _mega_prepare(params, config, policy, dc, xattn_kv, st["mask"],
                              st["media_count"])
 
     # fused int8 head + argmax: plain greedy under the bf16 policy with an

@@ -2,7 +2,8 @@
 
 Port of ``flamingo_mini_tpu/modeling_flamingo.py::FlamingoModel`` for greedy
 and beam decoding over a GPT-2 or OPT trunk, per layer or through the
-whole-step megakernel, and the uncached forward with its loss. The policy
+whole-step megakernel (weight-only or w8a8), and the uncached forward with
+its loss. The policy
 follows ``compute_dtype`` and ``use_pallas`` (bf16 with ``use_pallas``: the
 attention kernels). Holds (config, params, policy, device); params are a
 nested dict of tensors in the JAX package's layout, made by
@@ -90,7 +91,7 @@ class FlamingoModel:
                  eos_token_id: Optional[int] = None,
                  pad_token_id: Optional[int] = None, prefix_block: int = 0,
                  fused_head: bool = True, megakernel: bool = False,
-                 num_beams: int = 1, length_penalty: float = 1.0,
+                 w8a8: bool = False, num_beams: int = 1, length_penalty: float = 1.0,
                  early_stopping: bool = True, num_return_sequences: int = 1,
                  num_beam_groups: int = 1, diversity_penalty: float = 0.0,
                  beam_reorder: str = "lazy", return_scores: bool = False,
@@ -102,11 +103,15 @@ class FlamingoModel:
         ``return_scores``. ``megakernel`` runs each decode step's trunk as
         one ``decode_step_megakernel`` launch (int8 weights, bf16 policy,
         GPT-2 or pre-norm OPT trunk; opt-350m's post-norm trunk with its
-        in/out projections raises ``ValueError``); diverse beams
-        (``num_beam_groups > 1``) run per layer.
-        Other JAX ``generate`` options (sampling, logits processors, the
-        gather beam reorder, greedy scores, w8a8, int8 KV, meshes, ...) are
-        not ported yet and raise ``NotImplementedError``."""
+        in/out projections raises ``ValueError``); ``w8a8`` (with
+        ``megakernel`` only, else ``ValueError``) runs its w8a8 tier, every
+        linear on int8 activations, greedy and beams, any batch; diverse
+        beams (``num_beam_groups > 1``) run per layer and refuse ``w8a8``.
+        Before vision and prefill, a megakernel call the card cannot hold
+        (a trunk too wide for its shared memory at this batch) raises
+        ``ValueError``. Other JAX ``generate`` options (sampling, logits
+        processors, the gather beam reorder, greedy scores, int8 KV,
+        meshes, ...) are not ported yet and raise ``NotImplementedError``."""
         if unsupported:
             raise NotImplementedError(
                 f"generate options not ported yet: {sorted(unsupported)}")
@@ -133,7 +138,7 @@ class FlamingoModel:
                           eos_token_id=eos,
                           pad_token_id=eos if pad_token_id is None else pad_token_id,
                           prefix_block=prefix_block, fused_head=fused_head,
-                          megakernel=megakernel, num_beams=num_beams,
+                          megakernel=megakernel, w8a8=w8a8, num_beams=num_beams,
                           length_penalty=length_penalty,
                           early_stopping=early_stopping,
                           num_return_sequences=num_return_sequences,

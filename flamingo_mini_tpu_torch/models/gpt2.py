@@ -64,12 +64,17 @@ def init_gpt2(gen: torch.Generator, arch: GPT2Arch,
     return p
 
 
+def cache_len(max_len: int) -> int:
+    """The flat cache's slot count T: max_len rounded up to a multiple of 64."""
+    return -(-max_len // 64) * 64
+
+
 def flat_cache(n_layer: int, width: int, batch: int, max_len: int, dtype,
                device) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
-    """Zeroed flat T-major caches, T = max_len rounded up to a multiple of
-    64: the stacked K and V buffers ``(n_layer, T, batch, width)`` and the
-    per-layer ``{"kf", "vf"}`` views of them (no copy)."""
-    shape = (n_layer, -(-max_len // 64) * 64, batch, width)
+    """Zeroed flat T-major caches, T = ``cache_len(max_len)``: the stacked K
+    and V buffers ``(n_layer, T, batch, width)`` and the per-layer
+    ``{"kf", "vf"}`` views of them (no copy)."""
+    shape = (n_layer, cache_len(max_len), batch, width)
     kc = torch.zeros(shape, dtype=dtype, device=device)
     vc = torch.zeros(shape, dtype=dtype, device=device)
     return kc, vc, [{"kf": kc[i], "vf": vc[i]} for i in range(n_layer)]

@@ -24,7 +24,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points: name -> argument types; each returns cudaGetLastError()
 SIGNATURES = {
     # q, k, v, npad, out, b, D, n_head, t_lim, cur, scale, is_bf16, stream
@@ -42,6 +42,12 @@ SIGNATURES = {
     # &MegaArgs, &blocks, &smem_bytes
     "fmt_decode_megakernel_grid": [_P, _P, _P],
     "fmt_decode_megakernel_args_size": [],
+    # &MegaArgs -> dynamic shared memory bytes (launches nothing)
+    "fmt_decode_megakernel_smem": [_P],
+    # A, W, scale, bias, out, amax, b, N, K, slice, rows_form, stream
+    "fmt_w8a8_linear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, acc, partial, out, n_rows, n_blocks, steps, stream
+    "fmt_stream_sum": [_P, _P, _P, _P, _L, _I, _I, _P],
     # &AttnArgs (ops/fused_attention._Args), is_bf16, stream
     "fmt_fused_attention": [_P, _I, _P],
     "fmt_flash_attention": [_P, _I, _P],

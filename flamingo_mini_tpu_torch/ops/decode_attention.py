@@ -33,21 +33,26 @@ HEAD_DIM = 64
 
 def decode_attention_plain(q, k_cache, v_cache, npad, cur: int, *,
                            n_head: int, scale: float,
-                           kv_limit: Optional[int] = None) -> torch.Tensor:
-    """Plain PyTorch version: the kernel's oracle, shapes as the kernel's."""
+                           kv_limit: Optional[int] = None,
+                           acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch version: the kernel's oracle, shapes as the kernel's.
+    ``acc_dtype`` float64: the dot products, the softmax denominator and
+    the V sums are summed in float64 and rounded once to float32 (the
+    megakernel's attention, whose sums so do not depend on their order)."""
     max_len, b, D = k_cache.shape
     dh = D // n_head
     T = max_len if kv_limit is None else min(kv_limit, max_len)
-    k = k_cache[:T].reshape(T, b, n_head, dh).permute(1, 2, 0, 3).float()
+    k = k_cache[:T].reshape(T, b, n_head, dh).permute(1, 2, 0, 3).to(acc_dtype)
     v = v_cache[:T].reshape(T, b, n_head, dh).permute(1, 2, 0, 3)
-    qh = q.reshape(b, n_head, 1, dh).float()
-    s = torch.matmul(qh, k.transpose(-1, -2)) * scale          # (b, h, 1, T)
+    qh = q.reshape(b, n_head, 1, dh).to(acc_dtype)
+    s = torch.matmul(qh, k.transpose(-1, -2)).float() * scale  # (b, h, 1, T)
     t_pos = torch.arange(T, device=q.device)
     valid = (t_pos[None, :] >= npad[:, None]) & (t_pos[None, :] <= cur)
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p.to(v.dtype).float(), v.float()) / torch.clamp(l, min=1e-30)
+    l = p.to(acc_dtype).sum(dim=-1, keepdim=True).float()
+    o = torch.matmul(p.to(v.dtype).to(acc_dtype), v.to(acc_dtype)).float()
+    o = o / torch.clamp(l, min=1e-30)
     return o.permute(0, 2, 1, 3).reshape(b, D).to(q.dtype)
 
 
@@ -123,20 +128,23 @@ def _pad_anc(anc: torch.Tensor, max_len: int) -> torch.Tensor:
 
 def decode_attention_beam_plain(q, k_cache, v_cache, anc, npad, cur: int, *,
                                 n_head: int, scale: float, kb: int,
-                                kv_limit: Optional[int] = None) -> torch.Tensor:
+                                kv_limit: Optional[int] = None,
+                                acc_dtype: torch.dtype = torch.float32
+                                ) -> torch.Tensor:
     """Plain PyTorch version: the kernel's oracle, with the semantics of
     ``decode_attention_beam_reference``: each logical beam scores all kb
     rows of its family and masks those that are not its ancestor, so a row
-    whose range ``[npad, cur]`` is empty is uniform over the family."""
+    whose range ``[npad, cur]`` is empty is uniform over the family.
+    ``acc_dtype``: as ``decode_attention_plain``'s."""
     max_len, B, D = k_cache.shape
     b, dh = B // kb, D // n_head
     anc = _pad_anc(anc, max_len)
     T = max_len if kv_limit is None else min(kv_limit, max_len)
     # (b, kb_j, h, T, dh): the family's physical rows
-    k = k_cache[:T].reshape(T, b, kb, n_head, dh).permute(1, 2, 3, 0, 4).float()
+    k = k_cache[:T].reshape(T, b, kb, n_head, dh).permute(1, 2, 3, 0, 4).to(acc_dtype)
     v = v_cache[:T].reshape(T, b, kb, n_head, dh).permute(1, 2, 3, 0, 4)
-    qh = q.reshape(b, kb, n_head, dh).float()
-    s = torch.einsum("bihd,bjhtd->bihjt", qh, k) * scale
+    qh = q.reshape(b, kb, n_head, dh).to(acc_dtype)
+    s = torch.einsum("bihd,bjhtd->bihjt", qh, k).float() * scale
     t_pos = torch.arange(T, device=q.device)
     own = anc[:, :, :T][:, :, None, :] == \
         torch.arange(kb, device=q.device)[None, None, :, None]     # (b, i, j, t)
@@ -145,9 +153,9 @@ def decode_attention_beam_plain(q, k_cache, v_cache, anc, npad, cur: int, *,
     s = torch.where(valid[:, :, None], s, torch.full_like(s, NEG))
     sf = s.reshape(b, kb, n_head, kb * T)
     p = torch.exp(sf - sf.amax(dim=-1, keepdim=True))
-    l = p.sum(dim=-1, keepdim=True)
-    p = p.to(v.dtype).float().reshape(b, kb, n_head, kb, T)
-    o = torch.einsum("bihjt,bjhtd->bihd", p, v.float()) / l
+    l = p.to(acc_dtype).sum(dim=-1, keepdim=True).float()
+    p = p.to(v.dtype).to(acc_dtype).reshape(b, kb, n_head, kb, T)
+    o = torch.einsum("bihjt,bjhtd->bihd", p, v.to(acc_dtype)).float() / l
     return o.reshape(B, D).to(q.dtype)
 
 

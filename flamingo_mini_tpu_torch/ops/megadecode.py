@@ -1,14 +1,15 @@
 """Whole-decode-step megakernel: every gated-xattn and decoder layer in one
 launch per token.
 
-Port of ``flamingo_mini_tpu/ops/pallas_megadecode.py`` in its weight-only
-modes (``act_quant=False``): greedy (``beam_anc=None``) and lazy beam
-(``beam_anc`` of shape ``(b, kb, anc_len)``), over a GPT-2 trunk or a
-pre-norm OPT trunk (the OPT mode: separate q/k/v projections packed as the
-three column blocks of one qkv projection, ReLU, ``attn_ln`` / ``final_ln``
-as the block's two LayerNorms). The CUDA kernel is
-``csrc/decode_megakernel.cu``; its source note says what bounds it on the
-card and how the design answers that.
+Port of ``flamingo_mini_tpu/ops/pallas_megadecode.py`` in all its modes:
+greedy (``beam_anc=None``) and lazy beam (``beam_anc`` of shape ``(b, kb,
+anc_len)``), over a GPT-2 trunk or a pre-norm OPT trunk (the OPT mode:
+separate q/k/v projections packed as the three column blocks of one qkv
+projection, ReLU, ``attn_ln`` / ``final_ln`` as the block's two
+LayerNorms), each weight-only or, with ``act_quant``, w8a8 (int8
+activations too: the JAX package's ``DecodeConfig.w8a8`` tier). The CUDA
+kernel is ``csrc/decode_megakernel.cu``; its source note says what bounds
+it on the card and how the design answers that.
 
 ``decode_step_megakernel`` launches the kernel for CUDA tensors and runs
 ``decode_step_megakernel_plain`` for CPU tensors; nothing else picks the
@@ -19,7 +20,20 @@ one) and the pre-norm decoder block with these roundings
 * every int8 linear: int8 -> bf16 exactly, bf16 products accumulated in
   float32, x the float32 per-channel scale, one rounding to bf16, the bias
   added in bf16; every residual add is a bf16 add;
-* LayerNorm with float32 statistics, eps fixed at 1e-5;
+* with ``act_quant`` (``pallas_megadecode.py``'s ``aquant``, ``mm_cols``,
+  ``mm_rows``) every linear quantizes its bf16 input per row
+  (``quantize_rows``: scale ``max(amax, 1e-30) * f32(1/127)``, round half
+  to even) and sums int8 x int8 products exactly; the column form (``xq``,
+  ``xf1``, ``qkv``, ``o``, ``fc``) scales by the row's one scale, then the
+  weight's; the row form (``xo``, ``xf2``, ``pr``) quantizes each D-wide
+  slice of its input with its own scale and adds the scaled float32
+  partials in slice order (``_lin_w8a8``);
+* LayerNorm with float32 statistics, eps fixed at 1e-5, summed in the
+  CUDA kernel's order (``_layer_norm``); with ``act_quant`` the
+  attention's dot products, softmax denominators and V sums are taken in
+  float64 and rounded once, sums whose order does not matter: the w8a8
+  mode of the kernel and of this version agree bit for bit (one
+  activation rounded the other way could flip a quantized value);
 * xattn: ``q * bf16(xdh**-0.5)`` in bf16; float32 scores rounded to bf16,
   valid iff ``latent // n_visual + 1 == text_time``; float32 softmax,
   probabilities cast to bf16 before the V product; rows with
@@ -52,7 +66,7 @@ import torch
 
 from . import cuda_build
 from .decode_attention import decode_attention_beam_plain, decode_attention_plain
-from .layers import const, gelu_tanh, layer_norm
+from .layers import const, gelu_tanh
 
 Params = Dict[str, Any]
 NEG = float(torch.finfo(torch.float32).min)
@@ -206,20 +220,126 @@ def _lin(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
     return y if b is None else y + b
 
 
-def _cross_attention(q, k, v, text_time, *, n_visual: int, heads: int):
-    """q (b, XI) bf16, pre-scaled; k, v (NMNV, b, XI) -> (b, XI) bf16."""
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``aquant`` (``pallas_megadecode.py``): per-row symmetric absmax int8
+    of x (rows, k) -> (q int8 (rows, k), s float32 (rows, 1)) with
+    ``s = max(amax, 1e-30) * f32(1/127)`` and ``q = round_half_even(x *
+    (1/s))``, every step a float32 op as JAX's (the reciprocal first, then
+    the product)."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    s = torch.clamp(amax, min=const(1e-30, torch.float32)) * const(1.0 / 127.0,
+                                                                   torch.float32)
+    q = torch.round(x32 * (torch.ones_like(s) / s))
+    return q.to(torch.int8), s
+
+
+def _int_dot(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """int8 (rows, k) . int8 (n, k)^T as the int32 sum cast once to float32.
+    Exact in float64 (|sum| <= 127^2 k < 2^53), which every device
+    multiplies; a float32 product would round once a sum passes 2^24."""
+    return torch.matmul(q.double(), w.double().t()).float()
+
+
+def _lin_w8a8(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
+              b: Optional[torch.Tensor] = None, *,
+              width: Optional[int] = None) -> torch.Tensor:
+    """The w8a8 linear, w (d_out, d_in) int8. ``width`` None: the column
+    form, ``bf16((f32(p) * s_row) * s)``; else the row form over
+    ``width``-wide slices of x, ``bf16((sum_j f32(p_j) * s_j) * s)`` summed
+    in slice order from 0. The bias is added in bf16."""
+    if width is None:
+        q, xs = quantize_rows(x)
+        y = _int_dot(q, w) * xs
+    else:
+        y = torch.zeros((x.shape[0], w.shape[0]), dtype=torch.float32, device=x.device)
+        for k0 in range(0, x.shape[1], width):
+            q, hs = quantize_rows(x[:, k0:k0 + width])
+            y = y + _int_dot(q, w[:, k0:k0 + width]) * hs
+    y = (y * s).to(torch.bfloat16)
+    return y if b is None else y + b
+
+
+def lin_w8a8(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
+             b: Optional[torch.Tensor] = None, *,
+             width: Optional[int] = None) -> torch.Tensor:
+    """The megakernel's w8a8 linear alone: x (rows, k) bf16, w (n, k) int8,
+    s (n,) float32, b (n,) bf16 or None -> (rows, n) bf16, as
+    ``_lin_w8a8``. A CUDA tensor runs the kernel's own device functions
+    (``fmt_w8a8_linear``: the quantizer, the int8 ``mma.sync`` linear and
+    its amax notes), so that a test can hold the mode's linear bitwise
+    against its plain version; a CPU tensor runs ``_lin_w8a8``."""
+    if x.device.type == "cpu":
+        return _lin_w8a8(x, w, s, b, width=width)
+    if x.device.type != "cuda":
+        raise ValueError(f"lin_w8a8: unsupported device {x.device}")
+    rows, k = x.shape
+    n = w.shape[0]
+    if k % K_CHUNK or n % 8 or (width is not None and width % K_CHUNK):
+        raise ValueError(f"lin_w8a8: k ({k}) and width must be multiples of "
+                         f"{K_CHUNK}, n ({n}) of 8")
+    _require(x, "x", torch.bfloat16, (rows, k), x.device)
+    _require(w, "w", torch.int8, (n, k), x.device)
+    _require(s, "s", torch.float32, (n,), x.device)
+    if b is not None:
+        _require(b, "b", torch.bfloat16, (n,), x.device)
+    slice_k = k if width is None else width
+    out = torch.empty((rows, n), dtype=torch.bfloat16, device=x.device)
+    amax = torch.empty(rows * -(-k // slice_k), dtype=torch.int32, device=x.device)
+    err = _checked_lib().fmt_w8a8_linear(
+        x.data_ptr(), w.data_ptr(), s.data_ptr(), None if b is None else b.data_ptr(),
+        out.data_ptr(), amax.data_ptr(), rows, n, k, slice_k, int(width is not None),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(err, "lin_w8a8")
+    return out
+
+
+def _warp_sum(t: torch.Tensor) -> torch.Tensor:
+    """(rows, D) float32 -> (rows, 1): the CUDA kernel's order of a row sum,
+    one warp per row: lane l adds elements l, l + 32, ... from 0, then the
+    lanes meet in an xor butterfly (16, 8, 4, 2, 1)."""
+    lanes = t.reshape(t.shape[0], -1, 32)
+    s = torch.zeros_like(lanes[:, 0])
+    for j in range(lanes.shape[1]):
+        s = s + lanes[:, j]
+    idx = torch.arange(32, device=t.device)
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[:, idx ^ o]
+    return s[:, :1]
+
+
+def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                eps: float = 1e-5) -> torch.Tensor:
+    """``layers.layer_norm`` with its statistics summed in the kernel's
+    order (``_warp_sum``), every step one float32 op: the kernel's
+    LayerNorm, bit for bit where rsqrt rounds alike. x: (rows, D)."""
+    x32 = x.float()
+    D = x.shape[-1]
+    mean = _warp_sum(x32) / D
+    d = x32 - mean
+    var = _warp_sum(d * d) / D
+    y = d * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
+def _cross_attention(q, k, v, text_time, *, n_visual: int, heads: int,
+                     acc_dtype: torch.dtype = torch.float32):
+    """q (b, XI) bf16, pre-scaled; k, v (NMNV, b, XI) -> (b, XI) bf16; the
+    sums in ``acc_dtype``, each rounded once to float32 (module
+    docstring)."""
     NMNV, b, XI = k.shape
     dh = XI // heads
-    qh = q.reshape(b, heads, 1, dh).float()
-    kh = k.reshape(NMNV, b, heads, dh).permute(1, 2, 3, 0).float()
-    s = torch.matmul(qh, kh).to(torch.bfloat16).float()         # (b, h, 1, NMNV)
+    qh = q.reshape(b, heads, 1, dh).to(acc_dtype)
+    kh = k.reshape(NMNV, b, heads, dh).permute(1, 2, 3, 0).to(acc_dtype)
+    s = torch.matmul(qh, kh).float().to(torch.bfloat16).float()  # (b, h, 1, NMNV)
     latent = torch.arange(NMNV, device=q.device)
     valid = (latent[None, :] // n_visual + 1) == text_time[:, None]
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    l = p.sum(dim=-1, keepdim=True)
-    vh = v.reshape(NMNV, b, heads, dh).permute(1, 2, 0, 3).float()
-    o = torch.matmul(p.to(torch.bfloat16).float(), vh) / torch.clamp(l, min=1e-30)
+    l = p.to(acc_dtype).sum(dim=-1, keepdim=True).float()
+    vh = v.reshape(NMNV, b, heads, dh).permute(1, 2, 0, 3).to(acc_dtype)
+    o = torch.matmul(p.to(torch.bfloat16).to(acc_dtype), vh).float()
+    o = o / torch.clamp(l, min=1e-30)
     o = torch.where((text_time > 0)[:, None], o.reshape(b, XI), 0.0)
     return o.to(torch.bfloat16)
 
@@ -227,45 +347,54 @@ def _cross_attention(q, k, v, text_time, *, n_visual: int, heads: int):
 def decode_step_megakernel_plain(packed: Params, xk, xv, kc, vc, x_emb, npad,
                                  text_time, cur: int, *, config,
                                  kv_limit: Optional[int] = None,
-                                 beam_anc: Optional[torch.Tensor] = None
-                                 ) -> torch.Tensor:
+                                 beam_anc: Optional[torch.Tensor] = None,
+                                 act_quant: bool = False) -> torch.Tensor:
     """Plain PyTorch version: the kernel's oracle, arguments as the kernel's."""
     arch = config.lm_arch
     D, _Dff, L, H = trunk_dims(arch)
     t_lim = kc.shape[1] if kv_limit is None else min(kv_limit, kc.shape[1])
     act, xact = _activation(arch.activation), _activation(config.xattn_act)
     xq_scale = const(config.xattn_dim_head ** -0.5, torch.bfloat16)
+    if act_quant:
+        def lin(x, w, s, b=None, rows=False):
+            return _lin_w8a8(x, w, s, b, width=D if rows else None)
+    else:
+        def lin(x, w, s, b=None, rows=False):
+            return _lin(x, w, s, b)
+    acc = torch.float64 if act_quant else torch.float32
     P = packed
     x = x_emb
     for l in range(L):
         if l in P["xlayers"]:
             i = P["xlayers"].index(l)
-            q = _lin(layer_norm(x, {"scale": P["xn_s"][i], "bias": P["xn_b"][i]}),
-                     P["w_xq"][i], P["s_xq"][i]) * xq_scale
+            q = lin(_layer_norm(x, P["xn_s"][i], P["xn_b"][i]),
+                    P["w_xq"][i], P["s_xq"][i]) * xq_scale
             att = _cross_attention(q, xk[l], xv[l], text_time,
                                    n_visual=config.resampler_num_latents,
-                                   heads=config.xattn_heads)
-            xo = _lin(att, P["w_xo"][i], P["s_xo"][i])
+                                   heads=config.xattn_heads, acc_dtype=acc)
+            xo = lin(att, P["w_xo"][i], P["s_xo"][i], rows=True)
             x = x + (P["gates"][i, 0] * xo.float()).to(torch.bfloat16)
-            h = layer_norm(x, {"scale": P["xfn_s"][i], "bias": P["xfn_b"][i]})
-            h = xact(_lin(h, P["w_xf1"][i], P["s_xf1"][i]))
-            xf = _lin(h, P["w_xf2"][i], P["s_xf2"][i])
+            h = _layer_norm(x, P["xfn_s"][i], P["xfn_b"][i])
+            h = xact(lin(h, P["w_xf1"][i], P["s_xf1"][i]))
+            xf = lin(h, P["w_xf2"][i], P["s_xf2"][i], rows=True)
             x = x + (P["gates"][i, 1] * xf.float()).to(torch.bfloat16)
-        h = layer_norm(x, {"scale": P["ln1_s"][l], "bias": P["ln1_b"][l]})
-        q, k, v = _lin(h, P["w_qkv"][l], P["s_qkv"][l], P["b_qkv"][l]).split(D, dim=-1)
+        h = _layer_norm(x, P["ln1_s"][l], P["ln1_b"][l])
+        q, k, v = lin(h, P["w_qkv"][l], P["s_qkv"][l], P["b_qkv"][l]).split(D, dim=-1)
         kc[l, cur] = k
         vc[l, cur] = v
         if beam_anc is None:
             att = decode_attention_plain(q, kc[l], vc[l], npad, cur, n_head=H,
-                                         scale=(D // H) ** -0.5, kv_limit=t_lim)
+                                         scale=(D // H) ** -0.5, kv_limit=t_lim,
+                                         acc_dtype=acc)
         else:
             att = decode_attention_beam_plain(
                 q, kc[l], vc[l], beam_anc, npad, cur, n_head=H,
-                scale=(D // H) ** -0.5, kb=beam_anc.shape[1], kv_limit=t_lim)
-        x = x + _lin(att, P["w_o"][l], P["s_o"][l], P["b_o"][l])
-        h = layer_norm(x, {"scale": P["ln2_s"][l], "bias": P["ln2_b"][l]})
-        h = act(_lin(h, P["w_fc"][l], P["s_fc"][l], P["b_fc"][l]))
-        x = x + _lin(h, P["w_pr"][l], P["s_pr"][l], P["b_pr"][l])
+                scale=(D // H) ** -0.5, kb=beam_anc.shape[1], kv_limit=t_lim,
+                acc_dtype=acc)
+        x = x + lin(att, P["w_o"][l], P["s_o"][l], P["b_o"][l])
+        h = _layer_norm(x, P["ln2_s"][l], P["ln2_b"][l])
+        h = act(lin(h, P["w_fc"][l], P["s_fc"][l], P["b_fc"][l]))
+        x = x + lin(h, P["w_pr"][l], P["s_pr"][l], P["b_pr"][l], rows=True)
     return x
 
 
@@ -278,10 +407,10 @@ _POINTERS = ("w_qkv", "s_qkv", "b_qkv", "w_o", "s_o", "b_o", "w_fc", "s_fc",
              "w_xq", "s_xq", "w_xo", "s_xo", "w_xf1", "s_xf1", "w_xf2", "s_xf2",
              "xn_s", "xn_b", "xfn_s", "xfn_b", "gates", "hasx")
 _CALL_POINTERS = ("xk", "xv", "kc", "vc", "x_emb", "npad", "text_time", "x",
-                  "scratch", "anc")
+                  "scratch", "anc", "amax")
 _INTS = ("b", "D", "Dff", "Dffx", "XI", "n_layer", "n_head", "x_heads",
          "n_visual", "NMNV", "T", "cur", "t_lim", "act", "xact", "kb",
-         "anc_len")
+         "anc_len", "act_quant")
 
 
 class _Args(ctypes.Structure):
@@ -318,20 +447,58 @@ def _check_anc(beam_anc: torch.Tensor, b: int) -> None:
 
 
 def max_rows(packed: Params, config) -> int:
-    """The most batch rows the CUDA kernel takes: its offsets into the
-    (rows, width) activation buffers are 32-bit ints (module docstring of
-    csrc/decode_megakernel.cu). Shared memory does not grow with the rows."""
+    """The most batch rows the CUDA kernel's offsets take: its offsets into
+    the (rows, width) activation buffers are 32-bit ints (module docstring
+    of csrc/decode_megakernel.cu). Its shared memory grows with the rows up
+    to 32 and is checked apart (``refuse_unless_fits``)."""
     D, Dff, _L, _H = trunk_dims(config.lm_arch)
     XI = config.xattn_heads * config.xattn_dim_head
     Dffx = packed["w_xf1"].shape[1]
     return INDEX_LIMIT // max(2 * max(D, XI), Dff, Dffx)
 
 
+def refuse_unless_fits(rows: int, need: int, limit: int) -> None:
+    """The decision on the kernel's shared memory: a block of a launch over
+    ``rows`` rows needs ``need`` bytes (``fmt_decode_megakernel_smem``);
+    the card lets a block opt in to ``limit``. Raises ``ValueError`` past
+    it, naming both."""
+    if need > limit:
+        raise ValueError(f"decode_step_megakernel: {rows} rows need {need} bytes "
+                         f"of shared memory per block, past the card's limit of "
+                         f"{limit} bytes (a trunk this wide takes fewer rows)")
+
+
+def _smem_need(args: _Args) -> int:
+    """The kernel's own shared-memory formula for these arguments (the
+    CUDA source keeps the only copy)."""
+    return int(_checked_lib().fmt_decode_megakernel_smem(ctypes.addressof(args)))
+
+
+def _smem_limit(device: torch.device) -> int:
+    return int(torch.cuda.get_device_properties(device).shared_memory_per_block_optin)
+
+
+def check_fits(config, rows: int, t_lim: int, n_media_latents: int, *,
+               act_quant: bool, device) -> None:
+    """Refuse, before any work, a megakernel launch that the card cannot
+    hold: ``rows`` batch rows (b greedy, b * k beams), caches of ``t_lim``
+    positions and ``n_media_latents`` xattn positions. On the CPU the plain
+    version takes any size and nothing is checked."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    D, _Dff, _L, _H = trunk_dims(config.lm_arch)
+    args = _Args(b=rows, D=D, t_lim=t_lim, NMNV=n_media_latents,
+                 act_quant=int(act_quant))
+    refuse_unless_fits(rows, _smem_need(args), _smem_limit(device))
+
+
 def kernel_args(packed: Params, xk, xv, kc, vc, x_emb, npad, text_time,
                 cur: int, *, config, kv_limit: Optional[int] = None,
-                beam_anc: Optional[torch.Tensor] = None
-                ) -> Tuple[_Args, torch.Tensor, torch.Tensor]:
-    """Check the CUDA kernel's inputs -> (arguments, output, scratch)."""
+                beam_anc: Optional[torch.Tensor] = None, act_quant: bool = False
+                ) -> Tuple[_Args, torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Check the CUDA kernel's inputs -> (arguments, output, the scratch
+    buffers the arguments point into)."""
     arch = config.lm_arch
     D, Dff, L, H = trunk_dims(arch)
     dev = x_emb.device
@@ -389,8 +556,12 @@ def kernel_args(packed: Params, xk, xv, kc, vc, x_emb, npad, text_time,
     out = torch.empty((b, D), dtype=bf16, device=dev)
     scratch = torch.empty(b * (2 * max(D, XI) + max(Dff, Dffx)), dtype=bf16,
                           device=dev)
+    # w8a8: one amax word per row of abuf, one per D-wide slice of hbuf
+    amax = (torch.empty(b * (1 + -(-max(Dff, Dffx) // D)), dtype=i32, device=dev)
+            if act_quant else None)
     tensors = dict(xk=xk, xv=xv, kc=kc, vc=vc, x_emb=x_emb, npad=npad,
-                   text_time=text_time, x=out, scratch=scratch, anc=beam_anc)
+                   text_time=text_time, x=out, scratch=scratch, anc=beam_anc,
+                   amax=amax)
     args = _Args(
         **{n: packed[n].data_ptr() for n in _POINTERS},
         **{n: None if t is None else t.data_ptr() for n, t in tensors.items()},
@@ -398,9 +569,10 @@ def kernel_args(packed: Params, xk, xv, kc, vc, x_emb, npad, text_time,
         n_visual=config.resampler_num_latents, NMNV=NMNV, T=T, cur=cur,
         t_lim=t_lim, act=ACT_CODES[arch.activation],
         xact=ACT_CODES[config.xattn_act], kb=kb, anc_len=anc_len,
-        attn_scale=(D // H) ** -0.5,
+        act_quant=int(act_quant), attn_scale=(D // H) ** -0.5,
         xq_scale=const(config.xattn_dim_head ** -0.5, torch.bfloat16))
-    return args, out, scratch
+    refuse_unless_fits(b, _smem_need(args), _smem_limit(dev))
+    return args, out, (scratch, amax)
 
 
 def kernel_grid(args: _Args) -> Tuple[int, int]:
@@ -418,8 +590,8 @@ def decode_step_megakernel(packed: Params, xk: torch.Tensor, xv: torch.Tensor,
                            x_emb: torch.Tensor, npad: torch.Tensor,
                            text_time: torch.Tensor, cur: int, *, config,
                            kv_limit: Optional[int] = None,
-                           beam_anc: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           beam_anc: Optional[torch.Tensor] = None,
+                           act_quant: bool = False) -> torch.Tensor:
     """One decode step through every layer -> hidden (b, D) bf16, before
     ``ln_f``. Writes each layer's K/V row at ``cur`` into the stacked caches
     in place.
@@ -431,6 +603,7 @@ def decode_step_megakernel(packed: Params, xk: torch.Tensor, xv: torch.Tensor,
     ``[0, min(kv_limit, T))`` is read. beam_anc: None (greedy) or the
     lazy-beam ancestry table (b // kb, kb, anc_len) int32; rows come in
     families of kb that never move (``decode_attention_beam``).
+    act_quant: the w8a8 tier (int8 activations, module docstring).
     """
     cur = int(cur)
     if beam_anc is not None:
@@ -438,12 +611,14 @@ def decode_step_megakernel(packed: Params, xk: torch.Tensor, xv: torch.Tensor,
     if x_emb.device.type == "cpu":
         return decode_step_megakernel_plain(packed, xk, xv, kc, vc, x_emb, npad,
                                             text_time, cur, config=config,
-                                            kv_limit=kv_limit, beam_anc=beam_anc)
+                                            kv_limit=kv_limit, beam_anc=beam_anc,
+                                            act_quant=act_quant)
     if x_emb.device.type != "cuda":
         raise ValueError(f"decode_step_megakernel: unsupported device {x_emb.device}")
     args, out, _scratch = kernel_args(packed, xk, xv, kc, vc, x_emb, npad,
                                       text_time, cur, config=config,
-                                      kv_limit=kv_limit, beam_anc=beam_anc)
+                                      kv_limit=kv_limit, beam_anc=beam_anc,
+                                      act_quant=act_quant)
     lib = _checked_lib()
     decode_step_megakernel.launches += 1
     err = lib.fmt_decode_megakernel(

@@ -26,7 +26,19 @@ streaming kernel, ``fused_media_xattn``) are held at the ViT, resampler,
 GPT-2 forward, media prefill and forward shapes, with fully masked rows
 (left-padded causal queries, text_time past the media count) and rows
 zeroed (text_time 0): float32 within 1e-5 of the output's scale, bf16
-within 2 bf16 ulps. The random trunks and inputs are chip_smoke.py's.
+within 2 bf16 ulps. The megakernel's w8a8 mode (act_quant): its linear
+alone, through the kernel's own device functions, bitwise equal to the
+plain version (column form at K = 512, 1024, 2048; row form over D-wide
+slices of 4096 and 8192 and of K = 512; b in {1, 3, 8, 32}, a zero row and
+.5 rounding boundaries planted); the whole step at 2 layers (greedy at
+flamingo-mini width, beams at 96 rows, OPT-1.3B width) within the larger
+of 1e-2 and 1.25 x the plain version's CPU-vs-card spread, normwise, the
+deep checks' rule (the mode sums its attention in float64 and its
+LayerNorm in the plain version's order, and was measured bit for bit
+equal to it). A trunk too wide for the card's
+shared memory (D=4096, 28 rows) raises ValueError before vision and
+prefill. The stream probe's kernel within 1e-5 relative of its plain
+version. The random trunks and inputs are chip_smoke.py's.
 """
 import numpy as np
 import pytest
@@ -400,3 +412,67 @@ def test_attention_kernels_refuse_bad_input(cuda):
         fused_attention(x, g, x, scale=1.0, streaming=True)
     with pytest.raises(NotImplementedError):
         fused_media_xattn(x, x, g, tt, scale=1.0, n_visual=4)
+
+
+# ---------------------------------------------------------------------------
+# the w8a8 mode, the shared-memory refusal, the stream probe
+# ---------------------------------------------------------------------------
+
+
+# (K, N, slice width or None: the column form): chip_smoke.W8A8_LINEAR
+@pytest.mark.parametrize("b", [1, 3, 8, 32])
+@pytest.mark.parametrize("K,N,width", [(1024, 3072, None), (2048, 8192, None),
+                                       (512, 1024, None), (512, 1024, 1024),
+                                       (4096, 1024, 1024), (8192, 2048, 2048)])
+def test_w8a8_linear_is_bitwise(cuda, K, N, width, b):
+    import chip_smoke
+    got, want = chip_smoke.w8a8_linear_case(cuda, b, K, N, width, seed=K + b)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("mode", ["greedy", "beam", "opt"])
+def test_megakernel_act_quant_matches_plain(cuda, mode):
+    """2 layers: flamingo-mini width at b=32 (xattn on both), beams at 96
+    rows in families of 3, OPT-1.3B width at b=8 (xattn on the first)."""
+    import chip_smoke
+    if mode == "opt":
+        cfg, packed = chip_smoke.random_trunk(cuda, n_layer=2, xattn_every=2, seed=5,
+                                              family="opt", D=chip_smoke.OPT_D,
+                                              H=chip_smoke.OPT_H)
+        inputs, anc, cur, lim = (chip_smoke.mega_inputs(cuda, cfg, 8, 5, T=chip_smoke.OPT_T),
+                                 None, 70, 71)
+    else:
+        cfg, packed = chip_smoke.random_trunk(cuda, n_layer=2, xattn_every=1, seed=6)
+        if mode == "beam":
+            inputs, anc = chip_smoke.beam_trunk_inputs(cuda, cfg, 96, 3, seed=6)
+            cur, lim = 66, 68
+        else:
+            inputs, anc, cur, lim = chip_smoke.mega_inputs(cuda, cfg, 32, 6), None, 131, 132
+    before = decode_step_megakernel.launches
+    worst = {}
+    chip_smoke.held_normwise(f"act_quant {mode}", cfg, packed, inputs, cur, lim,
+                             beam_anc=anc, act_quant=True, worst=worst)
+    assert decode_step_megakernel.launches == before + 1
+    assert worst["share"] <= 1.0, worst
+
+
+def test_megakernel_refuses_a_wide_trunk_before_prefill(cuda):
+    """D=4096 at 28 rows (greedy, weight-only and w8a8) and 10 x 3 beams:
+    ValueError, no vision, no prefill, no launch; 27 rows pass."""
+    import chip_smoke
+    chip_smoke.phase2_refusal(cuda)
+
+
+def test_stream_sum_matches_plain(cuda):
+    from flamingo_mini_tpu_torch.tools.probe_stream import stream_sum, stream_sum_plain
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.rand((32768, 1024), generator=gen, device=cuda).to(torch.bfloat16)
+    acc = torch.tensor(2.0, device=cuda)
+    before = stream_sum.launches
+    got = stream_sum(x, acc, 1024)
+    want = stream_sum_plain(x, acc, 1024)
+    torch.cuda.synchronize()
+    assert stream_sum.launches == before + 1
+    assert got.dtype == torch.float32 and got.dim() == 0
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)

@@ -392,7 +392,7 @@ def test_unported_modes_raise(model):
     jc, pc, params, tp = model
     m = port.FlamingoModel(pc, params=tp, device="cpu")
     ids = np.ones((1, 3), np.int32)
-    for knob in (dict(w8a8=True), dict(num_beams=3, beam_reorder="gather"),
+    for knob in (dict(num_beams=3, beam_reorder="gather"),
                  dict(num_beams=3, do_sample=True), dict(return_scores=True),
                  dict(int8_kv_cache=True)):
         with pytest.raises(NotImplementedError):

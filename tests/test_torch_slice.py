@@ -280,10 +280,13 @@ def test_generate_rejects_unported_options(f32):
     model = port.FlamingoModel(pc, params=tp, device="cpu")
     for knob in (dict(do_sample=True), dict(num_beams=3, do_sample=True),
                  dict(num_beams=3, beam_reorder="gather"),
-                 dict(return_scores=True),
-                 dict(w8a8=True), dict(int8_kv_cache=True)):
+                 dict(return_scores=True), dict(int8_kv_cache=True)):
         with pytest.raises(NotImplementedError):
             model.generate(np.ones((1, 3), np.int32), max_length=8, **knob)
+    # w8a8 is a megakernel tier: without the megakernel it is refused, as
+    # JAX's DecodeConfig refuses it
+    with pytest.raises(ValueError):
+        model.generate(np.ones((1, 3), np.int32), max_length=8, w8a8=True)
 
 
 def test_import_without_jax():
