@@ -6,8 +6,8 @@
 Drives ``flamingo_mini_tpu_torch`` through both of its decode paths, greedy
 and with beam search, the megakernel's w8a8 tier, the ``use_pallas``
 configuration's generate, and the uncached forward with its loss, for
-flamingo-mini (GPT-2-medium) and for OPT-1.3B and opt-350m trunks, and the
-stream probe, and checks them:
+flamingo-mini (GPT-2-medium) and for OPT-1.3B and opt-350m trunks, the
+stream probe and the in-situ decode and head probes, and checks them:
 
 1. device and build: prints the card's name and power limit (nvidia-smi)
    and builds the hand-written kernels from ``flamingo_mini_tpu_torch/csrc``
@@ -62,7 +62,14 @@ stream probe, and checks them:
    layer case timed beside its plain version and bound, its grid printed.
    The shared-memory refusal: a D=4096 trunk at 28 rows (and 10 x 3
    beams) raises ``ValueError`` before vision and prefill, launching
-   nothing, and 27 rows pass the check;
+   nothing, and 27 rows pass the check. The decode stream probes'
+   kernels (``attn_stream_only``, ``tmajor_stream``, ``packed_stream``)
+   at the probe's shape (b=32, D=1024, T=192, random caches from a seed):
+   ``block_t`` 16 and 32, ``block_b`` 32 and 8, kv_limit 128 and 100 (a
+   multiple of neither), bit for bit against their plain versions (which
+   sum in the kernels' order); each timed at kv_limit 128 beside its plain
+   version, its bound (16.78 MB at 3.35 TB/s) and, as a rate reference,
+   ``torch.sum(dim=0)`` over 16.78 MB;
 3. greedy captioning end to end through ``FlamingoModel.generate`` at the
    full width of flamingo-mini (GPT-2-medium with gated xattn before every
    layer, CLIP ViT-L/14), random weights from a fixed seed, int8 trunk and
@@ -123,11 +130,24 @@ stream probe, and checks them:
    ``stream_sum`` against its plain version (float32, 1e-5 relative, a
    uniform [0, 1) buffer), then its own protocol (marginal time per call
    over chains of 4 and 36, median of 5): GB/s of the kernel and of
-   ``torch.sum(dim=0)``.
+   ``torch.sum(dim=0)``. Last the in-situ probes
+   (``tools/probe_decode_kernel.py``, ``tools/probe_lm_head.py``), each
+   loop captured as one CUDA graph per trip count: every graphed loop, 2
+   steps, bit for bit (NaN-aware) against the same loop run eagerly on
+   the card; then, with every launch count at 0, the decode probe's
+   variants (``tmajor_kernel``, ``stream_tmajor_bt32``,
+   ``stream_tmajor_packed_bt16``, ``head_layout_attend``,
+   ``stream_bmajor_bt32``, and ``glue_only``, its loop without the
+   probed call: per-layer us and GB/s, graphs of 8 and 40 steps) and the
+   head probe's (``eager_int8`` and the fused kernel: us per step, graphs
+   of 64 and 576 steps), launch counts exact (1,176 each
+   of ``decode_attention`` and the three stream kernels, 641
+   ``lm_head_argmax``: one eager step and each captured launch; replays
+   relaunch without Python).
 
 Any failure raises and exits nonzero. Without a CUDA device it exits 1 and
 prints no result. The line before the last lists the kernels as JSON
-(each of the eight, with the megakernel's OPT, beam and w8a8 modes and
+(each of the eleven, with the megakernel's OPT, beam and w8a8 modes and
 shapes where they have them); the last line is ``{"ok": true, "device":
 ...}``.
 """
@@ -195,9 +215,20 @@ W8A8_LINEAR = ((1024, 3072, None), (2048, 8192, None), (512, 1024, None),
                (512, 1024, 1024), (4096, 1024, 1024), (8192, 2048, 2048))
 # the stream probe: a 512 MB buffer, its TPU protocol's middle chunk_rows
 STREAM_MB, STREAM_CHUNK = 512, 1024
+# the decode stream probes (tools/probe_decode_kernel.py's three kernels) at
+# the probe's shape, b=32, D=1024, T=192: (layout, block_t, block_b,
+# kv_limit); kv_limit 100 is a multiple of neither block_t
+PROBE_CASES = (("tmajor", 16, None, 128), ("tmajor", 32, None, 128),
+               ("tmajor", 32, None, 100), ("bmajor", 16, 32, 128),
+               ("bmajor", 32, 32, 128), ("bmajor", 32, 8, 128), ("bmajor", 16, 8, 100),
+               ("packed", 16, None, 128), ("packed", 32, None, 128),
+               ("packed", 16, None, 100))
+# the block_t each layout is timed at: its in-situ variant's
+PROBE_TIMED = {"tmajor": 32, "bmajor": 32, "packed": 16}
 # NVIDIA H100 SXM data sheet: device memory rate, dense bf16 tensor cores,
-# dense int8 tensor cores
+# dense int8 tensor cores, float32 outside the tensor cores
 HBM_BYTES_PER_S, BF16_OPS_PER_S, INT8_OPS_PER_S = 3.35e12, 989e12, 1979e12
+F32_OPS_PER_S = 67e12
 
 
 def bf16_ulps(ref: torch.Tensor, n: int) -> float:
@@ -205,11 +236,14 @@ def bf16_ulps(ref: torch.Tensor, n: int) -> float:
     return n * 2.0 ** (np.floor(np.log2(float(ref.abs().max()))) - 7)
 
 
-def bound(n_bytes: float, n_ops: float, n_int8_ops: float = 0.0):
+def bound(n_bytes: float, n_ops: float, n_int8_ops: float = 0.0,
+          n_f32_ops: float = 0.0):
     """(least ms the card could take, what bounds it): ``n_ops`` at the
-    bf16 rate, ``n_int8_ops`` at the int8 rate."""
+    bf16 rate, ``n_int8_ops`` at the int8 rate, ``n_f32_ops`` at the
+    float32 rate outside the tensor cores."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / BF16_OPS_PER_S + n_int8_ops / INT8_OPS_PER_S
+    t_ops = n_ops / BF16_OPS_PER_S + n_int8_ops / INT8_OPS_PER_S \
+        + n_f32_ops / F32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -220,15 +254,21 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
+def time_ms(fn, iters: int, flush: torch.Tensor, clean: bool = False) -> float:
     """Median device time of one call, by CUDA events around each call.
     ``flush``: a buffer larger than L2, rewritten before each call so that
-    the call finds its inputs in device memory, as the decode loop does."""
+    the call finds its inputs in device memory, as the decode loop does.
+    ``clean``: read the buffer instead, so that L2 holds clean lines, as in
+    the decode loop, where the last layer's reads filled it, and the call
+    pays no write-back of dirty ones."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(iters):
-        flush.zero_()
+        if clean:
+            flush.max()
+        else:
+            flush.zero_()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -1363,10 +1403,13 @@ def launch_counters():
     from flamingo_mini_tpu_torch.ops.lm_head import lm_head_argmax
     from flamingo_mini_tpu_torch.ops.media_xattn import fused_media_xattn
     from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel
+    from flamingo_mini_tpu_torch.tools.probe_decode_kernel import (
+        attn_stream_only, packed_stream, tmajor_stream)
     from flamingo_mini_tpu_torch.tools.probe_stream import stream_sum
     return (decode_attention, decode_attention_beam, lm_head_argmax,
             decode_step_megakernel, fused_attention, flash_attention,
-            fused_media_xattn, stream_sum)
+            fused_media_xattn, stream_sum, attn_stream_only, tmajor_stream,
+            packed_stream)
 
 
 def zero_counts():
@@ -1549,6 +1592,160 @@ def phase4_stream(dev, card):
                 bound_by=bound_by, launches=launches)
 
 
+def stream_probe_inputs(dev, layout: str, seed: int):
+    """q (32, 1024) bf16 and the layout's caches at the probe's shape, N(0, 1)
+    from a seed: T-major K, V (192, 32, 1024), b-major (32, 192, 1024), or
+    one packed (192, 32, 2048)."""
+    from flamingo_mini_tpu_torch.tools import probe_decode_kernel as pdk
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, T, D = pdk.B, pdk.T, pdk.D
+    q = torch.randn((b, D), generator=gen, device=dev).to(torch.bfloat16)
+    if layout == "packed":
+        return q, (torch.randn((T, b, 2 * D), generator=gen, device=dev)
+                   .to(torch.bfloat16),)
+    shape = (b, T, D) if layout == "bmajor" else (T, b, D)
+    return q, tuple(torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+
+
+def stream_probe_call(layout: str, q, caches, block_t: int, block_b, kv_limit: int,
+                      plain: bool = False):
+    """One call of the layout's stream kernel (or its plain version)."""
+    from flamingo_mini_tpu_torch.tools import probe_decode_kernel as pdk
+    if layout == "bmajor":
+        fn = pdk.attn_stream_only_plain if plain else pdk.attn_stream_only
+        return fn(q, *caches, None, None, block_b, block_t,
+                  shape=pdk.Shape(kv_limit=kv_limit))
+    fn = {("tmajor", False): pdk.tmajor_stream, ("tmajor", True): pdk.tmajor_stream_plain,
+          ("packed", False): pdk.packed_stream,
+          ("packed", True): pdk.packed_stream_plain}[layout, plain]
+    return fn(q, *caches, block_t=block_t, kv_limit=kv_limit)
+
+
+def stream_probe_case(dev, layout: str, block_t: int, block_b, kv_limit: int, seed: int):
+    """(kernel output, plain output) on seeded caches."""
+    q, caches = stream_probe_inputs(dev, layout, seed)
+    got = stream_probe_call(layout, q, caches, block_t, block_b, kv_limit)
+    want = stream_probe_call(layout, q, caches, block_t, block_b, kv_limit, plain=True)
+    return got, want
+
+
+def phase2_decode_stream_probe(dev, flush):
+    """The three decode stream kernels against their plain versions at the
+    probe's shape (PROBE_CASES), bit for bit: the plain versions sum in the
+    kernels' order. Each layout timed at kv_limit 128 beside its plain
+    version, the bound, and ``torch.sum(dim=0)`` over the same bytes as a
+    rate reference (no single PyTorch call computes the function)."""
+    from flamingo_mini_tpu_torch.tools import probe_decode_kernel as pdk
+    worst = {}
+    for i, (layout, block_t, block_b, kv_limit) in enumerate(PROBE_CASES):
+        got, want = stream_probe_case(dev, layout, block_t, block_b, kv_limit, seed=40 + i)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        worst[layout] = max(worst.get(layout, 0.0), err)
+        assert bool(torch.isfinite(got).all()), (layout, block_t, block_b, kv_limit)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16)), \
+            f"{layout} block_t={block_t} block_b={block_b} kv_limit={kv_limit}: " \
+            f"max err {err}"
+    print(f"[phase 2] decode stream probes vs plain at b={pdk.B}, D={pdk.D}, T={pdk.T}, "
+          f"{len(PROBE_CASES)} cases (layout, block_t, block_b, kv_limit) "
+          f"{PROBE_CASES}: bit for bit (tolerance: equal)")
+    out = {}
+    kv_limit = pdk.KV_LIMIT
+    for layout, block_t in PROBE_TIMED.items():
+        q, caches = stream_probe_inputs(dev, layout, seed=60)
+        ms = time_ms(lambda: stream_probe_call(layout, q, caches, block_t, None, kv_limit),
+                     50, flush)
+        plain_ms = time_ms(lambda: stream_probe_call(layout, q, caches, block_t, None,
+                                                     kv_limit, plain=True), 20, flush)
+        clean_ms = time_ms(lambda: stream_probe_call(layout, q, caches, block_t, None,
+                                                     kv_limit), 50, flush, clean=True)
+        n_rows = pdk.chunk_rows(kv_limit, block_t, pdk.T)
+        n_bytes = 2 * pdk.B * n_rows * pdk.D * 2 + 2 * pdk.B * pdk.D * 2
+        bound_ms, bound_by = bound(n_bytes, 0.0, n_f32_ops=(2 * n_rows + 1) * pdk.B * pdk.D)
+        out[layout] = dict(max_abs_err=worst[layout], ms=ms, plain_ms=plain_ms, library_ms=None,
+                           bound_ms=bound_ms, bound_by=bound_by, block_t=block_t,
+                           n_bytes=n_bytes, clean_ms=clean_ms)
+    # the rate reference: one reduction over 16.78 MB (a packed cache's rows)
+    _, (ckv,) = stream_probe_inputs(dev, "packed", seed=61)
+    live = ckv[:kv_limit]
+    sum_ms = time_ms(lambda: torch.sum(live, dim=0, dtype=torch.float32), 50, flush)
+    sum_bytes = live.numel() * live.element_size()
+    for layout, k in out.items():
+        print(f"[phase 2] decode stream probe {layout} (block_t {k['block_t']}, kv_limit "
+              f"{kv_limit}): {k['ms']} ms ({k['n_bytes'] / k['ms'] / 1e6} GB/s; "
+              f"{k['clean_ms']} ms after a flush that leaves L2 clean), plain "
+              f"{k['plain_ms']} ms, bound {k['bound_ms']} ms ({k['bound_by']}); library: "
+              "none (no single PyTorch call computes K-sum + V-sum + q)")
+    sum_clean_ms = time_ms(lambda: torch.sum(live, dim=0, dtype=torch.float32), 50,
+                           flush, clean=True)
+    print(f"[phase 2] rate reference: torch.sum(dim=0, dtype=float32) over {sum_bytes} "
+          f"bytes: {sum_ms} ms, {sum_bytes / sum_ms / 1e6} GB/s (median per call, L2 "
+          f"flushed); {sum_clean_ms} ms after a flush that leaves L2 clean")
+    # the in-situ probe's real kernel, alone at its shape, both flushes
+    from flamingo_mini_tpu_torch.ops.decode_attention import decode_attention
+    q, (k, v) = stream_probe_inputs(dev, "tmajor", seed=62)
+    npad = torch.zeros(pdk.B, dtype=torch.int32, device=dev)
+    attn = lambda: decode_attention(q, k, v, npad, kv_limit - 1, n_head=pdk.H,
+                                    scale=pdk.SCALE, kv_limit=kv_limit)
+    print(f"[phase 2] decode_attention at the probe's shape (kv_limit {kv_limit}): "
+          f"{time_ms(attn, 50, flush)} ms L2 flushed, {time_ms(attn, 50, flush, True)} "
+          "ms after a flush that leaves L2 clean")
+    return out
+
+
+def phase4_insitu(dev, card):
+    """Both in-situ probes' protocols in process (one CUDA graph per trip
+    count): first each graphed loop, 2 steps, against the same loop run
+    eagerly, bit for bit (NaN-aware); then, with every launch count at 0,
+    the decode probe's CLI variants (``--full``) and ``stream_bmajor_bt32``
+    (``make_flat_loop(attn_stream_only, block_t=32)``) beside ``glue_only``
+    (the same loop without the probed call), and the head probe's two
+    variants -> the launch counts."""
+    from flamingo_mini_tpu_torch.tools import insitu
+    from flamingo_mini_tpu_torch.tools import probe_decode_kernel as pdk
+    from flamingo_mini_tpu_torch.tools import probe_lm_head as plh
+    from flamingo_mini_tpu_torch.ops import cuda_build
+    gen = torch.Generator(device=dev).manual_seed(70)
+    args = pdk.inputs(dev, gen)
+    # glue_only: the b-major loop with the probed call left out (its cache
+    # writes and axpy alone), the baseline that stream_bmajor_bt32 adds to
+    loops = pdk.variants(full=True) + (
+        ("stream_bmajor_bt32", pdk.make_flat_loop(pdk.attn_stream_only, block_t=32)),
+        ("glue_only", pdk.make_flat_loop(lambda q, *_, **__: q)))
+    w8, scale, x0 = plh.inputs(dev, gen)
+    rows = cuda_build.kernels().fmt_lm_head_rows_per_block()
+    heads = plh.variants(w8, scale, x0, rows)
+    for name, run, run_args in ([(n, r, args) for n, r in loops]
+                                + [(n, r, a) for n, r, a, _ in heads]):
+        same, eager, replayed = insitu.graph_equals_eager(run, run_args, reps=2)
+        print(f"[phase 4] {name}: 2 steps as a CUDA graph vs eager: {float(replayed)} vs "
+              f"{float(eager)}, bit for bit: {same}")
+        assert same, name
+    zero_counts()
+    layers = {name: pdk.measure(name, run, args) for name, run in loops}
+    steps = {name: plh.measure(name, run, run_args, n_bytes)
+             for name, run, run_args, n_bytes in heads}
+    counts = read_counts()
+    per_loop = (1 + sum(pdk.REPEATS)) * pdk.NLAYER
+    expect("in-situ probes (phase 4)", counts, decode_attention=per_loop,
+           tmajor_stream=per_loop, packed_stream=per_loop, attn_stream_only=per_loop,
+           lm_head_argmax=1 + sum(plh.REPEATS))
+    for name, r in layers.items():
+        print(f"[phase 4] {card}: in-situ decode probe {name} ({pdk.PROBE}): "
+              f"{r['ms_per_step']} ms per step, {r['per_layer_us']} us per layer, "
+              f"{r['GBps']} GB/s (2 b kv_limit D 2 bytes per layer; graphs of "
+              f"{pdk.REPEATS} steps, median of {insitu.RUNS} replays)")
+    for name, r in steps.items():
+        print(f"[phase 4] {card}: in-situ head probe {name} (B{plh.B} D{plh.D} "
+              f"V{plh.V}): {r['us_per_step']} us per step, {r['GBps']} GB/s of int8 "
+              f"weights (graphs of {plh.REPEATS} steps; above 3,350 GB/s is L2-served)")
+    print(f"[phase 4] in-situ probes' launches through the wrappers (one eager step, "
+          f"then each launch once while captured; replays relaunch without Python): "
+          f"{counts}")
+    return counts
+
+
 def opt_setup(dev, rs):
     """OPT-1.3B (gates open, int8 trunk and xattn, bf16) and its batch:
     8 prompts of 8 tokens, rows 0 and 1 left-padded by 2, one image each at
@@ -1722,6 +1919,7 @@ def main() -> int:
     phase2_w8a8_linear(dev)
     mega_w8 = phase2_megakernel_w8a8(dev, flush)
     phase2_refusal(dev)
+    probe = phase2_decode_stream_probe(dev, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -1894,6 +2092,8 @@ def main() -> int:
     opt_counts = opt_cells(dev, card)
     # phase 4: the stream probe (its own entry point's path)
     stream = phase4_stream(dev, card)
+    # phase 4: the in-situ decode and head probes (their own entry points' path)
+    insitu_counts = phase4_insitu(dev, card)
 
     kernel_rows = (
         ("decode_attention", attn),
@@ -1912,7 +2112,10 @@ def main() -> int:
         ("decode_step_megakernel act_quant (w8a8)", mega_w8["greedy"]),
         ("decode_step_megakernel act_quant beam mode", mega_w8["beam"]),
         ("decode_step_megakernel act_quant OPT mode (OPT-1.3B, b=8)", mega_w8["opt"]),
-        ("stream_sum", stream))
+        ("stream_sum", stream),
+        ("attn_stream_only (b-major)", probe["bmajor"]),
+        ("make_tmajor_stream (T-major)", probe["tmajor"]),
+        ("make_tmajor_packed_loop (packed K||V)", probe["packed"]))
     for name, k in kernel_rows:
         print(f"[phase 4] {card}: {name} {k['ms']} ms vs plain {k['plain_ms']} "
               f"ms, library {k['library_ms']} ms, bound {k['bound_ms']} ms "
@@ -1966,7 +2169,16 @@ def main() -> int:
              "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
              opt_counts["w8a8"]["decode_step_megakernel"], mega_w8["opt"]),
             ("stream_sum (bandwidth probe)", "stream_probe.cu",
-             "tools/probe_stream.py:24", stream["launches"], stream)):
+             "tools/probe_stream.py:24", stream["launches"], stream),
+            ("attn_stream_only (decode stream probe, b-major cache)",
+             "decode_stream_probe.cu", "tools/probe_decode_kernel.py:37",
+             insitu_counts["attn_stream_only"], probe["bmajor"]),
+            ("make_tmajor_stream (decode stream probe, T-major cache)",
+             "decode_stream_probe.cu", "tools/probe_decode_kernel.py:76",
+             insitu_counts["tmajor_stream"], probe["tmajor"]),
+            ("make_tmajor_packed_loop (decode stream probe, packed K||V cache)",
+             "decode_stream_probe.cu", "tools/probe_decode_kernel.py:149",
+             insitu_counts["packed_stream"], probe["packed"])):
         rows.append({"name": name, "route": "cuda",
                      "source": f"flamingo_mini_tpu_torch/csrc/{source}",
                      "replaces": replaces, "launches": launches,

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 from typing import Callable, Dict
@@ -26,6 +25,7 @@ from typing import Callable, Dict
 import torch
 
 from ..ops import cuda_build
+from . import insitu
 
 COLS = 1024          # the probe's row width, as on the TPU
 SUM_COLS = 128       # the columns that enter the sum (the TPU's one lane tile)
@@ -136,15 +136,6 @@ def measure(x: torch.Tensor, chunk_rows: int = 1024) -> Dict[str, Dict[str, floa
     return out
 
 
-def _card() -> str:
-    try:
-        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                               "--format=csv,noheader", "-i", "0"],
-                              capture_output=True, text=True, check=True).stdout.strip()
-    except (OSError, subprocess.CalledProcessError):
-        return torch.cuda.get_device_name(0)
-
-
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("probe_stream: no CUDA device; the probe runs on the card only",
@@ -154,7 +145,7 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     x = fresh_buffer(n_mb, dev)
     n_bytes = x.numel() * x.element_size()
-    print(_card())
+    print(insitu.card_line())
     print(f"buffer {n_mb} MB: bound {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at "
           f"{HBM_BYTES_PER_S / 1e12} TB/s")
     results = measure(x)

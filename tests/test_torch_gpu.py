@@ -38,7 +38,10 @@ LayerNorm in the plain version's order, and was measured bit for bit
 equal to it). A trunk too wide for the card's
 shared memory (D=4096, 28 rows) raises ValueError before vision and
 prefill. The stream probe's kernel within 1e-5 relative of its plain
-version. The random trunks and inputs are chip_smoke.py's.
+version. The in-situ decode probe's three stream kernels bit for bit
+against their plain versions (which sum in the kernels' order), and each
+probe loop replayed as a CUDA graph bit for bit against the same loop run
+eagerly. The random trunks and inputs are chip_smoke.py's.
 """
 import numpy as np
 import pytest
@@ -476,3 +479,59 @@ def test_stream_sum_matches_plain(cuda):
     assert stream_sum.launches == before + 1
     assert got.dtype == torch.float32 and got.dim() == 0
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the in-situ decode probes: the three stream kernels, the graphed loops
+# ---------------------------------------------------------------------------
+
+
+# (layout, block_t, block_b, kv_limit): chip_smoke.PROBE_CASES
+@pytest.mark.parametrize("layout,block_t,block_b,kv_limit", [
+    ("tmajor", 16, None, 128), ("tmajor", 32, None, 128), ("tmajor", 32, None, 100),
+    ("bmajor", 16, 32, 128), ("bmajor", 32, 32, 128), ("bmajor", 32, 8, 128),
+    ("bmajor", 16, 8, 100), ("packed", 16, None, 128), ("packed", 32, None, 128),
+    ("packed", 16, None, 100)])
+def test_decode_stream_kernel_matches_plain(cuda, layout, block_t, block_b, kv_limit):
+    """Bit for bit: the plain version sums in the kernel's order."""
+    import chip_smoke
+    from flamingo_mini_tpu_torch.tools import probe_decode_kernel as pdk
+    wrapper = {"tmajor": pdk.tmajor_stream, "bmajor": pdk.attn_stream_only,
+               "packed": pdk.packed_stream}[layout]
+    before = wrapper.launches
+    got, want = chip_smoke.stream_probe_case(cuda, layout, block_t, block_b, kv_limit,
+                                             seed=block_t + kv_limit)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_decode_stream_kernels_refuse_bad_input(cuda):
+    from flamingo_mini_tpu_torch.tools import probe_decode_kernel as pdk
+    q = torch.zeros((4, 60), dtype=torch.bfloat16, device=cuda)
+    c = torch.zeros((32, 4, 60), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pdk.tmajor_stream(q, c, c, block_t=8, kv_limit=16)
+    with pytest.raises(ValueError):
+        pdk.tmajor_stream(q, c.cpu(), c, block_t=8, kv_limit=16)
+
+
+@pytest.mark.parametrize("name", ["tmajor_kernel", "stream_tmajor_bt32",
+                                  "stream_tmajor_packed_bt16", "head_layout_attend",
+                                  "stream_bmajor_bt32", "head_kernel"])
+def test_graphed_loop_equals_eager(cuda, name):
+    """Each probe loop, 2 steps at the probe's shape, replayed as a CUDA
+    graph: bit for bit the eager run on the card (NaN-aware)."""
+    from flamingo_mini_tpu_torch.tools import insitu
+    from flamingo_mini_tpu_torch.tools import probe_decode_kernel as pdk
+    from flamingo_mini_tpu_torch.tools import probe_lm_head as plh
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    if name == "head_kernel":
+        w8, scale, x0 = plh.inputs(cuda, gen)
+        _, (_, run, args, _) = plh.variants(w8, scale, x0, 64)
+    else:
+        loops = dict(pdk.variants(full=True))
+        loops["stream_bmajor_bt32"] = pdk.make_flat_loop(pdk.attn_stream_only, block_t=32)
+        run, args = loops[name], pdk.inputs(cuda, gen)
+    same, eager, replayed = insitu.graph_equals_eager(run, args, reps=2)
+    assert same, (float(eager), float(replayed))
