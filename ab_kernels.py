@@ -1,18 +1,27 @@
 #!/usr/bin/env python3
-"""Time the port's greedy kernels in two checkouts on one card, in turns.
+"""Time the port's kernels in two checkouts on one card, in turns.
 
     python3 ab_kernels.py A_DIR B_DIR
 
 Runs each checkout in a process of its own (each builds its own kernels
 from its own sources) in the order A, B, B, A and prints, for each run, the
 median device time of ``decode_attention`` (b=32, D=1024, H=16, T=192,
-cur 131, kv_limit 132, bf16) and of ``decode_step_megakernel`` at 24
+cur 131, kv_limit 132, bf16), of ``decode_step_megakernel`` at 24
 layers: flamingo-mini width at b=32 (kv_limit 132), its beam mode at 96
 rows (kv_limit 68) and its OPT mode at OPT-1.3B width, b=8 (kv_limit 71),
-each also in the w8a8 mode (``act_quant``) where the checkout has it, L2
-flushed, on the inputs of each checkout's ``chip_smoke.py``. Writes the
-runs to ``chiprun_out/ab_kernels.json``. Needs a card; exits 1 without one.
+each also in the w8a8 mode (``act_quant``) where the checkout has it, and
+of the bf16 attention kernels of ``use_pallas``: ``fused_attention`` at the
+ViT (32, 16, 257, 257), resampler (32, 8, 64, 321) and causal GPT-2 and
+OPT-1.3B forward shapes (two rows left-padded by 8) and ``flash_attention``
+at (2, 16, 4000, 64), each beside its wrapper's host us per call. L2
+flushed, on the inputs of each checkout's ``chip_smoke.py``; every time is
+taken by this checkout's ``chip_smoke.time_ms`` (a spin on the card before
+each call, so that the events time the card alone), whatever the timed
+checkout's own timer.
+Writes the runs to
+``chiprun_out/ab_kernels.json``. Needs a card; exits 1 without one.
 """
+import importlib.util
 import inspect
 import json
 import os
@@ -23,6 +32,35 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# this checkout's timers (chip_smoke.time_ms, host_us), for both trees
+_spec = importlib.util.spec_from_file_location("chip_smoke_timers",
+                                               os.path.join(REPO, "chip_smoke.py"))
+_timers = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_timers)
+time_ms, host_us = _timers.time_ms, _timers.host_us
+
+
+def attention(cs, dev, flush, out: dict) -> None:
+    """The bf16 attention kernels of use_pallas at chip_smoke's shapes."""
+    from flamingo_mini_tpu_torch.ops.fused_attention import (flash_attention,
+                                                             fused_attention)
+    scale = cs.HEAD_DIM ** -0.5
+    for name, (b, h, n_q, n_kv) in cs.ATT_SHAPES.items():
+        q, k, v = cs.attention_inputs(dev, torch.bfloat16, b, h, n_q, n_kv, seed=1)
+        kw = dict(scale=scale)
+        if name.endswith("forward"):
+            # float32, as the trunks build it once per forward for every layer
+            kw.update(causal=True, row_bias=cs.left_pad_bias(
+                dev, torch.bfloat16, b, n_q,
+                [cs.GPT2_PAD, cs.GPT2_PAD] + [0] * (b - 2)).float())
+        label = "fused_attention_" + name.replace(" ", "_")
+        out[label + "_ms"] = time_ms(lambda: fused_attention(q, k, v, **kw), 50, flush)
+        out[label + "_host_us"] = host_us(lambda: fused_attention(q, k, v, **kw))
+    b, h, n = cs.FLASH_SHAPE
+    q, k, v = cs.attention_inputs(dev, torch.bfloat16, b, h, n, n, seed=8)
+    out["flash_attention_ms"] = time_ms(lambda: flash_attention(q, k, v, scale=scale), 20,
+                                        flush)
+    out["flash_attention_host_us"] = host_us(lambda: flash_attention(q, k, v, scale=scale))
 
 
 def one(tree: str) -> dict:
@@ -34,21 +72,22 @@ def one(tree: str) -> dict:
     from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel
     dev = torch.device("cuda", 0)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    out = {"tree": tree}
+    attention(cs, dev, flush, out)
     rs = np.random.RandomState(0)
     q, k, v = (torch.tensor(rs.randn(*s) * 0.3, dtype=torch.float32, device=dev)
                .to(torch.bfloat16) for s in ((32, 1024), (192, 32, 1024), (192, 32, 1024)))
     npad = torch.tensor(np.arange(32) % 4, dtype=torch.int32, device=dev)
-    attn_ms = cs.time_ms(lambda: decode_attention(q, k, v, npad, 131, n_head=16,
-                                                  scale=0.125, kv_limit=132), 100, flush)
+    out["decode_attention_ms"] = time_ms(lambda: decode_attention(
+        q, k, v, npad, 131, n_head=16, scale=0.125, kv_limit=132), 100, flush)
     modes = [False]
     if "act_quant" in inspect.signature(decode_step_megakernel).parameters:
         modes.append(True)
-    out = {"tree": tree, "decode_attention_ms": attn_ms}
 
     def mega(label, packed, cfg, inputs, cur, kv_limit, **kw):
         for act_quant in modes:
             extra = dict(kw, act_quant=True) if act_quant else kw
-            out[label + ("_w8a8" if act_quant else "") + "_ms"] = cs.time_ms(
+            out[label + ("_w8a8" if act_quant else "") + "_ms"] = time_ms(
                 lambda: decode_step_megakernel(packed, *inputs, cur, config=cfg,
                                                kv_limit=kv_limit, **extra), 30, flush)
 

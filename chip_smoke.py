@@ -51,7 +51,16 @@ stream probe and the in-situ decode and head probes, and checks them:
    shapes with text_time 0, in range and past the media count; float32
    within 1e-5 of the output's scale, bf16 within 2 bf16 ulps; each timed
    beside its plain version, SDPA (for the media kernel under the media
-   mask as a boolean mask, without the zeroing) and its bound. The
+   mask as a boolean mask, without the zeroing) and its bound, and beside
+   its wrapper's host time per call (``host_us``). The bf16 calls of the
+   first two run the Hopper tile (``csrc/attention_sm90.cuh``), also held
+   at its edges: n_kv in {1, 63, 64, 65, 127, 128, 129, 257} by n_q in
+   {1, 65, 129, 257}, each plain (strided and contiguous inputs), causal
+   with a left-padded row and with a bias; back-to-back calls of five
+   shapes on one stream before one synchronize; streaming at 3000 keys,
+   causal with a left-padded row. Phase 1 prints the tile's registers and
+   spills (``-Xptxas -v``) and requires ``HGMMA`` and ``UTMALDG`` in its
+   SASS (``cuobjdump -sass``, where the toolkit has it). The
    megakernel's w8a8 mode (``act_quant``): its linear alone (``lin_w8a8``,
    the kernel's own device functions) bitwise against the plain version
    at ``W8A8_LINEAR``'s shapes, b in {1, 3, 8, 32}, a zero row and .5
@@ -99,7 +108,8 @@ stream probe and the in-situ decode and head probes, and checks them:
    first real token, rows 0 and 1 left-padded by 8): ``fused_attention`` 54
    and ``fused_media_xattn`` 24 launches and nothing else; logits (all
    rows, and the left-padded rows) and loss within max(1e-2, 1.25 x the
-   plain version's CPU-vs-card spread) of the plain-version run. The w8a8
+   plain version's CPU-vs-card spread) of the plain-version run; the same
+   forward under ``torch.inference_mode()`` within 1e-3 of it, normwise. The w8a8
    tier on the same weights: greedy b=32 (127 ``decode_step_megakernel``,
    127 ``lm_head_argmax``, every other 0; tokens against the plain-version
    w8a8 run under the near-tie rule), an odd batch of 3 on the kernel (its
@@ -229,6 +239,8 @@ PROBE_TIMED = {"tmajor": 32, "bmajor": 32, "packed": 16}
 # dense int8 tensor cores, float32 outside the tensor cores
 HBM_BYTES_PER_S, BF16_OPS_PER_S, INT8_OPS_PER_S = 3.35e12, 989e12, 1979e12
 F32_OPS_PER_S = 67e12
+# the card's spin before each timed call: about a millisecond at 1.7-2 GHz
+LEAD_CYCLES = 2_000_000
 
 
 def bf16_ulps(ref: torch.Tensor, n: int) -> float:
@@ -247,6 +259,33 @@ def bound(n_bytes: float, n_ops: float, n_int8_ops: float = 0.0,
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def sm90_sass(lib: str) -> None:
+    """Print the Hopper attention tile's instructions of note in the built
+    library and require wgmma (HGMMA) and TMA loads (UTMALDG) in each of
+    its kernels; a toolkit without cuobjdump skips the check, saying so."""
+    from flamingo_mini_tpu_torch.ops import cuda_build
+    tool = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        print(f"[phase 1] SASS not checked: no {tool}")
+        return
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    found, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            if "attention_sm90_kernel" in name:
+                found[name] = set()
+            else:
+                name = None
+        elif name is not None:
+            found[name].update(op for op in ("HGMMA", "UTMALDG", "SYNCS") if op in line)
+    assert found, "no attention_sm90_kernel in the library's SASS"
+    for name, ops in found.items():
+        print(f"[phase 1] SASS {name}: {' '.join(sorted(ops))}")
+        assert {"HGMMA", "UTMALDG"} <= ops, f"{name}: no wgmma or TMA in its SASS"
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "-i", "0"],
@@ -260,7 +299,10 @@ def time_ms(fn, iters: int, flush: torch.Tensor, clean: bool = False) -> float:
     the call finds its inputs in device memory, as the decode loop does.
     ``clean``: read the buffer instead, so that L2 holds clean lines, as in
     the decode loop, where the last layer's reads filled it, and the call
-    pays no write-back of dirty ones."""
+    pays no write-back of dirty ones. A spin of about a millisecond on the
+    card (``LEAD_CYCLES``) precedes each call, so that the host enqueues the
+    call while the card is busy and the events time the card alone, not the
+    wrapper's host steps (``host_us`` times those)."""
     for _ in range(3):
         fn()
     times = []
@@ -269,6 +311,7 @@ def time_ms(fn, iters: int, flush: torch.Tensor, clean: bool = False) -> float:
             flush.max()
         else:
             flush.zero_()
+        torch.cuda._sleep(LEAD_CYCLES)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -277,6 +320,19 @@ def time_ms(fn, iters: int, flush: torch.Tensor, clean: bool = False) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def host_us(fn, n: int = 100) -> float:
+    """Host µs per call of a wrapper: the host clock over ``n`` enqueues,
+    then one synchronize (not timed)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / n
 
 
 def phase2_decode_attention(dev, flush, b=ATTN_B, D=ATTN_D, H=ATTN_H, T=ATTN_T,
@@ -1122,7 +1178,9 @@ def phase2_fused_attention(dev, flush):
         kw, lib_kw = dict(scale=HEAD_DIM ** -0.5), dict(scale=HEAD_DIM ** -0.5)
         extra, pairs = 0, None
         if name.endswith("forward"):
-            rb = left_pad_bias(dev, torch.bfloat16, b, n_q, [GPT2_PAD, GPT2_PAD] + [0] * (b - 2))
+            # float32, as the trunks build it once per forward for every layer
+            rb = left_pad_bias(dev, torch.bfloat16, b, n_q,
+                               [GPT2_PAD, GPT2_PAD] + [0] * (b - 2)).float()
             kw.update(causal=True, row_bias=rb)
             causal = torch.ones(n_q, n_kv, dtype=torch.bool, device=dev).tril()
             lib_kw["attn_mask"] = torch.where(causal, rb[:, None, None, :].float(),
@@ -1131,13 +1189,68 @@ def phase2_fused_attention(dev, flush):
         ms = time_ms(lambda: fused_attention(q, k, v, **kw), 50, flush)
         plain_ms = time_ms(lambda: fused_attention_plain(q, k, v, **kw), 20, flush)
         library_ms = time_ms(lambda: sdpa(q, k, v, **lib_kw), 50, flush)
+        host = host_us(lambda: fused_attention(q, k, v, **kw))
         bound_ms, bound_by = attention_bound(b, h, n_q, n_kv, 2, extra, pairs)
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst)
+                         bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst,
+                         host_us=host)
         print(f"[phase 2] fused_attention {name} {(b, h, n_q, n_kv)} bf16: {ms} ms, "
               f"plain {plain_ms} ms, scaled_dot_product_attention {library_ms} ms, "
-              f"bound {bound_ms:.5f} ms ({bound_by}) (median per call, L2 flushed)")
+              f"bound {bound_ms:.5f} ms ({bound_by}) (median per call, L2 flushed); "
+              f"wrapper host {host:.1f} us per call")
     return out
+
+
+SM90_N_KV = (1, 63, 64, 65, 127, 128, 129, 257)
+SM90_N_Q = (1, 65, 129, 257)
+# back to back on one stream: (b, h, n_q, n_kv); the last one streams
+SM90_BACK_TO_BACK = ((2, 3, 65, 129), (32, 16, 257, 257), (1, 2, 1, 1),
+                     (8, 16, 64, 64), (2, 4, 300, 5000))
+
+
+def phase2_sm90_edges(dev):
+    """The bf16 kernels (the Hopper tile) against their plain versions at
+    the tile's edges -> the worst max abs error."""
+    from flamingo_mini_tpu_torch.ops.fused_attention import (
+        flash_attention, flash_attention_plain, fused_attention, fused_attention_plain)
+    bf, scale, worst, n = torch.bfloat16, HEAD_DIM ** -0.5, 0.0, 0
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for n_kv in SM90_N_KV:
+        for n_q in SM90_N_Q:
+            q, k, v = attention_inputs(dev, bf, 2, 3, n_q, n_kv, seed=n_q * 1000 + n_kv)
+            pads = [min(5, n_kv - 1), 0]
+            cases = {
+                "plain": (q, k, v, dict(scale=scale)),
+                "contiguous": (q.contiguous(), k.contiguous(), v.contiguous(),
+                               dict(scale=scale)),
+                "causal, left-padded": (q, k, v, dict(
+                    scale=scale, causal=True, row_bias=left_pad_bias(dev, bf, 2, n_kv, pads))),
+                "bias": (q, k, v, dict(scale=scale, bias=torch.randn(
+                    (2, 1, n_q, n_kv), generator=gen, device=dev))),
+            }
+            for label, (qq, kk, vv, kw) in cases.items():
+                got = fused_attention(qq, kk, vv, streaming=False, **kw)
+                worst = max(worst, held_to_plain(
+                    f"fused_attention bf16 {label} (2, 3, {n_q}, {n_kv})", got,
+                    fused_attention_plain(qq, kk, vv, **kw), bf))
+                n += 1
+    ins = [attention_inputs(dev, bf, *shape, seed=i)
+           for i, shape in enumerate(SM90_BACK_TO_BACK)]
+    outs = [fused_attention(q, k, v, scale=scale) for q, k, v in ins]
+    for (q, k, v), got in zip(ins, outs):
+        plain = flash_attention_plain if k.shape[2] > 2048 else fused_attention_plain
+        worst = max(worst, held_to_plain(f"back to back {tuple(k.shape)}", got,
+                                         plain(q, k, v, scale=scale), bf))
+    q, k, v = attention_inputs(dev, bf, 1, 2, 100, 3000, seed=3)
+    kw = dict(scale=scale, causal=True, row_bias=left_pad_bias(dev, bf, 1, 3000, [8]))
+    worst = max(worst, held_to_plain("flash_attention bf16 3000 keys", flash_attention(
+        q, k, v, **kw), flash_attention_plain(q, k, v, **kw), bf))
+    print(f"[phase 2] the Hopper tile (bf16) vs plain at its edges: n_kv {SM90_N_KV} by "
+          f"n_q {SM90_N_Q} (b=2, 3 heads), plain strided and contiguous, causal with a "
+          f"left-padded row, with a bias ({n} calls); back to back {SM90_BACK_TO_BACK} "
+          f"before one synchronize; streaming at 3000 keys (24 tiles), causal, "
+          f"left-padded: max abs err {worst} (2 bf16 ulps of each output's scale)")
+    return worst
 
 
 def phase2_flash_attention(dev, flush):
@@ -1165,10 +1278,12 @@ def phase2_flash_attention(dev, flush):
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, **kw), 5, flush)
     library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, **kw), 20, flush)
+    host = host_us(lambda: flash_attention(q, k, v, **kw))
     bound_ms, bound_by = attention_bound(b, h, n, n, 2)
     print(f"[phase 2] flash_attention {FLASH_SHAPE} bf16, not causal: {ms} ms, plain "
           f"{plain_ms} ms, scaled_dot_product_attention {library_ms} ms, bound "
-          f"{bound_ms:.5f} ms ({bound_by}) (median per call, L2 flushed)")
+          f"{bound_ms:.5f} ms ({bound_by}) (median per call, L2 flushed); wrapper "
+          f"host {host:.1f} us per call")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, max_abs_err=worst)
 
@@ -1205,12 +1320,14 @@ def phase2_media_xattn(dev, flush):
     mask = (tt[:, :, None] == media_time)[:, None]
     library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, scale=1.0), 50, flush)
+    host = host_us(lambda: fused_media_xattn(q, k, v, tt, **kw))
     bound_ms, bound_by = attention_bound(b, MEGA_XH, n_q, n_media * MEGA_NV, 2,
                                          extra_bytes=4 * b * n_q)
     print(f"[phase 2] fused_media_xattn prefill {(b, MEGA_XH, n_q, n_media * MEGA_NV)} "
           f"bf16: {ms} ms, plain {plain_ms} ms, scaled_dot_product_attention under "
           f"the media mask (no zeroing) {library_ms} ms, bound {bound_ms:.5f} ms "
-          f"({bound_by}) (median per call, L2 flushed)")
+          f"({bound_by}) (median per call, L2 flushed); wrapper host {host:.1f} us "
+          "per call")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, max_abs_err=worst)
 
@@ -1508,6 +1625,14 @@ def check_forward(label, model_f, rs, n_layer, n_x):
            fused_media_xattn=n_x)
     assert out_k.logits.shape == (FWD_B, FWD_N, vocab), out_k.logits.shape
     assert bool(torch.isfinite(out_k.logits).all()) and bool(torch.isfinite(out_k.loss))
+    # tensors made under inference mode carry no version counter
+    with torch.inference_mode():
+        out_i = model_f(f_ids, **fwd)
+    err = rel_err(out_i.logits, out_k.logits)
+    print(f"[phase 3] {label} forward under torch.inference_mode(): logits equal "
+          f"{bool(torch.equal(out_i.logits, out_k.logits))}, normwise relative "
+          f"difference {err} (tolerance 1e-3), loss {float(out_i.loss)}")
+    assert err <= 1e-3, (label, err)
     with plain_attention():
         out_p = model_f(f_ids, **fwd)
     # the plain versions on the CPU: how far float32 sums in another order
@@ -1901,6 +2026,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("[phase 1] ptxas", line.strip())
     print(f"[phase 1] built {os.path.relpath(lib, REPO)}")
+    sm90_sass(lib)
 
     # phase 2: kernels against their plain versions on the card
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
@@ -1915,6 +2041,9 @@ def main() -> int:
     mega_beam = phase2_megakernel_beam(dev, flush)
     fa = phase2_fused_attention(dev, flush)
     flash = phase2_flash_attention(dev, flush)
+    edges = phase2_sm90_edges(dev)
+    for row in (*fa.values(), flash):
+        row["max_abs_err"] = max(row["max_abs_err"], edges)
     mx = phase2_media_xattn(dev, flush)
     phase2_w8a8_linear(dev)
     mega_w8 = phase2_megakernel_w8a8(dev, flush)
@@ -2147,14 +2276,14 @@ def main() -> int:
             ("decode_step_megakernel (beam mode)", "decode_megakernel.cu",
              "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
              mega_b_counts["decode_step_megakernel"], mega_beam),
-            ("fused_attention", "fused_attention.cu",
+            ("fused_attention", "attention_sm90.cuh",
              "flamingo_mini_tpu/ops/pallas_attn.py:270",
              pallas_counts["fused_attention"], fa["vit"]),
-            ("fused_attention (OPT-1.3B forward shape)", "fused_attention.cu",
+            ("fused_attention (OPT-1.3B forward shape)", "attention_sm90.cuh",
              "flamingo_mini_tpu/ops/pallas_attn.py:270",
              opt_counts["forward"]["fused_attention"], fa["opt forward"]),
             ("flash_attention (fused_attention's streaming variant)",
-             "fused_attention.cu", "flamingo_mini_tpu/ops/pallas_attn.py:156",
+             "attention_sm90.cuh", "flamingo_mini_tpu/ops/pallas_attn.py:156",
              pallas_counts["flash_attention"], flash),
             ("fused_media_xattn", "media_xattn.cu",
              "flamingo_mini_tpu/ops/pallas_xattn.py:122",

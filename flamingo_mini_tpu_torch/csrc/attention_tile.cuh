@@ -1,5 +1,8 @@
 // Tiled softmax attention for head dim 64, shared by fused_attention.cu and
-// media_xattn.cu.
+// media_xattn.cu: every float32 call and the kMedia mode in both dtypes.
+// bf16 calls of the kFull and kStream modes run attention_sm90.cuh's
+// Hopper tile instead (TMA, wgmma, warp-specialised), chosen by dtype
+// alone.
 //
 // One block of 4 warps owns 64 query rows of one (batch, head); each warp
 // owns 16 rows. The block walks the keys in tiles of 64 with an online
@@ -51,7 +54,8 @@
 // tiles arrive by cp.async, the next tile's copy in flight while the block
 // computes on this one, and reach the tensor cores through ldmatrix (V
 // transposed by it); float32 tiles, off the model paths, are copied one at
-// a time and read element by element. wgmma and TMA are later work.
+// a time and read element by element. Moving kMedia onto the Hopper tile is
+// later work.
 #pragma once
 
 #include <cfloat>
@@ -439,15 +443,10 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const AttnArgs a) {
   }
 }
 
-template <int kMode>
-cudaError_t launch_attention(const AttnArgs* args, int is_bf16, void* stream) {
+template <typename T, int kMode>
+cudaError_t launch_attention(const AttnArgs* args, void* stream) {
   const dim3 grid(args->b * args->h, (args->n_q + kBlockQ - 1) / kBlockQ);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    attention_kernel<__nv_bfloat16, kMode><<<grid, kThreads, 0, s>>>(*args);
-  } else {
-    attention_kernel<float, kMode><<<grid, kThreads, 0, s>>>(*args);
-  }
+  attention_kernel<T, kMode><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(*args);
   return cudaGetLastError();
 }
 

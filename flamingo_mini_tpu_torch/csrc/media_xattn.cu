@@ -12,6 +12,7 @@
 #include "attention_tile.cuh"
 
 extern "C" int fmt_media_xattn(const void* args, int is_bf16, void* stream) {
-  return static_cast<int>(launch_attention<kMedia>(
-      static_cast<const AttnArgs*>(args), is_bf16, stream));
+  const AttnArgs* a = static_cast<const AttnArgs*>(args);
+  return static_cast<int>(is_bf16 ? launch_attention<__nv_bfloat16, kMedia>(a, stream)
+                                  : launch_attention<float, kMedia>(a, stream));
 }

@@ -125,6 +125,7 @@ def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _self_attention(bp: Params, x: torch.Tensor, *, n_head: int,
                     causal_mask: Optional[torch.Tensor],
                     pad_bias: Optional[torch.Tensor],
+                    row_bias: Optional[torch.Tensor],
                     layer_cache: Optional[Dict[str, torch.Tensor]],
                     cache_index: Optional[int], eps: float,
                     kv_limit: Optional[int],
@@ -143,8 +144,7 @@ def _self_attention(bp: Params, x: torch.Tensor, *, n_head: int,
             return linear(out, bp["c_proj"])
     qh, kh, vh = (split_heads(t, n_head) for t in (q, k, v))
     if layer_cache is None and policy.pallas:
-        row = None if pad_bias is None else pad_bias[:, 0, 0, :]
-        out = fused_attention(qh, kh, vh, scale=scale, causal=True, row_bias=row)
+        out = fused_attention(qh, kh, vh, scale=scale, causal=True, row_bias=row_bias)
     else:
         # prefill (cache_index == 0) or uncached: attend over the fresh K/V
         out = attend(qh, kh, vh, scale=scale, mask=causal_mask, bias=pad_bias)
@@ -182,7 +182,7 @@ def apply_gpt2(
             + (cache_index or 0)
     x = embed(p, input_ids, position_ids, policy.dtype)
 
-    npad = causal = pad_bias = None
+    npad = causal = pad_bias = row_bias = None
     if cache is not None and n == 1:
         npad = (attention_mask.to(torch.int32).argmax(dim=-1).to(torch.int32)
                 if attention_mask is not None
@@ -195,6 +195,9 @@ def apply_gpt2(
             am = attention_mask[:, :n]
             pad_bias = torch.where(am[:, None, None, :].bool(), 0.0,
                                    F32_MIN).to(policy.dtype)
+            # the kernels' (b, n) row bias: float32 as they read it, the
+            # dtype's values (bf16: -inf), built once for every layer
+            row_bias = pad_bias[:, 0, 0, :].float()
 
     act = get_activation(arch.activation)
     eps = arch.layer_norm_epsilon
@@ -203,6 +206,7 @@ def apply_gpt2(
             x = layer_hook(i, x)
         x = x + _self_attention(
             bp, x, n_head=arch.n_head, causal_mask=causal, pad_bias=pad_bias,
+            row_bias=row_bias,
             layer_cache=None if cache is None else cache[i],
             cache_index=cache_index, eps=eps, kv_limit=kv_limit, npad=npad,
             policy=policy, beam_anc=beam_anc)

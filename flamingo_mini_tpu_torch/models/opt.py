@@ -169,7 +169,9 @@ def apply_opt(
         causal = torch.ones(n, n, dtype=torch.bool, device=dev).tril()
         bias = torch.where(causal[None, None] & pad_ok[:, None, None, :], 0.0,
                            F32_MIN).to(policy.dtype)
-        row_bias = torch.where(pad_ok, 0.0, F32_MIN).to(policy.dtype)
+        # the kernels' (b, n) row bias: float32 as they read it, the dtype's
+        # values (bf16: -inf), built once for every layer
+        row_bias = torch.where(pad_ok, 0.0, F32_MIN).to(policy.dtype).float()
 
     n_head = arch.num_attention_heads
     eps = arch.layer_norm_epsilon

@@ -1,9 +1,10 @@
 """Fused softmax attention: the full-KV kernel and its streaming variant.
 
 Port of ``flamingo_mini_tpu/ops/pallas_attn.py::fused_attention``. Both CUDA
-kernels are ``csrc/fused_attention.cu`` (the tile machinery is
-``csrc/attention_tile.cuh``, whose note says what bounds them on the card
-and how the design answers that).
+kernels are ``csrc/fused_attention.cu``: bf16 inputs run the Hopper tile
+``csrc/attention_sm90.cuh`` (TMA, wgmma, a producer and a consumer
+warpgroup), float32 inputs ``csrc/attention_tile.cuh``; each note says what
+bounds the kernel on the card and how the design answers that.
 
 Semantics, as the TPU kernels': scores ``scale * q.k`` in float32, then
 ``+ bias`` and ``+ row_bias`` (float32), then causal positions set to
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 from typing import Optional
 
 import torch
@@ -51,10 +53,15 @@ class _Args(ctypes.Structure):
                 + [("scale", ctypes.c_float)])
 
 
+# _Args's bytes in one pack: 7 pointers, the 4 x 3 strides, 7 ints, scale
+_PACKED = struct.Struct("7Q12q7if")
+
+
 @functools.lru_cache(maxsize=None)
 def _checked_lib() -> ctypes.CDLL:
     lib = cuda_build.kernels()
-    if lib.fmt_attention_args_size() != ctypes.sizeof(_Args):
+    if lib.fmt_attention_args_size() != ctypes.sizeof(_Args) \
+            or _PACKED.size != ctypes.sizeof(_Args):
         raise RuntimeError("fused_attention: ctypes _Args does not match "
                            "struct AttnArgs")
     return lib
@@ -79,7 +86,8 @@ def check_cuda(name: str, q, k, v) -> None:
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name}: q, k and v must share dtype and device")
         # 16-byte rows: the kernel copies K/V rows 16 bytes at a time
-        if t.stride(3) != 1 or t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+        sb, sh, sn, sd = t.stride()
+        if sd != 1 or t.data_ptr() % 16 or sb % 8 or sh % 8 or sn % 8:
             raise ValueError(f"{name}: each input needs a contiguous head dim, "
                              "16-byte alignment and strides that are multiples "
                              f"of 8 elements; got strides {t.stride()}")
@@ -99,18 +107,16 @@ def launch(fn: str, q, k, v, *, scale: float, causal: bool = False,
     b, h, n_q, d = q.shape
     n_kv = k.shape[2]
     out = torch.empty((b, n_q, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    args = _Args(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
-                 out=out.data_ptr(),
-                 bias=None if bias is None else bias.data_ptr(),
-                 row_bias=None if row_bias is None else row_bias.data_ptr(),
-                 text_time=None if text_time is None else text_time.data_ptr(),
-                 b=b, h=h, n_q=n_q, n_kv=n_kv,
-                 n_kv_pad=n_kv if n_kv_pad is None else n_kv_pad,
-                 causal=int(causal), n_visual=n_visual, scale=float(scale))
-    for i, t in enumerate((q, k, v, out)):
-        args.stride[i][:] = t.stride()[:3]
+    args = _PACKED.pack(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        0 if bias is None else bias.data_ptr(),
+        0 if row_bias is None else row_bias.data_ptr(),
+        0 if text_time is None else text_time.data_ptr(),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        b, h, n_q, n_kv, n_kv if n_kv_pad is None else n_kv_pad, int(causal),
+        n_visual, scale)
     err = getattr(_checked_lib(), fn)(
-        ctypes.byref(args), int(q.dtype == torch.bfloat16),
+        args, int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(err, fn)
     return out
@@ -118,7 +124,8 @@ def launch(fn: str, q, k, v, *, scale: float, causal: bool = False,
 
 def _row_bias_f32(row_bias, b: int, n_kv: int, device) -> Optional[torch.Tensor]:
     """(b, n_kv) padding bias as the kernels read it: float32, contiguous
-    (exact for bf16 values; a bf16 -inf stays -inf)."""
+    (exact for bf16 values; a bf16 -inf stays -inf). The models build it so
+    once per forward, and then this copies nothing."""
     if row_bias is None:
         return None
     if row_bias.shape != (b, n_kv):

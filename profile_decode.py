@@ -27,10 +27,13 @@ chip_smoke.py's seeds), all of them unless some are named:
    at batch 32 (ViT, resampler, xattn K/V, prefill with its first token),
    with the attention kernels off and on (``use_pallas``): device time,
    wall time, launches and the leading kernels of each stage;
-4. ``forward``: ``torch.profiler`` over the uncached forward with its loss
-   (chip_smoke.py's batch of 8 x 64 tokens, bf16 weights, not quantized),
-   use_pallas off and on: device time and its share of the wall window,
-   launches, the leading kernels.
+4. ``forward``: the uncached forward with its loss under
+   ``torch.inference_mode()`` (chip_smoke.py's batch of 8 x 64 tokens, rows
+   0 and 1 left-padded by 8, bf16 weights, not quantized), flamingo-mini
+   with use_pallas off and on and OPT-1.3B with it on: wall ms (median of
+   5, host clock to a synchronize), then under ``torch.profiler`` device
+   time and its share of the traced window, launches, the leading kernels,
+   and the source lines at which the host waits on the card.
 
 Prints one line per measurement and writes them all to
 ``chiprun_out/profile_decode.json``. Needs a card; exits 1 without one.
@@ -191,46 +194,82 @@ def fixed_cost(dev, card):
     return rows
 
 
+def sync_sites(fn):
+    """The source lines at which ``fn`` makes the host wait on the card
+    (``torch.cuda.set_sync_debug_mode``'s warnings) -> {"file:line": count}."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            where = f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+            sites[where] = sites.get(where, 0) + 1
+    return sites
+
+
 def profile_forward(dev, card):
-    """The uncached forward with its loss, use_pallas off and on."""
+    """The uncached forward with its loss: flamingo-mini with use_pallas off
+    and on, OPT-1.3B with use_pallas on (chip_smoke.py's forward cells)."""
     import chip_smoke as cs
     from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel
-    model = FlamingoModel(FlamingoConfig(**cs.MINI), device=dev, seed=0)
-    for blk in model.params["xattn"].values():
-        blk["alpha_attn"].fill_(0.5)
-        blk["alpha_ffw"].fill_(0.5)
-    model.to_bf16()
     b, n, pad = cs.FWD_B, cs.FWD_N, cs.GPT2_PAD
-    gen = torch.Generator(device=dev).manual_seed(1)
-    ids = torch.randint(0, 1000, (b, n), generator=gen, device=dev)
-    mask = torch.ones((b, n), dtype=torch.int32, device=dev)
-    ids[:2, :pad], mask[:2, :pad] = 0, 0
-    media = torch.zeros((b, n), dtype=torch.int32, device=dev)
-    media[:2, pad], media[2:, 0] = 1, 1
-    size = model.config.vision_arch.image_size
-    pixels = torch.randn((b, 1, 3, size, size), generator=gen,
-                         device=dev).to(torch.bfloat16)
     rows = []
-    with torch.inference_mode():
-        for use_pallas in (False, True):
-            m = FlamingoModel(FlamingoConfig(**cs.MINI, use_pallas=use_pallas),
-                              params=model.params, device=dev)
+    for label, kw, seed, settings in (("flamingo-mini", cs.MINI, 0, (False, True)),
+                                      ("OPT-1.3B", cs.OPT13, 1, (True,))):
+        model = FlamingoModel(FlamingoConfig(**kw), device=dev, seed=seed)
+        for blk in model.params["xattn"].values():
+            blk["alpha_attn"].fill_(0.5)
+            blk["alpha_ffw"].fill_(0.5)
+        model.to_bf16()
+        gen = torch.Generator(device=dev).manual_seed(1)
+        ids = torch.randint(4, 1000, (b, n), generator=gen, device=dev)
+        mask = torch.ones((b, n), dtype=torch.int32, device=dev)
+        ids[:2, :pad], mask[:2, :pad] = 0, 0
+        media = torch.zeros((b, n), dtype=torch.int32, device=dev)
+        media[:2, pad], media[2:, 0] = 1, 1
+        size = model.config.vision_arch.image_size
+        pixels = torch.randn((b, 1, 3, size, size), generator=gen,
+                             device=dev).to(torch.bfloat16)
+        with torch.inference_mode():
+            for use_pallas in settings:
+                m = FlamingoModel(FlamingoConfig(**kw, use_pallas=use_pallas),
+                                  params=model.params, device=dev)
 
-            def fwd():
-                return m(ids, media_locations=media, attention_mask=mask,
-                         pixel_values=pixels, labels=ids)
-            fwd()                                             # warm-up
-            torch.cuda.synchronize()
-            window_ms, device_ms, launches, kernels = traced_device(fwd)
-            row = dict(use_pallas=use_pallas, batch=b, tokens=n, window_ms=window_ms,
-                       device_ms=device_ms, busy=device_ms / window_ms,
-                       launches=launches, by_kernel=top_kernels(kernels, 8))
-            print(f"[forward] {card}: use_pallas={use_pallas}, {b}x{n} tokens: window "
-                  f"{window_ms:.2f} ms, device {device_ms:.2f} ms (busy "
-                  f"{100 * row['busy']:.1f} %), {launches} launches")
-            for r in row["by_kernel"]:
-                print(f"[forward]   {r['ms']:9.3f} ms  x{r['count']:<6} {r['name'][:90]}")
-            rows.append(row)
+                def fwd():
+                    return m(ids, media_locations=media, attention_mask=mask,
+                             pixel_values=pixels, labels=ids)
+                fwd()                                             # warm-up
+                torch.cuda.synchronize()
+                walls = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    fwd()
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                sites = sync_sites(fwd)
+                torch.cuda.synchronize()
+                window_ms, device_ms, launches, kernels = traced_device(fwd)
+                row = dict(model=label, use_pallas=use_pallas, batch=b, tokens=n,
+                           wall_ms=sorted(walls)[2], walls=walls, window_ms=window_ms,
+                           device_ms=device_ms, busy=device_ms / window_ms,
+                           launches=launches, sync_sites=sites,
+                           by_kernel=top_kernels(kernels, 8))
+                print(f"[forward] {card}: {label}, use_pallas={use_pallas}, {b}x{n} "
+                      f"tokens: wall median {row['wall_ms']:.2f} ms (runs "
+                      f"{[round(w, 2) for w in walls]}); traced window {window_ms:.2f} ms, "
+                      f"device {device_ms:.2f} ms (busy {100 * row['busy']:.1f} %), "
+                      f"{launches} launches; the host waits on the card at {sites}")
+                for r in row["by_kernel"]:
+                    print(f"[forward]   {r['ms']:9.3f} ms  x{r['count']:<6} {r['name'][:90]}")
+                rows.append(row)
+        del model, m
+        torch.cuda.empty_cache()
     return rows
 
 

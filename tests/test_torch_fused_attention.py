@@ -94,6 +94,13 @@ ATTN_CASES = {
     "streaming_no_row_bias": (1, 2, 16, 70, 8, False, False, None, 32, True),
     # past 2048 keys fused_attention streams on its own
     "streaming_by_length": (1, 1, 8, 2100, 8, False, False, [4], 256, None),
+    # head dim 64 at the card's tile edges: 128-key tiles, a last tile of
+    # 1 key (the ViT's 257), causal with left padding, a bias, streaming
+    "d64_kv127": (1, 2, 33, 127, 64, False, False, None, 32, None),
+    "d64_kv128_causal_left_pad": (2, 2, 40, 128, 64, True, False, [0, 7], 32, None),
+    "d64_kv129_bias": (1, 2, 24, 129, 64, False, True, None, 16, None),
+    "d64_kv257": (1, 2, 65, 257, 64, False, False, None, 64, None),
+    "d64_streaming_kv257_causal_left_pad": (1, 2, 32, 257, 64, True, False, [3], 64, True),
 }
 
 
@@ -137,6 +144,45 @@ def test_fully_masked_rows_average_the_masked_keys():
         torch.testing.assert_close(out[0, 0, i], want.to(torch.bfloat16).float(),
                                    atol=2 ** -7, rtol=0)
     assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("lm", ["gpt2", "opt"])
+def test_trunk_builds_the_float32_row_bias_once(lm, monkeypatch):
+    """An uncached bf16 pallas forward with a left-padded row hands every
+    layer's fused_attention one float32 contiguous (b, n) row bias, built
+    once per forward: the bf16 pad bias's values (-inf on the pads), so the
+    wrapper converts nothing."""
+    from flamingo_mini_tpu_torch.models import opt as popt
+    module = pgpt2 if lm == "gpt2" else popt
+    seen = []
+
+    def recorder(*args, row_bias=None, **kw):
+        seen.append(row_bias)
+        return fused_attention(*args, row_bias=row_bias, **kw)
+
+    monkeypatch.setattr(module, "fused_attention", recorder)
+    gen = torch.Generator().manual_seed(0)
+    if lm == "gpt2":
+        arch = port.FlamingoConfig(**SMALL).lm_arch
+        params, apply = pgpt2.init_gpt2(gen, arch), pgpt2.apply_gpt2
+        n_layer = arch.n_layer
+    else:
+        arch = port.FlamingoConfig(lm="facebook/opt-1.3b", lm_arch_overrides=dict(
+            vocab_size=256, max_position_embeddings=64, hidden_size=128, ffn_dim=512,
+            num_hidden_layers=2, num_attention_heads=4, word_embed_proj_dim=128)).lm_arch
+        params, apply = popt.init_opt(gen, arch), popt.apply_opt
+        n_layer = arch.num_hidden_layers
+    ids = torch.randint(0, 256, (3, 10), generator=gen)
+    mask = torch.ones((3, 10), dtype=torch.int32)
+    mask[1, :4] = 0
+    out, _ = apply(params, ids, arch=arch, policy=pl.Policy(torch.bfloat16, pallas=True),
+                   attention_mask=mask)
+    assert torch.isfinite(out.float()).all()
+    assert len(seen) == n_layer and all(rb is seen[0] for rb in seen)
+    rb = seen[0]
+    assert rb.dtype == torch.float32 and rb.is_contiguous() and rb.shape == (3, 10)
+    assert torch.isinf(rb[1, :4]).all() and (rb[1, 4:] == 0).all()
+    assert (rb[[0, 2]] == 0).all()
 
 
 def test_streaming_plain_pads_the_tail_like_jax():

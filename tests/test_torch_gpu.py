@@ -26,7 +26,9 @@ streaming kernel, ``fused_media_xattn``) are held at the ViT, resampler,
 GPT-2 forward, media prefill and forward shapes, with fully masked rows
 (left-padded causal queries, text_time past the media count) and rows
 zeroed (text_time 0): float32 within 1e-5 of the output's scale, bf16
-within 2 bf16 ulps. The megakernel's w8a8 mode (act_quant): its linear
+within 2 bf16 ulps; the bf16 kernel of the first two (the Hopper tile) also
+at its tile edges, back to back on one stream, and streaming past many
+tiles of its ring. The megakernel's w8a8 mode (act_quant): its linear
 alone, through the kernel's own device functions, bitwise equal to the
 plain version (column form at K = 512, 1024, 2048; row form over D-wide
 slices of 4096 and 8192 and of K = 512; b in {1, 3, 8, 32}, a zero row and
@@ -367,6 +369,89 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, causal):
         (before[0] + 1, before[1])
     chip_smoke.held_to_plain(f"flash_attention causal={causal} {dtype}", got,
                              flash_attention_plain(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("n_kv", [1, 63, 64, 65, 127, 128, 129, 257])
+@pytest.mark.parametrize("case", ["plain", "contiguous", "causal left-padded", "bias"])
+def test_hopper_tile_edges_match_plain(cuda, case, n_kv):
+    """The bf16 kernel (csrc/attention_sm90.cuh) at its tile edges: n_q in
+    {1, 65, 129, 257} against n_kv around the 128-key tile and the 16- and
+    64-key last tiles; split_heads views or contiguous inputs; causal with
+    a left-padded row; a (b, 1, n_q, n_kv) bias."""
+    import chip_smoke
+    from flamingo_mini_tpu_torch.ops.fused_attention import (
+        fused_attention, fused_attention_plain)
+    gen = torch.Generator(device=cuda).manual_seed(n_kv)
+    for n_q in (1, 65, 129, 257):
+        q, k, v = chip_smoke.attention_inputs(cuda, torch.bfloat16, 2, 3, n_q, n_kv,
+                                              seed=n_q + n_kv)
+        kw = dict(scale=0.125)
+        if case == "contiguous":
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        elif case == "causal left-padded":
+            kw.update(causal=True, row_bias=chip_smoke.left_pad_bias(
+                cuda, torch.bfloat16, 2, n_kv, [min(5, n_kv - 1), 0]))
+        elif case == "bias":
+            kw["bias"] = torch.randn((2, 1, n_q, n_kv), generator=gen, device=cuda)
+        chip_smoke.held_to_plain(f"fused_attention {case} (2, 3, {n_q}, {n_kv})",
+                                 fused_attention(q, k, v, streaming=False, **kw),
+                                 fused_attention_plain(q, k, v, **kw), torch.bfloat16)
+
+
+def test_hopper_tile_back_to_back_and_long_stream(cuda):
+    """Five shapes launched back to back on one stream before one
+    synchronize (the last streams 5000 keys), and the streaming kernel at
+    3000 keys (24 tiles, many times the ring's depth), causal with a
+    left-padded row."""
+    import chip_smoke
+    from flamingo_mini_tpu_torch.ops.fused_attention import (
+        flash_attention, flash_attention_plain, fused_attention, fused_attention_plain)
+    ins = [chip_smoke.attention_inputs(cuda, torch.bfloat16, *shape, seed=i)
+           for i, shape in enumerate(chip_smoke.SM90_BACK_TO_BACK)]
+    outs = [fused_attention(q, k, v, scale=0.125) for q, k, v in ins]
+    for (q, k, v), got in zip(ins, outs):
+        plain = flash_attention_plain if k.shape[2] > 2048 else fused_attention_plain
+        chip_smoke.held_to_plain(f"back to back {tuple(k.shape)}", got,
+                                 plain(q, k, v, scale=0.125), torch.bfloat16)
+    q, k, v = chip_smoke.attention_inputs(cuda, torch.bfloat16, 1, 2, 100, 3000, seed=3)
+    kw = dict(scale=0.125, causal=True,
+              row_bias=chip_smoke.left_pad_bias(cuda, torch.bfloat16, 1, 3000, [8]))
+    chip_smoke.held_to_plain("flash_attention 3000 keys", flash_attention(q, k, v, **kw),
+                             flash_attention_plain(q, k, v, **kw), torch.bfloat16)
+
+
+@pytest.mark.parametrize("lm", ["gpt2", "opt"])
+def test_pallas_trunk_forward_under_inference_mode(cuda, lm):
+    """The uncached bf16 use_pallas trunk with a left-padded row, head dim
+    64, 2 layers: under torch.inference_mode() (whose tensors carry no
+    version counter) it launches fused_attention once per layer and gives
+    the same hidden states as under torch.no_grad()."""
+    from flamingo_mini_tpu_torch import FlamingoConfig
+    from flamingo_mini_tpu_torch.models import gpt2, opt
+    from flamingo_mini_tpu_torch.ops.fused_attention import fused_attention
+    from flamingo_mini_tpu_torch.ops.layers import Policy
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    if lm == "gpt2":
+        arch = FlamingoConfig(lm_arch_overrides=dict(
+            vocab_size=256, n_positions=64, n_embd=128, n_layer=2, n_head=2)).lm_arch
+        params, apply = gpt2.init_gpt2(gen, arch), gpt2.apply_gpt2
+    else:
+        arch = FlamingoConfig(lm="facebook/opt-1.3b", lm_arch_overrides=dict(
+            vocab_size=256, max_position_embeddings=64, hidden_size=128, ffn_dim=512,
+            num_hidden_layers=2, num_attention_heads=2, word_embed_proj_dim=128)).lm_arch
+        params, apply = opt.init_opt(gen, arch), opt.apply_opt
+    ids = torch.randint(0, 256, (4, 40), generator=gen, device=cuda)
+    mask = torch.ones((4, 40), dtype=torch.int32, device=cuda)
+    mask[1, :9] = 0
+    kw = dict(arch=arch, policy=Policy(torch.bfloat16, pallas=True), attention_mask=mask)
+    with torch.no_grad():
+        want, _ = apply(params, ids, **kw)
+    before = fused_attention.launches
+    with torch.inference_mode():
+        got, _ = apply(params, ids, **kw)
+    assert fused_attention.launches == before + 2
+    assert bool(torch.isfinite(got.float()).all())
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
