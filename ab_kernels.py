@@ -7,9 +7,10 @@ Runs each checkout in a process of its own (each builds its own kernels
 from its own sources) in the order A, B, B, A and prints, for each run, the
 median device time of ``decode_attention`` (b=32, D=1024, H=16, T=192,
 cur 131, kv_limit 132, bf16), of ``decode_step_megakernel`` at 24
-layers: flamingo-mini width at b=32 (kv_limit 132), its beam mode at 96
-rows (kv_limit 68) and its OPT mode at OPT-1.3B width, b=8 (kv_limit 71),
-each also in the w8a8 mode (``act_quant``) where the checkout has it, and
+layers: flamingo-mini width at b=32 and at b=1 (the fixed cost; kv_limit
+132), its beam mode at 96 rows (3 beams) and 160 rows (5 beams; kv_limit
+68) and its OPT mode at OPT-1.3B width, b=8 (kv_limit 71), each also in
+the w8a8 mode (``act_quant``) where the checkout has it, and
 of the bf16 attention kernels of ``use_pallas``: ``fused_attention`` at the
 ViT (32, 16, 257, 257), resampler (32, 8, 64, 321) and causal GPT-2 and
 OPT-1.3B forward shapes (two rows left-padded by 8) and ``flash_attention``
@@ -95,8 +96,13 @@ def one(tree: str) -> dict:
     inputs = cs.mega_inputs(dev, cfg, 32, seed=99)
     inputs[5].zero_()
     mega("decode_step_megakernel", packed, cfg, inputs, 131, 132)
+    inputs = cs.mega_inputs(dev, cfg, 1, seed=99)
+    inputs[5].zero_()
+    mega("decode_step_megakernel_b1", packed, cfg, inputs, 131, 132)
     inputs, anc = cs.beam_trunk_inputs(dev, cfg, 96, 3, seed=97)
     mega("decode_step_megakernel_beam96", packed, cfg, inputs, 66, 68, beam_anc=anc)
+    inputs, anc = cs.beam_trunk_inputs(dev, cfg, 160, 5, seed=96)
+    mega("decode_step_megakernel_beam160", packed, cfg, inputs, 66, 68, beam_anc=anc)
     del packed, inputs
     cfg, packed = cs.random_trunk(dev, n_layer=24, seed=224, family="opt", D=cs.OPT_D,
                                   H=cs.OPT_H, xattn_every=2)

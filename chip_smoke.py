@@ -69,9 +69,22 @@ stream probe and the in-situ decode and head probes, and checks them:
    at 24 layers (greedy b=32, beams 96 rows, OPT-1.3B b=8) under the
    normwise rule below, printing where the largest error lies, each 24
    layer case timed beside its plain version and bound, its grid printed.
-   The shared-memory refusal: a D=4096 trunk at 28 rows (and 10 x 3
-   beams) raises ``ValueError`` before vision and prefill, launching
-   nothing, and 27 rows pass the check. The decode stream probes'
+   The shared-memory refusal: a D=4096 trunk at 28 rows in the w8a8 mode
+   (and 10 x 3 beams) raises ``ValueError`` before vision and prefill,
+   launching nothing, and 27 rows pass the check; the weight-only mode's
+   Hopper kernel holds 28 rows at D=4096 and refuses a D=8192 trunk (wider
+   than its LayerNorm holds in registers). The
+   weight-only mode's Hopper kernel (``csrc/decode_megakernel_sm90.cuh``)
+   at its edges: its grid barrier alone (every block's stamps read back
+   after each of 2,000 barriers), the step at 2 layers, D=1024, xattn
+   every 1 and 2 layers, rows b in {1, 3, 8, 9, 31, 32, 33, 64, 65, 257}, (cur,
+   kv_limit) in {(0, 1) with left-padded rows, (35, 36), (131, 132)}, and
+   at D=2048 (OPT mode) b in {9, 33}, each within 2 bf16 ulps, printing
+   the largest error and where; two launches on the same inputs bit-equal
+   (greedy b=32, beams 96 rows, OPT-1.3B b=8); four shapes launched back to
+   back on one stream before one synchronize, each against its plain
+   version. Phase 1 also requires ``HGMMA`` and ``UTMALDG`` in its SASS.
+   The decode stream probes'
    kernels (``attn_stream_only``, ``tmajor_stream``, ``packed_stream``)
    at the probe's shape (b=32, D=1024, T=192, random caches from a seed):
    ``block_t`` 16 and 32, ``block_b`` 32 and 8, kv_limit 128 and 100 (a
@@ -223,6 +236,9 @@ OPT350_NEW = 16
 # to_out's K = XI = 512 in both forms, mlp_proj over D-wide slices of Dff
 W8A8_LINEAR = ((1024, 3072, None), (2048, 8192, None), (512, 1024, None),
                (512, 1024, 1024), (4096, 1024, 1024), (8192, 2048, 2048))
+# the weight-only megakernel's edge rows: each side of the wgmma N steps
+# (8, 32) and of its 64-row passes (64, 256)
+EDGE_ROWS = (1, 3, 8, 9, 31, 32, 33, 64, 65, 257)
 # the stream probe: a 512 MB buffer, its TPU protocol's middle chunk_rows
 STREAM_MB, STREAM_CHUNK = 512, 1024
 # the decode stream probes (tools/probe_decode_kernel.py's three kernels) at
@@ -260,9 +276,10 @@ def bound(n_bytes: float, n_ops: float, n_int8_ops: float = 0.0,
 
 
 def sm90_sass(lib: str) -> None:
-    """Print the Hopper attention tile's instructions of note in the built
-    library and require wgmma (HGMMA) and TMA loads (UTMALDG) in each of
-    its kernels; a toolkit without cuobjdump skips the check, saying so."""
+    """Print the Hopper kernels' instructions of note in the built library
+    (the attention tile, the weight-only megakernel) and require wgmma
+    (HGMMA) and TMA loads (UTMALDG) in each; a toolkit without cuobjdump
+    skips the check, saying so."""
     from flamingo_mini_tpu_torch.ops import cuda_build
     tool = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
     if not os.path.isfile(tool):
@@ -274,13 +291,15 @@ def sm90_sass(lib: str) -> None:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            if "attention_sm90_kernel" in name:
+            if "attention_sm90_kernel" in name or "decode_megakernel_sm90" in name:
                 found[name] = set()
             else:
                 name = None
         elif name is not None:
             found[name].update(op for op in ("HGMMA", "UTMALDG", "SYNCS") if op in line)
-    assert found, "no attention_sm90_kernel in the library's SASS"
+    assert any("attention_sm90" in n for n in found) and \
+        any("decode_megakernel_sm90" in n for n in found), \
+        f"a Hopper kernel is missing from the library's SASS: {sorted(found)}"
     for name, ops in found.items():
         print(f"[phase 1] SASS {name}: {' '.join(sorted(ops))}")
         assert {"HGMMA", "UTMALDG"} <= ops, f"{name}: no wgmma or TMA in its SASS"
@@ -643,8 +662,8 @@ def print_grids(label, packed, cfg, inputs_by_rows, cur, kv_limit, act_quant=Fal
         args, _, _ = kernel_args(packed, *inputs, cur, config=cfg, kv_limit=kv_limit,
                                  beam_anc=anc, act_quant=act_quant)
         blocks, smem = kernel_grid(args)
-        print(f"[phase 2] {label} grid at {rows} rows: {blocks} blocks of 256 "
-              f"threads, {smem} bytes of shared memory each")
+        print(f"[phase 2] {label} grid at {rows} rows: {blocks} blocks, {smem} bytes "
+              "of shared memory each")
 
 
 def phase2_megakernel(dev, flush):
@@ -897,6 +916,94 @@ def phase2_megakernel_opt(dev, flush):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def phase2_megakernel_edges(dev):
+    """The weight-only mode's Hopper kernel (``decode_megakernel_sm90.cuh``)
+    at its edges: its grid barrier alone, rows on both sides of the wgmma
+    N steps and of its 64-row passes, a cache of one slot with left-padded
+    rows, D=2048, determinism, and shapes launched back to back (module
+    docstring) -> the largest abs error."""
+    from flamingo_mini_tpu_torch.ops.megadecode import grid_sync_test
+    bad = grid_sync_test(dev, 2000)
+    assert bad == 0, f"grid barrier: {bad} stamps read wrong"
+    print("[phase 2] the weight-only kernel's grid barrier alone: 2000 barriers, "
+          "every block's stamps read back after each, 0 wrong")
+    worst, n = [0.0, 0.0, None], 0
+    for every in (1, 2):
+        cfg, packed = random_trunk(dev, n_layer=2, xattn_every=every, seed=900 + every)
+        for b in EDGE_ROWS:
+            n += edge_rows_case(dev, cfg, packed, b, worst, f"every={every} ")
+    opt = random_trunk(dev, n_layer=2, seed=930, family="opt", D=OPT_D, H=OPT_H,
+                       xattn_every=2)
+    for b in (9, 33):
+        n += edge_rows_case(dev, *opt, b, worst, "OPT-1.3B width ")
+    print(f"[phase 2] weight-only kernel at its edges, 2 layers: D=1024 (xattn every 1 "
+          f"and 2) b in {EDGE_ROWS} x (cur, kv_limit) in (0, 1) (left-padded rows "
+          f"attend nothing), (35, 36), (131, 132); D=2048 b in (9, 33) (cur, kv_limit "
+          f"(0, 1), (70, 71)); {n} cases: max error {worst[0]} bf16 ulp at the output's "
+          f"scale (tolerance 2), max abs error {worst[1]}; largest at {worst[2]}")
+    back_to_back(dev, worst)
+    return worst[1]
+
+
+def edge_rows_case(dev, cfg, packed, b: int, worst, label: str = "") -> int:
+    """The weight-only kernel against its plain version at ``b`` rows over
+    a cache of one slot (rows left-padded by r % 4 attend nothing), and at
+    the last steps of two live prefixes; 2 bf16 ulps -> cases run."""
+    T = MEGA_T if cfg.dim == MEGA_D else OPT_T
+    inputs = mega_inputs(dev, cfg, b, seed=910 + b, T=T)
+    pairs = ((0, 1), (35, 36), (131, 132)) if T == MEGA_T else ((0, 1), (70, 71))
+    for cur, kv_limit in pairs:
+        held_to_ulps(f"{label}b={b} cur={cur} kv_limit={kv_limit}",
+                     mega_errors(cfg, packed, inputs, cur, kv_limit), worst)
+    return len(pairs)
+
+
+def back_to_back(dev, worst):
+    """The weight-only kernel: greedy b=32 and b=3 (flamingo-mini width),
+    beams at 96 rows and OPT-1.3B width at b=8, 2 layers, launched back to
+    back on one stream before one synchronize, each within 2 bf16 ulps of
+    its plain version; each launched again on the same inputs, bit-equal."""
+    from flamingo_mini_tpu_torch.ops.megadecode import (
+        decode_step_megakernel, decode_step_megakernel_plain)
+    cfg1, packed1 = random_trunk(dev, n_layer=2, xattn_every=1, seed=901)
+    opt = random_trunk(dev, n_layer=2, seed=930, family="opt", D=OPT_D, H=OPT_H,
+                       xattn_every=2)
+    beam_in, anc = beam_trunk_inputs(dev, cfg1, 96, 3, seed=950)
+    cases = (("greedy b=32", cfg1, packed1, mega_inputs(dev, cfg1, 32, seed=951), 131, 132,
+              None),
+             ("greedy b=3", cfg1, packed1, mega_inputs(dev, cfg1, 3, seed=952), 35, 36, None),
+             ("beams 96 rows", cfg1, packed1, beam_in, 66, 68, anc),
+             ("OPT-1.3B b=8", *opt, mega_inputs(dev, opt[0], 8, seed=953, T=OPT_T), 70, 71,
+              None))
+    outs = []
+    for label, cfg, packed, inputs, cur, kv_limit, beam_anc in cases:
+        xk, xv, kc, vc, x, npad, tt = inputs
+        kc1, vc1 = kc.clone(), vc.clone()
+        outs.append((decode_step_megakernel(packed, xk, xv, kc1, vc1, x, npad, tt, cur,
+                                            config=cfg, kv_limit=kv_limit,
+                                            beam_anc=beam_anc), kc1, vc1))
+    torch.cuda.synchronize()
+    for (label, cfg, packed, inputs, cur, kv_limit, beam_anc), (got, kc1, vc1) in zip(
+            cases, outs):
+        xk, xv, kc, vc, x, npad, tt = inputs
+        kc2, vc2 = kc.clone(), vc.clone()
+        want = decode_step_megakernel_plain(packed, xk, xv, kc2, vc2, x, npad, tt, cur,
+                                            config=cfg, kv_limit=kv_limit,
+                                            beam_anc=beam_anc)
+        held_to_ulps(f"back to back {label}", {
+            "hidden": (got.float(), want.float()),
+            "k rows": (kc1[:, cur].float(), kc2[:, cur].float()),
+            "v rows": (vc1[:, cur].float(), vc2[:, cur].float())}, worst)
+        again = decode_step_megakernel(packed, xk, xv, kc.clone(), vc.clone(), x, npad, tt,
+                                       cur, config=cfg, kv_limit=kv_limit, beam_anc=beam_anc)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int16), again.view(torch.int16)), \
+            f"{label}: two launches on the same inputs differ"
+    print(f"[phase 2] weight-only kernel: {', '.join(c[0] for c in cases)} launched back "
+          "to back before one synchronize, each within 2 bf16 ulps of its plain "
+          "version; each launched again on the same inputs: bit-equal")
+
+
 def w8a8_linear_case(dev, b: int, K: int, N: int, width, seed: int):
     """The megakernel's w8a8 linear (``lin_w8a8``: its own device
     functions) and its plain version on the card, on the same inputs ->
@@ -1040,29 +1147,36 @@ def phase2_megakernel_w8a8(dev, flush):
     return rows
 
 
-def wide_trunk_model(dev):
-    """A 1-layer trunk at opt-6.7b's width (D=4096, ffn 16384, 64 heads of
-    64: the kernel's head dim) with a gated xattn block, a small ViT, int8,
-    bf16: a trunk whose LayerNorm stage outgrows shared memory past 27
-    rows."""
-    from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel
-    config = FlamingoConfig(
-        lm="facebook/opt-1.3b", dim=4096, dim_visual=64, xattn_every=1,
+def wide_config(D: int):
+    """A 1-layer OPT trunk D wide (ffn 4 D, heads of 64: the kernel's head
+    dim) with a gated xattn block and a small ViT."""
+    from flamingo_mini_tpu_torch import FlamingoConfig
+    return FlamingoConfig(
+        lm="facebook/opt-1.3b", dim=D, dim_visual=64, xattn_every=1,
         compute_dtype="bfloat16", resampler_depth=1, resampler_num_latents=64,
         lm_arch_overrides=dict(vocab_size=512, max_position_embeddings=64,
-                               hidden_size=4096, ffn_dim=16384, num_hidden_layers=1,
-                               num_attention_heads=64, word_embed_proj_dim=4096),
+                               hidden_size=D, ffn_dim=4 * D, num_hidden_layers=1,
+                               num_attention_heads=D // 64, word_embed_proj_dim=D),
         vision_arch_overrides=dict(hidden_size=64, intermediate_size=128,
                                    num_hidden_layers=1, num_attention_heads=4,
                                    image_size=32, patch_size=16))
-    model = FlamingoModel(config, device=dev, seed=3)
+
+
+def wide_trunk_model(dev):
+    """``wide_config`` at opt-6.7b's width (D=4096), int8, bf16: a trunk
+    whose w8a8 LayerNorm stage outgrows shared memory past 27 rows."""
+    from flamingo_mini_tpu_torch import FlamingoModel
+    model = FlamingoModel(wide_config(4096), device=dev, seed=3)
     return model.quantize_int8().to_bf16()
 
 
 def phase2_refusal(dev):
-    """The late refusal repaired: at D=4096 a greedy call of 28 rows (and
-    a beam call of 10 x 3) raises ValueError before vision and prefill,
-    launching nothing; 27 rows pass the check."""
+    """The refusal before any work: at D=4096 a w8a8 greedy call of 28 rows
+    (and a beam call of 10 x 3) raises ValueError before vision and
+    prefill, launching nothing; 27 rows pass the check in both modes. The
+    weight-only kernel's shared memory does not grow past a 64-row pass: 28
+    rows pass at D=4096, and a D=8192 trunk (its LayerNorm rows do not fit
+    the kernel's registers) is refused."""
     from flamingo_mini_tpu_torch import generation
     from flamingo_mini_tpu_torch.models import flamingo
     from flamingo_mini_tpu_torch.ops import megadecode
@@ -1075,7 +1189,7 @@ def phase2_refusal(dev):
             return fn(*a, **k)
         return run
     messages = []
-    for b, kw in ((28, dict(w8a8=True)), (28, {}), (10, dict(num_beams=3, w8a8=True))):
+    for b, kw in ((28, dict(w8a8=True)), (10, dict(num_beams=3, w8a8=True))):
         ids = torch.ones((b, 4), dtype=torch.long, device=dev)
         pixels = torch.zeros((b, 1, 3, 32, 32), device=dev, dtype=torch.bfloat16)
         zero_counts()
@@ -1093,9 +1207,17 @@ def phase2_refusal(dev):
         assert not ran and not any(counts.values()), (ran, counts)
     for act_quant in (True, False):
         megadecode.check_fits(model.config, 27, 16, 64, act_quant=act_quant, device=dev)
+    megadecode.check_fits(model.config, 28, 16, 64, act_quant=False, device=dev)
+    try:
+        megadecode.check_fits(wide_config(8192), 8, 16, 64, act_quant=False, device=dev)
+    except ValueError as e:
+        messages.append(str(e))
+    else:
+        raise AssertionError("the weight-only kernel took a D=8192 trunk")
     print(f"[phase 2] refusal at D=4096 before vision and prefill (nothing launched): "
-          f"{messages[0]!r}; weight-only 28 rows and beams 10 x 3 refused too; 27 rows "
-          "pass the check in both modes")
+          f"{messages[0]!r}; w8a8 beams 10 x 3 refused too; 27 rows pass the check in "
+          f"both modes; weight-only 28 rows pass at D=4096, D=8192 refused: "
+          f"{messages[-1]!r}")
     del model
     torch.cuda.empty_cache()
 
@@ -2039,6 +2161,9 @@ def main() -> int:
     mega_opt = phase2_megakernel_opt(dev, flush)
     attn_beam = phase2_decode_attention_beam(dev, flush)
     mega_beam = phase2_megakernel_beam(dev, flush)
+    edges = phase2_megakernel_edges(dev)
+    for row in (mega, mega_opt, mega_beam):
+        row["max_abs_err"] = max(row["max_abs_err"], edges)
     fa = phase2_fused_attention(dev, flush)
     flash = phase2_flash_attention(dev, flush)
     edges = phase2_sm90_edges(dev)
@@ -2264,16 +2389,16 @@ def main() -> int:
             ("lm_head_argmax (OPT-1.3B shape)", "lm_head_argmax.cu",
              "flamingo_mini_tpu/ops/pallas_lmhead.py:71",
              opt_counts["megakernel"]["lm_head_argmax"], head_opt),
-            ("decode_step_megakernel", "decode_megakernel.cu",
+            ("decode_step_megakernel", "decode_megakernel_sm90.cuh",
              "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
              mega_counts["decode_step_megakernel"], mega),
-            ("decode_step_megakernel (OPT mode)", "decode_megakernel.cu",
+            ("decode_step_megakernel (OPT mode)", "decode_megakernel_sm90.cuh",
              "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
              opt_counts["megakernel"]["decode_step_megakernel"], mega_opt),
             ("decode_attention_beam", "decode_attention.cu",
              "flamingo_mini_tpu/ops/pallas_decode.py:350",
              layer_b_counts["decode_attention_beam"], attn_beam),
-            ("decode_step_megakernel (beam mode)", "decode_megakernel.cu",
+            ("decode_step_megakernel (beam mode)", "decode_megakernel_sm90.cuh",
              "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
              mega_b_counts["decode_step_megakernel"], mega_beam),
             ("fused_attention", "attention_sm90.cuh",

@@ -52,9 +52,8 @@
 // Every key tile is visited, causally masked ones too.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums (declarations only: nothing links libcuda)
-
 #include "attention_tile.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 namespace sm90 {
@@ -86,90 +85,13 @@ struct Orders {
   MapOrder q, k, v;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-// wait until the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-  }
-}
-
-// box (64, 1, rows, 1) of a 4-D tensor map at (0, c1, c2, c3) -> shared
-// memory, completion counted in bytes on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(c1), "r"(c2), "r"(c3),
-         "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
-
 // the coordinates of (head, row, batch) in a map's dim order
 __device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map, MapOrder o,
                                          uint32_t bar, int hd, int row, int b) {
   int c[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) c[i] = o.h == i ? hd : (o.n == i ? row : b);
-  tma_load(dst, map, bar, c[0], c[1], c[2]);
-}
-
-// wgmma shared-memory descriptor of a tile of 128-byte rows in the 128-byte
-// swizzle, its base 1024-aligned: start address, leading offset 16 bytes
-// (not read by these layouts: a row is one swizzle atom wide), stride 1024
-// bytes between groups of 8 rows, layout 1 (128-byte swizzle). K-major
-// operands advance 32 bytes (+2) per 16 columns, the MN-major V 2048 bytes
-// (+128) per 16 keys.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait until every committed group is done
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep registers an asynchronous wgmma reads or writes in place until here
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+  tma_load_4d(dst, map, bar, c[0], c[1], c[2]);
 }
 
 template <int N>
@@ -575,30 +497,6 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ---------------------------------------------------------------------------
 // host side
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through cudaGetDriverEntryPoint: no -lcuda
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found) != cudaSuccess)
-      p = nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-        cudaSuccess)
-      p = nullptr;
-#endif
-    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
 
 // a 4-D map over (d, h, n, b) of a bf16 tensor with element strides
 // (b, h, n) and a contiguous d, its box 64 x 1 x rows x 1, 128-byte

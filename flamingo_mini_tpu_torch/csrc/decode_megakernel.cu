@@ -34,8 +34,8 @@
 // converted to bf16 exactly, bf16 products accumulated in float32, the
 // float32 per-output-channel scale, one rounding; a bias is added in bf16,
 // and every residual add is a bf16 add. LayerNorm takes float32
-// statistics, eps 1e-5, each op rounded as the plain version's (only its
-// sums run in another order).
+// statistics, eps 1e-5, each op rounded as the plain version's, its sums in
+// the order megadecode._layer_norm repeats (both kernels).
 //
 // w8a8 (act_quant, pallas_megadecode.py's aquant / mm_cols / mm_rows): a
 // linear's bf16 input is quantized per row, s = max(amax, 1e-30) *
@@ -56,86 +56,74 @@
 // layers) the int8 weights alone are 1.21 GB (trunk) + 0.43 GB (xattn):
 // about 0.49 ms. The w8a8 mode reads the same bytes: the same bound.
 //
-// Design (the simple version: right first). One persistent cooperative
-// grid (at most 2 blocks of 8 warps per SM, fixed by the occupancy
-// calculator) runs the layer loop that the TPU ran as its sequential grid;
-// a grid-wide barrier separates the ten phases of a layer:
+// Two kernels, chosen by mode alone (fmt_decode_megakernel): the
+// weight-only mode runs decode_megakernel_sm90.cuh (TMA weight ring,
+// wgmma, its own grid barrier; its note says what bounds it and what the
+// design does about it); the w8a8 mode runs decode_megakernel below. Each
+// raises through its error code; neither gives way to the other.
+//
+// The w8a8 kernel (the simple version: right first). One persistent
+// cooperative grid (at most 2 blocks of 8 warps per SM, fixed by the
+// occupancy calculator) runs the layer loop that the TPU ran as its
+// sequential grid; a grid-wide barrier separates the ten phases of a layer:
 //
 //   LN+to_q | xattn | to_out+gate | LN+fc1+GELU | fc2+gate |
 //   LN1+qkv+K/V write | attention | c_proj+residual | LN2+fc+act |
 //   mlp_proj+residual
 //
 // * Linears: a block owns 8 output columns at a time (one mma n-tile); its
-//   8 warps split K in 64-wide chunks and run mma.sync m16n8k16 (bf16 in,
-//   float32 accumulate) over 32-row groups of the batch, rows past b read
-//   as zeros and never stored. Each lane loads 16 contiguous int8 weights
-//   of one output column and converts them to bf16 in registers, so the
-//   weights are read once, 16 bytes a lane, and never widened in memory;
-//   the k order inside a 64-chunk is permuted identically for A and B,
-//   which a dot product does not see. The partial sums meet in shared
-//   memory and the owner of a column applies scale, bias, activation and
-//   the residual add, so no phase reads a column that another block writes
-//   in it. A phase after a LayerNorm walks the batch one 32-row group at a
-//   time: it normalises the group into shared memory (each working block
-//   redundantly: min(b, 32)*D*2 bytes, 64 KB at D=1024, 128 KB at D=2048),
-//   then runs its columns over that group. Shared memory so stays at
-//   73,728 bytes at D=1024 whatever the batch (2 blocks per SM) and at
-//   139,264 at D=2048 from 32 rows on (1 block per SM; 40,960 at b=8); the
-//   grid takes as many blocks per SM (at most 2) as the occupancy
-//   calculator grants for that size. The cost is one more block barrier per
-//   group and the block's weights re-read from L1/L2 for every group, which
-//   the other phases' group loop pays too. The others read their A operand
-//   through L2. fmt_decode_megakernel_smem states the shared memory a call
-//   needs without launching, so that the wrapper refuses a trunk too wide
-//   for the card before anything runs.
-// * w8a8 linears: the same tiling on mma.sync m16n8k32 (s8 x s8 -> s32):
-//   the 16 weights a lane loads feed the mma as they are, and the lane
-//   quantizes its 16 activations in registers with its row's 1/s. The
-//   warps' K-split partials of one slice are added in int32 in shared
-//   memory, so the owner casts the slice's whole sum to float32 once
+//   8 warps split K in 64-wide chunks and run mma.sync m16n8k32 (s8 x s8 ->
+//   s32) over 32-row groups of the batch, rows past b read as zeros and
+//   never stored. Each lane loads 16 contiguous int8 weights of one output
+//   column, which feed the mma as they are, and quantizes its 16
+//   activations in registers with its row's 1/s; the k order inside a
+//   64-chunk is permuted identically for A and B, which a dot product does
+//   not see. The warps' K-split partials of one slice are added in int32 in
+//   shared memory, so the owner casts the slice's whole sum to float32 once
 //   (__int2float_rn): the linear is bitwise the plain version's for the
 //   same inputs, also at D >= 2048 where the sum passes 2^24 and the cast
-//   rounds. Row scales need each row's amax before any product. The
-//   LayerNorm phases take it from the normalised group in shared memory
-//   (128 bytes more). The phases that read abuf / hbuf get it from their
-//   producer: the attention and the fc / fc1 epilogues reduce |bf16 value|
-//   over a head or an 8-column tile and atomicMax its bit pattern (a max of
-//   non-negative floats is exact in any order) into a per-(row, slice)
-//   word of `amax`, zeroed by the LN phase before; no barrier is added.
+//   rounds. The owner of a column applies scale, bias, activation and the
+//   residual add, so no phase reads a column that another block writes in
+//   it. A phase after a LayerNorm walks the batch one 32-row group at a
+//   time: it normalises the group into shared memory (each working block
+//   redundantly: min(b, 32)*D*2 bytes), then runs its columns over that
+//   group. fmt_decode_megakernel_smem states the shared memory a call needs
+//   without launching, so that the wrapper refuses a trunk too wide for
+//   the card before anything runs.
+// * Row scales need each row's amax before any product. The LayerNorm
+//   phases take it from the normalised group in shared memory (128 bytes
+//   more). The phases that read abuf / hbuf get it from their producer: the
+//   attention and the fc / fc1 epilogues reduce |bf16 value| over a head or
+//   an 8-column tile and atomicMax its bit pattern (a max of non-negative
+//   floats is exact in any order) into a per-(row, slice) word of `amax`,
+//   zeroed by the LN phase before; no barrier is added.
 // * Rows: nothing on the card grows with b but device memory and the LN
-//   stage; the kernel's
-//   32-bit element offsets into the (b, width) activation buffers are the
-//   one limit, b * max(2 * max(D, XI), max(Dff, Dffx)) < 2^31 (524,287 rows
-//   at flamingo-mini width, 262,143 at OPT-1.3B's), which the wrapper
-//   checks. Offsets into the weight and cache stacks are 64-bit.
+//   stage; the kernel's 32-bit element offsets into the (b, width)
+//   activation buffers are the one limit, b * max(2 * max(D, XI),
+//   max(Dff, Dffx)) < 2^31 (524,287 rows at flamingo-mini width, 262,143 at
+//   OPT-1.3B's), which the wrapper checks (for both kernels). Offsets into
+//   the weight and cache stacks are 64-bit.
 // * Attention (head dim 64): one warp per (row, head). Scores a lane per
 //   position into shared memory, the row's global max, then the V product
 //   over 4 positions at a time, 8 lanes x 8 dims each, in 16-byte loads.
-//   In the w8a8 mode the dot products, the softmax denominator and the V
-//   sums are summed in float64 (bf16 x bf16 products are exact) and
-//   rounded once: the order of the terms does not change them. The
-//   LayerNorm sums in float32 in an order its plain version repeats. So
-//   the w8a8 mode agrees with its plain version bit for bit, which its
-//   chaos needs: one activation rounded the other way can flip a
-//   quantized value and move the step by ~1e-2 normwise at 24 layers. The
-//   weight-only mode keeps float32 attention sums (its linears are float32
-//   sums in another order anyway). The two modes are two instantiations
-//   of the kernel, so that the weight-only one carries none of the w8a8
-//   code's registers.
-//   Masked positions are never loaded and contribute an exact 0, so stale
-//   or uninitialised cache rows cannot leak a NaN.
+//   The dot products, the softmax denominator and the V sums are summed in
+//   float64 (bf16 x bf16 products are exact) and rounded once: the order of
+//   the terms does not change them. The LayerNorm sums in float32 in an
+//   order its plain version repeats. So the w8a8 mode agrees with its plain
+//   version bit for bit, which its chaos needs: one activation rounded the
+//   other way can flip a quantized value and move the step by ~1e-2
+//   normwise at 24 layers. Masked positions are never loaded and contribute
+//   an exact 0, so stale or uninitialised cache rows cannot leak a NaN.
 // * Everything written inside the step (x, q, the K/V rows, h, amax) is
 //   read with plain coherent loads after a grid barrier; only weights use
 //   the read-only path.
 //
 // What holds it back (later work): about 240 grid barriers a step, weight
-// reads that are not prefetched across phases or layers (no TMA, no
-// cp.async ring), the A operand re-read through L2 for every 8 columns
-// (w8a8: and re-quantized by every block that reads it), and one warp
-// walking each attention row serially.
+// reads that are not prefetched across phases or layers, the A operand
+// re-read through L2 and re-quantized by every block that reads it for
+// every 8 columns, and one warp walking each attention row serially.
 #include <cfloat>
 #include <cstdint>
-#include <type_traits>
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -190,6 +178,13 @@ struct MegaArgs {
       t_lim, act, xact, kb, anc_len, act_quant;
   float attn_scale;              // dh^-0.5, applied to the scores
   float xq_scale;                // bf16(xdh^-0.5), applied to the xattn query
+  // the weight-only kernel's tile plan (ops/megadecode.py's plan,
+  // decode_megakernel_sm90.cuh); the w8a8 mode reads none of it
+  float* parts;                  // split-K partials, float32
+  unsigned* sync;                // the grid barrier's 64-bit arrival count, then per-tile counters
+  int split[8];                  // K-slices per 64-column tile: xq xo xf1 xf2 qkv o fc pr
+  int ring;                      // weight ring stages
+  int n_xattn;                   // layers with a gated xattn block
 };
 
 namespace {
@@ -282,14 +277,6 @@ __device__ __forceinline__ float activate(float v, int act) {
   return v > 0.f ? v : 0.f;  // ACT_RELU (NaN -> 0; the input is finite)
 }
 
-// two consecutive int8 weights -> packed bf16x2 (low half = lower k)
-__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t v) {
-  const float lo = static_cast<float>(static_cast<int8_t>(v & 0xffu));
-  const float hi = static_cast<float>(static_cast<int8_t>((v >> 8) & 0xffu));
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // pallas_megadecode.py's aquant: s = max(amax, 1e-30) * f32(1/127); every
 // step rounded as JAX's float32 ops are (no contraction)
 __device__ __forceinline__ float quant_scale(unsigned amax_bits) {
@@ -323,16 +310,6 @@ __device__ __forceinline__ void mma_s8(int* c, uint32_t a0, uint32_t a1, uint32_
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
@@ -479,72 +456,12 @@ __device__ void linear_w8a8(const bf16* A, const int8_t* __restrict__ W, int N, 
   }
 }
 
-// y[r][n] = sum_k A[r][k] W[n][k] for r < b, n < N, handed to the
-// epilogue by the column's owner as batch row row0 + r. A: (b, K) bf16,
-// shared or global memory; W: (N, K) int8. N % 8 == 0, K % 64 == 0.
-// q: null (weight-only) or the w8a8 quantization of A (linear_w8a8).
+// the w8a8 mode's linear (linear_w8a8) under the name its phases call; the
+// weight-only mode's linear is decode_megakernel_sm90.cuh's
 __device__ void linear(const bf16* A, const int8_t* __restrict__ W, int N, int K,
                        int b, const Epi& e, bf16* x, int D, float* red,
-                       int row0 = 0, const Quant* q = nullptr) {
-  if (q != nullptr) {
-    linear_w8a8(A, W, N, K, b, e, x, D, reinterpret_cast<int*>(red), row0, *q);
-    return;
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;   // mma groupID: A/C row, B column
-  const int t = lane & 3;    // mma thread-in-group
-  const int n_chunks = K / kKChunk;
-  for (int unit = blockIdx.x; unit < N / 8; unit += gridDim.x) {
-    const int n0 = unit * 8;
-    const int8_t* wrow = W + static_cast<long long>(n0 + g) * K + 16 * t;
-    for (int b0 = 0; b0 < b; b0 += kGroupRows) {
-      float acc[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mt][i] = 0.f;
-      // lane (g, t) holds k = k0 + 16t + 4j + {0,1} in the mma's k-slots
-      // {2t, 2t+1} of step j, and k0 + 16t + 4j + {2,3} in {2t+8, 2t+9},
-      // for A and B alike
-#pragma unroll 2
-      for (int c = warp; c < n_chunks; c += kWarps) {
-        const int k0 = c * kKChunk;
-        const uint4 wv = __ldg(reinterpret_cast<const uint4*>(wrow + k0));
-        const uint32_t wq[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const int r0 = b0 + mt * 16 + g;
-          uint32_t a_lo[8], a_hi[8];
-          load_a(A + static_cast<long long>(r0) * K + k0 + 16 * t, r0 < b, a_lo);
-          load_a(A + static_cast<long long>(r0 + 8) * K + k0 + 16 * t, r0 + 8 < b,
-                 a_hi);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            mma_bf16(acc[mt], a_lo[2 * j], a_hi[2 * j], a_lo[2 * j + 1],
-                     a_hi[2 * j + 1], i8x2_to_bf16x2(wq[j] & 0xffffu),
-                     i8x2_to_bf16x2(wq[j] >> 16));
-          }
-        }
-      }
-      // C fragment: acc[mt][2h + i] is row mt*16 + g + 8h, column 2t + i
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          red[(warp * kGroupRows + mt * 16 + g + 8 * (i >> 1)) * 8 + 2 * t + (i & 1)] =
-              acc[mt][i];
-      __syncthreads();
-      {
-        const int row = threadIdx.x >> 3;  // kThreads == kGroupRows * 8
-        const int col = threadIdx.x & 7;
-        float s = 0.f;
-        for (int w = 0; w < kWarps; ++w) s += red[(w * kGroupRows + row) * 8 + col];
-        finish(e, x, D, row0 + b0 + row, b0 + row < b, n0, col, s);
-      }
-      __syncthreads();
-    }
-  }
+                       int row0, const Quant* q) {
+  linear_w8a8(A, W, N, K, b, e, x, D, reinterpret_cast<int*>(red), row0, *q);
 }
 
 // LayerNorm (float32 statistics, eps 1e-5) of every row of x into shared
@@ -593,23 +510,21 @@ __device__ __host__ __forceinline__ int ln_stage_bytes(const MegaArgs& a) {
 
 // LN of the stream, then a linear from it (K = D), one 32-row group at a
 // time (the epilogues of these phases never write x); blocks without
-// columns to own skip both. w8a8 (kQuant): column form, each row's amax
-// from the normalised group (smem: stage | red | rowmax)
-template <bool kQuant>
+// columns to own skip both. Column form, each row's amax from the
+// normalised group (smem: stage | red | rowmax)
 __device__ void ln_linear(const MegaArgs& a, const float* s, const float* bias,
                           const int8_t* W, int N, const Epi& e, char* smem) {
   if (static_cast<int>(blockIdx.x) >= N / 8) return;
   bf16* sA = reinterpret_cast<bf16*>(smem);
   float* red = reinterpret_cast<float*>(smem + ln_stage_bytes(a));
-  unsigned* rowmax = kQuant
-      ? reinterpret_cast<unsigned*>(smem + ln_stage_bytes(a) + kRedBytes) : nullptr;
+  unsigned* rowmax = reinterpret_cast<unsigned*>(smem + ln_stage_bytes(a) + kRedBytes);
   const Quant q{rowmax, 1, a.D, false};
   for (int b0 = 0; b0 < a.b; b0 += kGroupRows) {
     const int rows = min(kGroupRows, a.b - b0);
     layer_norm_rows(a.x + static_cast<long long>(b0) * a.D, s, bias, sA, rows, a.D,
                     rowmax);
     __syncthreads();
-    linear(sA, W, N, a.D, rows, e, a.x, a.D, red, b0, kQuant ? &q : nullptr);
+    linear(sA, W, N, a.D, rows, e, a.x, a.D, red, b0, &q);
     __syncthreads();  // sA is rewritten by the next group
   }
 }
@@ -626,15 +541,14 @@ __device__ void ln_linear(const MegaArgs& a, const float* s, const float* bias,
 // weight is exactly 0), unless the range is empty: then every weight is 1,
 // as the reference's all-masked softmax has, over t < t_lim of the row, or
 // in beam mode of every family row.
-// amax (w8a8, or null): each row's max |bf16 output| noted at amax[row].
-// kQuant (the w8a8 instantiation): the dot products, the denominator and
-// the V sums in float64, rounded once (see the source note); else in
-// float32 with contraction, as in the weight-only mode from the start.
-template <bool kQuant>
+// amax: each row's max |bf16 output| noted at amax[row]. The dot
+// products, the denominator and the V sums in float64, rounded once (see
+// the source note). (The weight-only mode's attention is
+// decode_megakernel_sm90.cuh's `attend`.)
 __device__ void attention(const MegaArgs& a, const bf16* q, int ld, const bf16* K,
                           const bf16* V, int n_head, int t_lim, float scale,
                           bool xattn, bf16* out, float* smem, unsigned* amax) {
-  typedef typename std::conditional<kQuant, double, float>::type Acc;
+  typedef double Acc;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   float* qs = smem + warp * att_stride(a);
@@ -678,38 +592,22 @@ __device__ void attention(const MegaArgs& a, const bf16* q, int ld, const bf16* 
         uint4 kv[kHeadDim / 8];
 #pragma unroll
         for (int i = 0; i < kHeadDim / 8; ++i) kv[i] = kp[i];
-        if constexpr (kQuant) {
-          // bf16 x bf16 products are exact in float32 and their sum exact
-          // in float64: the score is the exact dot rounded once, in any
-          // order (four chains)
-          double dot[4] = {0.0, 0.0, 0.0, 0.0};
+        // bf16 x bf16 products are exact in float32 and their sum exact
+        // in float64: the score is the exact dot rounded once, in any
+        // order (four chains)
+        double dot[4] = {0.0, 0.0, 0.0, 0.0};
 #pragma unroll
-          for (int i = 0; i < kHeadDim / 8; ++i) {
-            const uint32_t w[4] = {kv[i].x, kv[i].y, kv[i].z, kv[i].w};
+        for (int i = 0; i < kHeadDim / 8; ++i) {
+          const uint32_t w[4] = {kv[i].x, kv[i].y, kv[i].z, kv[i].w};
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const float2 f =
-                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
-              dot[j] += static_cast<double>(__fmul_rn(qs[8 * i + 2 * j], f.x));
-              dot[j] += static_cast<double>(__fmul_rn(qs[8 * i + 2 * j + 1], f.y));
-            }
+          for (int j = 0; j < 4; ++j) {
+            const float2 f =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+            dot[j] += static_cast<double>(__fmul_rn(qs[8 * i + 2 * j], f.x));
+            dot[j] += static_cast<double>(__fmul_rn(qs[8 * i + 2 * j + 1], f.y));
           }
-          s = __fmul_rn(__double2float_rn((dot[0] + dot[1]) + (dot[2] + dot[3])), scale);
-        } else {
-          float dot = 0.f;
-#pragma unroll
-          for (int i = 0; i < kHeadDim / 8; ++i) {
-            const uint32_t w[4] = {kv[i].x, kv[i].y, kv[i].z, kv[i].w};
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const float2 f =
-                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
-              dot += qs[8 * i + 2 * j] * f.x;
-              dot += qs[8 * i + 2 * j + 1] * f.y;
-            }
-          }
-          s = dot * scale;
         }
+        s = __fmul_rn(__double2float_rn((dot[0] + dot[1]) + (dot[2] + dot[3])), scale);
         if (xattn) s = rbf(s);
       }
       sc[t] = s;
@@ -733,7 +631,7 @@ __device__ void attention(const MegaArgs& a, const bf16* q, int ld, const bf16* 
     const bool zero = xattn && a.text_time[row] == 0;
     const int grp = lane >> 3;
     const int dim = (lane & 7) * 8;
-    Acc acc[8];  // kQuant: bf16 x bf16 products, exact, summed in float64
+    Acc acc[8];  // bf16 x bf16 products, exact, summed in float64
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[i] = 0;
     // walk u in [u0, u1]: slot t = u of row phys(t), or, spread, slot
@@ -753,13 +651,8 @@ __device__ void attention(const MegaArgs& a, const bf16* q, int ld, const bf16* 
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
-          if constexpr (kQuant) {
-            acc[2 * j] += static_cast<double>(__fmul_rn(p, f.x));
-            acc[2 * j + 1] += static_cast<double>(__fmul_rn(p, f.y));
-          } else {
-            acc[2 * j] += p * f.x;
-            acc[2 * j + 1] += p * f.y;
-          }
+          acc[2 * j] += static_cast<double>(__fmul_rn(p, f.x));
+          acc[2 * j + 1] += static_cast<double>(__fmul_rn(p, f.y));
         }
       }
     }
@@ -789,9 +682,8 @@ __device__ void attention(const MegaArgs& a, const bf16* q, int ld, const bf16* 
   }
 }
 
-// kQuant: the w8a8 mode (a.act_quant), its own instantiation so that the
-// weight-only mode's register allocation does not carry its code
-template <bool kQuant>
+// The w8a8 mode (a.act_quant); the weight-only mode is
+// decode_megakernel_sm90.cuh's kernel
 __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSm)
 decode_megakernel(const MegaArgs a) {
   cg::grid_group grid = cg::this_grid();
@@ -808,16 +700,15 @@ decode_megakernel(const MegaArgs a) {
   // the one slice of a row-form input at most D wide) and of hbuf (nsH
   // D-wide slices per row); null in the weight-only mode
   const int nsH = (max(a.Dff, a.Dffx) + D - 1) / D;
-  unsigned* amax_a = kQuant ? a.amax : nullptr;
-  unsigned* amax_h = kQuant ? a.amax + a.b : nullptr;
+  unsigned* amax_a = a.amax;
+  unsigned* amax_h = a.amax + a.b;
   const Quant q_o{amax_a, 1, D, false};   // c_proj: column form, K = D
   const Quant q_xo{amax_a, 1, D, true};   // to_out: row form, K = XI
   const Quant q_h{amax_h, nsH, D, true};  // fc2 / mlp_proj: row form, K = Dff(x)
   // the LN phases zero the amax words that the next two phases fill: every
   // reader of the previous fill is behind a grid barrier
   auto zero_amax = [&]() {
-    if (kQuant)
-      for (int i = tid; i < a.b * (1 + nsH); i += n_threads) a.amax[i] = 0u;
+    for (int i = tid; i < a.b * (1 + nsH); i += n_threads) a.amax[i] = 0u;
   };
 
   for (int i = tid; i < a.b * D; i += n_threads) a.x[i] = a.x_emb[i];
@@ -834,27 +725,27 @@ decode_megakernel(const MegaArgs a) {
       e.kind = EPI_XQ; e.scale = a.s_xq + xs * a.XI; e.out = qbuf; e.ld = a.XI;
       e.mul = a.xq_scale;
       zero_amax();
-      ln_linear<kQuant>(a, a.xn_s + xs * D, a.xn_b + xs * D, a.w_xq + xs * DX, a.XI, e,
+      ln_linear(a, a.xn_s + xs * D, a.xn_b + xs * D, a.w_xq + xs * DX, a.XI, e,
                         smem);
       grid.sync();
-      attention<kQuant>(a, qbuf, a.XI, xk, xv, a.x_heads, a.NMNV, 1.f, true, abuf,
+      attention(a, qbuf, a.XI, xk, xv, a.x_heads, a.NMNV, 1.f, true, abuf,
                 reinterpret_cast<float*>(smem), amax_a);
       grid.sync();
       e = Epi{};
       e.kind = EPI_GATED; e.scale = a.s_xo + xs * D; e.mul = a.gates[2 * xs];
       linear(abuf, a.w_xo + xs * DX, D, a.XI, a.b, e, a.x, D, red, 0,
-             kQuant ? &q_xo : nullptr);
+             &q_xo);
       grid.sync();
       e = Epi{};
       e.kind = EPI_STORE; e.scale = a.s_xf1 + xs * a.Dffx; e.out = hbuf; e.ld = a.Dffx;
       e.act = a.xact; e.amax = amax_h; e.amax_ld = nsH; e.amax_width = D;
-      ln_linear<kQuant>(a, a.xfn_s + xs * D, a.xfn_b + xs * D, a.w_xf1 + xs * DF, a.Dffx,
+      ln_linear(a, a.xfn_s + xs * D, a.xfn_b + xs * D, a.w_xf1 + xs * DF, a.Dffx,
                         e, smem);
       grid.sync();
       e = Epi{};
       e.kind = EPI_GATED; e.scale = a.s_xf2 + xs * D; e.mul = a.gates[2 * xs + 1];
       linear(hbuf, a.w_xf2 + xs * DF, D, a.Dffx, a.b, e, a.x, D, red, 0,
-             kQuant ? &q_h : nullptr);
+             &q_h);
       grid.sync();
       ++xs;
     }
@@ -867,50 +758,57 @@ decode_megakernel(const MegaArgs a) {
     e.kind = EPI_QKV; e.scale = a.s_qkv + l * 3 * D; e.bias = a.b_qkv + l * 3 * D;
     e.q = qbuf; e.krow = krow; e.vrow = vrow;
     zero_amax();
-    ln_linear<kQuant>(a, a.ln1_s + l * D, a.ln1_b + l * D, a.w_qkv + 3 * l * DD, 3 * D, e,
+    ln_linear(a, a.ln1_s + l * D, a.ln1_b + l * D, a.w_qkv + 3 * l * DD, 3 * D, e,
                       smem);
     grid.sync();
-    attention<kQuant>(a, qbuf, D, a.kc + static_cast<long long>(l) * a.T * slab,
+    attention(a, qbuf, D, a.kc + static_cast<long long>(l) * a.T * slab,
               a.vc + static_cast<long long>(l) * a.T * slab, a.n_head, a.t_lim,
               a.attn_scale, false, abuf, reinterpret_cast<float*>(smem), amax_a);
     grid.sync();
     e = Epi{};
     e.kind = EPI_RESID; e.scale = a.s_o + l * D; e.bias = a.b_o + l * D;
-    linear(abuf, a.w_o + l * DD, D, D, a.b, e, a.x, D, red, 0, kQuant ? &q_o : nullptr);
+    linear(abuf, a.w_o + l * DD, D, D, a.b, e, a.x, D, red, 0, &q_o);
     grid.sync();
     e = Epi{};
     e.kind = EPI_STORE; e.scale = a.s_fc + l * a.Dff; e.bias = a.b_fc + l * a.Dff;
     e.out = hbuf; e.ld = a.Dff; e.act = a.act;
     e.amax = amax_h; e.amax_ld = nsH; e.amax_width = D;
-    ln_linear<kQuant>(a, a.ln2_s + l * D, a.ln2_b + l * D, a.w_fc + l * DF, a.Dff, e,
+    ln_linear(a, a.ln2_s + l * D, a.ln2_b + l * D, a.w_fc + l * DF, a.Dff, e,
                       smem);
     grid.sync();
     e = Epi{};
     e.kind = EPI_RESID; e.scale = a.s_pr + l * D; e.bias = a.b_pr + l * D;
     linear(hbuf, a.w_pr + l * DF, D, a.Dff, a.b, e, a.x, D, red, 0,
-           kQuant ? &q_h : nullptr);
+           &q_h);
     grid.sync();
   }
 }
 
-// the dynamic shared memory of a launch: the larger of an LN phase's (the
-// staged group, the reduction buffer and, w8a8, the group's amax words)
-// and an attention phase's; it depends on b, D, t_lim, NMNV and act_quant
+}  // namespace
+
+#include "decode_megakernel_sm90.cuh"
+
+namespace {
+
+// the dynamic shared memory of a launch: w8a8, the larger of an LN phase's
+// (the staged group, the reduction buffer and the group's amax words) and
+// an attention phase's (b, D, t_lim, NMNV); weight-only,
+// decode_megakernel_sm90.cuh's layout (the plan's fields too)
 size_t smem_bytes(const MegaArgs& a) {
-  const size_t ln = static_cast<size_t>(ln_stage_bytes(a)) + kRedBytes +
-                    (a.act_quant ? kRowMaxBytes : 0);
+  if (!a.act_quant) return static_cast<size_t>(mk90::layout(a).bytes);
+  const size_t ln = static_cast<size_t>(ln_stage_bytes(a)) + kRedBytes + kRowMaxBytes;
   const size_t att = static_cast<size_t>(kWarps) * att_stride(a) * 4;
   return ln > att ? ln : att;
 }
 
-const void* kernel_for(const MegaArgs& a) {
-  return a.act_quant ? reinterpret_cast<const void*>(decode_megakernel<true>)
-                     : reinterpret_cast<const void*>(decode_megakernel<false>);
+const void* kernel_for(const MegaArgs&) {
+  return reinterpret_cast<const void*>(decode_megakernel);
 }
 
 // blocks of the cooperative grid, or 0 if the kernel cannot be co-resident
 cudaError_t grid_size(const MegaArgs& a, int* blocks, size_t* smem) {
   *smem = smem_bytes(a);
+  if (!a.act_quant) return mk90::grid_size(a, blocks);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -930,7 +828,10 @@ cudaError_t grid_size(const MegaArgs& a, int* blocks, size_t* smem) {
 
 }  // namespace
 
+// weight-only: decode_megakernel_sm90.cuh; w8a8: decode_megakernel.
+// Either raises through its error code; neither gives way to the other.
 extern "C" int fmt_decode_megakernel(const MegaArgs* args, void* stream) {
+  if (!args->act_quant) return static_cast<int>(mk90::launch(*args, stream));
   int blocks = 0;
   size_t smem = 0;
   cudaError_t err = grid_size(*args, &blocks, &smem);
@@ -954,8 +855,8 @@ extern "C" int fmt_decode_megakernel_grid(const MegaArgs* args, int* blocks,
 }
 
 // the dynamic shared memory a launch with these arguments needs, in bytes:
-// read only b, D, t_lim, NMNV and act_quant; launches nothing and sets no
-// attribute (the wrapper compares it with the card's opt-in limit)
+// reads the shapes, act_quant and the weight-only plan; launches nothing and
+// sets no attribute (the wrapper compares it with the card's opt-in limit)
 extern "C" int fmt_decode_megakernel_smem(const MegaArgs* args) {
   return static_cast<int>(smem_bytes(*args));
 }
@@ -998,6 +899,24 @@ extern "C" int fmt_w8a8_linear(const void* A, const void* W, const float* scale,
   w8a8_linear_kernel<<<min(N / 8, 1024), kThreads, kRedBytes, st>>>(
       static_cast<const bf16*>(A), static_cast<const int8_t*>(W), e, N, K, b, q);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The weight-only kernel's grid barrier alone (for a card test): `phases`
+// barriers on `sync` (two words, zeroed, left zeroed), every block writing
+// a stamp into `slots` (2 x blocks words) before each and reading every
+// block's back after it; mismatches counted into *errors. One block per SM
+// of the megakernel's shape, launched cooperatively.
+extern "C" int fmt_grid_sync_test(unsigned* sync, unsigned* slots, unsigned* errors,
+                                  int phases, void* stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* params[] = {&sync, &slots, &errors, &phases};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(mk90::grid_sync_test_kernel),
+                                    dim3(sms), dim3(mk90::kThreads), params, 0,
+                                    static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // sizeof(MegaArgs): the wrapper checks its ctypes structure against it

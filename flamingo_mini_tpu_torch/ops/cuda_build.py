@@ -44,6 +44,8 @@ SIGNATURES = {
     "fmt_decode_megakernel_args_size": [],
     # &MegaArgs -> dynamic shared memory bytes (launches nothing)
     "fmt_decode_megakernel_smem": [_P],
+    # sync, slots, errors, phases, stream (the weight-only kernel's barrier)
+    "fmt_grid_sync_test": [_P, _P, _P, _I, _P],
     # A, W, scale, bias, out, amax, b, N, K, slice, rows_form, stream
     "fmt_w8a8_linear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, acc, partial, out, n_rows, n_blocks, steps, stream

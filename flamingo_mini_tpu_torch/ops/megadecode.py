@@ -13,7 +13,10 @@ it on the card and how the design answers that.
 
 ``decode_step_megakernel`` launches the kernel for CUDA tensors and runs
 ``decode_step_megakernel_plain`` for CPU tensors; nothing else picks the
-path. Both compute, per layer, the gated xattn block (where the layer has
+path. The weight-only mode runs ``csrc/decode_megakernel_sm90.cuh`` (TMA
+weight ring, ``wgmma``, split-K with a fixed-order combine), whose tile plan
+``plan`` computes here from the shapes; the w8a8 mode runs the entry file's
+own body. Both compute, per layer, the gated xattn block (where the layer has
 one) and the pre-norm decoder block with these roundings
 (``pallas_megadecode.py``'s kernel body):
 
@@ -29,7 +32,8 @@ one) and the pre-norm decoder block with these roundings
   slice of its input with its own scale and adds the scaled float32
   partials in slice order (``_lin_w8a8``);
 * LayerNorm with float32 statistics, eps fixed at 1e-5, summed in the
-  CUDA kernel's order (``_layer_norm``); with ``act_quant`` the
+  CUDA kernel's order (``_layer_norm``: the w8a8 kernel's lane-strided
+  order, or the weight-only kernel's 8-element units); with ``act_quant`` the
   attention's dot products, softmax denominators and V sums are taken in
   float64 and rounded once, sums whose order does not matter: the w8a8
   mode of the kernel and of this version agree bit for bit (one
@@ -73,6 +77,21 @@ NEG = float(torch.finfo(torch.float32).min)
 HEAD_DIM = 64       # the CUDA kernel's attention head dim (self and cross)
 K_CHUNK = 64        # the CUDA kernel's K step: every d_in is a multiple
 INDEX_LIMIT = 2 ** 31 - 1   # the CUDA kernel's element offsets are 32-bit ints
+# the weight-only kernel (decode_megakernel_sm90.cuh): its linears in the
+# order of MegaArgs.split, 4 KB weight chunks (64 columns x 64 k) through a
+# ring of RING_STAGES, the wgmma N of a pass over up to ROW_GROUP rows, and
+# the shared memory a K-slice's staged activations may take
+LINEARS = ("xq", "xo", "xf1", "xf2", "qkv", "o", "fc", "pr")
+RING_STAGES = 8
+ROW_GROUP = 64
+WGMMA_N = (8, 16, 24, 32, 48, 64)
+GROUPS = 4          # consumer warpgroups; 16 consumer warps
+MAX_D = 4096        # the widest row its LayerNorm statistics hold in registers
+STAGE_BUDGET = 128 * 1024
+MAX_RING = 32       # the kernel's barrier slots
+ITEM_COST = 16      # choose_split's model: an item's fixed cost, in chunks
+SPLIT_COST = 10     # and a split tile's combine
+N_SMS = 132         # an H100 SXM's SMs: the plan's grid where no card is asked
 # activation name -> the kernel's code; "gelu" is the rational-erf GELU
 ACT_CODES = {"gelu_new": 0, "gelu": 1, "gelu_erf": 1, "relu": 2}
 
@@ -308,16 +327,37 @@ def _warp_sum(t: torch.Tensor) -> torch.Tensor:
     return s[:, :1]
 
 
+def _warp_sum_units(t: torch.Tensor) -> torch.Tensor:
+    """(rows, D) float32 -> (rows, 1): the weight-only kernel's order of a
+    row sum (``ln_stats`` in decode_megakernel_sm90.cuh), one warp per
+    row: lane l adds the 8-element units l, l + 32, ... of the row, unit by
+    unit, element by element from 0, then the lanes meet in an xor
+    butterfly (16, 8, 4, 2, 1). A lane past the row's last unit adds
+    nothing (here: zeros)."""
+    rows, D = t.shape
+    n = -(-D // 256)
+    lanes = torch.nn.functional.pad(t, (0, n * 256 - D)).reshape(rows, n, 32, 8)
+    s = torch.zeros_like(lanes[:, 0, :, 0])
+    for v in range(n):
+        for j in range(8):
+            s = s + lanes[:, v, :, j]
+    idx = torch.arange(32, device=t.device)
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[:, idx ^ o]
+    return s[:, :1]
+
+
 def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                eps: float = 1e-5) -> torch.Tensor:
-    """``layers.layer_norm`` with its statistics summed in the kernel's
-    order (``_warp_sum``), every step one float32 op: the kernel's
+                eps: float = 1e-5, warp_sum=_warp_sum) -> torch.Tensor:
+    """``layers.layer_norm`` with its statistics summed in a kernel's order
+    (``_warp_sum``: the w8a8 kernel's; ``_warp_sum_units``: the
+    weight-only kernel's), every step one float32 op: the kernel's
     LayerNorm, bit for bit where rsqrt rounds alike. x: (rows, D)."""
     x32 = x.float()
     D = x.shape[-1]
-    mean = _warp_sum(x32) / D
+    mean = warp_sum(x32) / D
     d = x32 - mean
-    var = _warp_sum(d * d) / D
+    var = warp_sum(d * d) / D
     y = d * torch.rsqrt(var + eps)
     return (y * scale + bias).to(x.dtype)
 
@@ -361,24 +401,27 @@ def decode_step_megakernel_plain(packed: Params, xk, xv, kc, vc, x_emb, npad,
     else:
         def lin(x, w, s, b=None, rows=False):
             return _lin(x, w, s, b)
+
+    def ln(x, scale, bias):
+        return _layer_norm(x, scale, bias, warp_sum=_warp_sum if act_quant else _warp_sum_units)
     acc = torch.float64 if act_quant else torch.float32
     P = packed
     x = x_emb
     for l in range(L):
         if l in P["xlayers"]:
             i = P["xlayers"].index(l)
-            q = lin(_layer_norm(x, P["xn_s"][i], P["xn_b"][i]),
+            q = lin(ln(x, P["xn_s"][i], P["xn_b"][i]),
                     P["w_xq"][i], P["s_xq"][i]) * xq_scale
             att = _cross_attention(q, xk[l], xv[l], text_time,
                                    n_visual=config.resampler_num_latents,
                                    heads=config.xattn_heads, acc_dtype=acc)
             xo = lin(att, P["w_xo"][i], P["s_xo"][i], rows=True)
             x = x + (P["gates"][i, 0] * xo.float()).to(torch.bfloat16)
-            h = _layer_norm(x, P["xfn_s"][i], P["xfn_b"][i])
+            h = ln(x, P["xfn_s"][i], P["xfn_b"][i])
             h = xact(lin(h, P["w_xf1"][i], P["s_xf1"][i]))
             xf = lin(h, P["w_xf2"][i], P["s_xf2"][i], rows=True)
             x = x + (P["gates"][i, 1] * xf.float()).to(torch.bfloat16)
-        h = _layer_norm(x, P["ln1_s"][l], P["ln1_b"][l])
+        h = ln(x, P["ln1_s"][l], P["ln1_b"][l])
         q, k, v = lin(h, P["w_qkv"][l], P["s_qkv"][l], P["b_qkv"][l]).split(D, dim=-1)
         kc[l, cur] = k
         vc[l, cur] = v
@@ -392,10 +435,106 @@ def decode_step_megakernel_plain(packed: Params, xk, xv, kc, vc, x_emb, npad,
                 scale=(D // H) ** -0.5, kb=beam_anc.shape[1], kv_limit=t_lim,
                 acc_dtype=acc)
         x = x + lin(att, P["w_o"][l], P["s_o"][l], P["b_o"][l])
-        h = _layer_norm(x, P["ln2_s"][l], P["ln2_b"][l])
+        h = ln(x, P["ln2_s"][l], P["ln2_b"][l])
         h = act(lin(h, P["w_fc"][l], P["s_fc"][l], P["b_fc"][l]))
         x = x + lin(h, P["w_pr"][l], P["s_pr"][l], P["b_pr"][l], rows=True)
     return x
+
+
+# ---------------------------------------------------------------------------
+# the weight-only kernel's tile plan
+# ---------------------------------------------------------------------------
+
+
+def linear_shapes(D: int, Dff: int, XI: int, Dffx: int) -> Dict[str, Tuple[int, int]]:
+    """{linear: (output columns, K)} in the kernel's order (``LINEARS``)."""
+    return {"xq": (XI, D), "xo": (D, XI), "xf1": (Dffx, D), "xf2": (D, Dffx),
+            "qkv": (3 * D, D), "o": (D, D), "fc": (Dff, D), "pr": (D, Dff)}
+
+
+def wgmma_n(rows: int) -> int:
+    """The wgmma N of a pass over ``rows`` rows (at most ``ROW_GROUP``)."""
+    return next(n for n in WGMMA_N if n >= min(rows, ROW_GROUP))
+
+
+def choose_split(n_tiles: int, n_chunks: int, blocks: int, cap: int, rows: int) -> int:
+    """K-slices per 64-column tile: the fewest that bring the busiest
+    block's cost to its least, with no slice over ``cap`` chunks. In units
+    of one chunk's weights (calibrated on an H100 at flamingo-mini width,
+    b = 1 and 32): an item costs ``ITEM_COST`` (its staging and epilogue,
+    a few dependent trips to memory), a chunk 1 + rows / 32 (its weights,
+    and its activations staged), a split tile ``SPLIT_COST`` (the partial
+    written, the arrival, the last block's reads, one after another) plus
+    its partials' traffic (``rows`` x 64 floats a slice, written by each
+    round of its blocks and read by the last)."""
+    def cost(s):
+        rounds = -(-(n_tiles * s) // blocks)
+        return (rounds * (ITEM_COST + -(-n_chunks // s) * (1 + rows // 32))
+                + (s > 1) * (SPLIT_COST + rows * (s + 2 * rounds) // 32))
+
+    costs = {s: cost(s) for s in range(1, n_chunks + 1) if -(-n_chunks // s) <= cap}
+    if not costs:
+        raise ValueError(f"decode_step_megakernel: no K-slice of {n_chunks} chunks "
+                         f"fits {cap} chunks")
+    return min(costs, key=lambda s: (costs[s], s))
+
+
+def slice_chunks(slice_: int, s: int, n_chunks: int) -> Tuple[int, int]:
+    """(first chunk, chunks) of K-slice ``slice_`` of ``s``: the kernel's
+    ``slice_chunks``."""
+    c0 = slice_ * n_chunks // s
+    return c0, (slice_ + 1) * n_chunks // s - c0
+
+
+def plan(rows: int, D: int, Dff: int, XI: int, Dffx: int, *, n_xattn: int,
+         blocks: int = N_SMS, ring: int = RING_STAGES) -> Dict[str, Any]:
+    """The weight-only kernel's tile plan for ``rows`` batch rows over a
+    grid of ``blocks`` (one per SM): each linear's K-slices (``split``), the
+    ring, the row groups and their wgmma N (``n0`` for the first, the
+    widest), the float32 partials and the per-tile counters the call needs.
+    A slice's staged activations (``n0`` rows x 128 bytes per chunk) stay
+    within ``STAGE_BUDGET``; past one row group a slice's chunks also stay
+    within the ring, which holds them for every group."""
+    if D > MAX_D:
+        raise ValueError(f"decode_step_megakernel: the weight-only kernel's LayerNorm "
+                         f"holds a row of at most {MAX_D} in registers, got D={D}")
+    n0 = wgmma_n(rows)
+    n_rg = -(-rows // ROW_GROUP)
+    cap = STAGE_BUDGET // (n0 * 128)
+    if n_rg > 1:
+        cap = min(cap, ring)
+    split, parts, counters = [], 1, 0
+    for name in LINEARS:
+        n_out, K = linear_shapes(D, Dff, XI, Dffx)[name]
+        n_tiles, n_chunks = n_out // K_CHUNK, K // K_CHUNK
+        s = choose_split(n_tiles, n_chunks, blocks, cap, min(rows, ROW_GROUP))
+        split.append(s)
+        counters = max(counters, n_rg * n_tiles)
+        if s > 1:
+            parts = max(parts, n_rg * n_tiles * s * K_CHUNK * n0)
+    return dict(split=split, ring=ring, n0=n0, n_rg=n_rg, n_xattn=n_xattn,
+                parts_floats=parts, sync_words=2 + counters)
+
+
+def max_chunks(p: Dict[str, Any], D: int, Dff: int, XI: int, Dffx: int) -> int:
+    """The most chunks of one item over the linears the schedule runs."""
+    shapes = linear_shapes(D, Dff, XI, Dffx)
+    names = LINEARS if p["n_xattn"] else LINEARS[4:]
+    return max(-(-(shapes[n][1] // K_CHUNK) // p["split"][LINEARS.index(n)]) for n in names)
+
+
+def plan_smem_bytes(p: Dict[str, Any], D: int, Dff: int, XI: int, Dffx: int,
+                    t_lim: int, n_media: int) -> int:
+    """``fmt_decode_megakernel_smem`` for the weight-only kernel (its
+    ``layout``): 1024 bytes of alignment, the ring, the union of the staged
+    B tiles, the warpgroups' reduction and the attention scratch, the row
+    group's statistics, the barriers, a flag."""
+    n0 = p["n0"]
+    warps = 4 * GROUPS
+    att = (4 * max(t_lim, n_media) + warps * 4 * HEAD_DIM + 2 * warps * 4) * 4
+    uni = max(n0 * 128 * max_chunks(p, D, Dff, XI, Dffx), (GROUPS - 1) * n0 * 256, att)
+    return 1024 + p["ring"] * 4096 + ((uni + 1023) & ~1023) + ROW_GROUP * 8 \
+        + 2 * MAX_RING * 8 + 16
 
 
 # ---------------------------------------------------------------------------
@@ -418,7 +557,36 @@ class _Args(ctypes.Structure):
 
     _fields_ = ([(n, ctypes.c_void_p) for n in _POINTERS + _CALL_POINTERS]
                 + [(n, ctypes.c_int) for n in _INTS]
-                + [("attn_scale", ctypes.c_float), ("xq_scale", ctypes.c_float)])
+                + [("attn_scale", ctypes.c_float), ("xq_scale", ctypes.c_float),
+                   ("parts", ctypes.c_void_p), ("sync", ctypes.c_void_p),
+                   ("split", ctypes.c_int * len(LINEARS)), ("ring", ctypes.c_int),
+                   ("n_xattn", ctypes.c_int)])
+
+
+_SYNC: Dict[torch.device, torch.Tensor] = {}
+
+
+def _sync_words(device: torch.device, n: int) -> torch.Tensor:
+    """The weight-only kernel's grid barrier count (a 64-bit count of
+    arrivals that only grows, a multiple of the grid after every launch) and
+    per-tile counters (left zeroed) on ``device``: zeroed once, so one
+    buffer serves every launch on the device (launches on one stream, one
+    after another, as the decode loop makes them)."""
+    t = _SYNC.get(device)
+    if t is None or t.numel() < n:
+        t = _SYNC[device] = torch.zeros(n, dtype=torch.int32, device=device)
+    return t
+
+
+def _plan_args(args: _Args, p: Dict[str, Any]) -> None:
+    args.split[:] = p["split"]
+    args.ring = p["ring"]
+    args.n_xattn = p["n_xattn"]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -447,10 +615,12 @@ def _check_anc(beam_anc: torch.Tensor, b: int) -> None:
 
 
 def max_rows(packed: Params, config) -> int:
-    """The most batch rows the CUDA kernel's offsets take: its offsets into
-    the (rows, width) activation buffers are 32-bit ints (module docstring
-    of csrc/decode_megakernel.cu). Its shared memory grows with the rows up
-    to 32 and is checked apart (``refuse_unless_fits``)."""
+    """The most batch rows the CUDA kernels' offsets take: their offsets
+    into the (rows, width) activation buffers are 32-bit ints (module
+    docstring of csrc/decode_megakernel.cu). Their shared memory is checked
+    apart (``refuse_unless_fits``): the w8a8 kernel's grows with the rows up
+    to 32, the weight-only kernel's with the rows of a pass up to
+    ``ROW_GROUP`` and with D."""
     D, Dff, _L, _H = trunk_dims(config.lm_arch)
     XI = config.xattn_heads * config.xattn_dim_head
     Dffx = packed["w_xf1"].shape[1]
@@ -470,7 +640,8 @@ def refuse_unless_fits(rows: int, need: int, limit: int) -> None:
 
 def _smem_need(args: _Args) -> int:
     """The kernel's own shared-memory formula for these arguments (the
-    CUDA source keeps the only copy)."""
+    CUDA source's; ``plan_smem_bytes`` mirrors the weight-only kernel's for
+    the CPU tests)."""
     return int(_checked_lib().fmt_decode_megakernel_smem(ctypes.addressof(args)))
 
 
@@ -487,9 +658,14 @@ def check_fits(config, rows: int, t_lim: int, n_media_latents: int, *,
     device = torch.device(device)
     if device.type != "cuda":
         return
-    D, _Dff, _L, _H = trunk_dims(config.lm_arch)
-    args = _Args(b=rows, D=D, t_lim=t_lim, NMNV=n_media_latents,
-                 act_quant=int(act_quant))
+    D, Dff, _L, _H = trunk_dims(config.lm_arch)
+    XI = config.xattn_heads * config.xattn_dim_head
+    Dffx = config.dim * config.xattn_ff_mult
+    args = _Args(b=rows, D=D, Dff=Dff, XI=XI, Dffx=Dffx, t_lim=t_lim,
+                 NMNV=n_media_latents, act_quant=int(act_quant))
+    if not act_quant:
+        _plan_args(args, plan(rows, D, Dff, XI, Dffx, n_xattn=1,
+                              blocks=_sm_count(device)))
     refuse_unless_fits(rows, _smem_need(args), _smem_limit(device))
 
 
@@ -559,9 +735,14 @@ def kernel_args(packed: Params, xk, xv, kc, vc, x_emb, npad, text_time,
     # w8a8: one amax word per row of abuf, one per D-wide slice of hbuf
     amax = (torch.empty(b * (1 + -(-max(Dff, Dffx) // D)), dtype=i32, device=dev)
             if act_quant else None)
+    parts = sync = p = None
+    if not act_quant:
+        p = plan(b, D, Dff, XI, Dffx, n_xattn=NX, blocks=_sm_count(dev))
+        parts = torch.empty(p["parts_floats"], dtype=f32, device=dev)
+        sync = _sync_words(dev, p["sync_words"])
     tensors = dict(xk=xk, xv=xv, kc=kc, vc=vc, x_emb=x_emb, npad=npad,
                    text_time=text_time, x=out, scratch=scratch, anc=beam_anc,
-                   amax=amax)
+                   amax=amax, parts=parts, sync=sync)
     args = _Args(
         **{n: packed[n].data_ptr() for n in _POINTERS},
         **{n: None if t is None else t.data_ptr() for n, t in tensors.items()},
@@ -571,8 +752,31 @@ def kernel_args(packed: Params, xk, xv, kc, vc, x_emb, npad, text_time,
         xact=ACT_CODES[config.xattn_act], kb=kb, anc_len=anc_len,
         act_quant=int(act_quant), attn_scale=(D // H) ** -0.5,
         xq_scale=const(config.xattn_dim_head ** -0.5, torch.bfloat16))
+    if p is not None:
+        _plan_args(args, p)
     refuse_unless_fits(b, _smem_need(args), _smem_limit(dev))
-    return args, out, (scratch, amax)
+    return args, out, (scratch, amax, parts, sync)
+
+
+def grid_sync_test(device, phases: int) -> int:
+    """The weight-only kernel's grid barrier alone on the card
+    (``fmt_grid_sync_test``): one block per SM writes a stamp before each of
+    ``phases`` barriers and reads every block's back after it -> the number
+    of stamps read wrong (0 when the barrier holds). The count of arrivals
+    must end at ``phases`` x the grid."""
+    device = torch.device(device)
+    sync = torch.zeros(2, dtype=torch.int32, device=device)
+    slots = torch.zeros(2 * _sm_count(device), dtype=torch.int32, device=device)
+    errors = torch.zeros(1, dtype=torch.int32, device=device)
+    err = _checked_lib().fmt_grid_sync_test(
+        sync.data_ptr(), slots.data_ptr(), errors.data_ptr(), phases,
+        torch.cuda.current_stream(device).cuda_stream)
+    cuda_build.check(err, "grid_sync_test")
+    arrivals = int(sync.view(torch.int64)[0])
+    if arrivals != phases * _sm_count(device):
+        raise RuntimeError(f"grid_sync_test: {arrivals} arrivals counted after "
+                           f"{phases} barriers of {_sm_count(device)} blocks")
+    return int(errors[0])
 
 
 def kernel_grid(args: _Args) -> Tuple[int, int]:

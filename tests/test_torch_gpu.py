@@ -38,8 +38,14 @@ of 1e-2 and 1.25 x the plain version's CPU-vs-card spread, normwise, the
 deep checks' rule (the mode sums its attention in float64 and its
 LayerNorm in the plain version's order, and was measured bit for bit
 equal to it). A trunk too wide for the card's
-shared memory (D=4096, 28 rows) raises ValueError before vision and
-prefill. The stream probe's kernel within 1e-5 relative of its plain
+shared memory (D=4096, 28 rows, w8a8) raises ValueError before vision and
+prefill; the weight-only kernel takes 28 rows there and refuses D=8192.
+The weight-only mode's Hopper kernel (decode_megakernel_sm90.cuh) at its
+edges: its own grid barrier alone, rows on both sides of its wgmma N steps
+and of its 64-row passes (b in {1, 3, 8, 9, 31, 32, 33, 64, 65, 257}) over a
+one-slot cache with left-padded rows and two live prefixes, at D=1024 and
+2048, within 2 bf16 ulps; four shapes back to back on one stream; two
+launches on the same inputs bit-equal. The stream probe's kernel within 1e-5 relative of its plain
 version. The in-situ decode probe's three stream kernels bit for bit
 against their plain versions (which sum in the kernels' order), and each
 probe loop replayed as a CUDA graph bit for bit against the same loop run
@@ -546,10 +552,68 @@ def test_megakernel_act_quant_matches_plain(cuda, mode):
 
 
 def test_megakernel_refuses_a_wide_trunk_before_prefill(cuda):
-    """D=4096 at 28 rows (greedy, weight-only and w8a8) and 10 x 3 beams:
-    ValueError, no vision, no prefill, no launch; 27 rows pass."""
+    """D=4096 at 28 rows (w8a8) and 10 x 3 beams (w8a8): ValueError, no
+    vision, no prefill, no launch; 27 rows pass in both modes; the
+    weight-only kernel takes 28 rows at D=4096 and refuses D=8192."""
     import chip_smoke
     chip_smoke.phase2_refusal(cuda)
+
+
+# ---------------------------------------------------------------------------
+# the weight-only megakernel's Hopper kernel at its edges
+# ---------------------------------------------------------------------------
+
+
+def test_megakernel_grid_barrier_holds(cuda):
+    """The kernel's own grid barrier alone: each block writes a stamp
+    before each of 2,000 barriers and reads every block's back after it."""
+    from flamingo_mini_tpu_torch.ops.megadecode import grid_sync_test
+    assert grid_sync_test(cuda, 2000) == 0
+
+
+@pytest.mark.parametrize("b", [1, 3, 8, 9, 31, 32, 33, 64, 65, 257])
+@pytest.mark.parametrize("every", [1, 2])
+def test_megakernel_edge_rows_match_plain(cuda, every, b):
+    """Flamingo-mini width, 2 layers: a one-slot cache (left-padded rows
+    attend nothing), kv_limit 36 and 132; 2 bf16 ulps."""
+    import chip_smoke
+    cfg, packed = chip_smoke.random_trunk(cuda, n_layer=2, xattn_every=every,
+                                          seed=900 + every)
+    before = decode_step_megakernel.launches
+    n = chip_smoke.edge_rows_case(cuda, cfg, packed, b, [0.0, 0.0, None])
+    assert decode_step_megakernel.launches == before + n
+
+
+@pytest.mark.parametrize("b", [9, 33])
+def test_megakernel_opt_edge_rows_match_plain(cuda, b):
+    """OPT-1.3B width (D=2048), 2 layers, a one-slot cache and kv_limit 71."""
+    import chip_smoke
+    cfg, packed = chip_smoke.random_trunk(cuda, n_layer=2, seed=930, family="opt",
+                                          D=chip_smoke.OPT_D, H=chip_smoke.OPT_H,
+                                          xattn_every=2)
+    chip_smoke.edge_rows_case(cuda, cfg, packed, b, [0.0, 0.0, None])
+
+
+@pytest.mark.parametrize("rows", [1, 32, 96, 257])
+@pytest.mark.parametrize("width", ["flamingo-mini", "OPT-1.3B"])
+def test_megakernel_smem_formula_matches_its_mirror(cuda, width, rows):
+    """The kernel's shared-memory formula (``fmt_decode_megakernel_smem``)
+    and ``megadecode.plan_smem_bytes``, which the CPU plan tests hold
+    against the card's limit, agree byte for byte."""
+    from flamingo_mini_tpu_torch.ops import megadecode as md
+    D, Dff, nx, t_lim = (1024, 4096, 24, 132) if width == "flamingo-mini" else (2048, 8192, 12, 71)
+    p = md.plan(rows, D, Dff, 512, Dff, n_xattn=nx)
+    args = md._Args(b=rows, D=D, Dff=Dff, XI=512, Dffx=Dff, t_lim=t_lim, NMNV=64)
+    md._plan_args(args, p)
+    assert md._smem_need(args) == md.plan_smem_bytes(p, D, Dff, 512, Dff, t_lim, 64)
+
+
+def test_megakernel_back_to_back_and_deterministic(cuda):
+    """Greedy b=32 and 3, beams at 96 rows, OPT-1.3B width b=8 launched
+    back to back before one synchronize, each against its plain version;
+    each launched again on the same inputs, bit-equal."""
+    import chip_smoke
+    chip_smoke.back_to_back(cuda, [0.0, 0.0, None])
 
 
 def test_stream_sum_matches_plain(cuda):
