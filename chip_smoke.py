@@ -72,12 +72,13 @@ stream probe and the in-situ decode and head probes, and checks them:
    The shared-memory refusal: a D=4096 trunk at 28 rows in the w8a8 mode
    (and 10 x 3 beams) raises ``ValueError`` before vision and prefill,
    launching nothing, and 27 rows pass the check; the weight-only mode's
-   Hopper kernel holds 28 rows at D=4096 and refuses a D=8192 trunk (wider
-   than its LayerNorm holds in registers). The
+   Hopper kernel holds 28 rows at D=4096, and a weight-only generate on a
+   D=8192 trunk (wider than its LayerNorm holds in registers) raises
+   ValueError before vision and prefill, launching nothing. The
    weight-only mode's Hopper kernel (``csrc/decode_megakernel_sm90.cuh``)
    at its edges: its grid barrier alone (every block's stamps read back
    after each of 2,000 barriers), the step at 2 layers, D=1024, xattn
-   every 1 and 2 layers, rows b in {1, 3, 8, 9, 31, 32, 33, 64, 65, 257}, (cur,
+   every 1 and 2 layers, rows b in {1, 3, 8, 9, 31, 32, 33, 64, 65, 256, 257}, (cur,
    kv_limit) in {(0, 1) with left-padded rows, (35, 36), (131, 132)}, and
    at D=2048 (OPT mode) b in {9, 33}, each within 2 bf16 ulps, printing
    the largest error and where; two launches on the same inputs bit-equal
@@ -237,8 +238,8 @@ OPT350_NEW = 16
 W8A8_LINEAR = ((1024, 3072, None), (2048, 8192, None), (512, 1024, None),
                (512, 1024, 1024), (4096, 1024, 1024), (8192, 2048, 2048))
 # the weight-only megakernel's edge rows: each side of the wgmma N steps
-# (8, 32) and of its 64-row passes (64, 256)
-EDGE_ROWS = (1, 3, 8, 9, 31, 32, 33, 64, 65, 257)
+# (8, 32), of its wide mode (64) and of its 256-row passes (256)
+EDGE_ROWS = (1, 3, 8, 9, 31, 32, 33, 64, 65, 256, 257)
 # the stream probe: a 512 MB buffer, its TPU protocol's middle chunk_rows
 STREAM_MB, STREAM_CHUNK = 512, 1024
 # the decode stream probes (tools/probe_decode_kernel.py's three kernels) at
@@ -919,7 +920,7 @@ def phase2_megakernel_opt(dev, flush):
 def phase2_megakernel_edges(dev):
     """The weight-only mode's Hopper kernel (``decode_megakernel_sm90.cuh``)
     at its edges: its grid barrier alone, rows on both sides of the wgmma
-    N steps and of its 64-row passes, a cache of one slot with left-padded
+    N steps, of its wide mode and of its 256-row passes, a cache of one slot with left-padded
     rows, D=2048, determinism, and shapes launched back to back (module
     docstring) -> the largest abs error."""
     from flamingo_mini_tpu_torch.ops.megadecode import grid_sync_test
@@ -1162,11 +1163,13 @@ def wide_config(D: int):
                                    image_size=32, patch_size=16))
 
 
-def wide_trunk_model(dev):
-    """``wide_config`` at opt-6.7b's width (D=4096), int8, bf16: a trunk
-    whose w8a8 LayerNorm stage outgrows shared memory past 27 rows."""
+def wide_trunk_model(dev, D: int = 4096):
+    """``wide_config`` D wide, int8, bf16: at opt-6.7b's width (D=4096) a
+    trunk whose w8a8 LayerNorm stage outgrows shared memory past 27 rows;
+    at D=8192 one whose rows the weight-only kernel's LayerNorm cannot
+    hold in registers."""
     from flamingo_mini_tpu_torch import FlamingoModel
-    model = FlamingoModel(wide_config(4096), device=dev, seed=3)
+    model = FlamingoModel(wide_config(D), device=dev, seed=3)
     return model.quantize_int8().to_bf16()
 
 
@@ -1174,9 +1177,10 @@ def phase2_refusal(dev):
     """The refusal before any work: at D=4096 a w8a8 greedy call of 28 rows
     (and a beam call of 10 x 3) raises ValueError before vision and
     prefill, launching nothing; 27 rows pass the check in both modes. The
-    weight-only kernel's shared memory does not grow past a 64-row pass: 28
-    rows pass at D=4096, and a D=8192 trunk (its LayerNorm rows do not fit
-    the kernel's registers) is refused."""
+    weight-only kernel takes 28 rows at D=4096, and a weight-only greedy
+    call on a D=8192 trunk (its LayerNorm rows do not fit the kernel's
+    registers) raises ValueError before vision and prefill too, launching
+    nothing."""
     from flamingo_mini_tpu_torch import generation
     from flamingo_mini_tpu_torch.models import flamingo
     from flamingo_mini_tpu_torch.ops import megadecode
@@ -1189,7 +1193,12 @@ def phase2_refusal(dev):
             return fn(*a, **k)
         return run
     messages = []
-    for b, kw in ((28, dict(w8a8=True)), (10, dict(num_beams=3, w8a8=True))):
+    for D, b, kw in ((4096, 28, dict(w8a8=True)), (4096, 10, dict(num_beams=3, w8a8=True)),
+                     (8192, 8, {})):
+        if D != model.config.dim:
+            del model
+            torch.cuda.empty_cache()
+            model = wide_trunk_model(dev, D)
         ids = torch.ones((b, 4), dtype=torch.long, device=dev)
         pixels = torch.zeros((b, 1, 3, 32, 32), device=dev, dtype=torch.bfloat16)
         zero_counts()
@@ -1202,21 +1211,23 @@ def phase2_refusal(dev):
             except ValueError as e:
                 messages.append(str(e))
             else:
-                raise AssertionError(f"{b} rows at D=4096 ran on the megakernel")
+                raise AssertionError(f"{b} rows at D={D} ran on the megakernel ({kw})")
         counts = read_counts()
         assert not ran and not any(counts.values()), (ran, counts)
+    config4096 = wide_config(4096)
     for act_quant in (True, False):
-        megadecode.check_fits(model.config, 27, 16, 64, act_quant=act_quant, device=dev)
-    megadecode.check_fits(model.config, 28, 16, 64, act_quant=False, device=dev)
+        megadecode.check_fits(config4096, 27, 16, 64, act_quant=act_quant, device=dev)
+    megadecode.check_fits(config4096, 28, 16, 64, act_quant=False, device=dev)
     try:
-        megadecode.check_fits(wide_config(8192), 8, 16, 64, act_quant=False, device=dev)
+        megadecode.check_fits(model.config, 8, 16, 64, act_quant=False, device=dev)
     except ValueError as e:
-        messages.append(str(e))
+        assert str(e) == messages[-1], (str(e), messages[-1])
     else:
         raise AssertionError("the weight-only kernel took a D=8192 trunk")
     print(f"[phase 2] refusal at D=4096 before vision and prefill (nothing launched): "
           f"{messages[0]!r}; w8a8 beams 10 x 3 refused too; 27 rows pass the check in "
-          f"both modes; weight-only 28 rows pass at D=4096, D=8192 refused: "
+          f"both modes; weight-only 28 rows pass at D=4096; a weight-only generate at "
+          f"D=8192 refused before vision and prefill (nothing launched): "
           f"{messages[-1]!r}")
     del model
     torch.cuda.empty_cache()

@@ -183,8 +183,8 @@ struct MegaArgs {
   float* parts;                  // split-K partials, float32
   unsigned* sync;                // the grid barrier's 64-bit arrival count, then per-tile counters
   int split[8];                  // K-slices per 64-column tile: xq xo xf1 xf2 qkv o fc pr
-  int ring;                      // weight ring stages
   int n_xattn;                   // layers with a gated xattn block
+  unsigned long long* prof;      // (blocks, 7) section timer cycles, or null
 };
 
 namespace {
@@ -854,11 +854,12 @@ extern "C" int fmt_decode_megakernel_grid(const MegaArgs* args, int* blocks,
   return static_cast<int>(err);
 }
 
-// the dynamic shared memory a launch with these arguments needs, in bytes:
-// reads the shapes, act_quant and the weight-only plan; launches nothing and
-// sets no attribute (the wrapper compares it with the card's opt-in limit)
+// the shared memory a block of a launch with these arguments needs, in
+// bytes (dynamic, and the weight-only kernel's static timer words): reads
+// the shapes, act_quant and the weight-only plan; launches nothing and sets
+// no attribute (the wrapper compares it with the card's opt-in limit)
 extern "C" int fmt_decode_megakernel_smem(const MegaArgs* args) {
-  return static_cast<int>(smem_bytes(*args));
+  return static_cast<int>(smem_bytes(*args) + (args->act_quant ? 0 : mk90::kTimerBytes));
 }
 
 // The w8a8 linear alone, through the megakernel's own device functions:

@@ -19,7 +19,7 @@
 //   overlap. One producer thread (its warpgroup's registers lowered by
 //   setmaxnreg to 24, the consumers' raised to 112) walks the
 //   step's whole weight schedule, every layer and phase in the consumers'
-//   order, and keeps a ring of `ring` 4 KB stages full by TMA: one 2-D box
+//   order, and keeps a ring of kRing (8) 4 KB stages full by TMA: one 2-D box
 //   of 64 output columns x 64 k of a (d_out, d_in) int8 stack per stage,
 //   completion on an mbarrier. It never waits at a grid barrier, so the
 //   next phase's weights (the next layer's too) arrive while the consumers
@@ -27,31 +27,35 @@
 // * A linear is Y^T = W A^T on wgmma m64nNk16: 64 output columns are the M
 //   side, their int8 weights the A operand from registers (converted to
 //   bf16 exactly by integer and FADD steps, i8x4_to_bf16x4), the batch rows
-//   the N side (N the row count rounded up to one of 8..64: what the
-//   registers hold beside everything else), the
-//   activations the B operand: staged once per block per K-slice into
+//   the N side (N one of 8..64: what the registers hold beside everything
+//   else), the activations the B operand: staged once per block per K-slice into
 //   shared memory, K-major in the 128-byte swizzle, by one cooperative copy
 //   that applies the LayerNorm where the phase has one. Within each 64-k
 //   chunk the k order is permuted alike for A and B (a lane's 16
 //   contiguous weight bytes feed the four k16 steps), which a dot product
 //   does not see. A warpgroup issues its chunks' products two at a time
 //   (ptxas serializes them, C7513: the next chunk's conversion writes its
-//   fragments; the products are a small share of a phase). Past
-//   64 rows the block loops over row groups on the weights it holds in the
-//   ring, so every int8 weight is read from device memory once per step at
-//   any row count.
+//   fragments; the products are a small share of a phase). Up to 64 rows
+//   every warpgroup takes all rows (N the row count rounded up) and a
+//   quarter of the item's chunks, and their sums are added in shared memory
+//   in warpgroup order. Past 64 rows (the wide mode: beams) a pass takes up
+//   to 256 rows and each warpgroup a quarter of them (N rows, from wg N)
+//   over all the item's chunks, two chunks to a chain of wgmma
+//   accumulations, the chains added by float32 adds in chunk order; past
+//   256 rows the block makes more passes on the weights it holds in the
+//   ring. So every int8 weight is read from device memory once per step at
+//   any row count, and a pass stages its rows' activations once.
 // * Work items are (64-column tile, K-slice). ops/megadecode.py's plan
 //   picks each linear's K-slices from the shapes (its cost model weighs a
 //   block's items, chunks and a split's combine) within the shared memory a
-//   slice's staged activations may take. The warpgroups take chunks of an
-//   item in turn and add their sums in shared memory in warpgroup order; a
-//   split tile's float32 partials go to `parts`, and the last
+//   slice's staged activations may take. A split tile's float32 partials
+//   go to `parts`, and the last
 //   block to finish the tile (a per-tile arrival counter, acq_rel) adds
 //   them in slice order and runs the epilogue. No partial is rounded to
 //   bf16 and no float atomic is used: two launches on the same inputs give
 //   the same bits. The epilogue is a thread per output column, eight rows
 //   at a time, every load of a batch issued before its first use.
-// * LayerNorm statistics: once per block per phase (per row group past 64
+// * LayerNorm statistics: once per block per phase (per pass past 256
 //   rows), one warp per row, the row's 16-byte units held in registers
 //   (all loads in flight at once) and summed in a fixed unit order that
 //   megadecode._warp_sum_units repeats: D <= 4096.
@@ -63,6 +67,8 @@
 // * Attention: a block takes a row and a group of four heads at a time, its
 //   sixteen warps a span of positions each (see `attend`); the cache's 512
 //   bytes of a slot for those heads are one 16-byte load per lane.
+// * A section timer (`mark`) splits each block's time by section for
+//   profile_decode.py's sweep.
 #pragma once
 
 #include "sm90_common.cuh"
@@ -78,10 +84,15 @@ constexpr int kCWarps = kConsumers / 32;      // their warps
 constexpr int kThreads = kConsumers + 128;    // and the producer warpgroup
 constexpr int kTile = 64;                     // output columns per item, k per chunk
 constexpr int kChunkBytes = kTile * kTile;    // one ring stage: 64 x 64 int8
-constexpr int kRowGroup = 64;                 // rows per pass: the widest wgmma N the registers hold
-constexpr int kMaxRing = 32;
-constexpr int kStatsBytes = kRowGroup * 8;    // (mean, rstd) per row of a group
+constexpr int kRing = 8;                      // weight ring stages
+constexpr int kRowGroup = 64;                 // the widest wgmma N the registers hold
+constexpr int kPassRows = kGroups * kRowGroup;  // rows of a pass past kRowGroup rows
 enum { kXQ, kXO, kXF1, kXF2, kQKV, kO, kFC, kPR, kLinears };
+// the section timer's counters (`mark`), and the static shared memory they
+// and its last reading take
+enum { kSecBarrier, kSecStats, kSecStage, kSecProducts, kSecFinish, kSecAttention, kSecOther,
+       kSections };
+constexpr int kTimerBytes = (kSections + 1) * 8;
 
 struct Maps {
   CUtensorMap m[kLinears];
@@ -107,8 +118,24 @@ __host__ __device__ inline int wgmma_n(int rows) {
   return rows <= 32 ? (rows + 7) / 8 * 8 : (rows <= 48 ? 48 : kRowGroup);
 }
 
-__host__ __device__ inline int group_n(const MegaArgs& a) {
-  return wgmma_n(a.b < kRowGroup ? a.b : kRowGroup);
+// Up to kRowGroup rows a pass takes every row and the warpgroups split an
+// item's chunks; past it (the wide mode) a pass takes up to kPassRows rows
+// and each warpgroup a quarter of them over all the item's chunks.
+__host__ __device__ inline bool wide(const MegaArgs& a) { return a.b > kRowGroup; }
+
+// the rows of the first (the widest) pass
+__host__ __device__ inline int pass_rows(const MegaArgs& a) {
+  return a.b < kPassRows ? a.b : kPassRows;
+}
+
+// a pass over `rows` rows: the wgmma N of each warpgroup's products, and
+// the rows of a staged B tile (per chunk)
+__host__ __device__ inline int pass_n(const MegaArgs& a, int rows) {
+  return wgmma_n(wide(a) ? (rows + kGroups - 1) / kGroups : rows);
+}
+
+__host__ __device__ inline int tile_rows(const MegaArgs& a, int rows) {
+  return wide(a) ? (rows + 7) / 8 * 8 : wgmma_n(rows);
 }
 
 // the most chunks of one item over the linears the schedule runs
@@ -124,9 +151,11 @@ __host__ __device__ inline int max_chunks(const MegaArgs& a) {
 }
 
 // Byte offsets from the 1024-aligned base of dynamic shared memory: the
-// weight ring; a union of the staged B tiles (one n0 x 128-byte tile per
-// chunk of an item), the warpgroups' reduction and the attention scratch;
-// the group's LayerNorm statistics; the ring's full and empty barriers; the
+// weight ring; a union of the staged B tiles (one tile of tile_rows x 128
+// bytes per chunk of an item; in the wide mode the last warpgroup's N rows
+// may reach up to N rows past the last tile), the item's float32 tile (with
+// the warpgroups' reduction before it) and the attention scratch; the
+// pass's LayerNorm statistics; the ring's full and empty barriers; the
 // combine flag.
 struct Layout {
   int ring, uni, stats, bars, flag, bytes;
@@ -135,18 +164,19 @@ struct Layout {
 __host__ __device__ inline int att_floats(const MegaArgs& a);
 
 __host__ __device__ inline Layout layout(const MegaArgs& a) {
-  const int n0 = group_n(a);
-  int uni = n0 * 128 * max_chunks(a);
-  const int red = (kGroups - 1) * n0 * 256;
+  const int rows = pass_rows(a), n = pass_n(a, rows), tr = tile_rows(a, rows);
+  const bool wd = wide(a);
+  int uni = (tr * max_chunks(a) + (wd ? n : 0)) * 128;
+  const int red = wd ? (tr + n) * 256 : (kGroups - 1) * n * 256;
   const int att = att_floats(a) * 4;
   uni = red > uni ? red : uni;
   uni = att > uni ? att : uni;
   Layout l;
   l.ring = 0;
-  l.uni = a.ring * kChunkBytes;
+  l.uni = kRing * kChunkBytes;
   l.stats = l.uni + ((uni + 1023) & ~1023);
-  l.bars = l.stats + kStatsBytes;
-  l.flag = l.bars + 2 * kMaxRing * 8;
+  l.bars = l.stats + (wd ? kPassRows : kRowGroup) * 8;
+  l.flag = l.bars + 2 * kRing * 8;
   l.bytes = 1024 + l.flag + 16;  // + the base's alignment
   return l;
 }
@@ -424,7 +454,29 @@ __device__ __forceinline__ uint32_t full_bar(const Ctx& c, int stage) {
 }
 
 __device__ __forceinline__ uint32_t empty_bar(const Ctx& c, int stage) {
-  return c.sbase + c.L.bars + 8 * (kMaxRing + stage);
+  return c.sbase + c.L.bars + 8 * (kRing + stage);
+}
+
+// The section timer: thread 0 of the block adds the SM's clock cycles since
+// its last reading to counter k at the end of each section of the
+// consumers' work (the grid barrier's wait, LayerNorm statistics, staging,
+// products, finish, attention, the rest), in static shared memory
+// (kTimerBytes, which the shared-memory formula counts); a launch with
+// `prof` set writes every block's counters out (profile_decode.py's sweep
+// splits the step with them). The readings stay in every launch: the
+// kernel measured no slower with them than without (PERF.md, PR 9).
+__device__ __forceinline__ unsigned long long* timer_words() {
+  __shared__ unsigned long long t[kSections + 1];
+  return t;
+}
+
+__device__ __forceinline__ void mark(const Ctx& c, int k) {
+  if (threadIdx.x == 0) {
+    unsigned long long* t = timer_words();
+    const unsigned long long now = clock64();
+    t[k] += now - t[kSections];
+    t[kSections] = now;
+  }
 }
 
 // The k-th item of a linear phase for this block (items blockIdx.x,
@@ -437,12 +489,12 @@ __device__ __forceinline__ bool item_at(int n_tiles, int s, int k, int* tile, in
 }
 
 // rows [rg0, rg0 + rows) x chunks [c0, c0 + nc) of the input into the
-// item's B tiles (n0 rows each; rows past `rows` are left as they are: they
+// item's B tiles (tr rows each; rows past `rows` are left as they are: they
 // only reach accumulator columns that are never stored). kLN: the LayerNorm
 // of each value, rounded to bf16 as layer_norm_rows rounds it.
 template <bool kLN>
 __device__ __forceinline__ void stage_b(const Ctx& c, const Lin& p, int ld, int rg0, int rows, int c0, int nc,
-                        int n0) {
+                        int tr) {
   const float2* stats = reinterpret_cast<const float2*>(c.base + c.L.stats);
   uint8_t* tiles = c.base + c.L.uni;
   const int per_row = nc * 8, units = rows * per_row;
@@ -480,7 +532,7 @@ __device__ __forceinline__ void stage_b(const Ctx& c, const Lin& p, int ld, int 
         }
         v[i] = make_uint4(w[0], w[1], w[2], w[3]);
       }
-      uint8_t* tile = tiles + ch * n0 * 128;
+      uint8_t* tile = tiles + ch * tr * 128;
       *reinterpret_cast<uint32_t*>(tile + b_offset(r, k)) = v[i].x;
       *reinterpret_cast<uint32_t*>(tile + b_offset(r, k + 2)) = v[i].y;
       *reinterpret_cast<uint32_t*>(tile + b_offset(r, k + 4)) = v[i].z;
@@ -495,46 +547,44 @@ __device__ __forceinline__ int tile_at(int n, int m) {
   return n * kTile + ((((m >> 2) ^ (n & 15)) << 2) | (m & 3));
 }
 
-// Before a row group's products: the LayerNorm statistics where the phase
-// has a LayerNorm (stats: not yet taken for these rows), then B staged.
-__device__ __forceinline__ void prepare_group(const Ctx& c, const Lin& p, int rg0, int rows,
-                                           int c0, int nc, int n0, bool stats) {
+// Before a pass's products: the LayerNorm statistics where the phase has
+// a LayerNorm (stats: not yet taken for these rows), then B staged.
+__device__ __forceinline__ void prepare_pass(const Ctx& c, const Lin& p, int rg0, int rows,
+                                          int c0, int nc, int tr, bool stats) {
   const MegaArgs& a = c.a;
   consumers_sync();  // the union's last readers are done
   if (p.ln_s != nullptr) {
     if (stats) {
       ln_stats(p.in, rg0, rows, a.D, reinterpret_cast<float2*>(c.base + c.L.stats));
       consumers_sync();
+      mark(c, kSecStats);
     }
-    stage_b<true>(c, p, a.D, rg0, rows, c0, nc, n0);
+    stage_b<true>(c, p, a.D, rg0, rows, c0, nc, tr);
   } else {
     int n_out, K;
     lin_dims(a, p.lin, &n_out, &K);
-    stage_b<false>(c, p, K, rg0, rows, c0, nc, n0);
+    stage_b<false>(c, p, K, rg0, rows, c0, nc, tr);
   }
   fence_proxy_async();
   consumers_sync();
+  mark(c, kSecStage);
 }
 
-// A row group's products over the item's chunks, warpgroup wg taking
-// chunks wg, wg + 2, ...; their sum (warpgroup 0's + warpgroup 1's) lands
-// in the union as the item's float32 tile (tile_at). wait: the chunks'
-// stages are awaited (the first row group); release: each stage is
-// released once its weights are in registers (a single row group).
+// A warpgroup's products over chunks i0, i0 + step, ... (< nc) of the
+// item into acc, the B tile of chunk i at b0 + i * b_stride. wait: the
+// chunks' stages are awaited (the first pass); release: each stage is
+// released once its weights are in registers (the last pass).
 template <int N>
-__device__ __forceinline__ void group_products(const Ctx& c, int nc, bool wait, bool release) {
-  const MegaArgs& a = c.a;
-  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+__device__ __forceinline__ void chunk_products(const Ctx& c, int i0, int step, int nc, uint32_t b0,
+                                               int b_stride, bool wait, bool release,
+                                               float (&acc)[N / 2]) {
+  const int tid = threadIdx.x & 127;
   const int wq = tid >> 5, g8 = (tid & 31) >> 2, t4 = tid & 3;
-  float acc[N / 2];
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
-  const uint32_t tiles = c.sbase + c.L.uni;
   // chunk i's weights into A fragments (af), its four k16 products issued
   // and committed
   auto issue = [&](int i, uint32_t (&af)[4][4]) {
-    const int gg = c.g + i, stage = gg % a.ring;
-    if (wait) mbar_wait(full_bar(c, stage), (gg / a.ring) & 1);
+    const int gg = c.g + i, stage = gg % kRing;
+    if (wait) mbar_wait(full_bar(c, stage), (gg / kRing) & 1);
     const uint8_t* w = c.base + c.L.ring + stage * kChunkBytes + 16 * t4;
     const uint4 lo = *reinterpret_cast<const uint4*>(w + (16 * wq + g8) * kTile);
     const uint4 hi = *reinterpret_cast<const uint4*>(w + (16 * wq + g8 + 8) * kTile);
@@ -545,7 +595,7 @@ __device__ __forceinline__ void group_products(const Ctx& c, int nc, bool wait, 
       i8x4_to_bf16x4(wh[j], af[j][1], af[j][3]);
     }
     if (release) mbar_arrive(empty_bar(c, stage));
-    const uint64_t db = desc_sw128(tiles + i * N * 128);
+    const uint64_t db = desc_sw128(b0 + i * b_stride);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) Wgmma<N>::mma(acc, af[kk], db + 2 * kk);
@@ -554,12 +604,12 @@ __device__ __forceinline__ void group_products(const Ctx& c, int nc, bool wait, 
   // two chunks issued in turn: a chunk's fragments are rewritten only once
   // its products are done (wait_group 1 after the next chunk is issued)
   uint32_t af0[4][4], af1[4][4];
-  for (int i = wg; i < nc; i += 2 * kGroups) {
+  for (int i = i0; i < nc; i += 2 * step) {
     issue(i, af0);
     wgmma_wait<1>();
     fence_regs(af1);
-    if (i + kGroups < nc) {
-      issue(i + kGroups, af1);
+    if (i + step < nc) {
+      issue(i + step, af1);
       wgmma_wait<1>();
       fence_regs(af0);
     }
@@ -568,35 +618,85 @@ __device__ __forceinline__ void group_products(const Ctx& c, int nc, bool wait, 
   fence_regs(acc);
   fence_regs(af0);
   fence_regs(af1);
+}
 
-  // the other warpgroups' sums into warpgroup 0's through the union (B is
-  // no longer read once all are here), added in warpgroup order, then
-  // d[4 j + 2 h + e] -- output column 16 wq + g8 + 8 h, row 8 j + 2 t4 + e
-  // -- into the tile
-  float4* red = reinterpret_cast<float4*>(c.base + c.L.uni);
-  consumers_sync();
-  if (wg > 0) {
+// d[4 j + 2 h + e] of a warpgroup's accumulator: output column
+// 16 wq + g8 + 8 h, row 8 j + 2 t4 + e, into the item's float32 tile
+// (tile_at) from row n0 on
+template <int N>
+__device__ __forceinline__ void acc_to_tile(float* tile, int n0, const float (&acc)[N / 2]) {
+  const int tid = threadIdx.x & 127;
+  const int wq = tid >> 5, g8 = (tid & 31) >> 2, t4 = tid & 3;
 #pragma unroll
-    for (int q = 0; q < N / 8; ++q)
-      red[((wg - 1) * (N / 8) + q) * 128 + tid] =
-          make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
-  }
-  consumers_sync();
-  if (wg == 0) {
-    for (int w = 1; w < kGroups; ++w)
+  for (int i = 0; i < N / 2; ++i)
+    tile[tile_at(n0 + 8 * (i >> 2) + 2 * t4 + (i & 1), 16 * wq + g8 + 8 * ((i >> 1) & 1))] = acc[i];
+}
+
+// A pass's products over the item's nc chunks into the item's float32
+// tile in the union (B tiles of tr rows). Up to kRowGroup rows, warpgroup
+// wg takes chunks wg, wg + 4, ... of every row and the warpgroups' sums are
+// added in warpgroup order. In the wide mode warpgroup wg takes rows
+// [wg N, wg N + N) over every chunk, two chunks at a time; a warpgroup past the
+// last row only releases the stages, each once it is full (an item may
+// hold more chunks than the ring has stages: an arrival must not reach a
+// stage's next round).
+template <int N>
+__device__ __forceinline__ void products(const Ctx& c, int nc, int rows, int tr, bool wait,
+                                         bool release) {
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const bool wd = wide(c.a), active = !wd || wg * N < rows;
+  float acc[N / 2];
 #pragma unroll
-      for (int q = 0; q < N / 8; ++q) {
-        const float4 v = red[((w - 1) * (N / 8) + q) * 128 + tid];
-        acc[4 * q] += v.x;
-        acc[4 * q + 1] += v.y;
-        acc[4 * q + 2] += v.z;
-        acc[4 * q + 3] += v.w;
-      }
-    wg0_sync();
-    float* tile = reinterpret_cast<float*>(c.base + c.L.uni);
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  if (active && wd) {
+    // the tensor cores' sums over two chunks at a time, added into acc in
+    // chunk order by float32 adds: a chain of wgmma accumulations over all
+    // the item's chunks parts further from the exact sum (PERF.md, PR 9)
+    for (int p0 = 0; p0 < nc; p0 += 2) {
+      float part[N / 2];
 #pragma unroll
-    for (int i = 0; i < N / 2; ++i)
-      tile[tile_at(8 * (i >> 2) + 2 * t4 + (i & 1), 16 * wq + g8 + 8 * ((i >> 1) & 1))] = acc[i];
+      for (int i = 0; i < N / 2; ++i) part[i] = 0.f;
+      chunk_products<N>(c, p0, 1, min(nc, p0 + 2), c.sbase + c.L.uni + wg * N * 128, tr * 128, wait,
+                        release, part);
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) acc[i] += part[i];
+    }
+  } else if (active)
+    chunk_products<N>(c, wg, kGroups, nc, c.sbase + c.L.uni, tr * 128, wait, release, acc);
+  else if (release)
+    for (int i = 0; i < nc; ++i) {
+      const int gg = c.g + i;
+      if (wait) mbar_wait(full_bar(c, gg % kRing), (gg / kRing) & 1);
+      mbar_arrive(empty_bar(c, gg % kRing));
+    }
+  float* tile = reinterpret_cast<float*>(c.base + c.L.uni);
+  consumers_sync();  // every warpgroup is done with B
+  if (wd) {
+    if (active) acc_to_tile<N>(tile, wg * N, acc);
+  } else {
+    // the other warpgroups' sums into warpgroup 0's through the union,
+    // then into the tile
+    float4* red = reinterpret_cast<float4*>(tile);
+    if (wg > 0) {
+#pragma unroll
+      for (int q = 0; q < N / 8; ++q)
+        red[((wg - 1) * (N / 8) + q) * 128 + tid] =
+            make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+    }
+    consumers_sync();
+    if (wg == 0) {
+      for (int w = 1; w < kGroups; ++w)
+#pragma unroll
+        for (int q = 0; q < N / 8; ++q) {
+          const float4 v = red[((w - 1) * (N / 8) + q) * 128 + tid];
+          acc[4 * q] += v.x;
+          acc[4 * q + 1] += v.y;
+          acc[4 * q + 2] += v.z;
+          acc[4 * q + 3] += v.w;
+        }
+      wg0_sync();
+      acc_to_tile<N>(tile, 0, acc);
+    }
   }
   consumers_sync();
 }
@@ -659,15 +759,15 @@ __device__ __forceinline__ void store_tile(const MegaArgs& a, const Epi& e, int 
   }
 }
 
-// After a row group's products: the epilogue of the item's tile, or, for a
-// tile split over K, its partial to `parts` (rows x 64 floats, row-major)
-// and, for the last block to arrive at the tile, the partials added in
-// slice order and the epilogue. Both warpgroups.
-__device__ __forceinline__ void finish_group(const Ctx& c, const Lin& p, int tile, int slice,
-                                          int n_slices, int rg, int rows) {
+// After a pass's products: the epilogue of the item's tile, or, for a tile
+// split over K, its partial to `parts` (rows x 64 floats, row-major) and,
+// for the last block to arrive at the tile, the partials added in slice
+// order and the epilogue.
+__device__ __forceinline__ void finish_pass(const Ctx& c, const Lin& p, int tile, int slice,
+                                         int n_slices, int ps, int rows) {
   const MegaArgs& a = c.a;
   const float* t = reinterpret_cast<const float*>(c.base + c.L.uni);
-  const int rg0 = rg * kRowGroup, col0 = tile * kTile, m = threadIdx.x & 63;
+  const int rg0 = ps * kPassRows, col0 = tile * kTile, m = threadIdx.x & 63;
   if (n_slices == 1) {
     store_tile(a, p.e, col0, rg0, rows, t, nullptr, 1, 0);
     return;
@@ -675,8 +775,8 @@ __device__ __forceinline__ void finish_group(const Ctx& c, const Lin& p, int til
   int n_out, K;
   lin_dims(a, p.lin, &n_out, &K);
   const int n_tiles = n_out / kTile;
-  const long long part_floats = static_cast<long long>(kTile) * group_n(a);
-  float* parts = a.parts + (static_cast<long long>(rg) * n_tiles + tile) * n_slices * part_floats;
+  const long long part_floats = static_cast<long long>(kTile) * tile_rows(a, pass_rows(a));
+  float* parts = a.parts + (static_cast<long long>(ps) * n_tiles + tile) * n_slices * part_floats;
   for (int n = threadIdx.x >> 6; n < rows; n += kConsumers / 64)
     __stcg(parts + slice * part_floats + n * kTile + m, t[tile_at(n, m)]);
   consumers_sync();
@@ -684,7 +784,7 @@ __device__ __forceinline__ void finish_group(const Ctx& c, const Lin& p, int til
   if (threadIdx.x == 0) {
     // release: the block's partial (cumulative over the barrier above);
     // acquire: the other blocks' partials, for the last to arrive
-    unsigned* counter = a.sync + 2 + rg * n_tiles + tile;
+    unsigned* counter = a.sync + 2 + ps * n_tiles + tile;
     unsigned old;
     asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
                  : "=r"(old) : "l"(counter) : "memory");
@@ -697,42 +797,44 @@ __device__ __forceinline__ void finish_group(const Ctx& c, const Lin& p, int til
   store_tile(a, p.e, col0, rg0, rows, nullptr, parts, n_slices, part_floats);
 }
 
-#define MK90_GROUP(n)                                         \
-  case n:                                                     \
-    group_products<n>(c, nc, rg == 0, n_rg == 1);             \
+#define MK90_PRODUCTS(n)                                              \
+  case n:                                                             \
+    products<n>(c, nc, rows, tr, ps == 0, ps == n_pass - 1);          \
     break;
 
 // A linear phase: this block's items, blockIdx.x, + gridDim.x, ...; per
-// item and row group: stage, products, finish.
+// item and pass: stage, products, finish. Past kPassRows rows the item's
+// weights stay in the ring for every pass.
 __device__ __forceinline__ void linear_phase(Ctx& c, const Lin& p) {
   const MegaArgs& a = c.a;
   int n_out, K;
   lin_dims(a, p.lin, &n_out, &K);
   const int s = a.split[p.lin], nk = K / kTile;
-  const int n_rg = (a.b + kRowGroup - 1) / kRowGroup;
+  const int n_pass = (a.b + kPassRows - 1) / kPassRows;
   bool have_stats = false;
   int tile, slice;
   for (int k = 0; item_at(n_out / kTile, s, k, &tile, &slice); ++k) {
     int c0, nc;
     slice_chunks(slice, s, nk, &c0, &nc);
-    for (int rg = 0; rg < n_rg; ++rg) {
-      const int rows = min(kRowGroup, a.b - rg * kRowGroup), n = wgmma_n(rows);
-      prepare_group(c, p, rg * kRowGroup, rows, c0, nc, n, n_rg > 1 || !have_stats);
+    for (int ps = 0; ps < n_pass; ++ps) {
+      const int rows = min(kPassRows, a.b - ps * kPassRows);
+      const int n = pass_n(a, rows), tr = tile_rows(a, rows);
+      prepare_pass(c, p, ps * kPassRows, rows, c0, nc, tr, n_pass > 1 || !have_stats);
       have_stats = true;
       switch (n) {
-        MK90_GROUP(8) MK90_GROUP(16) MK90_GROUP(24) MK90_GROUP(32) MK90_GROUP(48)
-        MK90_GROUP(64)
+        MK90_PRODUCTS(8) MK90_PRODUCTS(16) MK90_PRODUCTS(24) MK90_PRODUCTS(32)
+        MK90_PRODUCTS(48) MK90_PRODUCTS(64)
       }
-      finish_group(c, p, tile, slice, s, rg, rows);
+      mark(c, kSecProducts);
+      finish_pass(c, p, tile, slice, s, ps, rows);
+      consumers_sync();
+      mark(c, kSecFinish);
     }
-    if (n_rg > 1)  // the weights were held for every row group
-      for (int i = threadIdx.x >> 7; i < nc; i += kGroups)
-        mbar_arrive(empty_bar(c, (c.g + i) % a.ring));
     c.g += nc;
   }
 }
 
-#undef MK90_GROUP
+#undef MK90_PRODUCTS
 
 // ---------------------------------------------------------------------------
 // attention
@@ -938,9 +1040,9 @@ __device__ void producer(const MegaArgs& a, const Maps& maps, uint32_t sbase, co
       int c0, nc;
       slice_chunks(slice, s, nk, &c0, &nc);
       for (int ch = c0; ch < c0 + nc; ++ch, ++g) {
-        const int stage = g % a.ring, round = g / a.ring;
+        const int stage = g % kRing, round = g / kRing;
         const uint32_t full = sbase + L.bars + 8 * stage;
-        if (round > 0) producer_wait(sbase + L.bars + 8 * (kMaxRing + stage), (round - 1) & 1);
+        if (round > 0) producer_wait(sbase + L.bars + 8 * (kRing + stage), (round - 1) & 1);
         mbar_expect_tx(full, kChunkBytes);
         tma_load_2d(sbase + L.ring + stage * kChunkBytes, &maps.m[lin], full, ch * kTile,
                     slot * n_out + tile * kTile);
@@ -966,7 +1068,7 @@ __device__ void producer(const MegaArgs& a, const Maps& maps, uint32_t sbase, co
 // (xq, xattn, xo, xf1, xf2 where the layer has a gated xattn block; qkv,
 // attention, o, fc, pr), a grid barrier between each two; one call site
 // each for the linear and the attention, so that both inline.
-__device__ void consumer(Ctx& c) {
+__device__ __forceinline__ void consumer(Ctx& c) {
   const MegaArgs& a = c.a;
   const int D = a.D, QW = max(a.D, a.XI);
   bf16* qbuf = a.scratch;
@@ -980,11 +1082,20 @@ __device__ void consumer(Ctx& c) {
   const bf16* ln_src = a.x_emb;
   const long long slab = static_cast<long long>(a.b) * D;
   bool first = true;
+  unsigned long long* timer = timer_words();
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kSections; ++k) timer[k] = 0;
+    timer[kSections] = clock64();
+  }
   for (int l = 0, xs = -1; l < a.n_layer; ++l) {
     const bool hx = a.hasx[l] != 0;
     xs += hx;
     for (int ph = hx ? 0 : 5; ph < 10; ++ph) {
-      if (!first) grid_sync(a.sync);
+      if (!first) {
+        mark(c, kSecOther);
+        grid_sync(a.sync);
+        mark(c, kSecBarrier);
+      }
       first = false;
       if (ph == 1 || ph == 6) {  // attention: xattn over the image's latents, or self
         const bool x = ph == 1;
@@ -993,6 +1104,7 @@ __device__ void consumer(Ctx& c) {
         attend(a, qbuf, x ? a.XI : D, (x ? a.xk : a.kc) + kv, (x ? a.xv : a.vc) + kv,
                x ? a.x_heads : a.n_head, x ? a.NMNV : a.t_lim, x ? 1.f : a.attn_scale, x,
                abuf, att);
+        mark(c, kSecAttention);
         continue;
       }
       Lin p{0, nullptr, nullptr, nullptr, Epi{}};
@@ -1041,6 +1153,9 @@ __device__ void consumer(Ctx& c) {
       ln_src = a.x;
     }
   }
+  mark(c, kSecOther);
+  if (threadIdx.x == 0 && a.prof != nullptr)
+    for (int k = 0; k < kSections; ++k) a.prof[blockIdx.x * kSections + k] = timer[k];
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -1050,9 +1165,11 @@ decode_megakernel_sm90(const __grid_constant__ MegaArgs a, const __grid_constant
   const uint32_t sbase = (raw + 1023u) & ~1023u;
   const Layout L = layout(a);
   if (threadIdx.x == 0) {
-    for (int s = 0; s < a.ring; ++s) {
+    // a stage is released by the warpgroup that read it, or in the wide
+    // mode by every consumer thread
+    for (int s = 0; s < kRing; ++s) {
       mbar_init(sbase + L.bars + 8 * s, 1);
-      mbar_init(sbase + L.bars + 8 * (kMaxRing + s), 128);
+      mbar_init(sbase + L.bars + 8 * (kRing + s), wide(a) ? kConsumers : 128);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -1109,16 +1226,15 @@ bool encode_weights(CUtensorMap* map, const int8_t* w, long long rows, int k) {
 
 // the plan's fields within the kernel's limits
 bool plan_ok(const MegaArgs& a) {
-  if (a.ring < 2 || a.ring > kMaxRing || a.parts == nullptr || a.sync == nullptr ||
-      a.D > 32 * 8 * kMaxUnits)
+  if (a.parts == nullptr || a.sync == nullptr || a.D > 32 * 8 * kMaxUnits)
     return false;
   for (int lin = 0; lin < kLinears; ++lin) {
     int n, k;
     lin_dims(a, lin, &n, &k);
     if (n % kTile || k % kTile || a.split[lin] < 1 || a.split[lin] > k / kTile) return false;
   }
-  // past one row group an item's chunks are held in the ring for every group
-  return a.b <= kRowGroup || max_chunks(a) <= a.ring;
+  // past one pass an item's chunks are held in the ring for every pass
+  return a.b <= kPassRows || max_chunks(a) <= kRing;
 }
 
 // blocks of the cooperative grid (one per SM), or 0 if it cannot be resident

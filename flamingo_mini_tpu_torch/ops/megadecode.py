@@ -79,19 +79,27 @@ K_CHUNK = 64        # the CUDA kernel's K step: every d_in is a multiple
 INDEX_LIMIT = 2 ** 31 - 1   # the CUDA kernel's element offsets are 32-bit ints
 # the weight-only kernel (decode_megakernel_sm90.cuh): its linears in the
 # order of MegaArgs.split, 4 KB weight chunks (64 columns x 64 k) through a
-# ring of RING_STAGES, the wgmma N of a pass over up to ROW_GROUP rows, and
-# the shared memory a K-slice's staged activations may take
+# ring of RING_STAGES (its kRing), the wgmma N a warpgroup takes (at most
+# ROW_GROUP rows), the rows of a pass past ROW_GROUP rows (a quarter for
+# each warpgroup), and the shared memory a K-slice's staged activations may
+# take
 LINEARS = ("xq", "xo", "xf1", "xf2", "qkv", "o", "fc", "pr")
 RING_STAGES = 8
 ROW_GROUP = 64
 WGMMA_N = (8, 16, 24, 32, 48, 64)
 GROUPS = 4          # consumer warpgroups; 16 consumer warps
+PASS_ROWS = GROUPS * ROW_GROUP
 MAX_D = 4096        # the widest row its LayerNorm statistics hold in registers
-STAGE_BUDGET = 128 * 1024
-MAX_RING = 32       # the kernel's barrier slots
+STAGE_BUDGET = 160 * 1024
 ITEM_COST = 16      # choose_split's model: an item's fixed cost, in chunks
 SPLIT_COST = 10     # and a split tile's combine
 N_SMS = 132         # an H100 SXM's SMs: the plan's grid where no card is asked
+# the weight-only kernel's section timer (its ``mark``): clock cycles per
+# block in each section of the consumers' work
+SECTIONS = ("barrier", "ln_stats", "stage_b", "products", "finish", "attention", "other")
+# set to a (blocks, len(SECTIONS)) int64 tensor on the card to have every
+# weight-only launch write its blocks' section cycles into it
+section_timer: Optional[torch.Tensor] = None
 # activation name -> the kernel's code; "gelu" is the rational-erf GELU
 ACT_CODES = {"gelu_new": 0, "gelu": 1, "gelu_erf": 1, "relu": 2}
 
@@ -453,17 +461,30 @@ def linear_shapes(D: int, Dff: int, XI: int, Dffx: int) -> Dict[str, Tuple[int, 
 
 
 def wgmma_n(rows: int) -> int:
-    """The wgmma N of a pass over ``rows`` rows (at most ``ROW_GROUP``)."""
+    """The wgmma N that covers ``rows`` rows (at most ``ROW_GROUP``)."""
     return next(n for n in WGMMA_N if n >= min(rows, ROW_GROUP))
+
+
+def pass_shape(b: int, rows: int) -> Tuple[int, int]:
+    """(wgmma N, rows of a staged B tile) of a pass over ``rows`` of a
+    launch's ``b`` rows: up to ``ROW_GROUP`` rows every warpgroup takes all
+    rows and a share of the chunks; past it (the wide mode) each warpgroup
+    takes a quarter of the pass's rows over every chunk (the kernel's
+    ``pass_n``, ``tile_rows``)."""
+    if b <= ROW_GROUP:
+        return wgmma_n(rows), wgmma_n(rows)
+    return wgmma_n(-(-rows // GROUPS)), -(-rows // 8) * 8
 
 
 def choose_split(n_tiles: int, n_chunks: int, blocks: int, cap: int, rows: int) -> int:
     """K-slices per 64-column tile: the fewest that bring the busiest
     block's cost to its least, with no slice over ``cap`` chunks. In units
     of one chunk's weights (calibrated on an H100 at flamingo-mini width,
-    b = 1 and 32): an item costs ``ITEM_COST`` (its staging and epilogue,
-    a few dependent trips to memory), a chunk 1 + rows / 32 (its weights,
-    and its activations staged), a split tile ``SPLIT_COST`` (the partial
+    b = 1 and 32; at the beams' 96 and 160 rows, whose passes take every
+    row, it gives one item per block in every phase): an item costs
+    ``ITEM_COST`` (its staging and epilogue, a few dependent trips to
+    memory), a chunk 1 + rows / 32 (its weights, and the pass's rows of
+    activations staged), a split tile ``SPLIT_COST`` (the partial
     written, the arrival, the last block's reads, one after another) plus
     its partials' traffic (``rows`` x 64 floats a slice, written by each
     round of its blocks and read by the last)."""
@@ -487,33 +508,35 @@ def slice_chunks(slice_: int, s: int, n_chunks: int) -> Tuple[int, int]:
 
 
 def plan(rows: int, D: int, Dff: int, XI: int, Dffx: int, *, n_xattn: int,
-         blocks: int = N_SMS, ring: int = RING_STAGES) -> Dict[str, Any]:
+         blocks: int = N_SMS) -> Dict[str, Any]:
     """The weight-only kernel's tile plan for ``rows`` batch rows over a
     grid of ``blocks`` (one per SM): each linear's K-slices (``split``), the
-    ring, the row groups and their wgmma N (``n0`` for the first, the
-    widest), the float32 partials and the per-tile counters the call needs.
-    A slice's staged activations (``n0`` rows x 128 bytes per chunk) stay
-    within ``STAGE_BUDGET``; past one row group a slice's chunks also stay
-    within the ring, which holds them for every group."""
+    passes over the rows (``n_pass``) and the first's wgmma N (``n0``) and
+    staged tile rows (``tile_rows``), the float32 partials and the per-tile
+    counters the call needs. A slice's staged activations (``tile_rows`` x
+    128 bytes per chunk) stay within ``STAGE_BUDGET``; past one pass a
+    slice's chunks also stay within the ring, which holds them for every
+    pass."""
     if D > MAX_D:
         raise ValueError(f"decode_step_megakernel: the weight-only kernel's LayerNorm "
                          f"holds a row of at most {MAX_D} in registers, got D={D}")
-    n0 = wgmma_n(rows)
-    n_rg = -(-rows // ROW_GROUP)
-    cap = STAGE_BUDGET // (n0 * 128)
-    if n_rg > 1:
-        cap = min(cap, ring)
+    first = min(rows, PASS_ROWS)
+    n0, tr = pass_shape(rows, first)
+    n_pass = -(-rows // PASS_ROWS)
+    cap = STAGE_BUDGET // (tr * 128)
+    if n_pass > 1:
+        cap = min(cap, RING_STAGES)
     split, parts, counters = [], 1, 0
     for name in LINEARS:
         n_out, K = linear_shapes(D, Dff, XI, Dffx)[name]
         n_tiles, n_chunks = n_out // K_CHUNK, K // K_CHUNK
-        s = choose_split(n_tiles, n_chunks, blocks, cap, min(rows, ROW_GROUP))
+        s = choose_split(n_tiles, n_chunks, blocks, cap, first)
         split.append(s)
-        counters = max(counters, n_rg * n_tiles)
+        counters = max(counters, n_pass * n_tiles)
         if s > 1:
-            parts = max(parts, n_rg * n_tiles * s * K_CHUNK * n0)
-    return dict(split=split, ring=ring, n0=n0, n_rg=n_rg, n_xattn=n_xattn,
-                parts_floats=parts, sync_words=2 + counters)
+            parts = max(parts, n_pass * n_tiles * s * K_CHUNK * tr)
+    return dict(split=split, wide=rows > ROW_GROUP, n0=n0, tile_rows=tr, n_pass=n_pass,
+                n_xattn=n_xattn, parts_floats=parts, sync_words=2 + counters)
 
 
 def max_chunks(p: Dict[str, Any], D: int, Dff: int, XI: int, Dffx: int) -> int:
@@ -527,14 +550,19 @@ def plan_smem_bytes(p: Dict[str, Any], D: int, Dff: int, XI: int, Dffx: int,
                     t_lim: int, n_media: int) -> int:
     """``fmt_decode_megakernel_smem`` for the weight-only kernel (its
     ``layout``): 1024 bytes of alignment, the ring, the union of the staged
-    B tiles, the warpgroups' reduction and the attention scratch, the row
-    group's statistics, the barriers, a flag."""
-    n0 = p["n0"]
+    B tiles (in the wide mode with room for the last warpgroup's N rows past
+    the last tile), the item's float32 tile (with the warpgroups' reduction
+    before it) and the attention scratch, the pass's statistics, the
+    barriers, a flag; and the section timer's static words."""
+    n0, tr, wide = p["n0"], p["tile_rows"], p["wide"]
     warps = 4 * GROUPS
     att = (4 * max(t_lim, n_media) + warps * 4 * HEAD_DIM + 2 * warps * 4) * 4
-    uni = max(n0 * 128 * max_chunks(p, D, Dff, XI, Dffx), (GROUPS - 1) * n0 * 256, att)
-    return 1024 + p["ring"] * 4096 + ((uni + 1023) & ~1023) + ROW_GROUP * 8 \
-        + 2 * MAX_RING * 8 + 16
+    stage = (tr * max_chunks(p, D, Dff, XI, Dffx) + wide * n0) * 128
+    red = (tr + n0) * 256 if wide else (GROUPS - 1) * n0 * 256
+    uni = max(stage, red, att)
+    stats = (PASS_ROWS if wide else ROW_GROUP) * 8
+    return 1024 + RING_STAGES * 4096 + ((uni + 1023) & ~1023) + stats \
+        + 2 * RING_STAGES * 8 + 16 + (len(SECTIONS) + 1) * 8
 
 
 # ---------------------------------------------------------------------------
@@ -559,28 +587,29 @@ class _Args(ctypes.Structure):
                 + [(n, ctypes.c_int) for n in _INTS]
                 + [("attn_scale", ctypes.c_float), ("xq_scale", ctypes.c_float),
                    ("parts", ctypes.c_void_p), ("sync", ctypes.c_void_p),
-                   ("split", ctypes.c_int * len(LINEARS)), ("ring", ctypes.c_int),
-                   ("n_xattn", ctypes.c_int)])
+                   ("split", ctypes.c_int * len(LINEARS)), ("n_xattn", ctypes.c_int),
+                   ("prof", ctypes.c_void_p)])
 
 
-_SYNC: Dict[torch.device, torch.Tensor] = {}
+_SYNC: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def _sync_words(device: torch.device, n: int) -> torch.Tensor:
     """The weight-only kernel's grid barrier count (a 64-bit count of
     arrivals that only grows, a multiple of the grid after every launch) and
-    per-tile counters (left zeroed) on ``device``: zeroed once, so one
-    buffer serves every launch on the device (launches on one stream, one
-    after another, as the decode loop makes them)."""
-    t = _SYNC.get(device)
+    per-tile counters (left zeroed) for launches on ``device``'s current
+    stream: zeroed once, so one buffer serves every launch of that stream,
+    each after the one before. Launches on two streams never share one: each
+    stream has its own."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    t = _SYNC.get(key)
     if t is None or t.numel() < n:
-        t = _SYNC[device] = torch.zeros(n, dtype=torch.int32, device=device)
+        t = _SYNC[key] = torch.zeros(n, dtype=torch.int32, device=device)
     return t
 
 
 def _plan_args(args: _Args, p: Dict[str, Any]) -> None:
     args.split[:] = p["split"]
-    args.ring = p["ring"]
     args.n_xattn = p["n_xattn"]
 
 
@@ -620,7 +649,7 @@ def max_rows(packed: Params, config) -> int:
     docstring of csrc/decode_megakernel.cu). Their shared memory is checked
     apart (``refuse_unless_fits``): the w8a8 kernel's grows with the rows up
     to 32, the weight-only kernel's with the rows of a pass up to
-    ``ROW_GROUP`` and with D."""
+    ``PASS_ROWS`` and with D."""
     D, Dff, _L, _H = trunk_dims(config.lm_arch)
     XI = config.xattn_heads * config.xattn_dim_head
     Dffx = packed["w_xf1"].shape[1]
@@ -754,6 +783,10 @@ def kernel_args(packed: Params, xk, xv, kc, vc, x_emb, npad, text_time,
         xq_scale=const(config.xattn_dim_head ** -0.5, torch.bfloat16))
     if p is not None:
         _plan_args(args, p)
+        if section_timer is not None:
+            _require(section_timer, "section_timer", torch.int64,
+                     (_sm_count(dev), len(SECTIONS)), dev)
+            args.prof = section_timer.data_ptr()
     refuse_unless_fits(b, _smem_need(args), _smem_limit(dev))
     return args, out, (scratch, amax, parts, sync)
 

@@ -15,7 +15,10 @@ chip_smoke.py's seeds), all of them unless some are named:
    beam mode at 96 rows (32 x 3 beams) and 160 rows (32 x 5); then the OPT
    mode at OPT-1.3B width (b=8, 24 layers, D=2048, xattn every other layer,
    the greedy loop's last segment: kv_limit 71); each beside its bound
-   (``chip_smoke.mega_bound``);
+   (``chip_smoke.mega_bound``) and, for the weight-only kernel, its split
+   by the kernel's section timer (``megadecode.SECTIONS``: each section's
+   share of the blocks' clock cycles in one more call, times the call's
+   median time: microseconds per layer, the grid barrier's wait included);
 2. ``torch.profiler`` over one ``generate`` of each decode path, greedy and
    with 3 beams (batch 32, one image + 4-token prompt, 17 new tokens):
    device (kernel) time and its share of the wall window, the same share
@@ -53,6 +56,25 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cuLaunchKern
                 "cuLaunchKernelEx", "cudaLaunchKernelExC")
 
 
+def sections(fn, flush, ms: float, n_layer: int) -> dict:
+    """One more call of ``fn`` with the weight-only kernel's section timer
+    on -> {section: us per layer}: each section's share of all blocks'
+    cycles times ``ms`` per layer."""
+    from flamingo_mini_tpu_torch.ops import megadecode as md
+    sms = torch.cuda.get_device_properties(flush.device).multi_processor_count
+    timer = torch.zeros((sms, len(md.SECTIONS)), dtype=torch.int64, device=flush.device)
+    flush.zero_()
+    md.section_timer = timer
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        md.section_timer = None
+    cycles = timer.double().sum(dim=0)
+    share = (cycles / cycles.sum()).tolist()
+    return {name: round(f * ms / n_layer * 1e3, 1) for name, f in zip(md.SECTIONS, share)}
+
+
 def sweep(dev, card):
     import chip_smoke as cs
     from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel
@@ -82,9 +104,12 @@ def sweep(dev, card):
         npad.zero_()
         tt.fill_(1)
         cur = kv_limit - 1
-        ms = cs.time_ms(lambda: decode_step_megakernel(
-            packed, xk, xv, kc, vc, x, npad, tt, cur, config=cfg,
-            kv_limit=kv_limit, beam_anc=anc), 30, flush)
+
+        def step():
+            return decode_step_megakernel(packed, xk, xv, kc, vc, x, npad, tt, cur,
+                                          config=cfg, kv_limit=kv_limit, beam_anc=anc)
+        ms = cs.time_ms(step, 30, flush)
+        split = sections(step, flush, ms, n_layer)
         # self K/V rows read: every row's own, or each distinct ancestor's
         n_pos = b * kv_limit
         slots, extra = n_pos, 0
@@ -94,11 +119,11 @@ def sweep(dev, card):
                                                  extra_bytes=extra)
         row = dict(trunk=trunk, b=b, kb=kb, n_layer=n_layer, xattn_every=every,
                    kv_limit=kv_limit, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
-                   ms_per_layer=ms / n_layer)
+                   ms_per_layer=ms / n_layer, us_per_layer_by_section=split)
         print(f"[sweep] {card}: megakernel {trunk} b={b} kb={kb} layers={n_layer} "
               f"xattn_every={every} kv_limit={kv_limit}: {ms} ms per call "
               f"({ms / n_layer * 1e3:.1f} us per layer), bound {bound_ms:.4f} ms "
-              f"({bound_by})")
+              f"({bound_by}); us per layer by section {split}")
         rows.append(row)
         del packed, inputs, xk, xv, kc, vc
         torch.cuda.empty_cache()

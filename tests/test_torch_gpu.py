@@ -39,13 +39,15 @@ deep checks' rule (the mode sums its attention in float64 and its
 LayerNorm in the plain version's order, and was measured bit for bit
 equal to it). A trunk too wide for the card's
 shared memory (D=4096, 28 rows, w8a8) raises ValueError before vision and
-prefill; the weight-only kernel takes 28 rows there and refuses D=8192.
+prefill; the weight-only kernel takes 28 rows there, and a weight-only
+generate on a D=8192 trunk raises ValueError before vision and prefill.
 The weight-only mode's Hopper kernel (decode_megakernel_sm90.cuh) at its
-edges: its own grid barrier alone, rows on both sides of its wgmma N steps
-and of its 64-row passes (b in {1, 3, 8, 9, 31, 32, 33, 64, 65, 257}) over a
-one-slot cache with left-padded rows and two live prefixes, at D=1024 and
-2048, within 2 bf16 ulps; four shapes back to back on one stream; two
-launches on the same inputs bit-equal. The stream probe's kernel within 1e-5 relative of its plain
+edges: its own grid barrier alone, rows on both sides of its wgmma N steps,
+of its wide mode (past 64 rows) and of its 256-row passes (b in {1, 3, 8, 9,
+31, 32, 33, 64, 65, 256, 257}) over a one-slot cache with left-padded rows
+and two live prefixes, at D=1024 and 2048, within 2 bf16 ulps; four shapes
+back to back on one stream; two launches on the same inputs bit-equal;
+launches taking turns on two streams bit-equal to one stream's. The stream probe's kernel within 1e-5 relative of its plain
 version. The in-situ decode probe's three stream kernels bit for bit
 against their plain versions (which sum in the kernels' order), and each
 probe loop replayed as a CUDA graph bit for bit against the same loop run
@@ -552,9 +554,10 @@ def test_megakernel_act_quant_matches_plain(cuda, mode):
 
 
 def test_megakernel_refuses_a_wide_trunk_before_prefill(cuda):
-    """D=4096 at 28 rows (w8a8) and 10 x 3 beams (w8a8): ValueError, no
-    vision, no prefill, no launch; 27 rows pass in both modes; the
-    weight-only kernel takes 28 rows at D=4096 and refuses D=8192."""
+    """D=4096 at 28 rows (w8a8) and 10 x 3 beams (w8a8), and a weight-only
+    greedy call at D=8192: ValueError, no vision, no prefill, no launch; 27
+    rows pass in both modes; the weight-only kernel takes 28 rows at
+    D=4096."""
     import chip_smoke
     chip_smoke.phase2_refusal(cuda)
 
@@ -571,7 +574,7 @@ def test_megakernel_grid_barrier_holds(cuda):
     assert grid_sync_test(cuda, 2000) == 0
 
 
-@pytest.mark.parametrize("b", [1, 3, 8, 9, 31, 32, 33, 64, 65, 257])
+@pytest.mark.parametrize("b", [1, 3, 8, 9, 31, 32, 33, 64, 65, 256, 257])
 @pytest.mark.parametrize("every", [1, 2])
 def test_megakernel_edge_rows_match_plain(cuda, every, b):
     """Flamingo-mini width, 2 layers: a one-slot cache (left-padded rows
@@ -614,6 +617,64 @@ def test_megakernel_back_to_back_and_deterministic(cuda):
     each launched again on the same inputs, bit-equal."""
     import chip_smoke
     chip_smoke.back_to_back(cuda, [0.0, 0.0, None])
+
+
+def test_megakernel_section_timer_counts_every_block(cuda):
+    """With ``section_timer`` set, a weight-only launch writes each block's
+    clock cycles per section: every block waits at the grid barriers, the
+    grid runs products and attention, and the counts are left alone when
+    the timer is off."""
+    import chip_smoke
+    from flamingo_mini_tpu_torch.ops import megadecode as md
+    cfg, packed = chip_smoke.random_trunk(cuda, n_layer=2, xattn_every=1, seed=970)
+    xk, xv, kc, vc, x, npad, tt = chip_smoke.mega_inputs(cuda, cfg, 32, seed=971)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    timer = torch.zeros((sms, len(md.SECTIONS)), dtype=torch.int64, device=x.device)
+    md.section_timer = timer
+    try:
+        md.decode_step_megakernel(packed, xk, xv, kc, vc, x, npad, tt, 35, config=cfg,
+                                  kv_limit=36)
+    finally:
+        md.section_timer = None
+    first = timer.clone()
+    md.decode_step_megakernel(packed, xk, xv, kc, vc, x, npad, tt, 35, config=cfg, kv_limit=36)
+    torch.cuda.synchronize()
+    t = dict(zip(md.SECTIONS, first.t().cpu()))
+    assert bool((t["barrier"] > 0).all()) and int(first.min()) >= 0
+    assert int(t["products"].sum()) > 0 and int(t["attention"].sum()) > 0
+    assert torch.equal(timer, first), "a launch with the timer off wrote its counts"
+
+
+def test_megakernel_streams_keep_their_own_barrier_words(cuda):
+    """Weight-only launches taking turns on two streams (greedy b=32, beams
+    at 160 rows) give the bits of the same launches on the current stream;
+    each stream's launches count on barrier words of its own."""
+    import chip_smoke
+    from flamingo_mini_tpu_torch.ops import megadecode as md
+    cfg, packed = chip_smoke.random_trunk(cuda, n_layer=2, xattn_every=1, seed=960)
+    beam_in, anc = chip_smoke.beam_trunk_inputs(cuda, cfg, 160, 5, seed=961)
+    cases = ((chip_smoke.mega_inputs(cuda, cfg, 32, seed=962), 131, 132, None),
+             (beam_in, 66, 68, anc))
+
+    def launch(inputs, cur, kv_limit, beam_anc):
+        xk, xv, kc, vc, x, npad, tt = inputs
+        return md.decode_step_megakernel(packed, xk, xv, kc.clone(), vc.clone(), x, npad, tt,
+                                         cur, config=cfg, kv_limit=kv_limit,
+                                         beam_anc=beam_anc)
+    want = [launch(*case) for case in cases]
+    streams = (torch.cuda.Stream(cuda), torch.cuda.Stream(cuda))
+    got = []
+    for turn in range(4):
+        stream = streams[turn % 2]
+        stream.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(stream):
+            got.append(launch(*cases[turn // 2 % 2]))
+        torch.cuda.current_stream(cuda).wait_stream(stream)
+    torch.cuda.synchronize()
+    for turn, out in enumerate(got):
+        assert torch.equal(out.view(torch.int16), want[turn // 2 % 2].view(torch.int16)), turn
+    keys = {(want[0].device, s.cuda_stream) for s in streams}
+    assert keys <= set(md._SYNC), ("each stream has its own barrier words", keys, set(md._SYNC))
 
 
 def test_stream_sum_matches_plain(cuda):

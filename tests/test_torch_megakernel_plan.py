@@ -56,36 +56,52 @@ def test_items_cover_every_column_tile_and_chunk_once(shape):
         assert (seen == 1).all(), (shape, name, s)
 
 
-@pytest.mark.parametrize("rows", [1, 7, 8, 9, 31, 32, 33, 96, 160, 256, 257, 513, 1000])
+@pytest.mark.parametrize("rows", [1, 7, 8, 9, 31, 32, 33, 64, 65, 96, 160, 256, 257, 513, 1000])
 def test_row_groups_cover_every_row_once(rows):
-    covered, n_rg = 0, -(-rows // md.ROW_GROUP)
-    for rg in range(n_rg):
-        r = min(md.ROW_GROUP, rows - rg * md.ROW_GROUP)
-        n = md.wgmma_n(r)
-        assert n in md.WGMMA_N and r <= n < r + 32 and n <= md.wgmma_n(min(rows, md.ROW_GROUP))
-        covered += r
-    assert covered == rows
-    assert md.plan(rows, 1024, 4096, 512, 4096, n_xattn=24)["n_rg"] == n_rg
+    """The passes over the rows, and within a pass the rows each warpgroup
+    takes (all of them up to ROW_GROUP rows; past it a quarter each, N rows
+    from wg N), cover every row once at wgmma widths; a warpgroup reads its
+    N rows within the staged tiles and the N rows the union keeps past them."""
+    p = md.plan(rows, 1024, 4096, 512, 4096, n_xattn=24)
+    seen = np.zeros(rows, dtype=np.int64)
+    n_pass = -(-rows // md.PASS_ROWS)
+    for ps in range(n_pass):
+        r0 = ps * md.PASS_ROWS
+        r = min(md.PASS_ROWS, rows - r0)
+        n, tr = md.pass_shape(rows, r)
+        assert n in md.WGMMA_N and n <= p["n0"] and tr <= p["tile_rows"] and r <= tr
+        if rows <= md.ROW_GROUP:
+            assert n_pass == 1 and r <= n < r + 8 or n in (48, 64) and r <= n < r + 16
+            seen[r0:r0 + r] += 1  # by every warpgroup, each a share of the chunks
+        else:
+            assert tr % 8 == 0 and r <= tr < r + 8
+            for wg in range(md.GROUPS):
+                lo, hi = wg * n, min(r, wg * n + n)
+                if lo < r:
+                    assert wg * n + n <= tr + n
+                    seen[r0 + lo:r0 + hi] += 1
+    assert (seen == 1).all()
+    assert p["n_pass"] == n_pass and p["wide"] == (rows > md.ROW_GROUP)
 
 
 @pytest.mark.parametrize("shape", sorted(SHAPES))
 def test_staging_ring_and_shared_memory_fit(shape):
-    """A slice's staged activations fit the plan's budget; past one row
-    group a slice's chunks fit the ring that holds them; the launch's
-    shared memory fits the card; a split tile's partials fit ``parts``."""
+    """A slice's staged activations fit the plan's budget; past one pass a
+    slice's chunks fit the ring that holds them; the launch's shared memory
+    fits the card; a split tile's partials fit ``parts``."""
     rows, D, Dff, XI, Dffx, t_lim, nv, nx = SHAPES[shape]
     p = md.plan(rows, D, Dff, XI, Dffx, n_xattn=nx)
     most = md.max_chunks(p, D, Dff, XI, Dffx)
-    assert p["n0"] * 128 * most <= md.STAGE_BUDGET
-    if p["n_rg"] > 1:
-        assert most <= p["ring"]
-    assert 2 <= p["ring"] <= md.MAX_RING
+    assert p["tile_rows"] * 128 * most <= md.STAGE_BUDGET
+    if p["n_pass"] > 1:
+        assert most <= md.RING_STAGES
     assert md.plan_smem_bytes(p, D, Dff, XI, Dffx, t_lim, nv) <= H100_SMEM
     for name, s in zip(md.LINEARS, p["split"]):
         n_out = md.linear_shapes(D, Dff, XI, Dffx)[name][0]
         if s > 1:
-            assert p["n_rg"] * n_out // md.K_CHUNK * s * md.K_CHUNK * p["n0"] <= p["parts_floats"]
-        assert 2 + p["n_rg"] * n_out // md.K_CHUNK <= p["sync_words"]
+            assert (p["n_pass"] * n_out // md.K_CHUNK * s * md.K_CHUNK * p["tile_rows"]
+                    <= p["parts_floats"])
+        assert 2 + p["n_pass"] * n_out // md.K_CHUNK <= p["sync_words"]
 
 
 def test_limits_of_wide_trunks():
@@ -110,12 +126,23 @@ def test_split_choice_spreads_the_main_path():
     assert split["pr"] > 1 and split["xf2"] > 1 and split["xq"] > 1
 
 
+@pytest.mark.parametrize("rows", [96, 160])
+def test_split_choice_keeps_beam_widths_to_one_round(rows):
+    """At the beams' 96 and 160 rows (one pass, a quarter of the rows for
+    each warpgroup) no phase deals a block more than one item: the staged
+    activations of a slice fit the budget without extra K-slices."""
+    p = md.plan(rows, 1024, 4096, 512, 4096, n_xattn=24)
+    shapes = md.linear_shapes(1024, 4096, 512, 4096)
+    assert p["wide"] and p["n_pass"] == 1
+    for name, s in zip(md.LINEARS, p["split"]):
+        assert shapes[name][0] // md.K_CHUNK * s <= md.N_SMS, (rows, name, s)
+
+
 def test_args_carry_the_plan():
     p = md.plan(32, 1024, 4096, 512, 4096, n_xattn=24)
     args = md._Args(b=32)
     md._plan_args(args, p)
-    assert list(args.split) == p["split"] and args.ring == p["ring"]
-    assert args.n_xattn == 24
+    assert list(args.split) == p["split"] and args.n_xattn == 24
     assert md.ctypes.sizeof(md._Args) % 8 == 0
 
 
