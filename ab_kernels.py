@@ -10,7 +10,10 @@ cur 131, kv_limit 132, bf16), of ``decode_step_megakernel`` at 24
 layers: flamingo-mini width at b=32 and at b=1 (the fixed cost; kv_limit
 132), its beam mode at 96 rows (3 beams) and 160 rows (5 beams; kv_limit
 68) and its OPT mode at OPT-1.3B width, b=8 (kv_limit 71), each also in
-the w8a8 mode (``act_quant``) where the checkout has it, and
+the w8a8 mode (``act_quant``) where the checkout has it, of
+``lm_head_argmax`` at flamingo-mini's head (B=32, D=1024, V=50,258) and
+OPT-1.3B's (B=8, D=2048, V=50,273), each beside its wrapper's host us per
+call, and
 of the bf16 attention kernels of ``use_pallas``: ``fused_attention`` at the
 ViT (32, 16, 257, 257), resampler (32, 8, 64, 321) and causal GPT-2 and
 OPT-1.3B forward shapes (two rows left-padded by 8) and ``flash_attention``
@@ -64,6 +67,25 @@ def attention(cs, dev, flush, out: dict) -> None:
     out["flash_attention_host_us"] = host_us(lambda: flash_attention(q, k, v, scale=scale))
 
 
+def head(dev, flush, out: dict) -> None:
+    """``lm_head_argmax`` at the two heads of the greedy paths, on random
+    int8 rows padded as generate pads them (the same inputs in each
+    checkout: made here, not by the checkout's chip_smoke)."""
+    from flamingo_mini_tpu_torch.ops.lm_head import lm_head_argmax, pad_head_weights
+    for label, (B, D, V) in (("lm_head_argmax", (32, 1024, 50258)),
+                             ("lm_head_argmax_opt", (8, 2048, 50273))):
+        gen = torch.Generator(device=dev).manual_seed(B + D)
+        w8 = torch.randint(-127, 128, (V, D), generator=gen, device=dev).to(torch.int8)
+        scale = torch.rand(V, generator=gen, device=dev) * 0.01 + 1e-4
+        h = pad_head_weights({"w8": w8, "scale": scale}, 2048)
+        x = (0.1 * torch.randn((B, D), generator=gen, device=dev)).to(torch.bfloat16)
+
+        def fn():
+            return lm_head_argmax(h["w8"], h["scale"], x, n_valid=V)
+        out[label + "_ms"] = time_ms(fn, 100, flush)
+        out[label + "_host_us"] = host_us(fn)
+
+
 def one(tree: str) -> dict:
     """The kernels' times in the checkout ``tree``, an absolute path (run in
     its own process, from that directory)."""
@@ -75,6 +97,7 @@ def one(tree: str) -> dict:
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     out = {"tree": tree}
     attention(cs, dev, flush, out)
+    head(dev, flush, out)
     rs = np.random.RandomState(0)
     q, k, v = (torch.tensor(rs.randn(*s) * 0.3, dtype=torch.float32, device=dev)
                .to(torch.bfloat16) for s in ((32, 1024), (192, 32, 1024), (192, 32, 1024)))

@@ -15,8 +15,10 @@ stream probe and the in-situ decode and head probes, and checks them:
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it: ``decode_attention`` at b=32, D=1024, H=16, T=192
    (left-padded rows, several ``cur`` and ``kv_limit``, bf16 and float32),
-   ``lm_head_argmax`` at B=32, D=1024, V=50258 (padded to 51200), with an
-   exact tie planted across chunks, and ``decode_step_megakernel`` at
+   ``lm_head_argmax`` at B=32, D=1024, V=50258 (padded to 51200), with
+   exact ties planted across tiles, across one warpgroup's rounds and
+   across two blocks' shares of its persistent grid, and again with
+   n_valid on a tile's edge, and ``decode_step_megakernel`` at
    D=1024, H=16, XI=512, 64 latents, T=192: b in {1, 3, 32}, a left-padded
    row, a row with text_time 0, several ``cur``/``kv_limit``, xattn every
    layer and every other layer, 1 and 2 layers (2 bf16 ulps at the
@@ -58,23 +60,27 @@ stream probe and the in-situ decode and head probes, and checks them:
    {1, 65, 129, 257}, each plain (strided and contiguous inputs), causal
    with a left-padded row and with a bias; back-to-back calls of five
    shapes on one stream before one synchronize; streaming at 3000 keys,
-   causal with a left-padded row. Phase 1 prints the tile's registers and
-   spills (``-Xptxas -v``) and requires ``HGMMA`` and ``UTMALDG`` in its
-   SASS (``cuobjdump -sass``, where the toolkit has it). The
-   megakernel's w8a8 mode (``act_quant``): its linear alone (``lin_w8a8``,
-   the kernel's own device functions) bitwise against the plain version
+   causal with a left-padded row. Phase 1 prints the kernels' registers and
+   spills (``-Xptxas -v``) and requires wgmma (``HGMMA`` bf16, ``IGMMA``
+   int8) and ``UTMALDG`` in the SASS (``cuobjdump -sass``, where the
+   toolkit has it) of the attention tile, both megakernel modes, the w8a8
+   linear alone and the head. The
+   megakernel's w8a8 mode (``act_quant``, the same Hopper kernel): its
+   linear alone (``lin_w8a8``, the kernel's machinery with a one-linear
+   schedule) bitwise against the plain version
    at ``W8A8_LINEAR``'s shapes, b in {1, 3, 8, 32}, a zero row and .5
    rounding boundaries planted; the whole step at 1-2 layers (greedy b in
    {1, 3, 32}, beams at 96 and 160 rows, OPT-1.3B width b in {3, 8}) and
    at 24 layers (greedy b=32, beams 96 rows, OPT-1.3B b=8) under the
    normwise rule below, printing where the largest error lies, each 24
-   layer case timed beside its plain version and bound, its grid printed.
-   The shared-memory refusal: a D=4096 trunk at 28 rows in the w8a8 mode
-   (and 10 x 3 beams) raises ``ValueError`` before vision and prefill,
-   launching nothing, and 27 rows pass the check; the weight-only mode's
-   Hopper kernel holds 28 rows at D=4096, and a weight-only generate on a
-   D=8192 trunk (wider than its LayerNorm holds in registers) raises
-   ValueError before vision and prefill, launching nothing. The
+   layer case timed beside its plain version and bound, its grid printed;
+   then at the weight-only mode's edge rows (2 layers, D=1024, within 2
+   bf16 ulps, the cases bit-equal to the plain version counted), back to
+   back, twice bit-equal and on two streams. The refusal: on a D=8192
+   trunk (wider than the kernel's LayerNorm holds in registers) a w8a8
+   greedy call, w8a8 beams and a weight-only greedy call each raise
+   ``ValueError`` before vision and prefill, launching nothing; at D=4096
+   both modes pass the check at 27, 28, 257 and 2,048 rows. The
    weight-only mode's Hopper kernel (``csrc/decode_megakernel_sm90.cuh``)
    at its edges: its grid barrier alone (every block's stamps read back
    after each of 2,000 barriers), the step at 2 layers, D=1024, xattn
@@ -84,8 +90,7 @@ stream probe and the in-situ decode and head probes, and checks them:
    the largest error and where; two launches on the same inputs bit-equal
    (greedy b=32, beams 96 rows, OPT-1.3B b=8); four shapes launched back to
    back on one stream before one synchronize, each against its plain
-   version. Phase 1 also requires ``HGMMA`` and ``UTMALDG`` in its SASS.
-   The decode stream probes'
+   version. The decode stream probes'
    kernels (``attn_stream_only``, ``tmajor_stream``, ``packed_stream``)
    at the probe's shape (b=32, D=1024, T=192, random caches from a seed):
    ``block_t`` 16 and 32, ``block_b`` 32 and 8, kv_limit 128 and 100 (a
@@ -278,9 +283,10 @@ def bound(n_bytes: float, n_ops: float, n_int8_ops: float = 0.0,
 
 def sm90_sass(lib: str) -> None:
     """Print the Hopper kernels' instructions of note in the built library
-    (the attention tile, the weight-only megakernel) and require wgmma
-    (HGMMA) and TMA loads (UTMALDG) in each; a toolkit without cuobjdump
-    skips the check, saying so."""
+    (the attention tile, the megakernel's two modes and its w8a8 linear
+    alone, the head) and require wgmma (HGMMA for bf16, IGMMA for int8)
+    and TMA loads (UTMALDG) in each; a toolkit without cuobjdump skips the
+    check, saying so."""
     from flamingo_mini_tpu_torch.ops import cuda_build
     tool = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
     if not os.path.isfile(tool):
@@ -292,18 +298,25 @@ def sm90_sass(lib: str) -> None:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            if "attention_sm90_kernel" in name or "decode_megakernel_sm90" in name:
+            if any(k in name for k in SM90_KERNELS):
                 found[name] = set()
             else:
                 name = None
         elif name is not None:
-            found[name].update(op for op in ("HGMMA", "UTMALDG", "SYNCS") if op in line)
-    assert any("attention_sm90" in n for n in found) and \
-        any("decode_megakernel_sm90" in n for n in found), \
-        f"a Hopper kernel is missing from the library's SASS: {sorted(found)}"
+            found[name].update(op for op in ("HGMMA", "IGMMA", "UTMALDG", "SYNCS")
+                               if op in line)
+    for k in SM90_KERNELS:
+        assert any(k in n for n in found), \
+            f"{k} is missing from the library's SASS: {sorted(found)}"
     for name, ops in found.items():
         print(f"[phase 1] SASS {name}: {' '.join(sorted(ops))}")
-        assert {"HGMMA", "UTMALDG"} <= ops, f"{name}: no wgmma or TMA in its SASS"
+        assert ops & {"HGMMA", "IGMMA"} and "UTMALDG" in ops, \
+            f"{name}: no wgmma or TMA in its SASS"
+
+
+# the Hopper kernels the SASS check looks for (names as cuobjdump prints them)
+SM90_KERNELS = ("attention_sm90_kernel", "decode_megakernel_sm90", "w8a8_linear_kernel",
+                "lm_head_kernel")
 
 
 def card_line() -> str:
@@ -413,46 +426,89 @@ def phase2_decode_attention(dev, flush, b=ATTN_B, D=ATTN_D, H=ATTN_H, T=ATTN_T,
                                                   bound(n_bytes, n_ops))))
 
 
-def phase2_lm_head(dev, flush, B=HEAD_B, D=HEAD_D, V=HEAD_V):
-    """lm_head_argmax vs plain at (B rows, width D, V vocab rows padded to
-    a multiple of 2048), a cross-chunk tie planted; timed beside the bound."""
-    from flamingo_mini_tpu_torch.ops.lm_head import (
-        lm_head_argmax, lm_head_argmax_plain, pad_head_weights)
-    rs = np.random.RandomState(1)
-    w8 = rs.randint(-127, 128, (V, D)).astype(np.int8)
-    scale = (np.abs(rs.randn(V)) * 0.01 + 1e-4).astype(np.float32)
-    x = (rs.randn(B, D) * 0.1).astype(np.float32)
-    # row 0: vocab rows 7 and 40000 (other chunks) tie exactly at the top
-    x[0] = 0.0
-    x[0, :8] = 1.0 / 127
-    w8[[7, 40000], :8] = 127
-    scale[[7, 40000]] = 1.0
-    head = pad_head_weights({"w8": torch.tensor(w8, device=dev),
-                             "scale": torch.tensor(scale, device=dev)}, 2048)
-    Vp = head["w8"].shape[0]
-    assert Vp == -(-V // 2048) * 2048
-    xt = torch.tensor(x, device=dev).to(torch.bfloat16)
-    got = lm_head_argmax(head["w8"], head["scale"], xt, n_valid=V)
-    want = lm_head_argmax_plain(head["w8"], head["scale"], xt, n_valid=V)
+def head_inputs(dev, B: int, D: int, V: int, seed: int):
+    """The head's inputs on the card -> (head (pad_head_weights), x (B, D)
+    bf16, {hidden row: the planted tie's (first, second) vocab row}). Random
+    int8 rows, scales 1e-4 + |N(0, 0.01)|, hidden rows N(0, 0.1); the first
+    three hidden rows (as many as B has) each zero but for 8 columns of 1 /
+    127 (their own), which meet exactly two vocab rows at 127 with scale 1:
+    an exact tie at the top (logit 8) between vocab rows 7 and 40000 (other
+    tiles, other blocks' shares), 63 and 256 (tiles 0 and 4: one block's,
+    one warpgroup's, two rounds), and the last row of the first block's
+    share and the first of the second's (lm_head.schedule's deal)."""
+    from flamingo_mini_tpu_torch.ops import lm_head as lh
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w8 = torch.randint(-127, 128, (V, D), generator=gen, device=dev).to(torch.int8)
+    scale = torch.randn(V, generator=gen, device=dev).abs() * 0.01 + 1e-4
+    x = torch.randn((B, D), generator=gen, device=dev) * 0.1
+    n_tiles = -(-V // 2048) * 2048 // lh.TILE
+    edge = n_tiles // min(n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
+    ties = {0: (7, 40000), 1: (63, 256), 2: (edge * lh.TILE - 1, edge * lh.TILE)}
+    ties = {i: t for i, t in ties.items() if i < B}
+    for pair in ties.values():
+        w8[list(pair), :24] = 0
+    for i, pair in ties.items():
+        x[i] = 0.0
+        x[i, 8 * i:8 * i + 8] = 1.0 / 127
+        w8[list(pair), 8 * i:8 * i + 8] = 127
+        scale[list(pair)] = 1.0
+    head = lh.pad_head_weights({"w8": w8, "scale": scale}, 2048)
+    return head, x.to(torch.bfloat16), ties
+
+
+def head_picks(head, xt, n_valid: int):
+    """(kernel picks, plain picks, the plain logits' gap between them, one
+    bf16 ulp of the plain pick's logit), each (B,)."""
+    from flamingo_mini_tpu_torch.ops.lm_head import lm_head_argmax, lm_head_argmax_plain
+    got = lm_head_argmax(head["w8"], head["scale"], xt, n_valid=n_valid)
+    want = lm_head_argmax_plain(head["w8"], head["scale"], xt, n_valid=n_valid)
     torch.cuda.synchronize()
-    assert int(got[0]) == 7, f"planted tie resolved to {int(got[0])}, not 7"
     logits = torch.matmul(xt.float(), head["w8"].float().t()) * head["scale"]
-    logits = logits.to(torch.bfloat16).float()[:, :V]
-    rows = torch.arange(B, device=dev)
+    logits = logits.to(torch.bfloat16).float()[:, :n_valid]
+    rows = torch.arange(xt.shape[0], device=xt.device)
     gap = (logits[rows, want.long()] - logits[rows, got.long()]).abs()
     ulp = 2.0 ** (torch.floor(torch.log2(logits[rows, want.long()].abs())) - 7)
+    return got, want, gap, ulp
+
+
+def phase2_lm_head(dev, flush, B=HEAD_B, D=HEAD_D, V=HEAD_V):
+    """lm_head_argmax vs plain at (B rows, width D, V vocab rows padded to
+    a multiple of 2048), exact ties planted across tiles, across one
+    warpgroup's rounds and across two blocks' shares (``head_inputs``);
+    again with n_valid at a tile's edge below V, a masked vocab row
+    planted above the tie; timed beside the bound."""
+    from flamingo_mini_tpu_torch.ops.lm_head import lm_head_argmax, lm_head_argmax_plain
+    head, xt, ties = head_inputs(dev, B, D, V, seed=1)
+    Vp = head["w8"].shape[0]
+    assert Vp == -(-V // 2048) * 2048
+    got, want, gap, ulp = head_picks(head, xt, V)
+    for i, (first, _second) in ties.items():
+        assert int(got[i]) == first, f"planted tie {ties[i]} resolved to {int(got[i])}"
     mismatch = int((got != want).sum())
     assert bool((gap <= ulp).all()), "lm_head_argmax picks differ by more " \
         f"than 1 bf16 ulp: {gap.max().item()}"
+    # n_valid at a tile's edge: vocab row n_valid (masked) planted above
+    # row 0's tie
+    edge = V // 64 * 64
+    head["w8"][edge, :8] = 127
+    head["scale"][0, edge] = 2.0
+    got_e, want_e, gap_e, ulp_e = head_picks(head, xt, edge)
+    assert int(got_e[0]) == ties[0][0] and bool((gap_e <= ulp_e).all()), \
+        (int(got_e[0]), gap_e.max().item())
+    mismatch_e = int((got_e != want_e).sum())
     print(f"[phase 2] lm_head_argmax vs plain at B={B}, D={D}, V={V} (padded to "
-          f"{Vp}): {mismatch}/{B} tokens differ, all within 1 bf16 ulp; planted "
-          "cross-chunk tie -> 7")
+          f"{Vp}): {mismatch}/{B} tokens differ, all within 1 bf16 ulp; planted ties "
+          f"{ties} -> the first of each; n_valid={edge} (a tile's edge, a masked row "
+          f"planted above): {mismatch_e}/{B} differ, within 1 ulp")
     ms = time_ms(lambda: lm_head_argmax(head["w8"], head["scale"], xt,
                                         n_valid=V), 50, flush)
     plain_ms = time_ms(lambda: lm_head_argmax_plain(
         head["w8"], head["scale"], xt, n_valid=V), 50, flush)
+    wrapper_us = host_us(lambda: lm_head_argmax(head["w8"], head["scale"], xt, n_valid=V))
+    print(f"[phase 2] lm_head_argmax at B={B}, D={D}: {ms} ms, plain {plain_ms} ms, "
+          f"wrapper {wrapper_us} us of host time per call")
     n_bytes = Vp * D + 4 * Vp + 2 * B * D + 4 * B
-    return dict(max_abs_err=float(gap.max()), ms=ms, plain_ms=plain_ms,
+    return dict(max_abs_err=float(max(gap.max(), gap_e.max())), ms=ms, plain_ms=plain_ms,
                 library_ms=None, **dict(zip(("bound_ms", "bound_by"), bound(
                     n_bytes, 2 * B * Vp * D))))
 
@@ -946,24 +1002,30 @@ def phase2_megakernel_edges(dev):
     return worst[1]
 
 
-def edge_rows_case(dev, cfg, packed, b: int, worst, label: str = "") -> int:
-    """The weight-only kernel against its plain version at ``b`` rows over
-    a cache of one slot (rows left-padded by r % 4 attend nothing), and at
-    the last steps of two live prefixes; 2 bf16 ulps -> cases run."""
+def edge_rows_case(dev, cfg, packed, b: int, worst, label: str = "",
+                   act_quant: bool = False, equal=None) -> int:
+    """The kernel (weight-only, or the w8a8 mode) against its plain version
+    at ``b`` rows over a cache of one slot (rows left-padded by r % 4
+    attend nothing), and at the last steps of two live prefixes; 2 bf16
+    ulps -> cases run. ``equal`` (a list): the cases bit-equal to the plain
+    version are appended."""
     T = MEGA_T if cfg.dim == MEGA_D else OPT_T
     inputs = mega_inputs(dev, cfg, b, seed=910 + b, T=T)
     pairs = ((0, 1), (35, 36), (131, 132)) if T == MEGA_T else ((0, 1), (70, 71))
     for cur, kv_limit in pairs:
-        held_to_ulps(f"{label}b={b} cur={cur} kv_limit={kv_limit}",
-                     mega_errors(cfg, packed, inputs, cur, kv_limit), worst)
+        errs = mega_errors(cfg, packed, inputs, cur, kv_limit, act_quant=act_quant)
+        held_to_ulps(f"{label}b={b} cur={cur} kv_limit={kv_limit}", errs, worst)
+        if equal is not None and all(torch.equal(g, w) for g, w in errs.values()):
+            equal.append((b, cur))
     return len(pairs)
 
 
-def back_to_back(dev, worst):
-    """The weight-only kernel: greedy b=32 and b=3 (flamingo-mini width),
-    beams at 96 rows and OPT-1.3B width at b=8, 2 layers, launched back to
-    back on one stream before one synchronize, each within 2 bf16 ulps of
-    its plain version; each launched again on the same inputs, bit-equal."""
+def back_to_back(dev, worst, act_quant: bool = False):
+    """The kernel (weight-only, or the w8a8 mode): greedy b=32 and b=3
+    (flamingo-mini width), beams at 96 rows and OPT-1.3B width at b=8, 2
+    layers, launched back to back on one stream before one synchronize,
+    each within 2 bf16 ulps of its plain version; each launched again on
+    the same inputs, bit-equal."""
     from flamingo_mini_tpu_torch.ops.megadecode import (
         decode_step_megakernel, decode_step_megakernel_plain)
     cfg1, packed1 = random_trunk(dev, n_layer=2, xattn_every=1, seed=901)
@@ -982,7 +1044,8 @@ def back_to_back(dev, worst):
         kc1, vc1 = kc.clone(), vc.clone()
         outs.append((decode_step_megakernel(packed, xk, xv, kc1, vc1, x, npad, tt, cur,
                                             config=cfg, kv_limit=kv_limit,
-                                            beam_anc=beam_anc), kc1, vc1))
+                                            beam_anc=beam_anc, act_quant=act_quant),
+                     kc1, vc1))
     torch.cuda.synchronize()
     for (label, cfg, packed, inputs, cur, kv_limit, beam_anc), (got, kc1, vc1) in zip(
             cases, outs):
@@ -990,19 +1053,77 @@ def back_to_back(dev, worst):
         kc2, vc2 = kc.clone(), vc.clone()
         want = decode_step_megakernel_plain(packed, xk, xv, kc2, vc2, x, npad, tt, cur,
                                             config=cfg, kv_limit=kv_limit,
-                                            beam_anc=beam_anc)
+                                            beam_anc=beam_anc, act_quant=act_quant)
         held_to_ulps(f"back to back {label}", {
             "hidden": (got.float(), want.float()),
             "k rows": (kc1[:, cur].float(), kc2[:, cur].float()),
             "v rows": (vc1[:, cur].float(), vc2[:, cur].float())}, worst)
         again = decode_step_megakernel(packed, xk, xv, kc.clone(), vc.clone(), x, npad, tt,
-                                       cur, config=cfg, kv_limit=kv_limit, beam_anc=beam_anc)
+                                       cur, config=cfg, kv_limit=kv_limit, beam_anc=beam_anc,
+                                       act_quant=act_quant)
         torch.cuda.synchronize()
         assert torch.equal(got.view(torch.int16), again.view(torch.int16)), \
             f"{label}: two launches on the same inputs differ"
-    print(f"[phase 2] weight-only kernel: {', '.join(c[0] for c in cases)} launched back "
-          "to back before one synchronize, each within 2 bf16 ulps of its plain "
-          "version; each launched again on the same inputs: bit-equal")
+    print(f"[phase 2] {'w8a8' if act_quant else 'weight-only'} mode: "
+          f"{', '.join(c[0] for c in cases)} launched back to back before one "
+          "synchronize, each within 2 bf16 ulps of its plain version; each launched "
+          "again on the same inputs: bit-equal")
+
+
+def two_streams(dev, act_quant: bool = False):
+    """Launches taking turns on two streams (greedy b=32, beams at 160
+    rows, 2 layers) give the bits of the same launches on the current
+    stream; each stream's launches count on barrier words of its own."""
+    from flamingo_mini_tpu_torch.ops import megadecode as md
+    cfg, packed = random_trunk(dev, n_layer=2, xattn_every=1, seed=960)
+    beam_in, anc = beam_trunk_inputs(dev, cfg, 160, 5, seed=961)
+    cases = ((mega_inputs(dev, cfg, 32, seed=962), 131, 132, None),
+             (beam_in, 66, 68, anc))
+
+    def launch(inputs, cur, kv_limit, beam_anc):
+        xk, xv, kc, vc, x, npad, tt = inputs
+        return md.decode_step_megakernel(packed, xk, xv, kc.clone(), vc.clone(), x, npad, tt,
+                                         cur, config=cfg, kv_limit=kv_limit,
+                                         beam_anc=beam_anc, act_quant=act_quant)
+    want = [launch(*case) for case in cases]
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    got = []
+    for turn in range(4):
+        stream = streams[turn % 2]
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            got.append(launch(*cases[turn // 2 % 2]))
+        torch.cuda.current_stream(dev).wait_stream(stream)
+    torch.cuda.synchronize()
+    for turn, out in enumerate(got):
+        assert torch.equal(out.view(torch.int16), want[turn // 2 % 2].view(torch.int16)), turn
+    keys = {(want[0].device, s.cuda_stream) for s in streams}
+    assert keys <= set(md._SYNC), ("each stream has its own barrier words", keys, set(md._SYNC))
+
+
+def phase2_megakernel_w8a8_edges(dev):
+    """The w8a8 mode at the weight-only mode's edges: 2 layers, D=1024
+    (xattn every 1 and 2) at ``EDGE_ROWS`` x (cur, kv_limit) in (0, 1)
+    (left-padded rows attend nothing), (35, 36), (131, 132), within 2 bf16
+    ulps, the cases bit-equal to the plain version counted; back to back
+    and twice on the same inputs; taking turns on two streams -> the
+    largest abs error."""
+    worst, n, equal = [0.0, 0.0, None], 0, []
+    for every in (1, 2):
+        cfg, packed = random_trunk(dev, n_layer=2, xattn_every=every, seed=900 + every)
+        for b in EDGE_ROWS:
+            n += edge_rows_case(dev, cfg, packed, b, worst, f"w8a8 every={every} ",
+                                act_quant=True, equal=equal)
+    print(f"[phase 2] w8a8 mode at its edges, 2 layers, D=1024 (xattn every 1 and 2), b in "
+          f"{EDGE_ROWS} x (cur, kv_limit) in (0, 1), (35, 36), (131, 132): {n} cases, "
+          f"{len(equal)} bit-equal to the plain version; max error {worst[0]} bf16 ulp at "
+          f"the output's scale (tolerance 2), max abs error {worst[1]}; largest at "
+          f"{worst[2]}")
+    back_to_back(dev, worst, act_quant=True)
+    two_streams(dev, act_quant=True)
+    print("[phase 2] w8a8 mode: launches taking turns on two streams give the bits of "
+          "one stream's")
+    return worst[1]
 
 
 def w8a8_linear_case(dev, b: int, K: int, N: int, width, seed: int):
@@ -1165,26 +1286,25 @@ def wide_config(D: int):
 
 def wide_trunk_model(dev, D: int = 4096):
     """``wide_config`` D wide, int8, bf16: at opt-6.7b's width (D=4096) a
-    trunk whose w8a8 LayerNorm stage outgrows shared memory past 27 rows;
-    at D=8192 one whose rows the weight-only kernel's LayerNorm cannot
-    hold in registers."""
+    trunk the kernel takes at any row count in both modes; at D=8192 one
+    whose rows its LayerNorm cannot hold in registers."""
     from flamingo_mini_tpu_torch import FlamingoModel
     model = FlamingoModel(wide_config(D), device=dev, seed=3)
     return model.quantize_int8().to_bf16()
 
 
 def phase2_refusal(dev):
-    """The refusal before any work: at D=4096 a w8a8 greedy call of 28 rows
-    (and a beam call of 10 x 3) raises ValueError before vision and
-    prefill, launching nothing; 27 rows pass the check in both modes. The
-    weight-only kernel takes 28 rows at D=4096, and a weight-only greedy
-    call on a D=8192 trunk (its LayerNorm rows do not fit the kernel's
-    registers) raises ValueError before vision and prefill too, launching
-    nothing."""
+    """The refusal before any work: on a D=8192 trunk (wider than the
+    kernel's LayerNorm holds in registers) a w8a8 greedy call of 8 rows, a
+    w8a8 beam call of 3 x 3 and a weight-only greedy call of 8 rows each
+    raise ValueError before vision and prefill, launching nothing. At
+    D=4096 both modes pass the check at 27, 28, 257 and 2,048 rows: the
+    kernel stages int8 in the w8a8 mode, and its shared memory stops
+    growing with the rows past a pass of 256 in both."""
     from flamingo_mini_tpu_torch import generation
     from flamingo_mini_tpu_torch.models import flamingo
     from flamingo_mini_tpu_torch.ops import megadecode
-    model = wide_trunk_model(dev)
+    model = wide_trunk_model(dev, 8192)
     ran = []
 
     def recorder(name, fn):
@@ -1193,12 +1313,7 @@ def phase2_refusal(dev):
             return fn(*a, **k)
         return run
     messages = []
-    for D, b, kw in ((4096, 28, dict(w8a8=True)), (4096, 10, dict(num_beams=3, w8a8=True)),
-                     (8192, 8, {})):
-        if D != model.config.dim:
-            del model
-            torch.cuda.empty_cache()
-            model = wide_trunk_model(dev, D)
+    for b, kw in ((8, dict(w8a8=True)), (3, dict(num_beams=3, w8a8=True)), (8, {})):
         ids = torch.ones((b, 4), dtype=torch.long, device=dev)
         pixels = torch.zeros((b, 1, 3, 32, 32), device=dev, dtype=torch.bfloat16)
         zero_counts()
@@ -1211,24 +1326,24 @@ def phase2_refusal(dev):
             except ValueError as e:
                 messages.append(str(e))
             else:
-                raise AssertionError(f"{b} rows at D={D} ran on the megakernel ({kw})")
+                raise AssertionError(f"{b} rows at D=8192 ran on the megakernel ({kw})")
         counts = read_counts()
         assert not ran and not any(counts.values()), (ran, counts)
+    for act_quant, message in ((True, messages[0]), (False, messages[-1])):
+        try:
+            megadecode.check_fits(model.config, 8, 16, 64, act_quant=act_quant, device=dev)
+        except ValueError as e:
+            assert str(e) == message, (str(e), message)
+        else:
+            raise AssertionError(f"the kernel took a D=8192 trunk (act_quant={act_quant})")
     config4096 = wide_config(4096)
-    for act_quant in (True, False):
-        megadecode.check_fits(config4096, 27, 16, 64, act_quant=act_quant, device=dev)
-    megadecode.check_fits(config4096, 28, 16, 64, act_quant=False, device=dev)
-    try:
-        megadecode.check_fits(model.config, 8, 16, 64, act_quant=False, device=dev)
-    except ValueError as e:
-        assert str(e) == messages[-1], (str(e), messages[-1])
-    else:
-        raise AssertionError("the weight-only kernel took a D=8192 trunk")
-    print(f"[phase 2] refusal at D=4096 before vision and prefill (nothing launched): "
-          f"{messages[0]!r}; w8a8 beams 10 x 3 refused too; 27 rows pass the check in "
-          f"both modes; weight-only 28 rows pass at D=4096; a weight-only generate at "
-          f"D=8192 refused before vision and prefill (nothing launched): "
-          f"{messages[-1]!r}")
+    for rows in (27, 28, 257, 2048):
+        for act_quant in (True, False):
+            megadecode.check_fits(config4096, rows, 16, 64, act_quant=act_quant, device=dev)
+    print(f"[phase 2] refusal at D=8192 before vision and prefill (nothing launched): "
+          f"w8a8 greedy 8 rows {messages[0]!r}; w8a8 beams 3 x 3 and weight-only greedy "
+          f"8 rows refused too; at D=4096 27, 28, 257 and 2048 rows pass the check in "
+          f"both modes")
     del model
     torch.cuda.empty_cache()
 
@@ -2183,6 +2298,9 @@ def main() -> int:
     mx = phase2_media_xattn(dev, flush)
     phase2_w8a8_linear(dev)
     mega_w8 = phase2_megakernel_w8a8(dev, flush)
+    w8_edges = phase2_megakernel_w8a8_edges(dev)
+    for row in mega_w8.values():
+        row["max_abs_err"] = max(row["max_abs_err"], w8_edges)
     phase2_refusal(dev)
     probe = phase2_decode_stream_probe(dev, flush)
     del flush
@@ -2424,13 +2542,13 @@ def main() -> int:
             ("fused_media_xattn", "media_xattn.cu",
              "flamingo_mini_tpu/ops/pallas_xattn.py:122",
              pallas_counts["fused_media_xattn"], mx),
-            ("decode_step_megakernel (act_quant: w8a8)", "decode_megakernel.cu",
+            ("decode_step_megakernel (act_quant: w8a8)", "decode_megakernel_sm90.cuh",
              "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
              w8_counts["decode_step_megakernel"], mega_w8["greedy"]),
-            ("decode_step_megakernel (act_quant, beam mode)", "decode_megakernel.cu",
+            ("decode_step_megakernel (act_quant, beam mode)", "decode_megakernel_sm90.cuh",
              "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
              w8_b_counts["decode_step_megakernel"], mega_w8["beam"]),
-            ("decode_step_megakernel (act_quant, OPT mode)", "decode_megakernel.cu",
+            ("decode_step_megakernel (act_quant, OPT mode)", "decode_megakernel_sm90.cuh",
              "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
              opt_counts["w8a8"]["decode_step_megakernel"], mega_w8["opt"]),
             ("stream_sum (bandwidth probe)", "stream_probe.cu",

@@ -25,6 +25,57 @@ import torch
 from . import cuda_build
 
 NEG = float(torch.finfo(torch.float32).min)
+# the CUDA kernel's shape (csrc/lm_head_argmax.cu): vocab rows per tile and
+# k per weight chunk, consumer warpgroups, ring stages, the most hidden
+# rows of a group and the shared memory the staged rows may take
+TILE = 64
+GROUPS = 4
+RING = 16
+MAX_N = 32
+STAGE_BYTES = 96 * 1024
+MAX_D = STAGE_BYTES // (2 * 8)   # the widest hidden row it stages 8 of
+
+
+def group_rows(D: int) -> int:
+    """Hidden rows of a group: ``MAX_N``, fewer (a multiple of 8) where
+    ``MAX_N`` rows of D would outgrow ``STAGE_BYTES`` (the kernel's
+    ``group_rows``)."""
+    return min(STAGE_BYTES // (2 * D) // 8 * 8, MAX_N)
+
+
+def smem_bytes(D: int, B: int) -> int:
+    """The kernel's dynamic shared memory (its ``layout``): alignment, the
+    ring, the first group's staged rows, the warps' best pairs, the
+    barriers."""
+    n = -(-min(B, group_rows(D)) // 8) * 8
+    return 1024 + RING * TILE * TILE + n * (D // TILE) * 128 + GROUPS * 4 * MAX_N * 8 \
+        + 2 * RING * 8
+
+
+def schedule(block: int, blocks: int, n_tiles: int, D: int, B: int):
+    """The kernel's deal for one block of the persistent grid, mirrored:
+    (the producer's issue order, each consumer warpgroup's order), every
+    entry ``(warpgroup, its chunk count so far, first row of the group,
+    vocab tile, weight chunk)``; chunk j of warpgroup w lands in stage
+    ``w * RING // GROUPS + j % (RING // GROUPS)`` of its own ring. The
+    block takes tiles [block n / blocks, (block + 1) n / blocks); warpgroup
+    w the share's tiles w, w + 4, ...; the producer, per row group and round
+    of four tiles, each chunk of the round's tiles in turn."""
+    t0, t1 = block * n_tiles // blocks, (block + 1) * n_tiles // blocks
+    nk, rows = D // TILE, group_rows(D)
+    producer, consumers = [], [[] for _ in range(GROUPS)]
+    issued = [0] * GROUPS
+    for r0 in range(0, B, rows):
+        for t in range(t0, t1, GROUPS):
+            for c in range(nk):
+                for w in range(min(GROUPS, t1 - t)):
+                    producer.append((w, issued[w], r0, t + w, c))
+                    issued[w] += 1
+        for w in range(GROUPS):
+            for tile in range(t0 + w, t1, GROUPS):
+                for c in range(nk):
+                    consumers[w].append((w, len(consumers[w]), r0, tile, c))
+    return producer, consumers
 
 
 def pad_head_weights(wq: Dict[str, torch.Tensor], block_v: int = 2048):
@@ -68,9 +119,11 @@ def lm_head_argmax(w8: torch.Tensor, scale: torch.Tensor, x: torch.Tensor,
     if w8.dtype != torch.int8 or w8.device != x.device or not w8.is_contiguous():
         raise ValueError("lm_head_argmax: w8 must be contiguous int8 on "
                          "the same device")
-    if Vp % rows or D % 16:   # whole blocks of rows, whole mma k-steps
-        raise ValueError(f"lm_head_argmax: needs Vp % {rows} == 0 and "
-                         f"D % 16 == 0, got Vp={Vp}, D={D}")
+    # whole vocab tiles, whole 64-k weight chunks (the kernel's TMA box),
+    # and at least 8 hidden rows of D staged in STAGE_BYTES
+    if Vp % rows or D % TILE or D > MAX_D:
+        raise ValueError(f"lm_head_argmax: needs Vp % {rows} == 0, D % {TILE} == 0 "
+                         f"and D <= {MAX_D}, got Vp={Vp}, D={D}")
     if scale.dtype != torch.float32 or scale.numel() != Vp \
             or scale.device != x.device or not scale.is_contiguous():
         raise ValueError("lm_head_argmax: scale must be contiguous float32 "
@@ -79,9 +132,11 @@ def lm_head_argmax(w8: torch.Tensor, scale: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"lm_head_argmax: x must be contiguous bf16 ({B}, {D})")
     if not 0 < n_valid <= Vp:
         raise ValueError(f"lm_head_argmax: n_valid={n_valid} outside (0, {Vp}]")
-    n_chunks = Vp // rows
-    part_max = torch.empty((n_chunks, B), dtype=torch.float32, device=x.device)
-    part_idx = torch.empty((n_chunks, B), dtype=torch.int32, device=x.device)
+    # one (max, index) pair per row from each block of the persistent grid
+    # (at most one block per vocab tile)
+    n_tiles = Vp // rows
+    part_max = torch.empty((n_tiles, B), dtype=torch.float32, device=x.device)
+    part_idx = torch.empty((n_tiles, B), dtype=torch.int32, device=x.device)
     out = torch.empty((B,), dtype=torch.int32, device=x.device)
     lm_head_argmax.launches += 1
     err = lib.fmt_lm_head_argmax(
