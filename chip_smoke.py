@@ -61,26 +61,26 @@ stream probe and the in-situ decode and head probes, and checks them:
    with a left-padded row and with a bias; back-to-back calls of five
    shapes on one stream before one synchronize; streaming at 3000 keys,
    causal with a left-padded row. Phase 1 prints the kernels' registers and
-   spills (``-Xptxas -v``) and requires wgmma (``HGMMA`` bf16, ``IGMMA``
-   int8) and ``UTMALDG`` in the SASS (``cuobjdump -sass``, where the
-   toolkit has it) of the attention tile, both megakernel modes, the w8a8
-   linear alone and the head. The
-   megakernel's w8a8 mode (``act_quant``, the same Hopper kernel): its
-   linear alone (``lin_w8a8``, the kernel's machinery with a one-linear
-   schedule) bitwise against the plain version
+   spills (``-Xptxas -v``) and requires ``HGMMA`` and ``UTMALDG`` in the
+   SASS (``cuobjdump -sass``, where the toolkit has it) of the attention
+   tile, the weight-only megakernel and the head. The
+   megakernel's w8a8 mode (``act_quant``): its linear alone (``lin_w8a8``,
+   the kernel's own device functions) bitwise against the plain version
    at ``W8A8_LINEAR``'s shapes, b in {1, 3, 8, 32}, a zero row and .5
    rounding boundaries planted; the whole step at 1-2 layers (greedy b in
    {1, 3, 32}, beams at 96 and 160 rows, OPT-1.3B width b in {3, 8}) and
    at 24 layers (greedy b=32, beams 96 rows, OPT-1.3B b=8) under the
    normwise rule below, printing where the largest error lies, each 24
-   layer case timed beside its plain version and bound, its grid printed;
-   then at the weight-only mode's edge rows (2 layers, D=1024, within 2
-   bf16 ulps, the cases bit-equal to the plain version counted), back to
-   back, twice bit-equal and on two streams. The refusal: on a D=8192
-   trunk (wider than the kernel's LayerNorm holds in registers) a w8a8
-   greedy call, w8a8 beams and a weight-only greedy call each raise
-   ``ValueError`` before vision and prefill, launching nothing; at D=4096
-   both modes pass the check at 27, 28, 257 and 2,048 rows. The
+   layer case timed beside its plain version and bound, its grid printed,
+   and the 1-2 layer cases also bit for bit; then at the weight-only
+   mode's edge rows (2 layers, D=1024), back to back and on two streams,
+   each bit for bit the plain version, and twice bit-equal.
+   The shared-memory refusal: a D=4096 trunk at 28 rows in the w8a8 mode
+   (and 10 x 3 beams) raises ``ValueError`` before vision and prefill,
+   launching nothing, and 27 rows pass the check; the weight-only mode's
+   Hopper kernel holds 28 rows at D=4096, and a weight-only generate on a
+   D=8192 trunk (wider than its LayerNorm holds in registers) raises
+   ValueError before vision and prefill, launching nothing. The
    weight-only mode's Hopper kernel (``csrc/decode_megakernel_sm90.cuh``)
    at its edges: its grid barrier alone (every block's stamps read back
    after each of 2,000 barriers), the step at 2 layers, D=1024, xattn
@@ -283,10 +283,9 @@ def bound(n_bytes: float, n_ops: float, n_int8_ops: float = 0.0,
 
 def sm90_sass(lib: str) -> None:
     """Print the Hopper kernels' instructions of note in the built library
-    (the attention tile, the megakernel's two modes and its w8a8 linear
-    alone, the head) and require wgmma (HGMMA for bf16, IGMMA for int8)
-    and TMA loads (UTMALDG) in each; a toolkit without cuobjdump skips the
-    check, saying so."""
+    (the attention tile, the weight-only megakernel, the head) and require
+    wgmma (HGMMA) and TMA loads (UTMALDG) in each; a toolkit without
+    cuobjdump skips the check, saying so."""
     from flamingo_mini_tpu_torch.ops import cuda_build
     tool = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
     if not os.path.isfile(tool):
@@ -303,20 +302,17 @@ def sm90_sass(lib: str) -> None:
             else:
                 name = None
         elif name is not None:
-            found[name].update(op for op in ("HGMMA", "IGMMA", "UTMALDG", "SYNCS")
-                               if op in line)
+            found[name].update(op for op in ("HGMMA", "UTMALDG", "SYNCS") if op in line)
     for k in SM90_KERNELS:
         assert any(k in n for n in found), \
             f"{k} is missing from the library's SASS: {sorted(found)}"
     for name, ops in found.items():
         print(f"[phase 1] SASS {name}: {' '.join(sorted(ops))}")
-        assert ops & {"HGMMA", "IGMMA"} and "UTMALDG" in ops, \
-            f"{name}: no wgmma or TMA in its SASS"
+        assert {"HGMMA", "UTMALDG"} <= ops, f"{name}: no wgmma or TMA in its SASS"
 
 
 # the Hopper kernels the SASS check looks for (names as cuobjdump prints them)
-SM90_KERNELS = ("attention_sm90_kernel", "decode_megakernel_sm90", "w8a8_linear_kernel",
-                "lm_head_kernel")
+SM90_KERNELS = ("attention_sm90_kernel", "decode_megakernel_sm90", "lm_head_kernel")
 
 
 def card_line() -> str:
@@ -644,7 +640,7 @@ def held_to_ulps(label, errs, worst, limit=2):
 
 
 def held_normwise(label, cfg, packed, inputs, cur, kv_limit, beam_anc=None,
-                  act_quant=False, worst=None):
+                  act_quant=False, worst=None, bitwise=False):
     """A deep trunk (or any w8a8 step): the kernel against the plain version
     on the card, normwise. The roundings compound over layers, and in the
     w8a8 mode one bf16 element rounded the other way can move its row's
@@ -653,7 +649,9 @@ def held_normwise(label, cfg, packed, inputs, cur, kv_limit, beam_anc=None,
     kernel may differ from the plain version on the card by 1e-2 or by 1.25
     times that spread, whichever is larger. ``worst`` (a dict, updated:
     the largest abs error and where it lies, the largest share of the
-    tolerance used): print one summary instead of a line per case."""
+    tolerance used): print one summary instead of a line per case.
+    ``bitwise``: also hold every tensor bit for bit equal to the plain
+    version on the card (the w8a8 mode is exact by design)."""
     from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel_plain
     host = {k: (t.cpu() if isinstance(t, torch.Tensor) else t) for k, t in packed.items()}
     xk, xv, kc, vc, x, npad, tt = (t.cpu() for t in inputs)
@@ -669,6 +667,7 @@ def held_normwise(label, cfg, packed, inputs, cur, kv_limit, beam_anc=None,
         spread[name] = float((cpu[name] - want.cpu()).norm() / want.norm())
         assert bool(torch.isfinite(got).all()), name
         assert rel[name] <= max(1e-2, 1.25 * spread[name]), (label, name, rel, spread)
+        assert not bitwise or torch.equal(got, want), (label, name, "not bit-equal", rel)
         if worst is not None:
             diff = (got - want).abs()
             err = float(diff.max())
@@ -1003,20 +1002,21 @@ def phase2_megakernel_edges(dev):
 
 
 def edge_rows_case(dev, cfg, packed, b: int, worst, label: str = "",
-                   act_quant: bool = False, equal=None) -> int:
+                   act_quant: bool = False) -> int:
     """The kernel (weight-only, or the w8a8 mode) against its plain version
     at ``b`` rows over a cache of one slot (rows left-padded by r % 4
     attend nothing), and at the last steps of two live prefixes; 2 bf16
-    ulps -> cases run. ``equal`` (a list): the cases bit-equal to the plain
-    version are appended."""
+    ulps, and in the w8a8 mode (exact by design) bit for bit -> cases
+    run."""
     T = MEGA_T if cfg.dim == MEGA_D else OPT_T
     inputs = mega_inputs(dev, cfg, b, seed=910 + b, T=T)
     pairs = ((0, 1), (35, 36), (131, 132)) if T == MEGA_T else ((0, 1), (70, 71))
     for cur, kv_limit in pairs:
         errs = mega_errors(cfg, packed, inputs, cur, kv_limit, act_quant=act_quant)
         held_to_ulps(f"{label}b={b} cur={cur} kv_limit={kv_limit}", errs, worst)
-        if equal is not None and all(torch.equal(g, w) for g, w in errs.values()):
-            equal.append((b, cur))
+        for name, (got, want) in errs.items():
+            assert not act_quant or torch.equal(got, want), \
+                f"{label}b={b} cur={cur} {name}: not bit-equal to the plain version"
     return len(pairs)
 
 
@@ -1024,8 +1024,8 @@ def back_to_back(dev, worst, act_quant: bool = False):
     """The kernel (weight-only, or the w8a8 mode): greedy b=32 and b=3
     (flamingo-mini width), beams at 96 rows and OPT-1.3B width at b=8, 2
     layers, launched back to back on one stream before one synchronize,
-    each within 2 bf16 ulps of its plain version; each launched again on
-    the same inputs, bit-equal."""
+    each within 2 bf16 ulps of its plain version (the w8a8 mode bit for
+    bit); each launched again on the same inputs, bit-equal."""
     from flamingo_mini_tpu_torch.ops.megadecode import (
         decode_step_megakernel, decode_step_megakernel_plain)
     cfg1, packed1 = random_trunk(dev, n_layer=2, xattn_every=1, seed=901)
@@ -1054,10 +1054,13 @@ def back_to_back(dev, worst, act_quant: bool = False):
         want = decode_step_megakernel_plain(packed, xk, xv, kc2, vc2, x, npad, tt, cur,
                                             config=cfg, kv_limit=kv_limit,
                                             beam_anc=beam_anc, act_quant=act_quant)
-        held_to_ulps(f"back to back {label}", {
-            "hidden": (got.float(), want.float()),
-            "k rows": (kc1[:, cur].float(), kc2[:, cur].float()),
-            "v rows": (vc1[:, cur].float(), vc2[:, cur].float())}, worst)
+        errs = {"hidden": (got.float(), want.float()),
+                "k rows": (kc1[:, cur].float(), kc2[:, cur].float()),
+                "v rows": (vc1[:, cur].float(), vc2[:, cur].float())}
+        held_to_ulps(f"back to back {label}", errs, worst)
+        for name, (g, w) in errs.items():
+            assert not act_quant or torch.equal(g, w), \
+                f"back to back {label} {name}: not bit-equal to the plain version"
         again = decode_step_megakernel(packed, xk, xv, kc.clone(), vc.clone(), x, npad, tt,
                                        cur, config=cfg, kv_limit=kv_limit, beam_anc=beam_anc,
                                        act_quant=act_quant)
@@ -1066,14 +1069,16 @@ def back_to_back(dev, worst, act_quant: bool = False):
             f"{label}: two launches on the same inputs differ"
     print(f"[phase 2] {'w8a8' if act_quant else 'weight-only'} mode: "
           f"{', '.join(c[0] for c in cases)} launched back to back before one "
-          "synchronize, each within 2 bf16 ulps of its plain version; each launched "
-          "again on the same inputs: bit-equal")
+          f"synchronize, each {'bit for bit' if act_quant else 'within 2 bf16 ulps of'} "
+          "its plain version; each launched again on the same inputs: bit-equal")
 
 
 def two_streams(dev, act_quant: bool = False):
     """Launches taking turns on two streams (greedy b=32, beams at 160
     rows, 2 layers) give the bits of the same launches on the current
-    stream; each stream's launches count on barrier words of its own."""
+    stream; the weight-only kernel's launches count on barrier words of
+    each stream's own (the w8a8 kernel's grid barrier is the cooperative
+    launch's)."""
     from flamingo_mini_tpu_torch.ops import megadecode as md
     cfg, packed = random_trunk(dev, n_layer=2, xattn_every=1, seed=960)
     beam_in, anc = beam_trunk_inputs(dev, cfg, 160, 5, seed=961)
@@ -1098,27 +1103,27 @@ def two_streams(dev, act_quant: bool = False):
     for turn, out in enumerate(got):
         assert torch.equal(out.view(torch.int16), want[turn // 2 % 2].view(torch.int16)), turn
     keys = {(want[0].device, s.cuda_stream) for s in streams}
-    assert keys <= set(md._SYNC), ("each stream has its own barrier words", keys, set(md._SYNC))
+    assert act_quant or keys <= set(md._SYNC), \
+        ("each stream has its own barrier words", keys, set(md._SYNC))
 
 
 def phase2_megakernel_w8a8_edges(dev):
     """The w8a8 mode at the weight-only mode's edges: 2 layers, D=1024
     (xattn every 1 and 2) at ``EDGE_ROWS`` x (cur, kv_limit) in (0, 1)
-    (left-padded rows attend nothing), (35, 36), (131, 132), within 2 bf16
-    ulps, the cases bit-equal to the plain version counted; back to back
-    and twice on the same inputs; taking turns on two streams -> the
-    largest abs error."""
-    worst, n, equal = [0.0, 0.0, None], 0, []
+    (left-padded rows attend nothing), (35, 36), (131, 132), bit for bit
+    the plain version (and within 2 bf16 ulps); back to back and twice on
+    the same inputs; taking turns on two streams -> the largest abs
+    error."""
+    worst, n = [0.0, 0.0, None], 0
     for every in (1, 2):
         cfg, packed = random_trunk(dev, n_layer=2, xattn_every=every, seed=900 + every)
         for b in EDGE_ROWS:
             n += edge_rows_case(dev, cfg, packed, b, worst, f"w8a8 every={every} ",
-                                act_quant=True, equal=equal)
+                                act_quant=True)
     print(f"[phase 2] w8a8 mode at its edges, 2 layers, D=1024 (xattn every 1 and 2), b in "
           f"{EDGE_ROWS} x (cur, kv_limit) in (0, 1), (35, 36), (131, 132): {n} cases, "
-          f"{len(equal)} bit-equal to the plain version; max error {worst[0]} bf16 ulp at "
-          f"the output's scale (tolerance 2), max abs error {worst[1]}; largest at "
-          f"{worst[2]}")
+          f"each bit for bit the plain version; max error {worst[0]} bf16 ulp, max abs "
+          f"error {worst[1]}")
     back_to_back(dev, worst, act_quant=True)
     two_streams(dev, act_quant=True)
     print("[phase 2] w8a8 mode: launches taking turns on two streams give the bits of "
@@ -1180,14 +1185,14 @@ def phase2_megakernel_w8a8(dev, flush):
             cur, kv_limit = ((4, 36), (70, 100), (131, 132))[n % 3]
             held_normwise(f"greedy layers={n_layer} every={every} b={b} cur={cur}",
                           cfg, packed, mega_inputs(dev, cfg, b, seed=500 + n), cur,
-                          kv_limit, act_quant=True, worst=worst)
+                          kv_limit, act_quant=True, worst=worst, bitwise=True)
             n += 1
         for rows, kb in ((96, 3), (160, 5)):
             inputs, anc = beam_trunk_inputs(dev, cfg, rows, kb, seed=600 + n)
             cur, kv_limit = BEAM_PAIRS[n % 4]
             held_normwise(f"beam layers={n_layer} rows={rows} kb={kb} cur={cur}", cfg,
                           packed, inputs, cur, kv_limit, beam_anc=anc, act_quant=True,
-                          worst=worst)
+                          worst=worst, bitwise=True)
             n += 1
     for n_layer in (1, 2):
         cfg, packed = random_trunk(dev, n_layer=n_layer, seed=700 + n_layer,
@@ -1196,11 +1201,12 @@ def phase2_megakernel_w8a8(dev, flush):
             cur, kv_limit = OPT_PAIRS[n % 4]
             held_normwise(f"OPT layers={n_layer} b={b} cur={cur}", cfg, packed,
                           mega_inputs(dev, cfg, b, seed=800 + n, T=OPT_T), cur, kv_limit,
-                          act_quant=True, worst=worst)
+                          act_quant=True, worst=worst, bitwise=True)
             n += 1
     print(f"[phase 2] decode_step_megakernel act_quant (w8a8) vs plain, 1-2 layers: "
           f"greedy b in {{1, 3, 32}}, beam 96 (kb 3) and 160 (kb 5) rows, OPT-1.3B "
-          f"width b in {{3, 8}}, {n} cases: normwise relative error at most "
+          f"width b in {{3, 8}}, {n} cases, each bit for bit the plain version; "
+          f"normwise relative error at most "
           f"{worst['rel']}, {worst['share']:.3f} of each case's tolerance at most "
           f"(the larger of 1e-2 and 1.25 x the plain version's CPU-vs-card spread); "
           f"max abs error {worst['err']}, at {worst['where']}")
@@ -1286,25 +1292,26 @@ def wide_config(D: int):
 
 def wide_trunk_model(dev, D: int = 4096):
     """``wide_config`` D wide, int8, bf16: at opt-6.7b's width (D=4096) a
-    trunk the kernel takes at any row count in both modes; at D=8192 one
-    whose rows its LayerNorm cannot hold in registers."""
+    trunk whose w8a8 LayerNorm stage outgrows shared memory past 27 rows;
+    at D=8192 one whose rows the weight-only kernel's LayerNorm cannot
+    hold in registers."""
     from flamingo_mini_tpu_torch import FlamingoModel
     model = FlamingoModel(wide_config(D), device=dev, seed=3)
     return model.quantize_int8().to_bf16()
 
 
 def phase2_refusal(dev):
-    """The refusal before any work: on a D=8192 trunk (wider than the
-    kernel's LayerNorm holds in registers) a w8a8 greedy call of 8 rows, a
-    w8a8 beam call of 3 x 3 and a weight-only greedy call of 8 rows each
-    raise ValueError before vision and prefill, launching nothing. At
-    D=4096 both modes pass the check at 27, 28, 257 and 2,048 rows: the
-    kernel stages int8 in the w8a8 mode, and its shared memory stops
-    growing with the rows past a pass of 256 in both."""
+    """The refusal before any work: at D=4096 a w8a8 greedy call of 28 rows
+    (and a beam call of 10 x 3) raises ValueError before vision and
+    prefill, launching nothing; 27 rows pass the check in both modes. The
+    weight-only kernel takes 28 rows at D=4096, and a weight-only greedy
+    call on a D=8192 trunk (its LayerNorm rows do not fit the kernel's
+    registers) raises ValueError before vision and prefill too, launching
+    nothing."""
     from flamingo_mini_tpu_torch import generation
     from flamingo_mini_tpu_torch.models import flamingo
     from flamingo_mini_tpu_torch.ops import megadecode
-    model = wide_trunk_model(dev, 8192)
+    model = wide_trunk_model(dev)
     ran = []
 
     def recorder(name, fn):
@@ -1313,7 +1320,12 @@ def phase2_refusal(dev):
             return fn(*a, **k)
         return run
     messages = []
-    for b, kw in ((8, dict(w8a8=True)), (3, dict(num_beams=3, w8a8=True)), (8, {})):
+    for D, b, kw in ((4096, 28, dict(w8a8=True)), (4096, 10, dict(num_beams=3, w8a8=True)),
+                     (8192, 8, {})):
+        if D != model.config.dim:
+            del model
+            torch.cuda.empty_cache()
+            model = wide_trunk_model(dev, D)
         ids = torch.ones((b, 4), dtype=torch.long, device=dev)
         pixels = torch.zeros((b, 1, 3, 32, 32), device=dev, dtype=torch.bfloat16)
         zero_counts()
@@ -1326,24 +1338,24 @@ def phase2_refusal(dev):
             except ValueError as e:
                 messages.append(str(e))
             else:
-                raise AssertionError(f"{b} rows at D=8192 ran on the megakernel ({kw})")
+                raise AssertionError(f"{b} rows at D={D} ran on the megakernel ({kw})")
         counts = read_counts()
         assert not ran and not any(counts.values()), (ran, counts)
-    for act_quant, message in ((True, messages[0]), (False, messages[-1])):
-        try:
-            megadecode.check_fits(model.config, 8, 16, 64, act_quant=act_quant, device=dev)
-        except ValueError as e:
-            assert str(e) == message, (str(e), message)
-        else:
-            raise AssertionError(f"the kernel took a D=8192 trunk (act_quant={act_quant})")
     config4096 = wide_config(4096)
-    for rows in (27, 28, 257, 2048):
-        for act_quant in (True, False):
-            megadecode.check_fits(config4096, rows, 16, 64, act_quant=act_quant, device=dev)
-    print(f"[phase 2] refusal at D=8192 before vision and prefill (nothing launched): "
-          f"w8a8 greedy 8 rows {messages[0]!r}; w8a8 beams 3 x 3 and weight-only greedy "
-          f"8 rows refused too; at D=4096 27, 28, 257 and 2048 rows pass the check in "
-          f"both modes")
+    for act_quant in (True, False):
+        megadecode.check_fits(config4096, 27, 16, 64, act_quant=act_quant, device=dev)
+    megadecode.check_fits(config4096, 28, 16, 64, act_quant=False, device=dev)
+    try:
+        megadecode.check_fits(model.config, 8, 16, 64, act_quant=False, device=dev)
+    except ValueError as e:
+        assert str(e) == messages[-1], (str(e), messages[-1])
+    else:
+        raise AssertionError("the weight-only kernel took a D=8192 trunk")
+    print(f"[phase 2] refusal at D=4096 before vision and prefill (nothing launched): "
+          f"{messages[0]!r}; w8a8 beams 10 x 3 refused too; 27 rows pass the check in "
+          f"both modes; weight-only 28 rows pass at D=4096; a weight-only generate at "
+          f"D=8192 refused before vision and prefill (nothing launched): "
+          f"{messages[-1]!r}")
     del model
     torch.cuda.empty_cache()
 
@@ -2542,13 +2554,13 @@ def main() -> int:
             ("fused_media_xattn", "media_xattn.cu",
              "flamingo_mini_tpu/ops/pallas_xattn.py:122",
              pallas_counts["fused_media_xattn"], mx),
-            ("decode_step_megakernel (act_quant: w8a8)", "decode_megakernel_sm90.cuh",
+            ("decode_step_megakernel (act_quant: w8a8)", "decode_megakernel.cu",
              "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
              w8_counts["decode_step_megakernel"], mega_w8["greedy"]),
-            ("decode_step_megakernel (act_quant, beam mode)", "decode_megakernel_sm90.cuh",
+            ("decode_step_megakernel (act_quant, beam mode)", "decode_megakernel.cu",
              "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
              w8_b_counts["decode_step_megakernel"], mega_w8["beam"]),
-            ("decode_step_megakernel (act_quant, OPT mode)", "decode_megakernel_sm90.cuh",
+            ("decode_step_megakernel (act_quant, OPT mode)", "decode_megakernel.cu",
              "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
              opt_counts["w8a8"]["decode_step_megakernel"], mega_w8["opt"]),
             ("stream_sum (bandwidth probe)", "stream_probe.cu",

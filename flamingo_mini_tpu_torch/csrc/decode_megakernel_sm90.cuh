@@ -1,19 +1,17 @@
-// The whole-step decode megakernel on Hopper, both modes: weight-only and
-// w8a8 (act_quant, the template parameter kQ); greedy, lazy beam and
-// pre-norm OPT, the ragged xattn schedule, any row count
+// The whole-step decode megakernel's weight-only mode on Hopper: greedy,
+// lazy beam and pre-norm OPT, the ragged xattn schedule, any row count
 // (decode_megakernel.cu's note says what each phase computes and how it
 // rounds; this kernel computes the same).
 //
 // Replaces flamingo_mini_tpu/ops/pallas_megadecode.py::decode_step_megakernel
-// (_mega_call -> _build_kernel) with act_quant off and on;
-// fmt_decode_megakernel routes every call here.
+// (_mega_call -> _build_kernel) with act_quant off; fmt_decode_megakernel
+// routes every weight-only call here, by mode alone.
 //
 // Bound: device memory, 0.31 ms a step at flamingo-mini width and b=32
-// (decode_megakernel.cu's note), in both modes: they read the same int8
-// stacks. What held the first designs back was not the bytes: a cold
-// weight read after every grid barrier, a unit of 8 columns that re-read
-// (and, w8a8, re-quantized) its activations from L2 for every 8 columns,
-// and every weight re-read once per 32 batch rows. The design:
+// (decode_megakernel.cu's note). What held the first design back was not
+// the bytes: a cold weight read after every grid barrier, an 8-column unit
+// that re-read its activations from L2 for every 8 columns, and every
+// weight re-read once per 32 batch rows. The design:
 //
 // * A block is four consumer warpgroups and a producer warpgroup, one block
 //   per SM, the grid cooperative: sixteen consumer warps, because every
@@ -25,51 +23,38 @@
 //   of 64 output columns x 64 k of a (d_out, d_in) int8 stack per stage,
 //   completion on an mbarrier. It never waits at a grid barrier, so the
 //   next phase's weights (the next layer's too) arrive while the consumers
-//   finish a phase, wait at the barrier or walk the attention. Both modes
-//   stream the same stacks in the same schedule.
-// * A linear is Y^T = W A^T on wgmma: 64 output columns are the M side,
-//   their int8 weights the A operand from registers, the batch rows the N
-//   side (N one of 8..64: what the registers hold beside everything else),
-//   the activations the B operand: staged once per block per K-slice into
-//   shared memory, K-major, by one cooperative copy that applies the
-//   LayerNorm where the phase has one. Weight-only: m64nNk16, the weights
-//   converted to bf16 exactly (i8x4_to_bf16x4), B bf16 in the 128-byte
-//   swizzle, float32 sums. w8a8: m64nNk32 s32.s8.s8, the weights as they
-//   are, B quantized to int8 by the copy (each row's 1 / s, round half to
-//   even) in the 64-byte swizzle, int32 sums (exact). Within each 64-k
-//   chunk the k order is permuted alike for A and B (sm90_common's
-//   b_offset, b_offset_s8), which a dot product does not see. A warpgroup
-//   issues its chunks' products two at a time. Up to 64 rows every
-//   warpgroup takes all rows (N the row count rounded up) and a quarter of
-//   the item's chunks, and their sums are added in shared memory in
-//   warpgroup order. Past 64 rows (the wide mode: beams) a pass takes up to
-//   256 rows and each warpgroup a quarter of them (N rows, from wg N) over
-//   all the item's chunks (weight-only: two chunks to a chain of wgmma
-//   accumulations, the chains added by float32 adds in chunk order; w8a8:
-//   one int32 chain); past 256 rows the block makes more passes on the
-//   weights it holds in the ring. So every int8 weight is read from device
-//   memory once per step at any row count, and a pass stages (and
-//   quantizes) its rows' activations once.
+//   finish a phase, wait at the barrier or walk the attention.
+// * A linear is Y^T = W A^T on wgmma m64nNk16: 64 output columns are the M
+//   side, their int8 weights the A operand from registers (converted to
+//   bf16 exactly by integer and FADD steps, sm90_common's i8x4_to_bf16x4),
+//   the batch rows the N side (N one of 8..64: what the registers hold beside everything
+//   else), the activations the B operand: staged once per block per K-slice into
+//   shared memory, K-major in the 128-byte swizzle, by one cooperative copy
+//   that applies the LayerNorm where the phase has one. Within each 64-k
+//   chunk the k order is permuted alike for A and B (a lane's 16
+//   contiguous weight bytes feed the four k16 steps), which a dot product
+//   does not see. A warpgroup issues its chunks' products two at a time
+//   (ptxas serializes them, C7513: the next chunk's conversion writes its
+//   fragments; the products are a small share of a phase). Up to 64 rows
+//   every warpgroup takes all rows (N the row count rounded up) and a
+//   quarter of the item's chunks, and their sums are added in shared memory
+//   in warpgroup order. Past 64 rows (the wide mode: beams) a pass takes up
+//   to 256 rows and each warpgroup a quarter of them (N rows, from wg N)
+//   over all the item's chunks, two chunks to a chain of wgmma
+//   accumulations, the chains added by float32 adds in chunk order; past
+//   256 rows the block makes more passes on the weights it holds in the
+//   ring. So every int8 weight is read from device memory once per step at
+//   any row count, and a pass stages its rows' activations once.
 // * Work items are (64-column tile, K-slice). ops/megadecode.py's plan
 //   picks each linear's K-slices from the shapes (its cost model weighs a
 //   block's items, chunks and a split's combine) within the shared memory a
-//   slice's staged activations may take; in the w8a8 mode no K-slice
-//   straddles a D-wide quantization slice of a row-form input. A split
-//   tile's partials (float32; w8a8: int32) go to `parts`, and the last
+//   slice's staged activations may take. A split tile's float32 partials
+//   go to `parts`, and the last
 //   block to finish the tile (a per-tile arrival counter, acq_rel) adds
-//   them and runs the epilogue: in slice order (weight-only), or in int32
-//   per quantization slice, each slice's sum cast to float32 once and
-//   scaled, the slices added in order from 0 (w8a8, as _lin_w8a8). No
-//   partial is rounded to bf16 and no float atomic is used: two launches on
-//   the same inputs give the same bits. The epilogue is a thread per output
-//   column, eight rows at a time, every load of a batch issued before its
-//   first use.
-// * w8a8 row scales: a LayerNorm phase takes each row's max |output| from
-//   its statistics pass (one more pass over the row held in registers);
-//   the phases that read the attention's output or h take it from their
-//   producer, whose epilogue notes max |stored bf16| per (row, D-wide
-//   slice) by atomicMax of the bit pattern (exact in any order) into words
-//   zeroed earlier in the same layer.
+//   them in slice order and runs the epilogue. No partial is rounded to
+//   bf16 and no float atomic is used: two launches on the same inputs give
+//   the same bits. The epilogue is a thread per output column, eight rows
+//   at a time, every load of a batch issued before its first use.
 // * LayerNorm statistics: once per block per phase (per pass past 256
 //   rows), one warp per row, the row's 16-byte units held in registers
 //   (all loads in flight at once) and summed in a fixed unit order that
@@ -81,8 +66,7 @@
 //   arrival resets its tile's. Nothing needs zeroing but once.
 // * Attention: a block takes a row and a group of four heads at a time, its
 //   sixteen warps a span of positions each (see `attend`); the cache's 512
-//   bytes of a slot for those heads are one 16-byte load per lane. The
-//   w8a8 mode sums in float64.
+//   bytes of a slot for those heads are one 16-byte load per lane.
 // * A section timer (`mark`) splits each block's time by section for
 //   profile_decode.py's sweep.
 #pragma once
@@ -166,42 +150,32 @@ __host__ __device__ inline int max_chunks(const MegaArgs& a) {
   return most;
 }
 
-// bytes of a staged B tile's row: one 64-k chunk of bf16 (the 128-byte
-// swizzle) or, in the w8a8 mode, of int8 (the 64-byte swizzle)
-__host__ __device__ inline int b_row_bytes(const MegaArgs& a) { return a.act_quant ? 64 : 128; }
-
-// bytes of a pass row's LayerNorm statistics: (mean, rstd), and in the w8a8
-// mode the row's quantization scale and its reciprocal
-__host__ __device__ inline int stats_bytes(const MegaArgs& a) { return a.act_quant ? 16 : 8; }
-
 // Byte offsets from the 1024-aligned base of dynamic shared memory: the
-// weight ring; a union of the staged B tiles (one tile of tile_rows rows
-// per chunk of an item; in the wide mode the last warpgroup's N rows may
-// reach up to N rows past the last tile), the item's float32 (w8a8: int32)
-// tile (with the warpgroups' reduction before it) and the attention
-// scratch; the pass's LayerNorm statistics; in the w8a8 mode the phase's
-// LayerNorm scale and bias (2 D floats); the ring's full and empty
-// barriers; the combine flag.
+// weight ring; a union of the staged B tiles (one tile of tile_rows x 128
+// bytes per chunk of an item; in the wide mode the last warpgroup's N rows
+// may reach up to N rows past the last tile), the item's float32 tile (with
+// the warpgroups' reduction before it) and the attention scratch; the
+// pass's LayerNorm statistics; the ring's full and empty barriers; the
+// combine flag.
 struct Layout {
-  int ring, uni, stats, lnp, bars, flag, bytes;
+  int ring, uni, stats, bars, flag, bytes;
 };
 
-__host__ __device__ inline int att_bytes(const MegaArgs& a);
+__host__ __device__ inline int att_floats(const MegaArgs& a);
 
 __host__ __device__ inline Layout layout(const MegaArgs& a) {
   const int rows = pass_rows(a), n = pass_n(a, rows), tr = tile_rows(a, rows);
   const bool wd = wide(a);
-  int uni = (tr * max_chunks(a) + (wd ? n : 0)) * b_row_bytes(a);
+  int uni = (tr * max_chunks(a) + (wd ? n : 0)) * 128;
   const int red = wd ? (tr + n) * 256 : (kGroups - 1) * n * 256;
-  const int att = att_bytes(a);
+  const int att = att_floats(a) * 4;
   uni = red > uni ? red : uni;
   uni = att > uni ? att : uni;
   Layout l;
   l.ring = 0;
   l.uni = kRing * kChunkBytes;
   l.stats = l.uni + ((uni + 1023) & ~1023);
-  l.lnp = l.stats + (wd ? kPassRows : kRowGroup) * stats_bytes(a);
-  l.bars = l.lnp + (a.act_quant ? 8 * a.D : 0);
+  l.bars = l.stats + (wd ? kPassRows : kRowGroup) * 8;
   l.flag = l.bars + 2 * kRing * 8;
   l.bytes = 1024 + l.flag + 16;  // + the base's alignment
   return l;
@@ -281,16 +255,10 @@ __device__ __forceinline__ void fence_proxy_async() {
 // units l, l + 32, ... of the row (16-byte loads, all in flight at once,
 // held in registers for both passes) and adds them unit by unit, element
 // by element from 0, then the lanes meet in the xor butterfly; each op one
-// float32 op. kUnits: units a lane holds, ceil(D / 256) <= kMaxUnits. kQ
-// (w8a8): a third pass over the held row takes the max |LayerNorm output|
-// (rounded to bf16 as stage_b rounds it; a max is exact in any order), the
-// scale and bias (ln_s, ln_b) read from shared memory, and the row's
-// statistics are (mean, rstd, its quantization scale s, 1 / s).
+// float32 op. kUnits: units a lane holds, ceil(D / 256) <= kMaxUnits.
 constexpr int kMaxUnits = 16;
-template <int kUnits, bool kQ>
-__device__ __forceinline__ void ln_stats_units(const bf16* src, int r0, int rows, int D,
-                                               void* stats, const float* ln_s,
-                                               const float* ln_b) {
+template <int kUnits>
+__device__ __forceinline__ void ln_stats_units(const bf16* src, int r0, int rows, int D, float2* stats) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, units = D / 8;
   for (int r = warp; r < rows; r += kCWarps) {
     const uint4* row = reinterpret_cast<const uint4*>(src + static_cast<long long>(r0 + r) * D);
@@ -324,48 +292,16 @@ __device__ __forceinline__ void ln_stats_units(const bf16* src, int r0, int rows
     }
     const float rstd = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(sq), static_cast<float>(D)),
                                         static_cast<float>(1e-5)));
-    if constexpr (kQ) {
-      float m = 0.f;
-#pragma unroll
-      for (int v = 0; v < kUnits; ++v) {
-        if (lane + 32 * v >= units) break;
-        const int k0 = (lane + 32 * v) * 8;
-        const float4 s0 = *reinterpret_cast<const float4*>(ln_s + k0);
-        const float4 s1 = *reinterpret_cast<const float4*>(ln_s + k0 + 4);
-        const float4 b0 = *reinterpret_cast<const float4*>(ln_b + k0);
-        const float4 b1 = *reinterpret_cast<const float4*>(ln_b + k0 + 4);
-        const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-        const float bi[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-        const uint32_t w[4] = {u[v].x, u[v].y, u[v].z, u[v].w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
-          const float y0 = __fmul_rn(__fmul_rn(__fsub_rn(f.x, mean), rstd), sc[2 * e]);
-          const float y1 = __fmul_rn(__fmul_rn(__fsub_rn(f.y, mean), rstd), sc[2 * e + 1]);
-          const __nv_bfloat162 h =
-              __floats2bfloat162_rn(__fadd_rn(y0, bi[2 * e]), __fadd_rn(y1, bi[2 * e + 1]));
-          m = fmaxf(m, fmaxf(fabsf(__low2float(h)), fabsf(__high2float(h))));
-        }
-      }
-      m = warp_max(m);
-      if (lane == 0) {
-        const float s = quant_scale(__float_as_uint(m));
-        reinterpret_cast<float4*>(stats)[r] = make_float4(mean, rstd, s, quant_inv(s));
-      }
-    } else if (lane == 0) {
-      reinterpret_cast<float2*>(stats)[r] = make_float2(mean, rstd);
-    }
+    if (lane == 0) stats[r] = make_float2(mean, rstd);
   }
 }
 
 #define MK90_UNITS(n) \
   case n:             \
-    ln_stats_units<n, kQ>(src, r0, rows, D, stats, ln_s, ln_b); \
+    ln_stats_units<n>(src, r0, rows, D, stats); \
     break;
 
-template <bool kQ>
-__device__ __forceinline__ void ln_stats(const bf16* src, int r0, int rows, int D, void* stats,
-                                         const float* ln_s, const float* ln_b) {
+__device__ __forceinline__ void ln_stats(const bf16* src, int r0, int rows, int D, float2* stats) {
   switch ((D + 255) / 256) {
     MK90_UNITS(1) MK90_UNITS(2) MK90_UNITS(3) MK90_UNITS(4) MK90_UNITS(5) MK90_UNITS(6)
     MK90_UNITS(7) MK90_UNITS(8) MK90_UNITS(9) MK90_UNITS(10) MK90_UNITS(11) MK90_UNITS(12)
@@ -376,17 +312,12 @@ __device__ __forceinline__ void ln_stats(const bf16* src, int r0, int rows, int 
 #undef MK90_UNITS
 
 // One linear phase: which linear, its input, its LayerNorm, its epilogue.
-// w8a8: without a LayerNorm, where each input row's quantization scales
-// come from: qa[row * qld + j], the bit pattern of max |input| over its
-// D-wide slice j (noted by the producing phase's epilogue).
 struct Lin {
   int lin;
   const bf16* in;  // (b, K) input, or the LayerNorm's source (b, D)
   const float* ln_s;
   const float* ln_b;  // null: no LayerNorm
   Epi e;
-  const unsigned* qa;
-  int qld;
 };
 
 struct Ctx {
@@ -439,33 +370,21 @@ __device__ __forceinline__ bool item_at(int n_tiles, int s, int k, int* tile, in
 // rows [rg0, rg0 + rows) x chunks [c0, c0 + nc) of the input into the
 // item's B tiles (tr rows each; rows past `rows` are left as they are: they
 // only reach accumulator columns that are never stored). kLN: the LayerNorm
-// of each value, rounded to bf16 as megadecode._layer_norm rounds it. kQ (w8a8):
-// each value then quantized with its row's 1 / s to int8 (quant4: the
-// product, round half to even), in b_offset_s8's order; after a LayerNorm
-// 1 / s is the statistics' w and the scale and bias come from shared
-// memory; else each unit loads its row's amax word of quantization slice
-// j beside its values, and the row's first unit writes (0, 0, s, 1 / s)
-// as the row's statistics for the epilogue.
-template <bool kLN, bool kQ>
+// of each value, rounded to bf16 as layer_norm_rows rounds it.
+template <bool kLN>
 __device__ __forceinline__ void stage_b(const Ctx& c, const Lin& p, int ld, int rg0, int rows, int c0, int nc,
-                        int tr, int j = 0) {
+                        int tr) {
   const float2* stats = reinterpret_cast<const float2*>(c.base + c.L.stats);
-  float4* qstats = reinterpret_cast<float4*>(c.base + c.L.stats);
-  const float* lnp = reinterpret_cast<const float*>(c.base + c.L.lnp);
   uint8_t* tiles = c.base + c.L.uni;
   const int per_row = nc * 8, units = rows * per_row;
   for (int u0 = threadIdx.x; u0 < units; u0 += 8 * kConsumers) {
     uint4 v[8];
-    unsigned amax[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int u = u0 + i * kConsumers, r = u / per_row, q = u - r * per_row;
-      if (u < units) {
+      if (u < units)
         v[i] = __ldcg(reinterpret_cast<const uint4*>(
             p.in + static_cast<long long>(rg0 + r) * ld + (c0 + (q >> 3)) * kTile + (q & 7) * 8));
-        if constexpr (kQ && !kLN)
-          amax[i] = __ldcg(p.qa + static_cast<long long>(rg0 + r) * p.qld + j);
-      }
     }
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -473,25 +392,11 @@ __device__ __forceinline__ void stage_b(const Ctx& c, const Lin& p, int ld, int 
       if (u >= units) break;
       const int ch = q >> 3, k = (q & 7) * 8, gk = (c0 + ch) * kTile + k;
       if constexpr (kLN) {
-        float2 st;
-        if constexpr (kQ) {
-          const float4 s4 = qstats[r];
-          st = make_float2(s4.x, s4.y);
-        } else {
-          st = stats[r];
-        }
-        float4 s0, s1, b0, b1;
-        if constexpr (kQ) {
-          s0 = *reinterpret_cast<const float4*>(lnp + gk);
-          s1 = *reinterpret_cast<const float4*>(lnp + gk + 4);
-          b0 = *reinterpret_cast<const float4*>(lnp + c.a.D + gk);
-          b1 = *reinterpret_cast<const float4*>(lnp + c.a.D + gk + 4);
-        } else {
-          s0 = __ldg(reinterpret_cast<const float4*>(p.ln_s + gk));
-          s1 = __ldg(reinterpret_cast<const float4*>(p.ln_s + gk + 4));
-          b0 = __ldg(reinterpret_cast<const float4*>(p.ln_b + gk));
-          b1 = __ldg(reinterpret_cast<const float4*>(p.ln_b + gk + 4));
-        }
+        const float2 st = stats[r];
+        const float4 s0 = __ldg(reinterpret_cast<const float4*>(p.ln_s + gk));
+        const float4 s1 = __ldg(reinterpret_cast<const float4*>(p.ln_s + gk + 4));
+        const float4 b0 = __ldg(reinterpret_cast<const float4*>(p.ln_b + gk));
+        const float4 b1 = __ldg(reinterpret_cast<const float4*>(p.ln_b + gk + 4));
         const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
         const float bi[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
         uint32_t w[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
@@ -506,71 +411,38 @@ __device__ __forceinline__ void stage_b(const Ctx& c, const Lin& p, int ld, int 
         }
         v[i] = make_uint4(w[0], w[1], w[2], w[3]);
       }
-      if constexpr (kQ) {
-        float inv;
-        if constexpr (kLN) {
-          inv = qstats[r].w;
-        } else {
-          const float s = quant_scale(amax[i]);
-          inv = quant_inv(s);
-          if (q == 0) qstats[r] = make_float4(0.f, 0.f, s, inv);
-        }
-        uint8_t* tile = tiles + ch * tr * 64;
-        *reinterpret_cast<uint32_t*>(tile + b_offset_s8(r, k)) = quant4(v[i].x, v[i].y, inv);
-        *reinterpret_cast<uint32_t*>(tile + b_offset_s8(r, k + 4)) = quant4(v[i].z, v[i].w, inv);
-      } else {
-        uint8_t* tile = tiles + ch * tr * 128;
-        *reinterpret_cast<uint32_t*>(tile + b_offset(r, k)) = v[i].x;
-        *reinterpret_cast<uint32_t*>(tile + b_offset(r, k + 2)) = v[i].y;
-        *reinterpret_cast<uint32_t*>(tile + b_offset(r, k + 4)) = v[i].z;
-        *reinterpret_cast<uint32_t*>(tile + b_offset(r, k + 6)) = v[i].w;
-      }
+      uint8_t* tile = tiles + ch * tr * 128;
+      *reinterpret_cast<uint32_t*>(tile + b_offset(r, k)) = v[i].x;
+      *reinterpret_cast<uint32_t*>(tile + b_offset(r, k + 2)) = v[i].y;
+      *reinterpret_cast<uint32_t*>(tile + b_offset(r, k + 4)) = v[i].z;
+      *reinterpret_cast<uint32_t*>(tile + b_offset(r, k + 6)) = v[i].w;
     }
   }
 }
 
-// where output column m of row n of an item's float32 (int32) tile sits in
-// shared memory: 64 words a row, its groups of 4 swizzled by the row
+// where output column m of row n of an item's float32 tile sits in shared
+// memory: 64 floats a row, its groups of 4 swizzled by the row
 __device__ __forceinline__ int tile_at(int n, int m) {
   return n * kTile + ((((m >> 2) ^ (n & 15)) << 2) | (m & 3));
 }
 
-// w8a8: the D-wide quantization slice of an item whose chunks start at c0
-__host__ __device__ inline int quant_slice(const MegaArgs& a, int c0) { return c0 * kTile / a.D; }
-
 // Before a pass's products: the LayerNorm statistics where the phase has
-// a LayerNorm (stats: not yet taken for these rows; w8a8: the scale and
-// bias staged first), then B staged.
-template <bool kQ>
+// a LayerNorm (stats: not yet taken for these rows), then B staged.
 __device__ __forceinline__ void prepare_pass(const Ctx& c, const Lin& p, int rg0, int rows,
                                           int c0, int nc, int tr, bool stats) {
   const MegaArgs& a = c.a;
   consumers_sync();  // the union's last readers are done
   if (p.ln_s != nullptr) {
     if (stats) {
-      const float* ln_s = p.ln_s;
-      const float* ln_b = p.ln_b;
-      if constexpr (kQ) {
-        // the phase's LayerNorm scale and bias into shared memory, for the
-        // statistics' third pass and the staging
-        float4* lnp = reinterpret_cast<float4*>(c.base + c.L.lnp);
-        for (int i = threadIdx.x; i < a.D / 4; i += kConsumers) {
-          lnp[i] = __ldg(reinterpret_cast<const float4*>(p.ln_s) + i);
-          lnp[a.D / 4 + i] = __ldg(reinterpret_cast<const float4*>(p.ln_b) + i);
-        }
-        consumers_sync();
-        ln_s = reinterpret_cast<const float*>(lnp);
-        ln_b = ln_s + a.D;
-      }
-      ln_stats<kQ>(p.in, rg0, rows, a.D, c.base + c.L.stats, ln_s, ln_b);
+      ln_stats(p.in, rg0, rows, a.D, reinterpret_cast<float2*>(c.base + c.L.stats));
       consumers_sync();
       mark(c, kSecStats);
     }
-    stage_b<true, kQ>(c, p, a.D, rg0, rows, c0, nc, tr);
+    stage_b<true>(c, p, a.D, rg0, rows, c0, nc, tr);
   } else {
     int n_out, K;
     lin_dims(a, p.lin, &n_out, &K);
-    stage_b<false, kQ>(c, p, K, rg0, rows, c0, nc, tr, kQ ? quant_slice(a, c0) : 0);
+    stage_b<false>(c, p, K, rg0, rows, c0, nc, tr);
   }
   fence_proxy_async();
   consumers_sync();
@@ -580,19 +452,16 @@ __device__ __forceinline__ void prepare_pass(const Ctx& c, const Lin& p, int rg0
 // A warpgroup's products over chunks i0, i0 + step, ... (< nc) of the
 // item into acc, the B tile of chunk i at b0 + i * b_stride. wait: the
 // chunks' stages are awaited (the first pass); release: each stage is
-// released once its weights are in registers (the last pass). The weights
-// feed A as sm90_common's fragment note says: converted to bf16 (four k16
-// steps a chunk) or, kQ, as they are (two int8 k32 steps).
-template <int N, bool kQ, typename Acc>
+// released once its weights are in registers (the last pass).
+template <int N>
 __device__ __forceinline__ void chunk_products(const Ctx& c, int i0, int step, int nc, uint32_t b0,
                                                int b_stride, bool wait, bool release,
-                                               Acc (&acc)[N / 2]) {
-  constexpr int kSteps = kQ ? 2 : 4;
+                                               float (&acc)[N / 2]) {
   const int tid = threadIdx.x & 127;
   const int wq = tid >> 5, g8 = (tid & 31) >> 2, t4 = tid & 3;
-  // chunk i's weights into A fragments (af), its products issued and
-  // committed
-  auto issue = [&](int i, uint32_t (&af)[kSteps][4]) {
+  // chunk i's weights into A fragments (af), its four k16 products issued
+  // and committed
+  auto issue = [&](int i, uint32_t (&af)[4][4]) {
     const int gg = c.g + i, stage = gg % kRing;
     if (wait) mbar_wait(full_bar(c, stage), (gg / kRing) & 1);
     const uint8_t* w = c.base + c.L.ring + stage * kChunkBytes + 16 * t4;
@@ -600,30 +469,20 @@ __device__ __forceinline__ void chunk_products(const Ctx& c, int i0, int step, i
     const uint4 hi = *reinterpret_cast<const uint4*>(w + (16 * wq + g8 + 8) * kTile);
     const uint32_t wl[4] = {lo.x, lo.y, lo.z, lo.w}, wh[4] = {hi.x, hi.y, hi.z, hi.w};
 #pragma unroll
-    for (int j = 0; j < kSteps; ++j) {
-      if constexpr (kQ) {
-        af[j][0] = wl[2 * j];
-        af[j][1] = wh[2 * j];
-        af[j][2] = wl[2 * j + 1];
-        af[j][3] = wh[2 * j + 1];
-      } else {
-        i8x4_to_bf16x4(wl[j], af[j][0], af[j][2]);
-        i8x4_to_bf16x4(wh[j], af[j][1], af[j][3]);
-      }
+    for (int j = 0; j < 4; ++j) {
+      i8x4_to_bf16x4(wl[j], af[j][0], af[j][2]);
+      i8x4_to_bf16x4(wh[j], af[j][1], af[j][3]);
     }
     if (release) mbar_arrive(empty_bar(c, stage));
-    const uint64_t db = kQ ? desc_sw64(b0 + i * b_stride) : desc_sw128(b0 + i * b_stride);
+    const uint64_t db = desc_sw128(b0 + i * b_stride);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
-      if constexpr (kQ) WgmmaS8<N>::mma(acc, af[kk], db + 2 * kk);
-      else WgmmaBf16<N>::mma(acc, af[kk], db + 2 * kk);
-    }
+    for (int kk = 0; kk < 4; ++kk) WgmmaBf16<N>::mma(acc, af[kk], db + 2 * kk);
     wgmma_commit();
   };
   // two chunks issued in turn: a chunk's fragments are rewritten only once
   // its products are done (wait_group 1 after the next chunk is issued)
-  uint32_t af0[kSteps][4], af1[kSteps][4];
+  uint32_t af0[4][4], af1[4][4];
   for (int i = i0; i < nc; i += 2 * step) {
     issue(i, af0);
     wgmma_wait<1>();
@@ -641,10 +500,10 @@ __device__ __forceinline__ void chunk_products(const Ctx& c, int i0, int step, i
 }
 
 // d[4 j + 2 h + e] of a warpgroup's accumulator: output column
-// 16 wq + g8 + 8 h, row 8 j + 2 t4 + e, into the item's tile (tile_at)
-// from row n0 on
-template <int N, typename Acc>
-__device__ __forceinline__ void acc_to_tile(Acc* tile, int n0, const Acc (&acc)[N / 2]) {
+// 16 wq + g8 + 8 h, row 8 j + 2 t4 + e, into the item's float32 tile
+// (tile_at) from row n0 on
+template <int N>
+__device__ __forceinline__ void acc_to_tile(float* tile, int n0, const float (&acc)[N / 2]) {
   const int tid = threadIdx.x & 127;
   const int wq = tid >> 5, g8 = (tid & 31) >> 2, t4 = tid & 3;
 #pragma unroll
@@ -652,72 +511,63 @@ __device__ __forceinline__ void acc_to_tile(Acc* tile, int n0, const Acc (&acc)[
     tile[tile_at(n0 + 8 * (i >> 2) + 2 * t4 + (i & 1), 16 * wq + g8 + 8 * ((i >> 1) & 1))] = acc[i];
 }
 
-// A pass's products over the item's nc chunks into the item's tile in the
-// union (B tiles of tr rows). Up to kRowGroup rows, warpgroup wg takes
-// chunks wg, wg + 4, ... of every row and the warpgroups' sums are added in
-// warpgroup order. In the wide mode warpgroup wg takes rows [wg N, wg N +
-// N) over every chunk: weight-only, two chunks at a time; w8a8, one chain
-// of int32 accumulations over them all (exact in any order). A warpgroup
-// past the last row only releases the stages, each once it is full (an
-// item may hold more chunks than the ring has stages: an arrival must not
-// reach a stage's next round).
-template <int N, bool kQ>
+// A pass's products over the item's nc chunks into the item's float32
+// tile in the union (B tiles of tr rows). Up to kRowGroup rows, warpgroup
+// wg takes chunks wg, wg + 4, ... of every row and the warpgroups' sums are
+// added in warpgroup order. In the wide mode warpgroup wg takes rows
+// [wg N, wg N + N) over every chunk, two chunks at a time; a warpgroup past the
+// last row only releases the stages, each once it is full (an item may
+// hold more chunks than the ring has stages: an arrival must not reach a
+// stage's next round).
+template <int N>
 __device__ __forceinline__ void products(const Ctx& c, int nc, int rows, int tr, bool wait,
                                          bool release) {
-  using Acc = typename std::conditional<kQ, int, float>::type;
-  using Acc4 = typename std::conditional<kQ, int4, float4>::type;
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
   const bool wd = wide(c.a), active = !wd || wg * N < rows;
-  const int rb = kQ ? 64 : 128;
-  Acc acc[N / 2];
+  float acc[N / 2];
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc[i] = 0;
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
   if (active && wd) {
-    if constexpr (kQ) {
-      chunk_products<N, kQ>(c, 0, 1, nc, c.sbase + c.L.uni + wg * N * rb, tr * rb, wait, release,
-                            acc);
-    } else {
-      // the tensor cores' sums over two chunks at a time, added into acc in
-      // chunk order by float32 adds: a chain of wgmma accumulations over all
-      // the item's chunks parts further from the exact sum (PERF.md §6)
-      for (int p0 = 0; p0 < nc; p0 += 2) {
-        float part[N / 2];
+    // the tensor cores' sums over two chunks at a time, added into acc in
+    // chunk order by float32 adds: a chain of wgmma accumulations over all
+    // the item's chunks parts further from the exact sum (PERF.md, PR 9)
+    for (int p0 = 0; p0 < nc; p0 += 2) {
+      float part[N / 2];
 #pragma unroll
-        for (int i = 0; i < N / 2; ++i) part[i] = 0.f;
-        chunk_products<N, kQ>(c, p0, 1, min(nc, p0 + 2), c.sbase + c.L.uni + wg * N * 128,
-                              tr * 128, wait, release, part);
+      for (int i = 0; i < N / 2; ++i) part[i] = 0.f;
+      chunk_products<N>(c, p0, 1, min(nc, p0 + 2), c.sbase + c.L.uni + wg * N * 128, tr * 128, wait,
+                        release, part);
 #pragma unroll
-        for (int i = 0; i < N / 2; ++i) acc[i] += part[i];
-      }
+      for (int i = 0; i < N / 2; ++i) acc[i] += part[i];
     }
   } else if (active)
-    chunk_products<N, kQ>(c, wg, kGroups, nc, c.sbase + c.L.uni, tr * rb, wait, release, acc);
+    chunk_products<N>(c, wg, kGroups, nc, c.sbase + c.L.uni, tr * 128, wait, release, acc);
   else if (release)
     for (int i = 0; i < nc; ++i) {
       const int gg = c.g + i;
       if (wait) mbar_wait(full_bar(c, gg % kRing), (gg / kRing) & 1);
       mbar_arrive(empty_bar(c, gg % kRing));
     }
-  Acc* tile = reinterpret_cast<Acc*>(c.base + c.L.uni);
+  float* tile = reinterpret_cast<float*>(c.base + c.L.uni);
   consumers_sync();  // every warpgroup is done with B
   if (wd) {
     if (active) acc_to_tile<N>(tile, wg * N, acc);
   } else {
     // the other warpgroups' sums into warpgroup 0's through the union,
     // then into the tile
-    Acc4* red = reinterpret_cast<Acc4*>(tile);
+    float4* red = reinterpret_cast<float4*>(tile);
     if (wg > 0) {
 #pragma unroll
       for (int q = 0; q < N / 8; ++q)
         red[((wg - 1) * (N / 8) + q) * 128 + tid] =
-            Acc4{acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]};
+            make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
     }
     consumers_sync();
     if (wg == 0) {
       for (int w = 1; w < kGroups; ++w)
 #pragma unroll
         for (int q = 0; q < N / 8; ++q) {
-          const Acc4 v = red[((w - 1) * (N / 8) + q) * 128 + tid];
+          const float4 v = red[((w - 1) * (N / 8) + q) * 128 + tid];
           acc[4 * q] += v.x;
           acc[4 * q + 1] += v.y;
           acc[4 * q + 2] += v.z;
@@ -730,90 +580,34 @@ __device__ __forceinline__ void products(const Ctx& c, int nc, int rows, int tr,
   consumers_sync();
 }
 
-// w8a8: the scale of row n (of the pass from rg0) over quantization slice
-// j: the LayerNorm statistics' (one slice: the column form), else from the
-// row's amax word
-__device__ __forceinline__ float row_scale(const Ctx& c, const Lin& p, int rg0, int n, int j) {
-  if (p.ln_s != nullptr) return reinterpret_cast<const float4*>(c.base + c.L.stats)[n].z;
-  return quant_scale(__ldcg(p.qa + static_cast<long long>(rg0 + n) * p.qld + j));
-}
-
 // The epilogue of rows [0, rows) of the item's 64 columns, a thread per
-// column and every fourth row, eight rows at a time. The sums come from the
-// shared-memory tile, or (parts set) are the n_slices partials' sums; every
-// load of a batch is issued before its first use. Weight-only: float32
-// sums, the partials added in slice order. w8a8 (kQ): int32 sums; a split
-// tile's partials are added in int32 (exact) per quantization slice, and
-// the slices' f32(sum) * s_j added in slice order from 0, as _lin_w8a8;
-// an EPI_STORE output's max |stored value| per row is noted in e.amax for
-// the next linear's quantizer (a warp's lanes hold one row's 32 columns).
-// Each output rounds as decode_megakernel.cu's epilogue notes.
-template <bool kQ>
-__device__ __forceinline__ void store_tile(const Ctx& c, const Lin& p, int col0, int rg0,
-                                           int rows, const void* tile, const void* parts,
-                                           int n_slices, long long part_floats, int c0) {
-  const MegaArgs& a = c.a;
-  const Epi& e = p.e;
+// column and every fourth row, eight rows at a time. The float32 sums come
+// from the shared-memory tile, or (parts set) are the n_slices partials'
+// sums in slice order; every load of a batch is issued before its first
+// use. Each output rounds as decode_megakernel.cu's epilogue() rounds it.
+__device__ __forceinline__ void store_tile(const MegaArgs& a, const Epi& e, int col0, int rg0,
+                                           int rows, const float* tile, const float* parts,
+                                           int n_slices, long long part_floats) {
   const int m = threadIdx.x & 63, col = col0 + m;
   const float sc = e.scale[col];
   const float bi = e.bias != nullptr ? ldf(e.bias + col) : 0.f;
   const bool resid = e.kind == EPI_RESID || e.kind == EPI_GATED;
   constexpr int kRowLanes = kConsumers / 64;  // threads a column has
-  int n_out = 0, K = 0;
-  if constexpr (kQ) lin_dims(a, p.lin, &n_out, &K);
   for (int n0 = threadIdx.x >> 6; n0 < rows; n0 += 8 * kRowLanes) {
     float y[8], xo[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int n = n0 + kRowLanes * j;
       xo[j] = resid && n < rows ? ldf(a.x + (rg0 + n) * a.D + col) : 0.f;
-      if constexpr (kQ) {
-        y[j] = parts == nullptr && n < rows
-                   ? __fmul_rn(__int2float_rn(static_cast<const int*>(tile)[tile_at(n, m)]),
-                               reinterpret_cast<const float4*>(c.base + c.L.stats)[n].z)
-                   : 0.f;
-      } else {
-        y[j] = parts == nullptr && n < rows ? static_cast<const float*>(tile)[tile_at(n, m)] : 0.f;
-      }
+      y[j] = parts == nullptr && n < rows ? tile[tile_at(n, m)] : 0.f;
     }
     if (parts != nullptr) {
-      if constexpr (kQ) {
-        // per quantization slice q (its K-slices [s, e) are neighbours):
-        // the rows' scales and the partials loaded, added in int32, cast
-        // once, scaled, added to y in slice order
-        const int* ip = static_cast<const int*>(parts);
-        const int nk = K / kTile;
-        for (int s = 0, e; s < n_slices; s = e) {
-          const int q = quant_slice(a, s * nk / n_slices);
-          for (e = s + 1; e < n_slices && quant_slice(a, e * nk / n_slices) == q; ++e) {
-          }
-          float sc_q[8];
-          int sum[8];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const bool live = n0 + kRowLanes * j < rows;
-            sc_q[j] = live ? row_scale(c, p, rg0, n0 + kRowLanes * j, q) : 0.f;
-            sum[j] = 0;
-          }
-#pragma unroll 4
-          for (int t = s; t < e; ++t)
-#pragma unroll
-            for (int j = 0; j < 8; ++j)
-              if (n0 + kRowLanes * j < rows)
-                sum[j] += __ldcg(ip + t * part_floats + (n0 + kRowLanes * j) * kTile + m);
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            y[j] = __fadd_rn(y[j], __fmul_rn(__int2float_rn(sum[j]), sc_q[j]));
-        }
-      } else {
-        const float* fp = static_cast<const float*>(parts);
 #pragma unroll 8
-        for (int s = 0; s < n_slices; ++s)
+      for (int s = 0; s < n_slices; ++s)
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
-            if (n0 + kRowLanes * j < rows)
-              y[j] += __ldcg(fp + s * part_floats + (n0 + kRowLanes * j) * kTile + m);
-      }
+        for (int j = 0; j < 8; ++j)
+          if (n0 + kRowLanes * j < rows)
+            y[j] += __ldcg(parts + s * part_floats + (n0 + kRowLanes * j) * kTile + m);
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -822,20 +616,10 @@ __device__ __forceinline__ void store_tile(const Ctx& c, const Lin& p, int col0,
       float v = rbf(y[j] * sc);
       if (e.bias != nullptr) v = rbf(v + bi);
       switch (e.kind) {
-        case EPI_STORE: {
+        case EPI_STORE:
           if (e.act >= 0) v = activate(v, e.act);
-          const bf16 h = __float2bfloat16_rn(v);
-          e.out[row * e.ld + col] = h;
-          if constexpr (kQ) {
-            if (e.amax != nullptr) {
-              const float mx = warp_max(fabsf(__bfloat162float(h)));
-              if ((threadIdx.x & 31) == 0)
-                atomicMax(e.amax + static_cast<long long>(row) * e.amax_ld + col / a.D,
-                          __float_as_uint(mx));
-            }
-          }
+          e.out[row * e.ld + col] = __float2bfloat16_rn(v);
           break;
-        }
         case EPI_XQ:
           e.out[row * e.ld + col] = __float2bfloat16_rn(v * e.mul);
           break;
@@ -855,26 +639,23 @@ __device__ __forceinline__ void store_tile(const Ctx& c, const Lin& p, int col0,
 }
 
 // After a pass's products: the epilogue of the item's tile, or, for a tile
-// split over K, its partial to `parts` (rows x 64 words, row-major) and,
-// for the last block to arrive at the tile, the partials combined and the
-// epilogue.
-template <bool kQ>
+// split over K, its partial to `parts` (rows x 64 floats, row-major) and,
+// for the last block to arrive at the tile, the partials added in slice
+// order and the epilogue.
 __device__ __forceinline__ void finish_pass(const Ctx& c, const Lin& p, int tile, int slice,
-                                         int n_slices, int ps, int rows, int c0) {
-  using Acc = typename std::conditional<kQ, int, float>::type;
+                                         int n_slices, int ps, int rows) {
   const MegaArgs& a = c.a;
-  const Acc* t = reinterpret_cast<const Acc*>(c.base + c.L.uni);
+  const float* t = reinterpret_cast<const float*>(c.base + c.L.uni);
   const int rg0 = ps * kPassRows, col0 = tile * kTile, m = threadIdx.x & 63;
   if (n_slices == 1) {
-    store_tile<kQ>(c, p, col0, rg0, rows, t, nullptr, 1, 0, c0);
+    store_tile(a, p.e, col0, rg0, rows, t, nullptr, 1, 0);
     return;
   }
   int n_out, K;
   lin_dims(a, p.lin, &n_out, &K);
   const int n_tiles = n_out / kTile;
   const long long part_floats = static_cast<long long>(kTile) * tile_rows(a, pass_rows(a));
-  Acc* parts = reinterpret_cast<Acc*>(a.parts) +
-               (static_cast<long long>(ps) * n_tiles + tile) * n_slices * part_floats;
+  float* parts = a.parts + (static_cast<long long>(ps) * n_tiles + tile) * n_slices * part_floats;
   for (int n = threadIdx.x >> 6; n < rows; n += kConsumers / 64)
     __stcg(parts + slice * part_floats + n * kTile + m, t[tile_at(n, m)]);
   consumers_sync();
@@ -892,18 +673,17 @@ __device__ __forceinline__ void finish_pass(const Ctx& c, const Lin& p, int tile
   }
   consumers_sync();
   if (!*flag) return;
-  store_tile<kQ>(c, p, col0, rg0, rows, nullptr, parts, n_slices, part_floats, c0);
+  store_tile(a, p.e, col0, rg0, rows, nullptr, parts, n_slices, part_floats);
 }
 
 #define MK90_PRODUCTS(n)                                              \
   case n:                                                             \
-    products<n, kQ>(c, nc, rows, tr, ps == 0, ps == n_pass - 1);      \
+    products<n>(c, nc, rows, tr, ps == 0, ps == n_pass - 1);          \
     break;
 
 // A linear phase: this block's items, blockIdx.x, + gridDim.x, ...; per
 // item and pass: stage, products, finish. Past kPassRows rows the item's
 // weights stay in the ring for every pass.
-template <bool kQ>
 __device__ __forceinline__ void linear_phase(Ctx& c, const Lin& p) {
   const MegaArgs& a = c.a;
   int n_out, K;
@@ -918,14 +698,14 @@ __device__ __forceinline__ void linear_phase(Ctx& c, const Lin& p) {
     for (int ps = 0; ps < n_pass; ++ps) {
       const int rows = min(kPassRows, a.b - ps * kPassRows);
       const int n = pass_n(a, rows), tr = tile_rows(a, rows);
-      prepare_pass<kQ>(c, p, ps * kPassRows, rows, c0, nc, tr, n_pass > 1 || !have_stats);
+      prepare_pass(c, p, ps * kPassRows, rows, c0, nc, tr, n_pass > 1 || !have_stats);
       have_stats = true;
       switch (n) {
         MK90_PRODUCTS(8) MK90_PRODUCTS(16) MK90_PRODUCTS(24) MK90_PRODUCTS(32)
         MK90_PRODUCTS(48) MK90_PRODUCTS(64)
       }
       mark(c, kSecProducts);
-      finish_pass<kQ>(c, p, tile, slice, s, ps, rows, c0);
+      finish_pass(c, p, tile, slice, s, ps, rows);
       consumers_sync();
       mark(c, kSecFinish);
     }
@@ -940,41 +720,32 @@ __device__ __forceinline__ void linear_phase(Ctx& c, const Lin& p) {
 
 constexpr int kHeadGroup = 4;  // heads per attention item: 256 dims, 512 bytes a slot
 
-// bytes of shared memory `attend` takes: the scores of every position for
-// each head of the item (float32), each warp's V sums, each span's maxima
-// and sums; the sums float32, or float64 in the w8a8 mode
-__host__ __device__ inline int att_bytes(const MegaArgs& a) {
-  const int t = a.t_lim > a.NMNV ? a.t_lim : a.NMNV, acc = a.act_quant ? 8 : 4;
-  return 4 * kHeadGroup * t + acc * kCWarps * kHeadGroup * kHeadDim +
-         (4 + acc) * kCWarps * kHeadGroup;
+// floats of shared memory `attend` takes: the scores of every position for
+// each head of the item, each warp's V sums, each span's maxima and sums
+__host__ __device__ inline int att_floats(const MegaArgs& a) {
+  const int t = a.t_lim > a.NMNV ? a.t_lim : a.NMNV;
+  return kHeadGroup * t + kCWarps * kHeadGroup * kHeadDim + 2 * kCWarps * kHeadGroup;
 }
 
-// decode_megakernel.cu's note on attention (the same masks, positions and
+// decode_megakernel.cu's attention<false> (the same masks, positions and
 // roundings: the scores of xattn rounded to bf16, p = exp(s - max) over
-// every position < t_lim, bf16(p) V, out = sum / max(l, 1e-30)), laid out
-// for the cache's rows: an item is a row and a group of four heads, whose
-// 512 bytes of K or V at a slot are one 16-byte load per lane (lane l:
-// head l / 8, dims 8 (l % 8) ... + 7; its dot over 8 dims, then the head's
-// 8 lanes added by xor shuffles). Warp w of the block takes the w-th span
-// of the positions and of the V walk; the max is the item's, the spans'
-// sums are added in warp order. Weight-only: float32 sums. kQ (w8a8): the
-// dot products, l and the V sums in float64 (bf16 x bf16 products are
-// exact in float32; the sums do not depend on their order), each rounded
-// to float32 once, and each row's max |output| over a D-wide slice noted
-// in `amax` (row stride amax_ld) for the next linear's quantizer.
-template <bool kQ>
+// every position < t_lim, bf16(p) V, float32 sums, out = sum / max(l,
+// 1e-30)), laid out for the cache's rows: an item is a row and a group of
+// four heads, whose 512 bytes of K or V at a slot are one 16-byte load per
+// lane (lane l: head l / 8, dims 8 (l % 8) ... + 7; its dot over 8 dims,
+// then the head's 8 lanes added by xor shuffles). Warp w of the block takes
+// the w-th span of the positions and of the V walk; the max is the item's,
+// the spans' sums are added in warp order.
 __device__ __forceinline__ void attend(const MegaArgs& a, const bf16* q, int ld, const bf16* K,
                                        const bf16* V, int n_head, int t_lim, float scale,
-                                       bool xattn, bf16* out, float* smem, unsigned* amax,
-                                       int amax_ld) {
-  using Acc = typename std::conditional<kQ, double, float>::type;
+                                       bool xattn, bf16* out, float* smem) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int hl = lane >> 3, dim = (lane & 7) * 8;  // the lane's head in the group, its dims
   const int t_max = a.t_lim > a.NMNV ? a.t_lim : a.NMNV;
   float* sc = smem + hl * t_max;                              // this lane's head's scores
-  Acc* part = reinterpret_cast<Acc*>(smem + kHeadGroup * t_max);  // (warp, 256) V sums
-  float* span_m = reinterpret_cast<float*>(part + kCWarps * kHeadGroup * kHeadDim);  // (warp, head)
-  Acc* span_l = reinterpret_cast<Acc*>(span_m + kCWarps * kHeadGroup);
+  float* part = smem + kHeadGroup * t_max;                    // (warp, 256) V sums
+  float* span_m = part + kCWarps * kHeadGroup * kHeadDim;     // (warp, head)
+  float* span_l = span_m + kCWarps * kHeadGroup;
   const int groups = (n_head + kHeadGroup - 1) / kHeadGroup;
   const long long t_stride = static_cast<long long>(a.b) * ld;
   for (int item = blockIdx.x; item < a.b * groups; item += gridDim.x) {
@@ -1030,25 +801,19 @@ __device__ __forceinline__ void attend(const MegaArgs& a, const bf16* q, int ld,
       for (int k = 0; k < 4; ++k) {
         if (t + k >= t1) break;
         const uint32_t w[4] = {kv[k].x, kv[k].y, kv[k].z, kv[k].w};
-        Acc dot = 0;
+        float dot = 0.f;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
-          if constexpr (kQ) {
-            dot += static_cast<double>(__fmul_rn(qv[2 * j], f.x));
-            dot += static_cast<double>(__fmul_rn(qv[2 * j + 1], f.y));
-          } else {
-            dot += qv[2 * j] * f.x;
-            dot += qv[2 * j + 1] * f.y;
-          }
+          dot += qv[2 * j] * f.x;
+          dot += qv[2 * j + 1] * f.y;
         }
         dot += __shfl_xor_sync(0xffffffffu, dot, 1);
         dot += __shfl_xor_sync(0xffffffffu, dot, 2);
         dot += __shfl_xor_sync(0xffffffffu, dot, 4);
         float s = -FLT_MAX;
         if (prow[k] >= 0) {
-          if constexpr (kQ) s = __fmul_rn(__double2float_rn(dot), scale);
-          else s = dot * scale;
+          s = dot * scale;
           if (xattn) s = rbf(s);
         }
         if ((lane & 7) == 0) sc[t + k] = s;
@@ -1060,7 +825,7 @@ __device__ __forceinline__ void attend(const MegaArgs& a, const bf16* q, int ld,
     for (int w = 0; w < kCWarps; ++w) m = fmaxf(m, span_m[w * kHeadGroup + hl]);
     // p = exp(s - max) in place over the span, the head's 8 lanes taking
     // every eighth position
-    Acc l_sum = 0;
+    float l_sum = 0.f;
     for (int t = t0 + (lane & 7); t < t1; t += 8) {
       const float p = expf(sc[t] - m);
       sc[t] = p;
@@ -1074,23 +839,22 @@ __device__ __forceinline__ void attend(const MegaArgs& a, const bf16* q, int ld,
 
     // V: this warp's span of the walk [u0, u1] (slot t = u of row phys(t),
     // or, an empty range in beam mode, slot u % t_lim of family row
-    // u / t_lim), kV slots in flight (four beside the float64 sums)
+    // u / t_lim), eight slots in flight
     const bool spread = beam && lo > hi;
     const bool zero = xattn && a.text_time[row] == 0;
-    Acc acc[8];
+    float acc[8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i] = 0;
+    for (int i = 0; i < 8; ++i) acc[i] = 0.f;
     const int u0 = lo <= hi ? lo : 0;
     const int u1 = lo <= hi ? hi : (spread ? a.kb * t_lim : t_lim) - 1;
     const int per_u = (u1 - u0 + kCWarps) / kCWarps;
     const int v0 = u0 + warp * per_u, v1 = min(u1, v0 + per_u - 1);
-    constexpr int kV = kQ ? 4 : 8;
     if (!zero && live) {
-      for (int u = v0; u <= v1; u += kV) {
-        uint4 vv[kV];
-        float pk[kV];
+      for (int u = v0; u <= v1; u += 8) {
+        uint4 vv[8];
+        float pk[8];
 #pragma unroll
-        for (int k = 0; k < kV; ++k) {
+        for (int k = 0; k < 8; ++k) {
           const int uk = u + k, t = spread ? uk % t_lim : uk;
           const int prow = uk > v1 ? -1
                                    : (spread ? fam0 + uk / t_lim : (lo <= hi ? phys(t) : row));
@@ -1103,19 +867,14 @@ __device__ __forceinline__ void attend(const MegaArgs& a, const bf16* q, int ld,
           }
         }
 #pragma unroll
-        for (int k = 0; k < kV; ++k) {
+        for (int k = 0; k < 8; ++k) {
           if (u + k > v1) break;
           const uint32_t w[4] = {vv[k].x, vv[k].y, vv[k].z, vv[k].w};
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
-            if constexpr (kQ) {
-              acc[2 * j] += static_cast<double>(__fmul_rn(pk[k], f.x));
-              acc[2 * j + 1] += static_cast<double>(__fmul_rn(pk[k], f.y));
-            } else {
-              acc[2 * j] += pk[k] * f.x;
-              acc[2 * j + 1] += pk[k] * f.y;
-            }
+            acc[2 * j] += pk[k] * f.x;
+            acc[2 * j + 1] += pk[k] * f.y;
           }
         }
       }
@@ -1127,36 +886,16 @@ __device__ __forceinline__ void attend(const MegaArgs& a, const bf16* q, int ld,
     // the spans added in warp order: a thread per dim of the group's heads
     {
       const int i = threadIdx.x, h = i / kHeadDim, hd = (item % groups) * kHeadGroup + h;
-      float stored = 0.f;  // |the bf16 output| (w8a8's amax)
       if (i < kHeadGroup * kHeadDim && hd < n_head) {
-        Acc l = 0, o = 0;
+        float l = 0.f, o = 0.f;
         for (int w = 0; w < kCWarps; ++w) {
           l += span_l[w * kHeadGroup + h];
           o += part[w * kHeadGroup * kHeadDim + i];
         }
-        float lf, of;
-        if constexpr (kQ) {
-          lf = __double2float_rn(l);
-          of = __double2float_rn(o);
-        } else {
-          lf = l;
-          of = o;
-        }
-        if (spread) lf = __fmul_rn(lf, static_cast<float>(a.kb));
-        lf = fmaxf(lf, 1e-30f);
-        const bf16 v = __float2bfloat16_rn(zero ? 0.f : of / lf);
-        out[static_cast<long long>(row) * ld + (item % groups) * kHeadGroup * kHeadDim + i] = v;
-        stored = fabsf(__bfloat162float(v));
-      }
-      if constexpr (kQ) {
-        // warps 0-7: each a row's 32 output dims, within one D-wide slice
-        if (i < kHeadGroup * kHeadDim) {
-          stored = warp_max(stored);
-          if (lane == 0)
-            atomicMax(amax + static_cast<long long>(row) * amax_ld +
-                          ((item % groups) * kHeadGroup * kHeadDim + i) / a.D,
-                      __float_as_uint(stored));
-        }
+        if (spread) l = __fmul_rn(l, static_cast<float>(a.kb));
+        l = fmaxf(l, 1e-30f);
+        out[static_cast<long long>(row) * ld + (item % groups) * kHeadGroup * kHeadDim + i] =
+            __float2bfloat16_rn(zero ? 0.f : o / l);
       }
     }
     consumers_sync();  // the scratch is reused by the next item
@@ -1166,69 +905,54 @@ __device__ __forceinline__ void attend(const MegaArgs& a, const bf16* q, int ld,
 // ---------------------------------------------------------------------------
 // the kernel
 
-// The producer's share of one linear phase (the map of linear `lin`, its
-// weight stack's slot): the block's items' chunks into the ring, g counting
-// the stages filled.
-__device__ __forceinline__ void producer_phase(const MegaArgs& a, const CUtensorMap* map,
-                                               uint32_t sbase, const Layout& L, int lin,
-                                               int slot, int& g) {
-  int n_out, K;
-  lin_dims(a, lin, &n_out, &K);
-  const int s = a.split[lin], nk = K / kTile;
-  int tile, slice;
-  for (int k = 0; item_at(n_out / kTile, s, k, &tile, &slice); ++k) {
-    int c0, nc;
-    slice_chunks(slice, s, nk, &c0, &nc);
-    for (int ch = c0; ch < c0 + nc; ++ch, ++g) {
-      const int stage = g % kRing, round = g / kRing;
-      const uint32_t full = sbase + L.bars + 8 * stage;
-      if (round > 0) producer_wait(sbase + L.bars + 8 * (kRing + stage), (round - 1) & 1);
-      mbar_expect_tx(full, kChunkBytes);
-      tma_load_2d(sbase + L.ring + stage * kChunkBytes, map, full, ch * kTile,
-                  slot * n_out + tile * kTile);
-    }
-  }
-}
-
-// The producer of the w8a8 linear alone: one phase, slot 0. Out of line,
-// as `producer` is: it runs with setmaxnreg's 24 registers.
-__device__ __noinline__ void producer_linear(const MegaArgs& a, const CUtensorMap* map,
-                                             uint32_t sbase, const Layout& L, int lin) {
-  int g = 0;
-  producer_phase(a, map, sbase, L, lin, 0, g);
-}
-
 // The producer: every linear phase of the step in the consumers' order,
 // each item's chunks into the ring.
 __device__ void producer(const MegaArgs& a, const Maps& maps, uint32_t sbase, const Layout& L) {
   for (int i = 0; i < kLinears; ++i) prefetch_map(&maps.m[i]);
   int g = 0;
+  auto phase = [&](int lin, int slot) {
+    int n_out, K;
+    lin_dims(a, lin, &n_out, &K);
+    const int s = a.split[lin], nk = K / kTile;
+    int tile, slice;
+    for (int k = 0; item_at(n_out / kTile, s, k, &tile, &slice); ++k) {
+      int c0, nc;
+      slice_chunks(slice, s, nk, &c0, &nc);
+      for (int ch = c0; ch < c0 + nc; ++ch, ++g) {
+        const int stage = g % kRing, round = g / kRing;
+        const uint32_t full = sbase + L.bars + 8 * stage;
+        if (round > 0) producer_wait(sbase + L.bars + 8 * (kRing + stage), (round - 1) & 1);
+        mbar_expect_tx(full, kChunkBytes);
+        tma_load_2d(sbase + L.ring + stage * kChunkBytes, &maps.m[lin], full, ch * kTile,
+                    slot * n_out + tile * kTile);
+      }
+    }
+  };
   for (int l = 0, xs = 0; l < a.n_layer; ++l) {
     if (a.hasx[l]) {
-      for (int lin = kXQ; lin <= kXF2; ++lin) producer_phase(a, &maps.m[lin], sbase, L, lin, xs, g);
+      phase(kXQ, xs);
+      phase(kXO, xs);
+      phase(kXF1, xs);
+      phase(kXF2, xs);
       ++xs;
     }
-    for (int lin = kQKV; lin <= kPR; ++lin) producer_phase(a, &maps.m[lin], sbase, L, lin, l, g);
+    phase(kQKV, l);
+    phase(kO, l);
+    phase(kFC, l);
+    phase(kPR, l);
   }
 }
 
 // The consumers: the layer loop, decode_megakernel's phases in its order
 // (xq, xattn, xo, xf1, xf2 where the layer has a gated xattn block; qkv,
 // attention, o, fc, pr), a grid barrier between each two; one call site
-// each for the linear and the attention, so that both inline. kQ (w8a8):
-// the amax words (abuf's, then hbuf's: nsA and nsH D-wide slices a row)
-// are zeroed in each layer's first LayerNorm phase and in LN1's, noted by
-// the attention and by the fc1 / fc epilogues, read by the next linear.
-template <bool kQ>
+// each for the linear and the attention, so that both inline.
 __device__ __forceinline__ void consumer(Ctx& c) {
   const MegaArgs& a = c.a;
   const int D = a.D, QW = max(a.D, a.XI);
   bf16* qbuf = a.scratch;
   bf16* abuf = a.scratch + a.b * QW;
   bf16* hbuf = a.scratch + 2 * a.b * QW;
-  const int nsA = (QW + D - 1) / D, nsH = (max(a.Dff, a.Dffx) + D - 1) / D;
-  unsigned* amax_a = a.amax;
-  unsigned* amax_h = kQ ? a.amax + a.b * nsA : nullptr;
   float* att = reinterpret_cast<float*>(c.base + c.L.uni);
   // x <- x_emb during the first phase, whose LayerNorm reads x_emb; nothing
   // reads x before the first barrier
@@ -1252,65 +976,59 @@ __device__ __forceinline__ void consumer(Ctx& c) {
         mark(c, kSecBarrier);
       }
       first = false;
-      if (kQ && (ph == 0 || ph == 5)) {
-        // no reader of the last fill is left, no writer of the next yet
-        for (int i = blockIdx.x * kConsumers + threadIdx.x; i < a.b * (nsA + nsH);
-             i += gridDim.x * kConsumers)
-          __stcg(a.amax + i, 0u);
-      }
       if (ph == 1 || ph == 6) {  // attention: xattn over the image's latents, or self
         const bool x = ph == 1;
         const long long kv = x ? static_cast<long long>(l) * a.NMNV * a.b * a.XI
                                : static_cast<long long>(l) * a.T * slab;
-        attend<kQ>(a, qbuf, x ? a.XI : D, (x ? a.xk : a.kc) + kv, (x ? a.xv : a.vc) + kv,
-                   x ? a.x_heads : a.n_head, x ? a.NMNV : a.t_lim, x ? 1.f : a.attn_scale, x,
-                   abuf, att, amax_a, nsA);
+        attend(a, qbuf, x ? a.XI : D, (x ? a.xk : a.kc) + kv, (x ? a.xv : a.vc) + kv,
+               x ? a.x_heads : a.n_head, x ? a.NMNV : a.t_lim, x ? 1.f : a.attn_scale, x,
+               abuf, att);
         mark(c, kSecAttention);
         continue;
       }
-      Lin p{0, nullptr, nullptr, nullptr, Epi{}, nullptr, 0};
+      Lin p{0, nullptr, nullptr, nullptr, Epi{}};
       Epi& e = p.e;
       switch (ph) {
         case 0:  // LN + to_q, the query scaled
-          p = Lin{kXQ, ln_src, a.xn_s + xs * D, a.xn_b + xs * D, Epi{}, nullptr, 0};
+          p = Lin{kXQ, ln_src, a.xn_s + xs * D, a.xn_b + xs * D, Epi{}};
           e.kind = EPI_XQ; e.scale = a.s_xq + xs * a.XI; e.out = qbuf; e.ld = a.XI;
           e.mul = a.xq_scale;
           break;
         case 2:  // to_out, gated into the stream
-          p = Lin{kXO, abuf, nullptr, nullptr, Epi{}, amax_a, nsA};
+          p = Lin{kXO, abuf, nullptr, nullptr, Epi{}};
           e.kind = EPI_GATED; e.scale = a.s_xo + xs * D; e.mul = a.gates[2 * xs];
           break;
         case 3:  // LN + the gated FFW's fc1 and activation
-          p = Lin{kXF1, ln_src, a.xfn_s + xs * D, a.xfn_b + xs * D, Epi{}, nullptr, 0};
+          p = Lin{kXF1, ln_src, a.xfn_s + xs * D, a.xfn_b + xs * D, Epi{}};
           e.kind = EPI_STORE; e.scale = a.s_xf1 + xs * a.Dffx; e.out = hbuf; e.ld = a.Dffx;
-          e.act = a.xact; e.amax = amax_h; e.amax_ld = nsH;
+          e.act = a.xact;
           break;
         case 4:  // fc2, gated into the stream
-          p = Lin{kXF2, hbuf, nullptr, nullptr, Epi{}, amax_h, nsH};
+          p = Lin{kXF2, hbuf, nullptr, nullptr, Epi{}};
           e.kind = EPI_GATED; e.scale = a.s_xf2 + xs * D; e.mul = a.gates[2 * xs + 1];
           break;
         case 5:  // LN1 + q, k, v; the K/V rows written at cur
-          p = Lin{kQKV, ln_src, a.ln1_s + l * D, a.ln1_b + l * D, Epi{}, nullptr, 0};
+          p = Lin{kQKV, ln_src, a.ln1_s + l * D, a.ln1_b + l * D, Epi{}};
           e.kind = EPI_QKV; e.scale = a.s_qkv + l * 3 * D; e.bias = a.b_qkv + l * 3 * D;
           e.q = qbuf;
           e.krow = a.kc + (static_cast<long long>(l) * a.T + a.cur) * slab;
           e.vrow = a.vc + (static_cast<long long>(l) * a.T + a.cur) * slab;
           break;
         case 7:  // c_proj + the residual
-          p = Lin{kO, abuf, nullptr, nullptr, Epi{}, amax_a, nsA};
+          p = Lin{kO, abuf, nullptr, nullptr, Epi{}};
           e.kind = EPI_RESID; e.scale = a.s_o + l * D; e.bias = a.b_o + l * D;
           break;
         case 8:  // LN2 + fc and the activation
-          p = Lin{kFC, ln_src, a.ln2_s + l * D, a.ln2_b + l * D, Epi{}, nullptr, 0};
+          p = Lin{kFC, ln_src, a.ln2_s + l * D, a.ln2_b + l * D, Epi{}};
           e.kind = EPI_STORE; e.scale = a.s_fc + static_cast<long long>(l) * a.Dff;
           e.bias = a.b_fc + static_cast<long long>(l) * a.Dff; e.out = hbuf; e.ld = a.Dff;
-          e.act = a.act; e.amax = amax_h; e.amax_ld = nsH;
+          e.act = a.act;
           break;
         default:  // 9: mlp_proj + the residual
-          p = Lin{kPR, hbuf, nullptr, nullptr, Epi{}, amax_h, nsH};
+          p = Lin{kPR, hbuf, nullptr, nullptr, Epi{}};
           e.kind = EPI_RESID; e.scale = a.s_pr + l * D; e.bias = a.b_pr + l * D;
       }
-      linear_phase<kQ>(c, p);
+      linear_phase(c, p);
       ln_src = a.x;
     }
   }
@@ -1319,15 +1037,15 @@ __device__ __forceinline__ void consumer(Ctx& c) {
     for (int k = 0; k < kSections; ++k) a.prof[blockIdx.x * kSections + k] = timer[k];
 }
 
-// The block's start, common to the kernels below: the ring's barriers
-// initialised (a stage is released by the warpgroup that read it, or in
-// the wide mode by every consumer thread), the producer warpgroup's
-// registers lowered and the consumers' raised. Returns the aligned base's
-// shared-space address.
-__device__ __forceinline__ uint32_t block_start(const MegaArgs& a, const Layout& L,
-                                                const uint8_t* smem_raw) {
-  const uint32_t sbase = (smem_addr(smem_raw) + 1023u) & ~1023u;
+__global__ void __launch_bounds__(kThreads, 1)
+decode_megakernel_sm90(const __grid_constant__ MegaArgs a, const __grid_constant__ Maps maps) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sbase = (raw + 1023u) & ~1023u;
+  const Layout L = layout(a);
   if (threadIdx.x == 0) {
+    // a stage is released by the warpgroup that read it, or in the wide
+    // mode by every consumer thread
     for (int s = 0; s < kRing; ++s) {
       mbar_init(sbase + L.bars + 8 * s, 1);
       mbar_init(sbase + L.bars + 8 * (kRing + s), wide(a) ? kConsumers : 128);
@@ -1335,43 +1053,14 @@ __device__ __forceinline__ uint32_t block_start(const MegaArgs& a, const Layout&
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (threadIdx.x >= kConsumers) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-  else asm volatile("setmaxnreg.inc.sync.aligned.u32 112;\n");
-  return sbase;
-}
-
-// the whole step; kQ: the w8a8 mode (a.act_quant), else weight-only
-template <bool kQ>
-__global__ void __launch_bounds__(kThreads, 1)
-decode_megakernel_sm90(const __grid_constant__ MegaArgs a, const __grid_constant__ Maps maps) {
-  extern __shared__ uint8_t smem_raw[];
-  const Layout L = layout(a);
-  const uint32_t sbase = block_start(a, L, smem_raw);
   if (threadIdx.x >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == kConsumers) producer(a, maps, sbase, L);
     return;
   }
-  Ctx c{a, smem_raw + (sbase - smem_addr(smem_raw)), sbase, L, 0};
-  consumer<kQ>(c);
-}
-
-// The w8a8 linear alone (fmt_w8a8_linear): the step's machinery with a
-// schedule of one linear phase `p` (its weights in maps.m[p.lin], slot 0)
-// and no grid barrier: staging with the quantizer, the int8 products, the
-// split tiles' int32 combine and the epilogue.
-__global__ void __launch_bounds__(kThreads, 1)
-w8a8_linear_kernel(const __grid_constant__ MegaArgs a, const __grid_constant__ Maps maps,
-                   const __grid_constant__ Lin p) {
-  extern __shared__ uint8_t smem_raw[];
-  const Layout L = layout(a);
-  const uint32_t sbase = block_start(a, L, smem_raw);
-  if (threadIdx.x >= kConsumers) {
-    if (threadIdx.x == kConsumers) producer_linear(a, &maps.m[p.lin], sbase, L, p.lin);
-    return;
-  }
-  if (threadIdx.x == 0) timer_words()[kSections] = clock64();
-  Ctx c{a, smem_raw + (sbase - smem_addr(smem_raw)), sbase, L, 0};
-  linear_phase<true>(c, p);
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 112;\n");
+  Ctx c{a, smem_raw + (sbase - raw), sbase, L, 0};
+  consumer(c);
 }
 
 // The barrier alone, for a card test: every block's consumers write a
@@ -1414,91 +1103,54 @@ bool encode_weights(CUtensorMap* map, const int8_t* w, long long rows, int k) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// the plan's fields within the kernel's limits; w8a8: its amax words given,
-// and no K-slice of a linear straddles a D-wide quantization slice
+// the plan's fields within the kernel's limits
 bool plan_ok(const MegaArgs& a) {
-  if (a.parts == nullptr || a.sync == nullptr || a.D > 32 * 8 * kMaxUnits ||
-      (a.act_quant && a.amax == nullptr))
+  if (a.parts == nullptr || a.sync == nullptr || a.D > 32 * 8 * kMaxUnits)
     return false;
-  for (int lin = a.n_xattn > 0 ? 0 : kQKV; lin < kLinears; ++lin) {
+  for (int lin = 0; lin < kLinears; ++lin) {
     int n, k;
     lin_dims(a, lin, &n, &k);
-    const int s = a.split[lin];
-    if (n % kTile || k % kTile || s < 1 || s > k / kTile) return false;
-    for (int i = 0; a.act_quant && i < s; ++i) {
-      int c0, nc;
-      slice_chunks(i, s, k / kTile, &c0, &nc);
-      if (quant_slice(a, c0) != quant_slice(a, c0 + nc - 1)) return false;
-    }
+    if (n % kTile || k % kTile || a.split[lin] < 1 || a.split[lin] > k / kTile) return false;
   }
   // past one pass an item's chunks are held in the ring for every pass
   return a.b <= kPassRows || max_chunks(a) <= kRing;
 }
 
-// the kernel a launch with these arguments runs
-const void* kernel_for(const MegaArgs& a) {
-  return a.act_quant ? reinterpret_cast<const void*>(decode_megakernel_sm90<true>)
-                     : reinterpret_cast<const void*>(decode_megakernel_sm90<false>);
-}
-
-// blocks of a grid of `kernel` with a's layout (one per SM), or 0 if a
-// block cannot be resident
-cudaError_t grid_size(const MegaArgs& a, const void* kernel, int* blocks) {
+// blocks of the cooperative grid (one per SM), or 0 if it cannot be resident
+cudaError_t grid_size(const MegaArgs& a, int* blocks) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   // shared memory above 48 KB, allowed on whichever device is current
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(decode_megakernel_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                layout(a).bytes);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, kThreads, layout(a).bytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_megakernel_sm90, kThreads,
+                                                        layout(a).bytes);
   *blocks = per_sm > 0 ? sms : 0;
   return err;
-}
-
-cudaError_t encode_all(const MegaArgs& a, Maps* maps) {
-  const long long L = a.n_layer, NX = a.n_xattn;
-  const int8_t* w[kLinears] = {a.w_xq, a.w_xo, a.w_xf1, a.w_xf2, a.w_qkv, a.w_o, a.w_fc, a.w_pr};
-  for (int lin = 0; lin < kLinears; ++lin) {
-    int n, k;
-    lin_dims(a, lin, &n, &k);
-    if (!encode_weights(&maps->m[lin], w[lin], (lin < kQKV ? NX : L) * n, k))
-      return cudaErrorInvalidValue;
-  }
-  return cudaSuccess;
 }
 
 cudaError_t launch(const MegaArgs& a, void* stream) {
   if (!plan_ok(a)) return cudaErrorInvalidValue;
   Maps maps;
-  cudaError_t err = encode_all(a, &maps);
+  const long long L = a.n_layer, NX = a.n_xattn;
+  const int8_t* w[kLinears] = {a.w_xq, a.w_xo, a.w_xf1, a.w_xf2, a.w_qkv, a.w_o, a.w_fc, a.w_pr};
+  for (int lin = 0; lin < kLinears; ++lin) {
+    int n, k;
+    lin_dims(a, lin, &n, &k);
+    if (!encode_weights(&maps.m[lin], w[lin], (lin < kQKV ? NX : L) * n, k))
+      return cudaErrorInvalidValue;
+  }
   int blocks = 0;
-  if (err == cudaSuccess) err = grid_size(a, kernel_for(a), &blocks);
+  cudaError_t err = grid_size(a, &blocks);
   if (err != cudaSuccess) return err;
   if (blocks == 0) return cudaErrorCooperativeLaunchTooLarge;
   void* params[] = {const_cast<MegaArgs*>(&a), &maps};
-  err = cudaLaunchCooperativeKernel(kernel_for(a), dim3(blocks), dim3(kThreads), params,
-                                    layout(a).bytes, static_cast<cudaStream_t>(stream));
-  return err != cudaSuccess ? err : cudaGetLastError();
-}
-
-// the w8a8 linear alone: a's plan and shapes (b rows, linear p.lin's (n, K)
-// from D and Dff), W the (n, K) weights of p.lin
-cudaError_t launch_linear(const MegaArgs& a, const Lin& p, const int8_t* W, void* stream) {
-  if (!a.act_quant || !plan_ok(a)) return cudaErrorInvalidValue;
-  Maps maps{};
-  int n, k, blocks = 0;
-  lin_dims(a, p.lin, &n, &k);
-  if (!encode_weights(&maps.m[p.lin], W, n, k)) return cudaErrorInvalidValue;
-  const void* kernel = reinterpret_cast<const void*>(w8a8_linear_kernel);
-  cudaError_t err = grid_size(a, kernel, &blocks);
-  if (err != cudaSuccess) return err;
-  if (blocks == 0) return cudaErrorCooperativeLaunchTooLarge;
-  void* params[] = {const_cast<MegaArgs*>(&a), &maps, const_cast<Lin*>(&p)};
-  err = cudaLaunchKernel(kernel, dim3(blocks), dim3(kThreads), params, layout(a).bytes,
-                         static_cast<cudaStream_t>(stream));
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(decode_megakernel_sm90),
+                                    dim3(blocks), dim3(kThreads), params, layout(a).bytes,
+                                    static_cast<cudaStream_t>(stream));
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 

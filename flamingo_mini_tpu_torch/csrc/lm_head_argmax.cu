@@ -374,13 +374,17 @@ cudaError_t grid_blocks(int n_tiles, int* blocks) {
 
 }  // namespace
 
+// whether the kernel takes hidden rows of width D: whole 64-k weight
+// chunks (its TMA box), and a group of at least 8 rows within kStageBytes
+__host__ inline bool takes_width(int D) { return D > 0 && D % kTile == 0 && group_rows(D) >= 8; }
+
 // part_max / part_idx: (Vp / 64, B) scratch (the grid takes at most one
 // block per tile); returns the CUDA error
 extern "C" int fmt_lm_head_argmax(const void* w8, const void* scale,
                                   const void* x, void* part_max,
                                   void* part_idx, void* out, int Vp, int D,
                                   int B, int n_valid, void* stream) {
-  if (Vp % kTile || D % kTile || group_rows(D) < 8 || B < 1) return cudaErrorInvalidValue;
+  if (Vp % kTile || !takes_width(D) || B < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const EncodeTiled encode = encode_fn();
   if (encode == nullptr) return cudaErrorInvalidValue;
@@ -411,3 +415,10 @@ extern "C" int fmt_lm_head_argmax(const void* w8, const void* scale,
 
 // vocab rows per tile: the wrapper checks Vp and sizes its scratch with it
 extern "C" int fmt_lm_head_rows_per_block() { return kTile; }
+
+// the dynamic shared memory a launch over B hidden rows of width D takes
+// (its layout), or -1 where the kernel does not take the width: the
+// wrapper's refusal, and what ops/lm_head.py's smem_bytes mirrors
+extern "C" int fmt_lm_head_smem(int D, int B) {
+  return takes_width(D) && B >= 1 ? layout(D, B).bytes : -1;
+}

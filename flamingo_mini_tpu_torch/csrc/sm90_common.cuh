@@ -1,13 +1,12 @@
 // Hopper building blocks shared by the port's sm_90a kernels
 // (attention_sm90.cuh, decode_megakernel_sm90.cuh, lm_head_argmax.cu):
 // shared-memory addresses, mbarriers, TMA loads, wgmma descriptors, fences
-// and products (bf16 and int8, A from registers), the int8 weight
-// fragments and the staged B tiles' k order, and the tensor-map encoder
-// reached through the runtime (no -lcuda).
+// and bf16 products (A from registers), the int8 weight fragments and the
+// staged B tiles' k order, and the tensor-map encoder reached through the
+// runtime (no -lcuda).
 #pragma once
 
 #include <cstdint>
-#include <type_traits>
 
 #include <cuda.h>  // CUtensorMap and its enums (declarations only: nothing links libcuda)
 #include <cuda_runtime.h>
@@ -82,15 +81,6 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          (1ull << 62);
 }
 
-// the same for rows of 64 bytes in the 64-byte swizzle (the 16-byte unit u
-// of row r at u ^ ((r >> 1) & 3)), its base 512-aligned: stride 512 bytes
-// between groups of 8 rows, layout 2 (64-byte swizzle). A K-major int8
-// operand advances 32 bytes (+2) per 32 columns.
-__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (32ull << 32) |
-         (2ull << 62);
-}
-
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -125,21 +115,13 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
     for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void fence_regs(int (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
 // ---------------------------------------------------------------------------
 // products, A (64 rows) from registers, B K-major from shared memory by
 // descriptor, d kept (scale-d 1); N / 2 accumulators a thread: d[4 j + 2 h
 // + e] is row 16 w + g + 8 h, column 8 j + 2 t + e for lane 4 g + t of the
 // warpgroup's warp w. WgmmaBf16: m64nNk16, bf16 x bf16 -> float32, A four
 // bf16x2 words (row g: k 2 t, 2 t + 1; row g + 8: the same; row g: k 2 t +
-// 8, 2 t + 9; row g + 8: the same). WgmmaS8: m64nNk32, int8 x int8 -> int32
-// (exact), A four words of four int8 (row g: k 4 t .. 4 t + 3; row g + 8:
-// the same; row g: k 16 + 4 t ..; row g + 8: the same).
+// 8, 2 t + 9; row g + 8: the same).
 
 template <int N>
 struct WgmmaBf16;
@@ -231,96 +213,6 @@ struct WgmmaBf16<64> {
   }
 };
 
-template <int N>
-struct WgmmaS8;
-
-template <>
-struct WgmmaS8<8> {
-  static __device__ __forceinline__ void mma(int (&d)[4], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
-      "{%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, %8, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaS8<16> {
-  static __device__ __forceinline__ void mma(int (&d)[8], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaS8<24> {
-  static __device__ __forceinline__ void mma(int (&d)[12], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n24k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
-      "{%12, %13, %14, %15}, %16, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaS8<32> {
-  static __device__ __forceinline__ void mma(int (&d)[16], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaS8<48> {
-  static __device__ __forceinline__ void mma(int (&d)[24], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23}, "
-      "{%24, %25, %26, %27}, %28, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaS8<64> {
-  static __device__ __forceinline__ void mma(int (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
 // four int8 weights (one word, lowest k in the lowest byte) -> two bf16x2
 // words (k0 k1, k2 k3), exactly: each byte b biased to b + 128 becomes the
 // float32 2^23 + 128 + b, less 2^23 + 128, an integer of at most 8
@@ -341,25 +233,15 @@ __device__ __forceinline__ void i8x4_to_bf16x4(uint32_t w, uint32_t& lo, uint32_
 // box lands it) feeds a warpgroup's products from registers: lane 4 g + t
 // of warp w loads the 16 bytes k = 16 t .. 16 t + 15 of rows 16 w + g and
 // 16 w + g + 8. Converted to bf16 (i8x4_to_bf16x4), word j of each row
-// feeds k16 step j; as int8, words 2 j and 2 j + 1 feed k32 step j. Both
-// permute k alike within the chunk, and the staged B tile takes the same
-// order, which a dot product does not see:
+// feeds k16 step j. That permutes k within the chunk, and the staged B
+// tile takes the same order, which a dot product does not see:
 //
-// b_offset: bf16 B, the k pair (k, k + 1) (k even) of row r at wgmma k slot
+// b_offset: the k pair (k, k + 1) (k even) of row r at wgmma k slot
 // 16 j + 2 t + (k & 2 ? 8 : 0) + (k & 1) of step j = (k >> 2) & 3, t = k >>
 // 4; a row is 128 bytes, its 16-byte units in the 128-byte swizzle.
 __device__ __forceinline__ int b_offset(int r, int k) {
   const int p = 16 * ((k >> 2) & 3) + 2 * (k >> 4) + 8 * ((k >> 1) & 1);
   return r * 128 + ((((p >> 3) ^ (r & 7)) << 4) | ((p & 7) << 1));
-}
-
-// b_offset_s8: int8 B, the word k .. k + 3 (k a multiple of 4) of row r at
-// byte 32 j + 16 h + 4 t of its row, step j = (k >> 3) & 1, h = (k >> 2) &
-// 1, t = k >> 4 (slots 4 t.. of the step for h = 0, 16 + 4 t.. for h =
-// 1); a row is 64 bytes, its 16-byte units in the 64-byte swizzle.
-__device__ __forceinline__ int b_offset_s8(int r, int k) {
-  const int p = 32 * ((k >> 3) & 1) + 16 * ((k >> 2) & 1) + 4 * (k >> 4);
-  return r * 64 + ((((p >> 4) ^ ((r >> 1) & 3)) << 4) | (p & 15));
 }
 
 // ---------------------------------------------------------------------------

@@ -25,9 +25,11 @@ import torch
 from . import cuda_build
 
 NEG = float(torch.finfo(torch.float32).min)
-# the CUDA kernel's shape (csrc/lm_head_argmax.cu): vocab rows per tile and
-# k per weight chunk, consumer warpgroups, ring stages, the most hidden
-# rows of a group and the shared memory the staged rows may take
+# a mirror of the CUDA kernel's shape (csrc/lm_head_argmax.cu), for the
+# CPU tests of its deal: vocab rows per tile and k per weight chunk,
+# consumer warpgroups, ring stages, the most hidden rows of a group and the
+# shared memory the staged rows may take (the card tests hold smem_bytes
+# and MAX_D against the kernel's own fmt_lm_head_smem)
 TILE = 64
 GROUPS = 4
 RING = 16
@@ -119,11 +121,11 @@ def lm_head_argmax(w8: torch.Tensor, scale: torch.Tensor, x: torch.Tensor,
     if w8.dtype != torch.int8 or w8.device != x.device or not w8.is_contiguous():
         raise ValueError("lm_head_argmax: w8 must be contiguous int8 on "
                          "the same device")
-    # whole vocab tiles, whole 64-k weight chunks (the kernel's TMA box),
-    # and at least 8 hidden rows of D staged in STAGE_BYTES
-    if Vp % rows or D % TILE or D > MAX_D:
-        raise ValueError(f"lm_head_argmax: needs Vp % {rows} == 0, D % {TILE} == 0 "
-                         f"and D <= {MAX_D}, got Vp={Vp}, D={D}")
+    # whole vocab tiles; the kernel says which widths it takes (whole 64-k
+    # weight chunks, at least 8 hidden rows staged)
+    if Vp % rows or lib.fmt_lm_head_smem(D, 1) < 0:
+        raise ValueError(f"lm_head_argmax: needs Vp % {rows} == 0 and a width the "
+                         f"kernel takes (D % 64 == 0, D <= {MAX_D}), got Vp={Vp}, D={D}")
     if scale.dtype != torch.float32 or scale.numel() != Vp \
             or scale.device != x.device or not scale.is_contiguous():
         raise ValueError("lm_head_argmax: scale must be contiguous float32 "

@@ -14,10 +14,9 @@ chip_smoke.py's seeds), all of them unless some are named:
    and at the beam loop's last segment (kv_limit 68) 32 vs 96 rows and the
    beam mode at 96 rows (32 x 3 beams) and 160 rows (32 x 5); then the OPT
    mode at OPT-1.3B width (b=8, 24 layers, D=2048, xattn every other layer,
-   the greedy loop's last segment: kv_limit 71); then the w8a8 mode
-   (``act_quant``) at greedy b=32 and 1, beams at 96 and 160 rows and
-   OPT-1.3B b=8; each beside its bound (``chip_smoke.mega_bound``) and its
-   split by the kernel's section timer (``megadecode.SECTIONS``: each section's
+   the greedy loop's last segment: kv_limit 71); each beside its bound
+   (``chip_smoke.mega_bound``) and, for the weight-only kernel, its split
+   by the kernel's section timer (``megadecode.SECTIONS``: each section's
    share of the blocks' clock cycles in one more call, times the call's
    median time: microseconds per layer, the grid barrier's wait included);
 2. ``torch.profiler`` over one ``generate`` of each decode path, greedy and
@@ -58,7 +57,7 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cuLaunchKern
 
 
 def sections(fn, flush, ms: float, n_layer: int) -> dict:
-    """One more call of ``fn`` with the kernel's section timer
+    """One more call of ``fn`` with the weight-only kernel's section timer
     on -> {section: us per layer}: each section's share of all blocks'
     cycles times ``ms`` per layer."""
     from flamingo_mini_tpu_torch.ops import megadecode as md
@@ -85,19 +84,14 @@ def sweep(dev, card):
     # runs the beam mode over a random ancestry table; the four rows at
     # kv_limit 68 share the beam loop's last segment to split rows from
     # ancestry
-    # the w8a8 mode (act_quant) at the main path's shapes follows the
-    # weight-only rows
     opt = dict(family="opt", D=cs.OPT_D, H=cs.OPT_H)
-    for trunk, b, kb, n_layer, every, kv_limit, act_quant in (
-            ("gpt2", 32, 1, 24, 1, 132, False), ("gpt2", 1, 1, 24, 1, 132, False),
-            ("gpt2", 32, 1, 24, 1, 36, False), ("gpt2", 32, 1, 12, 1, 132, False),
-            ("gpt2", 32, 1, 24, 2, 132, False), ("gpt2", 1, 1, 24, 1, 36, False),
-            ("gpt2", 32, 1, 24, 1, 68, False), ("gpt2", 96, 1, 24, 1, 68, False),
-            ("gpt2", 96, 3, 24, 1, 68, False), ("gpt2", 160, 5, 24, 1, 68, False),
-            ("opt-1.3b", cs.OPT_B, 1, 24, 2, 71, False),
-            ("gpt2", 32, 1, 24, 1, 132, True), ("gpt2", 1, 1, 24, 1, 132, True),
-            ("gpt2", 96, 3, 24, 1, 68, True), ("gpt2", 160, 5, 24, 1, 68, True),
-            ("opt-1.3b", cs.OPT_B, 1, 24, 2, 71, True)):
+    for trunk, b, kb, n_layer, every, kv_limit in (
+            ("gpt2", 32, 1, 24, 1, 132), ("gpt2", 1, 1, 24, 1, 132),
+            ("gpt2", 32, 1, 24, 1, 36), ("gpt2", 32, 1, 12, 1, 132),
+            ("gpt2", 32, 1, 24, 2, 132), ("gpt2", 1, 1, 24, 1, 36),
+            ("gpt2", 32, 1, 24, 1, 68), ("gpt2", 96, 1, 24, 1, 68),
+            ("gpt2", 96, 3, 24, 1, 68), ("gpt2", 160, 5, 24, 1, 68),
+            ("opt-1.3b", cs.OPT_B, 1, 24, 2, 71)):
         cfg, packed = cs.random_trunk(dev, n_layer=n_layer, xattn_every=every,
                                       seed=24, **(opt if trunk != "gpt2" else {}))
         anc = None
@@ -113,8 +107,7 @@ def sweep(dev, card):
 
         def step():
             return decode_step_megakernel(packed, xk, xv, kc, vc, x, npad, tt, cur,
-                                          config=cfg, kv_limit=kv_limit, beam_anc=anc,
-                                          act_quant=act_quant)
+                                          config=cfg, kv_limit=kv_limit, beam_anc=anc)
         ms = cs.time_ms(step, 30, flush)
         split = sections(step, flush, ms, n_layer)
         # self K/V rows read: every row's own, or each distinct ancestor's
@@ -123,12 +116,11 @@ def sweep(dev, card):
         if anc is not None:
             slots, extra = cs.ancestor_reads(anc, npad, cur, kb)[0], 4 * n_pos
         bound_ms, bound_by, _, _ = cs.mega_bound(packed, cfg, inputs, slots, n_pos,
-                                                 extra_bytes=extra, act_quant=act_quant)
-        mode = "w8a8" if act_quant else "weight-only"
-        row = dict(trunk=trunk, mode=mode, b=b, kb=kb, n_layer=n_layer, xattn_every=every,
+                                                 extra_bytes=extra)
+        row = dict(trunk=trunk, b=b, kb=kb, n_layer=n_layer, xattn_every=every,
                    kv_limit=kv_limit, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
                    ms_per_layer=ms / n_layer, us_per_layer_by_section=split)
-        print(f"[sweep] {card}: megakernel {mode} {trunk} b={b} kb={kb} layers={n_layer} "
+        print(f"[sweep] {card}: megakernel {trunk} b={b} kb={kb} layers={n_layer} "
               f"xattn_every={every} kv_limit={kv_limit}: {ms} ms per call "
               f"({ms / n_layer * 1e3:.1f} us per layer), bound {bound_ms:.4f} ms "
               f"({bound_by}); us per layer by section {split}")

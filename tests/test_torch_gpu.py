@@ -32,21 +32,21 @@ GPT-2 forward, media prefill and forward shapes, with fully masked rows
 zeroed (text_time 0): float32 within 1e-5 of the output's scale, bf16
 within 2 bf16 ulps; the bf16 kernel of the first two (the Hopper tile) also
 at its tile edges, back to back on one stream, and streaming past many
-tiles of its ring. The megakernel's w8a8 mode (act_quant, the same Hopper
-kernel): its linear alone, through the kernel's own machinery with a
-one-linear schedule, bitwise equal to the plain version (column form at K
-= 512, 1024, 2048; row form over D-wide slices of 4096 and 8192 and of K
-= 512; b in {1, 3, 8, 32}, a zero row and .5 rounding boundaries
-planted); the whole step at 2 layers (greedy at flamingo-mini width, beams
-at 96 rows, OPT-1.3B width) within the larger of 1e-2 and 1.25 x the
-plain version's CPU-vs-card spread, normwise, the deep checks' rule (the
-mode sums its attention in float64 and its LayerNorm in the plain
-version's order, and is meant to be bit for bit equal to it); at the
-weight-only mode's edge rows within 2 bf16 ulps; two launches bit-equal;
-two streams bit-equal to one; its shared-memory formula equal to its
-mirror. A trunk too wide for the kernel (D=8192: its LayerNorm rows do not
-fit its registers) raises ValueError before vision and prefill in both
-modes; at D=4096 both modes take 27 to 2,048 rows.
+tiles of its ring. The megakernel's w8a8 mode (act_quant): its linear
+alone, through the kernel's own device functions, bitwise equal to the
+plain version (column form at K = 512, 1024, 2048; row form over D-wide
+slices of 4096 and 8192 and of K = 512; b in {1, 3, 8, 32}, a zero row and
+.5 rounding boundaries planted); the whole step at 2 layers (greedy at
+flamingo-mini width, beams at 96 rows, OPT-1.3B width) within the larger
+of 1e-2 and 1.25 x the plain version's CPU-vs-card spread, normwise, the
+deep checks' rule (the mode sums its attention in float64 and its
+LayerNorm in the plain version's order, and was measured bit for bit
+equal to it); at the weight-only mode's edge rows, back to back and on
+two streams bit for bit equal to the plain version, and two launches
+bit-equal. A trunk too wide for the card's
+shared memory (D=4096, 28 rows, w8a8) raises ValueError before vision and
+prefill; the weight-only kernel takes 28 rows there, and a weight-only
+generate on a D=8192 trunk raises ValueError before vision and prefill.
 The weight-only mode's Hopper kernel (decode_megakernel_sm90.cuh) at its
 edges: its own grid barrier alone, rows on both sides of its wgmma N steps,
 of its wide mode (past 64 rows) and of its 256-row passes (b in {1, 3, 8, 9,
@@ -536,7 +536,8 @@ def test_w8a8_linear_is_bitwise(cuda, K, N, width, b):
 @pytest.mark.parametrize("mode", ["greedy", "beam", "opt"])
 def test_megakernel_act_quant_matches_plain(cuda, mode):
     """2 layers: flamingo-mini width at b=32 (xattn on both), beams at 96
-    rows in families of 3, OPT-1.3B width at b=8 (xattn on the first)."""
+    rows in families of 3, OPT-1.3B width at b=8 (xattn on the first);
+    within the normwise rule and bit for bit the plain version."""
     import chip_smoke
     if mode == "opt":
         cfg, packed = chip_smoke.random_trunk(cuda, n_layer=2, xattn_every=2, seed=5,
@@ -554,15 +555,16 @@ def test_megakernel_act_quant_matches_plain(cuda, mode):
     before = decode_step_megakernel.launches
     worst = {}
     chip_smoke.held_normwise(f"act_quant {mode}", cfg, packed, inputs, cur, lim,
-                             beam_anc=anc, act_quant=True, worst=worst)
+                             beam_anc=anc, act_quant=True, worst=worst, bitwise=True)
     assert decode_step_megakernel.launches == before + 1
     assert worst["share"] <= 1.0, worst
 
 
 def test_megakernel_refuses_a_wide_trunk_before_prefill(cuda):
-    """D=8192: a w8a8 greedy call of 8 rows, w8a8 beams 3 x 3 and a
-    weight-only greedy call of 8 rows: ValueError, no vision, no prefill, no
-    launch; at D=4096 27, 28, 257 and 2,048 rows pass in both modes."""
+    """D=4096 at 28 rows (w8a8) and 10 x 3 beams (w8a8), and a weight-only
+    greedy call at D=8192: ValueError, no vision, no prefill, no launch; 27
+    rows pass in both modes; the weight-only kernel takes 28 rows at
+    D=4096."""
     import chip_smoke
     chip_smoke.phase2_refusal(cuda)
 
@@ -659,7 +661,7 @@ def test_megakernel_streams_keep_their_own_barrier_words(cuda):
 
 
 # ---------------------------------------------------------------------------
-# the w8a8 mode on the same Hopper kernel at the weight-only mode's edges
+# the w8a8 mode at the weight-only mode's edges
 # ---------------------------------------------------------------------------
 
 
@@ -667,23 +669,20 @@ def test_megakernel_streams_keep_their_own_barrier_words(cuda):
 @pytest.mark.parametrize("every", [1, 2])
 def test_megakernel_w8a8_edge_rows_match_plain(cuda, every, b):
     """Flamingo-mini width, 2 layers, the w8a8 mode: a one-slot cache
-    (left-padded rows attend nothing), kv_limit 36 and 132; 2 bf16 ulps."""
+    (left-padded rows attend nothing), kv_limit 36 and 132; bit for bit
+    the plain version (and within 2 bf16 ulps)."""
     import chip_smoke
     cfg, packed = chip_smoke.random_trunk(cuda, n_layer=2, xattn_every=every,
                                           seed=900 + every)
     before = decode_step_megakernel.launches
-    equal = []
-    n = chip_smoke.edge_rows_case(cuda, cfg, packed, b, [0.0, 0.0, None], act_quant=True,
-                                  equal=equal)
+    n = chip_smoke.edge_rows_case(cuda, cfg, packed, b, [0.0, 0.0, None], act_quant=True)
     assert decode_step_megakernel.launches == before + n
-    print(f"w8a8 b={b} every={every}: {len(equal)} of {n} cases bit-equal to the plain version")
 
 
 def test_megakernel_w8a8_back_to_back_and_deterministic(cuda):
     """The w8a8 mode: greedy b=32 and 3, beams at 96 rows, OPT-1.3B width
-    b=8 launched back to back before one synchronize, each within 2 bf16
-    ulps of its plain version; each launched again on the same inputs,
-    bit-equal."""
+    b=8 launched back to back before one synchronize, each bit for bit its
+    plain version; each launched again on the same inputs, bit-equal."""
     import chip_smoke
     chip_smoke.back_to_back(cuda, [0.0, 0.0, None], act_quant=True)
 
@@ -693,41 +692,6 @@ def test_megakernel_w8a8_streams_give_the_bits_of_one(cuda):
     rows) give the bits of the same launches on the current stream."""
     import chip_smoke
     chip_smoke.two_streams(cuda, act_quant=True)
-
-
-@pytest.mark.parametrize("rows", [1, 32, 96, 257])
-@pytest.mark.parametrize("width", ["flamingo-mini", "OPT-1.3B"])
-def test_megakernel_w8a8_smem_formula_matches_its_mirror(cuda, width, rows):
-    """``fmt_decode_megakernel_smem`` for the w8a8 mode equals
-    ``megadecode.plan_smem_bytes`` of its plan, byte for byte."""
-    from flamingo_mini_tpu_torch.ops import megadecode as md
-    D, Dff, nx, t_lim = (1024, 4096, 24, 132) if width == "flamingo-mini" else (2048, 8192, 12, 71)
-    p = md.plan(rows, D, Dff, 512, Dff, n_xattn=nx, act_quant=True)
-    args = md._Args(b=rows, D=D, Dff=Dff, XI=512, Dffx=Dff, t_lim=t_lim, NMNV=64,
-                    act_quant=1)
-    md._plan_args(args, p)
-    assert md._smem_need(args) == md.plan_smem_bytes(p, D, Dff, 512, Dff, t_lim, 64)
-
-
-def test_megakernel_w8a8_section_timer_counts_every_block(cuda):
-    """The section timer covers the w8a8 mode: every block waits at the
-    grid barriers, the grid runs products and attention."""
-    import chip_smoke
-    from flamingo_mini_tpu_torch.ops import megadecode as md
-    cfg, packed = chip_smoke.random_trunk(cuda, n_layer=2, xattn_every=1, seed=970)
-    xk, xv, kc, vc, x, npad, tt = chip_smoke.mega_inputs(cuda, cfg, 32, seed=971)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    timer = torch.zeros((sms, len(md.SECTIONS)), dtype=torch.int64, device=x.device)
-    md.section_timer = timer
-    try:
-        md.decode_step_megakernel(packed, xk, xv, kc, vc, x, npad, tt, 35, config=cfg,
-                                  kv_limit=36, act_quant=True)
-        torch.cuda.synchronize()
-    finally:
-        md.section_timer = None
-    t = dict(zip(md.SECTIONS, timer.t().cpu()))
-    assert bool((t["barrier"] > 0).all()) and int(timer.min()) >= 0
-    assert int(t["products"].sum()) > 0 and int(t["attention"].sum()) > 0
 
 
 # ---------------------------------------------------------------------------
@@ -755,6 +719,22 @@ def test_lm_head_edges_match_plain(cuda, B, D):
             print(f"B={B} D={D} n_valid={n_valid} row {i}: kernel {int(got[i])}, plain "
                   f"{int(want[i])}, plain logits' gap {float(gap[i])} (1 ulp {float(ulp[i])})")
         assert bool((gap <= ulp).all()), (B, D, n_valid, parted)
+
+
+def test_lm_head_smem_mirror_matches_the_kernel(cuda):
+    """``ops/lm_head.py``'s mirror of the head kernel's shape (``smem_bytes``,
+    ``MAX_D``, what the CPU tests of its deal use) equals the kernel's own
+    layout (``fmt_lm_head_smem``) at every width it takes and the row
+    counts of the edge tests, and the kernel refuses the widths the mirror
+    refuses."""
+    from flamingo_mini_tpu_torch.ops import cuda_build
+    from flamingo_mini_tpu_torch.ops import lm_head as lh
+    lib = cuda_build.kernels()
+    for D in range(64, lh.MAX_D + 1, 64):
+        for B in (1, 3, 8, 32, 33, 64, 65, 128):
+            assert lib.fmt_lm_head_smem(D, B) == lh.smem_bytes(D, B), (D, B)
+    for D in (lh.MAX_D + 64, 1000, 0):
+        assert lib.fmt_lm_head_smem(D, 1) == -1, D
 
 
 def test_stream_sum_matches_plain(cuda):
