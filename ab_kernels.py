@@ -12,8 +12,9 @@ layers: flamingo-mini width at b=32 and at b=1 (the fixed cost; kv_limit
 68) and its OPT mode at OPT-1.3B width, b=8 (kv_limit 71), each also in
 the w8a8 mode (``act_quant``) where the checkout has it, of
 ``lm_head_argmax`` at flamingo-mini's head (B=32, D=1024, V=50,258) and
-OPT-1.3B's (B=8, D=2048, V=50,273), each beside its wrapper's host us per
-call, and
+OPT-1.3B's (B=8, D=2048, V=50,273), and at B=32, D=1040 (a width of no
+model: a K tail; null where the checkout's head refuses it), each beside
+its wrapper's host us per call, and
 of the bf16 attention kernels of ``use_pallas``: ``fused_attention`` at the
 ViT (32, 16, 257, 257), resampler (32, 8, 64, 321) and causal GPT-2 and
 OPT-1.3B forward shapes (two rows left-padded by 8) and ``flash_attention``
@@ -21,8 +22,10 @@ at (2, 16, 4000, 64), each beside its wrapper's host us per call. L2
 flushed, on the inputs of each checkout's ``chip_smoke.py``; every time is
 taken by this checkout's ``chip_smoke.time_ms`` (a spin on the card before
 each call, so that the events time the card alone), whatever the timed
-checkout's own timer.
-Writes the runs to
+checkout's own timer. Then two more processes, B and A, time the
+megakernel cases alone, so that each checkout's megakernel runs in three
+fresh processes; the last lines print each process's OPT-1.3B times (a
+level set per process shows there). Writes the runs to
 ``chiprun_out/ab_kernels.json``. Needs a card; exits 1 without one.
 """
 import importlib.util
@@ -73,7 +76,8 @@ def head(dev, flush, out: dict) -> None:
     checkout: made here, not by the checkout's chip_smoke)."""
     from flamingo_mini_tpu_torch.ops.lm_head import lm_head_argmax, pad_head_weights
     for label, (B, D, V) in (("lm_head_argmax", (32, 1024, 50258)),
-                             ("lm_head_argmax_opt", (8, 2048, 50273))):
+                             ("lm_head_argmax_opt", (8, 2048, 50273)),
+                             ("lm_head_argmax_1040", (32, 1040, 50258))):
         gen = torch.Generator(device=dev).manual_seed(B + D)
         w8 = torch.randint(-127, 128, (V, D), generator=gen, device=dev).to(torch.int8)
         scale = torch.rand(V, generator=gen, device=dev) * 0.01 + 1e-4
@@ -82,28 +86,36 @@ def head(dev, flush, out: dict) -> None:
 
         def fn():
             return lm_head_argmax(h["w8"], h["scale"], x, n_valid=V)
+        try:
+            fn()
+        except ValueError:   # a head that does not take this width
+            out[label + "_ms"] = out[label + "_host_us"] = None
+            continue
         out[label + "_ms"] = time_ms(fn, 100, flush)
         out[label + "_host_us"] = host_us(fn)
 
 
-def one(tree: str) -> dict:
+def one(tree: str, mega_only: bool = False) -> dict:
     """The kernels' times in the checkout ``tree``, an absolute path (run in
-    its own process, from that directory)."""
+    its own process, from that directory); ``mega_only``: the megakernel's
+    alone."""
     sys.path.insert(0, tree)
     import chip_smoke as cs
     from flamingo_mini_tpu_torch.ops.decode_attention import decode_attention
     from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel
     dev = torch.device("cuda", 0)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    out = {"tree": tree}
-    attention(cs, dev, flush, out)
-    head(dev, flush, out)
+    out = {"tree": tree, "mega_only": mega_only}
+    if not mega_only:
+        attention(cs, dev, flush, out)
+        head(dev, flush, out)
     rs = np.random.RandomState(0)
     q, k, v = (torch.tensor(rs.randn(*s) * 0.3, dtype=torch.float32, device=dev)
                .to(torch.bfloat16) for s in ((32, 1024), (192, 32, 1024), (192, 32, 1024)))
     npad = torch.tensor(np.arange(32) % 4, dtype=torch.int32, device=dev)
-    out["decode_attention_ms"] = time_ms(lambda: decode_attention(
-        q, k, v, npad, 131, n_head=16, scale=0.125, kv_limit=132), 100, flush)
+    if not mega_only:
+        out["decode_attention_ms"] = time_ms(lambda: decode_attention(
+            q, k, v, npad, 131, n_head=16, scale=0.125, kv_limit=132), 100, flush)
     modes = [False]
     if "act_quant" in inspect.signature(decode_step_megakernel).parameters:
         modes.append(True)
@@ -138,19 +150,25 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA device", file=sys.stderr)
         return 1
-    if sys.argv[1] == "--one":
-        print(json.dumps(one(sys.argv[2])))
+    if sys.argv[1] in ("--one", "--one-mega"):
+        print(json.dumps(one(sys.argv[2], mega_only=sys.argv[1] == "--one-mega")))
         return 0
     a, b = (os.path.abspath(t) for t in sys.argv[1:3])
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader", "-i", "0"],
                           capture_output=True, text=True, check=True).stdout.strip()
     runs = []
-    for tree in (a, b, b, a):
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
+    for flag, tree in (("--one", a), ("--one", b), ("--one", b), ("--one", a),
+                       ("--one-mega", b), ("--one-mega", a)):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), flag, tree],
                              capture_output=True, text=True, check=True, cwd=tree)
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
         print(f"{card}: {runs[-1]}", flush=True)
+    for tree in (a, b):
+        per = [(r.get("decode_step_megakernel_opt_ms"), r.get("decode_step_megakernel_opt_w8a8_ms"))
+               for r in runs if r["tree"] == tree]
+        print(f"{card}: {tree}: OPT-1.3B b=8 (weight-only, w8a8) ms by process: {per}",
+              flush=True)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "ab_kernels.json"), "w") as f:
         json.dump({"card": card, "runs": runs}, f, indent=1)

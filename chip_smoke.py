@@ -18,7 +18,8 @@ stream probe and the in-situ decode and head probes, and checks them:
    ``lm_head_argmax`` at B=32, D=1024, V=50258 (padded to 51200), with
    exact ties planted across tiles, across one warpgroup's rounds and
    across two blocks' shares of its persistent grid, and again with
-   n_valid on a tile's edge, and ``decode_step_megakernel`` at
+   n_valid on a tile's edge, the same checks at D=1040 (a K tail) and
+   D=8192 (hidden rows staged in K-slices), and ``decode_step_megakernel`` at
    D=1024, H=16, XI=512, 64 latents, T=192: b in {1, 3, 32}, a left-padded
    row, a row with text_time 0, several ``cur``/``kv_limit``, xattn every
    layer and every other layer, 1 and 2 layers (2 bf16 ulps at the
@@ -61,26 +62,28 @@ stream probe and the in-situ decode and head probes, and checks them:
    with a left-padded row and with a bias; back-to-back calls of five
    shapes on one stream before one synchronize; streaming at 3000 keys,
    causal with a left-padded row. Phase 1 prints the kernels' registers and
-   spills (``-Xptxas -v``) and requires ``HGMMA`` and ``UTMALDG`` in the
-   SASS (``cuobjdump -sass``, where the toolkit has it) of the attention
-   tile, the weight-only megakernel and the head. The
-   megakernel's w8a8 mode (``act_quant``): its linear alone (``lin_w8a8``,
-   the kernel's own device functions) bitwise against the plain version
+   spills (``-Xptxas -v``) and requires wgmma (``HGMMA`` bf16, ``IGMMA``
+   int8) and ``UTMALDG`` in the SASS (``cuobjdump -sass``, where the
+   toolkit has it) of the attention tile, both megakernel modes (``IGMMA``
+   in the w8a8 mode), the w8a8 linear alone and the head. The
+   megakernel's w8a8 mode (``act_quant``, the same Hopper kernel): its
+   linear alone (``lin_w8a8``, the kernel's machinery with a one-linear
+   schedule) bitwise against the plain version
    at ``W8A8_LINEAR``'s shapes, b in {1, 3, 8, 32}, a zero row and .5
    rounding boundaries planted; the whole step at 1-2 layers (greedy b in
    {1, 3, 32}, beams at 96 and 160 rows, OPT-1.3B width b in {3, 8}) and
    at 24 layers (greedy b=32, beams 96 rows, OPT-1.3B b=8) under the
    normwise rule below, printing where the largest error lies, each 24
-   layer case timed beside its plain version and bound, its grid printed,
+   layer case timed beside its plain version and bound (OPT-1.3B also
+   beside the weight-only mode on the same inputs), its grid printed,
    and the 1-2 layer cases also bit for bit; then at the weight-only
    mode's edge rows (2 layers, D=1024), back to back and on two streams,
-   each bit for bit the plain version, and twice bit-equal.
-   The shared-memory refusal: a D=4096 trunk at 28 rows in the w8a8 mode
-   (and 10 x 3 beams) raises ``ValueError`` before vision and prefill,
-   launching nothing, and 27 rows pass the check; the weight-only mode's
-   Hopper kernel holds 28 rows at D=4096, and a weight-only generate on a
-   D=8192 trunk (wider than its LayerNorm holds in registers) raises
-   ValueError before vision and prefill, launching nothing. The
+   each bit for bit the plain version, and twice bit-equal. The refusal:
+   on a D=8192 trunk (wider than the kernel's LayerNorm holds in
+   registers) a w8a8 greedy call, w8a8 beams and a weight-only greedy
+   call each raise ``ValueError`` before vision and prefill, launching
+   nothing; at D=4096 both modes pass the check at 27 to 2,048 rows
+   (``D4096_ROWS``). The
    weight-only mode's Hopper kernel (``csrc/decode_megakernel_sm90.cuh``)
    at its edges: its grid barrier alone (every block's stamps read back
    after each of 2,000 barriers), the step at 2 layers, D=1024, xattn
@@ -283,9 +286,11 @@ def bound(n_bytes: float, n_ops: float, n_int8_ops: float = 0.0,
 
 def sm90_sass(lib: str) -> None:
     """Print the Hopper kernels' instructions of note in the built library
-    (the attention tile, the weight-only megakernel, the head) and require
-    wgmma (HGMMA) and TMA loads (UTMALDG) in each; a toolkit without
-    cuobjdump skips the check, saying so."""
+    (the attention tile, the megakernel's two modes and its w8a8 linear
+    alone, the head) and require TMA loads (UTMALDG) in each and its wgmma:
+    int8 (IGMMA) in the megakernel's w8a8 mode and its linear, bf16 (HGMMA)
+    in the others; a toolkit without cuobjdump skips the check, saying
+    so."""
     from flamingo_mini_tpu_torch.ops import cuda_build
     tool = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
     if not os.path.isfile(tool):
@@ -302,17 +307,24 @@ def sm90_sass(lib: str) -> None:
             else:
                 name = None
         elif name is not None:
-            found[name].update(op for op in ("HGMMA", "UTMALDG", "SYNCS") if op in line)
+            found[name].update(op for op in ("HGMMA", "IGMMA", "UTMALDG", "SYNCS")
+                               if op in line)
     for k in SM90_KERNELS:
         assert any(k in n for n in found), \
             f"{k} is missing from the library's SASS: {sorted(found)}"
+    assert any(W8A8_SASS in n for n in found), \
+        f"the megakernel's w8a8 mode is missing from the library's SASS: {sorted(found)}"
     for name, ops in found.items():
         print(f"[phase 1] SASS {name}: {' '.join(sorted(ops))}")
-        assert {"HGMMA", "UTMALDG"} <= ops, f"{name}: no wgmma or TMA in its SASS"
+        mma = "IGMMA" if W8A8_SASS in name or "w8a8_linear_kernel" in name else "HGMMA"
+        assert {mma, "UTMALDG"} <= ops, f"{name}: no {mma} or no TMA in its SASS"
 
 
 # the Hopper kernels the SASS check looks for (names as cuobjdump prints them)
-SM90_KERNELS = ("attention_sm90_kernel", "decode_megakernel_sm90", "lm_head_kernel")
+SM90_KERNELS = ("attention_sm90_kernel", "decode_megakernel_sm90", "w8a8_linear_kernel",
+                "lm_head_kernel")
+# the megakernel's w8a8 instantiation, decode_megakernel_sm90<true>, mangled
+W8A8_SASS = "decode_megakernel_sm90ILb1E"
 
 
 def card_line() -> str:
@@ -459,7 +471,7 @@ def head_picks(head, xt, n_valid: int):
     got = lm_head_argmax(head["w8"], head["scale"], xt, n_valid=n_valid)
     want = lm_head_argmax_plain(head["w8"], head["scale"], xt, n_valid=n_valid)
     torch.cuda.synchronize()
-    logits = torch.matmul(xt.float(), head["w8"].float().t()) * head["scale"]
+    logits = torch.matmul(xt.float(), head["w8"][:, :xt.shape[1]].float().t()) * head["scale"]
     logits = logits.to(torch.bfloat16).float()[:, :n_valid]
     rows = torch.arange(xt.shape[0], device=xt.device)
     gap = (logits[rows, want.long()] - logits[rows, got.long()]).abs()
@@ -467,12 +479,23 @@ def head_picks(head, xt, n_valid: int):
     return got, want, gap, ulp
 
 
-def phase2_lm_head(dev, flush, B=HEAD_B, D=HEAD_D, V=HEAD_V):
+def lh_shape(D: int, B: int) -> str:
+    """How the head kernel takes B rows of width D: its chunks, the tail
+    of the last, and its K-slices."""
+    from flamingo_mini_tpu_torch.ops import lm_head as lh
+    n = len(lh.slices(D, min(B, lh.MAX_N)))
+    return (f"{lh.n_chunks(D)} chunks, the last {D - (lh.n_chunks(D) - 1) * lh.TILE} wide, "
+            f"{'staged whole' if n == 1 else f'staged in {n} K-slices'}")
+
+
+def phase2_lm_head(dev, flush, B=HEAD_B, D=HEAD_D, V=HEAD_V, widths=()):
     """lm_head_argmax vs plain at (B rows, width D, V vocab rows padded to
     a multiple of 2048), exact ties planted across tiles, across one
     warpgroup's rounds and across two blocks' shares (``head_inputs``);
     again with n_valid at a tile's edge below V, a masked vocab row
-    planted above the tie; timed beside the bound."""
+    planted above the tie; timed beside the bound. ``widths``: the same
+    checks (ties, picks within 1 bf16 ulp) at B rows of each of these
+    widths too."""
     from flamingo_mini_tpu_torch.ops.lm_head import lm_head_argmax, lm_head_argmax_plain
     head, xt, ties = head_inputs(dev, B, D, V, seed=1)
     Vp = head["w8"].shape[0]
@@ -496,6 +519,19 @@ def phase2_lm_head(dev, flush, B=HEAD_B, D=HEAD_D, V=HEAD_V):
           f"{Vp}): {mismatch}/{B} tokens differ, all within 1 bf16 ulp; planted ties "
           f"{ties} -> the first of each; n_valid={edge} (a tile's edge, a masked row "
           f"planted above): {mismatch_e}/{B} differ, within 1 ulp")
+    gaps = [gap.max(), gap_e.max()]
+    for width in widths:
+        w_head, w_xt, w_ties = head_inputs(dev, B, width, V, seed=width)
+        w_got, w_want, w_gap, w_ulp = head_picks(w_head, w_xt, V)
+        for i, (first, _second) in w_ties.items():
+            assert int(w_got[i]) == first, (width, w_ties[i], int(w_got[i]))
+        assert bool((w_gap <= w_ulp).all()), (width, w_gap.max().item())
+        gaps.append(w_gap.max())
+        print(f"[phase 2] lm_head_argmax vs plain at B={B}, D={width} (the weight "
+              f"{tuple(w_head['w8'].shape)}; {lh_shape(width, B)}): "
+              f"{int((w_got != w_want).sum())}/{B} tokens differ, all within 1 bf16 ulp; "
+              f"planted ties {w_ties} -> the first of each")
+        del w_head
     ms = time_ms(lambda: lm_head_argmax(head["w8"], head["scale"], xt,
                                         n_valid=V), 50, flush)
     plain_ms = time_ms(lambda: lm_head_argmax_plain(
@@ -504,7 +540,7 @@ def phase2_lm_head(dev, flush, B=HEAD_B, D=HEAD_D, V=HEAD_V):
     print(f"[phase 2] lm_head_argmax at B={B}, D={D}: {ms} ms, plain {plain_ms} ms, "
           f"wrapper {wrapper_us} us of host time per call")
     n_bytes = Vp * D + 4 * Vp + 2 * B * D + 4 * B
-    return dict(max_abs_err=float(max(gap.max(), gap_e.max())), ms=ms, plain_ms=plain_ms,
+    return dict(max_abs_err=float(max(gaps)), ms=ms, plain_ms=plain_ms,
                 library_ms=None, **dict(zip(("bound_ms", "bound_by"), bound(
                     n_bytes, 2 * B * Vp * D))))
 
@@ -1262,12 +1298,15 @@ def phase2_megakernel_w8a8(dev, flush):
     ms = time_ms(lambda: decode_step_megakernel(packed, *inputs, 70, **call), 30, flush)
     plain_ms = time_ms(lambda: decode_step_megakernel_plain(packed, *inputs, 70, **call),
                        5, flush)
+    weight_only_ms = time_ms(lambda: decode_step_megakernel(
+        packed, *inputs, 70, config=cfg, kv_limit=71), 30, flush)
     n_pos = int((71 - inputs[5]).sum())
     bound_ms, bound_by, n_bytes, _ = mega_bound(packed, cfg, inputs, n_pos, n_pos,
                                                 act_quant=True)
     print(f"[phase 2] decode_step_megakernel act_quant OPT mode at b={OPT_B}, 24 layers, "
-          f"kv_limit 71: {ms} ms, plain {plain_ms} ms; bound {n_bytes / 1e9:.4f} GB -> "
-          f"{bound_ms:.4f} ms ({bound_by}) (median per call, L2 flushed)")
+          f"kv_limit 71: {ms} ms, plain {plain_ms} ms; the weight-only mode on the same "
+          f"inputs {weight_only_ms} ms; bound {n_bytes / 1e9:.4f} GB -> {bound_ms:.4f} ms "
+          f"({bound_by}) (median per call, L2 flushed)")
     rows["opt"] = dict(max_abs_err=shallow_err, ms=ms, plain_ms=plain_ms, library_ms=None,
                        bound_ms=bound_ms, bound_by=bound_by)
     del packed, inputs
@@ -1292,26 +1331,30 @@ def wide_config(D: int):
 
 def wide_trunk_model(dev, D: int = 4096):
     """``wide_config`` D wide, int8, bf16: at opt-6.7b's width (D=4096) a
-    trunk whose w8a8 LayerNorm stage outgrows shared memory past 27 rows;
-    at D=8192 one whose rows the weight-only kernel's LayerNorm cannot
-    hold in registers."""
+    trunk the kernel takes at any row count in both modes; at D=8192 one
+    whose rows its LayerNorm cannot hold in registers."""
     from flamingo_mini_tpu_torch import FlamingoModel
     model = FlamingoModel(wide_config(D), device=dev, seed=3)
     return model.quantize_int8().to_bf16()
 
 
+# row counts on both sides of the kernel's wide mode and passes
+D4096_ROWS = (27, 28, 64, 65, 73, 128, 255, 256, 257, 2048)
+
+
 def phase2_refusal(dev):
-    """The refusal before any work: at D=4096 a w8a8 greedy call of 28 rows
-    (and a beam call of 10 x 3) raises ValueError before vision and
-    prefill, launching nothing; 27 rows pass the check in both modes. The
-    weight-only kernel takes 28 rows at D=4096, and a weight-only greedy
-    call on a D=8192 trunk (its LayerNorm rows do not fit the kernel's
-    registers) raises ValueError before vision and prefill too, launching
-    nothing."""
+    """The refusal before any work: on a D=8192 trunk (wider than the
+    kernel's LayerNorm holds in registers) a w8a8 greedy call of 8 rows, a
+    w8a8 beam call of 3 x 3 and a weight-only greedy call of 8 rows each
+    raise ValueError before vision and prefill, launching nothing. At
+    D=4096 both modes pass the check at ``D4096_ROWS``: the kernel stages
+    int8 in the w8a8 mode, its plan leaves room for the LayerNorm's scale
+    and bias, and its shared memory stops growing with the rows past a pass
+    of 256 in both."""
     from flamingo_mini_tpu_torch import generation
     from flamingo_mini_tpu_torch.models import flamingo
     from flamingo_mini_tpu_torch.ops import megadecode
-    model = wide_trunk_model(dev)
+    model = wide_trunk_model(dev, 8192)
     ran = []
 
     def recorder(name, fn):
@@ -1320,12 +1363,7 @@ def phase2_refusal(dev):
             return fn(*a, **k)
         return run
     messages = []
-    for D, b, kw in ((4096, 28, dict(w8a8=True)), (4096, 10, dict(num_beams=3, w8a8=True)),
-                     (8192, 8, {})):
-        if D != model.config.dim:
-            del model
-            torch.cuda.empty_cache()
-            model = wide_trunk_model(dev, D)
+    for b, kw in ((8, dict(w8a8=True)), (3, dict(num_beams=3, w8a8=True)), (8, {})):
         ids = torch.ones((b, 4), dtype=torch.long, device=dev)
         pixels = torch.zeros((b, 1, 3, 32, 32), device=dev, dtype=torch.bfloat16)
         zero_counts()
@@ -1338,24 +1376,23 @@ def phase2_refusal(dev):
             except ValueError as e:
                 messages.append(str(e))
             else:
-                raise AssertionError(f"{b} rows at D={D} ran on the megakernel ({kw})")
+                raise AssertionError(f"{b} rows at D=8192 ran on the megakernel ({kw})")
         counts = read_counts()
         assert not ran and not any(counts.values()), (ran, counts)
+    for act_quant, message in ((True, messages[0]), (False, messages[-1])):
+        try:
+            megadecode.check_fits(model.config, 8, 16, 64, act_quant=act_quant, device=dev)
+        except ValueError as e:
+            assert str(e) == message, (str(e), message)
+        else:
+            raise AssertionError(f"the kernel took a D=8192 trunk (act_quant={act_quant})")
     config4096 = wide_config(4096)
-    for act_quant in (True, False):
-        megadecode.check_fits(config4096, 27, 16, 64, act_quant=act_quant, device=dev)
-    megadecode.check_fits(config4096, 28, 16, 64, act_quant=False, device=dev)
-    try:
-        megadecode.check_fits(model.config, 8, 16, 64, act_quant=False, device=dev)
-    except ValueError as e:
-        assert str(e) == messages[-1], (str(e), messages[-1])
-    else:
-        raise AssertionError("the weight-only kernel took a D=8192 trunk")
-    print(f"[phase 2] refusal at D=4096 before vision and prefill (nothing launched): "
-          f"{messages[0]!r}; w8a8 beams 10 x 3 refused too; 27 rows pass the check in "
-          f"both modes; weight-only 28 rows pass at D=4096; a weight-only generate at "
-          f"D=8192 refused before vision and prefill (nothing launched): "
-          f"{messages[-1]!r}")
+    for rows in D4096_ROWS:
+        for act_quant in (True, False):
+            megadecode.check_fits(config4096, rows, 16, 64, act_quant=act_quant, device=dev)
+    print(f"[phase 2] refusal at D=8192 before vision and prefill (nothing launched): "
+          f"w8a8 greedy 8 rows {messages[0]!r}; w8a8 beams 3 x 3 and weight-only greedy "
+          f"8 rows refused too; at D=4096 {D4096_ROWS} rows pass the check in both modes")
     del model
     torch.cuda.empty_cache()
 
@@ -2293,7 +2330,7 @@ def main() -> int:
     attn = phase2_decode_attention(dev, flush)
     attn_opt = phase2_decode_attention(dev, flush, b=OPT_B, D=OPT_D, H=OPT_H, T=OPT_T,
                                        curs=(8, 39, 70), limits=(40, 71))
-    head = phase2_lm_head(dev, flush)
+    head = phase2_lm_head(dev, flush, widths=(1040, 8192))
     head_opt = phase2_lm_head(dev, flush, B=OPT_B, D=OPT_D, V=OPT_V)
     mega = phase2_megakernel(dev, flush)
     mega_opt = phase2_megakernel_opt(dev, flush)
@@ -2554,13 +2591,13 @@ def main() -> int:
             ("fused_media_xattn", "media_xattn.cu",
              "flamingo_mini_tpu/ops/pallas_xattn.py:122",
              pallas_counts["fused_media_xattn"], mx),
-            ("decode_step_megakernel (act_quant: w8a8)", "decode_megakernel.cu",
+            ("decode_step_megakernel (act_quant: w8a8)", "decode_megakernel_sm90.cuh",
              "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
              w8_counts["decode_step_megakernel"], mega_w8["greedy"]),
-            ("decode_step_megakernel (act_quant, beam mode)", "decode_megakernel.cu",
+            ("decode_step_megakernel (act_quant, beam mode)", "decode_megakernel_sm90.cuh",
              "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
              w8_b_counts["decode_step_megakernel"], mega_w8["beam"]),
-            ("decode_step_megakernel (act_quant, OPT mode)", "decode_megakernel.cu",
+            ("decode_step_megakernel (act_quant, OPT mode)", "decode_megakernel_sm90.cuh",
              "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
              opt_counts["w8a8"]["decode_step_megakernel"], mega_w8["opt"]),
             ("stream_sum (bandwidth probe)", "stream_probe.cu",

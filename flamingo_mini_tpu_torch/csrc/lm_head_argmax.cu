@@ -32,6 +32,15 @@
 //   landed (the parity is all a waiter sees).
 // * The hidden rows are staged once per block (per row group) in shared
 //   memory: bf16, K-major, in the 128-byte swizzle, the wgmma B operand.
+//   Where a group's rows of D outgrow kStageBytes (D past 3,072 at 32
+//   rows, past 12,288 at 8) they are staged a K-slice at a time instead,
+//   every slice once per round of four tiles, the consumers meeting at a
+//   barrier around each; a warpgroup's sums run on over the slices.
+// * Any width D. The weights' last chunk past D (a K tail) is zero-filled
+//   by the TMA box (the map's width is D), and the staged rows past D are
+//   zeros. A TMA row stride is a multiple of 16 bytes: where D is not,
+//   pad_head_weights pads the weight's columns with zeros once per
+//   generate (ldw, the stride, is then D rounded up to 16).
 // * Each warpgroup runs Y^T = W X^T on wgmma m64nNk16: the tile's 64 vocab
 //   rows are M, their int8 weights the A operand from registers (converted
 //   to bf16 exactly, sm90_common's i8x4_to_bf16x4, the k order permuted
@@ -45,8 +54,8 @@
 //   which is argmax's first-index rule: the order of merging does not
 //   change the pick.
 // * Any B >= 1: up to kMaxN rows a call reads every weight byte once; past
-//   it, the rows go in groups of kMaxN (fewer where D is wide: the staged
-//   rows stay within kStageBytes), each group streaming the weights again.
+//   it, the rows go in groups of kMaxN, each group streaming the weights
+//   again.
 //
 // The float32 sums run in another order than the plain version's, so a
 // logit can round to the neighbouring bf16 value: the documented +-1 bf16
@@ -83,26 +92,29 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
 // the wgmma N of a group of `rows` rows
 __host__ __device__ inline int group_n(int rows) { return (rows + 7) / 8 * 8; }
 
-// the hidden rows of a group: kMaxN, or fewer (a multiple of 8) where
-// kMaxN rows of D would outgrow kStageBytes
-__host__ __device__ inline int group_rows(int D) {
-  const int fit = kStageBytes / (2 * D) / 8 * 8;
-  return fit < kMaxN ? fit : kMaxN;
+// the 64-k weight chunks of a row of width D, the last one zero-filled past D
+__host__ __device__ inline int n_chunks(int D) { return (D + kTile - 1) / kTile; }
+
+// the chunks of a K-slice of a group N rows wide: every chunk where the
+// group's rows fit kStageBytes whole, else as many as fit
+__host__ __device__ inline int slice_chunks(int D, int n) {
+  const int fit = kStageBytes / (n * 128), nk = n_chunks(D);
+  return fit < nk ? fit : nk;
 }
 
 // byte offsets from the 1024-aligned base: the ring, the staged rows (a
-// tile of N rows x 128 bytes per chunk), the warps' best pairs, the ring's
-// full and empty barriers
+// tile of N rows x 128 bytes per chunk of a slice: the first, widest
+// group's), the warps' best pairs, the ring's full and empty barriers
 struct Layout {
   int ring, stage, best, bars, bytes;
 };
 
 __host__ __device__ inline Layout layout(int D, int B) {
-  const int g = group_rows(D), n = group_n(B < g ? B : g);
+  const int n = group_n(B < kMaxN ? B : kMaxN);
   Layout l;
   l.ring = 0;
   l.stage = kRing * kChunkBytes;
-  l.best = l.stage + n * (D / kTile) * 128;
+  l.best = l.stage + n * slice_chunks(D, n) * 128;
   l.bars = l.best + kBestWarps * kMaxN * 8;
   l.bytes = 1024 + l.bars + 2 * kRing * 8;
   return l;
@@ -132,9 +144,9 @@ __device__ __forceinline__ void share(int n_tiles, int* t0, int* t1) {
   *t1 = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * n_tiles / gridDim.x);
 }
 
-// One warpgroup's tile: the products over its nk chunks (the warpgroup's
-// chunks j0, j0 + 1, ... since the call began) into acc, two chunks'
-// fragments in turn.
+// One warpgroup's tile over a slice's nk chunks (the staged B tiles of the
+// slice, in order; the warpgroup's chunks j0, j0 + 1, ... since the call
+// began) into acc, two chunks' fragments in turn.
 template <int N>
 __device__ __forceinline__ void tile_products(const uint8_t* base, uint32_t sbase, const Layout& L,
                                               int nk, int j0, int tr, float (&acc)[N / 2]) {
@@ -176,14 +188,53 @@ __device__ __forceinline__ void tile_products(const uint8_t* base, uint32_t sbas
   fence_regs(af1);
 }
 
-// A group of `rows` hidden rows from r0 (N their wgmma width): every tile
-// of the warpgroup's share (j: the warpgroup's chunks so far), then the
-// block's pair per row into part_*.
+// rows [r0, r0 + rows) of x (B, D), chunks [c0, c0 + nc), into the staged
+// B tiles (chunk c0 + i: n rows x 128 bytes at i n 128), zeros past D;
+// then fenced for wgmma's reads, the consumers meeting after
+__device__ __forceinline__ void stage_rows(uint8_t* base, const Layout& L,
+                                          const __nv_bfloat16* __restrict__ x, int r0, int rows,
+                                          int n, int D, int c0, int nc) {
+  const int per_row = nc * 8, units = rows * per_row;
+  for (int u = threadIdx.x; u < units; u += kConsumers) {
+    const int r = u / per_row, q = u - r * per_row, k = (q & 7) * 8;
+    const int gk = (c0 + (q >> 3)) * kTile + k;
+    const __nv_bfloat16* src = x + static_cast<long long>(r0 + r) * D + gk;
+    uint4 v;
+    if ((D & 7) == 0 && gk + 8 <= D) {
+      v = __ldg(reinterpret_cast<const uint4*>(src));
+    } else {
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const unsigned short lo =
+            gk + 2 * e < D ? __bfloat16_as_ushort(src[2 * e]) : static_cast<unsigned short>(0);
+        const unsigned short hi = gk + 2 * e + 1 < D ? __bfloat16_as_ushort(src[2 * e + 1])
+                                                     : static_cast<unsigned short>(0);
+        w[e] = static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+      }
+      v = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    uint8_t* tile = base + L.stage + (q >> 3) * n * 128;
+    *reinterpret_cast<uint32_t*>(tile + b_offset(r, k)) = v.x;
+    *reinterpret_cast<uint32_t*>(tile + b_offset(r, k + 2)) = v.y;
+    *reinterpret_cast<uint32_t*>(tile + b_offset(r, k + 4)) = v.z;
+    *reinterpret_cast<uint32_t*>(tile + b_offset(r, k + 6)) = v.w;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  consumers_sync();
+}
+
+// A group of `rows` hidden rows from r0 (N their wgmma width), staged
+// whole before (sk == nk) or in K-slices of sk chunks here, each round of
+// four tiles staging them again: every tile of the warpgroup's share (j:
+// the warpgroup's chunks so far), then the block's pair per row into
+// part_*.
 template <int N>
-__device__ __forceinline__ void group(const uint8_t* base, uint32_t sbase, const Layout& L,
-                                      const float* __restrict__ scale, int nk, int n_valid,
-                                      int t0, int t1, int& j, int r0, int rows, int B,
-                                      float* part_max, int* part_idx) {
+__device__ __forceinline__ void group(uint8_t* base, uint32_t sbase, const Layout& L,
+                                      const float* __restrict__ scale,
+                                      const __nv_bfloat16* __restrict__ x, int D, int nk, int sk,
+                                      int n_valid, int t0, int t1, int& j, int r0, int rows,
+                                      int B, float* part_max, int* part_idx) {
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
   const int wq = tid >> 5, g8 = (tid & 31) >> 2, t4 = tid & 3;
   float bv[N / 4];
@@ -193,13 +244,28 @@ __device__ __forceinline__ void group(const uint8_t* base, uint32_t sbase, const
     bv[i] = -INFINITY;
     bi[i] = INT_MAX;
   }
-  for (int r = 0; t0 + 4 * r + wg < t1; ++r) {
+  // sliced: every warpgroup walks every round, for the stagings' barriers
+  const int rounds = sk < nk ? (t1 - t0 + kGroups - 1) / kGroups : 0;
+  for (int r = 0; t0 + 4 * r + wg < t1 || r < rounds; ++r) {
     const int tile = t0 + 4 * r + wg;
     float acc[N / 2];
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
-    tile_products<N>(base, sbase, L, nk, j, N, acc);
-    j += nk;
+    if (sk == nk) {
+      tile_products<N>(base, sbase, L, nk, j, N, acc);
+      j += nk;
+    } else {
+      for (int c0 = 0; c0 < nk; c0 += sk) {
+        const int nc = min(sk, nk - c0);
+        consumers_sync();  // the last slice's products are done
+        stage_rows(base, L, x, r0, rows, N, D, c0, nc);
+        if (tile < t1) {
+          tile_products<N>(base, sbase, L, nc, j, N, acc);
+          j += nc;
+        }
+      }
+      if (tile >= t1) continue;
+    }
     // acc[4 j + 2 h + e]: vocab row tile * 64 + 16 wq + g8 + 8 h, hidden
     // row 8 j + 2 t4 + e
     const int v0 = tile * kTile + 16 * wq + g8;
@@ -263,10 +329,10 @@ __device__ __forceinline__ void group(const uint8_t* base, uint32_t sbase, const
   consumers_sync();  // the pairs are rewritten by the next group
 }
 
-#define LMH_GROUP(n)                                                                  \
-  case n:                                                                             \
-    group<n>(base, sbase, L, scale, nk, n_valid, t0, t1, j, r0, rows, B, part_max, \
-             part_idx);                                                               \
+#define LMH_GROUP(n)                                                                     \
+  case n:                                                                                \
+    group<n>(base, sbase, L, scale, x, D, nk, sk, n_valid, t0, t1, j, r0, rows, B, part_max, \
+             part_idx);                                                                  \
     break;
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -278,7 +344,7 @@ lm_head_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict_
   const uint32_t sbase = (raw + 1023u) & ~1023u;
   uint8_t* base = smem_raw + (sbase - raw);
   const Layout L = layout(D, B);
-  const int nk = D / kTile, grows = group_rows(D);
+  const int nk = n_chunks(D);
   int t0, t1;
   share(n_tiles, &t0, &t1);
   if (threadIdx.x == 0) {
@@ -295,7 +361,7 @@ lm_head_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict_
     // round's tiles in turn, each into its warpgroup's ring
     prefetch_map(&map);
     int n_w[kGroups] = {0, 0, 0, 0};  // each warpgroup's chunks so far
-    for (int r0 = 0; r0 < B; r0 += grows)
+    for (int r0 = 0; r0 < B; r0 += kMaxN)
       for (int t = t0; t < t1; t += kGroups) {
         const int active = min(kGroups, t1 - t);
         for (int c = 0; c < nk; ++c)
@@ -311,22 +377,11 @@ lm_head_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict_
     return;
   }
   int j = 0;  // this warpgroup's chunks so far
-  for (int r0 = 0; r0 < B; r0 += grows) {
-    const int rows = min(grows, B - r0), n = group_n(rows);
-    // the group's rows into the B tiles (chunk c: n rows x 128 bytes)
-    const int units = rows * (D / 8);
-    for (int u = threadIdx.x; u < units; u += kConsumers) {
-      const int r = u / (D / 8), k8 = (u - r * (D / 8)) * 8, c = k8 / kTile, k = k8 % kTile;
-      const uint4 v =
-          __ldg(reinterpret_cast<const uint4*>(x + static_cast<long long>(r0 + r) * D + k8));
-      uint8_t* tile = base + L.stage + c * n * 128;
-      *reinterpret_cast<uint32_t*>(tile + b_offset(r, k)) = v.x;
-      *reinterpret_cast<uint32_t*>(tile + b_offset(r, k + 2)) = v.y;
-      *reinterpret_cast<uint32_t*>(tile + b_offset(r, k + 4)) = v.z;
-      *reinterpret_cast<uint32_t*>(tile + b_offset(r, k + 6)) = v.w;
-    }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    consumers_sync();
+  for (int r0 = 0; r0 < B; r0 += kMaxN) {
+    const int rows = min(kMaxN, B - r0), n = group_n(rows), sk = slice_chunks(D, n);
+    // the group's rows whole into the B tiles, or a slice at a time in
+    // `group`
+    if (sk == nk) stage_rows(base, L, x, r0, rows, n, D, 0, nk);
     switch (n) {
       LMH_GROUP(8) LMH_GROUP(16) LMH_GROUP(24) LMH_GROUP(32)
     }
@@ -374,23 +429,21 @@ cudaError_t grid_blocks(int n_tiles, int* blocks) {
 
 }  // namespace
 
-// whether the kernel takes hidden rows of width D: whole 64-k weight
-// chunks (its TMA box), and a group of at least 8 rows within kStageBytes
-__host__ inline bool takes_width(int D) { return D > 0 && D % kTile == 0 && group_rows(D) >= 8; }
-
-// part_max / part_idx: (Vp / 64, B) scratch (the grid takes at most one
-// block per tile); returns the CUDA error
+// w8: (Vp, ldw) int8, the first D columns the weights (ldw >= D, a
+// multiple of 16: a TMA row stride); part_max / part_idx: (Vp / 64, B)
+// scratch (the grid takes at most one block per tile); returns the CUDA
+// error
 extern "C" int fmt_lm_head_argmax(const void* w8, const void* scale,
                                   const void* x, void* part_max,
-                                  void* part_idx, void* out, int Vp, int D,
+                                  void* part_idx, void* out, int Vp, int D, int ldw,
                                   int B, int n_valid, void* stream) {
-  if (Vp % kTile || !takes_width(D) || B < 1) return cudaErrorInvalidValue;
+  if (Vp % kTile || D < 1 || ldw < D || ldw % 16 || B < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const EncodeTiled encode = encode_fn();
   if (encode == nullptr) return cudaErrorInvalidValue;
   CUtensorMap map;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(Vp)};
-  const cuuint64_t stride[1] = {static_cast<cuuint64_t>(D)};
+  const cuuint64_t stride[1] = {static_cast<cuuint64_t>(ldw)};
   const cuuint32_t box[2] = {kTile, kTile}, unit[2] = {1, 1};
   if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(w8), dims, stride, box,
              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
@@ -417,8 +470,9 @@ extern "C" int fmt_lm_head_argmax(const void* w8, const void* scale,
 extern "C" int fmt_lm_head_rows_per_block() { return kTile; }
 
 // the dynamic shared memory a launch over B hidden rows of width D takes
-// (its layout), or -1 where the kernel does not take the width: the
-// wrapper's refusal, and what ops/lm_head.py's smem_bytes mirrors
+// (its layout; the wrapper compares it with the card's limit before any
+// work), or -1 for no rows or no width: what ops/lm_head.py's smem_bytes
+// mirrors
 extern "C" int fmt_lm_head_smem(int D, int B) {
-  return takes_width(D) && B >= 1 ? layout(D, B).bytes : -1;
+  return D >= 1 && B >= 1 ? layout(D, B).bytes : -1;
 }

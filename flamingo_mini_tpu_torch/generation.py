@@ -34,7 +34,7 @@ import torch
 
 from .configuration_flamingo import FlamingoConfig
 from .models import flamingo, gpt2
-from .ops import megadecode
+from .ops import lm_head, megadecode
 from .ops.layers import Policy, layer_norm
 from .ops.lm_head import lm_head_argmax, pad_head_weights
 
@@ -212,6 +212,15 @@ def generate_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
                              pixel_values=pixel_values)
     b, L = input_ids.shape
     check_mega_fits(config, dc, b, visual_features, pixel_values, input_ids.device)
+    # fused int8 head + argmax: plain greedy under the bf16 policy with an
+    # int8 tied embedding (the kernel takes a bf16 hidden row of any width;
+    # what the card cannot hold is refused here, before vision and prefill)
+    head = None
+    wq = params["lm"].get(flamingo.trunk(config).EMBED + "_q")
+    if dc.fused_head and policy.dtype == torch.bfloat16 and wq is not None:
+        lm_head.check_fits(int(wq["w8"].shape[1]), b, input_ids.device)
+        head_nvalid = min(int(wq["w8"].shape[0]), config.lm_arch.vocab_size + 1)
+        head = pad_head_weights(wq, HEAD_BLOCK_V)
     if pixel_values is not None:
         visual_features = flamingo.encode_resample_visuals(
             params, config, policy.cast(pixel_values), policy=policy)
@@ -223,14 +232,6 @@ def generate_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
     if dc.megakernel:
         mega = _mega_prepare(params, config, policy, dc, xattn_kv, st["mask"],
                              st["media_count"])
-
-    # fused int8 head + argmax: plain greedy under the bf16 policy with an
-    # int8 tied embedding (the kernel takes a bf16 hidden row)
-    head = None
-    wq = params["lm"].get(flamingo.trunk(config).EMBED + "_q")
-    if dc.fused_head and policy.dtype == torch.bfloat16 and wq is not None:
-        head_nvalid = min(int(wq["w8"].shape[0]), config.lm_arch.vocab_size + 1)
-        head = pad_head_weights(wq, HEAD_BLOCK_V)
 
     tok = torch.argmax(next_logits.float(), dim=-1)
     finished = tok == dc.eos_token_id

@@ -34,8 +34,8 @@ SIGNATURES = {
     # is_bf16, stream
     "fmt_decode_attention_beam": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _F, _I, _I, _I, _P],
-    # w8, scale, x, part_max, part_idx, out, Vp, D, B, n_valid, stream
-    "fmt_lm_head_argmax": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # w8, scale, x, part_max, part_idx, out, Vp, D, ldw, B, n_valid, stream
+    "fmt_lm_head_argmax": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fmt_lm_head_rows_per_block": [],
     # D, B -> the launch's dynamic shared memory, or -1 (width refused)
     "fmt_lm_head_smem": [_I, _I],
@@ -48,8 +48,9 @@ SIGNATURES = {
     "fmt_decode_megakernel_smem": [_P],
     # sync, slots, errors, phases, stream (the weight-only kernel's barrier)
     "fmt_grid_sync_test": [_P, _P, _P, _I, _P],
-    # A, W, scale, bias, out, amax, b, N, K, slice, rows_form, stream
-    "fmt_w8a8_linear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # &MegaArgs (shapes, plan, amax words), linear, A, W, scale, bias, out,
+    # stream
+    "fmt_w8a8_linear": [_P, _I, _P, _P, _P, _P, _P, _P],
     # x, acc, partial, out, n_rows, n_blocks, steps, stream
     "fmt_stream_sum": [_P, _P, _P, _P, _L, _I, _I, _P],
     # the decode stream probes: q, k, v (or kv), partial, out, b, [T,] D,

@@ -13,12 +13,11 @@ it on the card and how the design answers that.
 
 ``decode_step_megakernel`` launches the kernel for CUDA tensors and runs
 ``decode_step_megakernel_plain`` for CPU tensors; nothing else picks the
-path. The weight-only mode runs ``csrc/decode_megakernel_sm90.cuh`` (TMA
-weight ring, ``wgmma``, split-K with a fixed-order combine), whose tile plan
-``plan`` computes here from the shapes; the w8a8 mode runs the entry file's
-own body. Both compute, per layer, the gated xattn block (where the layer has
-one) and the pre-norm decoder block with these roundings
-(``pallas_megadecode.py``'s kernel body):
+path. Both modes run ``csrc/decode_megakernel_sm90.cuh`` (TMA weight ring,
+``wgmma``, split-K with a fixed-order combine), whose tile plan ``plan``
+computes here from the shapes. Both compute, per layer, the gated xattn
+block (where the layer has one) and the pre-norm decoder block with these
+roundings (``pallas_megadecode.py``'s kernel body):
 
 * every int8 linear: int8 -> bf16 exactly, bf16 products accumulated in
   float32, x the float32 per-channel scale, one rounding to bf16, the bias
@@ -32,8 +31,8 @@ one) and the pre-norm decoder block with these roundings
   slice of its input with its own scale and adds the scaled float32
   partials in slice order (``_lin_w8a8``);
 * LayerNorm with float32 statistics, eps fixed at 1e-5, summed in the
-  CUDA kernel's order (``_layer_norm``: the w8a8 kernel's lane-strided
-  order, or the weight-only kernel's 8-element units); with ``act_quant`` the
+  CUDA kernel's order (``_layer_norm``: 8-element units, ``_warp_sum_units``);
+  with ``act_quant`` the
   attention's dot products, softmax denominators and V sums are taken in
   float64 and rounded once, sums whose order does not matter: the w8a8
   mode of the kernel and of this version agree bit for bit (one
@@ -77,12 +76,12 @@ NEG = float(torch.finfo(torch.float32).min)
 HEAD_DIM = 64       # the CUDA kernel's attention head dim (self and cross)
 K_CHUNK = 64        # the CUDA kernel's K step: every d_in is a multiple
 INDEX_LIMIT = 2 ** 31 - 1   # the CUDA kernel's element offsets are 32-bit ints
-# the weight-only kernel (decode_megakernel_sm90.cuh): its linears in the
-# order of MegaArgs.split, 4 KB weight chunks (64 columns x 64 k) through a
-# ring of RING_STAGES (its kRing), the wgmma N a warpgroup takes (at most
-# ROW_GROUP rows), the rows of a pass past ROW_GROUP rows (a quarter for
-# each warpgroup), and the shared memory a K-slice's staged activations may
-# take
+# the kernel (decode_megakernel_sm90.cuh): its linears in the order of
+# MegaArgs.split, 4 KB weight chunks (64 columns x 64 k) through a ring of
+# RING_STAGES (its kRing), the wgmma N a warpgroup takes (at most ROW_GROUP
+# rows), the rows of a pass past ROW_GROUP rows (a quarter for each
+# warpgroup), and the shared memory a K-slice's staged activations may take
+# (a chunk's row of them: 128 bytes of bf16, 64 of int8 in the w8a8 mode)
 LINEARS = ("xq", "xo", "xf1", "xf2", "qkv", "o", "fc", "pr")
 RING_STAGES = 8
 ROW_GROUP = 64
@@ -93,13 +92,18 @@ MAX_D = 4096        # the widest row its LayerNorm statistics hold in registers
 STAGE_BUDGET = 160 * 1024
 ITEM_COST = 16      # choose_split's model: an item's fixed cost, in chunks
 SPLIT_COST = 10     # and a split tile's combine
+SPLIT_COST_FEW_W8A8 = 15  # the w8a8 mode's under 32 rows: int32 sums per slice, scales
 N_SMS = 132         # an H100 SXM's SMs: the plan's grid where no card is asked
-# the weight-only kernel's section timer (its ``mark``): clock cycles per
-# block in each section of the consumers' work
+# the kernel's section timer (its ``mark``): clock cycles per block in each
+# section of the consumers' work
 SECTIONS = ("barrier", "ln_stats", "stage_b", "products", "finish", "attention", "other")
 # set to a (blocks, len(SECTIONS)) int64 tensor on the card to have every
-# weight-only launch write its blocks' section cycles into it
+# launch write its blocks' section cycles into it
 section_timer: Optional[torch.Tensor] = None
+# set to a (step_phases(packed), blocks, len(SECTIONS)) int64 tensor on the
+# card to have every launch copy each block's section cycles (cumulative)
+# at the end of every phase: a phase's busiest block, section by section
+phase_timer: Optional[torch.Tensor] = None
 # activation name -> the kernel's code; "gelu" is the rational-erf GELU
 ACT_CODES = {"gelu_new": 0, "gelu": 1, "gelu_erf": 1, "relu": 2}
 
@@ -220,6 +224,13 @@ def pack_decode_weights(params: Params, config) -> Params:
     return packed
 
 
+def step_phases(packed: Params) -> int:
+    """The kernel's phases in one step: ten in a layer with a gated xattn
+    block (xq, xattn, xo, xf1, xf2, qkv, attention, o, fc, pr), five in a
+    layer without."""
+    return 5 * len(packed["hasx"]) + 5 * len(packed["xlayers"])
+
+
 def pack_xattn_kv_flat(xattn_kv: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
                        n_layer: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """{layer: (k, v)} with k (b, XH, NMNV, dh) -> flat T-major stacks
@@ -292,52 +303,51 @@ def lin_w8a8(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
              width: Optional[int] = None) -> torch.Tensor:
     """The megakernel's w8a8 linear alone: x (rows, k) bf16, w (n, k) int8,
     s (n,) float32, b (n,) bf16 or None -> (rows, n) bf16, as
-    ``_lin_w8a8``. A CUDA tensor runs the kernel's own device functions
-    (``fmt_w8a8_linear``: the quantizer, the int8 ``mma.sync`` linear and
-    its amax notes), so that a test can hold the mode's linear bitwise
-    against its plain version; a CPU tensor runs ``_lin_w8a8``."""
+    ``_lin_w8a8``. A CUDA tensor runs the kernel's own machinery with a
+    schedule of one linear phase (``fmt_w8a8_linear``: the quantizing
+    stage, the int8 ``wgmma`` products, the int32 combine of split tiles
+    and the epilogue, on this call's ``plan``), so that a test can hold the
+    mode's linear bitwise against its plain version; a CPU tensor runs
+    ``_lin_w8a8``. On the card the row form's slices are as wide as its
+    output (the megakernel's D: to_out, fc2 and mlp_proj all write D
+    columns)."""
     if x.device.type == "cpu":
         return _lin_w8a8(x, w, s, b, width=width)
     if x.device.type != "cuda":
         raise ValueError(f"lin_w8a8: unsupported device {x.device}")
     rows, k = x.shape
     n = w.shape[0]
-    if k % K_CHUNK or n % 8 or (width is not None and width % K_CHUNK):
-        raise ValueError(f"lin_w8a8: k ({k}) and width must be multiples of "
-                         f"{K_CHUNK}, n ({n}) of 8")
+    if k % K_CHUNK or n % K_CHUNK or width not in (None, n):
+        raise ValueError(f"lin_w8a8: k ({k}) and n ({n}) must be multiples of "
+                         f"{K_CHUNK}, and the row form's width ({width}) n")
     _require(x, "x", torch.bfloat16, (rows, k), x.device)
     _require(w, "w", torch.int8, (n, k), x.device)
     _require(s, "s", torch.float32, (n,), x.device)
     if b is not None:
         _require(b, "b", torch.bfloat16, (n,), x.device)
-    slice_k = k if width is None else width
+    # the column form as mlp_fc (n = Dff columns over K = D), the row form
+    # as mlp_proj (n = D columns over K = Dff, D-wide slices)
+    D, Dff, lin = (k, n, "fc") if width is None else (n, k, "pr")
+    p = plan(rows, D, Dff, K_CHUNK, K_CHUNK, n_xattn=0, blocks=_sm_count(x.device),
+             act_quant=True)
     out = torch.empty((rows, n), dtype=torch.bfloat16, device=x.device)
-    amax = torch.empty(rows * -(-k // slice_k), dtype=torch.int32, device=x.device)
+    amax = torch.empty(rows * -(-k // D), dtype=torch.int32, device=x.device)
+    parts = torch.empty(p["parts_floats"], dtype=torch.float32, device=x.device)
+    sync = torch.zeros(p["sync_words"], dtype=torch.int32, device=x.device)
+    args = _Args(b=rows, D=D, Dff=Dff, XI=K_CHUNK, Dffx=K_CHUNK, act_quant=1,
+                 amax=amax.data_ptr(), parts=parts.data_ptr(), sync=sync.data_ptr())
+    _plan_args(args, p)
     err = _checked_lib().fmt_w8a8_linear(
-        x.data_ptr(), w.data_ptr(), s.data_ptr(), None if b is None else b.data_ptr(),
-        out.data_ptr(), amax.data_ptr(), rows, n, k, slice_k, int(width is not None),
+        ctypes.addressof(args), LINEARS.index(lin), x.data_ptr(), w.data_ptr(),
+        s.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, "lin_w8a8")
     return out
 
 
-def _warp_sum(t: torch.Tensor) -> torch.Tensor:
-    """(rows, D) float32 -> (rows, 1): the CUDA kernel's order of a row sum,
-    one warp per row: lane l adds elements l, l + 32, ... from 0, then the
-    lanes meet in an xor butterfly (16, 8, 4, 2, 1)."""
-    lanes = t.reshape(t.shape[0], -1, 32)
-    s = torch.zeros_like(lanes[:, 0])
-    for j in range(lanes.shape[1]):
-        s = s + lanes[:, j]
-    idx = torch.arange(32, device=t.device)
-    for o in (16, 8, 4, 2, 1):
-        s = s + s[:, idx ^ o]
-    return s[:, :1]
-
-
 def _warp_sum_units(t: torch.Tensor) -> torch.Tensor:
-    """(rows, D) float32 -> (rows, 1): the weight-only kernel's order of a
-    row sum (``ln_stats`` in decode_megakernel_sm90.cuh), one warp per
+    """(rows, D) float32 -> (rows, 1): the kernel's order of a row sum
+    (``ln_stats`` in decode_megakernel_sm90.cuh), one warp per
     row: lane l adds the 8-element units l, l + 32, ... of the row, unit by
     unit, element by element from 0, then the lanes meet in an xor
     butterfly (16, 8, 4, 2, 1). A lane past the row's last unit adds
@@ -356,16 +366,15 @@ def _warp_sum_units(t: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                eps: float = 1e-5, warp_sum=_warp_sum) -> torch.Tensor:
-    """``layers.layer_norm`` with its statistics summed in a kernel's order
-    (``_warp_sum``: the w8a8 kernel's; ``_warp_sum_units``: the
-    weight-only kernel's), every step one float32 op: the kernel's
+                eps: float = 1e-5) -> torch.Tensor:
+    """``layers.layer_norm`` with its statistics summed in the kernel's
+    order (``_warp_sum_units``), every step one float32 op: the kernel's
     LayerNorm, bit for bit where rsqrt rounds alike. x: (rows, D)."""
     x32 = x.float()
     D = x.shape[-1]
-    mean = warp_sum(x32) / D
+    mean = _warp_sum_units(x32) / D
     d = x32 - mean
-    var = warp_sum(d * d) / D
+    var = _warp_sum_units(d * d) / D
     y = d * torch.rsqrt(var + eps)
     return (y * scale + bias).to(x.dtype)
 
@@ -410,8 +419,7 @@ def decode_step_megakernel_plain(packed: Params, xk, xv, kc, vc, x_emb, npad,
         def lin(x, w, s, b=None, rows=False):
             return _lin(x, w, s, b)
 
-    def ln(x, scale, bias):
-        return _layer_norm(x, scale, bias, warp_sum=_warp_sum if act_quant else _warp_sum_units)
+    ln = _layer_norm
     acc = torch.float64 if act_quant else torch.float32
     P = packed
     x = x_emb
@@ -450,7 +458,7 @@ def decode_step_megakernel_plain(packed: Params, xk, xv, kc, vc, x_emb, npad,
 
 
 # ---------------------------------------------------------------------------
-# the weight-only kernel's tile plan
+# the kernel's tile plan
 # ---------------------------------------------------------------------------
 
 
@@ -476,9 +484,21 @@ def pass_shape(b: int, rows: int) -> Tuple[int, int]:
     return wgmma_n(-(-rows // GROUPS)), -(-rows // 8) * 8
 
 
-def choose_split(n_tiles: int, n_chunks: int, blocks: int, cap: int, rows: int) -> int:
+def straddles(s: int, n_chunks: int, quant: int) -> bool:
+    """Whether a K-slice of ``s`` over ``n_chunks`` chunks spans two
+    quantization slices of ``quant`` chunks (the w8a8 mode's D-wide slices
+    of a row-form input)."""
+    return any(i * n_chunks // s // quant != ((i + 1) * n_chunks // s - 1) // quant
+               for i in range(s))
+
+
+def choose_split(n_tiles: int, n_chunks: int, blocks: int, cap: int, rows: int,
+                 quant: Optional[int] = None) -> int:
     """K-slices per 64-column tile: the fewest that bring the busiest
-    block's cost to its least, with no slice over ``cap`` chunks. In units
+    block's cost to its least, with no slice over ``cap`` chunks and, where
+    ``quant`` is given (w8a8), none across a quantization slice of that many
+    chunks: whole fractions of one (the combine adds a slice's partials in
+    int32, then the slices' scaled sums in order). In units
     of one chunk's weights (calibrated on an H100 at flamingo-mini width,
     b = 1 and 32; at the beams' 96 and 160 rows, whose passes take every
     row, it gives one item per block in every phase): an item costs
@@ -487,13 +507,21 @@ def choose_split(n_tiles: int, n_chunks: int, blocks: int, cap: int, rows: int) 
     activations staged), a split tile ``SPLIT_COST`` (the partial
     written, the arrival, the last block's reads, one after another) plus
     its partials' traffic (``rows`` x 64 floats a slice, written by each
-    round of its blocks and read by the last)."""
+    round of its blocks and read by the last). Under 32 rows the w8a8
+    mode's split tile costs ``SPLIT_COST_FEW_W8A8``: its combine adds
+    int32 partials per quantization slice and scales each, a fixed latency
+    that few rows do not hide (measured on an H100: unsplit column-form
+    linears at flamingo-mini b=1 took 2.79-2.80 ms a step against
+    3.01-3.04 split; at b=32 the split plan was level or faster)."""
+    split_cost = SPLIT_COST_FEW_W8A8 if quant is not None and rows < 32 else SPLIT_COST
+
     def cost(s):
         rounds = -(-(n_tiles * s) // blocks)
         return (rounds * (ITEM_COST + -(-n_chunks // s) * (1 + rows // 32))
-                + (s > 1) * (SPLIT_COST + rows * (s + 2 * rounds) // 32))
+                + (s > 1) * (split_cost + rows * (s + 2 * rounds) // 32))
 
-    costs = {s: cost(s) for s in range(1, n_chunks + 1) if -(-n_chunks // s) <= cap}
+    costs = {s: cost(s) for s in range(1, n_chunks + 1) if -(-n_chunks // s) <= cap
+             and not (quant and straddles(s, n_chunks, quant))}
     if not costs:
         raise ValueError(f"decode_step_megakernel: no K-slice of {n_chunks} chunks "
                          f"fits {cap} chunks")
@@ -508,35 +536,50 @@ def slice_chunks(slice_: int, s: int, n_chunks: int) -> Tuple[int, int]:
 
 
 def plan(rows: int, D: int, Dff: int, XI: int, Dffx: int, *, n_xattn: int,
-         blocks: int = N_SMS) -> Dict[str, Any]:
-    """The weight-only kernel's tile plan for ``rows`` batch rows over a
-    grid of ``blocks`` (one per SM): each linear's K-slices (``split``), the
-    passes over the rows (``n_pass``) and the first's wgmma N (``n0``) and
-    staged tile rows (``tile_rows``), the float32 partials and the per-tile
-    counters the call needs. A slice's staged activations (``tile_rows`` x
-    128 bytes per chunk) stay within ``STAGE_BUDGET``; past one pass a
-    slice's chunks also stay within the ring, which holds them for every
-    pass."""
+         blocks: int = N_SMS, act_quant: bool = False) -> Dict[str, Any]:
+    """The kernel's tile plan (``_plan``), computed once per shape in a
+    process: every launch asks for it, and its search over the K-slices
+    (with the w8a8 mode's quantization-slice rule) costs milliseconds of
+    host time at OPT-1.3B width, more than a step of the kernel."""
+    return dict(_plan(rows, D, Dff, XI, Dffx, n_xattn, blocks, act_quant))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(rows: int, D: int, Dff: int, XI: int, Dffx: int, n_xattn: int, blocks: int,
+          act_quant: bool) -> Dict[str, Any]:
+    """The kernel's tile plan for ``rows`` batch rows over a grid of
+    ``blocks`` (one per SM): each linear's K-slices (``split``), the passes
+    over the rows (``n_pass``) and the first's wgmma N (``n0``) and staged
+    tile rows (``tile_rows``), the partials (float32, or int32 in the w8a8
+    mode: 4-byte words) and the per-tile counters the call needs. A slice's
+    staged activations (``tile_rows`` x 128 bytes per chunk, 64 in the w8a8
+    mode) stay within ``STAGE_BUDGET`` (less, in the w8a8 mode, the 8 D
+    bytes of the LayerNorm's scale and bias); past one pass a slice's chunks also
+    stay within the ring, which holds them for every pass; in the w8a8 mode
+    no slice spans two of a row-form input's D-wide quantization slices."""
     if D > MAX_D:
-        raise ValueError(f"decode_step_megakernel: the weight-only kernel's LayerNorm "
-                         f"holds a row of at most {MAX_D} in registers, got D={D}")
+        raise ValueError(f"decode_step_megakernel: the kernel's LayerNorm holds a "
+                         f"row of at most {MAX_D} in registers, got D={D}")
     first = min(rows, PASS_ROWS)
     n0, tr = pass_shape(rows, first)
     n_pass = -(-rows // PASS_ROWS)
-    cap = STAGE_BUDGET // (tr * 128)
+    # w8a8: the phase's LayerNorm scale and bias (2 D floats) share the budget
+    cap = (STAGE_BUDGET - (8 * D if act_quant else 0)) // (tr * (64 if act_quant else 128))
     if n_pass > 1:
         cap = min(cap, RING_STAGES)
     split, parts, counters = [], 1, 0
     for name in LINEARS:
         n_out, K = linear_shapes(D, Dff, XI, Dffx)[name]
         n_tiles, n_chunks = n_out // K_CHUNK, K // K_CHUNK
-        s = choose_split(n_tiles, n_chunks, blocks, cap, first)
+        s = choose_split(n_tiles, n_chunks, blocks, cap, first,
+                         quant=D // K_CHUNK if act_quant else None)
         split.append(s)
         counters = max(counters, n_pass * n_tiles)
         if s > 1:
             parts = max(parts, n_pass * n_tiles * s * K_CHUNK * tr)
     return dict(split=split, wide=rows > ROW_GROUP, n0=n0, tile_rows=tr, n_pass=n_pass,
-                n_xattn=n_xattn, parts_floats=parts, sync_words=2 + counters)
+                n_xattn=n_xattn, parts_floats=parts, sync_words=2 + counters,
+                act_quant=act_quant)
 
 
 def max_chunks(p: Dict[str, Any], D: int, Dff: int, XI: int, Dffx: int) -> int:
@@ -548,19 +591,22 @@ def max_chunks(p: Dict[str, Any], D: int, Dff: int, XI: int, Dffx: int) -> int:
 
 def plan_smem_bytes(p: Dict[str, Any], D: int, Dff: int, XI: int, Dffx: int,
                     t_lim: int, n_media: int) -> int:
-    """``fmt_decode_megakernel_smem`` for the weight-only kernel (its
+    """``fmt_decode_megakernel_smem`` for the plan's mode (the kernel's
     ``layout``): 1024 bytes of alignment, the ring, the union of the staged
     B tiles (in the wide mode with room for the last warpgroup's N rows past
-    the last tile), the item's float32 tile (with the warpgroups' reduction
-    before it) and the attention scratch, the pass's statistics, the
-    barriers, a flag; and the section timer's static words."""
-    n0, tr, wide = p["n0"], p["tile_rows"], p["wide"]
+    the last tile), the item's tile of sums (with the warpgroups' reduction
+    before it) and the attention scratch (its sums float64 in the w8a8
+    mode), the pass's statistics (with each row's scale and its reciprocal
+    in the w8a8 mode, and then the LayerNorm's scale and bias, 2 D floats),
+    the barriers, a flag; and the section timer's static words."""
+    n0, tr, wide, q = p["n0"], p["tile_rows"], p["wide"], p["act_quant"]
     warps = 4 * GROUPS
-    att = (4 * max(t_lim, n_media) + warps * 4 * HEAD_DIM + 2 * warps * 4) * 4
-    stage = (tr * max_chunks(p, D, Dff, XI, Dffx) + wide * n0) * 128
+    acc = 8 if q else 4
+    att = 4 * 4 * max(t_lim, n_media) + acc * warps * 4 * HEAD_DIM + (4 + acc) * warps * 4
+    stage = (tr * max_chunks(p, D, Dff, XI, Dffx) + wide * n0) * (64 if q else 128)
     red = (tr + n0) * 256 if wide else (GROUPS - 1) * n0 * 256
     uni = max(stage, red, att)
-    stats = (PASS_ROWS if wide else ROW_GROUP) * 8
+    stats = (PASS_ROWS if wide else ROW_GROUP) * (16 if q else 8) + (8 * D if q else 0)
     return 1024 + RING_STAGES * 4096 + ((uni + 1023) & ~1023) + stats \
         + 2 * RING_STAGES * 8 + 16 + (len(SECTIONS) + 1) * 8
 
@@ -588,14 +634,14 @@ class _Args(ctypes.Structure):
                 + [("attn_scale", ctypes.c_float), ("xq_scale", ctypes.c_float),
                    ("parts", ctypes.c_void_p), ("sync", ctypes.c_void_p),
                    ("split", ctypes.c_int * len(LINEARS)), ("n_xattn", ctypes.c_int),
-                   ("prof", ctypes.c_void_p)])
+                   ("prof", ctypes.c_void_p), ("phases", ctypes.c_void_p)])
 
 
 _SYNC: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def _sync_words(device: torch.device, n: int) -> torch.Tensor:
-    """The weight-only kernel's grid barrier count (a 64-bit count of
+    """The kernel's grid barrier count (a 64-bit count of
     arrivals that only grows, a multiple of the grid after every launch) and
     per-tile counters (left zeroed) for launches on ``device``'s current
     stream: zeroed once, so one buffer serves every launch of that stream,
@@ -644,11 +690,10 @@ def _check_anc(beam_anc: torch.Tensor, b: int) -> None:
 
 
 def max_rows(packed: Params, config) -> int:
-    """The most batch rows the CUDA kernels' offsets take: their offsets
-    into the (rows, width) activation buffers are 32-bit ints (module
-    docstring of csrc/decode_megakernel.cu). Their shared memory is checked
-    apart (``refuse_unless_fits``): the w8a8 kernel's grows with the rows up
-    to 32, the weight-only kernel's with the rows of a pass up to
+    """The most batch rows the CUDA kernel's offsets take: its offsets into
+    the (rows, width) activation buffers are 32-bit ints (module docstring
+    of csrc/decode_megakernel.cu). Its shared memory is checked apart
+    (``refuse_unless_fits``): it grows with the rows of a pass up to
     ``PASS_ROWS`` and with D."""
     D, Dff, _L, _H = trunk_dims(config.lm_arch)
     XI = config.xattn_heads * config.xattn_dim_head
@@ -669,8 +714,7 @@ def refuse_unless_fits(rows: int, need: int, limit: int) -> None:
 
 def _smem_need(args: _Args) -> int:
     """The kernel's own shared-memory formula for these arguments (the
-    CUDA source's; ``plan_smem_bytes`` mirrors the weight-only kernel's for
-    the CPU tests)."""
+    CUDA source's; ``plan_smem_bytes`` mirrors it for the CPU tests)."""
     return int(_checked_lib().fmt_decode_megakernel_smem(ctypes.addressof(args)))
 
 
@@ -692,9 +736,8 @@ def check_fits(config, rows: int, t_lim: int, n_media_latents: int, *,
     Dffx = config.dim * config.xattn_ff_mult
     args = _Args(b=rows, D=D, Dff=Dff, XI=XI, Dffx=Dffx, t_lim=t_lim,
                  NMNV=n_media_latents, act_quant=int(act_quant))
-    if not act_quant:
-        _plan_args(args, plan(rows, D, Dff, XI, Dffx, n_xattn=1,
-                              blocks=_sm_count(device)))
+    _plan_args(args, plan(rows, D, Dff, XI, Dffx, n_xattn=1, blocks=_sm_count(device),
+                          act_quant=act_quant))
     refuse_unless_fits(rows, _smem_need(args), _smem_limit(device))
 
 
@@ -761,14 +804,13 @@ def kernel_args(packed: Params, xk, xv, kc, vc, x_emb, npad, text_time,
     out = torch.empty((b, D), dtype=bf16, device=dev)
     scratch = torch.empty(b * (2 * max(D, XI) + max(Dff, Dffx)), dtype=bf16,
                           device=dev)
-    # w8a8: one amax word per row of abuf, one per D-wide slice of hbuf
-    amax = (torch.empty(b * (1 + -(-max(Dff, Dffx) // D)), dtype=i32, device=dev)
-            if act_quant else None)
-    parts = sync = p = None
-    if not act_quant:
-        p = plan(b, D, Dff, XI, Dffx, n_xattn=NX, blocks=_sm_count(dev))
-        parts = torch.empty(p["parts_floats"], dtype=f32, device=dev)
-        sync = _sync_words(dev, p["sync_words"])
+    # w8a8: one amax word per D-wide slice of a row of abuf and of hbuf
+    # (the kernel zeroes them)
+    amax = (torch.empty(b * (-(-max(D, XI) // D) + -(-max(Dff, Dffx) // D)), dtype=i32,
+                        device=dev) if act_quant else None)
+    p = plan(b, D, Dff, XI, Dffx, n_xattn=NX, blocks=_sm_count(dev), act_quant=act_quant)
+    parts = torch.empty(p["parts_floats"], dtype=f32, device=dev)
+    sync = _sync_words(dev, p["sync_words"])
     tensors = dict(xk=xk, xv=xv, kc=kc, vc=vc, x_emb=x_emb, npad=npad,
                    text_time=text_time, x=out, scratch=scratch, anc=beam_anc,
                    amax=amax, parts=parts, sync=sync)
@@ -781,18 +823,21 @@ def kernel_args(packed: Params, xk, xv, kc, vc, x_emb, npad, text_time,
         xact=ACT_CODES[config.xattn_act], kb=kb, anc_len=anc_len,
         act_quant=int(act_quant), attn_scale=(D // H) ** -0.5,
         xq_scale=const(config.xattn_dim_head ** -0.5, torch.bfloat16))
-    if p is not None:
-        _plan_args(args, p)
-        if section_timer is not None:
-            _require(section_timer, "section_timer", torch.int64,
-                     (_sm_count(dev), len(SECTIONS)), dev)
-            args.prof = section_timer.data_ptr()
+    _plan_args(args, p)
+    if section_timer is not None:
+        _require(section_timer, "section_timer", torch.int64,
+                 (_sm_count(dev), len(SECTIONS)), dev)
+        args.prof = section_timer.data_ptr()
+    if phase_timer is not None:
+        _require(phase_timer, "phase_timer", torch.int64,
+                 (step_phases(packed), _sm_count(dev), len(SECTIONS)), dev)
+        args.phases = phase_timer.data_ptr()
     refuse_unless_fits(b, _smem_need(args), _smem_limit(dev))
     return args, out, (scratch, amax, parts, sync)
 
 
 def grid_sync_test(device, phases: int) -> int:
-    """The weight-only kernel's grid barrier alone on the card
+    """The kernel's grid barrier alone on the card
     (``fmt_grid_sync_test``): one block per SM writes a stamp before each of
     ``phases`` barriers and reads every block's back after it -> the number
     of stamps read wrong (0 when the barrier holds). The count of arrivals

@@ -14,9 +14,10 @@ chip_smoke.py's seeds), all of them unless some are named:
    and at the beam loop's last segment (kv_limit 68) 32 vs 96 rows and the
    beam mode at 96 rows (32 x 3 beams) and 160 rows (32 x 5); then the OPT
    mode at OPT-1.3B width (b=8, 24 layers, D=2048, xattn every other layer,
-   the greedy loop's last segment: kv_limit 71); each beside its bound
-   (``chip_smoke.mega_bound``) and, for the weight-only kernel, its split
-   by the kernel's section timer (``megadecode.SECTIONS``: each section's
+   the greedy loop's last segment: kv_limit 71); then the w8a8 mode
+   (``act_quant``) at greedy b=32 and 1, beams at 96 and 160 rows and
+   OPT-1.3B b=8; each beside its bound (``chip_smoke.mega_bound``) and its
+   split by the kernel's section timer (``megadecode.SECTIONS``: each section's
    share of the blocks' clock cycles in one more call, times the call's
    median time: microseconds per layer, the grid barrier's wait included);
 2. ``torch.profiler`` over one ``generate`` of each decode path, greedy and
@@ -57,7 +58,7 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cuLaunchKern
 
 
 def sections(fn, flush, ms: float, n_layer: int) -> dict:
-    """One more call of ``fn`` with the weight-only kernel's section timer
+    """One more call of ``fn`` with the kernel's section timer
     on -> {section: us per layer}: each section's share of all blocks'
     cycles times ``ms`` per layer."""
     from flamingo_mini_tpu_torch.ops import megadecode as md
@@ -84,14 +85,19 @@ def sweep(dev, card):
     # runs the beam mode over a random ancestry table; the four rows at
     # kv_limit 68 share the beam loop's last segment to split rows from
     # ancestry
+    # the w8a8 mode (act_quant) at the main path's shapes follows the
+    # weight-only rows
     opt = dict(family="opt", D=cs.OPT_D, H=cs.OPT_H)
-    for trunk, b, kb, n_layer, every, kv_limit in (
-            ("gpt2", 32, 1, 24, 1, 132), ("gpt2", 1, 1, 24, 1, 132),
-            ("gpt2", 32, 1, 24, 1, 36), ("gpt2", 32, 1, 12, 1, 132),
-            ("gpt2", 32, 1, 24, 2, 132), ("gpt2", 1, 1, 24, 1, 36),
-            ("gpt2", 32, 1, 24, 1, 68), ("gpt2", 96, 1, 24, 1, 68),
-            ("gpt2", 96, 3, 24, 1, 68), ("gpt2", 160, 5, 24, 1, 68),
-            ("opt-1.3b", cs.OPT_B, 1, 24, 2, 71)):
+    for trunk, b, kb, n_layer, every, kv_limit, act_quant in (
+            ("gpt2", 32, 1, 24, 1, 132, False), ("gpt2", 1, 1, 24, 1, 132, False),
+            ("gpt2", 32, 1, 24, 1, 36, False), ("gpt2", 32, 1, 12, 1, 132, False),
+            ("gpt2", 32, 1, 24, 2, 132, False), ("gpt2", 1, 1, 24, 1, 36, False),
+            ("gpt2", 32, 1, 24, 1, 68, False), ("gpt2", 96, 1, 24, 1, 68, False),
+            ("gpt2", 96, 3, 24, 1, 68, False), ("gpt2", 160, 5, 24, 1, 68, False),
+            ("opt-1.3b", cs.OPT_B, 1, 24, 2, 71, False),
+            ("gpt2", 32, 1, 24, 1, 132, True), ("gpt2", 1, 1, 24, 1, 132, True),
+            ("gpt2", 96, 3, 24, 1, 68, True), ("gpt2", 160, 5, 24, 1, 68, True),
+            ("opt-1.3b", cs.OPT_B, 1, 24, 2, 71, True)):
         cfg, packed = cs.random_trunk(dev, n_layer=n_layer, xattn_every=every,
                                       seed=24, **(opt if trunk != "gpt2" else {}))
         anc = None
@@ -107,7 +113,8 @@ def sweep(dev, card):
 
         def step():
             return decode_step_megakernel(packed, xk, xv, kc, vc, x, npad, tt, cur,
-                                          config=cfg, kv_limit=kv_limit, beam_anc=anc)
+                                          config=cfg, kv_limit=kv_limit, beam_anc=anc,
+                                          act_quant=act_quant)
         ms = cs.time_ms(step, 30, flush)
         split = sections(step, flush, ms, n_layer)
         # self K/V rows read: every row's own, or each distinct ancestor's
@@ -116,11 +123,12 @@ def sweep(dev, card):
         if anc is not None:
             slots, extra = cs.ancestor_reads(anc, npad, cur, kb)[0], 4 * n_pos
         bound_ms, bound_by, _, _ = cs.mega_bound(packed, cfg, inputs, slots, n_pos,
-                                                 extra_bytes=extra)
-        row = dict(trunk=trunk, b=b, kb=kb, n_layer=n_layer, xattn_every=every,
+                                                 extra_bytes=extra, act_quant=act_quant)
+        mode = "w8a8" if act_quant else "weight-only"
+        row = dict(trunk=trunk, mode=mode, b=b, kb=kb, n_layer=n_layer, xattn_every=every,
                    kv_limit=kv_limit, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
                    ms_per_layer=ms / n_layer, us_per_layer_by_section=split)
-        print(f"[sweep] {card}: megakernel {trunk} b={b} kb={kb} layers={n_layer} "
+        print(f"[sweep] {card}: megakernel {mode} {trunk} b={b} kb={kb} layers={n_layer} "
               f"xattn_every={every} kv_limit={kv_limit}: {ms} ms per call "
               f"({ms / n_layer * 1e3:.1f} us per layer), bound {bound_ms:.4f} ms "
               f"({bound_by}); us per layer by section {split}")
@@ -128,6 +136,213 @@ def sweep(dev, card):
         del packed, inputs, xk, xv, kc, vc
         torch.cuda.empty_cache()
     return rows
+
+
+PHASES = ("xq", "xattn", "xo", "xf1", "xf2", "qkv", "attention", "o", "fc", "pr")
+LEVEL_PROCS = 4
+# the buffers whose placement the levels sweep moves, each to this many
+# fresh 2 MB segments
+PLACED = ("amax", "parts", "sync", "scratch")
+PLACEMENTS = 6
+
+
+def direct_launch(packed, inputs, cfg, cur: int, kv_limit: int, act_quant: bool,
+                  phases=None, beam_anc=None):
+    """The megakernel on arguments built once (``megadecode.kernel_args``)
+    -> a function that launches it: its time leaves out the wrapper's host
+    steps, which ``time_ms``'s lead spin hides only up to about a
+    millisecond. ``phases``: the phase timer the launches write."""
+    import ctypes
+
+    from flamingo_mini_tpu_torch.ops import megadecode as md
+    md.phase_timer = phases
+    try:
+        args, x, keep = md.kernel_args(packed, *inputs, cur, config=cfg, kv_limit=kv_limit,
+                                       beam_anc=beam_anc, act_quant=act_quant)
+    finally:
+        md.phase_timer = None
+    lib = md._checked_lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def launch():
+        md.cuda_build.check(lib.fmt_decode_megakernel(ctypes.addressof(args), stream),
+                            "decode_step_megakernel")
+    launch.buffers = (args, x, keep)
+    return launch
+
+
+def phase_split(packed, inputs, cfg, cur: int, kv_limit: int, act_quant: bool,
+                flush, beam_anc=None) -> dict:
+    """One launch on the kernel's phase timer, timed by events (no host
+    steps inside: ``direct_launch``) -> per phase kind, summed over the
+    step's layers: the busiest block's work (the most cycles any block
+    spent in the phase outside the barrier), split by section, and the mean
+    barrier wait before the phase; all in us at the clock rate the launch's
+    blocks measured (their total cycles over its event time)."""
+    from flamingo_mini_tpu_torch.ops import megadecode as md
+    dev = flush.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    timer = torch.zeros((md.step_phases(packed), sms, len(md.SECTIONS)), dtype=torch.int64,
+                        device=dev)
+    launch = direct_launch(packed, inputs, cfg, cur, kv_limit, act_quant, phases=timer,
+                           beam_anc=beam_anc)
+    launch()
+    flush.zero_()
+    torch.cuda._sleep(1 << 20)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    launch()
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1)
+    cum = timer.double().cpu()
+    per = torch.diff(cum, dim=0, prepend=torch.zeros_like(cum[:1]))  # (phases, blocks, sections)
+    mhz = float(cum[-1].sum(dim=1).median()) / ms / 1e3   # cycles per us
+    bar = md.SECTIONS.index("barrier")
+    work = per.sum(dim=2) - per[:, :, bar]
+    busiest = work.argmax(dim=1)
+    kinds = []
+    for hx in packed["hasx"].tolist():
+        kinds += list(PHASES if hx else PHASES[5:])
+    out = {}
+    for i, kind in enumerate(kinds):
+        row = per[i, busiest[i]]
+        d = out.setdefault(kind, {"busiest_us": 0.0, "mean_barrier_us": 0.0,
+                                  **{k: 0.0 for k in md.SECTIONS if k != "barrier"}})
+        d["busiest_us"] += float(work[i, busiest[i]]) / mhz
+        d["mean_barrier_us"] += float(per[i, :, bar].mean()) / mhz
+        for j, k in enumerate(md.SECTIONS):
+            if k != "barrier":
+                d[k] += float(row[j]) / mhz
+    for d in out.values():
+        for k in d:
+            d[k] = round(d[k], 1)
+    return dict(ms=ms, clock_mhz=round(mhz, 1),
+                busiest_sum_us=round(sum(d["busiest_us"] for d in out.values()), 1),
+                phases=out)
+
+
+def levels_one(dev, card) -> dict:
+    """One process's share of ``levels``: OPT-1.3B at b=8 (24 layers,
+    xattn every other layer, kv_limit 71), both modes: the median time of
+    the wrapper's calls and of launches on arguments built once
+    (``direct_launch``), the wrapper's host us per call, the phase split of
+    one more launch; then the w8a8 mode's launches with each buffer of
+    ``PLACED`` moved in turn to the start of ``PLACEMENTS`` fresh 2 MB
+    segments (its address printed beside each time)."""
+    import chip_smoke as cs
+    from flamingo_mini_tpu_torch.ops import megadecode as md
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    cfg, packed = cs.random_trunk(dev, n_layer=24, seed=224, family="opt", D=cs.OPT_D,
+                                  H=cs.OPT_H, xattn_every=2)
+    inputs = cs.mega_inputs(dev, cfg, cs.OPT_B, seed=98, T=cs.OPT_T)
+    out = {}
+    for act_quant in (False, True):
+        def step():
+            return md.decode_step_megakernel(packed, *inputs, 70, config=cfg, kv_limit=71,
+                                             act_quant=act_quant)
+        mode = "w8a8" if act_quant else "weight_only"
+        out[mode + "_ms"] = cs.time_ms(step, 30, flush)
+        out[mode + "_host_us"] = cs.host_us(step)
+        out[mode + "_direct_ms"] = cs.time_ms(
+            direct_launch(packed, inputs, cfg, 70, 71, act_quant), 30, flush)
+        out[mode + "_split"] = phase_split(packed, inputs, cfg, 70, 71, act_quant, flush)
+    launch = direct_launch(packed, inputs, cfg, 70, 71, True)
+    args, _x, keep = launch.buffers
+    sizes = {"amax": keep[1].numel() * 4, "parts": keep[2].numel() * 4,
+             "sync": keep[3].numel() * 4, "scratch": keep[0].numel() * 2}
+    default = {n: getattr(args, n) for n in PLACED}
+    out["default_addresses"] = {n: hex(v) for n, v in default.items()}
+    sweep_rows, segments = [], []
+    for name in PLACED:
+        for _ in range(PLACEMENTS):
+            seg = torch.zeros(max(sizes[name], 2 << 20), dtype=torch.uint8, device=dev)
+            segments.append(seg)   # a fresh segment for every placement
+            setattr(args, name, seg.data_ptr())
+            sweep_rows.append(dict(buffer=name, address=hex(seg.data_ptr()),
+                                   ms=cs.time_ms(launch, 10, flush)))
+            setattr(args, name, default[name])
+    out["placements"] = sweep_rows
+    return out
+
+
+def phases(dev, card):
+    """The kernel's phase split (``phase_split``) in both modes at
+    ab_kernels.py's megakernel cases: flamingo-mini greedy b=32 and b=1
+    (kv_limit 132), beams at 96 and 160 rows (kv_limit 68), OPT-1.3B b=8
+    (kv_limit 71); per case and mode the launch's time and, summed over the
+    phase kinds, the busiest blocks' work by section."""
+    import chip_smoke as cs
+    from flamingo_mini_tpu_torch.ops import megadecode as md
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    opt = dict(family="opt", D=cs.OPT_D, H=cs.OPT_H)
+    for case, trunk, b, kb, every, kv_limit in (
+            ("greedy b=32", "gpt2", 32, 1, 1, 132), ("b=1", "gpt2", 1, 1, 1, 132),
+            ("beams 96 rows", "gpt2", 96, 3, 1, 68), ("beams 160 rows", "gpt2", 160, 5, 1, 68),
+            ("OPT-1.3B b=8", "opt", cs.OPT_B, 1, 2, 71)):
+        cfg, packed = cs.random_trunk(dev, n_layer=24, xattn_every=every, seed=24,
+                                      **(opt if trunk == "opt" else {}))
+        anc = None
+        if kb > 1:
+            inputs, anc = cs.beam_trunk_inputs(dev, cfg, b, kb, seed=99)
+        else:
+            inputs = cs.mega_inputs(dev, cfg, b, seed=99,
+                                    T=cs.OPT_T if trunk == "opt" else cs.MEGA_T)
+        for act_quant in (False, True):
+            mode = "w8a8" if act_quant else "weight-only"
+            ms = cs.time_ms(direct_launch(packed, inputs, cfg, kv_limit - 1, kv_limit,
+                                          act_quant, beam_anc=anc), 20, flush)
+            split = phase_split(packed, inputs, cfg, kv_limit - 1, kv_limit, act_quant, flush,
+                                beam_anc=anc)
+            row = dict(case=case, mode=mode, ms=ms, split=split)
+            rows.append(row)
+            by_section = {}
+            for d in split["phases"].values():
+                for k, v in d.items():
+                    by_section[k] = round(by_section.get(k, 0.0) + v, 1)
+            print(f"[phases] {card}: {case} {mode}: {ms:.4f} ms; busiest blocks "
+                  f"{split['busiest_sum_us']} us at {split['clock_mhz']} MHz, by phase "
+                  f"{ {k: d['busiest_us'] for k, d in split['phases'].items()} }, "
+                  f"by section {by_section}", flush=True)
+        del packed, inputs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def levels(dev, card):
+    """Whether the w8a8 mode's OPT-1.3B time takes a level per process, and
+    what sets it: ``levels_one`` in ``LEVEL_PROCS`` fresh processes, one
+    after another."""
+    import subprocess
+    runs = []
+    for i in range(LEVEL_PROCS):
+        done = subprocess.run([sys.executable, os.path.abspath(__file__), "--levels-one"],
+                              capture_output=True, text=True, cwd=REPO, timeout=600)
+        if done.returncode != 0:
+            raise RuntimeError(f"levels process {i}: {done.stderr[-3000:]}")
+        run = json.loads(done.stdout.strip().splitlines()[-1])
+        runs.append(run)
+        print(f"[levels] {card}: process {i}: the wrapper's calls: weight-only "
+              f"{run['weight_only_ms']:.4f} ms ({run['weight_only_host_us']:.0f} us of host "
+              f"time a call), w8a8 {run['w8a8_ms']:.4f} ms ({run['w8a8_host_us']:.0f} us); "
+              f"launches on arguments built once: weight-only "
+              f"{run['weight_only_direct_ms']:.4f} ms, w8a8 {run['w8a8_direct_ms']:.4f} ms",
+              flush=True)
+        for mode in ("weight_only", "w8a8"):
+            sp = run[mode + "_split"]
+            print(f"[levels]   {mode} phase split: busiest blocks' sum "
+                  f"{sp['busiest_sum_us']} us of {sp['ms']:.4f} ms at {sp['clock_mhz']} MHz",
+                  flush=True)
+        for kind, d in run["w8a8_split"]["phases"].items():
+            print(f"[levels]   {kind}: w8a8 {d} | weight-only "
+                  f"{run['weight_only_split']['phases'][kind]}", flush=True)
+        by = {}
+        for r in run["placements"]:
+            by.setdefault(r["buffer"], []).append(f"{r['address']} {r['ms']:.4f}")
+        for name, items in by.items():
+            print(f"[levels]   w8a8 with {name} moved: {'; '.join(items)}", flush=True)
+    return runs
 
 
 def mini_model(dev):
@@ -363,12 +578,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = cs.card_line()
+    if sys.argv[1:] == ["--levels-one"]:
+        print(json.dumps(levels_one(dev, card)))
+        return 0
     print(card)
     cuda_build.kernels()
     sections = {"sweep": sweep, "paths": profile_paths,
                 "opt": lambda dev, card: profile_paths(dev, card, opt=True),
-                "fixed": fixed_cost, "forward": profile_forward}
-    names = sys.argv[1:] or list(sections)
+                "fixed": fixed_cost, "forward": profile_forward, "levels": levels,
+                "phases": phases}
+    names = sys.argv[1:] or [n for n in sections if n not in ("levels", "phases")]
     unknown = set(names) - set(sections)
     if unknown:
         print(f"profile_decode: unknown sections {sorted(unknown)}; choose from "

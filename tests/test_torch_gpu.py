@@ -32,21 +32,26 @@ GPT-2 forward, media prefill and forward shapes, with fully masked rows
 zeroed (text_time 0): float32 within 1e-5 of the output's scale, bf16
 within 2 bf16 ulps; the bf16 kernel of the first two (the Hopper tile) also
 at its tile edges, back to back on one stream, and streaming past many
-tiles of its ring. The megakernel's w8a8 mode (act_quant): its linear
-alone, through the kernel's own device functions, bitwise equal to the
-plain version (column form at K = 512, 1024, 2048; row form over D-wide
-slices of 4096 and 8192 and of K = 512; b in {1, 3, 8, 32}, a zero row and
-.5 rounding boundaries planted); the whole step at 2 layers (greedy at
-flamingo-mini width, beams at 96 rows, OPT-1.3B width) within the larger
-of 1e-2 and 1.25 x the plain version's CPU-vs-card spread, normwise, the
-deep checks' rule (the mode sums its attention in float64 and its
-LayerNorm in the plain version's order, and was measured bit for bit
-equal to it); at the weight-only mode's edge rows, back to back and on
-two streams bit for bit equal to the plain version, and two launches
-bit-equal. A trunk too wide for the card's
-shared memory (D=4096, 28 rows, w8a8) raises ValueError before vision and
-prefill; the weight-only kernel takes 28 rows there, and a weight-only
-generate on a D=8192 trunk raises ValueError before vision and prefill.
+tiles of its ring. The megakernel's w8a8 mode (act_quant, the same Hopper
+kernel): its linear alone, through the kernel's own machinery with a
+one-linear schedule, bitwise equal to the plain version (column form at K
+= 512, 1024, 2048; row form over D-wide slices of 4096 and 8192 and of K
+= 512; b in {1, 3, 8, 32}, a zero row and .5 rounding boundaries
+planted); the whole step at 2 layers (greedy at flamingo-mini width, beams
+at 96 rows, OPT-1.3B width) within the larger of 1e-2 and 1.25 x the
+plain version's CPU-vs-card spread, normwise, the deep checks' rule, and
+bit for bit (the mode sums its attention in float64 and its LayerNorm in
+the plain version's order); at the weight-only mode's edge rows, back to
+back and on two streams bit for bit equal to the plain version, and two
+launches bit-equal; its shared-memory formula equal to its mirror; its
+section timer counting every block. A trunk too wide for the kernel
+(D=8192: its LayerNorm rows do not fit its registers) raises ValueError
+before vision and prefill in both modes; at D=4096 both modes take 27 to
+2,048 rows. The fused head (lm_head_argmax) at its edges (rows around its
+groups, ties across tiles, rounds and blocks, n_valid on a tile's edge) at
+D=1024 and 2048, at a K tail (D=1040) and past one staged slice (D=8192),
+and at widths of no model (40, 1000, 1001, 6208): picks within 1 bf16 ulp
+of the plain version's; its shared-memory mirror equal to the kernel's.
 The weight-only mode's Hopper kernel (decode_megakernel_sm90.cuh) at its
 edges: its own grid barrier alone, rows on both sides of its wgmma N steps,
 of its wide mode (past 64 rows) and of its 256-row passes (b in {1, 3, 8, 9,
@@ -561,10 +566,10 @@ def test_megakernel_act_quant_matches_plain(cuda, mode):
 
 
 def test_megakernel_refuses_a_wide_trunk_before_prefill(cuda):
-    """D=4096 at 28 rows (w8a8) and 10 x 3 beams (w8a8), and a weight-only
-    greedy call at D=8192: ValueError, no vision, no prefill, no launch; 27
-    rows pass in both modes; the weight-only kernel takes 28 rows at
-    D=4096."""
+    """D=8192: a w8a8 greedy call of 8 rows, w8a8 beams 3 x 3 and a
+    weight-only greedy call of 8 rows: ValueError, no vision, no prefill, no
+    launch; at D=4096 27 to 2,048 rows (chip_smoke.D4096_ROWS) pass in both
+    modes."""
     import chip_smoke
     chip_smoke.phase2_refusal(cuda)
 
@@ -694,21 +699,58 @@ def test_megakernel_w8a8_streams_give_the_bits_of_one(cuda):
     chip_smoke.two_streams(cuda, act_quant=True)
 
 
+@pytest.mark.parametrize("rows", [1, 32, 96, 257])
+@pytest.mark.parametrize("width", ["flamingo-mini", "OPT-1.3B"])
+def test_megakernel_w8a8_smem_formula_matches_its_mirror(cuda, width, rows):
+    """``fmt_decode_megakernel_smem`` for the w8a8 mode equals
+    ``megadecode.plan_smem_bytes`` of its plan, byte for byte."""
+    from flamingo_mini_tpu_torch.ops import megadecode as md
+    D, Dff, nx, t_lim = (1024, 4096, 24, 132) if width == "flamingo-mini" else (2048, 8192, 12, 71)
+    p = md.plan(rows, D, Dff, 512, Dff, n_xattn=nx, act_quant=True)
+    args = md._Args(b=rows, D=D, Dff=Dff, XI=512, Dffx=Dff, t_lim=t_lim, NMNV=64,
+                    act_quant=1)
+    md._plan_args(args, p)
+    assert md._smem_need(args) == md.plan_smem_bytes(p, D, Dff, 512, Dff, t_lim, 64)
+
+
+def test_megakernel_w8a8_section_timer_counts_every_block(cuda):
+    """The section timer covers the w8a8 mode: every block waits at the
+    grid barriers, the grid runs products and attention."""
+    import chip_smoke
+    from flamingo_mini_tpu_torch.ops import megadecode as md
+    cfg, packed = chip_smoke.random_trunk(cuda, n_layer=2, xattn_every=1, seed=970)
+    xk, xv, kc, vc, x, npad, tt = chip_smoke.mega_inputs(cuda, cfg, 32, seed=971)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    timer = torch.zeros((sms, len(md.SECTIONS)), dtype=torch.int64, device=x.device)
+    md.section_timer = timer
+    try:
+        md.decode_step_megakernel(packed, xk, xv, kc, vc, x, npad, tt, 35, config=cfg,
+                                  kv_limit=36, act_quant=True)
+        torch.cuda.synchronize()
+    finally:
+        md.section_timer = None
+    t = dict(zip(md.SECTIONS, timer.t().cpu()))
+    assert bool((t["barrier"] > 0).all()) and int(timer.min()) >= 0
+    assert int(t["products"].sum()) > 0 and int(t["attention"].sum()) > 0
+
+
 # ---------------------------------------------------------------------------
 # the head at its edges
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("D", [1024, 2048])
+@pytest.mark.parametrize("D", [1024, 2048, 1040, 8192])
 @pytest.mark.parametrize("B", [1, 3, 8, 32, 33, 64, 65, 128])
 def test_lm_head_edges_match_plain(cuda, B, D):
-    """Flamingo-mini's (V=50258) and OPT-1.3B's (V=50273) heads at B rows:
-    ties planted across tiles, across one warpgroup's rounds and across two
-    blocks' shares resolve to the first index; every pick equals the plain
-    version's, or (the row's top-2 gap printed) lies within 1 bf16 ulp of
-    it; the same at n_valid on a tile's edge."""
+    """Flamingo-mini's (V=50258) and OPT-1.3B's (V=50273) heads at B rows,
+    and at D=1040 (a K tail: the last weight chunk 16 wide) and D=8192
+    (hidden rows staged in K-slices): ties planted across tiles, across one
+    warpgroup's rounds and across two blocks' shares resolve to the first
+    index; every pick equals the plain version's, or (the row's top-2 gap
+    printed) lies within 1 bf16 ulp of it; the same at n_valid on a tile's
+    edge."""
     import chip_smoke
-    V = 50258 if D == 1024 else 50273
+    V = 50273 if D == 2048 else 50258
     head, xt, ties = chip_smoke.head_inputs(cuda, B, D, V, seed=B + D)
     for n_valid in (V, V // 64 * 64):
         got, want, gap, ulp = chip_smoke.head_picks(head, xt, n_valid)
@@ -721,20 +763,39 @@ def test_lm_head_edges_match_plain(cuda, B, D):
         assert bool((gap <= ulp).all()), (B, D, n_valid, parted)
 
 
+@pytest.mark.parametrize("D", [40, 1000, 1001, 6208])
+@pytest.mark.parametrize("B", [1, 8, 33])
+def test_lm_head_odd_widths_match_plain(cuda, B, D):
+    """Widths the JAX head takes and no model of the repo has: D=40 (one
+    chunk, mostly tail), 1000 (rows of 1000 bytes: pad_head_weights pads
+    the weight's columns to 1008), 1001 (an odd width: the hidden rows
+    staged element by element) and 6208 (past the old limit of 6,144);
+    planted ties to the first index, picks within 1 bf16 ulp of the plain
+    version's."""
+    import chip_smoke
+    V = 50258
+    head, xt, ties = chip_smoke.head_inputs(cuda, B, D, V, seed=B + D)
+    assert head["w8"].shape[1] == -(-D // 16) * 16
+    got, want, gap, ulp = chip_smoke.head_picks(head, xt, V)
+    for i, (first, _second) in ties.items():
+        assert int(got[i]) == first, (i, ties[i], int(got[i]))
+    assert bool((gap <= ulp).all()), (B, D, (got != want).nonzero().flatten().tolist())
+
+
 def test_lm_head_smem_mirror_matches_the_kernel(cuda):
     """``ops/lm_head.py``'s mirror of the head kernel's shape (``smem_bytes``,
-    ``MAX_D``, what the CPU tests of its deal use) equals the kernel's own
-    layout (``fmt_lm_head_smem``) at every width it takes and the row
-    counts of the edge tests, and the kernel refuses the widths the mirror
-    refuses."""
+    what the CPU tests of its deal use) equals the kernel's own layout
+    (``fmt_lm_head_smem``) at every width up to 1,100, at every multiple of
+    64 up to 16,384 and at the row counts of the edge tests; it fits the
+    card's shared memory; the kernel answers -1 for no width or no rows."""
     from flamingo_mini_tpu_torch.ops import cuda_build
     from flamingo_mini_tpu_torch.ops import lm_head as lh
     lib = cuda_build.kernels()
-    for D in range(64, lh.MAX_D + 1, 64):
+    limit = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    for D in sorted(set(range(1, 1101)) | set(range(64, 16385, 64))):
         for B in (1, 3, 8, 32, 33, 64, 65, 128):
-            assert lib.fmt_lm_head_smem(D, B) == lh.smem_bytes(D, B), (D, B)
-    for D in (lh.MAX_D + 64, 1000, 0):
-        assert lib.fmt_lm_head_smem(D, 1) == -1, D
+            assert lib.fmt_lm_head_smem(D, B) == lh.smem_bytes(D, B) <= limit, (D, B)
+    assert lib.fmt_lm_head_smem(0, 1) == -1 and lib.fmt_lm_head_smem(64, 0) == -1
 
 
 def test_stream_sum_matches_plain(cuda):

@@ -177,11 +177,11 @@ def test_b_tile_k_order_matches_the_a_fragments():
 
 
 def test_layer_norm_unit_order():
-    """The weight-only kernel's LayerNorm statistics order
-    (``_warp_sum_units``: lane l adds the 8-element units l, l + 32, ...):
-    the same sum as the w8a8 kernel's order up to float32 rounding, and the
-    same bits as an explicit walk over the lanes, at widths that fill the
-    last round of units and widths that do not."""
+    """The kernel's LayerNorm statistics order (``_warp_sum_units``: lane l
+    adds the 8-element units l, l + 32, ...), both modes: the same sum as
+    float64's up to float32 rounding, and the same bits as an explicit walk
+    over the lanes, at widths that fill the last round of units and widths
+    that do not."""
     rs = np.random.RandomState(0)
     for D in (256, 320, 1024, 2048):
         x = md.torch.tensor(rs.randn(3, D).astype(np.float32))
@@ -196,7 +196,7 @@ def test_layer_norm_unit_order():
         for o in (16, 8, 4, 2, 1):
             lanes = lanes + lanes[:, np.arange(32) ^ o]
         np.testing.assert_array_equal(got, lanes[:, 0])
-        np.testing.assert_allclose(got, md._warp_sum(x)[:, 0].numpy(), rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(got, x.double().sum(dim=1).numpy(), rtol=1e-5, atol=1e-4)
 
 
 def test_int8_to_bf16_is_exact():
