@@ -6,7 +6,10 @@
 Runs each checkout in a process of its own (each builds its own kernels
 from its own sources) in the order A, B, B, A and prints, for each run, the
 median device time of ``decode_attention`` (b=32, D=1024, H=16, T=192,
-cur 131, kv_limit 132, bf16), of ``decode_step_megakernel`` at 24
+cur 131, kv_limit 132, and OPT-1.3B's b=8, D=2048, H=32, T=128, cur 70,
+kv_limit 71, bf16) and ``decode_attention_beam`` (96 rows in families of
+3, T=128, cur 66, kv_limit 68), each beside its wrapper's host us per
+call, of ``decode_step_megakernel`` at 24
 layers: flamingo-mini width at b=32 and at b=1 (the fixed cost; kv_limit
 132), its beam mode at 96 rows (3 beams) and 160 rows (5 beams; kv_limit
 68) and its OPT mode at OPT-1.3B width, b=8 (kv_limit 71), each also in
@@ -95,13 +98,45 @@ def head(dev, flush, out: dict) -> None:
         out[label + "_host_us"] = host_us(fn)
 
 
+def decode_attentions(cs, dev, flush, out: dict) -> None:
+    """``decode_attention`` at flamingo-mini's greedy shape (b=32, D=1024,
+    H=16, T=192, cur 131, kv_limit 132) and OPT-1.3B's (b=8, D=2048, H=32,
+    T=128, cur 70, kv_limit 71), ``decode_attention_beam`` at 96 rows (32
+    families of 3, D=1024, T=128, cur 66, kv_limit 68), bf16, each beside its
+    wrapper's host us per call; the same inputs in each checkout (made here:
+    numpy and torch generators, the beams' ancestry and padding by
+    chip_smoke's helpers, which both checkouts have)."""
+    from flamingo_mini_tpu_torch.ops.decode_attention import (decode_attention,
+                                                              decode_attention_beam)
+    for label, (b, D, T, cur, kv_limit) in (
+            ("decode_attention", (32, 1024, 192, 131, 132)),
+            ("decode_attention_opt", (8, 2048, 128, 70, 71)),
+            ("decode_attention_beam96", (96, 1024, 128, 66, 68))):
+        rs = np.random.RandomState(b + D)
+        q, k, v = (torch.tensor(rs.randn(*s) * 0.3, dtype=torch.float32, device=dev)
+                   .to(torch.bfloat16) for s in ((b, D), (T, b, D), (T, b, D)))
+        kw = dict(n_head=D // 64, scale=0.125, kv_limit=kv_limit)
+        if label.endswith("beam96"):
+            anc = cs.random_ancestry(dev, b // 3, 3, seed=3)
+            npad = cs.family_npad(dev, b // 3, 3)
+
+            def fn():
+                return decode_attention_beam(q, k, v, anc, npad, cur, kb=3, **kw)
+        else:
+            npad = torch.tensor(np.arange(b) % 4, dtype=torch.int32, device=dev)
+
+            def fn():
+                return decode_attention(q, k, v, npad, cur, **kw)
+        out[label + "_ms"] = time_ms(fn, 100, flush)
+        out[label + "_host_us"] = host_us(fn)
+
+
 def one(tree: str, mega_only: bool = False) -> dict:
     """The kernels' times in the checkout ``tree``, an absolute path (run in
     its own process, from that directory); ``mega_only``: the megakernel's
     alone."""
     sys.path.insert(0, tree)
     import chip_smoke as cs
-    from flamingo_mini_tpu_torch.ops.decode_attention import decode_attention
     from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel
     dev = torch.device("cuda", 0)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
@@ -109,13 +144,8 @@ def one(tree: str, mega_only: bool = False) -> dict:
     if not mega_only:
         attention(cs, dev, flush, out)
         head(dev, flush, out)
-    rs = np.random.RandomState(0)
-    q, k, v = (torch.tensor(rs.randn(*s) * 0.3, dtype=torch.float32, device=dev)
-               .to(torch.bfloat16) for s in ((32, 1024), (192, 32, 1024), (192, 32, 1024)))
-    npad = torch.tensor(np.arange(32) % 4, dtype=torch.int32, device=dev)
     if not mega_only:
-        out["decode_attention_ms"] = time_ms(lambda: decode_attention(
-            q, k, v, npad, 131, n_head=16, scale=0.125, kv_limit=132), 100, flush)
+        decode_attentions(cs, dev, flush, out)
     modes = [False]
     if "act_quant" in inspect.signature(decode_step_megakernel).parameters:
         modes.append(True)

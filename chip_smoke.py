@@ -14,7 +14,12 @@ stream probe and the in-situ decode and head probes, and checks them:
    (one nvcc per source, all at once);
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it: ``decode_attention`` at b=32, D=1024, H=16, T=192
-   (left-padded rows, several ``cur`` and ``kv_limit``, bf16 and float32),
+   (left-padded rows, several ``cur`` and ``kv_limit``, bf16 and float32;
+   then its edges: kv_limit 1, 63, 64, 65, 127, 128, 129 and 192 under the
+   layout ``plan()`` picks, and layouts of 2, 3 and 8 splits at 129, each
+   with the live prefix ending on both sides of every split boundary, a
+   row whose [npad, cur] is empty and one whose first split is masked,
+   printing the worst error and where it lies),
    ``lm_head_argmax`` at B=32, D=1024, V=50258 (padded to 51200), with
    exact ties planted across tiles, across one warpgroup's rounds and
    across two blocks' shares of its persistent grid, and again with
@@ -28,7 +33,9 @@ stream probe and the in-situ decode and head probes, and checks them:
    layers). The beam kernels: ``decode_attention_beam`` at 96 rows (32
    families of 3), D=1024, H=16, T=128, a random valid ancestry table of 68
    slots, left-padded families, several ``cur``/``kv_limit`` (one where some
-   rows attend nothing, one past the table), bf16 and float32; the
+   rows attend nothing, one past the table), bf16 and float32, and the
+   same edges as ``decode_attention``'s at 96 and 160 rows (families of 3
+   and 5; split layouts at kv_limit 68); the
    megakernel's beam mode at 1 and 2 layers and 3, 24, 96 and 160 rows
    (families of 3, 3, 3, 5) at 2 bf16 ulps, and at 24 layers and 96 rows
    under the normwise rule, with its grid at 96 and 160 rows. The
@@ -204,6 +211,11 @@ BEAM_T = 128
 # (cur, kv_limit) pairs the beam loop reaches: segments end at 37 and 68
 BEAM_PAIRS = ((4, 37), (35, 37), (50, 68), (66, 68))
 ATTN_B, ATTN_D, ATTN_H, ATTN_T = 32, 1024, 16, 192
+# the decode attention kernels' edges: live prefixes around 64-slot
+# multiples and the cache's end (each with cur at its last slot), and
+# (heads, splits) layouts that the decode paths' shapes do not pick
+ATTN_EDGE_LIMITS = (1, 63, 64, 65, 127, 128, 129, 192)
+ATTN_SPLIT_PLANS = ((1, 2), (2, 3), (4, 8))
 HEAD_B, HEAD_D, HEAD_V = 32, 1024, 50258
 # the megakernel at flamingo-mini width: GPT-2-medium, xattn 8 heads of 64
 MEGA_D, MEGA_H, MEGA_XI, MEGA_XH, MEGA_NV, MEGA_T = 1024, 16, 512, 8, 64, 192
@@ -376,6 +388,86 @@ def host_us(fn, n: int = 100) -> float:
     return 1e6 * (t1 - t0) / n
 
 
+def attention_edge_cases(rows: int, kb: int, kv_limit: int, cur: int, T: int, p):
+    """(cur, npad) cases around one (kv_limit, cur) under the plan ``p`` of
+    ``ops/decode_attention``: the live prefix ending on each side of every
+    split boundary; left padding 0-3 by family, then one family with an
+    empty [npad, cur] (uniform over its entries) and another whose npad
+    lies past the first split (that split masked)."""
+    t_lim = min(kv_limit, T)
+    curs = {cur} | {c for s in range(1, p.splits)
+                    for c in (s * p.positions - 1, s * p.positions)}
+    for c in sorted(curs):
+        base = np.repeat(np.arange(rows // kb) % 4, kb)
+        yield c, base
+        masked = base.copy()
+        masked[:kb] = c + 1
+        if p.splits > 1 and p.positions + 1 <= min(c, t_lim - 1):
+            masked[kb:2 * kb] = p.positions + 1
+        yield c, masked
+
+
+def attention_edges(dev, rows: int, kb: int, D: int, T: int, seed: int) -> dict:
+    """``decode_attention`` (kb 1) or ``decode_attention_beam`` against its
+    plain version at its edges, float32 and bf16: every ATTN_EDGE_LIMITS
+    live prefix under ``plan()``'s layout through the wrapper (one launch
+    a call), then each ATTN_SPLIT_PLANS layout at kv_limit 129 (beams: 68)
+    through the launch itself, each with ``attention_edge_cases``.
+    -> {dtype: (worst error, its tolerance, where: (kv_limit, cur, row,
+    value, plan))}."""
+    from flamingo_mini_tpu_torch.ops import decode_attention as da
+    H = D // da.HEAD_DIM
+    rs = np.random.RandomState(seed)
+    q32, k32, v32 = (torch.tensor(rs.randn(*s) * 0.3, dtype=torch.float32, device=dev)
+                     for s in ((rows, D), (T, rows, D), (T, rows, D)))
+    anc = random_ancestry(dev, rows // kb, kb, seed) if kb > 1 else None
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+        runs = [(kv, None) for kv in ATTN_EDGE_LIMITS]
+        runs += [(129 if kb == 1 else 68, hs) for hs in ATTN_SPLIT_PLANS]
+        for kv_limit, hs in runs:
+            t_lim = min(kv_limit, T)
+            p = da.plan(rows, H, t_lim, q.element_size(), kb=kb, beam=kb > 1)
+            if hs is not None:
+                p = da.make_plan(rows, H, t_lim, q.element_size(), kb=kb, beam=kb > 1,
+                                 heads=hs[0], splits=hs[1])
+            kw = dict(n_head=H, scale=0.125, kv_limit=kv_limit)
+            for cur, npad in attention_edge_cases(rows, kb, kv_limit, t_lim - 1, T, p):
+                npad = torch.tensor(npad, dtype=torch.int32, device=dev)
+                if hs is not None:
+                    got = da._launch(q, k, v, npad, anc, cur, n_head=H, scale=0.125, kb=kb,
+                                     t_lim=t_lim, p=p)
+                elif kb == 1:
+                    got = da.decode_attention(q, k, v, npad, cur, **kw)
+                else:
+                    got = da.decode_attention_beam(q, k, v, anc, npad, cur, kb=kb, **kw)
+                if kb == 1:
+                    want = da.decode_attention_plain(q, k, v, npad, cur, **kw)
+                else:
+                    want = da.decode_attention_beam_plain(q, k, v, anc, npad, cur, kb=kb,
+                                                          **kw)
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs()
+                err = float(diff.max())
+                tol = 1e-5 if dtype == torch.float32 else bf16_ulps(want.float(), 2)
+                row, col = np.unravel_index(int(diff.argmax()), diff.shape)
+                where = (kv_limit, cur, int(row), int(col), tuple(p[:4]))
+                assert bool(torch.isfinite(got).all()), (dtype, where)
+                assert err <= tol, f"decode_attention{'_beam' if kb > 1 else ''} " \
+                    f"{dtype} at {where}: max err {err} > {tol}"
+                if err > worst.get(str(dtype), (-1.0,))[0]:
+                    worst[str(dtype)] = (err, tol, where)
+    return worst
+
+
+def print_edges(label: str, worst: dict) -> None:
+    for dtype, (err, tol, (kv_limit, cur, row, col, p)) in worst.items():
+        print(f"[phase 2] {label} {dtype}: worst error {err} (tolerance {tol}) at "
+              f"kv_limit {kv_limit}, cur {cur}, row {row}, value {col} (head "
+              f"{col // 64}), plan (heads, splits, positions, warps) {p}")
+
+
 def phase2_decode_attention(dev, flush, b=ATTN_B, D=ATTN_D, H=ATTN_H, T=ATTN_T,
                             curs=(4, 70, 131), limits=(36, 68, 132)):
     """decode_attention vs plain at (b, D, H heads, a T-slot cache) for each
@@ -407,6 +499,11 @@ def phase2_decode_attention(dev, flush, b=ATTN_B, D=ATTN_D, H=ATTN_H, T=ATTN_T,
                 worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
     print(f"[phase 2] decode_attention vs plain at b={b}, D={D}, {H} heads, T={T}: "
           f"max abs err {worst} (tolerance: f32 1e-5, bf16 2 ulp of the output scale)")
+    edges = attention_edges(dev, b, 1, D, T, seed=b)
+    print_edges(f"decode_attention edges at b={b}, D={D}, T={T} (kv_limit "
+                f"{ATTN_EDGE_LIMITS}, split layouts {ATTN_SPLIT_PLANS} at 129)", edges)
+    for dtype, (err, _tol, _where) in edges.items():
+        worst[dtype] = max(worst.get(dtype, 0.0), err)
     q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
     t_lim, cur = limits[-1], curs[-1]
     kw = dict(n_head=H, scale=scale, kv_limit=t_lim)
@@ -426,7 +523,8 @@ def phase2_decode_attention(dev, flush, b=ATTN_B, D=ATTN_D, H=ATTN_H, T=ATTN_T,
     library_ms = time_ms(lambda: sdpa(q4, k4, v4, attn_mask=mask, scale=scale),
                          50, flush)
     print(f"[phase 2] scaled_dot_product_attention at decode_attention's shape: "
-          f"max abs diff to the kernel {lib_err}")
+          f"max abs diff to the kernel {lib_err}; the wrapper's host "
+          f"{host_us(lambda: decode_attention(q, k, v, npad, cur, **kw)):.1f} us a call")
     n_bytes = 2 * 2 * t_lim * b * D + 2 * 2 * b * D + 4 * b
     n_ops = 4 * b * (cur + 1) * D
     return dict(max_abs_err=max(worst.values()), ms=ms, plain_ms=plain_ms,
@@ -844,6 +942,13 @@ def phase2_decode_attention_beam(dev, flush):
     print(f"[phase 2] decode_attention_beam vs plain, {B} rows in families of "
           f"{kb}, {len(cases)} (cur, kv_limit) cases: max abs err {worst} "
           "(tolerance: f32 1e-5, bf16 2 ulp of the output scale)")
+    for rows, fam in ((B, kb), (160, 5)):
+        edges = attention_edges(dev, rows, fam, ATTN_D, BEAM_T, seed=rows)
+        print_edges(f"decode_attention_beam edges at {rows} rows in families of {fam} "
+                    f"(kv_limit {ATTN_EDGE_LIMITS}, split layouts {ATTN_SPLIT_PLANS} "
+                    f"at 68)", edges)
+        for dtype, (err, _tol, _where) in edges.items():
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
     # the beam loop's last step
     q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
     cur, t_lim = 66, 68
@@ -868,7 +973,10 @@ def phase2_decode_attention_beam(dev, flush):
                     .abs().max())
     library_ms = time_ms(lambda: sdpa(qf, kf, vf, attn_mask=mask, scale=scale), 50, flush)
     print(f"[phase 2] scaled_dot_product_attention over each family's {kb} x "
-          f"{t_lim} keys, ancestry mask: max abs diff to the kernel {lib_err}")
+          f"{t_lim} keys, ancestry mask: max abs diff to the kernel {lib_err}; the "
+          f"wrapper's host "
+          f"{host_us(lambda: decode_attention_beam(q, k, v, anc, npad, cur, **kw)):.1f} "
+          "us a call")
     slots, n_pos = ancestor_reads(anc, npad, cur, kb)
     n_bytes = 2 * 2 * slots * ATTN_D + 2 * 2 * B * ATTN_D + 4 * B + 4 * n_pos
     bound_ms, bound_by = bound(n_bytes, 4 * n_pos * ATTN_D)

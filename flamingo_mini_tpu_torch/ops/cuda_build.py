@@ -27,13 +27,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points: name -> argument types; each returns cudaGetLastError()
 SIGNATURES = {
-    # q, k, v, npad, out, b, D, n_head, t_lim, cur, scale, is_bf16, stream
+    # q, k, v, npad, out, b, D, n_head, t_lim, cur, scale, is_bf16, stream,
+    # scratch, and the plan: heads, splits, positions, warps
     "fmt_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                             _P],
+                             _P, _P, _I, _I, _I, _I],
     # q, k, v, npad, anc, out, b, D, n_head, t_lim, cur, scale, kb, anc_len,
-    # is_bf16, stream
+    # is_bf16, stream, scratch, heads, splits, positions, warps
     "fmt_decode_attention_beam": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _F, _I, _I, _I, _P],
+                                  _F, _I, _I, _I, _P, _P, _I, _I, _I, _I],
     # w8, scale, x, part_max, part_idx, out, Vp, D, ldw, B, n_valid, stream
     "fmt_lm_head_argmax": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fmt_lm_head_rows_per_block": [],

@@ -3,16 +3,23 @@
 Port of ``flamingo_mini_tpu/ops/pallas_decode.py::decode_attention`` and
 ``::decode_attention_beam``. Both CUDA kernels are in
 ``csrc/decode_attention.cu``; its source note says what bounds them on the
-card and how the design answers that.
+card and how the design answers that: the live prefix split across blocks
+(flash-decoding), each block's whole K/V slab issued at once by 16-byte
+``cp.async``, and the splits' partials folded in split order by a second
+small launch. ``plan`` picks, per shape, the heads a block holds, the
+splits and the slots a split holds, and is cached per shape.
 
 ``decode_attention`` and ``decode_attention_beam`` launch their kernel for
 CUDA tensors and run their plain version for CPU tensors; nothing else picks
-the path. Each counts its own launches. Semantics (both paths): scores in
-float32, scaled after the dot, positions valid iff ``npad[row] <= t <= cur``
-(invalid ones filled with float32 min), float32 softmax, probabilities cast
-to the cache dtype before the V product with float32 accumulation,
-normalised at the end. Only the live prefix ``[0, min(kv_limit, T))`` is
-read. A fully masked row comes out finite.
+the path. Each counts its own launches, one per call. Semantics (both
+paths): scores in float32, scaled after the dot, positions valid iff
+``npad[row] <= t <= cur`` (invalid ones filled with float32 min), float32
+softmax, probabilities cast to the cache dtype before the V product with
+float32 accumulation, normalised at the end. Only the live prefix
+``[0, min(kv_limit, T))`` is read. A fully masked row comes out finite. The
+kernels round the probabilities against a split's own max, the plain
+versions against the row's: bf16 outputs agree to 2 bf16 ulps of the
+output's scale, float32 ones to 1e-5.
 
 The beam variant is the lazy reorder of ``beam_search.py``: rows come in
 families of ``kb`` cache rows that never move, and logical beam ``i`` of
@@ -21,7 +28,8 @@ family ``f`` attends cache row ``f * kb + j`` at position ``t`` iff
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import functools
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -29,6 +37,22 @@ from . import cuda_build
 
 NEG = float(torch.finfo(torch.float32).min)
 HEAD_DIM = 64
+# H100 SXM: streaming multiprocessors, shared memory an SM holds (228 KB)
+# and a block may take (227 KB) less the kernel's static arrays (2 KB);
+# the registers the kernel takes a thread at most (ptxas: 40-57)
+SM_COUNT = 132
+SM_SMEM = 233472
+STATIC_SMEM = 2048
+SMEM_LIMIT = 232448 - STATIC_SMEM
+REGISTERS = 64
+# floats of one split's partial in the scratch: 64 sums, max, sum, pad
+PART_STRIDE = 68
+MAX_WARPS = 16
+MAX_SPLITS = 32
+MAX_BEAMS = 32      # the family rows a block holds (kMaxRows in the source)
+# a split's second launch in slots a warp walks (about 1.8 us over about
+# 18 ns on the H100; the sweep of ``profile_decode.py attn_plans``, PERF.md)
+SPLIT_COST = 100
 
 
 def decode_attention_plain(q, k_cache, v_cache, npad, cur: int, *,
@@ -80,6 +104,133 @@ def _check_cuda(q, k_cache, v_cache, npad, n_head: int) -> None:
                          "on the same device")
 
 
+class Plan(NamedTuple):
+    """One launch's layout: a block holds ``heads`` adjacent heads of a
+    family's rows over ``positions`` slots of the live prefix, ``splits``
+    blocks along it, ``warps`` warps a block; ``smem`` its dynamic shared
+    memory in bytes, ``blocks`` the grid, ``pairs`` the (beam, head) pairs
+    a block's warps take."""
+    heads: int
+    splits: int
+    positions: int
+    warps: int
+    smem: int
+    blocks: int
+    pairs: int
+
+
+def plan_smem(kb: int, heads: int, positions: int, itemsize: int,
+              beam: bool) -> int:
+    """Dynamic shared memory of a block (``smem_bytes`` in the source): K
+    and V slabs of ``kb * positions`` (row, slot)s of ``heads * 64`` values,
+    q of the ``kb`` rows, a float score per (row, head, slot); beam: the
+    ancestry (int32) and a need flag (byte) per (row, slot)."""
+    slab = heads * HEAD_DIM * itemsize
+    n = kb * positions
+    return 2 * n * slab + kb * slab + 4 * n * heads + (5 * n if beam else 0)
+
+
+def make_plan(rows: int, n_head: int, t_lim: int, itemsize: int, *, kb: int,
+              beam: bool, heads: int, splits: int) -> Plan:
+    """The plan of ``heads`` heads a block and (at most) ``splits`` splits:
+    equal splits of ``ceil(t_lim / splits)`` slots, the last one ragged."""
+    positions = -(-t_lim // splits)
+    splits = -(-t_lim // positions)
+    chunks = heads * HEAD_DIM * itemsize // 16     # 16-byte chunks a (row, slot)
+    warps = min(MAX_WARPS, kb * heads)             # a (beam, head) pair each
+    warps += (32 * warps) % chunks // 32           # a whole chunk column per thread
+    return Plan(heads, splits, positions, warps,
+                plan_smem(kb, heads, positions, itemsize, beam),
+                (rows // kb) * (n_head // heads) * splits, kb * heads)
+
+
+def resident(p: Plan) -> int:
+    """Blocks of the plan an SM holds at once: bounded by its 228 KB of
+    shared memory (the block's dynamic and static arrays and 1 KB the card
+    reserves a block), its 2,048 threads, its 65,536 registers (at most
+    REGISTERS a thread) and 32 blocks."""
+    return min(32, 64 // p.warps, 65536 // (REGISTERS * 32 * p.warps),
+               SM_SMEM // (p.smem + STATIC_SMEM + 1024))
+
+
+def waves(p: Plan, n_sm: int = SM_COUNT) -> int:
+    """Waves of the grid: blocks over the blocks the card holds at once."""
+    return -(-p.blocks // (n_sm * resident(p)))
+
+
+def rank(p: Plan, n_sm: int = SM_COUNT):
+    """The plan's sort key, least first. A grid the card holds in one wave
+    with a block for every SM: the fewest splits (a split's combine is a
+    second launch, about 1.8 us), then the most blocks. Any other grid
+    after those, by the slots each warp walks (each of its pairs' in turn,
+    once a wave), plus SPLIT_COST for a split (a slot walked costs about
+    18 ns), then the most blocks."""
+    if waves(p, n_sm) == 1 and p.blocks >= n_sm:
+        return (0, p.splits, -p.blocks)
+    rounds = -(-p.pairs // p.warps)        # (beam, head) pairs a warp takes in turn
+    walk = waves(p, n_sm) * rounds * p.positions
+    return (1, walk + SPLIT_COST * (p.splits > 1), -p.blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(rows: int, n_head: int, t_lim: int, itemsize: int, *, kb: int = 1,
+         beam: bool = False, n_sm: int = SM_COUNT) -> Plan:
+    """The kernel's layout at one shape, cached: ``rows`` query rows in
+    families of ``kb`` (1 greedy), ``t_lim`` slots of live prefix. Of the
+    plans of 4, 2 or 1 heads a block and 1 to MAX_SPLITS splits whose
+    shared memory fits, the first by ``rank``. At the decode paths' shapes
+    that is an unsplit grid of one head a block: the whole slab in flight
+    in one wave (PERF.md §6)."""
+    plans = [p for heads in (4, 2, 1) if n_head % heads == 0
+             for splits in range(1, min(MAX_SPLITS, t_lim) + 1)
+             for p in [make_plan(rows, n_head, t_lim, itemsize, kb=kb, beam=beam,
+                                 heads=heads, splits=splits)]
+             if p.splits == splits and p.smem <= SMEM_LIMIT]
+    if not plans:
+        raise ValueError(f"decode_attention: no plan fits {rows} rows of "
+                         f"{n_head} heads over {t_lim} slots")
+    return min(plans, key=lambda p: rank(p, n_sm))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch(q, k_cache, v_cache, npad, anc, cur: int, *, n_head: int,
+            scale: float, kb: int, t_lim: int, p: Plan) -> torch.Tensor:
+    """Launch the greedy kernel (``anc`` None) or the beam kernel on checked
+    inputs under the plan ``p`` -> out. Raises before the launch where the
+    plan or an input breaks a rule the kernel keeps."""
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"decode_attention: {name} must be 16-byte aligned")
+    if p.smem > SMEM_LIMIT:
+        raise ValueError(f"decode_attention: {p} takes {p.smem} bytes of shared "
+                         f"memory, over {SMEM_LIMIT}")
+    rows, D = q.shape
+    scratch = None
+    if p.splits > 1:
+        scratch = torch.empty(rows * n_head * p.splits * PART_STRIDE,
+                              dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    lib = cuda_build.kernels()
+    tail = (int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream,
+            None if scratch is None else scratch.data_ptr(), p.heads, p.splits,
+            p.positions, p.warps)
+    ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), npad.data_ptr())
+    if anc is None:
+        err = lib.fmt_decode_attention(*ptrs, out.data_ptr(), rows, D, n_head, t_lim,
+                                       cur, float(scale), *tail)
+    else:
+        err = lib.fmt_decode_attention_beam(*ptrs, anc.data_ptr(), out.data_ptr(), rows,
+                                            D, n_head, t_lim, cur, float(scale), kb,
+                                            anc.shape[2], *tail)
+    cuda_build.check(err, "decode_attention" if anc is None else "decode_attention_beam")
+    return out
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, npad: torch.Tensor,
                      cur: Union[int, torch.Tensor], *, n_head: int,
@@ -103,15 +254,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                       kv_limit=kv_limit)
     _check_cuda(q, k_cache, v_cache, npad, n_head)
     t_lim = max_len if kv_limit is None else min(kv_limit, max_len)
-    out = torch.empty_like(q)
-    lib = cuda_build.kernels()
+    p = plan(b, n_head, t_lim, q.element_size(), n_sm=_sm_count(q.device))
+    out = _launch(q, k_cache, v_cache, npad, None, cur, n_head=n_head,
+                  scale=scale, kb=1, t_lim=t_lim, p=p)
     decode_attention.launches += 1
-    err = lib.fmt_decode_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), npad.data_ptr(),
-        out.data_ptr(), b, D, n_head, t_lim, cur, float(scale),
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check(err, "decode_attention")
     return out
 
 
@@ -188,19 +334,18 @@ def decode_attention_beam(q: torch.Tensor, k_cache: torch.Tensor,
                                            n_head=n_head, scale=scale, kb=kb,
                                            kv_limit=kv_limit)
     _check_cuda(q, k_cache, v_cache, npad, n_head)
+    if kb > MAX_BEAMS:
+        raise ValueError(f"CUDA decode_attention_beam takes at most {MAX_BEAMS} "
+                         f"beams, got {kb}")
     if anc.device != q.device or not anc.is_contiguous():
         raise ValueError("decode_attention_beam: anc must be contiguous on "
                          "the same device")
     t_lim = max_len if kv_limit is None else min(kv_limit, max_len)
-    out = torch.empty_like(q)
-    lib = cuda_build.kernels()
+    p = plan(B, n_head, t_lim, q.element_size(), kb=kb, beam=True,
+             n_sm=_sm_count(q.device))
+    out = _launch(q, k_cache, v_cache, npad, anc, cur, n_head=n_head,
+                  scale=scale, kb=kb, t_lim=t_lim, p=p)
     decode_attention_beam.launches += 1
-    err = lib.fmt_decode_attention_beam(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), npad.data_ptr(),
-        anc.data_ptr(), out.data_ptr(), B, D, n_head, t_lim, cur, float(scale),
-        kb, anc.shape[2], int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check(err, "decode_attention_beam")
     return out
 
 

@@ -2,6 +2,7 @@
 """Where the decode time goes on one CUDA card.
 
     python3 profile_decode.py [sweep] [paths] [opt] [fixed] [forward]
+    python3 profile_decode.py levels | phases | attn_plans
 
 Four measurements of the PyTorch port at flamingo-mini width (GPT-2-medium
 trunk with xattn before every layer, int8 weights, bf16; random weights from
@@ -310,6 +311,76 @@ def phases(dev, card):
     return rows
 
 
+def attn_plans(dev, card):
+    """``decode_attention`` and ``decode_attention_beam`` (bf16, L2 flushed,
+    ``chip_smoke.time_ms``) at chip_smoke.py's phase 2 shapes and three
+    more, under every plan of 1, 2 or 4 heads a block and 1-16 splits that
+    the kernel takes and the one ``plan()`` picks, each held to its plain
+    version: flamingo-mini greedy
+    (b=32, kv_limit 132, cur 131), OPT-1.3B (b=8, D=2048, kv_limit 71, cur
+    70), beams at 96 rows (32 x 3) and 160 rows (32 x 5; kv_limit 68, cur
+    66), then greedy b=1, beams at 3 rows and b=8 over 1,000 slots. Prints
+    the timer's floor, each shape's times by plan, fastest first, the plan
+    ``plan()`` picks, and those two with L2 clean."""
+    import chip_smoke as cs
+    from flamingo_mini_tpu_torch.ops import decode_attention as da
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    one = torch.zeros(1, device=dev)
+    floor = cs.time_ms(lambda: one.add_(1), 30, flush)
+    print(f"[attn_plans] {card}: the timer's floor (one 1-element add): {floor:.4f} ms")
+    rows = [dict(case="timer floor", ms=floor)]
+    for case, (b, D, T, kb, kv_limit, cur) in {
+            "greedy b=32": (32, 1024, 192, 1, 132, 131),
+            "OPT-1.3B b=8": (cs.OPT_B, cs.OPT_D, cs.OPT_T, 1, 71, 70),
+            "beams 96 rows": (96, 1024, cs.BEAM_T, 3, 68, 66),
+            "beams 160 rows": (160, 1024, cs.BEAM_T, 5, 68, 66),
+            "greedy b=1": (1, 1024, 192, 1, 132, 131),
+            "beams 3 rows": (3, 1024, cs.BEAM_T, 3, 68, 66),
+            "greedy b=8, kv_limit 1000": (8, 1024, 1024, 1, 1000, 999)}.items():
+        H = D // da.HEAD_DIM
+        rs = np.random.RandomState(b)
+        q, k, v = (torch.tensor(rs.randn(*s) * 0.3, dtype=torch.float32, device=dev)
+                   .to(torch.bfloat16) for s in ((b, D), (T, b, D), (T, b, D)))
+        kw = dict(n_head=H, scale=0.125, kv_limit=kv_limit)
+        anc = None
+        if kb > 1:
+            anc = cs.random_ancestry(dev, b // kb, kb, seed=3)
+            npad = cs.family_npad(dev, b // kb, kb)
+            want = da.decode_attention_beam_plain(q, k, v, anc, npad, cur, kb=kb, **kw)
+        else:
+            npad = torch.tensor(np.arange(b) % 4, dtype=torch.int32, device=dev)
+            want = da.decode_attention_plain(q, k, v, npad, cur, **kw)
+        tol = cs.bf16_ulps(want.float(), 2)
+        picked = da.plan(b, H, kv_limit, 2, kb=kb, beam=kb > 1)
+        grid = {da.make_plan(b, H, kv_limit, 2, kb=kb, beam=kb > 1, heads=heads,
+                             splits=splits)
+                for heads in (1, 2, 4) for splits in (1, 2, 3, 4, 6, 8, 12, 16)}
+        def run(p):
+            return da._launch(q, k, v, npad, anc, cur, n_head=H, scale=0.125, kb=kb,
+                              t_lim=kv_limit, p=p)
+        times = []
+        for p in sorted(p for p in grid | {picked} if p.smem <= da.SMEM_LIMIT):
+            err = float((run(p).float() - want.float()).abs().max())
+            assert err <= tol, (case, p, err, tol)
+            times.append((cs.time_ms(lambda: run(p), 30, flush), p))
+        times.sort(key=lambda x: x[0])
+        for label, p in (("fastest", times[0][1]), ("picked", picked)):
+            print(f"[attn_plans]   {label} {tuple(p)} with L2 clean: "
+                  f"{cs.time_ms(lambda: run(p), 30, flush, clean=True):.4f} ms",
+                  flush=True)
+        row = dict(case=case, picked=picked._asdict(),
+                   picked_ms=next(ms for ms, p in times if p == picked),
+                   plans=[dict(ms=ms, **p._asdict()) for ms, p in times])
+        rows.append(row)
+        print(f"[attn_plans] {card}: {case}: plan() picks {tuple(picked)} "
+              f"({row['picked_ms']} ms); fastest first:", flush=True)
+        for ms, p in times[:12]:
+            print(f"[attn_plans]   {ms:.4f} ms  heads {p.heads} splits {p.splits} "
+                  f"positions {p.positions} warps {p.warps} smem {p.smem} "
+                  f"blocks {p.blocks}", flush=True)
+    return rows
+
+
 def levels(dev, card):
     """Whether the w8a8 mode's OPT-1.3B time takes a level per process, and
     what sets it: ``levels_one`` in ``LEVEL_PROCS`` fresh processes, one
@@ -586,8 +657,9 @@ def main() -> int:
     sections = {"sweep": sweep, "paths": profile_paths,
                 "opt": lambda dev, card: profile_paths(dev, card, opt=True),
                 "fixed": fixed_cost, "forward": profile_forward, "levels": levels,
-                "phases": phases}
-    names = sys.argv[1:] or [n for n in sections if n not in ("levels", "phases")]
+                "phases": phases, "attn_plans": attn_plans}
+    names = sys.argv[1:] or [n for n in sections
+                             if n not in ("levels", "phases", "attn_plans")]
     unknown = set(names) - set(sections)
     if unknown:
         print(f"profile_decode: unknown sections {sorted(unknown)}; choose from "

@@ -25,6 +25,12 @@ OPT mode (ReLU, q/k/v packed as one projection) at OPT-1.3B's width
 beam kernels (``decode_attention_beam``, the megakernel's beam mode) are
 held to the same tolerances at the beam path's shapes (96 rows in families
 of 3, 160 in families of 5, a 128-slot cache, a 68-slot ancestry table).
+Both decode attention kernels also at kv_limit 1, 63, 64, 65, 127, 128,
+129 and 192 (greedy at flamingo-mini's and OPT-1.3B's shapes), with the
+live prefix ending on each side of every split boundary of their plan, a
+row whose [npad, cur] is empty and one whose first split is masked; under
+layouts of 2, 3 and 8 splits and at a 1,000-slot prefix (the combine
+launch); and bit-equal on a repeated call.
 The attention kernels of the use_pallas path (``fused_attention``, its
 streaming kernel, ``fused_media_xattn``) are held at the ViT, resampler,
 GPT-2 forward, media prefill and forward shapes, with fully masked rows
@@ -91,25 +97,134 @@ def _bf16_ulps(ref: np.ndarray, n: int) -> float:
     return n * 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
 
 
-# (kv_limit, cur): live prefixes the flamingo-mini decode reaches
+# the live prefixes the kernels' tests cover: around 64-slot multiples and
+# the cache's end
+EDGE_LIMITS = (1, 63, 64, 65, 127, 128, 129, 192)
+# (b, D, n_head, cache slots): flamingo-mini, OPT-1.3B
+ATTN_SHAPES = {"flamingo-mini": (32, 1024, 16, 192), "opt-1.3b": (8, 2048, 32, 128)}
+
+
+def _plan(rows: int, n_head: int, kb: int, kv_limit: int, T: int, itemsize: int):
+    from flamingo_mini_tpu_torch.ops.decode_attention import plan
+    return plan(rows, n_head, min(kv_limit, T), itemsize, kb=kb, beam=kb > 1)
+
+
+def _worst(got, want, dtype, label):
+    """Assert the kernel's tolerance -> (error, where: (row, value))."""
+    want = want.float()
+    diff = (got.float() - want).abs()
+    err = float(diff.max())
+    where = tuple(int(i) for i in np.unravel_index(int(diff.argmax()), diff.shape))
+    tol = 1e-5 if dtype == torch.float32 else _bf16_ulps(want.cpu().numpy(), 2)
+    assert bool(torch.isfinite(got).all()), label
+    assert err <= tol, (label, err, tol, where)
+    return err, where
+
+
+# (kv_limit, cur): live prefixes the flamingo-mini decode reaches, then the
+# edge limits with cur at their last slot
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kv_limit,cur", [(36, 4), (68, 35), (132, 131)])
-def test_decode_attention_kernel_matches_plain(cuda, dtype, kv_limit, cur):
-    b, T, n_head, D = 32, 192, 16, 1024
+@pytest.mark.parametrize("kv_limit,cur", [(36, 4), (68, 35), (132, 131)]
+                         + [(k, k - 1) for k in EDGE_LIMITS])
+@pytest.mark.parametrize("shape", sorted(ATTN_SHAPES))
+def test_decode_attention_kernel_matches_plain(cuda, shape, dtype, kv_limit, cur):
+    """At each side of every split boundary, with masked rows and splits."""
+    import chip_smoke
+    b, D, n_head, T = ATTN_SHAPES[shape]
     rs = np.random.RandomState(kv_limit)
     q, k, v = (torch.tensor(rs.randn(*s) * 0.3, dtype=torch.float32)
                .to(cuda, dtype) for s in ((b, D), (T, b, D), (T, b, D)))
+    p = _plan(b, n_head, 1, kv_limit, T, q.element_size())
+    for c, npad in chip_smoke.attention_edge_cases(b, 1, kv_limit, cur, T, p):
+        npad = torch.tensor(npad, dtype=torch.int32, device=cuda)
+        before = decode_attention.launches
+        got = decode_attention(q, k, v, npad, c, n_head=n_head, scale=0.125,
+                               kv_limit=kv_limit)
+        want = decode_attention_plain(q, k, v, npad, c, n_head=n_head,
+                                      scale=0.125, kv_limit=kv_limit)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 1
+        _worst(got, want, dtype, (shape, kv_limit, c))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernels_are_deterministic(cuda, dtype):
+    """Two calls on the same inputs give equal bits, both kernels, at the
+    main path's shapes, and under a plan of three splits (the partials fold
+    in split order)."""
+    b, D, n_head, T = ATTN_SHAPES["flamingo-mini"]
+    rs = np.random.RandomState(5)
+    q, k, v = (torch.tensor(rs.randn(*s) * 0.3, dtype=torch.float32)
+               .to(cuda, dtype) for s in ((b, D), (T, b, D), (T, b, D)))
     npad = torch.tensor(np.arange(b) % 4, dtype=torch.int32, device=cuda)
-    before = decode_attention.launches
-    got = decode_attention(q, k, v, npad, cur, n_head=n_head, scale=0.125,
-                           kv_limit=kv_limit)
-    want = decode_attention_plain(q, k, v, npad, cur, n_head=n_head,
-                                  scale=0.125, kv_limit=kv_limit)
-    torch.cuda.synchronize()
-    assert decode_attention.launches == before + 1
-    want = want.float().cpu().numpy()
-    tol = 1e-5 if dtype == torch.float32 else _bf16_ulps(want, 2)
-    np.testing.assert_allclose(got.float().cpu().numpy(), want, atol=tol, rtol=0)
+    kw = dict(n_head=n_head, scale=0.125, kv_limit=132)
+    first = decode_attention(q, k, v, npad, 131, **kw)
+    assert torch.equal(first, decode_attention(q, k, v, npad, 131, **kw))
+    from flamingo_mini_tpu_torch.ops import decode_attention as da
+    p = da.make_plan(b, n_head, 132, q.element_size(), kb=1, beam=False, heads=2, splits=3)
+    first = da._launch(q, k, v, npad, None, 131, n_head=n_head, scale=0.125, kb=1,
+                       t_lim=132, p=p)
+    assert torch.equal(first, da._launch(q, k, v, npad, None, 131, n_head=n_head,
+                                         scale=0.125, kb=1, t_lim=132, p=p))
+    for rows, kb in ((96, 3), (160, 5)):
+        q, k, v, anc, npad = _beam_attention_inputs(cuda, dtype, seed=rows, rows=rows,
+                                                    kb=kb)
+        kw = dict(n_head=16, scale=0.125, kb=kb, kv_limit=68)
+        first = decode_attention_beam(q, k, v, anc, npad, 66, **kw)
+        assert torch.equal(first, decode_attention_beam(q, k, v, anc, npad, 66, **kw))
+
+
+# (heads, splits): layouts the decode paths' shapes do not pick (their whole
+# slab fits one resident wave unsplit), as longer prefixes take them
+SPLIT_PLANS = ((1, 2), (2, 3), (4, 8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["greedy", "beam"])
+def test_decode_attention_split_plans_match_plain(cuda, kernel, dtype):
+    """Split plans (the combine launch) at each side of every split
+    boundary, with masked rows and splits, greedy at b=32 (kv_limit 129)
+    and beams at 96 rows (kv_limit 68); then the plan a long prefix picks
+    (b=8, 1,000 of 1,024 slots) through the wrapper."""
+    import chip_smoke
+    from flamingo_mini_tpu_torch.ops import decode_attention as da
+    if kernel == "greedy":
+        rows, kb, T, kv_limit = 32, 1, 192, 129
+        rs = np.random.RandomState(129)
+        q, k, v = (torch.tensor(rs.randn(*s) * 0.3, dtype=torch.float32)
+                   .to(cuda, dtype) for s in ((rows, 1024), (T, rows, 1024), (T, rows, 1024)))
+        anc = None
+    else:
+        rows, kb, T, kv_limit = 96, 3, 128, 68
+        q, k, v, anc, _npad = _beam_attention_inputs(cuda, dtype, seed=68)
+    kw = dict(n_head=16, scale=0.125, kv_limit=kv_limit)
+    for heads, splits in SPLIT_PLANS:
+        p = da.make_plan(rows, 16, kv_limit, q.element_size(), kb=kb, beam=kb > 1,
+                         heads=heads, splits=splits)
+        assert p.splits > 1
+        for c, npad in chip_smoke.attention_edge_cases(rows, kb, kv_limit, kv_limit - 1, T, p):
+            npad = torch.tensor(npad, dtype=torch.int32, device=cuda)
+            got = da._launch(q, k, v, npad, anc, c, n_head=16, scale=0.125, kb=kb,
+                             t_lim=kv_limit, p=p)
+            if anc is None:
+                want = decode_attention_plain(q, k, v, npad, c, **kw)
+            else:
+                want = decode_attention_beam_plain(q, k, v, anc, npad, c, kb=kb, **kw)
+            torch.cuda.synchronize()
+            _worst(got, want, dtype, (kernel, p, c))
+    if kernel == "greedy":
+        rs = np.random.RandomState(1000)
+        q, k, v = (torch.tensor(rs.randn(*s) * 0.3, dtype=torch.float32)
+                   .to(cuda, dtype) for s in ((8, 1024), (1024, 8, 1024), (1024, 8, 1024)))
+        p = _plan(8, 16, 1, 1000, 1024, q.element_size())
+        assert p.splits > 1
+        for c, npad in chip_smoke.attention_edge_cases(8, 1, 1000, 999, 1024, p):
+            npad = torch.tensor(npad, dtype=torch.int32, device=cuda)
+            got = decode_attention(q, k, v, npad, c, n_head=16, scale=0.125, kv_limit=1000)
+            want = decode_attention_plain(q, k, v, npad, c, n_head=16, scale=0.125,
+                                          kv_limit=1000)
+            torch.cuda.synchronize()
+            _worst(got, want, dtype, ("long prefix", p, c))
 
 
 def test_lm_head_kernel_matches_plain(cuda):
@@ -228,33 +343,41 @@ def test_megakernel_refuses_bad_input(cuda):
 # ---------------------------------------------------------------------------
 
 
-def _beam_attention_inputs(cuda, dtype, seed):
-    """96 rows in 32 families of 3, D=1024, H=16, a 128-slot cache, a random
-    valid 68-slot ancestry table, families left-padded by 0-3 slots."""
+def _beam_attention_inputs(cuda, dtype, seed, rows=96, kb=3):
+    """``rows`` rows in families of ``kb`` (96 in 32 of 3 unless said),
+    D=1024, H=16, a 128-slot cache, a random valid 68-slot ancestry table,
+    families left-padded by 0-3 slots."""
     import chip_smoke
-    B, T, D = 96, 128, 1024
+    T, D = 128, 1024
     rs = np.random.RandomState(seed)
     q, k, v = (torch.tensor(rs.randn(*s) * 0.3, dtype=torch.float32)
-               .to(cuda, dtype) for s in ((B, D), (T, B, D), (T, B, D)))
-    return (q, k, v, chip_smoke.random_ancestry(cuda, 32, 3, seed),
-            chip_smoke.family_npad(cuda, 32, 3))
+               .to(cuda, dtype) for s in ((rows, D), (T, rows, D), (T, rows, D)))
+    return (q, k, v, chip_smoke.random_ancestry(cuda, rows // kb, kb, seed),
+            chip_smoke.family_npad(cuda, rows // kb, kb))
 
 
 # (kv_limit, cur): the beam loop's segments end at 37 and 68; cur 2 leaves
-# the families padded by 3 nothing to attend; cur 127 is past the table
+# the families padded by 3 nothing to attend; cur 127 is past the table;
+# then the edge limits (past the 128-slot cache: 128) with cur at their
+# last slot
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kv_limit,cur", [(37, 4), (68, 66), (37, 2), (128, 127)])
-def test_decode_attention_beam_kernel_matches_plain(cuda, dtype, kv_limit, cur):
-    q, k, v, anc, npad = _beam_attention_inputs(cuda, dtype, seed=cur)
-    kw = dict(n_head=16, scale=0.125, kb=3, kv_limit=kv_limit)
-    before = decode_attention_beam.launches
-    got = decode_attention_beam(q, k, v, anc, npad, cur, **kw)
-    want = decode_attention_beam_plain(q, k, v, anc, npad, cur, **kw)
-    torch.cuda.synchronize()
-    assert decode_attention_beam.launches == before + 1
-    want = want.float().cpu().numpy()
-    tol = 1e-5 if dtype == torch.float32 else _bf16_ulps(want, 2)
-    np.testing.assert_allclose(got.float().cpu().numpy(), want, atol=tol, rtol=0)
+@pytest.mark.parametrize("kv_limit,cur", [(37, 4), (68, 66), (37, 2), (128, 127)]
+                         + [(k, min(k, 128) - 1) for k in EDGE_LIMITS])
+@pytest.mark.parametrize("rows,kb", [(96, 3), (160, 5)])
+def test_decode_attention_beam_kernel_matches_plain(cuda, rows, kb, dtype, kv_limit, cur):
+    """At each side of every split boundary, with masked rows and splits."""
+    import chip_smoke
+    q, k, v, anc, _npad = _beam_attention_inputs(cuda, dtype, seed=cur, rows=rows, kb=kb)
+    kw = dict(n_head=16, scale=0.125, kb=kb, kv_limit=kv_limit)
+    p = _plan(rows, 16, kb, kv_limit, 128, q.element_size())
+    for c, npad in chip_smoke.attention_edge_cases(rows, kb, kv_limit, cur, 128, p):
+        npad = torch.tensor(npad, dtype=torch.int32, device=cuda)
+        before = decode_attention_beam.launches
+        got = decode_attention_beam(q, k, v, anc, npad, c, **kw)
+        want = decode_attention_beam_plain(q, k, v, anc, npad, c, **kw)
+        torch.cuda.synchronize()
+        assert decode_attention_beam.launches == before + 1
+        _worst(got, want, dtype, (rows, kv_limit, c))
 
 
 def test_decode_attention_beam_reads_only_ancestors(cuda):
