@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time the port's kernels in two checkouts on one card, in turns.
 
-    python3 ab_kernels.py A_DIR B_DIR
+    python3 ab_kernels.py A_DIR B_DIR [GROUP ...]
 
+GROUPs (all unless some are named): attention, media, head, decode, mega.
 Runs each checkout in a process of its own (each builds its own kernels
 from its own sources) in the order A, B, B, A and prints, for each run, the
 median device time of ``decode_attention`` (b=32, D=1024, H=16, T=192,
@@ -21,13 +22,18 @@ its wrapper's host us per call, and
 of the bf16 attention kernels of ``use_pallas``: ``fused_attention`` at the
 ViT (32, 16, 257, 257), resampler (32, 8, 64, 321) and causal GPT-2 and
 OPT-1.3B forward shapes (two rows left-padded by 8) and ``flash_attention``
-at (2, 16, 4000, 64), each beside its wrapper's host us per call. L2
+at (2, 16, 4000, 64), each beside its wrapper's host us per call, and of
+``fused_media_xattn`` (bf16) at chip_smoke.py's ``MEDIA_SHAPES`` (the
+prefill, the forward, two images with the first half of the rows after
+image 1 and the second after image 2) and at 40 tokens over 13 and 20
+images, each beside its time with L2 clean and its wrapper's host us per
+call. L2
 flushed, on the inputs of each checkout's ``chip_smoke.py``; every time is
 taken by this checkout's ``chip_smoke.time_ms`` (a spin on the card before
 each call, so that the events time the card alone), whatever the timed
-checkout's own timer. Then two more processes, B and A, time the
-megakernel cases alone, so that each checkout's megakernel runs in three
-fresh processes; the last lines print each process's OPT-1.3B times (a
+checkout's own timer. With the mega group, two more processes, B and A,
+time the megakernel cases alone, so that each checkout's megakernel runs
+in three fresh processes; the last lines print each process's OPT-1.3B times (a
 level set per process shows there). Writes the runs to
 ``chiprun_out/ab_kernels.json``. Needs a card; exits 1 without one.
 """
@@ -71,6 +77,33 @@ def attention(cs, dev, flush, out: dict) -> None:
     out["flash_attention_ms"] = time_ms(lambda: flash_attention(q, k, v, scale=scale), 20,
                                         flush)
     out["flash_attention_host_us"] = host_us(lambda: flash_attention(q, k, v, scale=scale))
+
+
+def media(cs, dev, flush, out: dict) -> None:
+    """``fused_media_xattn`` (bf16) at chip_smoke's MEDIA_SHAPES and at 40
+    tokens over 13 and 20 images (832 and 1,280 keys), 8 heads of 64 over 64
+    latents an image, scale 1 (as the models call it); text_time 1 on every
+    row, with more images the last one on the second half of the rows (made
+    here: the same in each checkout); null where the checkout refuses the
+    shape."""
+    from flamingo_mini_tpu_torch.ops.media_xattn import fused_media_xattn
+    shapes = dict(cs.MEDIA_SHAPES, **{"13 images": (8, 40, 13), "20 images": (8, 40, 20)})
+    for name, (b, n_q, n_media) in shapes.items():
+        q, k, v = cs.attention_inputs(dev, torch.bfloat16, b, 8, n_q, 64 * n_media, 2)
+        tt = torch.ones((b, n_q), dtype=torch.int32, device=dev)
+        tt[:, n_q // 2:] = n_media
+
+        def fn():
+            return fused_media_xattn(q, k, v, tt, scale=1.0, n_visual=64)
+        label = "fused_media_xattn_" + name.replace(" ", "_")
+        try:
+            fn()
+        except ValueError:   # a kernel that does not take this many keys
+            out[label + "_ms"] = out[label + "_clean_ms"] = out[label + "_host_us"] = None
+            continue
+        out[label + "_ms"] = time_ms(fn, 100, flush)
+        out[label + "_clean_ms"] = time_ms(fn, 100, flush, clean=True)
+        out[label + "_host_us"] = host_us(fn)
 
 
 def head(dev, flush, out: dict) -> None:
@@ -131,21 +164,28 @@ def decode_attentions(cs, dev, flush, out: dict) -> None:
         out[label + "_host_us"] = host_us(fn)
 
 
-def one(tree: str, mega_only: bool = False) -> dict:
+GROUPS = ("attention", "media", "head", "decode", "mega")
+
+
+def one(tree: str, groups=GROUPS) -> dict:
     """The kernels' times in the checkout ``tree``, an absolute path (run in
-    its own process, from that directory); ``mega_only``: the megakernel's
-    alone."""
+    its own process, from that directory), of the named groups."""
     sys.path.insert(0, tree)
     import chip_smoke as cs
     from flamingo_mini_tpu_torch.ops.megadecode import decode_step_megakernel
     dev = torch.device("cuda", 0)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    out = {"tree": tree, "mega_only": mega_only}
-    if not mega_only:
+    out = {"tree": tree, "groups": list(groups)}
+    if "attention" in groups:
         attention(cs, dev, flush, out)
+    if "media" in groups:
+        media(cs, dev, flush, out)
+    if "head" in groups:
         head(dev, flush, out)
-    if not mega_only:
+    if "decode" in groups:
         decode_attentions(cs, dev, flush, out)
+    if "mega" not in groups:
+        return out
     modes = [False]
     if "act_quant" in inspect.signature(decode_step_megakernel).parameters:
         modes.append(True)
@@ -180,21 +220,27 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA device", file=sys.stderr)
         return 1
-    if sys.argv[1] in ("--one", "--one-mega"):
-        print(json.dumps(one(sys.argv[2], mega_only=sys.argv[1] == "--one-mega")))
+    if sys.argv[1] == "--one":
+        print(json.dumps(one(sys.argv[2], sys.argv[3].split(","))))
         return 0
     a, b = (os.path.abspath(t) for t in sys.argv[1:3])
+    groups = sys.argv[3:] or list(GROUPS)
+    if set(groups) - set(GROUPS):
+        print(f"ab_kernels: groups are {GROUPS}", file=sys.stderr)
+        return 1
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader", "-i", "0"],
                           capture_output=True, text=True, check=True).stdout.strip()
     runs = []
-    for flag, tree in (("--one", a), ("--one", b), ("--one", b), ("--one", a),
-                       ("--one-mega", b), ("--one-mega", a)):
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), flag, tree],
-                             capture_output=True, text=True, check=True, cwd=tree)
+    turns = [(tree, ",".join(groups)) for tree in (a, b, b, a)]
+    if "mega" in groups:
+        turns += [(b, "mega"), (a, "mega")]
+    for tree, named in turns:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree,
+                              named], capture_output=True, text=True, check=True, cwd=tree)
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
         print(f"{card}: {runs[-1]}", flush=True)
-    for tree in (a, b):
+    for tree in (a, b) if "mega" in groups else ():
         per = [(r.get("decode_step_megakernel_opt_ms"), r.get("decode_step_megakernel_opt_w8a8_ms"))
                for r in runs if r["tree"] == tree]
         print(f"{card}: {tree}: OPT-1.3B b=8 (weight-only, w8a8) ms by process: {per}",

@@ -56,14 +56,22 @@ stream probe and the in-situ decode and head probes, and checks them:
    64, 64) shapes, the last two with two rows left-padded by 8 (fully
    masked pad queries); its
    streaming kernel ``flash_attention`` at (2, 16, 4000, 64) (keys padded to
-   4096), causal and not, a left-padded row; ``fused_media_xattn`` at the
-   prefill (32, 8, 4 tokens, 64 keys) and forward (8, 8, 64, 64 and 128)
-   shapes with text_time 0, in range and past the media count; float32
+   4096), causal and not, a left-padded row; ``fused_media_xattn`` (bf16 on
+   its Hopper kernel, float32 on the mma.sync tile) at the prefill (32, 8,
+   4 tokens, 64 keys), forward (8, 8, 64, 64) and two-image (8, 8, 64, 128)
+   shapes, at 5 and 17 tokens over two images and at 40 tokens over 13
+   and 20 images (832 and 1,280 keys: the bf16 kernel streams), under each
+   ``MEDIA_MIXES`` mix (text_time 0, each image and past the media count;
+   a 16-row slice spanning two media; a slice all 0; every row past the
+   media count; the timed mix), one launch a call, rows with text_time 0
+   exactly 0, rows past the media count the mean of V, two calls
+   bit-equal, printing the worst error and where it lies; float32
    within 1e-5 of the output's scale, bf16 within 2 bf16 ulps; each timed
    beside its plain version, SDPA (for the media kernel under the media
-   mask as a boolean mask, without the zeroing) and its bound, and beside
-   its wrapper's host time per call (``host_us``). The bf16 calls of the
-   first two run the Hopper tile (``csrc/attention_sm90.cuh``), also held
+   mask as a boolean mask, without the zeroing; at each media shape, two
+   images with text_time 1 then 2, and also with L2 clean) and its bound,
+   and beside its wrapper's host time per call (``host_us``). The bf16
+   calls of the first two run the Hopper tile (``csrc/attention_sm90.cuh``), also held
    at its edges: n_kv in {1, 63, 64, 65, 127, 128, 129, 257} by n_q in
    {1, 65, 129, 257}, each plain (strided and contiguous inputs), causal
    with a left-padded row and with a bias; back-to-back calls of five
@@ -232,6 +240,15 @@ FLASH_SHAPE = (2, 16, 4000)
 # prompts, one image), the forward (64 tokens, one image), and two images
 MEDIA_SHAPES = {"prefill": (32, 4, 1), "forward": (8, 64, 1),
                 "two images": (8, 64, 2)}
+# the media kernel's edges: prompts of 5 and 17 tokens (a slice and one row
+# more) over two images; 40 tokens over 13 and 20 images (832 and 1,280
+# keys: past the bf16 kernel's 16 slots, and at 20 past one 64-tile window)
+MEDIA_EDGE_SHAPES = {"n_q 5": (8, 5, 2), "n_q 17": (8, 17, 2),
+                     "13 images": (2, 40, 13), "20 images": (2, 40, 20)}
+# text_time mixes it is held under (media_mix): media_text_time's (0, each
+# image, past the media count), a 16-row slice spanning two media, a slice
+# all 0, every row past the media count (and one at -1), and the timed one
+MEDIA_MIXES = ("random", "span", "zero slice", "past", "timed")
 # flamingo-mini: GPT-2-medium with xattn before every layer, CLIP ViT-L/14
 MINI = dict(lm="gpt2-medium", clip_model_type="openai/clip-vit-large-patch14",
             dim=1024, dim_visual=1024, compute_dtype="bfloat16")
@@ -1534,6 +1551,33 @@ def media_text_time(dev, b, n_q, n_media, seed):
     return torch.tensor(tt, dtype=torch.int32, device=dev)
 
 
+def media_mix(dev, mix, b, n_q, n_media, seed):
+    """(b, n_q) int32 text_time of one of MEDIA_MIXES. ``span``: rows 0-7 of
+    each 16-row slice after image 1, rows 8-15 after image 2 (odd batch rows
+    the other way round); ``zero slice``: rows 0-15 of every batch row and
+    all of row 1 before any image, the rest after image 1; ``past``: every
+    row past the media count, row 0 at -1; ``timed``: the first half of the
+    rows after image 1, the second after the last image (with one image,
+    every row after it: the prefill and the forward as generate runs them)."""
+    if mix == "random":
+        return media_text_time(dev, b, n_q, n_media, seed)
+    r = np.arange(n_q)
+    tt = np.ones((b, n_q), np.int64)
+    if mix == "span":
+        lo = (r % 16) < min(8, (n_q + 1) // 2)
+        tt[0::2] = np.where(lo, 1, n_media)
+        tt[1::2] = np.where(lo, n_media, 1)
+    elif mix == "zero slice":
+        tt[:, :16] = 0
+        tt[1 % b] = 0
+    elif mix == "past":
+        tt[:] = n_media + 1
+        tt[0] = -1
+    elif mix == "timed":
+        tt[:, n_q // 2:] = n_media
+    return torch.tensor(tt, dtype=torch.int32, device=dev)
+
+
 def held_to_plain(label, got, want, dtype):
     """Max abs error of a kernel against its plain version; float32 within
     1e-5 of the output's scale, bf16 within 2 bf16 ulps of it."""
@@ -1694,47 +1738,91 @@ def phase2_flash_attention(dev, flush):
 
 
 def phase2_media_xattn(dev, flush):
+    """``fused_media_xattn`` against its plain version at MEDIA_SHAPES and
+    MEDIA_EDGE_SHAPES under every MEDIA_MIXES mix, bf16 (the Hopper kernel)
+    and float32 (the mma.sync tile): one launch a call, 2 bf16 ulps or 1e-5
+    of the output's scale, rows with text_time 0 exactly 0, rows past the
+    media count the mean of V; two bf16 calls bit-equal. Then each of
+    MEDIA_SHAPES timed under its ``timed`` mix (bf16, L2 flushed and clean)
+    beside its plain version, SDPA under the media mask (a boolean mask; no
+    zeroing, none needed there), its bound and the wrapper's host us per
+    call. -> {shape: kernel row}."""
     from flamingo_mini_tpu_torch.ops.media_xattn import (
-        fused_media_xattn, fused_media_xattn_plain)
-    worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        for name, (b, n_q, n_media) in MEDIA_SHAPES.items():
-            q, k, v = attention_inputs(dev, dtype, b, MEGA_XH, n_q,
-                                       n_media * MEGA_NV, seed=n_q)
-            tt = media_text_time(dev, b, n_q, n_media, seed=n_media)
-            kw = dict(scale=1.0, n_visual=MEGA_NV)
-            got = fused_media_xattn(q, k, v, tt, **kw)
-            want = fused_media_xattn_plain(q, k, v, tt, **kw)
-            worst = max(worst, held_to_plain(f"fused_media_xattn {name} {dtype}",
-                                             got, want, dtype))
-            assert bool((got[tt[:, None, :].expand_as(got[..., 0]) == 0] == 0).all())
-    print(f"[phase 2] fused_media_xattn vs plain at the shapes (b, n_token, n_media) "
-          f"{MEDIA_SHAPES}, "
-          f"{MEGA_XH} heads, {MEGA_NV} latents per image, text_time 0, in range and "
-          f"past the media count, bf16 and float32: max abs err {worst}; rows "
-          "with text_time 0 exactly 0")
-    b, n_q, n_media = MEDIA_SHAPES["prefill"]
-    q, k, v = attention_inputs(dev, torch.bfloat16, b, MEGA_XH, n_q, n_media * MEGA_NV, 2)
-    tt = torch.ones((b, n_q), dtype=torch.int32, device=dev)
+        fused_media_xattn, fused_media_xattn_plain, plan)
     kw = dict(scale=1.0, n_visual=MEGA_NV)
-    ms = time_ms(lambda: fused_media_xattn(q, k, v, tt, **kw), 50, flush)
-    plain_ms = time_ms(lambda: fused_media_xattn_plain(q, k, v, tt, **kw), 50, flush)
-    # yardstick: SDPA under the media mask as a boolean mask; it has no
-    # zeroing of rows without media (none here: every text_time is 1)
-    media_time = torch.arange(n_media * MEGA_NV, device=dev) // MEGA_NV + 1
-    mask = (tt[:, :, None] == media_time)[:, None]
-    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, scale=1.0), 50, flush)
-    host = host_us(lambda: fused_media_xattn(q, k, v, tt, **kw))
-    bound_ms, bound_by = attention_bound(b, MEGA_XH, n_q, n_media * MEGA_NV, 2,
-                                         extra_bytes=4 * b * n_q)
-    print(f"[phase 2] fused_media_xattn prefill {(b, MEGA_XH, n_q, n_media * MEGA_NV)} "
-          f"bf16: {ms} ms, plain {plain_ms} ms, scaled_dot_product_attention under "
-          f"the media mask (no zeroing) {library_ms} ms, bound {bound_ms:.5f} ms "
-          f"({bound_by}) (median per call, L2 flushed); wrapper host {host:.1f} us "
-          "per call")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by, max_abs_err=worst)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (b, n_q, n_media) in {**MEDIA_SHAPES, **MEDIA_EDGE_SHAPES}.items():
+            q, k, v = attention_inputs(dev, dtype, b, MEGA_XH, n_q,
+                                       n_media * MEGA_NV, seed=n_q + n_media)
+            for mix in MEDIA_MIXES:
+                tt = media_mix(dev, mix, b, n_q, n_media, seed=n_media)
+                before = fused_media_xattn.launches
+                got = fused_media_xattn(q, k, v, tt, **kw)
+                assert fused_media_xattn.launches == before + 1
+                want = fused_media_xattn_plain(q, k, v, tt, **kw)
+                label = f"fused_media_xattn {name} {mix} {dtype}"
+                err = held_to_plain(label, got, want, dtype)
+                tol = (1e-5 * float(want.float().abs().max()) if dtype == torch.float32
+                       else bf16_ulps(want.float(), 2))
+                if err >= worst.get(str(dtype), (-1.0,))[0]:
+                    diff = (got.float() - want.float()).abs()
+                    at = tuple(int(i) for i in np.unravel_index(int(diff.argmax()),
+                                                                diff.shape))
+                    worst[str(dtype)] = (err, tol, (name, mix, at,
+                                                    int(tt[at[0], at[2]])))
+                zero = (tt == 0)[:, None, :, None].expand_as(got)
+                assert bool((got[zero] == 0).all()), label
+                past = ((tt > n_media) | (tt < 0))[:, None, :, None].expand_as(got)
+                if bool(past.any()):
+                    mean_v = v.float().mean(dim=2, keepdim=True).expand_as(got)
+                    held_to_plain(f"{label}: rows past the media count",
+                                  got.float()[past], mean_v[past], dtype)
+    b, n_q, n_media = MEDIA_SHAPES["two images"]
+    q, k, v = attention_inputs(dev, torch.bfloat16, b, MEGA_XH, n_q, n_media * MEGA_NV, 3)
+    tt = media_mix(dev, "span", b, n_q, n_media, seed=0)
+    first, second = (fused_media_xattn(q, k, v, tt, **kw) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+    print(f"[phase 2] fused_media_xattn vs plain at {MEDIA_SHAPES} and "
+          f"{MEDIA_EDGE_SHAPES} (b, n_token, n_media), {MEGA_XH} heads, {MEGA_NV} "
+          f"latents per image, text_time mixes {MEDIA_MIXES}, bf16 (the Hopper kernel) "
+          f"and float32 (the mma.sync tile), one launch a call: worst (max abs err, "
+          f"tolerance, (shape, mix, (b, head, row, dim), text_time there)) {worst}; "
+          "rows with text_time 0 exactly 0, rows past the media count the mean of "
+          "V; two bf16 calls bit-equal")
+    max_err = max(w[0] for w in worst.values())
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for name, (b, n_q, n_media) in MEDIA_SHAPES.items():
+        n_kv = n_media * MEGA_NV
+        q, k, v = attention_inputs(dev, torch.bfloat16, b, MEGA_XH, n_q, n_kv, 2)
+        tt = media_mix(dev, "timed", b, n_q, n_media, seed=0)
+
+        def fn():
+            return fused_media_xattn(q, k, v, tt, **kw)
+        ms = time_ms(fn, 50, flush)
+        clean_ms = time_ms(fn, 50, flush, clean=True)
+        plain_ms = time_ms(lambda: fused_media_xattn_plain(q, k, v, tt, **kw), 20, flush)
+        media_time = torch.arange(n_kv, device=dev) // MEGA_NV + 1
+        mask = (tt[:, :, None] == media_time)[:, None]
+        library_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=1.0), 50, flush)
+        host = host_us(fn)
+        # every K/V byte is some row's (each batch row attends each image);
+        # each row's products over its own medium's keys
+        bound_ms, bound_by = attention_bound(b, MEGA_XH, n_q, n_kv, 2,
+                                             extra_bytes=4 * b * n_q,
+                                             pairs=b * MEGA_XH * n_q * MEGA_NV)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
+                         host_us=host, clean_ms=clean_ms)
+        print(f"[phase 2] fused_media_xattn {name} {(b, MEGA_XH, n_q, n_kv)} bf16, "
+              f"text_time {'1 then 2' if n_media == 2 else 1}, plan "
+              f"{tuple(plan(b, MEGA_XH, n_q, n_kv))}: {ms} ms, L2 clean {clean_ms} ms, "
+              f"plain {plain_ms} ms, scaled_dot_product_attention under the media mask "
+              f"{library_ms} ms, bound {bound_ms:.5f} ms ({bound_by}) (median per call, "
+              f"L2 flushed); wrapper host {host:.1f} us per call")
+    return out
 
 
 @contextlib.contextmanager
@@ -2555,7 +2643,7 @@ def main() -> int:
     # not quantized
     model_f = open_gates(FlamingoModel(FlamingoConfig(**MINI, use_pallas=True),
                                        device=dev, seed=0)).to_bf16()
-    fwd, _ = check_forward("flamingo-mini", model_f, rs, n_layer, n_x)
+    fwd, fwd_counts = check_forward("flamingo-mini", model_f, rs, n_layer, n_x)
 
     # phase 3, beams: batch 32 x 3 beams, 64 new tokens, lazy reorder
     def beam_run(megakernel, new_tokens=BEAM_NEW_TOKENS, **kw):
@@ -2648,7 +2736,10 @@ def main() -> int:
         ("fused_attention (resampler shape)", fa["resampler"]),
         ("fused_attention (GPT-2 forward shape)", fa["gpt2 forward"]),
         ("fused_attention (OPT-1.3B forward shape)", fa["opt forward"]),
-        ("flash_attention", flash), ("fused_media_xattn", mx),
+        ("flash_attention", flash),
+        ("fused_media_xattn (prefill shape)", mx["prefill"]),
+        ("fused_media_xattn (forward shape)", mx["forward"]),
+        ("fused_media_xattn (two images, text_time 1 then 2)", mx["two images"]),
         ("decode_step_megakernel act_quant (w8a8)", mega_w8["greedy"]),
         ("decode_step_megakernel act_quant beam mode", mega_w8["beam"]),
         ("decode_step_megakernel act_quant OPT mode (OPT-1.3B, b=8)", mega_w8["opt"]),
@@ -2696,9 +2787,12 @@ def main() -> int:
             ("flash_attention (fused_attention's streaming variant)",
              "attention_sm90.cuh", "flamingo_mini_tpu/ops/pallas_attn.py:156",
              pallas_counts["flash_attention"], flash),
-            ("fused_media_xattn", "media_xattn.cu",
+            ("fused_media_xattn", "media_xattn_sm90.cuh",
              "flamingo_mini_tpu/ops/pallas_xattn.py:122",
-             pallas_counts["fused_media_xattn"], mx),
+             pallas_counts["fused_media_xattn"], mx["prefill"]),
+            ("fused_media_xattn (forward shape)", "media_xattn_sm90.cuh",
+             "flamingo_mini_tpu/ops/pallas_xattn.py:122",
+             fwd_counts["fused_media_xattn"], mx["forward"]),
             ("decode_step_megakernel (act_quant: w8a8)", "decode_megakernel_sm90.cuh",
              "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
              w8_counts["decode_step_megakernel"], mega_w8["greedy"]),

@@ -1,6 +1,6 @@
 // Hopper attention tile for bf16, head dim 64: fused_attention.cu's kFull
-// and kStream modes for bf16 inputs (float32 inputs and the kMedia mode stay
-// on attention_tile.cuh).
+// and kStream modes for bf16 inputs (float32 inputs stay on
+// attention_tile.cuh; bf16 kMedia runs media_xattn_sm90.cuh).
 //
 // Replaces, for bf16, flamingo_mini_tpu/ops/pallas_attn.py::fused_attention
 // (_attn_kernel) and its streaming variant (_flash_kernel), with the same
@@ -552,7 +552,8 @@ int sm_count() {
 // its tensor maps refuse returns cudaErrorInvalidValue (nothing launched)
 template <int kMode>
 cudaError_t launch_attention_sm90(const AttnArgs* args, void* stream) {
-  static_assert(kMode == kFull || kMode == kStream, "kMedia stays on attention_tile.cuh");
+  static_assert(kMode == kFull || kMode == kStream,
+                "bf16 kMedia runs media_xattn_sm90.cuh, float32 kMedia attention_tile.cuh");
   const AttnArgs& a = *args;
   CUtensorMap tq, tk, tv;
   sm90::Orders ord;

@@ -1,8 +1,10 @@
-// Tiled softmax attention for head dim 64, shared by fused_attention.cu and
-// media_xattn.cu: every float32 call and the kMedia mode in both dtypes.
-// bf16 calls of the kFull and kStream modes run attention_sm90.cuh's
-// Hopper tile instead (TMA, wgmma, warp-specialised), chosen by dtype
-// alone.
+// Tiled softmax attention for head dim 64 in float32, shared by
+// fused_attention.cu and media_xattn.cu: every float32 call, in all three
+// modes. bf16 calls run Hopper kernels instead, chosen by dtype alone: kFull
+// and kStream attention_sm90.cuh's tile (TMA, wgmma, warp-specialised),
+// kMedia media_xattn_sm90.cuh's kernel (a warp per 16-row slice,
+// only the attended media's keys loaded); both reuse the fragment helpers
+// here.
 //
 // One block of 4 warps owns 64 query rows of one (batch, head); each warp
 // owns 16 rows. The block walks the keys in tiles of 64 with an online
@@ -15,15 +17,12 @@
 //               of two 8-key n-tiles is the A fragment of one 16-key k-step)
 //
 // The TPU kernels keep the scores and the probabilities in float32 and take
-// float32 products (pallas_attn.py:34-58, pallas_xattn.py:32-54). bf16
-// operands are exact in one bf16 part, and the tensor cores multiply them
-// exactly; a float32 operand is carried as a sum of bf16 parts, x = x0 + x1
-// + x2 (24 significant bits), and a product as the terms x_i y_j with
-// i + j < 3, which leaves a relative error near 2^-24. The probabilities P
-// are float32 on every path: two parts (16 bits, error near 2^-17) against a
-// bf16 V, three against a float32 V. So no path rounds P to bf16. Each key
-// tile's P V is summed in a fresh fragment and added with float32 adds (the
-// tensor cores' own accumulation truncates at every mma).
+// float32 products (pallas_attn.py:34-58, pallas_xattn.py:32-54). A float32
+// operand is carried as a sum of bf16 parts, x = x0 + x1 + x2 (24
+// significant bits), which the tensor cores multiply exactly, and a product
+// as the terms x_i y_j with i + j < 3, which leaves a relative error near
+// 2^-24. Each key tile's P V is summed in a fresh fragment and added with
+// float32 adds (the tensor cores' own accumulation truncates at every mma).
 //
 // Three modes, one per TPU kernel:
 //
@@ -44,18 +43,14 @@
 // Fully masked rows. A masked score is float32 min, not -inf, and the
 // running max starts at float32 min, so a row whose every key is masked
 // averages V over those keys uniformly, as the TPU kernels do; a key at
-// -inf (a bf16 padding bias) weighs 0 next to them. Every key tile is
-// visited, causally masked ones too. (A row whose every score is -inf comes
-// out 0 here, NaN in the TPU kernel; no model path makes one.)
+// -inf (a padding bias) weighs 0 next to them. Every key tile is visited,
+// causally masked ones too. (A row whose every score is -inf comes out 0
+// here, NaN in the TPU kernel; no model path makes one.)
 //
-// Bound: the ViT's and the resampler's calls move 25-70 MB and do 4-9 GFLOP,
-// so device memory bounds them. Each K/V tile is read once per 64-row query
-// tile and nothing but O is written; Q, S and P never leave registers. bf16
-// tiles arrive by cp.async, the next tile's copy in flight while the block
-// computes on this one, and reach the tensor cores through ldmatrix (V
-// transposed by it); float32 tiles, off the model paths, are copied one at
-// a time and read element by element. Moving kMedia onto the Hopper tile is
-// later work.
+// Bound: float32 calls are off the model paths (which run bf16); each K/V
+// tile is read once per 64-row query tile by cp.async, one tile at a time
+// (two float32 tiles fill the 48 KB of static shared memory), and read
+// element by element; Q, S and P never leave registers.
 #pragma once
 
 #include <cfloat>
@@ -91,13 +86,7 @@ struct AttnArgs {
   float scale;
 };
 
-template <typename T> struct Parts { static constexpr int n = 3; };  // float
-template <> struct Parts<__nv_bfloat16> { static constexpr int n = 1; };
-
-// bf16 tiles are double-buffered (two K and two V tiles: 36,864 bytes);
-// float32 tiles single (36,864 bytes as well: the static limit is 48 KB)
-template <typename T> struct Stages { static constexpr int n = 1; };
-template <> struct Stages<__nv_bfloat16> { static constexpr int n = 2; };
+constexpr int kParts = 3;  // bf16 parts of a float32 operand
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -123,10 +112,6 @@ __device__ __forceinline__ void split2(float lo, float hi, uint32_t (&out)[N]) {
 
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
-}
-
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -160,32 +145,16 @@ __device__ __forceinline__ void mma_parts(float (&c)[4],
       if (i + j < kTerms) mma_bf16(c, a[i], b0[j], b1[j]);
 }
 
-// four 8x8 bf16 matrices from shared memory, one row address per lane;
-// trans: each matrix transposed
-template <bool kTrans>
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  if (kTrans) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-  } else {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-  }
-}
-
 // rows [key0, key0 + 64) of an (n, 64) slice with row stride sn -> shared
 // memory, rows at or past n as zeros: 16-byte cp.async copies, which the
 // caller commits and waits for
-template <typename T>
-__device__ __forceinline__ void load_tile(T (*dst)[kPitch], const T* src,
+__device__ __forceinline__ void load_tile(float (*dst)[kPitch], const float* src,
                                           long long sn, int key0, int n) {
-  constexpr int kChunks = kD * sizeof(T) / 16;  // per row
-  constexpr int kPer = 16 / sizeof(T);          // elements per chunk
+  constexpr int kChunks = kD * 4 / 16;  // per row
   for (int c = threadIdx.x; c < kBlockK * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * kPer;
+    const int r = c / kChunks, col = (c % kChunks) * 4;
     const bool in = key0 + r < n;
-    const T* from = in ? src + (key0 + r) * sn + col : src;
+    const float* from = in ? src + (key0 + r) * sn + col : src;
     const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(&dst[r][col]));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(to), "l"(from), "r"(in ? 16 : 0));
@@ -214,11 +183,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 // s[n-tile][C reg] = Q K^T for this warp's 16 rows and the key tile in
 // shared memory: row g + 8 * (r / 2), key nt * 8 + 2 * t4 + r % 2
-template <typename T>
-__device__ __forceinline__ void qk(const T (*s_k)[kPitch],
-                                   const uint32_t (&qa)[4][Parts<T>::n][4],
-                                   float (&s)[8][4]) {
-  constexpr int NP = Parts<T>::n;
+__device__ __forceinline__ void qk(const float (*s_k)[kPitch],
+                                   const uint32_t (&qa)[4][kParts][4], float (&s)[8][4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt)
@@ -227,38 +193,23 @@ __device__ __forceinline__ void qk(const T (*s_k)[kPitch],
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-    for (int nt = 0; nt < 8; nt += 2) {
-      // B fragments of n-tiles nt and nt + 1: key (nt + i) * 8 + g, dims
-      // kk * 16 + 2 * t4 (+1) and (+8, +9)
-      uint32_t b[2][2][NP];  // [n-tile][b0/b1][part]
-      if constexpr (NP == 1) {
-        const int j = lane >> 3;  // matrices: (nt, lo), (nt, hi), (nt+1, lo), (nt+1, hi)
-        uint32_t r[4];
-        ldmatrix_x4<false>(r, &s_k[(nt + (j >> 1)) * 8 + (lane & 7)][kk * 16 + (j & 1) * 8]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) b[i >> 1][i & 1][0] = r[i];
-      } else {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const T* kr = &s_k[(nt + i) * 8 + g][kk * 16 + 2 * t4];
-          const float2 lo = load2(kr), hi = load2(kr + 8);
-          split2<NP>(lo.x, lo.y, b[i][0]);
-          split2<NP>(hi.x, hi.y, b[i][1]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) mma_parts<NP, NP>(s[nt + i], qa[kk], b[i][0], b[i][1]);
+    for (int nt = 0; nt < 8; ++nt) {
+      // B fragment of n-tile nt: key nt * 8 + g, dims kk * 16 + 2 * t4 (+1)
+      // and (+8, +9)
+      uint32_t b0[kParts], b1[kParts];
+      const float* kr = &s_k[nt * 8 + g][kk * 16 + 2 * t4];
+      const float2 lo = load2(kr), hi = load2(kr + 8);
+      split2<kParts>(lo.x, lo.y, b0);
+      split2<kParts>(hi.x, hi.y, b1);
+      mma_parts<kParts, kParts>(s[nt], qa[kk], b0, b1);
     }
   }
 }
 
 // o[dim n-tile][C reg] = o * alpha + P V for the V tile in shared memory,
 // the tile's products summed in a fresh fragment
-template <typename T>
-__device__ __forceinline__ void pv(const T (*s_v)[kPitch], const float (&p)[8][4],
+__device__ __forceinline__ void pv(const float (*s_v)[kPitch], const float (&p)[8][4],
                                    const float (&alpha)[2], float (&o)[8][4]) {
-  constexpr int NP = Parts<T>::n;
-  constexpr int NPP = NP > 2 ? NP : 2;
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
   float t[8][4];
 #pragma unroll
@@ -269,37 +220,25 @@ __device__ __forceinline__ void pv(const T (*s_v)[kPitch], const float (&p)[8][4
   for (int kk = 0; kk < 4; ++kk) {
     // A fragment of keys kk * 16 ..: regs (row g, keys 2t4..), (row g + 8,
     // ..), (row g, keys 8 + 2t4..), (row g + 8, ..)
-    uint32_t pa[NPP][4];
+    uint32_t pa[kParts][4];
 #pragma unroll
     for (int reg = 0; reg < 4; ++reg) {
       const float* src = &p[2 * kk + (reg >> 1)][2 * (reg & 1)];
-      uint32_t parts[NPP];
-      split2<NPP>(src[0], src[1], parts);
+      uint32_t parts[kParts];
+      split2<kParts>(src[0], src[1], parts);
 #pragma unroll
-      for (int i = 0; i < NPP; ++i) pa[i][reg] = parts[i];
+      for (int i = 0; i < kParts; ++i) pa[i][reg] = parts[i];
     }
+    const int key = kk * 16 + 2 * t4;
 #pragma unroll
-    for (int dn = 0; dn < 8; dn += 2) {
-      // B fragments of dim tiles dn and dn + 1: keys kk * 16 + 2 * t4 (+1)
-      // and (+8, +9), dim (dn + i) * 8 + g
-      uint32_t b[2][2][NP];  // [dim tile][b0/b1][part]
-      if constexpr (NP == 1) {
-        const int j = lane >> 3;  // matrices: (lo, dn), (hi, dn), (lo, dn+1), (hi, dn+1)
-        uint32_t r[4];
-        ldmatrix_x4<true>(r, &s_v[kk * 16 + (j & 1) * 8 + (lane & 7)][(dn + (j >> 1)) * 8]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) b[i >> 1][i & 1][0] = r[i];
-      } else {
-        const int key = kk * 16 + 2 * t4;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int dim = (dn + i) * 8 + g;
-          split2<NP>(s_v[key][dim], s_v[key + 1][dim], b[i][0]);
-          split2<NP>(s_v[key + 8][dim], s_v[key + 9][dim], b[i][1]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) mma_parts<NPP, NP>(t[dn + i], pa, b[i][0], b[i][1]);
+    for (int dn = 0; dn < 8; ++dn) {
+      // B fragment of dim tile dn: keys kk * 16 + 2 * t4 (+1) and (+8, +9),
+      // dim dn * 8 + g
+      uint32_t b0[kParts], b1[kParts];
+      const int dim = dn * 8 + g;
+      split2<kParts>(s_v[key][dim], s_v[key + 1][dim], b0);
+      split2<kParts>(s_v[key + 8][dim], s_v[key + 9][dim], b1);
+      mma_parts<kParts, kParts>(t[dn], pa, b0, b1);
     }
   }
 #pragma unroll
@@ -308,29 +247,27 @@ __device__ __forceinline__ void pv(const T (*s_v)[kPitch], const float (&p)[8][4
     for (int r = 0; r < 4; ++r) o[dn][r] = o[dn][r] * alpha[r >> 1] + t[dn][r];
 }
 
-template <typename T, int kMode>
+template <int kMode>
 __global__ void __launch_bounds__(kThreads) attention_kernel(const AttnArgs a) {
-  constexpr int NP = Parts<T>::n;
-  constexpr int kStages = Stages<T>::n;
   const int bh = blockIdx.x;
   const int b = bh / a.h, hd = bh % a.h;
   const int q0 = blockIdx.y * kBlockQ;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;
-  const T* q = static_cast<const T*>(a.q) + b * a.stride[0][0] + hd * a.stride[0][1];
-  const T* k = static_cast<const T*>(a.k) + b * a.stride[1][0] + hd * a.stride[1][1];
-  const T* v = static_cast<const T*>(a.v) + b * a.stride[2][0] + hd * a.stride[2][1];
-  T* out = static_cast<T*>(a.out) + b * a.stride[3][0] + hd * a.stride[3][1];
+  const float* q = static_cast<const float*>(a.q) + b * a.stride[0][0] + hd * a.stride[0][1];
+  const float* k = static_cast<const float*>(a.k) + b * a.stride[1][0] + hd * a.stride[1][1];
+  const float* v = static_cast<const float*>(a.v) + b * a.stride[2][0] + hd * a.stride[2][1];
+  float* out = static_cast<float*>(a.out) + b * a.stride[3][0] + hd * a.stride[3][1];
   const long long k_sn = a.stride[1][2], v_sn = a.stride[2][2];
   const int n_keys = kMode == kStream ? a.n_kv_pad : a.n_kv;
   const int n_tiles = (n_keys + kBlockK - 1) / kBlockK;
 
-  __shared__ __align__(16) T s_k[kStages][kBlockK][kPitch];
-  __shared__ __align__(16) T s_v[kStages][kBlockK][kPitch];
+  __shared__ __align__(16) float s_k[kBlockK][kPitch];
+  __shared__ __align__(16) float s_v[kBlockK][kPitch];
 
   // the first tile's copy starts before Q is read
-  load_tile(s_k[0], k, k_sn, 0, a.n_kv);
-  load_tile(s_v[0], v, v_sn, 0, a.n_kv);
+  load_tile(s_k, k, k_sn, 0, a.n_kv);
+  load_tile(s_v, v, v_sn, 0, a.n_kv);
   cp_async_commit();
 
   // this thread's two query rows: C fragment rows g and g + 8
@@ -343,7 +280,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const AttnArgs a) {
   const bool live = q0 + warp * 16 < a.n_q;  // warp-uniform: has a real row
 
   // Q as A fragments qa[k-step][part][reg]; rows past n_q are zeros
-  uint32_t qa[4][NP][4];
+  uint32_t qa[4][kParts][4];
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
@@ -351,10 +288,10 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const AttnArgs a) {
       const int h2 = reg & 1, dim = kk * 16 + 2 * t4 + 8 * (reg >> 1);
       float2 x = make_float2(0.f, 0.f);
       if (row[h2] < a.n_q) x = load2(q + row[h2] * a.stride[0][2] + dim);
-      uint32_t parts[NP];
-      split2<NP>(x.x, x.y, parts);
+      uint32_t parts[kParts];
+      split2<kParts>(x.x, x.y, parts);
 #pragma unroll
-      for (int i = 0; i < NP; ++i) qa[kk][i][reg] = parts[i];
+      for (int i = 0; i < kParts; ++i) qa[kk][i][reg] = parts[i];
     }
   }
 
@@ -366,20 +303,12 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const AttnArgs a) {
     for (int r = 0; r < 4; ++r) o[dn][r] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int key0 = it * kBlockK, buf = kStages == 2 ? it & 1 : 0;
-    if (kStages == 2 && it + 1 < n_tiles) {
-      // the next tile's copy, in flight during this one
-      load_tile(s_k[buf ^ 1], k, k_sn, key0 + kBlockK, a.n_kv);
-      load_tile(s_v[buf ^ 1], v, v_sn, key0 + kBlockK, a.n_kv);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    const int key0 = it * kBlockK;
+    cp_async_wait<0>();
     __syncthreads();  // this tile is in shared memory
     if (live) {
       float s[8][4];
-      qk<T>(s_k[buf], qa, s);
+      qk(s_k, qa, s);
       float alpha[2];
 #pragma unroll
       for (int h2 = 0; h2 < 2; ++h2) {
@@ -421,12 +350,12 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const AttnArgs a) {
         l[h2] = l[h2] * alpha[h2] + quad_sum(sum);
         m[h2] = m_new;
       }
-      pv<T>(s_v[buf], s, alpha, o);
+      pv(s_v, s, alpha, o);
     }
-    __syncthreads();  // done reading this buffer before it is refilled
-    if (kStages == 1 && it + 1 < n_tiles) {
-      load_tile(s_k[0], k, k_sn, key0 + kBlockK, a.n_kv);
-      load_tile(s_v[0], v, v_sn, key0 + kBlockK, a.n_kv);
+    __syncthreads();  // done reading the tile before it is refilled
+    if (it + 1 < n_tiles) {
+      load_tile(s_k, k, k_sn, key0 + kBlockK, a.n_kv);
+      load_tile(s_v, v, v_sn, key0 + kBlockK, a.n_kv);
       cp_async_commit();
     }
   }
@@ -436,17 +365,18 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const AttnArgs a) {
   for (int h2 = 0; h2 < 2; ++h2) {
     if (row[h2] >= a.n_q) continue;
     const float den = fmaxf(l[h2], 1e-30f);
-    T* orow = out + row[h2] * a.stride[3][2];
+    float* orow = out + row[h2] * a.stride[3][2];
 #pragma unroll
     for (int dn = 0; dn < 8; ++dn)
       store2(orow + dn * 8 + 2 * t4, o[dn][2 * h2] / den, o[dn][2 * h2 + 1] / den);
   }
 }
 
-template <typename T, int kMode>
+// float32 attention in one of the three modes
+template <int kMode>
 cudaError_t launch_attention(const AttnArgs* args, void* stream) {
   const dim3 grid(args->b * args->h, (args->n_q + kBlockQ - 1) / kBlockQ);
-  attention_kernel<T, kMode><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(*args);
+  attention_kernel<kMode><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(*args);
   return cudaGetLastError();
 }
 

@@ -22,7 +22,7 @@ namespace {
 template <int kMode>
 cudaError_t launch(const void* args, int is_bf16, void* stream) {
   const AttnArgs* a = static_cast<const AttnArgs*>(args);
-  return is_bf16 ? launch_attention_sm90<kMode>(a, stream) : launch_attention<float, kMode>(a, stream);
+  return is_bf16 ? launch_attention_sm90<kMode>(a, stream) : launch_attention<kMode>(a, stream);
 }
 
 }  // namespace

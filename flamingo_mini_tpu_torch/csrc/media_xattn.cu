@@ -6,13 +6,17 @@
 // float32 min, the softmax is max-subtracted, and rows with text_time 0 are
 // zeroed. A row past the media count is fully masked and averages V.
 //
-// This is attention_tile.cuh's kernel in its kMedia mode (its note says
-// what bounds it and what the design does about it). The media time of a
-// key is key / n_visual + 1, computed from the index: no mask is built.
-#include "attention_tile.cuh"
+// The route is by dtype alone: bf16 inputs run media_xattn_sm90.cuh's
+// kernel with the wrapper's plan (16-row slices a block; its note says what
+// bounds it and what the design does about it), float32 inputs
+// attention_tile.cuh's kernel in its kMedia mode (the plan is not read). A
+// bf16 call the new kernel refuses returns its error; it never goes to the
+// other tile. Neither builds a mask: the media time of a key is
+// key / n_visual + 1, from its index.
+#include "media_xattn_sm90.cuh"
 
-extern "C" int fmt_media_xattn(const void* args, int is_bf16, void* stream) {
+extern "C" int fmt_media_xattn(const void* args, int is_bf16, int slices, void* stream) {
   const AttnArgs* a = static_cast<const AttnArgs*>(args);
-  return static_cast<int>(is_bf16 ? launch_attention<__nv_bfloat16, kMedia>(a, stream)
-                                  : launch_attention<float, kMedia>(a, stream));
+  return static_cast<int>(is_bf16 ? launch_media_xattn_sm90(a, slices, stream)
+                                  : launch_attention<kMedia>(a, stream));
 }

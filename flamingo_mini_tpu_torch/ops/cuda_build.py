@@ -62,7 +62,8 @@ SIGNATURES = {
     # &AttnArgs (ops/fused_attention._Args), is_bf16, stream
     "fmt_fused_attention": [_P, _I, _P],
     "fmt_flash_attention": [_P, _I, _P],
-    "fmt_media_xattn": [_P, _I, _P],
+    # &AttnArgs, is_bf16, the bf16 kernel's plan (slices a block), stream
+    "fmt_media_xattn": [_P, _I, _I, _P],
     "fmt_attention_args_size": [],
 }
 

@@ -95,15 +95,23 @@ def check_cuda(name: str, q, k, v) -> None:
         raise NotImplementedError(
             f"{name}: no backward on the card yet (the training slice adds "
             "the recompute backward); call it under torch.no_grad()")
+
+
+def check_tile_grid(name: str, q) -> None:
+    """The grid limit of the tiles of ``fused_attention.cu``: the
+    ``mma.sync`` tile launches (b * h, ceil(n_q / 64)) blocks, the Hopper
+    tile walks as many items."""
+    b, h, n_q, _ = q.shape
     if -(-n_q // _BLOCK_Q) > 65535 or b * h >= 2 ** 31:
         raise ValueError(f"{name}: grid too large for {tuple(q.shape)}")
 
 
 def launch(fn: str, q, k, v, *, scale: float, causal: bool = False,
            bias=None, row_bias=None, text_time=None, n_visual: int = 0,
-           n_kv_pad: Optional[int] = None) -> torch.Tensor:
-    """Launch one of the attention kernels (``fn``: its C entry point) on
-    checked inputs -> (b, h, n_q, d), a view of a (b, n_q, h, d) tensor."""
+           n_kv_pad: Optional[int] = None, plan: tuple = ()) -> torch.Tensor:
+    """Launch one of the attention kernels (``fn``: its C entry point;
+    ``plan``: the ints it takes before the stream) on checked inputs ->
+    (b, h, n_q, d), a view of a (b, n_q, h, d) tensor."""
     b, h, n_q, d = q.shape
     n_kv = k.shape[2]
     out = torch.empty((b, n_q, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -116,7 +124,7 @@ def launch(fn: str, q, k, v, *, scale: float, causal: bool = False,
         b, h, n_q, n_kv, n_kv if n_kv_pad is None else n_kv_pad, int(causal),
         n_visual, scale)
     err = getattr(_checked_lib(), fn)(
-        args, int(q.dtype == torch.bfloat16),
+        args, int(q.dtype == torch.bfloat16), *plan,
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(err, fn)
     return out
@@ -195,6 +203,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, scale=scale, row_bias=row_bias,
                                      causal=causal, block_q=block_q)
     check_cuda("flash_attention", q, k, v)
+    check_tile_grid("flash_attention", q)
     b, h, n_q, _ = q.shape
     n_kv = k.shape[2]
     block_kv = min(block_q, n_kv)
@@ -231,6 +240,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return fused_attention_plain(q, k, v, scale=scale, bias=bias,
                                      row_bias=row_bias, causal=causal)
     check_cuda("fused_attention", q, k, v)
+    check_tile_grid("fused_attention", q)
     bf = None if bias is None else \
         bias.to(q.device).expand(b, h, n_q, n_kv).float().contiguous()
     rb = _row_bias_f32(row_bias, b, n_kv, q.device)

@@ -2,7 +2,7 @@
 """Where the decode time goes on one CUDA card.
 
     python3 profile_decode.py [sweep] [paths] [opt] [fixed] [forward]
-    python3 profile_decode.py levels | phases | attn_plans
+    python3 profile_decode.py levels | phases | attn_plans | media_plans
 
 Four measurements of the PyTorch port at flamingo-mini width (GPT-2-medium
 trunk with xattn before every layer, int8 weights, bf16; random weights from
@@ -40,11 +40,19 @@ chip_smoke.py's seeds), all of them unless some are named:
    time and its share of the traced window, launches, the leading kernels,
    and the source lines at which the host waits on the card.
 
+``fixed`` and ``forward`` also print the media xattn kernel's device time
+by name (``media_kernel``: the Hopper kernel, or the mma.sync tile's kMedia
+instantiation, which bf16 ran before it), so that one copy of this script
+run in two checkouts compares them. ``media_plans``: ``fused_media_xattn``
+(bf16) under every plan its kernel takes at chip_smoke.py's shapes, each
+held to its plain version, beside the timer's floor.
+
 Prints one line per measurement and writes them all to
 ``chiprun_out/profile_decode.json``. Needs a card; exits 1 without one.
 """
 import json
 import os
+import re
 import sys
 import time
 
@@ -381,6 +389,68 @@ def attn_plans(dev, card):
     return rows
 
 
+def media_plans(dev, card):
+    """``fused_media_xattn`` (bf16, L2 flushed, ``chip_smoke.time_ms``) at
+    chip_smoke.py's MEDIA_SHAPES and four more (32 x 64 tokens over one
+    image, 8 x 256 over two, 8 x 40 over 13 and over 20 images: past the
+    kernel's 16 slots) under every plan of 1, 2, 4 and 8 slices a block that
+    the rows fill, text_time 1 then the last image by half, each held to
+    its plain version. Prints the timer's floor, each shape's times by
+    plan, fastest first, the plan ``plan()`` picks, those two with L2
+    clean, and SDPA under the media mask."""
+    import chip_smoke as cs
+    from flamingo_mini_tpu_torch.ops import media_xattn as mx
+    from flamingo_mini_tpu_torch.ops.fused_attention import launch
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    one = torch.zeros(1, device=dev)
+    floor = cs.time_ms(lambda: one.add_(1), 30, flush)
+    print(f"[media_plans] {card}: the timer's floor (one 1-element add): {floor:.4f} ms")
+    rows = [dict(case="timer floor", ms=floor)]
+    shapes = dict(cs.MEDIA_SHAPES, **{"forward b=32": (32, 64, 1),
+                                      "two images, 256 tokens": (8, 256, 2),
+                                      "13 images, 40 tokens": (8, 40, 13),
+                                      "20 images, 40 tokens": (8, 40, 20)})
+    for case, (b, n_q, n_media) in shapes.items():
+        n_kv = 64 * n_media
+        q, k, v = cs.attention_inputs(dev, torch.bfloat16, b, 8, n_q, n_kv, 2)
+        tt = torch.ones((b, n_q), dtype=torch.int32, device=dev)
+        tt[:, n_q // 2:] = n_media
+        want = mx.fused_media_xattn_plain(q, k, v, tt, scale=1.0, n_visual=64)
+        tol = cs.bf16_ulps(want.float(), 2)
+        picked = mx.plan(b, 8, n_q, n_kv)
+        grid = [mx.make_plan(b, 8, n_q, n_kv, slices=slices) for slices in (1, 2, 4, 8)
+                if slices <= -(-n_q // 16)]
+
+        def run(p):
+            return launch("fmt_media_xattn", q, k, v, scale=1.0, text_time=tt,
+                          n_visual=64, plan=(p.slices,))
+        times = []
+        for p in grid:
+            err = float((run(p).float() - want.float()).abs().max())
+            assert err <= tol, (case, p, err, tol)
+            times.append((cs.time_ms(lambda: run(p), 50, flush), p))
+        times.sort(key=lambda x: x[0])
+        for label, p in (("fastest", times[0][1]), ("picked", picked)):
+            print(f"[media_plans]   {label} {tuple(p)} with L2 clean: "
+                  f"{cs.time_ms(lambda: run(p), 50, flush, clean=True):.4f} ms",
+                  flush=True)
+        media_time = torch.arange(n_kv, device=dev) // 64 + 1
+        mask = (tt[:, :, None] == media_time)[:, None]
+        sdpa_ms = cs.time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=1.0), 50, flush)
+        row = dict(case=case, picked=picked._asdict(),
+                   picked_ms=next(ms for ms, p in times if p == picked), sdpa_ms=sdpa_ms,
+                   plans=[dict(ms=ms, **p._asdict()) for ms, p in times])
+        rows.append(row)
+        print(f"[media_plans] {card}: {case} {(b, 8, n_q, n_kv)}: plan() picks "
+              f"{tuple(picked)} ({row['picked_ms']} ms), SDPA under the media mask "
+              f"{sdpa_ms} ms; fastest first:", flush=True)
+        for ms, p in times:
+            print(f"[media_plans]   {ms:.4f} ms  slices {p.slices} slots {p.slots} "
+                  f"smem {p.smem} blocks {p.blocks}", flush=True)
+    return rows
+
+
 def levels(dev, card):
     """Whether the w8a8 mode's OPT-1.3B time takes a level per process, and
     what sets it: ``levels_one`` in ``LEVEL_PROCS`` fresh processes, one
@@ -455,6 +525,16 @@ def traced_device(fn):
     return window_ms, device_ms, launches, kernels
 
 
+def media_kernel(kernels) -> dict:
+    """The media xattn kernel's device ms and calls in a trace, by name: the
+    Hopper kernel (``media_xattn_sm90_kernel``) or the mma.sync tile in its
+    kMedia mode for bf16 (``attention_kernel<__nv_bfloat16, 2>``)."""
+    hits = [e for e in kernels if "media_xattn" in e.key
+            or re.search(r"attention_kernel<__nv_bfloat16, *(\(int\))?2>", e.key)]
+    return dict(ms=sum(e.self_device_time_total for e in hits) / 1e3,
+                count=sum(e.count for e in hits), names=sorted({e.key for e in hits}))
+
+
 def top_kernels(kernels, n=10):
     return [dict(name=k, ms=ms, count=c) for k, ms, c in sorted(
         ((e.key, e.self_device_time_total / 1e3, e.count) for e in kernels),
@@ -495,10 +575,12 @@ def fixed_cost(dev, card):
                 window_ms, device_ms, launches, kernels = traced_device(fn)
                 row = dict(use_pallas=use_pallas, stage=stage, batch=b,
                            window_ms=window_ms, device_ms=device_ms,
-                           launches=launches, by_kernel=top_kernels(kernels, 6))
+                           launches=launches, by_kernel=top_kernels(kernels, 6),
+                           media=media_kernel(kernels))
                 print(f"[fixed] {card}: use_pallas={use_pallas} {stage}, batch {b}: "
                       f"window {window_ms:.2f} ms, device {device_ms:.2f} ms, "
-                      f"{launches} launches")
+                      f"{launches} launches; media xattn kernel {row['media']['ms']:.4f} "
+                      f"ms in {row['media']['count']} calls")
                 for r in row["by_kernel"]:
                     print(f"[fixed]   {r['ms']:9.3f} ms  x{r['count']:<6} {r['name'][:90]}")
                 rows.append(row)
@@ -570,12 +652,14 @@ def profile_forward(dev, card):
                            wall_ms=sorted(walls)[2], walls=walls, window_ms=window_ms,
                            device_ms=device_ms, busy=device_ms / window_ms,
                            launches=launches, sync_sites=sites,
-                           by_kernel=top_kernels(kernels, 8))
+                           by_kernel=top_kernels(kernels, 8), media=media_kernel(kernels))
                 print(f"[forward] {card}: {label}, use_pallas={use_pallas}, {b}x{n} "
                       f"tokens: wall median {row['wall_ms']:.2f} ms (runs "
                       f"{[round(w, 2) for w in walls]}); traced window {window_ms:.2f} ms, "
                       f"device {device_ms:.2f} ms (busy {100 * row['busy']:.1f} %), "
-                      f"{launches} launches; the host waits on the card at {sites}")
+                      f"{launches} launches; the host waits on the card at {sites}; "
+                      f"media xattn kernel {row['media']['ms']:.4f} ms in "
+                      f"{row['media']['count']} calls")
                 for r in row["by_kernel"]:
                     print(f"[forward]   {r['ms']:9.3f} ms  x{r['count']:<6} {r['name'][:90]}")
                 rows.append(row)
@@ -657,9 +741,9 @@ def main() -> int:
     sections = {"sweep": sweep, "paths": profile_paths,
                 "opt": lambda dev, card: profile_paths(dev, card, opt=True),
                 "fixed": fixed_cost, "forward": profile_forward, "levels": levels,
-                "phases": phases, "attn_plans": attn_plans}
+                "phases": phases, "attn_plans": attn_plans, "media_plans": media_plans}
     names = sys.argv[1:] or [n for n in sections
-                             if n not in ("levels", "phases", "attn_plans")]
+                             if n not in ("levels", "phases", "attn_plans", "media_plans")]
     unknown = set(names) - set(sections)
     if unknown:
         print(f"profile_decode: unknown sections {sorted(unknown)}; choose from "

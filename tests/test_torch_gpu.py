@@ -597,27 +597,83 @@ def test_pallas_trunk_forward_under_inference_mode(cuda, lm):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", ["prefill", "forward", "two images"])
+@pytest.mark.parametrize("shape", ["prefill", "forward", "two images", "n_q 5", "n_q 17",
+                                   "13 images", "20 images"])
 def test_media_xattn_kernel_matches_plain(cuda, dtype, shape):
     """text_time 0 (rows zeroed), in range, and past the media count (rows
-    fully masked: the mean of V)."""
+    fully masked: the mean of V), a 16-row slice spanning two media and a
+    slice all 0 (chip_smoke.MEDIA_MIXES); one launch a call; bf16 runs the
+    Hopper kernel, float32 the mma.sync tile; two calls bit-equal. 13 and 20
+    images (832 and 1,280 keys) take the bf16 kernel past its 16 slots:
+    resident where a block's rows attend few media, streamed where they
+    attend many or lie past the media count, in two windows at 20."""
     import chip_smoke
     from flamingo_mini_tpu_torch.ops.media_xattn import (
         fused_media_xattn, fused_media_xattn_plain)
-    b, n_q, n_media = chip_smoke.MEDIA_SHAPES[shape]
+    b, n_q, n_media = {**chip_smoke.MEDIA_SHAPES, **chip_smoke.MEDIA_EDGE_SHAPES}[shape]
     q, k, v = chip_smoke.attention_inputs(cuda, dtype, b, 8, n_q, 64 * n_media, seed=7)
-    tt = chip_smoke.media_text_time(cuda, b, n_q, n_media, seed=8)
-    before = fused_media_xattn.launches
+    for mix in chip_smoke.MEDIA_MIXES:
+        tt = chip_smoke.media_mix(cuda, mix, b, n_q, n_media, seed=8)
+        before = fused_media_xattn.launches
+        got = fused_media_xattn(q, k, v, tt, scale=1.0, n_visual=64)
+        assert fused_media_xattn.launches == before + 1
+        chip_smoke.held_to_plain(f"fused_media_xattn {shape} {mix} {dtype}", got,
+                                 fused_media_xattn_plain(q, k, v, tt, scale=1.0,
+                                                         n_visual=64), dtype)
+        past = ((tt > n_media) | (tt < 0))[:, None, :, None].expand_as(got)
+        if bool(past.any()):
+            mean_v = v.float().mean(dim=2, keepdim=True).expand_as(got)
+            chip_smoke.held_to_plain("rows past the media count", got.float()[past],
+                                     mean_v[past], dtype)
+        assert bool((got[(tt == 0)[:, None, :, None].expand_as(got)] == 0).all())
+        again = fused_media_xattn(q, k, v, tt, scale=1.0, n_visual=64)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), mix
+
+
+def test_media_xattn_skips_unattended_media(cuda):
+    """The bf16 kernel's NaN contract: a NaN in the K and V of image 2 leaves
+    the rows that attend image 1 finite and equal to the plain version on
+    the same inputs without the NaN (the TPU kernel's 0 x V makes them NaN);
+    a row attending image 2 is NaN."""
+    import chip_smoke
+    from flamingo_mini_tpu_torch.ops.media_xattn import (
+        fused_media_xattn, fused_media_xattn_plain)
+    q, k, v = chip_smoke.attention_inputs(cuda, torch.bfloat16, 2, 8, 32, 128, seed=9)
+    tt = torch.ones((2, 32), dtype=torch.int32, device=cuda)
+    tt[1, 16:] = 2
+    want = fused_media_xattn_plain(q, k, v, tt, scale=1.0, n_visual=64)
+    k, v = k.clone(), v.clone()
+    k[:, :, 64 + 5] = float("nan")
+    v[:, :, 64 + 7] = float("nan")
     got = fused_media_xattn(q, k, v, tt, scale=1.0, n_visual=64)
-    assert fused_media_xattn.launches == before + 1
-    chip_smoke.held_to_plain(f"fused_media_xattn {shape} {dtype}", got,
-                             fused_media_xattn_plain(q, k, v, tt, scale=1.0, n_visual=64),
-                             dtype)
-    past = (tt == n_media + 1)[:, None, :, None].expand_as(got)
-    mean_v = v.float().mean(dim=2, keepdim=True).expand_as(got)
-    chip_smoke.held_to_plain("rows past the media count", got.float()[past], mean_v[past],
-                             dtype)
-    assert bool((got[(tt == 0)[:, None, :, None].expand_as(got)] == 0).all())
+    torch.cuda.synchronize()
+    ones = (tt == 1)[:, None, :, None].expand_as(got)
+    chip_smoke.held_to_plain("rows of image 1", got.float()[ones], want.float()[ones],
+                             torch.bfloat16)
+    assert bool(torch.isnan(got[1, :, 16:]).all())
+
+
+def test_media_xattn_bf16_refusal_raises(cuda):
+    """A bf16 call the kernel refuses (a plan of 0 or 9 slices a block)
+    raises, with nothing written, instead of running the float32 tile; the
+    same plans in float32 run the tile, which does not read them."""
+    import chip_smoke
+    from flamingo_mini_tpu_torch.ops.fused_attention import launch
+    from flamingo_mini_tpu_torch.ops.media_xattn import fused_media_xattn_plain
+    tt = torch.ones((2, 40), dtype=torch.int32, device=cuda)
+    q, k, v = chip_smoke.attention_inputs(cuda, torch.bfloat16, 2, 8, 40, 128, seed=3)
+    for slices in (0, 9):
+        with pytest.raises(RuntimeError):
+            launch("fmt_media_xattn", q, k, v, scale=1.0, text_time=tt, n_visual=64,
+                   plan=(slices,))
+        torch.cuda.synchronize()
+    q, k, v = (t.float() for t in (q, k, v))
+    for slices in (0, 9):
+        chip_smoke.held_to_plain("float32, any plan", launch(
+            "fmt_media_xattn", q, k, v, scale=1.0, text_time=tt, n_visual=64,
+            plan=(slices,)), fused_media_xattn_plain(q, k, v, tt, scale=1.0, n_visual=64),
+            torch.float32)
 
 
 def test_attention_kernels_refuse_bad_input(cuda):
