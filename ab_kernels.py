@@ -3,7 +3,8 @@
 
     python3 ab_kernels.py A_DIR B_DIR [GROUP ...]
 
-GROUPs (all unless some are named): attention, media, head, decode, mega.
+GROUPs (all unless some are named): attention, media, head, decode, mega,
+probes.
 Runs each checkout in a process of its own (each builds its own kernels
 from its own sources) in the order A, B, B, A and prints, for each run, the
 median device time of ``decode_attention`` (b=32, D=1024, H=16, T=192,
@@ -27,7 +28,9 @@ at (2, 16, 4000, 64), each beside its wrapper's host us per call, and of
 prefill, the forward, two images with the first half of the rows after
 image 1 and the second after image 2) and at 40 tokens over 13 and 20
 images, each beside its time with L2 clean and its wrapper's host us per
-call. L2
+call, and of the decode stream probes' three kernels alone (L2 flushed and
+clean, host us per call) and in situ (us per layer of their loops beside
+``tmajor_kernel`` and ``glue_only``). L2
 flushed, on the inputs of each checkout's ``chip_smoke.py``; every time is
 taken by this checkout's ``chip_smoke.time_ms`` (a spin on the card before
 each call, so that the events time the card alone), whatever the timed
@@ -164,7 +167,35 @@ def decode_attentions(cs, dev, flush, out: dict) -> None:
         out[label + "_host_us"] = host_us(fn)
 
 
-GROUPS = ("attention", "media", "head", "decode", "mega")
+def probes(cs, dev, flush, out: dict) -> None:
+    """The decode stream probes' three kernels at each layout's timed
+    block_t (b-major 32, T-major 32, packed 16; b=32, D=1024, T=192,
+    kv_limit 128), L2 flushed and clean, with their wrapper's host us per
+    call, on chip_smoke's seeded inputs; then in situ (one CUDA graph per
+    trip count, ``probe_decode_kernel.measure``) the three stream loops,
+    ``tmajor_kernel`` and ``glue_only``, in us per layer."""
+    from flamingo_mini_tpu_torch.tools import probe_decode_kernel as pdk
+    for layout, block_t in (("bmajor", 32), ("tmajor", 32), ("packed", 16)):
+        q, caches = cs.stream_probe_inputs(dev, layout, 60)
+
+        def fn():
+            return cs.stream_probe_call(layout, q, caches, block_t, None, pdk.KV_LIMIT)
+        label = f"stream_{layout}_bt{block_t}"
+        out[label + "_ms"] = time_ms(fn, 100, flush)
+        out[label + "_clean_ms"] = time_ms(fn, 100, flush, clean=True)
+        out[label + "_host_us"] = host_us(fn)
+        del q, caches
+    args = pdk.inputs(dev, torch.Generator(device=dev).manual_seed(70))
+    for name, run in (("stream_bmajor_bt32", pdk.make_flat_loop(pdk.attn_stream_only,
+                                                                block_t=32)),
+                      ("stream_tmajor_bt32", pdk.make_tmajor_loop(32)),
+                      ("stream_tmajor_packed_bt16", pdk.make_tmajor_packed_loop(16)),
+                      ("tmajor_kernel", pdk.make_tmajor_loop(None, real_kernel=True)),
+                      ("glue_only", pdk.make_flat_loop(lambda q, *_, **__: q))):
+        out["insitu_" + name + "_us"] = pdk.measure(name, run, args)["per_layer_us"]
+
+
+GROUPS = ("attention", "media", "head", "decode", "mega", "probes")
 
 
 def one(tree: str, groups=GROUPS) -> dict:
@@ -184,6 +215,8 @@ def one(tree: str, groups=GROUPS) -> dict:
         head(dev, flush, out)
     if "decode" in groups:
         decode_attentions(cs, dev, flush, out)
+    if "probes" in groups:
+        probes(cs, dev, flush, out)
     if "mega" not in groups:
         return out
     modes = [False]

@@ -279,14 +279,27 @@ W8A8_LINEAR = ((1024, 3072, None), (2048, 8192, None), (512, 1024, None),
 EDGE_ROWS = (1, 3, 8, 9, 31, 32, 33, 64, 65, 256, 257)
 # the stream probe: a 512 MB buffer, its TPU protocol's middle chunk_rows
 STREAM_MB, STREAM_CHUNK = 512, 1024
-# the decode stream probes (tools/probe_decode_kernel.py's three kernels) at
-# the probe's shape, b=32, D=1024, T=192: (layout, block_t, block_b,
-# kv_limit); kv_limit 100 is a multiple of neither block_t
-PROBE_CASES = (("tmajor", 16, None, 128), ("tmajor", 32, None, 128),
-               ("tmajor", 32, None, 100), ("bmajor", 16, 32, 128),
-               ("bmajor", 32, 32, 128), ("bmajor", 32, 8, 128), ("bmajor", 16, 8, 100),
-               ("packed", 16, None, 128), ("packed", 32, None, 128),
-               ("packed", 16, None, 100))
+# the decode stream probes (tools/probe_decode_kernel.py's three kernels):
+# (layout, block_t, block_b, kv_limit, b, T, D); first at the probe's shape,
+# b=32, D=1024, T=192 (kv_limit 100 is a multiple of neither block_t), then
+# in each layout at the kernel's edges: b of 1 and 3, D of 5 vectors and
+# OPT-1.3B's 2048, block_t 1, 3 and 24 (groups of 1, 1 and 8 rows), a long
+# cache walked in windows (T = 1,024, kv_limit 1,024 and 1,000), and chunks
+# longer than a block holds (block_t 256: a chunk's sum carried across
+# windows)
+PROBE_SHAPE = (32, 192, 1024)
+PROBE_EDGES = ((32, None, 128, 1, 192, 1024), (16, None, 100, 3, 192, 1024),
+               (32, None, 128, 32, 192, 40), (32, None, 128, 8, 192, 2048),
+               (1, None, 100) + PROBE_SHAPE, (3, None, 100) + PROBE_SHAPE,
+               (24, None, 100) + PROBE_SHAPE, (32, None, 1024, 32, 1024, 1024),
+               (32, None, 1000, 32, 1024, 1024), (256, None, 300, 4, 512, 1024))
+PROBE_CASES = tuple(c + PROBE_SHAPE for c in (
+    ("tmajor", 16, None, 128), ("tmajor", 32, None, 128),
+    ("tmajor", 32, None, 100), ("bmajor", 16, 32, 128),
+    ("bmajor", 32, 32, 128), ("bmajor", 32, 8, 128), ("bmajor", 16, 8, 100),
+    ("packed", 16, None, 128), ("packed", 32, None, 128),
+    ("packed", 16, None, 100))) + tuple(
+        (layout,) + e for layout in ("tmajor", "bmajor", "packed") for e in PROBE_EDGES)
 # the block_t each layout is timed at: its in-situ variant's
 PROBE_TIMED = {"tmajor": 32, "bmajor": 32, "packed": 16}
 # NVIDIA H100 SXM data sheet: device memory rate, dense bf16 tensor cores,
@@ -1822,6 +1835,22 @@ def phase2_media_xattn(dev, flush):
               f"plain {plain_ms} ms, scaled_dot_product_attention under the media mask "
               f"{library_ms} ms, bound {bound_ms:.5f} ms ({bound_by}) (median per call, "
               f"L2 flushed); wrapper host {host:.1f} us per call")
+    # the bounds at 13 and 20 images as ab_kernels.py times them: 8 x 40
+    # tokens, text_time 1 on the first half of the rows and the last image
+    # on the second. Counted by what the inputs need (q, out, text_time and
+    # the K/V of the two images the rows attend: the kernel loads no other
+    # tile), beside the count of every key
+    for n_media in (13, 20):
+        b, n_q = 8, 40
+        pairs = b * MEGA_XH * n_q * MEGA_NV
+        needed = attention_bound(b, MEGA_XH, n_q, 2 * MEGA_NV, 2, extra_bytes=4 * b * n_q,
+                                 pairs=pairs)
+        every = attention_bound(b, MEGA_XH, n_q, n_media * MEGA_NV, 2,
+                                extra_bytes=4 * b * n_q, pairs=pairs)
+        print(f"[phase 2] fused_media_xattn bound at {n_media} images "
+              f"{(b, MEGA_XH, n_q, n_media * MEGA_NV)}, rows attending images 1 and "
+              f"{n_media}: {needed[0]:.6f} ms ({needed[1]}; the attended images' K/V), "
+              f"{every[0]:.6f} ms counting every key")
     return out
 
 
@@ -2210,13 +2239,12 @@ def phase4_stream(dev, card):
                 bound_by=bound_by, launches=launches)
 
 
-def stream_probe_inputs(dev, layout: str, seed: int):
-    """q (32, 1024) bf16 and the layout's caches at the probe's shape, N(0, 1)
-    from a seed: T-major K, V (192, 32, 1024), b-major (32, 192, 1024), or
-    one packed (192, 32, 2048)."""
-    from flamingo_mini_tpu_torch.tools import probe_decode_kernel as pdk
+def stream_probe_inputs(dev, layout: str, seed: int, b: int = PROBE_SHAPE[0],
+                        T: int = PROBE_SHAPE[1], D: int = PROBE_SHAPE[2]):
+    """q (b, D) bf16 and the layout's caches, N(0, 1) from a seed: T-major
+    K, V (T, b, D), b-major (b, T, D), or one packed (T, b, 2D); the probe's
+    shape (32, 192, 1024) by default."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    b, T, D = pdk.B, pdk.T, pdk.D
     q = torch.randn((b, D), generator=gen, device=dev).to(torch.bfloat16)
     if layout == "packed":
         return q, (torch.randn((T, b, 2 * D), generator=gen, device=dev)
@@ -2240,9 +2268,11 @@ def stream_probe_call(layout: str, q, caches, block_t: int, block_b, kv_limit: i
     return fn(q, *caches, block_t=block_t, kv_limit=kv_limit)
 
 
-def stream_probe_case(dev, layout: str, block_t: int, block_b, kv_limit: int, seed: int):
+def stream_probe_case(dev, layout: str, block_t: int, block_b, kv_limit: int, seed: int,
+                      b: int = PROBE_SHAPE[0], T: int = PROBE_SHAPE[1],
+                      D: int = PROBE_SHAPE[2]):
     """(kernel output, plain output) on seeded caches."""
-    q, caches = stream_probe_inputs(dev, layout, seed)
+    q, caches = stream_probe_inputs(dev, layout, seed, b, T, D)
     got = stream_probe_call(layout, q, caches, block_t, block_b, kv_limit)
     want = stream_probe_call(layout, q, caches, block_t, block_b, kv_limit, plain=True)
     return got, want
@@ -2256,18 +2286,20 @@ def phase2_decode_stream_probe(dev, flush):
     rate reference (no single PyTorch call computes the function)."""
     from flamingo_mini_tpu_torch.tools import probe_decode_kernel as pdk
     worst = {}
-    for i, (layout, block_t, block_b, kv_limit) in enumerate(PROBE_CASES):
-        got, want = stream_probe_case(dev, layout, block_t, block_b, kv_limit, seed=40 + i)
+    for i, (layout, block_t, block_b, kv_limit, b, T, D) in enumerate(PROBE_CASES):
+        got, want = stream_probe_case(dev, layout, block_t, block_b, kv_limit, 40 + i,
+                                      b, T, D)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         worst[layout] = max(worst.get(layout, 0.0), err)
-        assert bool(torch.isfinite(got).all()), (layout, block_t, block_b, kv_limit)
+        case = f"{layout} block_t={block_t} block_b={block_b} kv_limit={kv_limit} " \
+               f"(b, T, D)={(b, T, D)}"
+        assert bool(torch.isfinite(got).all()), case
         assert torch.equal(got.view(torch.int16), want.view(torch.int16)), \
-            f"{layout} block_t={block_t} block_b={block_b} kv_limit={kv_limit}: " \
-            f"max err {err}"
-    print(f"[phase 2] decode stream probes vs plain at b={pdk.B}, D={pdk.D}, T={pdk.T}, "
-          f"{len(PROBE_CASES)} cases (layout, block_t, block_b, kv_limit) "
-          f"{PROBE_CASES}: bit for bit (tolerance: equal)")
+            f"{case}: max err {err}"
+    print(f"[phase 2] decode stream probes vs plain, {len(PROBE_CASES)} cases (layout, "
+          f"block_t, block_b, kv_limit, b, T, D) {PROBE_CASES}: bit for bit "
+          "(tolerance: equal)")
     out = {}
     kv_limit = pdk.KV_LIMIT
     for layout, block_t in PROBE_TIMED.items():
@@ -2278,12 +2310,15 @@ def phase2_decode_stream_probe(dev, flush):
                                                      kv_limit, plain=True), 20, flush)
         clean_ms = time_ms(lambda: stream_probe_call(layout, q, caches, block_t, None,
                                                      kv_limit), 50, flush, clean=True)
+        wrapper_us = host_us(lambda: stream_probe_call(layout, q, caches, block_t, None,
+                                                       kv_limit))
         n_rows = pdk.chunk_rows(kv_limit, block_t, pdk.T)
         n_bytes = 2 * pdk.B * n_rows * pdk.D * 2 + 2 * pdk.B * pdk.D * 2
         bound_ms, bound_by = bound(n_bytes, 0.0, n_f32_ops=(2 * n_rows + 1) * pdk.B * pdk.D)
         out[layout] = dict(max_abs_err=worst[layout], ms=ms, plain_ms=plain_ms, library_ms=None,
                            bound_ms=bound_ms, bound_by=bound_by, block_t=block_t,
-                           n_bytes=n_bytes, clean_ms=clean_ms)
+                           n_bytes=n_bytes, clean_ms=clean_ms, host_us=wrapper_us,
+                           plan=pdk.plan(pdk.B, pdk.D, n_rows, block_t))
     # the rate reference: one reduction over 16.78 MB (a packed cache's rows)
     _, (ckv,) = stream_probe_inputs(dev, "packed", seed=61)
     live = ckv[:kv_limit]
@@ -2294,7 +2329,8 @@ def phase2_decode_stream_probe(dev, flush):
               f"{kv_limit}): {k['ms']} ms ({k['n_bytes'] / k['ms'] / 1e6} GB/s; "
               f"{k['clean_ms']} ms after a flush that leaves L2 clean), plain "
               f"{k['plain_ms']} ms, bound {k['bound_ms']} ms ({k['bound_by']}); library: "
-              "none (no single PyTorch call computes K-sum + V-sum + q)")
+              "none (no single PyTorch call computes K-sum + V-sum + q); one launch, "
+              f"{k['plan']}; wrapper host {k['host_us']} us per call")
     sum_clean_ms = time_ms(lambda: torch.sum(live, dim=0, dtype=torch.float32), 50,
                            flush, clean=True)
     print(f"[phase 2] rate reference: torch.sum(dim=0, dtype=float32) over {sum_bytes} "
@@ -2318,8 +2354,10 @@ def phase4_insitu(dev, card):
     eagerly, bit for bit (NaN-aware); then, with every launch count at 0,
     the decode probe's CLI variants (``--full``) and ``stream_bmajor_bt32``
     (``make_flat_loop(attn_stream_only, block_t=32)``) beside ``glue_only``
-    (the same loop without the probed call), and the head probe's two
-    variants -> the launch counts."""
+    (the same loop without the probed call), each kernel's share of a layer
+    (its loop less ``glue_only``), one ``decode_attention`` layer split into
+    the bare stream, the math and the loop's writes, and the head probe's
+    two variants -> the launch counts."""
     from flamingo_mini_tpu_torch.tools import insitu
     from flamingo_mini_tpu_torch.tools import probe_decode_kernel as pdk
     from flamingo_mini_tpu_torch.tools import probe_lm_head as plh
@@ -2327,7 +2365,8 @@ def phase4_insitu(dev, card):
     gen = torch.Generator(device=dev).manual_seed(70)
     args = pdk.inputs(dev, gen)
     # glue_only: the b-major loop with the probed call left out (its cache
-    # writes and axpy alone), the baseline that stream_bmajor_bt32 adds to
+    # writes and axpy alone), the baseline each variant's kernel share is
+    # taken against
     loops = pdk.variants(full=True) + (
         ("stream_bmajor_bt32", pdk.make_flat_loop(pdk.attn_stream_only, block_t=32)),
         ("glue_only", pdk.make_flat_loop(lambda q, *_, **__: q)))
@@ -2354,6 +2393,19 @@ def phase4_insitu(dev, card):
               f"{r['ms_per_step']} ms per step, {r['per_layer_us']} us per layer, "
               f"{r['GBps']} GB/s (2 b kv_limit D 2 bytes per layer; graphs of "
               f"{pdk.REPEATS} steps, median of {insitu.RUNS} replays)")
+    us = {name: r["per_layer_us"] for name, r in layers.items()}
+    for name in ("stream_bmajor_bt32", "stream_tmajor_bt32", "stream_tmajor_packed_bt16",
+                 "tmajor_kernel"):
+        share = us[name] - us["glue_only"]
+        print(f"[phase 4] {card}: in-situ kernel share {name}: {share} us per layer "
+              f"less glue_only, {2 * pdk.B * pdk.KV_LIMIT * pdk.D * 2 / (share * 1e3)} "
+              "GB/s")
+    print(f"[phase 4] {card}: one in-situ decode_attention layer, {us['tmajor_kernel']} "
+          f"us ({pdk.PROBE}): the bare stream "
+          f"{us['stream_tmajor_bt32'] - us['glue_only']} us (stream_tmajor_bt32 less "
+          f"glue_only), the math {us['tmajor_kernel'] - us['stream_tmajor_bt32']} us "
+          f"(tmajor_kernel less stream_tmajor_bt32), the loop's writes {us['glue_only']} "
+          "us (glue_only)")
     for name, r in steps.items():
         print(f"[phase 4] {card}: in-situ head probe {name} (B{plh.B} D{plh.D} "
               f"V{plh.V}): {r['us_per_step']} us per step, {r['GBps']} GB/s of int8 "

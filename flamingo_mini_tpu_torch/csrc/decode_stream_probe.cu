@@ -15,19 +15,26 @@
 //
 // Bound: device memory. The chunks read 2 b (n block_t) D bf16 (at b=32,
 // D=1024, 128 rows: 16.78 MB, 0.0050 ms at 3.35 TB/s); one float32 add per
-// value read. The TPU kernel walks the chunks in order on one core; here
+// value read. The TPU kernel walks the chunks in order on one core. Here
 // the rows are cut into groups of R (8 where block_t allows, else the
-// largest of 4, 2, 1 that divides it) and every (group, row b, 8 columns)
-// is one thread: 16-byte loads, all R K and R V vectors in flight before
-// the adds, 65,536 threads at the probe's shape, so the whole read is in
-// flight at once over the 132 SMs. Each thread sums its group's K rows in
-// row order and its V rows in row order and stores the float32 partial
-// sK + sV; a second launch folds the partials, chunk by chunk in order
-// (within a chunk the groups in order, then acc += chunk), adds q and
-// casts. No atomics: the order is fixed, and the plain version in
-// tools/probe_decode_kernel.py repeats it, so the kernel equals it bit for
-// bit. The partials (n block_t / R) b D float32 (2 MB at the probe's shape)
-// are written and read back through L2.
+// largest of 4, 2, 1 that divides it) and the output into 16-byte column
+// vectors (8 columns), dealt to blocks in slices of `width` vectors (the
+// plan: `plan()` in tools/probe_decode_kernel.py). One launch; a thread
+// owns one (group, column vector) of its block's slice and issues all R K
+// and R V loads (16 bytes each) before any add, so at the probe's shape
+// 65,536 threads (256 blocks of 256, two an SM) hold the whole read in
+// flight at once. Each thread sums its group's K rows in row order and its
+// V rows in row order and writes the float32 partial sK + sV to shared
+// memory. After a barrier one thread per column vector folds the block's
+// groups in order: a chunk's groups into the chunk's sum, the chunks in
+// order into the accumulator (both in registers), then + q and one cast.
+// Where the cache has more groups than the block has threads, the block
+// walks windows of groups in order (whole chunks wherever a chunk fits the
+// block; a longer chunk's sum is carried from one window to the next) and
+// issues a window's loads before it waits for the fold of the one before.
+// No partial sums in device memory, no atomics, no scratch: the order is
+// fixed and the plain version repeats it, so the kernel equals it bit for
+// bit.
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -35,7 +42,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 512;
 
 __device__ __forceinline__ uint4 load_stream(const uint4* p) {
   uint4 v;
@@ -56,146 +63,173 @@ __device__ __forceinline__ void widen8(const uint4& v, float f[8]) {
   }
 }
 
-// One thread per (group g, row bi, 8-column vector dv): partial[g, bi,
-// 8 dv .. 8 dv + 7] = (K rows in order) + (V rows in order). Strides in
-// 16-byte vectors: t_stride between cache rows t and t + 1 of one batch
-// row, b_stride between batch rows.
+// A block owns the column vectors [blockIdx.x width, + width) of the
+// output (b D / 8 of them, vector c = row bi, columns 8 dv .. 8 dv + 7 with
+// c = bi dvec + dv) and walks the groups in windows of `window`. Thread
+// (gl, s) = (tid / width, tid % width) sums group (window start + gl) of
+// vector s; threads (0, s) fold. Strides in 16-byte vectors: t_stride
+// between cache rows t and t + 1 of one batch row, b_stride between batch
+// rows. part: window x width partials of 8 float32 (dynamic shared memory).
 template <int R>
-__global__ void __launch_bounds__(kThreads)
-group_sums(const uint4* __restrict__ k, const uint4* __restrict__ v,
-           long long t_stride, long long b_stride, int b, int dvec, int n_groups,
-           float* __restrict__ partial) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= static_cast<long long>(n_groups) * b * dvec) return;
-  const int dv = static_cast<int>(i % dvec);
-  const long long gb = i / dvec;  // g * b + bi
-  const int bi = static_cast<int>(gb % b);
-  const long long g = gb / b;
-  const long long base = g * R * t_stride + bi * b_stride + dv;
-  uint4 kr[R], vr[R];
+__global__ void __launch_bounds__(kMaxThreads)
+stream_sum(const uint4* __restrict__ q, const uint4* __restrict__ k,
+           const uint4* __restrict__ v, long long t_stride, long long b_stride,
+           int dvec, int n_vec, int n_groups, int gpc, int width, int window,
+           uint4* __restrict__ out) {
+  extern __shared__ float4 part[];
+  const int s = threadIdx.x % width;
+  const int gl = threadIdx.x / width;
+  const int c = blockIdx.x * width + s;
+  const bool col = c < n_vec;
+  const bool folds = gl == 0 && col;
+  const long long col_off = static_cast<long long>(c / dvec) * b_stride + c % dvec;
+  float4* mine = part + 2 * (gl * width + s);
+  float acc[8], cs[8];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    kr[r] = load_stream(k + base + r * t_stride);
-    vr[r] = load_stream(v + base + r * t_stride);
+  for (int e = 0; e < 8; ++e) acc[e] = cs[e] = 0.f;
+  int in_chunk = 0;  // the fold's place in the current chunk
+  for (int g0 = 0; g0 < n_groups; g0 += window) {
+    const int g = g0 + gl;
+    const bool live = col && g < n_groups;
+    uint4 kr[R], vr[R];
+    if (live) {
+      const long long base = static_cast<long long>(g) * R * t_stride + col_off;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        kr[r] = load_stream(k + base + r * t_stride);
+        vr[r] = load_stream(v + base + r * t_stride);
+      }
+    }
+    if (g0) __syncthreads();  // the fold of the window before has read part
+    if (live) {
+      float sk[8], sv[8], f[8];
+      widen8(kr[0], sk);
+      widen8(vr[0], sv);
+#pragma unroll
+      for (int r = 1; r < R; ++r) {
+        widen8(kr[r], f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sk[e] += f[e];
+        widen8(vr[r], f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sv[e] += f[e];
+      }
+      mine[0] = make_float4(sk[0] + sv[0], sk[1] + sv[1], sk[2] + sv[2], sk[3] + sv[3]);
+      mine[1] = make_float4(sk[4] + sv[4], sk[5] + sv[5], sk[6] + sv[6], sk[7] + sv[7]);
+    }
+    __syncthreads();
+    if (folds) {
+      const int n = min(window, n_groups - g0);
+#pragma unroll 4
+      for (int j = 0; j < n; ++j) {
+        const float4 p0 = part[2 * (j * width + s)];
+        const float4 p1 = part[2 * (j * width + s) + 1];
+        const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+        if (in_chunk == 0) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) cs[e] = p[e];
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) cs[e] += p[e];
+        }
+        if (++in_chunk == gpc) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[e] += cs[e];
+          in_chunk = 0;
+        }
+      }
+    }
   }
-  float sk[8], sv[8], f[8];
-  widen8(kr[0], sk);
-  widen8(vr[0], sv);
+  if (!folds) return;
+  const uint4 qw = q[c];
+  const uint32_t qv[4] = {qw.x, qw.y, qw.z, qw.w};
+  uint32_t o[4];
 #pragma unroll
-  for (int r = 1; r < R; ++r) {
-    widen8(kr[r], f);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) sk[e] += f[e];
-    widen8(vr[r], f);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) sv[e] += f[e];
+  for (int j = 0; j < 4; ++j) {
+    const float2 qf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qv[j]));
+    const __nv_bfloat162 r = __floats2bfloat162_rn(acc[2 * j] + qf.x, acc[2 * j + 1] + qf.y);
+    o[j] = *reinterpret_cast<const uint32_t*>(&r);
   }
-  float4* out = reinterpret_cast<float4*>(partial + i * 8);
-  out[0] = make_float4(sk[0] + sv[0], sk[1] + sv[1], sk[2] + sv[2], sk[3] + sv[3]);
-  out[1] = make_float4(sk[4] + sv[4], sk[5] + sv[5], sk[6] + sv[6], sk[7] + sv[7]);
-}
-
-__device__ __forceinline__ void add4(float4& a, const float4& x) {
-  a.x += x.x;
-  a.y += x.y;
-  a.z += x.z;
-  a.w += x.w;
-}
-
-// One thread per 4 output columns (bd4 = b D / 4 of them): the chunks in
-// order, each the sum of its gpc group partials in order; then + q, cast.
-__global__ void __launch_bounds__(kThreads)
-fold_chunks(const float4* __restrict__ partial, const uint2* __restrict__ q,
-            uint2* __restrict__ out, int bd4, int n_chunks, int gpc) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= bd4) return;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int c = 0; c < n_chunks; ++c) {
-    const float4* p = partial + static_cast<long long>(c) * gpc * bd4 + i;
-    float4 cs = p[0];
-    for (int j = 1; j < gpc; ++j) add4(cs, p[static_cast<long long>(j) * bd4]);
-    add4(acc, cs);
-  }
-  const uint2 qw = q[i];
-  const float2 q01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qw.x));
-  const float2 q23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qw.y));
-  const __nv_bfloat162 o01 = __floats2bfloat162_rn(acc.x + q01.x, acc.y + q01.y);
-  const __nv_bfloat162 o23 = __floats2bfloat162_rn(acc.z + q23.x, acc.w + q23.y);
-  uint2 o;
-  o.x = *reinterpret_cast<const uint32_t*>(&o01);
-  o.y = *reinterpret_cast<const uint32_t*>(&o23);
-  out[i] = o;
+  out[c] = make_uint4(o[0], o[1], o[2], o[3]);
 }
 
 int launch(const void* q, const void* k, const void* v, long long t_stride,
-           long long b_stride, float* partial, void* out, int b, int D, int n_rows,
-           int block_t, int group_rows, void* stream) {
-  if (D % 8 || block_t < 1 || n_rows % block_t || block_t % group_rows)
+           long long b_stride, void* out, int b, int D, int n_rows, int block_t,
+           int group_rows, int width, int window, void* stream) {
+  if (D % 8 || b < 1 || D < 8 || block_t < 1 || n_rows < block_t || n_rows % block_t ||
+      group_rows < 1 || block_t % group_rows || width < 1 || window < 1 ||
+      width * window > kMaxThreads)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int dvec = D / 8;
+  const long long n_vec = static_cast<long long>(b) * dvec;
+  const long long blocks = (n_vec + width - 1) / width;
+  if (n_vec > 0x7fffffff || blocks > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int n_groups = n_rows / group_rows;
-  const long long n_threads = static_cast<long long>(n_groups) * b * dvec;
-  const unsigned blocks = static_cast<unsigned>((n_threads + kThreads - 1) / kThreads);
+  const int gpc = block_t / group_rows;
+  const int threads = width * window;
+  const size_t smem = static_cast<size_t>(threads) * 2 * sizeof(float4);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint4* q4 = static_cast<const uint4*>(q);
   const uint4* k4 = static_cast<const uint4*>(k);
   const uint4* v4 = static_cast<const uint4*>(v);
+  uint4* o4 = static_cast<uint4*>(out);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  const int nv = static_cast<int>(n_vec);
   switch (group_rows) {
     case 8:
-      group_sums<8><<<blocks, kThreads, 0, st>>>(k4, v4, t_stride, b_stride, b, dvec,
-                                                  n_groups, partial);
+      stream_sum<8><<<grid, threads, smem, st>>>(q4, k4, v4, t_stride, b_stride, dvec, nv,
+                                                 n_groups, gpc, width, window, o4);
       break;
     case 4:
-      group_sums<4><<<blocks, kThreads, 0, st>>>(k4, v4, t_stride, b_stride, b, dvec,
-                                                  n_groups, partial);
+      stream_sum<4><<<grid, threads, smem, st>>>(q4, k4, v4, t_stride, b_stride, dvec, nv,
+                                                 n_groups, gpc, width, window, o4);
       break;
     case 2:
-      group_sums<2><<<blocks, kThreads, 0, st>>>(k4, v4, t_stride, b_stride, b, dvec,
-                                                  n_groups, partial);
+      stream_sum<2><<<grid, threads, smem, st>>>(q4, k4, v4, t_stride, b_stride, dvec, nv,
+                                                 n_groups, gpc, width, window, o4);
       break;
     case 1:
-      group_sums<1><<<blocks, kThreads, 0, st>>>(k4, v4, t_stride, b_stride, b, dvec,
-                                                  n_groups, partial);
+      stream_sum<1><<<grid, threads, smem, st>>>(q4, k4, v4, t_stride, b_stride, dvec, nv,
+                                                 n_groups, gpc, width, window, o4);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int bd4 = b * D / 4;
-  fold_chunks<<<(bd4 + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      reinterpret_cast<const float4*>(partial), static_cast<const uint2*>(q),
-      static_cast<uint2*>(out), bd4, n_rows / block_t, block_t / group_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// All: q, out (b, D) bf16; partial: (n_rows / group_rows, b, D) float32
-// scratch; n_rows = n block_t, the rows the chunks cover; group_rows
-// divides block_t and is 1, 2, 4 or 8. Each returns the CUDA error.
+// All: q, out (b, D) bf16; n_rows = n block_t, the rows the chunks cover;
+// group_rows divides block_t and is 1, 2, 4 or 8; the plan (width, window):
+// column vectors a block owns and groups it holds at once, width x window
+// <= 512 threads. One launch; each returns the CUDA error.
 
 // K, V: (T, b, D) bf16 (make_tmajor_stream)
-extern "C" int fmt_stream_tmajor(const void* q, const void* k, const void* v,
-                                 float* partial, void* out, int b, int D, int n_rows,
-                                 int block_t, int group_rows, void* stream) {
+extern "C" int fmt_stream_tmajor(const void* q, const void* k, const void* v, void* out,
+                                 int b, int D, int n_rows, int block_t, int group_rows,
+                                 int width, int window, void* stream) {
   const long long dvec = D / 8;
-  return launch(q, k, v, b * dvec, dvec, partial, out, b, D, n_rows, block_t,
-                group_rows, stream);
+  return launch(q, k, v, b * dvec, dvec, out, b, D, n_rows, block_t, group_rows, width,
+                window, stream);
 }
 
 // K, V: (b, T, D) bf16 (attn_stream_only)
-extern "C" int fmt_stream_bmajor(const void* q, const void* k, const void* v,
-                                 float* partial, void* out, int b, int T, int D,
-                                 int n_rows, int block_t, int group_rows, void* stream) {
+extern "C" int fmt_stream_bmajor(const void* q, const void* k, const void* v, void* out,
+                                 int b, int T, int D, int n_rows, int block_t,
+                                 int group_rows, int width, int window, void* stream) {
   const long long dvec = D / 8;
-  return launch(q, k, v, dvec, static_cast<long long>(T) * dvec, partial, out, b, D,
-                n_rows, block_t, group_rows, stream);
+  return launch(q, k, v, dvec, static_cast<long long>(T) * dvec, out, b, D, n_rows,
+                block_t, group_rows, width, window, stream);
 }
 
 // KV: (T, b, 2D) bf16, K = [..., :D], V = [..., D:] (make_tmajor_packed_loop)
-extern "C" int fmt_stream_packed(const void* q, const void* kv, float* partial,
-                                 void* out, int b, int D, int n_rows, int block_t,
-                                 int group_rows, void* stream) {
+extern "C" int fmt_stream_packed(const void* q, const void* kv, void* out, int b, int D,
+                                 int n_rows, int block_t, int group_rows, int width,
+                                 int window, void* stream) {
   const long long dvec = D / 8;
   const uint4* k = static_cast<const uint4*>(kv);
-  return launch(q, k, k + dvec, b * 2 * dvec, 2 * dvec, partial, out, b, D, n_rows,
-                block_t, group_rows, stream);
+  return launch(q, k, k + dvec, b * 2 * dvec, 2 * dvec, out, b, D, n_rows, block_t,
+                group_rows, width, window, stream);
 }

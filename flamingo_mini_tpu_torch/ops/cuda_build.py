@@ -54,11 +54,11 @@ SIGNATURES = {
     "fmt_w8a8_linear": [_P, _I, _P, _P, _P, _P, _P, _P],
     # x, acc, partial, out, n_rows, n_blocks, steps, stream
     "fmt_stream_sum": [_P, _P, _P, _P, _L, _I, _I, _P],
-    # the decode stream probes: q, k, v (or kv), partial, out, b, [T,] D,
-    # n_rows, block_t, group_rows, stream
-    "fmt_stream_tmajor": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "fmt_stream_bmajor": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "fmt_stream_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # the decode stream probes: q, k, v (or kv), out, b, [T,] D, n_rows,
+    # block_t, group_rows, and the plan: slice, window; stream
+    "fmt_stream_tmajor": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fmt_stream_bmajor": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fmt_stream_packed": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # &AttnArgs (ops/fused_attention._Args), is_bf16, stream
     "fmt_fused_attention": [_P, _I, _P],
     "fmt_flash_attention": [_P, _I, _P],

@@ -21,7 +21,10 @@ chunks' rows of (f32 K + f32 V) + f32 q)``, launches its kernel for CUDA
 tensors and runs its ``_plain`` version for CPU tensors, and counts its
 launches. The plain versions sum in the kernel's order (groups of
 ``group_rows(block_t)`` rows in row order, the group partials chunk by chunk
-in order), so the two agree bit for bit. A ``b`` that ``block_b`` does not
+in order), so the two agree bit for bit. The kernel is one launch a call,
+with no scratch: its layout (``plan``: the output's 16-byte column vectors
+a block owns, the groups it holds at once) is worked out on the host once
+per shape and cached. A ``b`` that ``block_b`` does not
 divide, or chunks that reach past the cache (n block_t > T), raise
 ``ValueError`` (the TPU kernels drop rows or read past the array).
 
@@ -54,10 +57,11 @@ exits 1 and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import sys
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -149,18 +153,66 @@ def _sum_plain(q, k_rows, v_rows, block_t: int) -> torch.Tensor:
     return (acc + q.float()).to(torch.bfloat16)
 
 
-def _launch(name: str, q: torch.Tensor, n_rows: int, block_t: int, ptrs, dims):
+MAX_THREADS = 512   # csrc/decode_stream_probe.cu's kMaxThreads
+# the rule's block: 16 of the output's 16-byte column vectors, at most 256
+# threads (two blocks an SM at 122 registers; 256 blocks, one wave, at the
+# probe's shape), the fastest or within 3 % of it at every shape of
+# ``profile_decode.py stream_plans`` (PERF.md §6, PR 14)
+WIDTH, THREADS = 16, 256
+
+
+class Plan(NamedTuple):
+    """The stream kernel's layout: a block owns ``width`` 16-byte column
+    vectors of the output and holds ``window`` groups of rows at once, a
+    thread a (group, vector) (``threads`` of them), their float32 partials
+    in ``smem`` bytes of shared memory; ``blocks`` the grid, ``windows``
+    the walk over the groups."""
+    width: int
+    window: int
+    threads: int
+    smem: int
+    blocks: int
+    windows: int
+
+
+def make_plan(b: int, d: int, n_rows: int, block_t: int, *, width: int = WIDTH,
+              max_threads: int = THREADS) -> Plan:
+    """A block of ``width`` vectors (fewer where the output has fewer)
+    holding as many groups as ``max_threads`` threads take: whole chunks
+    where a chunk's groups fit, else the threads' worth, a chunk's sum then
+    carried from one window to the next."""
+    n_vec = b * (d // 8)
+    r = group_rows(block_t)
+    n_groups, gpc = n_rows // r, block_t // r
+    width = min(width, n_vec, max_threads)
+    room = max_threads // width
+    window = min(n_groups, room // gpc * gpc if gpc <= room else room)
+    threads = width * window
+    return Plan(width, window, threads, threads * 32, -(-n_vec // width),
+                -(-n_groups // window))
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, d: int, n_rows: int, block_t: int) -> Plan:
+    """The stream kernel's layout at one shape, cached: the rule's
+    ``WIDTH`` vectors a block, at most ``THREADS`` threads."""
+    return make_plan(b, d, n_rows, block_t)
+
+
+def _launch(name: str, q: torch.Tensor, n_rows: int, block_t: int, ptrs, dims,
+            p: Optional[Plan]):
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     b, d = q.shape
     if d % 8:
         raise ValueError(f"{name}: D ({d}) must be a multiple of 8")
-    r = group_rows(block_t)
-    partial = torch.empty((n_rows // r, b, d), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
+    if any(ptr % 16 for ptr in (q.data_ptr(), out.data_ptr(), *ptrs)):
+        raise ValueError(f"{name}: q and the caches must start on 16 bytes")
+    p = p or plan(b, d, n_rows, block_t)
     lib = cuda_build.kernels()
-    err = getattr(lib, name)(q.data_ptr(), *ptrs, partial.data_ptr(), out.data_ptr(),
-                             *dims, n_rows, block_t, r,
+    err = getattr(lib, name)(q.data_ptr(), *ptrs, out.data_ptr(), *dims, n_rows, block_t,
+                             group_rows(block_t), p.width, p.window,
                              torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(err, name)
     return out
@@ -183,16 +235,19 @@ def attn_stream_only_plain(q, kf, vf, npad=None, cur=None, block_b=None, block_t
 
 
 def attn_stream_only(q, kf, vf, npad=None, cur=None, block_b=None, block_t=None,
-                     *, shape: Shape = PROBE) -> torch.Tensor:
+                     *, shape: Shape = PROBE, plan: Optional[Plan] = None
+                     ) -> torch.Tensor:
     """The decode kernel's reads over b-major caches kf, vf (b, T, D), the
     math replaced by a running sum -> (b, D) bf16. ``block_t`` defaults to
-    32; ``npad`` and ``cur`` are not read (the TPU kernel's signature)."""
+    32; ``npad`` and ``cur`` are not read (the TPU kernel's signature).
+    ``plan``: the kernel's layout, ``plan()``'s by default."""
     n_rows = _bmajor_rows(q, kf, vf, block_b, block_t, shape.kv_limit)
     if q.device.type == "cpu":
         return attn_stream_only_plain(q, kf, vf, npad, cur, block_b, block_t, shape=shape)
     attn_stream_only.launches += 1
     return _launch("fmt_stream_bmajor", q, n_rows, block_t or 32,
-                   (kf.data_ptr(), vf.data_ptr()), (q.shape[0], kf.shape[1], q.shape[1]))
+                   (kf.data_ptr(), vf.data_ptr()), (q.shape[0], kf.shape[1], q.shape[1]),
+                   plan)
 
 
 attn_stream_only.launches = 0
@@ -205,14 +260,15 @@ def tmajor_stream_plain(q, kf, vf, *, block_t: int, kv_limit: int = KV_LIMIT
     return _sum_plain(q, kf[:n_rows], vf[:n_rows], block_t)
 
 
-def tmajor_stream(q, kf, vf, *, block_t: int, kv_limit: int = KV_LIMIT) -> torch.Tensor:
+def tmajor_stream(q, kf, vf, *, block_t: int, kv_limit: int = KV_LIMIT,
+                  plan: Optional[Plan] = None) -> torch.Tensor:
     """The stream-only sum over T-major caches kf, vf (T, b, D) -> (b, D)."""
     n_rows = _rows(q, (kf, vf), False, block_t, kv_limit)
     if q.device.type == "cpu":
         return tmajor_stream_plain(q, kf, vf, block_t=block_t, kv_limit=kv_limit)
     tmajor_stream.launches += 1
     return _launch("fmt_stream_tmajor", q, n_rows, block_t,
-                   (kf.data_ptr(), vf.data_ptr()), q.shape)
+                   (kf.data_ptr(), vf.data_ptr()), q.shape, plan)
 
 
 tmajor_stream.launches = 0
@@ -226,14 +282,16 @@ def packed_stream_plain(q, ckv, *, block_t: int, kv_limit: int = KV_LIMIT
     return _sum_plain(q, ckv[:n_rows, :, :d], ckv[:n_rows, :, d:], block_t)
 
 
-def packed_stream(q, ckv, *, block_t: int, kv_limit: int = KV_LIMIT) -> torch.Tensor:
+def packed_stream(q, ckv, *, block_t: int, kv_limit: int = KV_LIMIT,
+                  plan: Optional[Plan] = None) -> torch.Tensor:
     """The stream-only sum over one packed T-major cache ckv (T, b, 2D),
     K = ckv[..., :D], V = ckv[..., D:] -> (b, D)."""
     n_rows = _rows(q, (ckv,), False, block_t, kv_limit)
     if q.device.type == "cpu":
         return packed_stream_plain(q, ckv, block_t=block_t, kv_limit=kv_limit)
     packed_stream.launches += 1
-    return _launch("fmt_stream_packed", q, n_rows, block_t, (ckv.data_ptr(),), q.shape)
+    return _launch("fmt_stream_packed", q, n_rows, block_t, (ckv.data_ptr(),), q.shape,
+                   plan)
 
 
 packed_stream.launches = 0

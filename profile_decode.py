@@ -2,7 +2,7 @@
 """Where the decode time goes on one CUDA card.
 
     python3 profile_decode.py [sweep] [paths] [opt] [fixed] [forward]
-    python3 profile_decode.py levels | phases | attn_plans | media_plans
+    python3 profile_decode.py levels | phases | attn_plans | media_plans | stream_plans
 
 Four measurements of the PyTorch port at flamingo-mini width (GPT-2-medium
 trunk with xattn before every layer, int8 weights, bf16; random weights from
@@ -45,7 +45,8 @@ by name (``media_kernel``: the Hopper kernel, or the mma.sync tile's kMedia
 instantiation, which bf16 ran before it), so that one copy of this script
 run in two checkouts compares them. ``media_plans``: ``fused_media_xattn``
 (bf16) under every plan its kernel takes at chip_smoke.py's shapes, each
-held to its plain version, beside the timer's floor.
+held to its plain version, beside the timer's floor; ``stream_plans`` the
+same for the decode stream probes' kernel, bit for bit.
 
 Prints one line per measurement and writes them all to
 ``chiprun_out/profile_decode.json``. Needs a card; exits 1 without one.
@@ -451,6 +452,75 @@ def media_plans(dev, card):
     return rows
 
 
+def stream_plans(dev, card):
+    """The decode stream probes' kernel (``csrc/decode_stream_probe.cu``)
+    under plans of 8 to 128 vectors a block and at most 128 to 512 threads
+    (``probe_decode_kernel.make_plan``), each held bit for bit to its plain
+    version, at each layout's timed block_t (kv_limit 128 at b=32, D=1024,
+    T=192), at OPT-1.3B's width (T-major, b=8, D=2048) and over a long cache
+    (T-major, T=1,024, kv_limit 1,000): L2 flushed, ``chip_smoke.time_ms``,
+    fastest first, beside the timer's floor and the plan ``plan()`` picks;
+    then the rule's plan over 8 to 192 rows, L2 flushed and clean."""
+    import chip_smoke as cs
+    from flamingo_mini_tpu_torch.tools import probe_decode_kernel as pdk
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    one = torch.zeros(1, device=dev)
+    floor = cs.time_ms(lambda: one.add_(1), 30, flush)
+    print(f"[stream_plans] {card}: the timer's floor (one 1-element add): {floor:.4f} ms")
+    rows = [dict(case="timer floor", ms=floor)]
+    cases = (("bmajor", 32, 128, 32, 192, 1024), ("tmajor", 32, 128, 32, 192, 1024),
+             ("packed", 16, 128, 32, 192, 1024), ("tmajor", 32, 128, 8, 192, 2048),
+             ("tmajor", 32, 1000, 32, 1024, 1024))
+    for layout, block_t, kv_limit, b, T, D in cases:
+        q, caches = cs.stream_probe_inputs(dev, layout, 7, b, T, D)
+        want = cs.stream_probe_call(layout, q, caches, block_t, None, kv_limit, plain=True)
+        n_rows = pdk.chunk_rows(kv_limit, block_t, T)
+        picked = pdk.plan(b, D, n_rows, block_t)
+        grid = {pdk.make_plan(b, D, n_rows, block_t, width=w, max_threads=m)
+                for w in (8, 16, 32, 64, 128) for m in (128, 256, 512) if w <= m}
+        fn = {"tmajor": pdk.tmajor_stream, "packed": pdk.packed_stream}.get(layout)
+
+        def run(p):
+            if fn is None:
+                return pdk.attn_stream_only(q, *caches, None, None, None, block_t,
+                                            shape=pdk.Shape(kv_limit=kv_limit), plan=p)
+            return fn(q, *caches, block_t=block_t, kv_limit=kv_limit, plan=p)
+        times = []
+        for p in sorted(grid):
+            assert torch.equal(run(p).view(torch.int16), want.view(torch.int16)), (layout, p)
+            times.append((cs.time_ms(lambda: run(p), 50, flush), p))
+        times.sort(key=lambda x: x[0])
+        case = f"{layout} block_t {block_t} kv_limit {kv_limit} (b, T, D) {(b, T, D)}"
+        row = dict(case=case, picked=picked._asdict(),
+                   picked_ms=next(ms for ms, p in times if p == picked),
+                   picked_clean_ms=cs.time_ms(lambda: run(picked), 50, flush, clean=True),
+                   plans=[dict(ms=ms, **p._asdict()) for ms, p in times])
+        rows.append(row)
+        print(f"[stream_plans] {card}: {case}: plan() picks {tuple(picked)} "
+              f"({row['picked_ms']} ms, {row['picked_clean_ms']} ms with L2 clean); "
+              "fastest first:", flush=True)
+        for ms, p in times:
+            print(f"[stream_plans]   {ms:.4f} ms  width {p.width} window {p.window} "
+                  f"threads {p.threads} blocks {p.blocks} windows {p.windows}", flush=True)
+        del q, caches
+    # where a call's time goes: the T-major kernel over 8 to 192 rows
+    # (block_t 32; 8 and 24 rows in one chunk of their own), L2 flushed and
+    # clean; the floor is the launch, the slope over rows the read
+    q, caches = cs.stream_probe_inputs(dev, "tmajor", 8)
+    for kv_limit, block_t in ((8, 8), (24, 24), (32, 32), (64, 32), (96, 32), (128, 32),
+                              (160, 32), (192, 32)):
+        def fn():
+            return pdk.tmajor_stream(q, *caches, block_t=block_t, kv_limit=kv_limit)
+        n_bytes = 2 * kv_limit * q.numel() * 2
+        row = dict(case=f"rows {kv_limit}", n_bytes=n_bytes, ms=cs.time_ms(fn, 50, flush),
+                   clean_ms=cs.time_ms(fn, 50, flush, clean=True))
+        rows.append(row)
+        print(f"[stream_plans] {card}: T-major, {kv_limit} rows (block_t {block_t}, "
+              f"{n_bytes} bytes): {row['ms']:.5f} ms, {row['clean_ms']:.5f} ms with L2 "
+              "clean", flush=True)
+    return rows
+
+
 def levels(dev, card):
     """Whether the w8a8 mode's OPT-1.3B time takes a level per process, and
     what sets it: ``levels_one`` in ``LEVEL_PROCS`` fresh processes, one
@@ -741,9 +811,11 @@ def main() -> int:
     sections = {"sweep": sweep, "paths": profile_paths,
                 "opt": lambda dev, card: profile_paths(dev, card, opt=True),
                 "fixed": fixed_cost, "forward": profile_forward, "levels": levels,
-                "phases": phases, "attn_plans": attn_plans, "media_plans": media_plans}
+                "phases": phases, "attn_plans": attn_plans, "media_plans": media_plans,
+                "stream_plans": stream_plans}
     names = sys.argv[1:] or [n for n in sections
-                             if n not in ("levels", "phases", "attn_plans", "media_plans")]
+                             if n not in ("levels", "phases", "attn_plans", "media_plans",
+                                          "stream_plans")]
     unknown = set(names) - set(sections)
     if unknown:
         print(f"profile_decode: unknown sections {sorted(unknown)}; choose from "

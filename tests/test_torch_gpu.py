@@ -66,7 +66,9 @@ and two live prefixes, at D=1024 and 2048, within 2 bf16 ulps; four shapes
 back to back on one stream; two launches on the same inputs bit-equal;
 launches taking turns on two streams bit-equal to one stream's. The stream probe's kernel within 1e-5 relative of its plain
 version. The in-situ decode probe's three stream kernels bit for bit
-against their plain versions (which sum in the kernels' order), and each
+against their plain versions (which sum in the kernels' order) at the
+probe's shape and the kernel's edges (b 1 and 3, D 40 and 2048, block_t 1,
+3, 24 and 256, a long cache walked in windows), and each
 probe loop replayed as a CUDA graph bit for bit against the same loop run
 eagerly. The random trunks and inputs are chip_smoke.py's.
 """
@@ -996,13 +998,27 @@ def test_stream_sum_matches_plain(cuda):
 # ---------------------------------------------------------------------------
 
 
-# (layout, block_t, block_b, kv_limit): chip_smoke.PROBE_CASES
-@pytest.mark.parametrize("layout,block_t,block_b,kv_limit", [
-    ("tmajor", 16, None, 128), ("tmajor", 32, None, 128), ("tmajor", 32, None, 100),
-    ("bmajor", 16, 32, 128), ("bmajor", 32, 32, 128), ("bmajor", 32, 8, 128),
-    ("bmajor", 16, 8, 100), ("packed", 16, None, 128), ("packed", 32, None, 128),
-    ("packed", 16, None, 100)])
-def test_decode_stream_kernel_matches_plain(cuda, layout, block_t, block_b, kv_limit):
+# (block_t, block_b, kv_limit, b, T, D): the kernel's edges in each layout
+# (chip_smoke.PROBE_EDGES): b of 1 and 3, D of 5 vectors and 2048, block_t
+# 1, 3 and 24, a long cache walked in windows, chunks longer than a block
+PROBE_EDGES = ((32, None, 128, 1, 192, 1024), (16, None, 100, 3, 192, 1024),
+               (32, None, 128, 32, 192, 40), (32, None, 128, 8, 192, 2048),
+               (1, None, 100, 32, 192, 1024), (3, None, 100, 32, 192, 1024),
+               (24, None, 100, 32, 192, 1024), (32, None, 1024, 32, 1024, 1024),
+               (32, None, 1000, 32, 1024, 1024), (256, None, 300, 4, 512, 1024))
+
+
+# (layout, block_t, block_b, kv_limit, b, T, D): chip_smoke.PROBE_CASES, the
+# probe's shape (32, 192, 1024) first
+@pytest.mark.parametrize("layout,block_t,block_b,kv_limit,b,T,D", [
+    ("tmajor", 16, None, 128, 32, 192, 1024), ("tmajor", 32, None, 128, 32, 192, 1024),
+    ("tmajor", 32, None, 100, 32, 192, 1024), ("bmajor", 16, 32, 128, 32, 192, 1024),
+    ("bmajor", 32, 32, 128, 32, 192, 1024), ("bmajor", 32, 8, 128, 32, 192, 1024),
+    ("bmajor", 16, 8, 100, 32, 192, 1024), ("packed", 16, None, 128, 32, 192, 1024),
+    ("packed", 32, None, 128, 32, 192, 1024), ("packed", 16, None, 100, 32, 192, 1024)]
+    + [(layout,) + e for layout in ("tmajor", "bmajor", "packed") for e in PROBE_EDGES])
+def test_decode_stream_kernel_matches_plain(cuda, layout, block_t, block_b, kv_limit,
+                                            b, T, D):
     """Bit for bit: the plain version sums in the kernel's order."""
     import chip_smoke
     from flamingo_mini_tpu_torch.tools import probe_decode_kernel as pdk
@@ -1010,10 +1026,29 @@ def test_decode_stream_kernel_matches_plain(cuda, layout, block_t, block_b, kv_l
                "packed": pdk.packed_stream}[layout]
     before = wrapper.launches
     got, want = chip_smoke.stream_probe_case(cuda, layout, block_t, block_b, kv_limit,
-                                             seed=block_t + kv_limit)
+                                             block_t + kv_limit, b, T, D)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_decode_stream_kernel_walks_a_long_cache_in_windows(cuda):
+    """T = 1,024, kv_limit 1,000: the rows outgrow one block's threads, so
+    each block walks eight windows of whole chunks; bit for bit in each
+    layout, with one launch each."""
+    import chip_smoke
+    from flamingo_mini_tpu_torch.tools import probe_decode_kernel as pdk
+    n_rows = pdk.chunk_rows(1000, 32, 1024)
+    p = pdk.plan(32, 1024, n_rows, 32)
+    assert p.windows == 8 and p.window % (32 // pdk.group_rows(32)) == 0
+    for layout, wrapper in (("tmajor", pdk.tmajor_stream), ("bmajor", pdk.attn_stream_only),
+                            ("packed", pdk.packed_stream)):
+        before = wrapper.launches
+        got, want = chip_smoke.stream_probe_case(cuda, layout, 32, None, 1000, 5, 32, 1024,
+                                                 1024)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16)), layout
 
 
 def test_decode_stream_kernels_refuse_bad_input(cuda):
