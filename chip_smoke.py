@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives ``flamingo_mini_tpu_torch`` through both of its decode paths, greedy
-and with beam search, the megakernel's w8a8 tier, the ``use_pallas``
+(with and without HF's logits processors and scores), top-k sampling and
+beam search, the megakernel's w8a8 tier, the ``use_pallas``
 configuration's generate, and the uncached forward with its loss, for
 flamingo-mini (GPT-2-medium) and for OPT-1.3B and opt-350m trunks, the
 stream probe and the in-situ decode and head probes, and checks them:
@@ -125,7 +126,15 @@ stream probe and the in-situ decode and head probes, and checks them:
    set to 0 before it and read after it. Each path is compared with the
    same program run through the plain versions, and the megakernel path
    with the per-layer path, up to each row's first near-tie (the reference
-   run's top-2 logit gap <= 8 bf16 ulps there). Then beam search on both
+   run's top-2 logit gap <= 8 bf16 ulps there). Then the logits chain on
+   the megakernel, greedy at b=32 with ``no_repeat_ngram_size=3`` and
+   ``repetition_penalty=1.2`` (127 ``decode_step_megakernel``, 0
+   ``lm_head_argmax``: the full head and the chain run; tokens against the
+   plain-version run under the near-tie rule, on the processed logits; no
+   row repeats a 3-gram), and with ``return_scores`` and ``output_scores``
+   (the same counts; the per-step scores summed within 1e-3 relative of the
+   sequence scores; tokens against the plain fused-head greedy run under
+   its near-tie rule). Then beam search on both
    paths: ``num_beams=3``, 64 new tokens, ``length_penalty=1.0``,
    ``early_stopping``, the lazy reorder; launch counts (per layer: 24 x 63
    ``decode_attention_beam``, every other kernel 0; megakernel: 63
@@ -154,14 +163,25 @@ stream probe and the in-situ decode and head probes, and checks them:
    (63 ``decode_step_megakernel`` and nothing else, against the plain
    version); each run's agreement with its weight-only run printed, not
    held (another numerics tier).
-   OPT-1.3B (BASELINE config 3's shape, greedy: ViT-L/14, xattn every
-   other layer, int8 trunk and xattn, bf16, batch 8, one image + 8-token
-   prompt with rows 0 and 1 left-padded by 2, 64 new tokens,
-   ``prefix_block=32``, EOS unreachable): per layer (24 x 63
-   ``decode_attention``, 63 ``lm_head_argmax``) and on the megakernel (63
+   OPT-1.3B (BASELINE config 3's shape: ViT-L/14, xattn every other
+   layer, int8 trunk and xattn, bf16, batch 8, one image + 8-token prompt
+   with rows 0 and 1 left-padded by 2, 64 new tokens, ``prefix_block=32``,
+   EOS unreachable), greedy per layer (24 x 63 ``decode_attention``, 63
+   ``lm_head_argmax``) and on the megakernel (63
    ``decode_step_megakernel``, 63 ``lm_head_argmax``), each against its
    plain-version run and the two paths against each other (near-ties as
-   above); w8a8 on the megakernel (63 + 63, against its plain-version
+   above); config 3 as written, ``do_sample=True, top_k=50`` on the
+   megakernel with a seeded ``torch.Generator`` (63
+   ``decode_step_megakernel``, 0 ``lm_head_argmax``, every other 0;
+   every token in its own run's top 50; tokens against the plain-version
+   run under the same seed up to each row's first near-tie: the
+   reference's top two of the warped logits plus the Gumbel noise within 8
+   bf16 ulps, or a pick within 8 bf16 ulps of the top-50 cut of the run
+   that dropped it (random OPT-1.3B logits are flat, about 4 at the top,
+   and bf16 ties at the 50th are common); up to that point every token in
+   the reference run's top 50; two runs with one seed bit-equal, two seeds
+   different); w8a8 on the
+   megakernel (63 + 63, against its plain-version
    run; agreement with the weight-only run printed); beams on the megakernel (3 beams, 32 new tokens: 31
    ``decode_step_megakernel`` and nothing else, output (8, 40), against the
    plain-version run); the use_pallas forward (54 ``fused_attention``, 12
@@ -170,7 +190,10 @@ stream probe and the in-situ decode and head probes, and checks them:
    plain-version run; ``megakernel=True`` must raise ``ValueError``;
 4. timing on the card: ms per decode step (two lengths) and captions/s of
    the seven flamingo-mini generate paths (w8a8 greedy and beams included)
-   and the three OPT-1.3B paths (w8a8 included), peak memory, the beam
+   and the four OPT-1.3B paths (top-k 50 sampling and w8a8 included), peak
+   memory; the sampled OPT-1.3B step's full head (``lm_head`` at 8 rows,
+   and its float32 weight copy alone) and chain with the draw, each alone
+   on the card, as shares of that path's step; the beam
    step's full head (``lm_head`` at 96 rows) and candidate selection,
    encode + resample at batch 32 with and without the attention kernels,
    and both forwards' ms and tokens/s. Last the stream probe at 512 MB:
@@ -254,13 +277,15 @@ MINI = dict(lm="gpt2-medium", clip_model_type="openai/clip-vit-large-patch14",
             dim=1024, dim_visual=1024, compute_dtype="bfloat16")
 # the uncached forward: batch 8 x 64 tokens (bench_train.py's shape)
 FWD_B, FWD_N = 8, 64
-# OPT-1.3B captioning, BASELINE config 3's shape (bench_extended.py:214-216,
-# :233-235) run greedy: ViT-L/14, xattn every other layer, batch 8, one image
-# + 8-token prompt with rows 0 and 1 left-padded by 2, 64 new tokens (the
-# flat cache rounds 72 up to 128); beams: 3, 32 new tokens
+# OPT-1.3B captioning, BASELINE config 3 (bench_extended.py:214-216,
+# :233-235), run as written (top-k 50 sampling) and greedy: ViT-L/14, xattn
+# every other layer, batch 8, one image + 8-token prompt with rows 0 and 1
+# left-padded by 2, 64 new tokens (the flat cache rounds 72 up to 128);
+# beams: 3, 32 new tokens
 OPT13 = dict(lm="facebook/opt-1.3b", clip_model_type="openai/clip-vit-large-patch14",
              dim=2048, dim_visual=1024, xattn_every=2, compute_dtype="bfloat16")
 OPT_B, OPT_PROMPT, OPT_PAD, OPT_NEW, OPT_BEAM_NEW = 8, 8, 2, 64, 32
+OPT_TOP_K = 50                    # BASELINE config 3 samples top-k 50
 OPT_MAX = OPT_PROMPT + OPT_NEW
 OPT_D, OPT_H, OPT_T, OPT_V = 2048, 32, 128, 50273
 # (cur, kv_limit) pairs the OPT loop reaches: segments end at 40 and 71
@@ -1866,9 +1891,7 @@ def patched(module, name, fn):
 
 def logit_gap(logits: torch.Tensor) -> torch.Tensor:
     """(b, V) logits -> each row's top-2 gap in bf16 ulps of its top logit."""
-    top2 = logits.to(torch.bfloat16).float().topk(2).values
-    ulp = 2.0 ** (torch.floor(torch.log2(top2[:, 0].abs())) - 7)
-    return ((top2[:, 0] - top2[:, 1]) / ulp).cpu()
+    return pick_gap(logits.to(torch.bfloat16).float())
 
 
 def gap_recorder(gaps, pick):
@@ -1917,21 +1940,106 @@ def plain_attention():
 
 
 @contextlib.contextmanager
-def plain_kernels(gaps):
-    """Route every path through the kernels' plain versions, recording the
-    plain picks' top-2 logit gaps (``recorded``). Both trunks' decode
-    attention is ``gpt2.cached_attention``'s."""
+def plain_trunk():
+    """Route the trunk's kernels (decode attention, the megakernel, the
+    attention kernels of the use_pallas path) through their plain versions.
+    Both trunks' decode attention is ``gpt2.cached_attention``'s."""
     from flamingo_mini_tpu_torch.models import gpt2
     from flamingo_mini_tpu_torch.ops import megadecode
     from flamingo_mini_tpu_torch.ops.decode_attention import (
         decode_attention_beam_plain, decode_attention_plain)
-    from flamingo_mini_tpu_torch.ops.lm_head import lm_head_argmax_plain
     with patched(gpt2, "decode_attention", decode_attention_plain), \
             patched(gpt2, "decode_attention_beam", decode_attention_beam_plain), \
             patched(megadecode, "decode_step_megakernel",
                     megadecode.decode_step_megakernel_plain), \
-            recorded(gaps, lm_head_argmax_plain), plain_attention():
+            plain_attention():
         yield
+
+
+@contextlib.contextmanager
+def plain_kernels(gaps):
+    """Route every path through the kernels' plain versions, recording the
+    plain picks' top-2 logit gaps (``recorded``)."""
+    from flamingo_mini_tpu_torch.ops.lm_head import lm_head_argmax_plain
+    with plain_trunk(), recorded(gaps, lm_head_argmax_plain):
+        yield
+
+
+def pick_gap(values: torch.Tensor) -> torch.Tensor:
+    """(b, V) float32 values an argmax picks from -> each row's top-2 gap
+    in bf16 ulps of its top value."""
+    top2 = values.topk(2).values
+    ulp = 2.0 ** (torch.floor(torch.log2(top2[:, 0].abs())) - 7)
+    return ((top2[:, 0] - top2[:, 1]) / ulp).cpu()
+
+
+@contextlib.contextmanager
+def recorded_picks(gaps, steps=None):
+    """Generate with every pick (``generation._select_token``) recording the
+    top-2 gap of what its argmax takes (``pick_gap``: the processed logits;
+    sampling, the warped logits plus the noise), gaps[j] for generated
+    token j; sampling, with ``steps``, also each pick's processed logits
+    and noise on the host."""
+    from flamingo_mini_tpu_torch import generation
+    select = generation._select_token
+
+    def run(logits, dc, noise):
+        values = logits.float()
+        if dc.do_sample:
+            if steps is not None:
+                steps.append((values.cpu(), noise.cpu()))
+            values = noise + generation.warp(values, dc)
+        gaps.append(pick_gap(values))
+        return select(logits, dc, noise)
+    with patched(generation, "_select_token", run):
+        yield
+
+
+def compare_top_k_samples(label, gen, ref_gen, steps, ref_steps, k: int):
+    """Two top-k sampled runs under one seed (the same noise): every token
+    lies in its own run's top k at its step (the k-th largest logit or
+    above), and rows are equal up to each row's first near-tie, at the pick
+    that parts: the reference's top two of the warped logits plus the noise
+    lie within 8 bf16 ulps of the top, or a pick lies within 8 bf16 ulps of
+    the top-k cut (the k-th largest logit) of the run that did not keep it,
+    where rounding moves a token across the cut. Up to that pick both runs
+    took the same tokens, each in the reference's top k."""
+    b, n = gen.shape
+    assert len(steps) == len(ref_steps) == n, (len(steps), len(ref_steps), n)
+    neg = torch.finfo(torch.float32).min
+    for j, (logits, _) in enumerate(steps):
+        kth = logits.topk(k, dim=-1).values[:, -1]
+        assert bool((logits.gather(1, gen[:, j:j + 1])[:, 0] >= kth).all()), \
+            f"{label}: a token outside its own run's top {k} at step {j}"
+    agreed, cut_parts = 0, 0
+    for r in range(b):
+        diff = torch.nonzero(gen[r] != ref_gen[r]).flatten()
+        if len(diff) == 0:
+            agreed += n
+            continue
+        j = int(diff[0])
+        agreed += j
+        a, w = int(gen[r, j]), int(ref_gen[r, j])
+        own, ref = steps[j][0][r], ref_steps[j][0][r]
+        own_cut, ref_cut = (x.topk(k).values[-1] for x in (own, ref))
+        values = torch.where(ref >= ref_cut, ref, neg) + ref_steps[j][1][r]
+        top2 = values.topk(2).values
+        top_gap = float(top2[0] - top2[1]) / bf16_ulps(top2[0], 1)
+        cut_gap = min(float(abs(ref[a] - ref_cut)) / bf16_ulps(ref_cut, 1),
+                      float(abs(own[w] - own_cut)) / bf16_ulps(own_cut, 1))
+        print(f"[phase 3] {label}: row {r} first differs at generated token {j}: "
+              f"reference top-2 gap {top_gap:.1f} bf16 ulp; the picks' distance to "
+              f"the top-{k} cut of the run that dropped them {cut_gap:.1f} bf16 ulp "
+              f"(pick {a}: reference logit {float(ref[a])}, cut {float(ref_cut)}; "
+              f"pick {w}: logit {float(own[w])}, cut {float(own_cut)})")
+        assert top_gap <= 8.0 or cut_gap <= 8.0, \
+            f"{label}: row {r} parts at a top-2 gap of {top_gap} and a cut gap of {cut_gap}"
+        cut_parts += cut_gap <= 8.0
+    full_rows = int((gen == ref_gen).all(dim=1).sum())
+    print(f"[phase 3] {label}: every token in its own run's top {k}; {agreed}/{b * n} "
+          f"tokens agree up to each row's first near-tie ({agreed / (b * n):.4f}), "
+          f"{cut_parts} of the partings within 8 ulps of the cut; {full_rows}/{b} rows "
+          "identical")
 
 
 def compare_tokens(label, gen, ref_gen, ref_gaps):
@@ -2069,14 +2177,14 @@ def expect(label, counts, **nonzero):
                       for fn in launch_counters()}, (label, counts)
 
 
-def counted(fn, gaps, ids, shape, vocab):
+def counted(fn, gaps, ids, shape, vocab, record=None):
     """A greedy generate ``fn()`` with every launch count at 0 before it
     -> (generated tokens on the host, counts); each pick's top-2 gap is
-    recorded (``recorded``). The output must have ``shape``, tokens in
-    [0, vocab) and the prompts ``ids`` intact."""
+    recorded (``recorded``, or the context ``record``). The output must
+    have ``shape``, tokens in [0, vocab) and the prompts ``ids`` intact."""
     from flamingo_mini_tpu_torch.ops.lm_head import lm_head_argmax
     zero_counts()
-    with recorded(gaps, lm_head_argmax):
+    with record or recorded(gaps, lm_head_argmax):
         tokens = fn()
     counts = read_counts()
     check_output(tokens, ids, shape, vocab)
@@ -2182,7 +2290,9 @@ def check_forward(label, model_f, rs, n_layer, n_x):
 
 def time_generate(card, batch, paths):
     """ms per decode step ((median at N new tokens - median at N/2) /
-    (N/2)), captions/s and peak memory of each (name, fn(n), N)."""
+    (N/2)), captions/s and peak memory of each (name, fn(n), N) -> {name:
+    ms per step}."""
+    steps = {}
     for name, fn, new_tokens in paths:
         torch.cuda.reset_peak_memory_stats()
         full_ms, full_all = timed(lambda: fn(new_tokens))
@@ -2194,6 +2304,8 @@ def time_generate(card, batch, paths):
         print(f"[phase 4] {card}: {name} path: {step_ms} ms per decode step, "
               f"{batch / (full_ms / 1000.0)} captions/s, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        steps[name] = step_ms
+    return steps
 
 
 def print_agreement(label, tokens, ref_tokens):
@@ -2416,6 +2528,46 @@ def phase4_insitu(dev, card):
     return counts
 
 
+def sampled_head_share(dev, card, model, vocab: int, sample: dict, step_ms: float):
+    """What the sampled step adds after the megakernel, alone on the card at
+    OPT-1.3B's shape (L2 flushed, CUDA events, ``time_ms``): the full int8
+    head (``lm_head`` at 8 rows, its float32 copy of the weight included),
+    that copy alone, and the chain with the top-k draw; each beside its host
+    µs per call and its share of the sampled path's step."""
+    from flamingo_mini_tpu_torch import generation
+    from flamingo_mini_tpu_torch.models import flamingo
+    config, params = model.config, model.params
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    h = torch.randn((OPT_B, 1, OPT_D), generator=gen, device=dev).to(torch.bfloat16)
+    w8 = params["lm"]["embed_tokens_q"]["w8"]
+    logits = flamingo.lm_head(params, config, h)[:, -1]
+    dc = generation.DecodeConfig(max_length=OPT_MAX, eos_token_id=vocab,
+                                 pad_token_id=0, **sample)
+    tokens = torch.randint(4, 1000, (OPT_B, OPT_MAX), generator=gen, device=dev)
+    mask = torch.ones((OPT_B, OPT_MAX), dtype=torch.int32, device=dev)
+
+    def chain():
+        out = generation.process_logits(logits, dc, tokens, mask, OPT_PROMPT + 1,
+                                        OPT_PROMPT)
+        return generation._select_token(
+            out, dc, generation.gumbel_noise(out.shape, gen, dev))
+    parts = (("lm_head (int8, 8 rows)", lambda: flamingo.lm_head(params, config, h)),
+             ("of which the float32 weight copy", lambda: w8.float()),
+             ("chain + top-k 50 draw", chain))
+    total = 0.0
+    for name, fn in parts:
+        ms = time_ms(fn, 20, flush)
+        total += 0.0 if name.startswith("of which") else ms
+        print(f"[phase 4] {card}: sampled OPT-1.3B step, {name}: {ms} ms "
+              f"({ms / step_ms:.4f} of the {step_ms} ms step), host "
+              f"{host_us(fn, 20):.1f} us a call")
+    print(f"[phase 4] {card}: sampled OPT-1.3B step: head + chain {total} ms, "
+          f"{total / step_ms:.4f} of the step (weight {tuple(w8.shape)}, "
+          f"{w8.numel() * 5 / 1e6:.0f} MB read and written by the copy)")
+    del flush
+
+
 def opt_setup(dev, rs):
     """OPT-1.3B (gates open, int8 trunk and xattn, bf16) and its batch:
     8 prompts of 8 tokens, rows 0 and 1 left-padded by 2, one image each at
@@ -2475,6 +2627,32 @@ def opt_cells(dev, card):
     compare_tokens("OPT-1.3B megakernel path vs per-layer path", mega_tokens,
                    layer_tokens, layer_gaps)
 
+    # BASELINE config 3 as written: top-k 50 sampling on the megakernel,
+    # the full head and the chain after each step's kernel
+    sample = dict(do_sample=True, top_k=OPT_TOP_K)
+
+    def seeded(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+    s_steps, p_steps = [], []
+    s_tokens, counts["sampled"] = counted(
+        lambda: run(True, generator=seeded(5), **sample), [], ids,
+        (OPT_B, OPT_MAX), vocab, record=recorded_picks([], s_steps))
+    expect("OPT-1.3B sampled megakernel path (top-k 50)", counts["sampled"],
+           decode_step_megakernel=steps)
+    with plain_trunk(), recorded_picks([], p_steps):
+        p_tokens = run(True, generator=seeded(5), **sample)[:, OPT_PROMPT:].cpu()
+    compare_top_k_samples("OPT-1.3B sampled megakernel vs plain, one seed", s_tokens,
+                          p_tokens, s_steps, p_steps, OPT_TOP_K)
+    del s_steps, p_steps
+    again = run(True, generator=seeded(5), **sample)[:, OPT_PROMPT:].cpu()
+    other = run(True, generator=seeded(6), **sample)[:, OPT_PROMPT:].cpu()
+    assert torch.equal(again, s_tokens), "two sampled runs with one seed differ"
+    assert not torch.equal(other, s_tokens), "two seeds sampled the same tokens"
+    print(f"[phase 3] OPT-1.3B sampled: two runs with seed 5 bit-equal; seed 6 "
+          f"{float((other != s_tokens).float().mean()):.4f} of tokens other; "
+          f"{float((s_tokens != mega_tokens).float().mean()):.4f} of tokens other "
+          "than greedy's")
+
     # w8a8 on the megakernel: the same batch, rows 0-1 left-padded
     w8_tokens, counts["w8a8"] = counted(lambda: run(True, w8a8=True), [], ids,
                                         (OPT_B, OPT_MAX), vocab)
@@ -2532,10 +2710,14 @@ def opt_cells(dev, card):
     del m350
 
     # phase 4: the OPT-1.3B paths and forward
-    time_generate(card, OPT_B, (
+    step_ms = time_generate(card, OPT_B, (
         ("OPT-1.3B per-layer", lambda n: run(False, n), OPT_NEW),
         ("OPT-1.3B megakernel", lambda n: run(True, n), OPT_NEW),
+        ("OPT-1.3B sampled megakernel (top-k 50)", lambda n: run(True, n, **sample),
+         OPT_NEW),
         ("OPT-1.3B w8a8 megakernel", lambda n: run(True, n, w8a8=True), OPT_NEW)))
+    sampled_head_share(dev, card, model, vocab, sample,
+                       step_ms["OPT-1.3B sampled megakernel (top-k 50)"])
     fwd_ms, fwd_all = timed(fwd)
     print(f"[phase 4] {card}: OPT-1.3B forward with loss, {FWD_B}x{FWD_N} tokens, "
           f"use_pallas: median {fwd_ms} ms (runs {fwd_all}), "
@@ -2638,15 +2820,62 @@ def main() -> int:
     expect("megakernel path", mega_counts, lm_head_argmax=steps,
            decode_step_megakernel=steps)
 
+    plain_runs = {}
     for megakernel, tokens, label in ((False, layer_tokens, "per-layer kernels vs plain"),
                                       (True, mega_tokens, "megakernel vs plain")):
         gaps = []
         with plain_kernels(gaps):
             plain_tokens = run(megakernel)
         torch.cuda.synchronize()
-        compare_tokens(label, tokens, plain_tokens[:, PROMPT_LEN:].cpu(), gaps)
+        plain_runs[megakernel] = plain_tokens[:, PROMPT_LEN:].cpu(), gaps
+        compare_tokens(label, tokens, plain_runs[megakernel][0], gaps)
     compare_tokens("megakernel path vs per-layer path", mega_tokens, layer_tokens,
                    layer_gaps)
+
+    # phase 3, the logits chain on the megakernel: greedy with processors
+    # (the fused head off, the full head and the chain after each step)
+    procs = dict(no_repeat_ngram_size=3, repetition_penalty=1.2)
+    proc_tokens, proc_counts = counted(
+        lambda: run(True, **procs), [], ids, (BATCH, MAX_LENGTH), vocab,
+        record=recorded_picks([]))
+    expect("megakernel path with processors", proc_counts,
+           decode_step_megakernel=steps)
+    gaps = []
+    with plain_trunk(), recorded_picks(gaps):
+        plain_tokens = run(True, **procs)[:, PROMPT_LEN:].cpu()
+    compare_tokens("megakernel with processors vs plain", proc_tokens, plain_tokens,
+                   gaps)
+    full = torch.cat([ids.cpu(), proc_tokens], dim=1)
+    grams = [set() for _ in range(BATCH)]
+    for r in range(BATCH):
+        for j in range(full.shape[1] - 2):
+            gram = tuple(full[r, j:j + 3].tolist())
+            assert gram not in grams[r], f"row {r} repeats the 3-gram {gram}"
+            grams[r].add(gram)
+    print(f"[phase 3] megakernel with processors: no row repeats a 3-gram; "
+          f"{float((proc_tokens != mega_tokens).float().mean()):.4f} of tokens other "
+          "than plain greedy's")
+    # scores: the full head (the fused head off), tokens held to the plain
+    # fused-head greedy run
+    scored = {}
+
+    def scored_run():
+        scored["out"] = run(True, return_scores=True, output_scores=True)
+        return scored["out"][0]
+    sc_tokens, sc_counts = counted(scored_run, [], ids, (BATCH, MAX_LENGTH), vocab,
+                                   record=contextlib.nullcontext())
+    expect("megakernel path with scores", sc_counts, decode_step_megakernel=steps)
+    _, seq_scores, step_scores = scored["out"]
+    assert seq_scores.shape == (BATCH,) and step_scores.shape == (BATCH, MAX_LENGTH)
+    assert bool(torch.isfinite(step_scores).all()) and bool((seq_scores < 0).all())
+    assert bool((step_scores[:, :PROMPT_LEN] == 0).all())
+    rel = float(((step_scores.sum(dim=1) - seq_scores).abs() / seq_scores.abs()).max())
+    print(f"[phase 3] megakernel with scores: sequence scores {seq_scores[:4].tolist()}"
+          f"...; per-step scores summed vs sequence scores: relative {rel} "
+          "(tolerance 1e-3)")
+    assert rel <= 1e-3, rel
+    compare_tokens("megakernel with scores (full head) vs plain fused-head greedy",
+                   sc_tokens, *plain_runs[True])
 
     # phase 3, w8a8: the same weights on the megakernel's act_quant mode
     w8_gaps = []
@@ -2824,6 +3053,10 @@ def main() -> int:
             ("decode_step_megakernel (OPT mode)", "decode_megakernel_sm90.cuh",
              "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
              opt_counts["megakernel"]["decode_step_megakernel"], mega_opt),
+            ("decode_step_megakernel (OPT mode, top-k 50 sampling: BASELINE config 3)",
+             "decode_megakernel_sm90.cuh",
+             "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
+             opt_counts["sampled"]["decode_step_megakernel"], mega_opt),
             ("decode_attention_beam", "decode_attention.cu",
              "flamingo_mini_tpu/ops/pallas_decode.py:350",
              layer_b_counts["decode_attention_beam"], attn_beam),

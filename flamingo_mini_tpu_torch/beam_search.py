@@ -7,10 +7,12 @@ vectorised ``_beam_search`` and its group (diverse) variant:
 * prefill runs once per batch row; the cache, the xattn K/V, the tokens,
   the mask, ``pos_next`` and the media count are then tiled k times, so
   batch row r becomes the beam family of rows ``r*k .. r*k + k - 1``;
-* each step adds the ``log_softmax`` of the full head to the running beam
-  scores and takes the top 2k of the flattened (k x V) candidates. A
-  candidate that is EOS or reaches the length limit leaves the running
-  refill; those ranked < k enter the finished pool with the score
+* each step runs the logits-processor chain (``generation.process_logits``)
+  on the ``log_softmax`` of the full head, as HF's beam mode does (after the
+  ``log_softmax``, unlike greedy and sampling), adds the result to the
+  running beam scores and takes the top 2k of the flattened (k x V)
+  candidates. A candidate that is EOS or reaches the length limit leaves
+  the running refill; those ranked < k enter the finished pool with the score
   ``sum_logprobs / gen_len ** length_penalty`` (EOS kept in the sequence).
   The pool keeps the best k by a merged top-k, blocked once it is full
   (``early_stopping``) or once the one-way early-stop heuristic trips. The
@@ -27,10 +29,10 @@ whole distribution): per layer, each step's 24 layers run
 ``decode_attention_beam``; with ``megakernel``, each step is embed -> one
 ``decode_step_megakernel`` launch in its beam mode -> final LayerNorm
 (GPT-2 or pre-norm OPT), weight-only or w8a8 (``dc.w8a8``). Group beams
-run per layer only, as in the JAX package, and refuse w8a8. The loop is a Python loop with one host check of the halting
-condition per step. The logits-processor chain is not ported: for the
-options the port has it is the identity. Every top-k is a stable sort, so
-ties go to the lower index, as ``lax.top_k``'s do.
+run per layer only, as in the JAX package, and refuse w8a8; each group's
+rows run the chain after their Hamming penalty. The loop is a Python loop
+with one host check of the halting condition per step. Every top-k is a
+stable sort, so ties go to the lower index, as ``lax.top_k``'s do.
 """
 from __future__ import annotations
 
@@ -39,8 +41,9 @@ from typing import Any, Dict, Optional
 import torch
 
 from .configuration_flamingo import FlamingoConfig
-from .generation import (DecodeConfig, _mega_hidden, _mega_prepare, _prefill,
-                         check_mega_fits)
+from .generation import (DecodeConfig, _log_softmax, _mega_hidden,
+                         _mega_prepare, _prefill, _stop, check_mega_fits,
+                         process_logits)
 from .models import flamingo
 from .ops.layers import Policy
 
@@ -59,13 +62,6 @@ def select_candidates(flat: torch.Tensor, n: int):
     flattened (beams x V) scores. Looked up at call time, so that a caller
     can watch the candidates by replacing it."""
     return _top_k(flat, n)
-
-
-def _log_softmax(x: torch.Tensor) -> torch.Tensor:
-    """float32 log-probs, in the order ``jax.nn.log_softmax`` takes."""
-    x = x.float()
-    shifted = x - x.amax(dim=-1, keepdim=True)
-    return shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
 
 
 def _tile_beams(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -93,7 +89,8 @@ def _pow(n: int, p: float) -> torch.Tensor:
 
 class _Decoder:
     """Prefill once per row, tile the state over the beams, and run one
-    decode step's forward -> float32 log-probs (b*k, V)."""
+    decode step's forward -> float32 log-probs (b*k, V), before the
+    logits chain."""
 
     def __init__(self, params: Params, config: FlamingoConfig,
                  dc: DecodeConfig, policy: Policy, input_ids, media_locations,
@@ -155,8 +152,7 @@ class _Decoder:
 def _limits(dc: DecodeConfig, L: int):
     """(M, segment ends): hypotheses stop at M; with ``prefix_block`` the
     steps run in segments that attend only the live prefix [0, seg_end)."""
-    M = dc.max_length if dc.max_new_tokens is None else \
-        min(dc.max_length, L + dc.max_new_tokens)
+    M = _stop(dc, L)
     pb = dc.prefix_block
     seg_ends = ([M] if pb <= 0 else
                 sorted(set(list(range(L + 1 + pb, M, pb)) + [M])))
@@ -239,7 +235,9 @@ def beam_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
         run_scores = new_run_scores
         return hits
 
-    hits = step_update(dec.logp0[:, None, :].expand(b, k, V), L)
+    # the prefill's rows are the families' (tiled) rows
+    logp0 = process_logits(dec.logp0, dc, dec.tokens[::k], dec.mask[::k], L, L)
+    hits = step_update(logp0[:, None, :].expand(b, k, V), L)
     cur = L + 1
     for seg_end in seg_ends:
         lim = min(seg_end, max_len) if dc.prefix_block > 0 else None
@@ -247,7 +245,8 @@ def beam_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
             alive = heur_unsat.any() & ~(fin_flags.all() & early) & ~hits.all()
             if not bool(alive):
                 break
-            logp = dec.logp(cur, lim, anc)
+            logp = process_logits(dec.logp(cur, lim, anc), dc, dec.tokens,
+                                  dec.mask, cur, L)
             hits = step_update(logp.reshape(b, k, V), cur)
             cur += 1
     return fin_seq, fin_scores
@@ -261,7 +260,8 @@ def group_beam_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
 
     Per step the G groups of kg = k / G beams run in turn: group g's
     log-probs lose ``diversity_penalty`` times the count of each token the
-    groups before it chose this step, then a 2kg-candidate beam update runs
+    groups before it chose this step, the logits chain runs on the group's
+    rows, then a 2kg-candidate beam update runs
     with the group's own pool of kg. A group freezes once done (pool full
     under early stopping, or HF's is_done test); frozen groups emit pads,
     which still count for later groups. At the end the groups that are not
@@ -294,12 +294,17 @@ def group_beam_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
         """Fill position ``cur`` from (b, k, V) log-probs, group by group."""
         nonlocal run_scores, fin_seq, fin_scores, fin_flags, done, anc
         rows4 = dec.tokens.reshape(b, G, kg, max_len)
+        mask4 = dec.mask.reshape(b, G, kg, max_len)
         counts = torch.zeros((b, V), dtype=f32, device=dev)
         denom = _pow(cur + 1 - L, lp_pow)
         parents, toks, rs, fseqs, fscs, ffls, dones = [], [], [], [], [], [], []
         for g in range(G):
             done_g = done[:, g, None]
             s = logp[:, g * kg:(g + 1) * kg, :] - dp * counts[:, None, :]
+            s = process_logits(s.reshape(b * kg, V), dc,
+                               rows4[:, g].reshape(b * kg, max_len),
+                               mask4[:, g].reshape(b * kg, max_len), cur, L
+                               ).reshape(b, kg, V)
             flat = (run_scores[:, g, :, None] + s).reshape(b, kg * V)
             top_lp, top_idx = select_candidates(flat, 2 * kg)     # (b, 2kg)
             parent, tok = top_idx // V, top_idx % V

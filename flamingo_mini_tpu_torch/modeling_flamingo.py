@@ -1,9 +1,9 @@
 """FlamingoModel: the public entry point, cut to generation and the forward.
 
-Port of ``flamingo_mini_tpu/modeling_flamingo.py::FlamingoModel`` for greedy
-and beam decoding over a GPT-2 or OPT trunk, per layer or through the
-whole-step megakernel (weight-only or w8a8), and the uncached forward with
-its loss. The policy
+Port of ``flamingo_mini_tpu/modeling_flamingo.py::FlamingoModel`` for greedy,
+sampled and beam decoding with HF's logits processors over a GPT-2 or OPT
+trunk, per layer or through the whole-step megakernel (weight-only or
+w8a8), and the uncached forward with its loss. The policy
 follows ``compute_dtype`` and ``use_pallas`` (bf16 with ``use_pallas``: the
 attention kernels). Holds (config, params, policy, device); params are a
 nested dict of tensors in the JAX package's layout, made by
@@ -88,30 +88,65 @@ class FlamingoModel:
     def generate(self, input_ids, *, media_locations=None, attention_mask=None,
                  pixel_values=None, visual_features=None,
                  max_length: int = 150, max_new_tokens: Optional[int] = None,
-                 eos_token_id: Optional[int] = None,
-                 pad_token_id: Optional[int] = None, prefix_block: int = 0,
-                 fused_head: bool = True, megakernel: bool = False,
-                 w8a8: bool = False, num_beams: int = 1, length_penalty: float = 1.0,
-                 early_stopping: bool = True, num_return_sequences: int = 1,
+                 num_beams: int = 1, do_sample: bool = False, top_k: int = 0,
+                 top_p: float = 1.0, temperature: float = 1.0,
+                 min_p: float = 0.0, typical_p: float = 1.0,
+                 epsilon_cutoff: float = 0.0, eta_cutoff: float = 0.0,
+                 penalty_alpha: float = 0.0, repetition_penalty: float = 1.0,
+                 length_penalty: float = 1.0, early_stopping: bool = True,
+                 min_length: int = 0, min_new_tokens: int = 0,
+                 no_repeat_ngram_size: int = 0, bad_words_ids=None,
+                 force_words_ids=None, num_return_sequences: int = 1,
                  num_beam_groups: int = 1, diversity_penalty: float = 0.0,
-                 beam_reorder: str = "lazy", return_scores: bool = False,
-                 **unsupported):
+                 forced_bos_token_id: Optional[int] = None,
+                 forced_eos_token_id: Optional[int] = None,
+                 suppress_tokens=None, begin_suppress_tokens=None,
+                 sequence_bias=None, exponential_decay_length_penalty=None,
+                 eos_token_id: Optional[int] = None,
+                 pad_token_id: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None,
+                 int8_kv_cache: bool = False, prefix_block: int = 0,
+                 beam_reorder: str = "lazy", flat_kv_cache: bool = True,
+                 megakernel: bool = False, w8a8: bool = False,
+                 fused_head: bool = True, return_scores: bool = False,
+                 output_scores: bool = False, **unsupported):
         """Token ids (b, max_length): prompt, generated tokens, pads after
-        EOS. Greedy, or beam search with ``num_beams > 1`` (HF semantics,
-        ``beam_search.py``): then ``(b * n, max_length)`` with
-        ``num_return_sequences=n``, and ``(tokens, sequences_scores)`` with
-        ``return_scores``. ``megakernel`` runs each decode step's trunk as
-        one ``decode_step_megakernel`` launch (int8 weights, bf16 policy,
-        GPT-2 or pre-norm OPT trunk; opt-350m's post-norm trunk with its
-        in/out projections raises ``ValueError``); ``w8a8`` (with
+        EOS. Greedy; sampling with ``do_sample`` (HF's warpers: temperature,
+        ``top_k``, ``top_p``, ``min_p``, ``typical_p``, ``epsilon_cutoff``,
+        ``eta_cutoff``; the noise from ``generator``, a ``torch.Generator``
+        on the model's device, seeded 0 when None, as JAX's ``rng``
+        defaults to ``PRNGKey(0)``); or beam search with ``num_beams > 1``
+        (HF semantics, ``beam_search.py``), diverse with ``num_beam_groups >
+        1``. Every path runs HF's logits processors: ``sequence_bias``,
+        ``repetition_penalty``, ``no_repeat_ngram_size``, ``bad_words_ids``
+        (a lone-EOS word dropped), ``min_length``, ``min_new_tokens``,
+        ``forced_bos_token_id``, ``forced_eos_token_id``,
+        ``exponential_decay_length_penalty``, ``suppress_tokens``,
+        ``begin_suppress_tokens``.
+
+        ``num_return_sequences=n``: sampling returns n samples per prompt,
+        beams the top n hypotheses, either as (b * n, max_length); greedy
+        raises ``ValueError``. ``return_scores``: also the scores (b,)
+        (greedy and sampling: the sum of the chosen tokens' log-probs under
+        the processed, and when sampling warped, step distribution, post-EOS
+        pads excluded; beams: HF's ``sequences_scores``). ``output_scores``
+        (greedy and sampling): also those log-probs per step, (b,
+        max_length) float32 at absolute positions, 0 at prompt slots and
+        post-EOS pads; ``(tokens, scores, step_scores)`` with both.
+
+        ``megakernel`` runs each decode step's trunk as one
+        ``decode_step_megakernel`` launch (int8 weights, bf16 policy, GPT-2
+        or pre-norm OPT trunk; opt-350m's post-norm trunk with its in/out
+        projections raises ``ValueError``), any batch; ``w8a8`` (with
         ``megakernel`` only, else ``ValueError``) runs its w8a8 tier, every
-        linear on int8 activations, greedy and beams, any batch; diverse
-        beams (``num_beam_groups > 1``) run per layer and refuse ``w8a8``.
-        Before vision and prefill, a megakernel call the card cannot hold
-        (a trunk too wide for its shared memory at this batch) raises
-        ``ValueError``. Other JAX ``generate`` options (sampling, logits
-        processors, the gather beam reorder, greedy scores, int8 KV,
-        meshes, ...) are not ported yet and raise ``NotImplementedError``."""
+        linear on int8 activations; diverse beams run per layer and refuse
+        ``w8a8``. ``fused_head`` lets plain greedy (no processor, no scores)
+        take ``lm_head_argmax``. Before vision and prefill, a megakernel
+        call the card cannot hold raises ``ValueError``. Not ported yet,
+        raising ``NotImplementedError``: ``penalty_alpha`` (contrastive),
+        ``force_words_ids`` (constrained beams), ``do_sample`` with beams,
+        ``int8_kv_cache``, ``flat_kv_cache=False``, ``beam_reorder="gather"``,
+        and ``mesh``, ``tensor_parallel`` or any other JAX option."""
         if unsupported:
             raise NotImplementedError(
                 f"generate options not ported yet: {sorted(unsupported)}")
@@ -134,20 +169,47 @@ class FlamingoModel:
                 dtype=self.policy.dtype, device=dev)
         arch = self.config.lm_arch
         eos = arch.eos_token_id if eos_token_id is None else eos_token_id
-        dc = DecodeConfig(max_length=max_length, max_new_tokens=max_new_tokens,
-                          eos_token_id=eos,
-                          pad_token_id=eos if pad_token_id is None else pad_token_id,
-                          prefix_block=prefix_block, fused_head=fused_head,
-                          megakernel=megakernel, w8a8=w8a8, num_beams=num_beams,
-                          length_penalty=length_penalty,
-                          early_stopping=early_stopping,
-                          num_return_sequences=num_return_sequences,
-                          num_beam_groups=num_beam_groups,
-                          diversity_penalty=diversity_penalty,
-                          beam_reorder=beam_reorder, return_scores=return_scores)
+        if bad_words_ids is not None:
+            # HF drops a bad word equal to [eos]: EOS stays reachable
+            bad_words_ids = tuple(tuple(int(t) for t in w) for w in bad_words_ids
+                                  if not (len(w) == 1 and int(w[0]) == eos))
+        ints = lambda xs: None if xs is None else tuple(int(t) for t in xs)
+        if sequence_bias is not None:
+            # HF takes a dict {ids: bias} or a list [[ids, bias], ...]
+            sequence_bias = tuple(
+                (tuple(int(t) for t in w), float(v))
+                for w, v in (sequence_bias.items() if isinstance(sequence_bias, dict)
+                             else sequence_bias))
+        if exponential_decay_length_penalty is not None:
+            start, factor = exponential_decay_length_penalty
+            exponential_decay_length_penalty = (int(start), float(factor))
+        dc = DecodeConfig(
+            max_length=max_length, max_new_tokens=max_new_tokens,
+            eos_token_id=eos, pad_token_id=eos if pad_token_id is None else pad_token_id,
+            do_sample=do_sample, top_k=top_k, top_p=top_p, temperature=temperature,
+            min_p=min_p, typical_p=typical_p, epsilon_cutoff=epsilon_cutoff,
+            eta_cutoff=eta_cutoff, penalty_alpha=penalty_alpha,
+            sequence_bias=sequence_bias,
+            exponential_decay_length_penalty=exponential_decay_length_penalty,
+            repetition_penalty=repetition_penalty, min_length=min_length,
+            min_new_tokens=min_new_tokens, no_repeat_ngram_size=no_repeat_ngram_size,
+            bad_words_ids=bad_words_ids,
+            force_words_ids=None if force_words_ids is None else tuple(force_words_ids),
+            forced_bos_token_id=forced_bos_token_id,
+            forced_eos_token_id=forced_eos_token_id,
+            suppress_tokens=ints(suppress_tokens),
+            begin_suppress_tokens=ints(begin_suppress_tokens),
+            int8_kv_cache=int8_kv_cache, prefix_block=prefix_block,
+            flat_kv_cache=flat_kv_cache, fused_head=fused_head,
+            megakernel=megakernel, w8a8=w8a8, num_beams=num_beams,
+            length_penalty=length_penalty, early_stopping=early_stopping,
+            num_return_sequences=num_return_sequences,
+            num_beam_groups=num_beam_groups, diversity_penalty=diversity_penalty,
+            beam_reorder=beam_reorder, return_scores=return_scores,
+            output_scores=output_scores)
         return generate_impl(self.params, self.config, dc, self.policy, ids,
                              media, mask, visual_features=visual_features,
-                             pixel_values=pixel_values)
+                             pixel_values=pixel_values, generator=generator)
 
 
 def _to_device(tree, device: torch.device):

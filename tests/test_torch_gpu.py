@@ -70,7 +70,13 @@ against their plain versions (which sum in the kernels' order) at the
 probe's shape and the kernel's edges (b 1 and 3, D 40 and 2048, block_t 1,
 3, 24 and 256, a long cache walked in windows), and each
 probe loop replayed as a CUDA graph bit for bit against the same loop run
-eagerly. The random trunks and inputs are chip_smoke.py's.
+eagerly. The logits chain on the card against the same chain on the CPU:
+each warper's mask identical but in rows whose cut a 1e-4 relative move of
+its parameter moves on the CPU, kept values within 1e-6 relative, every
+processor at once identical masks; top-k sampling on the megakernel, one
+launch a step and no fused head, bit-equal under one seed; plain greedy
+keeping its fused head on both decode paths, a processor or scores turning
+it off. The random trunks and inputs are chip_smoke.py's.
 """
 import numpy as np
 import pytest
@@ -1080,3 +1086,138 @@ def test_graphed_loop_equals_eager(cuda, name):
         run, args = loops[name], pdk.inputs(cuda, gen)
     same, eager, replayed = insitu.graph_equals_eager(run, args, reps=2)
     assert same, (float(eager), float(replayed))
+
+
+# ---------------------------------------------------------------------------
+# the logits chain, sampling and greedy launch counts on the card
+# ---------------------------------------------------------------------------
+
+
+def _chain_inputs(seed, b=8, V=50272, T=72):
+    rs = np.random.RandomState(seed)
+    logits = torch.tensor(rs.randn(b, V).astype(np.float32) * 3)
+    tokens = torch.tensor(rs.randint(4, 200, (b, T)))
+    tokens[:, 40:44] = tokens[:, 10:14]
+    mask = torch.ones((b, T), dtype=torch.int32)
+    tokens[:2, :2], mask[:2, :2] = 1, 0
+    return logits, tokens, mask
+
+
+# each warper with the parameter whose cut a near-tie may move
+CARD_WARPERS = [("top_k", 50), ("top_p", 0.9), ("min_p", 0.05), ("typical_p", 0.9),
+                ("epsilon_cutoff", 1e-5), ("eta_cutoff", 1e-5)]
+
+
+@pytest.mark.parametrize("name,value", CARD_WARPERS)
+def test_warper_on_card_matches_cpu(cuda, name, value):
+    """The warper on the card against the same function on the CPU, on the
+    same (8, 50,272) logits: masks identical, except in a row whose cut
+    moves when the parameter moves by 1e-4 relative on the CPU (a near-tie
+    of the cumulative or probability sums, which run in another order);
+    kept values within 1e-6 relative (the card may divide by the
+    temperature as a product with its reciprocal)."""
+    from flamingo_mini_tpu_torch.generation import NEG, apply_logit_filters
+    logits, _, _ = _chain_inputs(1)
+    kw = {name: value, "temperature": 0.9}
+    got = apply_logit_filters(logits.to(cuda), **kw).cpu()
+    want = apply_logit_filters(logits, **kw)
+    parted = ((got == NEG) != (want == NEG)).any(dim=-1)
+    if name != "top_k" and bool(parted.any()):
+        lo = apply_logit_filters(logits, **{**kw, name: value * (1 - 1e-4)}) == NEG
+        hi = apply_logit_filters(logits, **{**kw, name: value * (1 + 1e-4)}) == NEG
+        near = (lo != hi).any(dim=-1)
+        assert bool(near[parted].all()), parted.nonzero().flatten().tolist()
+    else:
+        assert not bool(parted.any())
+    same = ~parted[:, None] & (want != NEG)
+    torch.testing.assert_close(got[same], want[same], rtol=1e-6, atol=0)
+
+
+def test_processors_on_card_match_cpu(cuda):
+    """Every processor at once, at a step past every window: the same
+    masks and values within 1e-6 relative on the card and on the CPU."""
+    from flamingo_mini_tpu_torch.generation import NEG, DecodeConfig, process_logits
+    logits, tokens, mask = _chain_inputs(2)
+    dc = DecodeConfig(max_length=72, eos_token_id=50, pad_token_id=1,
+                      sequence_bias=(((7,), 2.0), ((int(tokens[0, 47]), 9), -1.0)),
+                      repetition_penalty=1.2, no_repeat_ngram_size=3,
+                      bad_words_ids=((11,), (int(tokens[0, 47]), 12)),
+                      min_new_tokens=4, exponential_decay_length_penalty=(3, 1.1),
+                      suppress_tokens=(13,), begin_suppress_tokens=(14,))
+    for idx in (8, 48):
+        got = process_logits(logits.to(cuda), dc, tokens.to(cuda), mask.to(cuda), idx,
+                             8).cpu()
+        want = process_logits(logits, dc, tokens, mask, idx, 8)
+        assert torch.equal(got == NEG, want == NEG), idx
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+def _small_card_model(cuda):
+    """A 2-layer GPT-2 trunk 256 wide (4 heads of 64, the kernels' head
+    dim), xattn every layer (2 heads of 64), 16 latents, a small ViT;
+    random weights, gates open, int8 trunk and xattn, bf16."""
+    from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel
+    cfg = FlamingoConfig(
+        lm="gpt2", dim=256, dim_visual=64, xattn_every=1, xattn_heads=2,
+        xattn_dim_head=64, resampler_depth=1, resampler_num_latents=16,
+        compute_dtype="bfloat16",
+        lm_arch_overrides=dict(vocab_size=512, n_positions=128, n_embd=256,
+                               n_layer=2, n_head=4),
+        vision_arch_overrides=dict(hidden_size=64, intermediate_size=128,
+                                   num_hidden_layers=1, num_attention_heads=4,
+                                   image_size=32, patch_size=16))
+    model = FlamingoModel(cfg, device=cuda, seed=4)
+    for blk in model.params["xattn"].values():
+        blk["alpha_attn"].fill_(0.5)
+        blk["alpha_ffw"].fill_(0.3)
+    return model.quantize_int8().to_bf16()
+
+
+def _small_generate(cuda, model, **kw):
+    rs = np.random.RandomState(5)
+    ids = torch.tensor(rs.randint(4, 500, (4, 6)), device=cuda)
+    mask = torch.ones((4, 6), dtype=torch.int32, device=cuda)
+    ids[1, :2], mask[1, :2] = 0, 0
+    media = torch.zeros((4, 6), dtype=torch.int32, device=cuda)
+    media[:, 2] = 1
+    pixels = torch.tensor(rs.randn(4, 1, 3, 32, 32), dtype=torch.float32,
+                          device=cuda).to(torch.bfloat16)
+    return model.generate(ids, media_locations=media, attention_mask=mask,
+                          pixel_values=pixels, max_length=38, prefix_block=16,
+                          eos_token_id=9999, pad_token_id=0, **kw)
+
+
+def test_sampling_on_megakernel_is_seeded(cuda):
+    """Top-k sampling on the megakernel: every step one kernel launch and no
+    fused head; two calls with one seed bit-equal, another seed other
+    tokens."""
+    model = _small_card_model(cuda)
+    gen = lambda s: torch.Generator(device=cuda).manual_seed(s)
+    mega, head = decode_step_megakernel.launches, lm_head_argmax.launches
+    first = _small_generate(cuda, model, megakernel=True, do_sample=True, top_k=50,
+                            generator=gen(3))
+    assert decode_step_megakernel.launches - mega == 31
+    assert lm_head_argmax.launches == head
+    again = _small_generate(cuda, model, megakernel=True, do_sample=True, top_k=50,
+                            generator=gen(3))
+    other = _small_generate(cuda, model, megakernel=True, do_sample=True, top_k=50,
+                            generator=gen(4))
+    assert torch.equal(first, again)
+    assert not torch.equal(first, other)
+
+
+@pytest.mark.parametrize("megakernel", [False, True])
+def test_greedy_launch_counts_unchanged_by_the_identity_chain(cuda, megakernel):
+    """Plain greedy keeps the fused head (one launch a step) on both paths;
+    a processor or scores turn it off (the full head runs)."""
+    model = _small_card_model(cuda)
+    counters = (decode_attention, decode_step_megakernel, lm_head_argmax)
+    before = [fn.launches for fn in counters]
+    _small_generate(cuda, model, megakernel=megakernel)
+    got = [fn.launches - b for fn, b in zip(counters, before)]
+    assert got == ([0, 31, 31] if megakernel else [2 * 31, 0, 31]), got
+    for kw in (dict(repetition_penalty=1.2), dict(return_scores=True)):
+        before = [fn.launches for fn in counters]
+        _small_generate(cuda, model, megakernel=megakernel, **kw)
+        got = [fn.launches - b for fn, b in zip(counters, before)]
+        assert got == ([0, 31, 0] if megakernel else [2 * 31, 0, 0]), (kw, got)

@@ -393,8 +393,9 @@ def test_unported_modes_raise(model):
     m = port.FlamingoModel(pc, params=tp, device="cpu")
     ids = np.ones((1, 3), np.int32)
     for knob in (dict(num_beams=3, beam_reorder="gather"),
-                 dict(num_beams=3, do_sample=True), dict(return_scores=True),
-                 dict(int8_kv_cache=True)):
+                 dict(num_beams=3, do_sample=True), dict(int8_kv_cache=True),
+                 dict(penalty_alpha=0.6, top_k=4),
+                 dict(num_beams=3, force_words_ids=[[5]])):
         with pytest.raises(NotImplementedError):
             m.generate(ids, max_length=8, megakernel=True, **knob)
     # opt-350m: post-norm with project_in/out, which the kernel does not take

@@ -278,9 +278,10 @@ def test_greedy_slice_bf16_int8_fused_head(bf16):
 def test_generate_rejects_unported_options(f32):
     jc, pc, params, tp, jpol, ppol = f32
     model = port.FlamingoModel(pc, params=tp, device="cpu")
-    for knob in (dict(do_sample=True), dict(num_beams=3, do_sample=True),
+    for knob in (dict(num_beams=3, do_sample=True),
                  dict(num_beams=3, beam_reorder="gather"),
-                 dict(return_scores=True), dict(int8_kv_cache=True)):
+                 dict(int8_kv_cache=True), dict(penalty_alpha=0.6, top_k=4),
+                 dict(num_beams=3, force_words_ids=[[5]])):
         with pytest.raises(NotImplementedError):
             model.generate(np.ones((1, 3), np.int32), max_length=8, **knob)
     # w8a8 is a megakernel tier: without the megakernel it is refused, as
