@@ -45,7 +45,12 @@ stream probe and the in-situ decode and head probes, and checks them:
    layers, b in {1, 3, 8, 32}, at 2 bf16 ulps, printing where the largest
    error lies, and the same cases with GELU in place of ReLU (printed, not
    held to a limit); 24 layers at b=8 under the normwise rule; its grid at
-   b=8 and 32. ``decode_attention`` and
+   b=8 and 32. The weight-only megakernel also at BASELINE's other
+   widths: flamingo-tiny's D=768 (12 heads) over 64 and 256 media latents
+   and D=1024 over 256 (four images, text_time 0-4), 1-2 layers, b in {1,
+   3, 8, 32}, at 2 bf16 ulps, printing where the largest error lies; 12
+   layers at b=32 and 24 layers at b=8 over 256 latents under the normwise
+   rule, each timed. ``decode_attention`` and
    ``lm_head_argmax`` also at OPT-1.3B's shapes (b=8, D=2048, 32 heads,
    T=128; V=50273 padded to 51200). Each kernel is
    timed beside its plain version and its bound, ``decode_attention`` also
@@ -53,14 +58,15 @@ stream probe and the in-situ decode and head probes, and checks them:
    beside one SDPA call over each family's 3 x T keys under the ancestry as
    a boolean mask. The attention kernels of ``use_pallas``:
    ``fused_attention`` at the ViT (32, 16, 257, 64), resampler (32, 8, 64
-   queries, 321 keys) and causal GPT-2 and OPT-1.3B forward (8, 16 or 32,
+   queries, 321 keys), ViT-B/32 (32, 12, 50, 64), 8-frame resampler (8, 8,
+   64 queries, 464 keys) and causal GPT-2 and OPT-1.3B forward (8, 16 or 32,
    64, 64) shapes, the last two with two rows left-padded by 8 (fully
    masked pad queries); its
    streaming kernel ``flash_attention`` at (2, 16, 4000, 64) (keys padded to
    4096), causal and not, a left-padded row; ``fused_media_xattn`` (bf16 on
    its Hopper kernel, float32 on the mma.sync tile) at the prefill (32, 8,
-   4 tokens, 64 keys), forward (8, 8, 64, 64) and two-image (8, 8, 64, 128)
-   shapes, at 5 and 17 tokens over two images and at 40 tokens over 13
+   4 tokens, 64 keys), forward (8, 8, 64, 64), two-image (8, 8, 64, 128)
+   and four-image (8, 8, 64, 256; BASELINE config 4's prefill) shapes, at 5 and 17 tokens over two images and at 40 tokens over 13
    and 20 images (832 and 1,280 keys: the bf16 kernel streams), under each
    ``MEDIA_MIXES`` mix (text_time 0, each image and past the media count;
    a 16-row slice spanning two media; a slice all 0; every row past the
@@ -143,7 +149,15 @@ stream probe and the in-situ decode and head probes, and checks them:
    the two runs' chosen candidates differ (the top 3 as a set; at the last
    step also the best), where the reference run's gap between its 3rd and
    4th candidate scores (at the last step: 1st and 2nd) is <= 8 bf16 ulps
-   of the score. Then ``use_pallas`` (the same weights): the megakernel
+   of the score. Then the KV-cache variants per layer, in plain torch as in
+   the JAX package (no kernel launches): greedy over the head-major bf16
+   cache (``flat_kv_cache=False``) against the flat cache's per-layer run
+   under the near-tie rule; over the int8 cache (``int8_kv_cache``), its
+   prefill logits within JAX's envelope (0.05 x absmax + 0.05) of the bf16
+   head-major cache's and its tokens' agreement printed (another numerics
+   tier); beams with ``beam_reorder="gather"`` and lazily over the
+   head-major cache, each against the flat cache's lazy beams under the
+   beam near-tie rule. Then ``use_pallas`` (the same weights): the megakernel
    generate with the ViT, the resampler and the xattn prefill on the
    attention kernels, launch counts exactly ``fused_attention`` 30,
    ``fused_media_xattn`` 24, ``decode_step_megakernel`` 127,
@@ -188,10 +202,24 @@ stream probe and the in-situ decode and head probes, and checks them:
    ``fused_media_xattn``, the forward rule). opt-350m (post-norm with
    project_in/out): per layer, 16 new tokens, batch 8, against the
    plain-version run; ``megakernel=True`` must raise ``ValueError``;
+   BASELINE configs 1, 4 and 5 (``BASELINE_CELLS``, bench_extended.py's
+   programs, random weights, int8 weight-only in bf16, ``prefix_block=32``):
+   flamingo-tiny greedy at b=32 over one image and a 4-token prompt, 64 new
+   tokens; flamingo-mini at b=8 over four images at 16-token steps of a
+   64-token prompt, 32 new tokens (256 media latents a row); flamingo-tiny
+   with ``resampler_num_time_embeds=8`` at b=8 over one 8-frame clip, 32 new
+   tokens. Each per layer and on the megakernel, with use_pallas off and
+   on: launch counts exact (``decode_attention`` 12 or 24 a step or
+   ``decode_step_megakernel`` 1, ``lm_head_argmax`` 1; under use_pallas
+   also ``fused_attention`` once per ViT and resampler layer and
+   ``fused_media_xattn`` once per xattn layer), tokens against
+   plain-version runs, the megakernel against per layer and use_pallas
+   against use_pallas=False, under the near-tie rule;
 4. timing on the card: ms per decode step (two lengths) and captions/s of
-   the seven flamingo-mini generate paths (w8a8 greedy and beams included)
-   and the four OPT-1.3B paths (top-k 50 sampling and w8a8 included), peak
-   memory; the sampled OPT-1.3B step's full head (``lm_head`` at 8 rows,
+   the seven flamingo-mini generate paths (w8a8 greedy and beams included),
+   the head-major and int8 KV caches per layer (32 new tokens), the two
+   paths of each of BASELINE configs 1, 4 and 5, and the four OPT-1.3B
+   paths (top-k 50 sampling and w8a8 included), peak memory; the sampled OPT-1.3B step's full head (``lm_head`` at 8 rows,
    and its float32 weight copy alone) and chain with the draw, each alone
    on the card, as shares of that path's step; the beam
    step's full head (``lm_head`` at 96 rows) and candidate selection,
@@ -216,10 +244,11 @@ stream probe and the in-situ decode and head probes, and checks them:
    relaunch without Python).
 
 Any failure raises and exits nonzero. Without a CUDA device it exits 1 and
-prints no result. The line before the last lists the kernels as JSON
-(each of the eleven, with the megakernel's OPT, beam and w8a8 modes and
-shapes where they have them); the last line is ``{"ok": true, "device":
-...}``.
+prints no result. ``[time]`` lines give the seconds since the start at each
+phase. The line before the last lists the kernels as JSON (each of the
+eleven, with the megakernel's OPT, beam and w8a8 modes and the shapes of
+BASELINE's configurations where they have them); the last line is
+``{"ok": true, "device": ...}``.
 """
 import contextlib
 import json
@@ -253,16 +282,20 @@ MEGA_D, MEGA_H, MEGA_XI, MEGA_XH, MEGA_NV, MEGA_T = 1024, 16, 512, 8, 64, 192
 # the attention kernels of the use_pallas path, (b, h, n_q, n_kv): the ViT's
 # 24 self-attentions and the resampler's 6 per generate (one image per row),
 # the uncached GPT-2 forward's 24 at batch 8 x 64 tokens, OPT-1.3B's 24
-# (causal, two rows left-padded)
+# (causal, two rows left-padded); flamingo-tiny's ViT-B/32 over 32 images
+# (BASELINE config 1) and the resampler over 8-frame clips (config 5: 8 x
+# 50 frame tokens and the 64 latents)
 HEAD_DIM = 64
 ATT_SHAPES = {"vit": (32, 16, 257, 257), "resampler": (32, 8, 64, 321),
-              "gpt2 forward": (8, 16, 64, 64), "opt forward": (8, 32, 64, 64)}
+              "gpt2 forward": (8, 16, 64, 64), "opt forward": (8, 32, 64, 64),
+              "vit-b/32": (32, 12, 50, 50), "video resampler": (8, 8, 64, 464)}
 GPT2_PAD = 8
 FLASH_SHAPE = (2, 16, 4000)
 # media xattn (b, n_token, n_media), 8 heads: the generate prefill (4-token
-# prompts, one image), the forward (64 tokens, one image), and two images
+# prompts, one image), the forward (64 tokens, one image), two images, and
+# BASELINE config 4's prefill (64-token prompts over four images)
 MEDIA_SHAPES = {"prefill": (32, 4, 1), "forward": (8, 64, 1),
-                "two images": (8, 64, 2)}
+                "two images": (8, 64, 2), "four images": (8, 64, 4)}
 # the media kernel's edges: prompts of 5 and 17 tokens (a slice and one row
 # more) over two images; 40 tokens over 13 and 20 images (832 and 1,280
 # keys: past the bf16 kernel's 16 slots, and at 20 past one 64-tile window)
@@ -290,6 +323,24 @@ OPT_MAX = OPT_PROMPT + OPT_NEW
 OPT_D, OPT_H, OPT_T, OPT_V = 2048, 32, 128, 50273
 # (cur, kv_limit) pairs the OPT loop reaches: segments end at 40 and 71
 OPT_PAIRS = ((8, 40), (39, 40), (40, 71), (70, 71))
+# BASELINE's other configurations (bench_extended.py:208-241), int8
+# weight-only in bf16, prefix_block 32, EOS unreachable: (config, batch,
+# prompt tokens, new tokens, images a row, frames a clip). 1: flamingo-tiny
+# (GPT-2 small + ViT-B/32, D=768, 12 heads, xattn every layer) greedy; 4:
+# flamingo-mini over four images at 16-token steps (few-shot); 5:
+# flamingo-tiny with 8-frame clips (resampler_num_time_embeds=8)
+TINY = dict(lm="gpt2", clip_model_type="openai/clip-vit-base-patch32", dim=768,
+            dim_visual=768, compute_dtype="bfloat16")
+BASELINE_CELLS = {"config 1": (TINY, 32, 4, 64, 1, 1),
+                  "config 4": (MINI, 8, 64, 32, 4, 1),
+                  "config 5": (dict(TINY, resampler_num_time_embeds=8), 8, 4, 32, 1, 8)}
+# the megakernel at flamingo-tiny width (GPT-2 small: D=768, 12 heads), and
+# at BASELINE config 4's 4 x 64 media latents a row
+TINY_D, TINY_H, MEDIA4_NV = 768, 12, 4 * 64
+# the KV-cache variants at flamingo-mini width, per layer: greedy over the
+# head-major bf16 cache and the int8 cache (timed over this many new tokens),
+# and beams with the gather reorder and lazily over the head-major cache
+KV_TIMED_NEW = 32
 # opt-350m: post-norm with project_in/out, per layer only, 16 new tokens
 OPT350 = dict(lm="facebook/opt-350m", clip_model_type="openai/clip-vit-large-patch14",
               dim=1024, dim_visual=1024, compute_dtype="bfloat16")
@@ -333,6 +384,14 @@ HBM_BYTES_PER_S, BF16_OPS_PER_S, INT8_OPS_PER_S = 3.35e12, 989e12, 1979e12
 F32_OPS_PER_S = 67e12
 # the card's spin before each timed call: about a millisecond at 1.7-2 GHz
 LEAD_CYCLES = 2_000_000
+
+
+T0 = time.perf_counter()
+
+
+def stamp(label: str) -> None:
+    """Print the seconds since the script started, at ``label``."""
+    print(f"[time] {label}: {time.perf_counter() - T0:.1f} s", flush=True)
 
 
 def bf16_ulps(ref: torch.Tensor, n: int) -> float:
@@ -1200,6 +1259,73 @@ def phase2_megakernel_edges(dev):
     return worst[1]
 
 
+def media_inputs(dev, cfg, b: int, seed: int, NMNV: int):
+    """``mega_inputs`` over ``NMNV`` media latents a row: with more than one
+    image, rows take text_time from the media count (row 0) down through 0
+    in turn."""
+    inputs = mega_inputs(dev, cfg, b, seed, NMNV=NMNV)
+    if NMNV > cfg.resampler_num_latents:
+        n_media = NMNV // cfg.resampler_num_latents
+        inputs[6].copy_((torch.arange(b, device=dev) + n_media) % (n_media + 1))
+    return inputs
+
+
+def phase2_megakernel_widths(dev, flush):
+    """The weight-only megakernel at BASELINE's other widths: flamingo-tiny
+    (D=768, 12 heads; configs 1 and 5) over one image's 64 latents and four
+    images' 256, and flamingo-mini (D=1024) over 256 (config 4). 1-2
+    layers, b in {1, 3, 8, 32}, within 2 bf16 ulps (printing the worst case
+    and where it fell); then 12 layers at b=32 (config 1) and 24 layers at
+    b=8 over 256 latents (config 4) under the normwise rule, each timed
+    beside its plain version and bound -> {"tiny": row, "media4": row}."""
+    from flamingo_mini_tpu_torch.ops.megadecode import (
+        decode_step_megakernel, decode_step_megakernel_plain)
+    tiny = dict(D=TINY_D, H=TINY_H)
+    pairs = ((3, 36), (35, 36), (66, 68), (95, 96))
+    worst, case = [0.0, 0.0, None], 0
+    for width, n_layer, every, nmnv in (
+            (tiny, 1, 1, MEGA_NV), (tiny, 2, 1, MEGA_NV), (tiny, 2, 2, MEGA_NV),
+            (tiny, 2, 1, MEDIA4_NV), ({}, 1, 1, MEDIA4_NV), ({}, 2, 2, MEDIA4_NV)):
+        cfg, packed = random_trunk(dev, n_layer=n_layer, xattn_every=every,
+                                   seed=1600 + case, **width)
+        for b in (1, 3, 8, 32):
+            inputs = media_inputs(dev, cfg, b, 1700 + case, nmnv)
+            for cur, kv_limit in (pairs[case % 4], pairs[(case + 1) % 4]):
+                held_to_ulps(f"D={cfg.dim} layers={n_layer} every={every} NMNV={nmnv} "
+                             f"b={b} cur={cur} kv_limit={kv_limit}",
+                             mega_errors(cfg, packed, inputs, cur, kv_limit), worst)
+            case += 1
+    print(f"[phase 2] decode_step_megakernel vs plain at D={TINY_D} ({TINY_H} heads; "
+          f"64 and {MEDIA4_NV} media latents) and D={MEGA_D} ({MEDIA4_NV} latents, "
+          f"text_time 0-4), 1-2 layers, b in {{1, 3, 8, 32}}, {2 * case} (cur, kv_limit) "
+          f"cases: max error {worst[0]} bf16 ulp at the output's scale (tolerance 2), "
+          f"max abs error {worst[1]}; largest at {worst[2]}")
+    out = {}
+    for key, width, n_layer, b, nmnv, cur in (("tiny", tiny, 12, 32, MEGA_NV, 67),
+                                              ("media4", {}, 24, 8, MEDIA4_NV, 95)):
+        cfg, packed = random_trunk(dev, n_layer=n_layer, xattn_every=1, seed=1650 + b,
+                                   **width)
+        inputs = media_inputs(dev, cfg, b, 1660 + b, nmnv)
+        label = f"decode_step_megakernel D={cfg.dim}, {n_layer} layers, b={b}, NMNV={nmnv}"
+        held_normwise(f"{label} vs plain", cfg, packed, inputs, cur, cur + 1)
+        xk, xv, kc, vc, x, npad, tt = inputs
+        npad.zero_()
+        call = dict(config=cfg, kv_limit=cur + 1)
+        print_grids(label, packed, cfg, {b: (inputs, None)}, cur, cur + 1)
+        ms = time_ms(lambda: decode_step_megakernel(packed, xk, xv, kc, vc, x, npad,
+                                                    tt, cur, **call), 50, flush)
+        plain_ms = time_ms(lambda: decode_step_megakernel_plain(
+            packed, xk, xv, kc, vc, x, npad, tt, cur, **call), 20, flush)
+        n_pos = b * (cur + 1)
+        bound_ms, bound_by, n_bytes, n_ops = mega_bound(packed, cfg, inputs, n_pos, n_pos)
+        print(f"[phase 2] {label}, kv_limit {cur + 1}: {ms} ms, plain {plain_ms} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}; {n_bytes / 1e9:.4f} GB, "
+              f"{n_ops / 1e9:.3f} GFLOP) (median per call, L2 flushed)")
+        out[key] = dict(max_abs_err=worst[1], ms=ms, plain_ms=plain_ms, library_ms=None,
+                        bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
 def edge_rows_case(dev, cfg, packed, b: int, worst, label: str = "",
                    act_quant: bool = False) -> int:
     """The kernel (weight-only, or the w8a8 mode) against its plain version
@@ -1652,10 +1778,11 @@ def phase2_fused_attention(dev, flush):
             worst = max(worst, held_to_plain(f"fused_attention {name} {dtype}", got,
                                              fused_attention_plain(q, k, v, **kw), dtype))
     print(f"[phase 2] fused_attention vs plain at the ViT {ATT_SHAPES['vit']}, "
-          f"resampler {ATT_SHAPES['resampler']} and causal GPT-2 and OPT-1.3B forward "
-          f"{ATT_SHAPES['gpt2 forward']}, {ATT_SHAPES['opt forward']} shapes (b, h, "
-          f"n_q, n_kv), the last two with two rows left-padded by {GPT2_PAD} (fully "
-          "masked pad queries), bf16 and "
+          f"resampler {ATT_SHAPES['resampler']}, ViT-B/32 {ATT_SHAPES['vit-b/32']}, "
+          f"8-frame resampler {ATT_SHAPES['video resampler']} and causal GPT-2 and "
+          f"OPT-1.3B forward {ATT_SHAPES['gpt2 forward']}, {ATT_SHAPES['opt forward']} "
+          f"shapes (b, h, n_q, n_kv), the last two with two rows left-padded by "
+          f"{GPT2_PAD} (fully masked pad queries), bf16 and "
           f"float32: max abs err {worst} (tolerance: f32 1e-5 of the output "
           "scale, bf16 2 ulp of it)")
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1855,7 +1982,7 @@ def phase2_media_xattn(dev, flush):
                          bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
                          host_us=host, clean_ms=clean_ms)
         print(f"[phase 2] fused_media_xattn {name} {(b, MEGA_XH, n_q, n_kv)} bf16, "
-              f"text_time {'1 then 2' if n_media == 2 else 1}, plan "
+              f"text_time {f'1 then {n_media}' if n_media > 1 else 1}, plan "
               f"{tuple(plan(b, MEGA_XH, n_q, n_kv))}: {ms} ms, L2 clean {clean_ms} ms, "
               f"plain {plain_ms} ms, scaled_dot_product_attention under the media mask "
               f"{library_ms} ms, bound {bound_ms:.5f} ms ({bound_by}) (median per call, "
@@ -2725,6 +2852,98 @@ def opt_cells(dev, card):
     return counts
 
 
+def kv_prefill_envelope(model, ids, media, mask, pixels):
+    """The int8 KV cache's prefill logits against the head-major bf16
+    cache's on the same batch: within JAX's envelope, 0.05 x absmax + 0.05
+    (tests/test_quant.py:77-100)."""
+    from flamingo_mini_tpu_torch.generation import DecodeConfig, _prefill
+    vf = model.encode_resample_visuals(pixels)
+    logits = {}
+    for int8 in (False, True):
+        dc = DecodeConfig(max_length=MAX_LENGTH, int8_kv_cache=int8)
+        with torch.inference_mode():
+            logits[int8] = _prefill(model.params, model.config, dc, model.policy, ids,
+                                    media, mask, vf, flat=False)[0].float()
+    err = float((logits[True] - logits[False]).abs().max())
+    ref = float(logits[False].abs().max())
+    print(f"[phase 3] int8 KV cache prefill logits vs the bf16 head-major cache's: max "
+          f"abs difference {err} (tolerance 0.05 x {ref} + 0.05)")
+    assert bool(torch.isfinite(logits[True]).all()) and err < 0.05 * ref + 0.05, (err, ref)
+
+
+def baseline_cells(dev, card, mini, mini_p):
+    """Phase 3 and 4 for BASELINE configs 1, 4 and 5 (``BASELINE_CELLS``;
+    config 4 on flamingo-mini's ``mini`` and ``mini_p``, the others on a
+    flamingo-tiny model of their own): greedy per layer and on the
+    megakernel, each with use_pallas off and on, launch counts exact; the
+    kernels' runs against plain-version runs, the megakernel against per
+    layer and use_pallas against use_pallas=False, up to each row's first
+    near-tie; both paths timed -> {config: {path: counts}}."""
+    from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel
+    counts = {}
+    for key, (base, b, L, new, n_img, frames) in BASELINE_CELLS.items():
+        stamp(f"{key} start")
+        config = FlamingoConfig(**base)
+        if base is MINI:
+            model, model_p = mini, mini_p
+        else:
+            model = open_gates(FlamingoModel(config, device=dev, seed=3))
+            model.quantize_int8().to_bf16()
+            model_p = FlamingoModel(FlamingoConfig(**base, use_pallas=True),
+                                    params=model.params, device=dev)
+        # bench_extended.py's batch: images at m * (L // n_img), no padding
+        rs = np.random.RandomState(0)
+        ids = torch.tensor(rs.randint(0, 1000, (b, L)), device=dev)
+        media = torch.zeros((b, L), dtype=torch.int32, device=dev)
+        media[:, ::max(L // n_img, 1)] = 1
+        mask = torch.ones((b, L), dtype=torch.int32, device=dev)
+        size = config.vision_arch.image_size
+        shape = (b, n_img) + ((frames,) if frames > 1 else ()) + (3, size, size)
+        pixels = torch.tensor(rs.randn(*shape), dtype=torch.float32,
+                              device=dev).to(torch.bfloat16)
+        vocab = config.lm_arch.vocab_size + 1
+        n_layer, steps, max_length = config.lm_arch.n_layer, new - 1, L + new
+        kernels = dict(fused_attention=config.vision_arch.num_hidden_layers
+                       + config.resampler_depth, fused_media_xattn=len(model.params["xattn"]))
+        label = (f"{key} ({config.lm}, b={b}, {L}-token prompts, {n_img} image(s)"
+                 f"{f' of {frames} frames' if frames > 1 else ''} a row, {new} new tokens)")
+
+        def run(megakernel, new_tokens=new, m=model):
+            return m.generate(ids, media_locations=media, attention_mask=mask,
+                              pixel_values=pixels, max_length=max_length,
+                              max_new_tokens=new_tokens, prefix_block=PREFIX_BLOCK,
+                              eos_token_id=vocab, pad_token_id=0, megakernel=megakernel)
+
+        c, tokens, gaps = counts.setdefault(key, {}), {}, {}
+        for path, megakernel, m in (("per layer", False, model), ("megakernel", True, model),
+                                    ("use_pallas per layer", False, model_p),
+                                    ("use_pallas megakernel", True, model_p)):
+            gaps[path] = []
+            tokens[path], c[path] = counted(lambda: run(megakernel, m=m), gaps[path], ids,
+                                            (b, max_length), vocab)
+            want = dict(lm_head_argmax=steps, **(kernels if m is model_p else {}))
+            want["decode_step_megakernel" if megakernel else "decode_attention"] = \
+                steps * (1 if megakernel else n_layer)
+            expect(f"{label} {path}", c[path], **want)
+        for path, megakernel in (("per layer", False), ("megakernel", True)):
+            plain_gaps = []
+            with plain_kernels(plain_gaps):
+                plain_tokens = run(megakernel)
+            torch.cuda.synchronize()
+            compare_tokens(f"{key} {path} kernels vs plain", tokens[path],
+                           plain_tokens[:, L:].cpu(), plain_gaps)
+        for path, ref in (("megakernel", "per layer"), ("use_pallas per layer", "per layer"),
+                          ("use_pallas megakernel", "megakernel")):
+            compare_tokens(f"{key} {path} vs {ref}", tokens[path], tokens[ref], gaps[ref])
+        stamp(f"{key} checked")
+        time_generate(card, b, ((f"{key} per-layer", lambda n: run(False, n), new),
+                                (f"{key} megakernel", lambda n: run(True, n), new)))
+        if base is not MINI:
+            del model, model_p
+            torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2754,6 +2973,7 @@ def main() -> int:
                 print("[phase 1] ptxas", line.strip())
     print(f"[phase 1] built {os.path.relpath(lib, REPO)}")
     sm90_sass(lib)
+    stamp("phase 1 done")
 
     # phase 2: kernels against their plain versions on the card
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
@@ -2769,6 +2989,7 @@ def main() -> int:
     edges = phase2_megakernel_edges(dev)
     for row in (mega, mega_opt, mega_beam):
         row["max_abs_err"] = max(row["max_abs_err"], edges)
+    mega_widths = phase2_megakernel_widths(dev, flush)
     fa = phase2_fused_attention(dev, flush)
     flash = phase2_flash_attention(dev, flush)
     edges = phase2_sm90_edges(dev)
@@ -2784,6 +3005,7 @@ def main() -> int:
     probe = phase2_decode_stream_probe(dev, flush)
     del flush
     torch.cuda.empty_cache()
+    stamp("phase 2 done")
 
     # phase 3: the slice end to end at flamingo-mini width, both paths
     config = FlamingoConfig(**MINI)
@@ -2934,7 +3156,7 @@ def main() -> int:
                               eos_token_id=vocab, pad_token_id=0,
                               megakernel=megakernel, num_beams=BEAMS,
                               length_penalty=1.0, early_stopping=True,
-                              beam_reorder="lazy", **kw)
+                              **{"beam_reorder": "lazy", **kw})
 
     def recorded_beam_run(megakernel, plain=False, **kw):
         return recorded_beam(lambda: beam_run(megakernel, **kw), ids,
@@ -2961,6 +3183,33 @@ def main() -> int:
                   plain_cands, BEAMS, vocab)
     print_agreement("w8a8 vs weight-only beam megakernel", w8_b_tokens, mega_b_tokens)
 
+    # phase 3, the KV-cache variants per layer, plain attention and the full
+    # head as in the JAX package (no kernel launches): greedy over the
+    # head-major bf16 cache against the flat cache's run; over the int8
+    # cache, its prefill logits within JAX's envelope of the bf16 cache's
+    # (0.05 x absmax + 0.05, tests/test_quant.py:77-100) and its tokens'
+    # agreement printed (another numerics tier); beams with the gather
+    # reorder and lazily over the head-major cache, against the lazy flat
+    # cache's beams
+    stamp("KV-cache variants start")
+    hm_tokens, hm_counts = counted(lambda: run(False, flat_kv_cache=False), [], ids,
+                                   (BATCH, MAX_LENGTH), vocab, record=recorded_picks([]))
+    expect("head-major cache per-layer path", hm_counts)
+    compare_tokens("head-major cache vs flat cache, per layer", hm_tokens, layer_tokens,
+                   layer_gaps)
+    i8_tokens, i8_counts = counted(lambda: run(False, int8_kv_cache=True), [], ids,
+                                   (BATCH, MAX_LENGTH), vocab, record=recorded_picks([]))
+    expect("int8 KV cache per-layer path", i8_counts)
+    print_agreement("int8 KV cache vs head-major bf16 cache", i8_tokens, hm_tokens)
+    kv_prefill_envelope(model, ids, media, mask, pixels)
+    for label, kw in (("gather reorder (head-major cache)", dict(beam_reorder="gather")),
+                      ("lazy reorder over the head-major cache", dict(flat_kv_cache=False))):
+        g_tokens, g_counts, g_cands = recorded_beam_run(False, **kw)
+        expect(f"beam per-layer path, {label}", g_counts)
+        compare_beams(f"beams, {label}, vs the flat cache's lazy beams", g_tokens, g_cands,
+                      layer_b_tokens, layer_b_cands, BEAMS, vocab)
+    stamp("phase 3 (flamingo-mini) done")
+
     # phase 4: timing (CUDA events around whole generate calls)
     time_generate(card, BATCH, (
         ("per-layer", lambda n: run(False, n), NEW_TOKENS),
@@ -2970,7 +3219,11 @@ def main() -> int:
         ("use_pallas megakernel", lambda n: run(True, n, m=model_p), NEW_TOKENS),
         ("w8a8 megakernel", lambda n: run(True, n, w8a8=True), NEW_TOKENS),
         ("w8a8 beam megakernel", lambda n: beam_run(True, n, w8a8=True),
-         BEAM_NEW_TOKENS)))
+         BEAM_NEW_TOKENS),
+        ("head-major cache per-layer", lambda n: run(False, n, flat_kv_cache=False),
+         KV_TIMED_NEW),
+        ("int8 KV cache per-layer", lambda n: run(False, n, int8_kv_cache=True),
+         KV_TIMED_NEW)))
     # the beam step's head: the full int8 lm_head at 96 rows (its float32
     # copy of the weights included) and the candidate selection
     lm = model.params["lm"]
@@ -2994,15 +3247,22 @@ def main() -> int:
     print(f"[phase 4] {card}: forward with loss, {FWD_B}x{FWD_N} tokens, use_pallas: "
           f"median {fwd_ms} ms (runs {fwd_all}), {FWD_B * FWD_N / (fwd_ms / 1e3)} "
           "tokens/s")
+    stamp("phase 4 (flamingo-mini) done")
+
+    # phase 3 and 4 of BASELINE configs 1, 4 (on the same flamingo-mini) and 5
+    baseline = baseline_cells(dev, card, model, model_p)
     del model, model_p, model_f, fwd
     torch.cuda.empty_cache()
 
     # phase 3 and 4 of the OPT cells
+    stamp("OPT cells start")
     opt_counts = opt_cells(dev, card)
+    stamp("OPT cells done")
     # phase 4: the stream probe (its own entry point's path)
     stream = phase4_stream(dev, card)
     # phase 4: the in-situ decode and head probes (their own entry points' path)
     insitu_counts = phase4_insitu(dev, card)
+    stamp("phase 4 done")
 
     kernel_rows = (
         ("decode_attention", attn),
@@ -3021,6 +3281,13 @@ def main() -> int:
         ("fused_media_xattn (prefill shape)", mx["prefill"]),
         ("fused_media_xattn (forward shape)", mx["forward"]),
         ("fused_media_xattn (two images, text_time 1 then 2)", mx["two images"]),
+        ("fused_media_xattn (four images, text_time 1 then 4)", mx["four images"]),
+        ("fused_attention (ViT-B/32 shape)", fa["vit-b/32"]),
+        ("fused_attention (8-frame resampler shape)", fa["video resampler"]),
+        ("decode_step_megakernel (flamingo-tiny: D=768, 12 layers, b=32)",
+         mega_widths["tiny"]),
+        ("decode_step_megakernel (256 media latents: D=1024, 24 layers, b=8)",
+         mega_widths["media4"]),
         ("decode_step_megakernel act_quant (w8a8)", mega_w8["greedy"]),
         ("decode_step_megakernel act_quant beam mode", mega_w8["beam"]),
         ("decode_step_megakernel act_quant OPT mode (OPT-1.3B, b=8)", mega_w8["opt"]),
@@ -3087,6 +3354,28 @@ def main() -> int:
             ("decode_step_megakernel (act_quant, OPT mode)", "decode_megakernel_sm90.cuh",
              "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
              opt_counts["w8a8"]["decode_step_megakernel"], mega_w8["opt"]),
+            ("decode_step_megakernel (flamingo-tiny, D=768: BASELINE config 1)",
+             "decode_megakernel_sm90.cuh",
+             "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
+             baseline["config 1"]["megakernel"]["decode_step_megakernel"],
+             mega_widths["tiny"]),
+            ("decode_step_megakernel (four images, 256 media latents: BASELINE config 4)",
+             "decode_megakernel_sm90.cuh",
+             "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
+             baseline["config 4"]["megakernel"]["decode_step_megakernel"],
+             mega_widths["media4"]),
+            ("fused_attention (ViT-B/32: BASELINE config 1)", "attention_sm90.cuh",
+             "flamingo_mini_tpu/ops/pallas_attn.py:270",
+             baseline["config 1"]["use_pallas megakernel"]["fused_attention"],
+             fa["vit-b/32"]),
+            ("fused_attention (8-frame resampler: BASELINE config 5)", "attention_sm90.cuh",
+             "flamingo_mini_tpu/ops/pallas_attn.py:270",
+             baseline["config 5"]["use_pallas megakernel"]["fused_attention"],
+             fa["video resampler"]),
+            ("fused_media_xattn (four images: BASELINE config 4)", "media_xattn_sm90.cuh",
+             "flamingo_mini_tpu/ops/pallas_xattn.py:122",
+             baseline["config 4"]["use_pallas megakernel"]["fused_media_xattn"],
+             mx["four images"]),
             ("stream_sum (bandwidth probe)", "stream_probe.cu",
              "tools/probe_stream.py:24", stream["launches"], stream),
             ("attn_stream_only (decode stream probe, b-major cache)",

@@ -1,4 +1,4 @@
-"""Beam search over the flat KV cache with the lazy ancestry reorder.
+"""Beam search with the lazy ancestry reorder or the gather reorder.
 
 Port of ``flamingo_mini_tpu/beam_search.py`` (``_beam_impl``,
 ``_group_beam_impl``, ``beam_generate``), which follows HF transformers'
@@ -18,15 +18,24 @@ vectorised ``_beam_search`` and its group (diverse) variant:
   (``early_stopping``) or once the one-way early-stop heuristic trips. The
   loop halts when no row can improve, every pool is full (early stopping),
   or every candidate hit a stopping criterion;
-* the reorder is lazy: cache rows never move. A (b, k, max_length) int32
-  ancestry table says which row of its family holds each logical beam's
-  K/V at each position; each step permutes the table, and the decode
-  attention reads through it. The forward at ``cur`` writes the K/V of
-  position ``cur - 1`` into each beam's own row.
+* the reorder (``beam_reorder``) is lazy by default: cache rows never
+  move. A (b, k, max_length) int32 ancestry table says which row of its
+  family holds each logical beam's K/V at each position; each step permutes
+  the table, and the decode attention reads through it. The forward at
+  ``cur`` writes the K/V of position ``cur - 1`` into each beam's own row.
+  ``"gather"`` instead permutes the cache's rows over the live prefix
+  ``[0, lim)`` after every step (the whole cache without ``prefix_block``).
+
+The cache: the flat T-major one for lazy beams (``flat_kv_cache``, or the
+megakernel); the head-major one for the gather reorder, under
+``int8_kv_cache`` (int8) and with ``flat_kv_cache=False``, whose steps run
+plain attention (lazy beams ``ops.attention.attend_beam_lazy``), as in the
+JAX package (``flat_beam``).
 
 Two decode bodies, both ending in the full ``lm_head`` (beams consume the
 whole distribution): per layer, each step's 24 layers run
-``decode_attention_beam``; with ``megakernel``, each step is embed -> one
+``decode_attention_beam`` over the flat cache; with ``megakernel`` (lazy,
+flat, bf16 K/V only), each step is embed -> one
 ``decode_step_megakernel`` launch in its beam mode -> final LayerNorm
 (GPT-2 or pre-norm OPT), weight-only or w8a8 (``dc.w8a8``). Group beams
 run per layer only, as in the JAX package, and refuse w8a8; each group's
@@ -69,6 +78,13 @@ def _tile_beams(x: torch.Tensor, k: int) -> torch.Tensor:
     return x.repeat_interleave(k, dim=0)
 
 
+def _tile_leaves(node, k: int):
+    """``_tile_beams`` over every tensor of a (k, v) pair or a dict."""
+    if isinstance(node, dict):
+        return {name: _tile_beams(x, k) for name, x in node.items()}
+    return tuple(_tile_beams(x, k) for x in node)
+
+
 def _gather_beams(x: torch.Tensor, parent: torch.Tensor, b: int,
                   k: int) -> torch.Tensor:
     """Reorder the (b*k, ...) leading axis by per-row parent indices (b, k)."""
@@ -90,7 +106,8 @@ def _pow(n: int, p: float) -> torch.Tensor:
 class _Decoder:
     """Prefill once per row, tile the state over the beams, and run one
     decode step's forward -> float32 log-probs (b*k, V), before the
-    logits chain."""
+    logits chain. ``reorder`` permutes the head-major cache's rows (the
+    gather reorder)."""
 
     def __init__(self, params: Params, config: FlamingoConfig,
                  dc: DecodeConfig, policy: Policy, input_ids, media_locations,
@@ -105,19 +122,28 @@ class _Decoder:
         self.params, self.config, self.policy = params, config, policy
         k = dc.num_beams
         self.L = input_ids.shape[1]
+        # JAX's flat_beam: the flat cache for lazy bf16/float32 beams (the
+        # megakernel reads it whatever flat_kv_cache says)
+        self.lazy = dc.beam_reorder == "lazy"
+        flat = (dc.flat_kv_cache or megakernel) and self.lazy \
+            and not dc.int8_kv_cache
         next_logits, xattn_kv, st = _prefill(
             params, config, dc, policy, input_ids, media_locations,
-            attention_mask, visual_features)
+            attention_mask, visual_features, flat=flat)
         self.logp0 = _log_softmax(next_logits)
         self.vocab = self.logp0.shape[-1]
-        # T-major caches (n_layer, T, b, D): beams tile the row axis
-        self.kc = st["kc"].repeat_interleave(k, dim=2)
-        self.vc = st["vc"].repeat_interleave(k, dim=2)
+        if flat:
+            # T-major caches (n_layer, T, b, D): beams tile the row axis
+            self.kc = st["kc"].repeat_interleave(k, dim=2)
+            self.vc = st["vc"].repeat_interleave(k, dim=2)
+            self.cache = [{"kf": self.kc[i], "vf": self.vc[i]}
+                          for i in range(self.kc.shape[0])]
+        else:
+            # head-major (b, h, max_len, d): beams tile the batch axis
+            self.kc = self.vc = None
+            self.cache = [_tile_leaves(layer, k) for layer in st["cache"]]
         del st["cache"], st["kc"], st["vc"]
-        self.cache = [{"kf": self.kc[i], "vf": self.vc[i]}
-                      for i in range(self.kc.shape[0])]
-        xattn_kv = {key: (_tile_beams(kk, k), _tile_beams(vv, k))
-                    for key, (kk, vv) in xattn_kv.items()}
+        xattn_kv = {key: _tile_leaves(kv, k) for key, kv in xattn_kv.items()}
         self.tokens = _tile_beams(st["tokens"], k)
         self.mask = _tile_beams(st["mask"], k)
         self.pos_next = _tile_beams(st["pos_next"], k)
@@ -132,7 +158,8 @@ class _Decoder:
 
     def logp(self, cur: int, lim: Optional[int], anc: torch.Tensor) -> torch.Tensor:
         """Feed the token at ``cur - 1`` (written into each beam's own cache
-        row at ``cur - 1``) -> log-probs for position ``cur``."""
+        row at ``cur - 1``) -> log-probs for position ``cur``; the gather
+        reorder reads no ancestry."""
         prev = self.tokens[:, cur - 1:cur]
         pos = self.pos_next + (cur - 1 - self.L)
         if not self.megakernel:
@@ -140,13 +167,25 @@ class _Decoder:
                 self.params, self.config, prev, policy=self.policy,
                 layer_hook=self.hook, attention_mask=self.mask,
                 position_ids=pos, cache=self.cache, cache_index=cur - 1,
-                kv_limit=lim, beam_anc=anc)
+                kv_limit=lim, beam_anc=anc if self.lazy else None)
             return _log_softmax(logits[:, -1])
         h = _mega_hidden(self.params, self.config, self.policy, self.mega,
                          self.kc, self.vc, prev[:, 0], pos[:, 0], cur - 1, lim,
                          beam_anc=anc)
         logits = flamingo.lm_head(self.params, self.config, h[:, None])
         return _log_softmax(logits[:, -1])
+
+    def reorder(self, parent: torch.Tensor, lim: Optional[int]) -> None:
+        """The gather reorder: every head-major cache leaf's rows take their
+        parents' (b, k) over the slots [0, lim) (all without ``lim``); the
+        slots past it are the families' unwritten zeros."""
+        if self.lazy:
+            return
+        b, k = parent.shape
+        for layer in self.cache:
+            for x in layer.values():
+                live = x if lim is None else x[:, :, :lim]
+                live.copy_(_gather_beams(live, parent, b, k))
 
 
 def _limits(dc: DecodeConfig, L: int):
@@ -192,8 +231,9 @@ def beam_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
     anc = _initial_ancestry(b, k, max_len, dev)
     own_row = torch.arange(k, dtype=torch.int32, device=dev)
 
-    def step_update(logp: torch.Tensor, cur: int) -> torch.Tensor:
-        """Fill position ``cur`` from per-beam log-probs (b, k, V) -> hits."""
+    def step_update(logp: torch.Tensor, cur: int, lim: Optional[int]) -> torch.Tensor:
+        """Fill position ``cur`` from per-beam log-probs (b, k, V) -> hits;
+        the gather reorder moves the cache's slots [0, lim)."""
         nonlocal run_scores, fin_seq, fin_scores, fin_flags, heur_unsat, anc
         flat = (run_scores[:, :, None] + logp).reshape(b, k * V)
         top_lp, top_idx = select_candidates(flat, k2)           # (b, 2k)
@@ -209,10 +249,11 @@ def beam_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
         dec.tokens = _gather_beams(dec.tokens, run_parent, b, k)
         dec.tokens[:, cur] = run_tok.reshape(-1)
         dec.mask[:, cur] = 1
-        # only the ancestry moves; position cur's K/V lands in each beam's
-        # own row at the next forward
+        # lazy: only the ancestry moves; position cur's K/V lands in each
+        # beam's own row at the next forward
         anc = _rows(anc, run_parent)
         anc[:, :, cur] = own_row
+        dec.reorder(run_parent, lim)
 
         # finished pool (HF _update_finished_beams)
         just_finished = hits & top_mask
@@ -237,7 +278,8 @@ def beam_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
 
     # the prefill's rows are the families' (tiled) rows
     logp0 = process_logits(dec.logp0, dc, dec.tokens[::k], dec.mask[::k], L, L)
-    hits = step_update(logp0[:, None, :].expand(b, k, V), L)
+    hits = step_update(logp0[:, None, :].expand(b, k, V), L,
+                       seg_ends[0] if dc.prefix_block > 0 else None)
     cur = L + 1
     for seg_end in seg_ends:
         lim = min(seg_end, max_len) if dc.prefix_block > 0 else None
@@ -247,7 +289,7 @@ def beam_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
                 break
             logp = process_logits(dec.logp(cur, lim, anc), dc, dec.tokens,
                                   dec.mask, cur, L)
-            hits = step_update(logp.reshape(b, k, V), cur)
+            hits = step_update(logp.reshape(b, k, V), cur, lim)
             cur += 1
     return fin_seq, fin_scores
 
@@ -290,8 +332,9 @@ def group_beam_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
     anc = _initial_ancestry(b, k, max_len, dev)
     own_row = torch.arange(k, dtype=torch.int32, device=dev)
 
-    def step(logp: torch.Tensor, cur: int) -> None:
-        """Fill position ``cur`` from (b, k, V) log-probs, group by group."""
+    def step(logp: torch.Tensor, cur: int, lim: Optional[int]) -> None:
+        """Fill position ``cur`` from (b, k, V) log-probs, group by group;
+        the gather reorder moves the cache's slots [0, lim)."""
         nonlocal run_scores, fin_seq, fin_scores, fin_flags, done, anc
         rows4 = dec.tokens.reshape(b, G, kg, max_len)
         mask4 = dec.mask.reshape(b, G, kg, max_len)
@@ -350,18 +393,20 @@ def group_beam_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
         dec.mask[:, cur] = 1
         anc = _rows(anc, parent_global)
         anc[:, :, cur] = own_row
+        dec.reorder(parent_global, lim)
         run_scores = torch.stack(rs, dim=1)
         fin_seq = torch.stack(fseqs, dim=1)
         fin_scores = torch.stack(fscs, dim=1)
         fin_flags = torch.stack(ffls, dim=1)
         done = torch.stack(dones, dim=1)
 
-    step(dec.logp0[:, None, :].expand(b, k, V), L)
+    step(dec.logp0[:, None, :].expand(b, k, V), L,
+         seg_ends[0] if dc.prefix_block > 0 else None)
     cur = L + 1
     for seg_end in seg_ends:
         lim = min(seg_end, max_len) if dc.prefix_block > 0 else None
         while cur < seg_end and cur < M and not bool(done.all()):
-            step(dec.logp(cur, lim, anc).reshape(b, k, V), cur)
+            step(dec.logp(cur, lim, anc).reshape(b, k, V), cur, lim)
             cur += 1
 
     # finalize (BeamSearchScorer.finalize): groups not done absorb their kg

@@ -1,5 +1,4 @@
-"""Batched generation over the flat KV cache: greedy and sampling here,
-beams in ``beam_search.py``.
+"""Batched generation: greedy and sampling here, beams in ``beam_search.py``.
 
 Port of ``flamingo_mini_tpu/generation.py`` (``_prefill``, the logits
 chain, ``_select_token``, ``_generate_impl`` and ``generate``'s row
@@ -7,7 +6,12 @@ expansion); ``generate_impl`` hands ``num_beams > 1`` to
 ``beam_search.beam_generate``:
 
 * prefill runs the (left-padded) prompt through the model once, filling the
-  flat cache; the xattn K/V are computed once and stay constant;
+  cache; the xattn K/V are computed once and stay constant (int8 under
+  ``int8_kv_cache``). The cache is the flat T-major one, or the head-major
+  one (``flat_kv_cache=False``; always under ``int8_kv_cache``, in int8),
+  whose steps attend in plain ops as in the JAX package; the megakernel
+  reads the flat cache whatever ``flat_kv_cache`` says, and refuses the int8
+  cache;
 * each decode step runs embed -> trunk -> final LayerNorm -> head. The
   trunk (GPT-2 or OPT) runs either per layer (the default: gated xattn
   where the layer has it, then the decoder block with
@@ -20,16 +24,17 @@ expansion); ``generate_impl`` hands ``num_beams > 1`` to
   ``do_sample``, the warpers (``apply_logit_filters``) and the Gumbel-max
   draw that ``jax.random.categorical`` is (``_select_token``; the noise from
   a ``torch.Generator``, ``gumbel_noise``). On the plain-greedy bf16 int8
-  path (identity chain, no scores) the head is ``lm_head_argmax``, which
-  returns the token without writing the logits; otherwise the full
-  ``lm_head``;
+  path over a bf16 flat cache (identity chain, no scores) the head is
+  ``lm_head_argmax``, which returns the token without writing the logits;
+  otherwise the full ``lm_head``;
 * with ``prefix_block > 0`` the steps run in segments that attend only the
   live cache prefix ``[0, seg_end)``; every segment, and the whole loop,
   stops once every row has emitted EOS.
 
 Generated tokens see ``text_time`` = the prompt's media count. Prompts must
-be unpadded or left-padded. The loop is a Python loop; it checks the
-all-EOS exit once per step.
+be unpadded or left-padded. Pixels of one prompt may come 4-D, ``(N c h w)``;
+they are viewed as ``(1, N, c, h, w)`` before any row is repeated. The loop
+is a Python loop; it checks the all-EOS exit once per step.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ from .models import flamingo, gpt2
 from .ops import lm_head, megadecode
 from .ops.layers import Policy, layer_norm
 from .ops.lm_head import lm_head_argmax, pad_head_weights
+from .ops.quant import quantize_kv_pair
 
 Params = Dict[str, Any]
 HEAD_BLOCK_V = 2048
@@ -53,8 +59,8 @@ NEG = torch.finfo(torch.float32).min
 class DecodeConfig:
     """The JAX package's DecodeConfig for greedy, sampling and beams, with
     its defaults and checks. Options of the paths not ported yet
-    (contrastive, constrained and beam-sample search, the int8 and
-    head-major caches, the gather reorder) raise ``NotImplementedError``."""
+    (contrastive, constrained and beam-sample search) raise
+    ``NotImplementedError``."""
 
     max_length: int = 150
     max_new_tokens: Optional[int] = None
@@ -84,8 +90,11 @@ class DecodeConfig:
     forced_eos_token_id: Optional[int] = None
     suppress_tokens: Optional[tuple] = None        # banned at every step
     begin_suppress_tokens: Optional[tuple] = None  # banned at the first step
-    int8_kv_cache: bool = False       # not ported
+    # the head-major cache in int8 with per-position bf16 scales, and the
+    # xattn K/V in int8; overrides flat_kv_cache; the megakernel refuses it
+    int8_kv_cache: bool = False
     prefix_block: int = 0
+    # False: the head-major (b, h, max_len, d_head) cache, plain attention
     flat_kv_cache: bool = True
     fused_head: bool = True
     # whole-step megakernel: int8 weights, bf16 policy, GPT-2 or pre-norm
@@ -104,7 +113,9 @@ class DecodeConfig:
     num_return_sequences: int = 1
     num_beam_groups: int = 1          # diverse beams: per layer only
     diversity_penalty: float = 0.0
-    # "lazy": cache rows never move, an ancestry table is permuted instead
+    # "lazy": cache rows never move, an ancestry table is permuted instead;
+    # "gather": the head-major cache's live prefix is permuted every step
+    # (per layer only: the megakernel's beam mode reads the ancestry)
     beam_reorder: str = "lazy"
     # greedy / sampling: the sum of the chosen tokens' log-probs under the
     # step distribution (post-processor, post-warper), post-EOS pads
@@ -145,6 +156,14 @@ class DecodeConfig:
         if self.w8a8 and self.num_beam_groups > 1:
             raise ValueError("w8a8 runs on the megakernel, and diverse beams "
                              "(num_beam_groups > 1) run per layer")
+        if self.megakernel and self.int8_kv_cache:
+            raise ValueError("the megakernel reads a bf16 KV cache: "
+                             "int8_kv_cache must be off")
+        if self.megakernel and self.beam_reorder == "gather" \
+                and self.num_beams > 1 and self.num_beam_groups == 1:
+            raise ValueError("the megakernel's beam mode reorders lazily: "
+                             "beam_reorder='gather' runs per layer "
+                             "(megakernel=False)")
         if self.beam_reorder not in ("gather", "lazy"):
             raise ValueError(f"beam_reorder must be 'gather' or 'lazy', "
                              f"got {self.beam_reorder!r}")
@@ -157,19 +176,26 @@ class DecodeConfig:
                 (self.force_words_ids is not None,
                  "force_words_ids (constrained beam search)"),
                 (self.do_sample and self.num_beams > 1,
-                 "do_sample with num_beams > 1 (beam-sample)"),
-                (self.int8_kv_cache, "int8_kv_cache"),
-                (not self.flat_kv_cache,
-                 "flat_kv_cache=False (the head-major cache)"),
-                (self.beam_reorder == "gather", "beam_reorder='gather'")):
+                 "do_sample with num_beams > 1 (beam-sample)")):
             if unported:
                 raise NotImplementedError(f"{what} is not ported")
 
 
+def uses_flat_cache(dc: DecodeConfig) -> bool:
+    """Whether greedy and sampling decode over the flat cache: with
+    ``flat_kv_cache`` or the megakernel, never over the int8 cache."""
+    return (dc.flat_kv_cache or dc.megakernel) and not dc.int8_kv_cache
+
+
 def _prefill(params: Params, config: FlamingoConfig, dc: DecodeConfig,
              policy: Policy, input_ids, media_locations, attention_mask,
-             visual_features):
-    """Run the prompt, filling the cache -> (next_logits, xattn_kv, state)."""
+             visual_features, flat: Optional[bool] = None):
+    """Run the prompt, filling the cache -> (next_logits, xattn_kv, state):
+    the flat cache (state "kc", "vc": the stacks; "cache": per-layer views)
+    or with ``flat=False`` the head-major one (int8 under
+    ``dc.int8_kv_cache``, which also quantizes the xattn K/V; "kc" and "vc"
+    None). ``flat`` None: ``uses_flat_cache(dc)``."""
+    flat = uses_flat_cache(dc) if flat is None else flat
     b, L = input_ids.shape
     dev = input_ids.device
     mask_buf = torch.zeros((b, dc.max_length), dtype=torch.int32, device=dev)
@@ -181,10 +207,14 @@ def _prefill(params: Params, config: FlamingoConfig, dc: DecodeConfig,
     text_time = torch.cumsum(media_locations.to(torch.int32), dim=-1)
     xattn_kv = flamingo.compute_xattn_kv(params, config, visual_features,
                                          policy=policy)
+    if dc.int8_kv_cache:
+        # decode reads the xattn K/V every step; int8 halves that stream
+        xattn_kv = {idx: quantize_kv_pair(kv) for idx, kv in xattn_kv.items()}
     hook = flamingo.make_layer_hook(params, config, xattn_kv, text_time,
                                     policy=policy)
     kc, vc, cache = flamingo.trunk(config).init_cache(
-        config.lm_arch, b, dc.max_length, policy.dtype, dev)
+        config.lm_arch, b, dc.max_length, policy.dtype, dev,
+        int8=dc.int8_kv_cache, flat=flat)
     # position ids from the attention mask (pads do not advance positions)
     pos = torch.clamp(torch.cumsum(attention_mask.to(torch.int32), dim=-1) - 1,
                       min=0)
@@ -559,6 +589,9 @@ def generate_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
     ``generator``; None seeds one with 0 on the inputs' device.
     ``dc.num_beams > 1``: ``beam_search.beam_generate`` (its returns), on
     the batch as given."""
+    if pixel_values is not None and pixel_values.ndim == 4:
+        # one prompt's media (N c h w): one row of N before any repeat
+        pixel_values = pixel_values[None]
     if dc.megakernel and not megadecode.supports_arch(config.lm_arch):
         raise ValueError("the megakernel takes GPT-2 and pre-norm OPT trunks "
                          f"without project_in/out, width a multiple of "
@@ -579,13 +612,14 @@ def generate_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
     dev = input_ids.device
     check_mega_fits(config, dc, b, visual_features, pixel_values, dev)
     # fused int8 head + argmax: plain greedy (identity chain, no scores)
-    # under the bf16 policy with an int8 tied embedding (the kernel takes a
-    # bf16 hidden row of any width; what the card cannot hold is refused
-    # here, before vision and prefill). Otherwise the chain and the draw
-    # need the full logits.
+    # under the bf16 policy with an int8 tied embedding, over a bf16 flat
+    # cache as in the JAX package (the kernel takes a bf16 hidden row of any
+    # width; what the card cannot hold is refused here, before vision and
+    # prefill). Otherwise the chain and the draw need the full logits.
     head = None
     wq = params["lm"].get(flamingo.trunk(config).EMBED + "_q")
-    if (dc.fused_head and policy.dtype == torch.bfloat16 and wq is not None
+    if (dc.fused_head and uses_flat_cache(dc) and policy.dtype == torch.bfloat16
+            and wq is not None
             and not dc.do_sample and not dc.return_scores
             and not dc.output_scores and _logits_chain_is_identity(dc)):
         lm_head.check_fits(int(wq["w8"].shape[1]), b, dev)

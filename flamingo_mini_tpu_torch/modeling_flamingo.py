@@ -141,12 +141,19 @@ class FlamingoModel:
         ``megakernel`` only, else ``ValueError``) runs its w8a8 tier, every
         linear on int8 activations; diverse beams run per layer and refuse
         ``w8a8``. ``fused_head`` lets plain greedy (no processor, no scores)
-        take ``lm_head_argmax``. Before vision and prefill, a megakernel
-        call the card cannot hold raises ``ValueError``. Not ported yet,
-        raising ``NotImplementedError``: ``penalty_alpha`` (contrastive),
-        ``force_words_ids`` (constrained beams), ``do_sample`` with beams,
-        ``int8_kv_cache``, ``flat_kv_cache=False``, ``beam_reorder="gather"``,
-        and ``mesh``, ``tensor_parallel`` or any other JAX option."""
+        take ``lm_head_argmax`` (over the flat bf16 cache only, as in JAX).
+        Before vision and prefill, a megakernel call the card cannot hold
+        raises ``ValueError``. The KV-cache variants run per layer in plain
+        torch, as JAX runs them in plain XLA: ``flat_kv_cache=False`` (the
+        head-major cache), ``int8_kv_cache`` (the head-major cache in int8
+        and the xattn K/V in int8; the megakernel refuses it with
+        ``ValueError``) and ``beam_reorder="gather"`` (beams reorder the
+        head-major cache's live prefix; with ``megakernel`` it raises
+        ``ValueError``). ``pixel_values`` of one prompt may be 4-D, ``(N c
+        h w)``. Not ported yet, raising ``NotImplementedError``:
+        ``penalty_alpha`` (contrastive), ``force_words_ids`` (constrained
+        beams), ``do_sample`` with beams, and ``mesh``, ``tensor_parallel``
+        or any other JAX option."""
         if unsupported:
             raise NotImplementedError(
                 f"generate options not ported yet: {sorted(unsupported)}")

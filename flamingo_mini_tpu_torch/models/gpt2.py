@@ -10,14 +10,19 @@ Under a ``pallas`` policy the uncached forward's attention is
 ``row_bias``); a prefill that writes the cache stays on ``attend``, as in
 the JAX package.
 
-The cache is the JAX package's flat layout: per layer ``{"kf", "vf"}`` of
-shape ``(T, b, D)`` with T the max length rounded up to a multiple of 64, so
-that a decode step's write is one contiguous ``(b, D)`` slab and the
-decode-attention kernel streams the live prefix contiguously. The layers'
-caches are views of two stacked ``(n_layer, T, b, D)`` buffers, which the
-whole-step megakernel reads as they are. Unlike the JAX package, the port
-writes the cache in place: no copy per step, and no stacking copy after
-prefill.
+Two cache layouts, as in the JAX package. The flat one: per layer
+``{"kf", "vf"}`` of shape ``(T, b, D)`` with T the max length rounded up to
+a multiple of 64, so that a decode step's write is one contiguous ``(b, D)``
+slab and the decode-attention kernel streams the live prefix contiguously;
+the layers' caches are views of two stacked ``(n_layer, T, b, D)`` buffers,
+which the whole-step megakernel reads as they are. The head-major one
+(``flat=False``): per layer ``{"k", "v"}`` of shape ``(b, h, max_len,
+d_head)``, or with ``int8`` ``{"k8", "v8"}`` int8 and their per-position
+bf16 scales ``{"ks", "vs"}`` ``(b, h, max_len, 1)``; a step attends the
+whole buffer (or its first ``kv_limit`` slots) in plain ops under a causal
+mask and the padding bias, lazy beams through ``attend_beam_lazy``. Unlike
+the JAX package, the port writes either cache in place: no copy per step,
+and no stacking copy after prefill.
 """
 from __future__ import annotations
 
@@ -26,12 +31,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..configuration_flamingo import GPT2Arch
-from ..ops.attention import attend, merge_heads, split_heads
+from ..ops.attention import attend, attend_beam_lazy, merge_heads, split_heads
 from ..ops.decode_attention import decode_attention, decode_attention_beam
 from ..ops.fused_attention import fused_attention
 from ..ops.layers import (Policy, dot, get_activation, init_layer_norm,
                           init_linear, layer_norm, linear, normal)
-from ..ops.quant import embed_lookup
+from ..ops.quant import dequantize_kv, embed_lookup, quantize_kv_write
 
 Params = Dict[str, Any]
 LayerHook = Callable[[int, torch.Tensor], torch.Tensor]
@@ -80,10 +85,69 @@ def flat_cache(n_layer: int, width: int, batch: int, max_len: int, dtype,
     return kc, vc, [{"kf": kc[i], "vf": vc[i]} for i in range(n_layer)]
 
 
-def init_cache(arch: GPT2Arch, batch: int, max_len: int, dtype,
-               device) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
-    """``flat_cache`` at the trunk's depth and width."""
-    return flat_cache(arch.n_layer, arch.n_embd, batch, max_len, dtype, device)
+def make_cache(n_layer: int, n_head: int, width: int, batch: int, max_len: int,
+               dtype, device, *, int8: bool = False, flat: bool = True
+               ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Cache]:
+    """A trunk's zeroed caches -> (K stack, V stack, per-layer caches): the
+    ``flat_cache``, or with ``flat=False`` the head-major one, per layer
+    ``{"k", "v"}`` of shape ``(batch, n_head, max_len, width / n_head)`` in
+    ``dtype``, with ``int8`` the int8 ``{"k8", "v8"}`` and their bf16
+    scales ``{"ks", "vs"}`` ``(batch, n_head, max_len, 1)`` (stacks None)."""
+    if flat:
+        if int8:
+            raise ValueError("the flat cache holds bf16 or float32 K/V, not int8")
+        return flat_cache(n_layer, width, batch, max_len, dtype, device)
+    shape = (batch, n_head, max_len, width // n_head)
+    zeros = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
+    if int8:
+        layer = lambda: {"k8": zeros(shape, torch.int8), "v8": zeros(shape, torch.int8),
+                         "ks": zeros(shape[:-1] + (1,), torch.bfloat16),
+                         "vs": zeros(shape[:-1] + (1,), torch.bfloat16)}
+    else:
+        layer = lambda: {"k": zeros(shape, dtype), "v": zeros(shape, dtype)}
+    return None, None, [layer() for _ in range(n_layer)]
+
+
+def init_cache(arch: GPT2Arch, batch: int, max_len: int, dtype, device, *,
+               int8: bool = False, flat: bool = True
+               ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Cache]:
+    """``make_cache`` at the trunk's depth, heads and width."""
+    return make_cache(arch.n_layer, arch.n_head, arch.n_embd, batch, max_len, dtype,
+                      device, int8=int8, flat=flat)
+
+
+def is_flat(cache: Cache) -> bool:
+    """True for the flat T-major cache, False for the head-major one."""
+    return "kf" in cache[0]
+
+
+def head_major_slots(cache: Cache, kv_limit: Optional[int]) -> int:
+    """The slots a head-major cache's step attends: all, or ``kv_limit``."""
+    buf = cache[0]["k8" if "k8" in cache[0] else "k"]
+    return buf.shape[2] if kv_limit is None else kv_limit
+
+
+def head_major_write(layer_cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                     v: torch.Tensor, cache_index: int, kv_limit: Optional[int]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write k, v (b, h, n, d) into a head-major layer cache at
+    ``cache_index`` (the int8 codes and scales where the cache is int8) ->
+    the cache's K and V over its first ``kv_limit`` slots (all without),
+    dequantized into k's dtype."""
+    at = slice(cache_index, cache_index + k.shape[2])
+    lim = slice(None) if kv_limit is None else slice(0, kv_limit)
+    if "k8" not in layer_cache:
+        layer_cache["k"][:, :, at] = k
+        layer_cache["v"][:, :, at] = v
+        return layer_cache["k"][:, :, lim], layer_cache["v"][:, :, lim]
+    out = []
+    for name, x in (("k", k), ("v", v)):
+        x8, s = quantize_kv_write(x)
+        layer_cache[name + "8"][:, :, at] = x8
+        layer_cache[name + "s"][:, :, at] = s
+        out.append(dequantize_kv(layer_cache[name + "8"][:, :, lim],
+                                 layer_cache[name + "s"][:, :, lim], k.dtype))
+    return out[0], out[1]
 
 
 def embed(p: Params, ids: torch.Tensor, pos: torch.Tensor, dtype) -> torch.Tensor:
@@ -136,14 +200,23 @@ def _self_attention(bp: Params, x: torch.Tensor, *, n_head: int,
     d_model = qkv.shape[-1] // 3
     q, k, v = qkv.split(d_model, dim=-1)
     scale = 1.0 / ((d_model // n_head) ** 0.5)
-    if layer_cache is not None:
+    if layer_cache is not None and "kf" in layer_cache:
         out = cached_attention(q, k, v, layer_cache, cache_index, n_head=n_head,
                                scale=scale, kv_limit=kv_limit, npad=npad,
                                beam_anc=beam_anc)
         if out is not None:
             return linear(out, bp["c_proj"])
     qh, kh, vh = (split_heads(t, n_head) for t in (q, k, v))
-    if layer_cache is None and policy.pallas:
+    if layer_cache is not None and "kf" not in layer_cache:
+        # head-major: attend the cache's slots under the causal mask and
+        # the padding bias (the prompt's too); lazy beams through ancestry
+        kh, vh = head_major_write(layer_cache, kh, vh, cache_index, kv_limit)
+        if beam_anc is not None:
+            out = attend_beam_lazy(qh, kh, vh, beam_anc, causal=causal_mask,
+                                   bias=pad_bias, scale=scale)
+        else:
+            out = attend(qh, kh, vh, scale=scale, mask=causal_mask, bias=pad_bias)
+    elif layer_cache is None and policy.pallas:
         out = fused_attention(qh, kh, vh, scale=scale, causal=True, row_bias=row_bias)
     else:
         # prefill (cache_index == 0) or uncached: attend over the fresh K/V
@@ -167,14 +240,17 @@ def apply_gpt2(
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Run the trunk -> (final-LN hidden (b, n, d), cache).
 
-    With a cache, K/V are written at ``cache_index``. A prompt (n > 1) must
-    start at slot 0 and attends over itself; a single token (n == 1) attends
-    over the cache slots ``npad <= t <= cache_index`` through
+    With a flat cache, K/V are written at ``cache_index``. A prompt (n > 1)
+    must start at slot 0 and attends over itself; a single token (n == 1)
+    attends over the cache slots ``npad <= t <= cache_index`` through
     ``decode_attention``, npad being each row's first real slot
     (left-padded prompts); with ``beam_anc`` (lazy beam search: rows in
     families of kb whose cache rows never move) through
     ``decode_attention_beam``, which reads each slot from the row the
-    ancestry table names.
+    ancestry table names. With a head-major cache, the tokens attend the
+    buffer's slots (the first ``kv_limit``) under the causal mask of their
+    absolute positions and the padding bias, as the JAX package does;
+    ``beam_anc`` through ``attend_beam_lazy``.
     """
     b, n = input_ids.shape
     if position_ids is None:
@@ -183,16 +259,26 @@ def apply_gpt2(
     x = embed(p, input_ids, position_ids, policy.dtype)
 
     npad = causal = pad_bias = row_bias = None
-    if cache is not None and n == 1:
+    flat = cache is not None and is_flat(cache)
+    if flat and n == 1:
         npad = (attention_mask.to(torch.int32).argmax(dim=-1).to(torch.int32)
                 if attention_mask is not None
                 else torch.zeros(b, dtype=torch.int32, device=x.device))
     else:
-        if cache is not None and cache_index != 0:
+        if flat and cache_index != 0:
             raise NotImplementedError("a multi-token step must start at slot 0")
-        causal = torch.ones(n, n, dtype=torch.bool, device=x.device).tril()[None, None]
+        if cache is None or flat:
+            n_kv = n
+            causal = torch.ones(n, n, dtype=torch.bool, device=x.device).tril()
+        else:
+            # head-major: every slot of the buffer (up to kv_limit) against
+            # the queries' absolute positions
+            n_kv = head_major_slots(cache, kv_limit)
+            q_pos = cache_index + torch.arange(n, device=x.device)
+            causal = torch.arange(n_kv, device=x.device)[None, :] <= q_pos[:, None]
+        causal = causal[None, None]
         if attention_mask is not None:
-            am = attention_mask[:, :n]
+            am = attention_mask[:, :n_kv]
             pad_bias = torch.where(am[:, None, None, :].bool(), 0.0,
                                    F32_MIN).to(policy.dtype)
             # the kernels' (b, n) row bias: float32 as they read it, the

@@ -18,11 +18,13 @@ Positions: the generate path passes them explicitly (``clip(cumsum(mask)
 mask, HF's ``cumsum(mask) * mask - 1``, so that a pad reads row 1 of the
 offset table.
 
-The cache, the cached attention and the tied head are GPT-2's
-(``gpt2.flat_cache``, ``gpt2.cached_attention``, ``gpt2.tied_head``): per
-layer ``{"kf", "vf"}`` views ``(T, b, D)`` of two stacked
-``(n_layer, T, b, D)`` buffers, written in place, which the whole-step
-megakernel reads as they are.
+The caches, the cached attention and the tied head are GPT-2's
+(``gpt2.make_cache``, ``gpt2.cached_attention``, ``gpt2.head_major_write``,
+``gpt2.tied_head``): per layer ``{"kf", "vf"}``
+views ``(T, b, D)`` of two stacked ``(n_layer, T, b, D)`` buffers, written
+in place, which the whole-step megakernel reads as they are; or the
+head-major ``(b, h, max_len, d_head)`` cache, bf16 or int8, whose steps
+attend in plain ops under one additive causal + padding bias.
 """
 from __future__ import annotations
 
@@ -31,12 +33,13 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..configuration_flamingo import OPTArch
-from ..ops.attention import attend, merge_heads, split_heads
+from ..ops.attention import attend, attend_beam_lazy, merge_heads, split_heads
 from ..ops.fused_attention import fused_attention
 from ..ops.layers import (Policy, get_activation, init_layer_norm, init_linear,
                           layer_norm, linear, normal)
 from ..ops.quant import embed_lookup
-from .gpt2 import F32_MIN, cached_attention, flat_cache, tied_head
+from .gpt2 import (F32_MIN, cached_attention, head_major_slots, head_major_write,
+                   is_flat, make_cache, tied_head)
 
 Params = Dict[str, Any]
 LayerHook = Callable[[int, torch.Tensor], torch.Tensor]
@@ -73,11 +76,13 @@ def init_opt(gen: torch.Generator, arch: OPTArch, extra_tokens: int = 1) -> Para
     return p
 
 
-def init_cache(arch: OPTArch, batch: int, max_len: int, dtype,
-               device) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
-    """``gpt2.flat_cache`` at the trunk's depth and width."""
-    return flat_cache(arch.num_hidden_layers, arch.hidden_size, batch, max_len,
-                      dtype, device)
+def init_cache(arch: OPTArch, batch: int, max_len: int, dtype, device, *,
+               int8: bool = False, flat: bool = True
+               ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Cache]:
+    """``gpt2.make_cache`` at the trunk's depth, heads and width."""
+    return make_cache(arch.num_hidden_layers, arch.num_attention_heads,
+                      arch.hidden_size, batch, max_len, dtype, device, int8=int8,
+                      flat=flat)
 
 
 def embed(p: Params, ids: torch.Tensor, pos: torch.Tensor, dtype) -> torch.Tensor:
@@ -108,14 +113,21 @@ def _self_attention(bp: Params, h: torch.Tensor, *, n_head: int,
                     beam_anc: Optional[torch.Tensor]) -> torch.Tensor:
     q, k, v = (linear(h, bp[name]) for name in ("q_proj", "k_proj", "v_proj"))
     scale = (q.shape[-1] // n_head) ** -0.5
-    if layer_cache is not None:
+    if layer_cache is not None and "kf" in layer_cache:
         out = cached_attention(q, k, v, layer_cache, cache_index, n_head=n_head,
                                scale=scale, kv_limit=kv_limit, npad=npad,
                                beam_anc=beam_anc)
         if out is not None:
             return linear(out, bp["out_proj"])
     qh, kh, vh = (split_heads(t, n_head) for t in (q, k, v))
-    if layer_cache is None and policy.pallas:
+    if layer_cache is not None and "kf" not in layer_cache:
+        # head-major: ``bias`` holds the causal and padding masks
+        kh, vh = head_major_write(layer_cache, kh, vh, cache_index, kv_limit)
+        if beam_anc is not None:
+            out = attend_beam_lazy(qh, kh, vh, beam_anc, bias=bias, scale=scale)
+        else:
+            out = attend(qh, kh, vh, scale=scale, bias=bias)
+    elif layer_cache is None and policy.pallas:
         out = fused_attention(qh, kh, vh, scale=scale, causal=True, row_bias=row_bias)
     else:
         # prefill (cache_index == 0) or uncached: attend over the fresh K/V
@@ -141,17 +153,20 @@ def apply_opt(
     the final LayerNorm (pre-norm) and ``project_out`` (where the model has
     it).
 
-    With a cache, K/V are written at ``cache_index``. A prompt (n > 1) must
-    start at slot 0 and attends over itself; a single token (n == 1) attends
-    over the cache slots ``npad <= t <= cache_index`` through
+    With a flat cache, K/V are written at ``cache_index``. A prompt (n > 1)
+    must start at slot 0 and attends over itself; a single token (n == 1)
+    attends over the cache slots ``npad <= t <= cache_index`` through
     ``decode_attention``, or with ``beam_anc`` through
-    ``decode_attention_beam`` (``gpt2.apply_gpt2``)."""
+    ``decode_attention_beam``; over a head-major cache through ``attend``
+    or ``attend_beam_lazy`` (``gpt2.apply_gpt2``)."""
     b, n = input_ids.shape
     dev = input_ids.device
-    if cache is not None and n > 1 and cache_index != 0:
+    flat = cache is not None and is_flat(cache)
+    if flat and n > 1 and cache_index != 0:
         raise NotImplementedError("a multi-token step must start at slot 0")
     if attention_mask is None:
-        n_full = n if cache is None else cache[0]["kf"].shape[0]
+        n_full = n if cache is None else (cache[0]["kf"].shape[0] if flat
+                                          else head_major_slots(cache, None))
         attention_mask = torch.ones((b, n_full), dtype=torch.int32, device=dev)
     if position_ids is None:
         position_ids = opt_position_ids(attention_mask)
@@ -161,12 +176,19 @@ def apply_opt(
     x = embed(p, input_ids, position_ids, policy.dtype)
 
     npad = bias = row_bias = None
-    if cache is not None and n == 1:
+    if flat and n == 1:
         npad = attention_mask.to(torch.int32).argmax(dim=-1).to(torch.int32)
     else:
-        # one additive causal + padding bias, HF-style
-        pad_ok = attention_mask[:, :n].bool()
-        causal = torch.ones(n, n, dtype=torch.bool, device=dev).tril()
+        # one additive causal + padding bias, HF-style; over a head-major
+        # cache every slot (up to kv_limit) against the absolute positions
+        if cache is None or flat:
+            n_kv = n
+            causal = torch.ones(n, n, dtype=torch.bool, device=dev).tril()
+        else:
+            n_kv = head_major_slots(cache, kv_limit)
+            q_pos = cache_index + torch.arange(n, device=dev)
+            causal = torch.arange(n_kv, device=dev)[None, :] <= q_pos[:, None]
+        pad_ok = attention_mask[:, :n_kv].bool()
         bias = torch.where(causal[None, None] & pad_ok[:, None, None, :], 0.0,
                            F32_MIN).to(policy.dtype)
         # the kernels' (b, n) row bias: float32 as they read it, the dtype's

@@ -13,7 +13,9 @@
   compute dtype as on the plain path, and the kernel's scale is 1.
 
 The visual K/V are computed once per sequence (``compute_visual_kv``) and
-passed to every call.
+passed to every call, as the (k, v) pair or, under the int8 KV cache, its
+int8 form ``{"k8", "ks", "v8", "vs"}`` (``ops.quant.quantize_kv_pair``),
+dequantized into the text's dtype at each call.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from ..ops.attention import merge_heads, softmax_f32, split_heads
 from ..ops.layers import (Policy, const, feed_forward, init_feed_forward,
                           init_layer_norm, init_linear, layer_norm, linear)
 from ..ops.media_xattn import fused_media_xattn
+from ..ops.quant import dequantize_kv
 
 Params = Dict[str, Any]
 KV = Tuple[torch.Tensor, torch.Tensor]  # each (b, h, n_media*n_visual, d)
@@ -58,8 +61,13 @@ def compute_visual_kv(p: Params, visual_features: torch.Tensor, *,
 def apply_masked_xattn(p: Params, y: torch.Tensor, kv: KV,
                        text_time: torch.Tensor, *, n_visual: int, heads: int,
                        dim_head: int, policy: Policy) -> torch.Tensor:
-    """y (b, n_token, dim), text_time (b, n_token) -> (b, n_token, dim)."""
-    k, v = kv
+    """y (b, n_token, dim), text_time (b, n_token) -> (b, n_token, dim);
+    ``kv`` the (k, v) pair or its int8 dict."""
+    if isinstance(kv, dict):
+        k = dequantize_kv(kv["k8"], kv["ks"], y.dtype)
+        v = dequantize_kv(kv["v8"], kv["vs"], y.dtype)
+    else:
+        k, v = kv
     n_media = k.shape[2] // n_visual
     y_n = layer_norm(y, p["norm"])
     q = linear(y_n, p["to_q"])

@@ -1,7 +1,8 @@
 """Shared attention core, port of ``flamingo_mini_tpu/ops/attention.py``.
 
 One ``attend`` serves the perceiver, the media-masked xattn, the GPT-2
-prefill and the ViT. It is written with plain ops on purpose: PyTorch's
+prefill, the ViT and the decode steps over the head-major cache;
+``attend_beam_lazy`` serves lazy beams over the head-major cache. It is written with plain ops on purpose: PyTorch's
 fused scaled-dot-product attention scales, masks and rounds at other
 places, and the parity tests hold this chain to the JAX one step by step
 (scale after the QK product, dtype-aware finfo.min fill, float32 softmax,
@@ -66,3 +67,55 @@ def attend(
         sim = sim - sim.amax(dim=-1, keepdim=True)
     alphas = softmax_f32(sim.float()).to(dtype)
     return torch.matmul(alphas, v)
+
+
+def attend_beam_lazy(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     anc: torch.Tensor, *, causal: Optional[torch.Tensor] = None,
+                     bias: Optional[torch.Tensor] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """One decode token's attention over an unpermuted head-major beam
+    cache (the lazy reorder) -> (b*kb, h, 1, d).
+
+    Logical beam i of a family attends over all kb physical rows j of it;
+    the entry (j, t) counts where ``anc[b, i, t] == j``, the row that owns
+    position t for beam i. Scores and the joint softmax over (j, t) are
+    float32; the probabilities are cast to q's dtype before the V product,
+    whose float32 sums are added in the JAX function's order (offset o =
+    (i - j) mod kb, o = 0 first).
+
+    q: (b*kb, h, 1, d); k, v: (b*kb, h, T, d), possibly kv_limit-sliced;
+    anc: (b, kb, >= T) int32; causal: bool broadcastable to (T,); bias:
+    additive (b*kb, 1, 1, T); scale: applied to the scores after the
+    product."""
+    dtype = q.dtype
+    bk, h, _, d = q.shape
+    T = k.shape[2]
+    b, kb = anc.shape[0], anc.shape[1]
+    if b * kb != bk:
+        raise ValueError(f"attend_beam_lazy: {b} families of {kb} beams do not "
+                         f"tile {bk} rows")
+    qr = q.reshape(b, kb, h, d).float()
+    # sim[b, i, h, j, t]: logical beam i's query against physical row j
+    sim = torch.einsum("bihd,bjhtd->bihjt", qr, k.reshape(b, kb, h, T, d).float())
+    if scale is not None:
+        sim = sim * torch.tensor(scale, dtype=torch.float32)
+    ar = torch.arange(kb, device=q.device)
+    valid = anc[:, :, :T][:, :, None, :] == ar[None, None, :, None]   # (b, i, j, t)
+    mask = valid[:, :, None]                                           # (b, i, 1, j, t)
+    if causal is not None:
+        mask = mask & causal.reshape(causal.shape[-1:])
+    neg = torch.finfo(torch.float32).min
+    sim = torch.where(mask, sim, neg)
+    if bias is not None:
+        sim = sim + bias.float().reshape(b, kb, 1, 1, T)
+    sim = sim.clamp(min=neg)
+    p = torch.exp(sim - sim.amax(dim=(3, 4), keepdim=True))
+    p = torch.where(mask, p, 0.0)
+    al = p / p.sum(dim=(3, 4), keepdim=True).clamp(min=1e-30)
+    # parts[b, i, j, h, d]: row j's share of logical beam i's output
+    parts = torch.einsum("bihjt,bjhtd->bijhd", al.to(dtype).float(),
+                         v.reshape(b, kb, h, T, d).float())
+    out = torch.zeros((b, kb, h, d), dtype=torch.float32, device=q.device)
+    for o in range(kb):
+        out = out + parts[:, ar, (ar - o) % kb]
+    return out.to(dtype).reshape(bk, h, d)[:, :, None, :]

@@ -1,4 +1,5 @@
-"""Weight-only int8 quantization for the decode path.
+"""Weight-only int8 quantization for the decode path, and the int8 KV
+cache's codes (``quantize_kv_write``, ``dequantize_kv``, ``quantize_kv_pair``).
 
 Port of ``flamingo_mini_tpu/ops/quant.py``. Symmetric per-output-channel
 scales::
@@ -120,3 +121,31 @@ def quantize_opt_lm(lm: Params) -> Params:
         for b in lm["layers"]
     ]
     return out
+
+
+# ---------------------------------------------------------------------------
+# int8 KV: per-position symmetric scales over the head dim (absmax / 127).
+# The codes divide by the float32 scale; the stored scale, which the
+# dequantize multiplies by, is that scale rounded to bf16.
+# ---------------------------------------------------------------------------
+
+
+def quantize_kv_write(x: torch.Tensor):
+    """(..., n, d) -> (int8 values, per-position scales (..., n, 1) bf16)."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-8)
+    x8 = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+    return x8, s.to(torch.bfloat16)
+
+
+def dequantize_kv(x8: torch.Tensor, s: torch.Tensor, dtype) -> torch.Tensor:
+    """int8 values times their scales, in ``dtype``."""
+    return x8.to(dtype) * s.to(dtype)
+
+
+def quantize_kv_pair(kv) -> Params:
+    """(k, v) -> {"k8", "ks", "v8", "vs"} (the per-sequence xattn K/V)."""
+    k, v = kv
+    k8, ks = quantize_kv_write(k)
+    v8, vs = quantize_kv_write(v)
+    return {"k8": k8, "ks": ks, "v8": v8, "vs": vs}

@@ -279,15 +279,20 @@ def test_generate_rejects_unported_options(f32):
     jc, pc, params, tp, jpol, ppol = f32
     model = port.FlamingoModel(pc, params=tp, device="cpu")
     for knob in (dict(num_beams=3, do_sample=True),
-                 dict(num_beams=3, beam_reorder="gather"),
-                 dict(int8_kv_cache=True), dict(penalty_alpha=0.6, top_k=4),
+                 dict(penalty_alpha=0.6, top_k=4),
                  dict(num_beams=3, force_words_ids=[[5]])):
         with pytest.raises(NotImplementedError):
             model.generate(np.ones((1, 3), np.int32), max_length=8, **knob)
+    # the KV-cache variants run (tests/test_torch_kv_cache.py holds them to JAX)
+    for knob in (dict(num_beams=3, beam_reorder="gather"), dict(int8_kv_cache=True),
+                 dict(flat_kv_cache=False)):
+        out = model.generate(np.ones((1, 3), np.int32), max_length=8, **knob)
+        assert out.shape == (1, 8), knob
     # w8a8 is a megakernel tier: without the megakernel it is refused, as
-    # JAX's DecodeConfig refuses it
-    with pytest.raises(ValueError):
-        model.generate(np.ones((1, 3), np.int32), max_length=8, w8a8=True)
+    # JAX's DecodeConfig refuses it; the megakernel refuses the int8 KV cache
+    for knob in (dict(w8a8=True), dict(megakernel=True, int8_kv_cache=True)):
+        with pytest.raises(ValueError):
+            model.generate(np.ones((1, 3), np.int32), max_length=8, **knob)
 
 
 def test_import_without_jax():
