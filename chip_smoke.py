@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Drives ``flamingo_mini_tpu_torch`` through both of its decode paths, greedy
-(with and without HF's logits processors and scores), top-k sampling and
-beam search, the megakernel's w8a8 tier, the ``use_pallas``
+(with and without HF's logits processors and scores), top-k sampling,
+beam search and beam-sample, constrained beams and contrastive search, the
+megakernel's w8a8 tier, the ``use_pallas``
 configuration's generate, and the uncached forward with its loss, for
 flamingo-mini (GPT-2-medium) and for OPT-1.3B and opt-350m trunks, the
 stream probe and the in-situ decode and head probes, and checks them:
@@ -214,12 +215,38 @@ stream probe and the in-situ decode and head probes, and checks them:
    also ``fused_attention`` once per ViT and resampler layer and
    ``fused_media_xattn`` once per xattn layer), tokens against
    plain-version runs, the megakernel against per layer and use_pallas
-   against use_pallas=False, under the near-tie rule;
+   against use_pallas=False, under the near-tie rule. Then the rest of
+   search on the same flamingo-mini: beam-sample (3 beams, temperature
+   0.7, top-k 50, 64 new tokens, a seeded CUDA generator) per layer (24 x
+   63 ``decode_attention_beam``, every other 0) and on the megakernel (63
+   ``decode_step_megakernel``, every other 0), each against its
+   plain-version run under the same seed and the two paths against each
+   other (``compare_sampled_beams``: every kept candidate in its step's
+   warped support; rows equal up to the first decision that parts them, a
+   near-tie of either run within 8 bf16 ulps of the value on the noisy
+   keys or the scores, or a candidate at its run's top-k cut), one seed
+   bit-equal twice and another seed different; constrained beams (3 beams,
+   32 new tokens, a 3-token phrase and a set of two 2-token alternatives)
+   and contrastive search (``penalty_alpha`` 0.6 over 4 candidates, 32 new
+   tokens) per layer over the head-major cache, no launch of the port's
+   kernels (plain attention and the full head, as in JAX): every
+   hypothesis flagged complete holds the phrase and one alternative after
+   the prompt (the complete rows counted), contrastive twice bit-equal and
+   at ``penalty_alpha`` 0 against greedy over the head-major cache under
+   the near-tie rule. Then SMALL's float32 shape (tests/test_torch_beam.py's
+   small model, TF32 off) on the card against the CPU, same weights and
+   noise: ``torch.sort(stable=True)`` over rows full of ties, beam-sample
+   per layer at top-k 1 (ties at finfo.min) and at temperature 0.7, top-k
+   20 (``compare_sampled_beams``), constrained and contrastive search
+   identical;
 4. timing on the card: ms per decode step (two lengths) and captions/s of
    the seven flamingo-mini generate paths (w8a8 greedy and beams included),
    the head-major and int8 KV caches per layer (32 new tokens), the two
-   paths of each of BASELINE configs 1, 4 and 5, and the four OPT-1.3B
-   paths (top-k 50 sampling and w8a8 included), peak memory; the sampled OPT-1.3B step's full head (``lm_head`` at 8 rows,
+   paths of each of BASELINE configs 1, 4 and 5, the four search paths
+   (beam-sample per layer and on the megakernel, constrained and
+   contrastive per layer) and beam-sample's step work alone (the warpers
+   over 96 rows; the noise and the top 6 of 32 x 150,774 keys), and the
+   four OPT-1.3B paths (top-k 50 sampling and w8a8 included), peak memory; the sampled OPT-1.3B step's full head (``lm_head`` at 8 rows,
    and its float32 weight copy alone) and chain with the draw, each alone
    on the card, as shares of that path's step; the beam
    step's full head (``lm_head`` at 96 rows) and candidate selection,
@@ -341,6 +368,27 @@ TINY_D, TINY_H, MEDIA4_NV = 768, 12, 4 * 64
 # head-major bf16 cache and the int8 cache (timed over this many new tokens),
 # and beams with the gather reorder and lazily over the head-major cache
 KV_TIMED_NEW = 32
+# the rest of search at flamingo-mini width (batch 32, one image + 4-token
+# prompt): beam-sample (3 beams, temperature 0.7, top-k 50, 64 new tokens,
+# a seeded CUDA generator), constrained beams (3 beams, 32 new tokens, a
+# 3-token phrase and a set of two 2-token alternatives) and contrastive
+# search (penalty_alpha 0.6 over 4 candidates, 32 new tokens)
+SAMPLE_TEMPERATURE, SAMPLE_TOP_K, SAMPLE_SEED = 0.7, 50, 17
+SEARCH_NEW = 32
+FORCE_WORDS = [[464, 3290, 318], [[257, 3797], [262, 5044]]]
+CONTRAST_ALPHA, CONTRAST_TOP_K = 0.6, 4
+# the card against the CPU at tests/test_torch_beam.py's small float32
+# shape (GPT-2 D=256, 4 heads, 2 layers, vocab 256, a 1-layer ViT on 32-px
+# images), batch 4, 5-token prompts, 9 new tokens
+SMALL = dict(lm="gpt2", dim=256, dim_visual=64, xattn_every=1, xattn_dim_head=64,
+             xattn_heads=4, resampler_depth=1, resampler_dim_head=16,
+             resampler_heads=4, resampler_num_latents=8,
+             lm_arch_overrides=dict(vocab_size=256, n_positions=64, n_embd=256,
+                                    n_layer=2, n_head=4),
+             vision_arch_overrides=dict(hidden_size=64, intermediate_size=128,
+                                        num_hidden_layers=1, num_attention_heads=4,
+                                        image_size=32, patch_size=16))
+SMALL_B, SMALL_L, SMALL_MAX = 4, 5, 14
 # opt-350m: post-norm with project_in/out, per layer only, 16 new tokens
 OPT350 = dict(lm="facebook/opt-350m", clip_model_type="openai/clip-vit-large-patch14",
               dim=1024, dim_visual=1024, compute_dtype="bfloat16")
@@ -2247,6 +2295,121 @@ def compare_beams(label, gen, cands, ref_gen, ref_cands, k: int, vocab: int):
           f"identical; candidates parted in {parted} rows")
 
 
+@contextlib.contextmanager
+def sample_recorder(steps):
+    """Beam-sample with each step's candidates recorded on the host, in key
+    order: steps[j] = (the 2k + 1 best noisy keys, the 2k candidates' flat
+    indices, their scores, each one's distance from its step's top-k cut in
+    bf16 ulps of the cut: its warped log-prob against the k-th largest)."""
+    from flamingo_mini_tpu_torch import beam_search
+    select, warp = beam_search.select_candidates, beam_search.warp
+    seen = {}
+
+    def rec_warp(logp, dc):
+        y = logp.float() / dc.temperature if dc.temperature != 1.0 else logp.float()
+        seen["y"] = y
+        seen["kth"] = y.topk(dc.top_k, dim=-1).values[:, -1] if dc.top_k > 0 else None
+        return warp(logp, dc)
+
+    def record(flat, n, noise=None):
+        scores, idx = select(flat, n, noise)
+        y, kth = seen["y"], seen["kth"]
+        b, V = flat.shape[0], y.shape[1]
+        per = y.shape[0] // b           # 1 at the prefill's fill: one row a family
+        row = torch.arange(b, device=idx.device)[:, None] * per + (idx // V) * (per > 1)
+        if kth is None:
+            cut = torch.full(idx.shape, float("inf"))
+        else:
+            c = kth[row]
+            cut = (y[row, idx % V] - c).abs() / 2.0 ** (torch.floor(torch.log2(c.abs())) - 7)
+        keys = (flat + noise).topk(n + 1).values
+        steps.append(tuple(t.cpu() for t in (keys, idx, scores, cut)))
+        return scores, idx
+    with patched(beam_search, "warp", rec_warp), \
+            patched(beam_search, "select_candidates", record):
+        yield
+
+
+def sampled_beams(steps, k: int, vocab: int):
+    """A beam-sample run's recorded steps -> per step, per row, (the 2k
+    drawn candidates as sequences of generated tokens, in key order; the k
+    that run on, the best of them by score, stably)."""
+    b = steps[0][1].shape[0]
+    beams = [[()] * k for _ in range(b)]
+    out = []
+    for _keys, idx, scores, _cut in steps:
+        parent, tok = (idx // vocab).tolist(), (idx % vocab).tolist()
+        drawn = [[beams[r][p] + (t,) for p, t in zip(parent[r], tok[r])] for r in range(b)]
+        order = torch.sort(scores, dim=1, descending=True, stable=True).indices.tolist()
+        beams = [[drawn[r][j] for j in order[r][:k]] for r in range(b)]
+        out.append((drawn, beams))
+    return out
+
+
+def compare_sampled_beams(label, gen, steps, ref_gen, ref_steps, k: int, vocab: int):
+    """Two beam-sample runs under one seed (the same noise). Every candidate
+    that ran on, and every one that entered the pool, lay in its step's
+    warped support (score above float32's finfo.min). Rows are equal up to
+    the first decision that parts them, which must be a near-tie of either
+    run, within 8 bf16 ulps of the value: where the drawn candidates differ
+    (at the last step: the k that enter the pool), the 2k-th and (2k+1)-th
+    keys (the k-th and (k+1)-th), or a candidate that only one run drew
+    within 8 ulps of that run's top-k cut, where rounding moves a token
+    across it; where the running beams differ, as a set or in their order
+    (a beam's slot picks its noise at the next step), two neighbours among
+    the k + 1 best scores of the drawn; where the returned hypothesis
+    differs, the two best scores of the pool."""
+    assert len(steps) == len(ref_steps), (len(steps), len(ref_steps))
+    neg = torch.finfo(torch.float32).min
+    last = len(steps) - 1
+    for s, (_, _, scores, _) in enumerate(steps):
+        kept = scores[:, :k] if s == last else scores.sort(dim=1, descending=True).values[:, :k]
+        assert bool((kept > neg).all()), f"{label}: a candidate outside its support at step {s}"
+    runs = (sampled_beams(steps, k, vocab), sampled_beams(ref_steps, k, vocab))
+    near = lambda hi, lo: float(hi - lo) <= 8 * bf16_ulps(hi, 1)
+    agreed, parted = 0, 0
+    for r in range(gen.shape[0]):
+        why = None
+        for s in range(len(steps)):
+            n_in = k if s == last else 2 * k
+            (g_in, g_run), (w_in, w_run) = (run[s] for run in runs)
+            sets = [set(x[r][:n_in]) for x in (g_in, w_in)]
+            data = [st[s] for st in (steps, ref_steps)]
+            if sets[0] != sets[1]:
+                only = [[j for j, c in enumerate(x[r][:n_in]) if c not in other]
+                        for x, other in ((g_in, sets[1]), (w_in, sets[0]))]
+                cut = min([float(d[3][r, j]) for d, js in zip(data, only) for j in js])
+                ties = [near(d[0][r, n_in - 1], d[0][r, n_in]) for d in data]
+                why = (s, "drawn", ties, cut)
+                assert any(ties) or cut <= 8.0, f"{label}: row {r} {why}"
+                break
+            if s < last and g_run[r] != w_run[r]:
+                top = [d[2][r].sort(descending=True).values[:k + 1] for d in data]
+                ties = [any(near(v[i], v[i + 1]) for i in range(k)) for v in top]
+                why = (s, "running", ties, None)
+                assert any(ties), f"{label}: row {r} {why}"
+                break
+            if s == last:
+                best = [x[r][int(torch.argmax(d[2][r, :k]))] for x, d in zip((g_in, w_in), data)]
+                if best[0] != best[1]:
+                    ties = [near(*d[2][r, :k].sort(descending=True).values[:2]) for d in data]
+                    why = (s, "returned", ties, None)
+                    assert any(ties), f"{label}: row {r} {why}"
+        diff = torch.nonzero(gen[r] != ref_gen[r]).flatten()
+        assert why or not len(diff), f"{label}: row {r} differs without parting"
+        if why:
+            parted += 1
+            print(f"[phase 3] {label}: row {r} parts at step {why[0]} ({why[1]}): "
+                  f"near-ties (this run, reference) {why[2]}, a candidate only one "
+                  f"run drew at {why[3]} bf16 ulp of its cut")
+        agreed += gen.shape[1] if len(diff) == 0 else int(diff[0])
+    full_rows = int((gen == ref_gen).all(dim=1).sum())
+    print(f"[phase 3] {label}: every kept candidate in its step's support; "
+          f"{agreed}/{gen.numel()} tokens agree up to each row's first near-tie "
+          f"({agreed / gen.numel():.4f}); {full_rows}/{gen.shape[0]} rows identical; "
+          f"decisions parted in {parted} rows")
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """Normwise relative error ||got - want|| / ||want|| in float32."""
     got, want = got.float(), want.float()
@@ -2944,6 +3107,225 @@ def baseline_cells(dev, card, mini, mini_p):
     return counts
 
 
+def contains(row, phrase) -> bool:
+    n = len(phrase)
+    return any(row[i:i + n] == list(phrase) for i in range(len(row) - n + 1))
+
+
+def search_cells(dev, card, model, ids, media, mask, pixels):
+    """Phase 3 and 4 of the rest of search at flamingo-mini width on
+    ``model`` (int8 weight-only, bf16, batch 32, one image + 4-token
+    prompt): beam-sample per layer and on the megakernel (launches exact,
+    each against its plain-version run under one seed up to near-ties,
+    one seed bit-equal twice), constrained beams and contrastive search per
+    layer (no launches of the port's kernels, as in JAX; every hypothesis
+    flagged complete holds its constraints; contrastive deterministic, and
+    at penalty_alpha 0 greedy over the head-major cache up to near-ties),
+    each path timed."""
+    from flamingo_mini_tpu_torch import constrained_beam, contrastive
+    from flamingo_mini_tpu_torch.generation import DecodeConfig
+    config = model.config
+    vocab = config.lm_arch.vocab_size + 1
+    n_layer, L = config.lm_arch.n_layer, ids.shape[1]
+
+    def sample_run(megakernel, new_tokens=BEAM_NEW_TOKENS, seed=SAMPLE_SEED):
+        return model.generate(ids, media_locations=media, attention_mask=mask,
+                              pixel_values=pixels, max_length=BEAM_MAX_LENGTH,
+                              max_new_tokens=new_tokens, prefix_block=PREFIX_BLOCK,
+                              eos_token_id=vocab, pad_token_id=0, megakernel=megakernel,
+                              num_beams=BEAMS, do_sample=True,
+                              temperature=SAMPLE_TEMPERATURE, top_k=SAMPLE_TOP_K,
+                              generator=torch.Generator(device=dev).manual_seed(seed))
+
+    def recorded_sample(megakernel, plain=False):
+        steps = []
+        zero_counts()
+        with sample_recorder(steps), (plain_kernels([]) if plain
+                                      else contextlib.nullcontext()):
+            tokens = sample_run(megakernel)
+        c = read_counts()
+        check_output(tokens, ids, (BATCH, BEAM_MAX_LENGTH), vocab)
+        assert len(steps) == BEAM_NEW_TOKENS, len(steps)
+        return tokens[:, L:].cpu(), c, steps
+
+    stamp("search start")
+    beam_steps = BEAM_NEW_TOKENS - 1
+    runs = {}
+    for path, megakernel in (("beam-sample per layer", False),
+                             ("beam-sample megakernel", True)):
+        tokens, counts, steps = recorded_sample(megakernel)
+        expect(path, counts, **({"decode_step_megakernel": beam_steps} if megakernel
+                                else {"decode_attention_beam": n_layer * beam_steps}))
+        plain_tokens, _, plain_steps = recorded_sample(megakernel, plain=True)
+        compare_sampled_beams(f"{path} vs plain, one seed", tokens, steps, plain_tokens,
+                              plain_steps, BEAMS, vocab)
+        runs[path] = tokens, steps
+    compare_sampled_beams("beam-sample megakernel vs per layer, one seed",
+                          *runs["beam-sample megakernel"], *runs["beam-sample per layer"],
+                          BEAMS, vocab)
+    again = sample_run(True)[:, L:].cpu()
+    other = sample_run(True, seed=SAMPLE_SEED + 1)[:, L:].cpu()
+    same = torch.equal(again, runs["beam-sample megakernel"][0])
+    print(f"[phase 3] beam-sample megakernel: one seed twice bit-equal {same}; another "
+          f"seed {float((other != again).float().mean()):.4f} of tokens other")
+    assert same and not torch.equal(other, again)
+    stamp("beam-sample checked")
+
+    # constrained beams: the pools and their complete flags recorded
+    max_length = L + SEARCH_NEW
+    pools = []
+    impl = constrained_beam.constrained_beam_impl
+
+    def record_pools(*args, **kw):
+        out = impl(*args, **kw)
+        pools.append(tuple(t.cpu() for t in out))
+        return out
+
+    def constrained_run(new_tokens=SEARCH_NEW):
+        return model.generate(ids, media_locations=media, attention_mask=mask,
+                              pixel_values=pixels, max_length=max_length,
+                              max_new_tokens=new_tokens, prefix_block=PREFIX_BLOCK,
+                              eos_token_id=vocab, pad_token_id=0, num_beams=BEAMS,
+                              force_words_ids=FORCE_WORDS)
+    zero_counts()
+    with patched(constrained_beam, "constrained_beam_impl", record_pools):
+        tokens = constrained_run()
+    expect("constrained beams per layer", read_counts())
+    check_output(tokens, ids, (BATCH, max_length), vocab)
+    seqs, scores, complete = pools[0]
+    # HF's semantics: a beam that completed its constraints runs on only
+    # while a child of it is among the step's best 2k (EOS is unreachable)
+    assert bool(complete.any()), "no hypothesis completed its constraints"
+    spec = constrained_beam.normalize_force_words(FORCE_WORDS)
+    for row in seqs[complete][:, L:].tolist():
+        for alts in spec:
+            assert any(contains(row, alt) for alt in alts), (row, alts)
+    assert torch.equal(tokens.cpu(), seqs[:, 0])
+    print(f"[phase 3] constrained beams: {int(complete[:, 0].sum())}/{BATCH} rows return "
+          f"a complete hypothesis, {int(complete.sum())}/{complete.numel()} of the pools' "
+          "hypotheses flagged complete, each holding the phrase and one alternative of "
+          f"the set after the prompt; best scores {scores[:4, 0].tolist()}...")
+
+    # contrastive search: deterministic; at penalty_alpha 0 greedy over the
+    # head-major cache
+    def contrastive_run(new_tokens=SEARCH_NEW):
+        return model.generate(ids, media_locations=media, attention_mask=mask,
+                              pixel_values=pixels, max_length=max_length,
+                              max_new_tokens=new_tokens, eos_token_id=vocab,
+                              pad_token_id=0, penalty_alpha=CONTRAST_ALPHA,
+                              top_k=CONTRAST_TOP_K)
+    zero_counts()
+    tokens = contrastive_run()
+    expect("contrastive search per layer", read_counts())
+    check_output(tokens, ids, (BATCH, max_length), vocab)
+    again = contrastive_run()
+    print(f"[phase 3] contrastive search: two runs bit-equal {torch.equal(tokens, again)}")
+    assert torch.equal(tokens, again)
+    dc = DecodeConfig(max_length=max_length, max_new_tokens=SEARCH_NEW, eos_token_id=vocab,
+                      pad_token_id=0, top_k=CONTRAST_TOP_K)
+    with torch.inference_mode():
+        alpha0 = contrastive.contrastive_generate(
+            model.params, config, dc, model.policy, ids, media, mask,
+            pixel_values=pixels)[:, L:].cpu()
+    gaps = []
+    greedy, _ = counted(lambda: model.generate(
+        ids, media_locations=media, attention_mask=mask, pixel_values=pixels,
+        max_length=max_length, max_new_tokens=SEARCH_NEW, eos_token_id=vocab,
+        pad_token_id=0, flat_kv_cache=False), [], ids, (BATCH, max_length), vocab,
+        record=recorded_picks(gaps))
+    compare_tokens("contrastive search at penalty_alpha 0 vs greedy (head-major cache)",
+                   alpha0, greedy, gaps)
+    print_agreement("contrastive search (penalty_alpha 0.6) vs greedy", tokens[:, L:].cpu(),
+                    greedy)
+    stamp("search checked")
+    # beam-sample's own step work on the card, alone: the warpers over the
+    # (96, V) log-probs; the noise, its transform and the top 2k of the
+    # (32, 3V) keys with the scores gathered
+    from flamingo_mini_tpu_torch import beam_search
+    from flamingo_mini_tpu_torch.generation import warp
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dc = DecodeConfig(num_beams=BEAMS, do_sample=True, temperature=SAMPLE_TEMPERATURE,
+                      top_k=SAMPLE_TOP_K)
+    logp = torch.log_softmax(torch.randn((BATCH * BEAMS, vocab), device=dev), dim=-1)
+    flat = torch.randn((BATCH, BEAMS * vocab), device=dev) - 20.0
+
+    def draw():
+        g = -torch.log(-torch.log(beam_search.uniform_noise(flat.shape, gen, dev)))
+        return beam_search.select_candidates(flat, 2 * BEAMS, g)
+    warp_ms, draw_ms = time_ms(lambda: warp(logp, dc), 20, flush), time_ms(draw, 20, flush)
+    del flush
+    print(f"[phase 4] {card}: beam-sample step work alone: the warpers (temperature, "
+          f"top-k {SAMPLE_TOP_K}) over ({BATCH * BEAMS}, {vocab}) {warp_ms} ms; the noise "
+          f"and the top {2 * BEAMS} of ({BATCH}, {BEAMS * vocab}) keys {draw_ms} ms "
+          "(median per call, L2 flushed)")
+    time_generate(card, BATCH, (
+        ("beam-sample per-layer", lambda n: sample_run(False, n), BEAM_NEW_TOKENS),
+        ("beam-sample megakernel", lambda n: sample_run(True, n), BEAM_NEW_TOKENS),
+        ("constrained beams per-layer", constrained_run, SEARCH_NEW),
+        ("contrastive per-layer", contrastive_run, SEARCH_NEW)))
+
+
+def search_card_vs_cpu(dev):
+    """Beam-sample per layer (top-k 1: ties at finfo.min; and temperature
+    0.7, top-k 20), constrained beams and contrastive search at SMALL's
+    float32 shape on the card and on the CPU with the same weights and
+    noise: the card's stable sorts must order ties as the CPU's. Beam-sample
+    rows equal up to near-ties (``compare_sampled_beams``), the other two
+    identical; and ``torch.sort(stable=True)`` itself on rows full of ties."""
+    from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel, beam_search
+    stamp("search card vs CPU start")
+    gen = torch.Generator().manual_seed(5)
+    for dtype in (torch.float32, torch.int64):
+        x = torch.randint(0, 4, (64, 150_774), generator=gen).to(dtype)
+        for descending in (False, True):
+            want = torch.sort(x, dim=1, descending=descending, stable=True).indices
+            got = torch.sort(x.to(dev), dim=1, descending=descending, stable=True).indices
+            assert torch.equal(got.cpu(), want), (dtype, descending)
+    print("[phase 3] torch.sort(stable=True) on the card orders 64 rows of 150,774 values "
+          "with four distinct values as the CPU does (float32 and int64, both directions)")
+    config = FlamingoConfig(**SMALL)
+    cpu = open_gates(FlamingoModel(config, device="cpu", seed=7))
+    card = FlamingoModel(config, params=cpu.params, device=dev)
+    rs = np.random.RandomState(9)
+    ids = rs.randint(5, 250, (SMALL_B, SMALL_L))
+    mask = np.ones((SMALL_B, SMALL_L), np.int32)
+    media = np.zeros((SMALL_B, SMALL_L), np.int32)
+    media[:, 0] = 1
+    ids[1, :2], mask[1, :2], media[1] = 0, 0, 0
+    media[1, 2] = 1
+    pixels = rs.randn(SMALL_B, 1, 3, 32, 32).astype(np.float32)
+    vocab = config.lm_arch.vocab_size + 1
+
+    def run(m, steps=None, **kw):
+        """One generate on ``m`` with beam-sample's noise drawn on the host
+        from one seed (and its steps recorded into ``steps``) -> the
+        generated tokens on the host."""
+        noise = torch.Generator().manual_seed(11)
+        draw = lambda shape, g, device: torch.rand(
+            shape, generator=noise).clamp_min(1e-20).to(device)
+        with patched(beam_search, "uniform_noise", draw), \
+                (contextlib.nullcontext() if steps is None else sample_recorder(steps)):
+            return m.generate(ids, media_locations=media, attention_mask=mask,
+                              pixel_values=pixels, max_length=SMALL_MAX,
+                              eos_token_id=vocab, pad_token_id=0, **kw)[:, SMALL_L:].cpu()
+    for top in (dict(top_k=1), dict(top_k=20, temperature=0.7)):
+        kw = dict(num_beams=BEAMS, do_sample=True, **top)
+        want_steps, got_steps = [], []
+        want, got = run(cpu, want_steps, **kw), run(card, got_steps, **kw)
+        compare_sampled_beams(f"beam-sample {top}, card vs CPU (float32)", got, got_steps,
+                              want, want_steps, BEAMS, vocab)
+    for label, kw in (("constrained beams", dict(num_beams=BEAMS, force_words_ids=[
+                          [40, 41, 42], [[60, 61], [70, 71]]])),
+                      ("contrastive search", dict(penalty_alpha=CONTRAST_ALPHA,
+                                                  top_k=CONTRAST_TOP_K))):
+        want, got = run(cpu, **kw), run(card, **kw)
+        rows = int((got == want).all(dim=1).sum())
+        print(f"[phase 3] {label}, card vs CPU (float32): {rows}/{SMALL_B} rows identical")
+        assert torch.equal(got, want), (label, got, want)
+    stamp("search card vs CPU done")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -3251,6 +3633,9 @@ def main() -> int:
 
     # phase 3 and 4 of BASELINE configs 1, 4 (on the same flamingo-mini) and 5
     baseline = baseline_cells(dev, card, model, model_p)
+    # phase 3 and 4 of the rest of search on the same flamingo-mini
+    search_cells(dev, card, model, ids, media, mask, pixels)
+    search_card_vs_cpu(dev)
     del model, model_p, model_f, fwd
     torch.cuda.empty_cache()
 

@@ -11,7 +11,12 @@ vectorised ``_beam_search`` and its group (diverse) variant:
   on the ``log_softmax`` of the full head, as HF's beam mode does (after the
   ``log_softmax``, unlike greedy and sampling), adds the result to the
   running beam scores and takes the top 2k of the flattened (k x V)
-  candidates. A candidate that is EOS or reaches the length limit leaves
+  candidates. Beam-sample (``do_sample``) runs HF's warpers after the chain
+  (their values, not renormalised, are what the running scores add up),
+  draws the 2k candidates without replacement as the top 2k of the scores
+  plus Gumbel noise ``-log(-log(U))``, U uniform on [1e-20, 1) drawn once a
+  step (``uniform_noise``), and keeps the candidates' scores without the
+  noise. A candidate that is EOS or reaches the length limit leaves
   the running refill; those ranked < k enter the finished pool with the score
   ``sum_logprobs / gen_len ** length_penalty`` (EOS kept in the sequence).
   The pool keeps the best k by a merged top-k, blocked once it is full
@@ -52,25 +57,34 @@ import torch
 from .configuration_flamingo import FlamingoConfig
 from .generation import (DecodeConfig, _log_softmax, _mega_hidden,
                          _mega_prepare, _prefill, _stop, check_mega_fits,
-                         process_logits)
+                         process_logits, warp)
 from .models import flamingo
 from .ops.layers import Policy
+from .ops.topk import top_k as _top_k
 
 Params = Dict[str, Any]
 NEG = -1.0e9
 
 
-def _top_k(x: torch.Tensor, n: int):
-    """``lax.top_k`` over the last axis: descending, ties to the lower index."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :n], idx[..., :n]
-
-
-def select_candidates(flat: torch.Tensor, n: int):
+def select_candidates(flat: torch.Tensor, n: int,
+                      noise: Optional[torch.Tensor] = None):
     """A step's ``n`` best (scores, flat indices) of each row of the
-    flattened (beams x V) scores. Looked up at call time, so that a caller
-    can watch the candidates by replacing it."""
-    return _top_k(flat, n)
+    flattened (beams x V) scores; with ``noise`` (beam-sample), the ``n``
+    best keys ``flat + noise``, each with its score in ``flat``. Looked up
+    at call time, so that a caller can watch the candidates by replacing
+    it."""
+    if noise is None:
+        return _top_k(flat, n)
+    _, idx = _top_k(flat + noise, n)
+    return flat.gather(1, idx), idx
+
+
+def uniform_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Beam-sample's float32 U, uniform on [1e-20, 1) from ``generator``, as
+    ``jax.random.uniform(key, shape, minval=1e-20)`` draws it. Looked up at
+    call time, so that a test can feed other noise through."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+    return u.clamp_min(1e-20)
 
 
 def _tile_beams(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -107,12 +121,13 @@ class _Decoder:
     """Prefill once per row, tile the state over the beams, and run one
     decode step's forward -> float32 log-probs (b*k, V), before the
     logits chain. ``reorder`` permutes the head-major cache's rows (the
-    gather reorder)."""
+    gather reorder). ``head_major``: the head-major cache, read lazily
+    whatever ``beam_reorder`` says (constrained beams, as in JAX)."""
 
     def __init__(self, params: Params, config: FlamingoConfig,
                  dc: DecodeConfig, policy: Policy, input_ids, media_locations,
                  attention_mask, visual_features, pixel_values, *,
-                 megakernel: bool):
+                 megakernel: bool, head_major: bool = False):
         if megakernel:
             check_mega_fits(config, dc, input_ids.shape[0] * dc.num_beams,
                             visual_features, pixel_values, input_ids.device)
@@ -124,9 +139,9 @@ class _Decoder:
         self.L = input_ids.shape[1]
         # JAX's flat_beam: the flat cache for lazy bf16/float32 beams (the
         # megakernel reads it whatever flat_kv_cache says)
-        self.lazy = dc.beam_reorder == "lazy"
+        self.lazy = head_major or dc.beam_reorder == "lazy"
         flat = (dc.flat_kv_cache or megakernel) and self.lazy \
-            and not dc.int8_kv_cache
+            and not dc.int8_kv_cache and not head_major
         next_logits, xattn_kv, st = _prefill(
             params, config, dc, policy, input_ids, media_locations,
             attention_mask, visual_features, flat=flat)
@@ -206,10 +221,13 @@ def _initial_ancestry(b: int, k: int, max_len: int, dev) -> torch.Tensor:
 
 def beam_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
               policy: Policy, input_ids, media_locations, attention_mask,
-              visual_features=None, pixel_values=None):
+              visual_features=None, pixel_values=None,
+              generator: Optional[torch.Generator] = None):
     """Beam search -> (fin_seq (b, k, max_length) int64, fin_scores (b, k)
     float32): each row's finished pool, sorted by score (slot 0 best). Per
-    layer, or through the megakernel with ``dc.megakernel``."""
+    layer, or through the megakernel with ``dc.megakernel``. Beam-sample
+    (``dc.do_sample``) draws its noise from ``generator``; None seeds one
+    with 0 on the inputs' device."""
     b, L = input_ids.shape
     k, k2, max_len = dc.num_beams, 2 * dc.num_beams, dc.max_length
     M, seg_ends = _limits(dc, L)
@@ -219,6 +237,13 @@ def beam_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
     V, dev = dec.vocab, input_ids.device
     f32 = torch.float32
     lp_pow, early = dc.length_penalty, bool(dc.early_stopping)
+    if dc.do_sample and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+
+    def processed(logp: torch.Tensor, tokens, mask, cur: int) -> torch.Tensor:
+        """The chain on the log-probs; beam-sample's warpers after it."""
+        logp = process_logits(logp, dc, tokens, mask, cur, L)
+        return warp(logp, dc) if dc.do_sample else logp
 
     run_scores = torch.full((b, k), NEG, dtype=f32, device=dev)
     run_scores[:, 0] = 0.0
@@ -236,7 +261,13 @@ def beam_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
         the gather reorder moves the cache's slots [0, lim)."""
         nonlocal run_scores, fin_seq, fin_scores, fin_flags, heur_unsat, anc
         flat = (run_scores[:, :, None] + logp).reshape(b, k * V)
-        top_lp, top_idx = select_candidates(flat, k2)           # (b, 2k)
+        if dc.do_sample:
+            # HF beam-sample: 2k draws without replacement from the flat
+            # scores (Gumbel-top-k); the candidates keep their scores
+            g = -torch.log(-torch.log(uniform_noise(flat.shape, generator, dev)))
+            top_lp, top_idx = select_candidates(flat, k2, g)
+        else:
+            top_lp, top_idx = select_candidates(flat, k2)       # (b, 2k)
         parent, tok = top_idx // V, top_idx % V
         hits = (tok == dc.eos_token_id) | (cur + 1 >= M)
         cand_seq = _rows(dec.tokens.reshape(b, k, max_len), parent)
@@ -277,7 +308,7 @@ def beam_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
         return hits
 
     # the prefill's rows are the families' (tiled) rows
-    logp0 = process_logits(dec.logp0, dc, dec.tokens[::k], dec.mask[::k], L, L)
+    logp0 = processed(dec.logp0, dec.tokens[::k], dec.mask[::k], L)
     hits = step_update(logp0[:, None, :].expand(b, k, V), L,
                        seg_ends[0] if dc.prefix_block > 0 else None)
     cur = L + 1
@@ -287,8 +318,7 @@ def beam_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
             alive = heur_unsat.any() & ~(fin_flags.all() & early) & ~hits.all()
             if not bool(alive):
                 break
-            logp = process_logits(dec.logp(cur, lim, anc), dc, dec.tokens,
-                                  dec.mask, cur, L)
+            logp = processed(dec.logp(cur, lim, anc), dec.tokens, dec.mask, cur)
             hits = step_update(logp.reshape(b, k, V), cur, lim)
             cur += 1
     return fin_seq, fin_scores
@@ -424,21 +454,23 @@ def group_beam_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
 
 def beam_generate(params: Params, config: FlamingoConfig, dc: DecodeConfig,
                   policy: Policy, input_ids, media_locations, attention_mask,
-                  visual_features=None, pixel_values=None):
+                  visual_features=None, pixel_values=None,
+                  generator: Optional[torch.Generator] = None):
     """Beam-search decode -> token ids (b, max_length): prompt, the best
     hypothesis (EOS kept in the sequence), pads; HF's decoded layout. With
     ``dc.num_return_sequences = n`` the top n hypotheses of each row,
     interleaved, (b*n, max_length). With ``dc.return_scores`` also HF's
     ``sequences_scores`` (the length-penalised pool scores), (b,) or (b*n,).
-    ``dc.num_beam_groups > 1`` runs diverse beams (per layer)."""
+    ``dc.num_beam_groups > 1`` runs diverse beams (per layer);
+    ``dc.do_sample`` beam-sample, its noise from ``generator``."""
     nrs = dc.num_return_sequences
     if nrs > dc.num_beams:
         raise ValueError(f"num_return_sequences ({nrs}) must be <= num_beams "
                          f"({dc.num_beams}) for beam search")
-    impl = group_beam_impl if dc.num_beam_groups > 1 else beam_impl
-    fin_seq, scores = impl(params, config, dc, policy, input_ids,
-                           media_locations, attention_mask, visual_features,
-                           pixel_values)
+    args = (params, config, dc, policy, input_ids, media_locations,
+            attention_mask, visual_features, pixel_values)
+    fin_seq, scores = (group_beam_impl(*args) if dc.num_beam_groups > 1
+                       else beam_impl(*args, generator=generator))
     b, _k, max_len = fin_seq.shape
     seqs = fin_seq[:, :nrs].reshape(b * nrs, max_len)
     if dc.return_scores:
@@ -449,10 +481,11 @@ def beam_generate(params: Params, config: FlamingoConfig, dc: DecodeConfig,
 def beam_generate_with_scores(params: Params, config: FlamingoConfig,
                               dc: DecodeConfig, policy: Policy, input_ids,
                               media_locations, attention_mask,
-                              visual_features=None, pixel_values=None):
+                              visual_features=None, pixel_values=None,
+                              generator: Optional[torch.Generator] = None):
     """Like ``beam_generate`` with one sequence per row, and always also
     the length-penalised sequence scores (HF's ``sequences_scores``)."""
     fin_seq, fin_scores = beam_impl(params, config, dc, policy, input_ids,
                                     media_locations, attention_mask,
-                                    visual_features, pixel_values)
+                                    visual_features, pixel_values, generator)
     return fin_seq[:, 0], fin_scores[:, 0]

@@ -1,9 +1,13 @@
-"""Batched generation: greedy and sampling here, beams in ``beam_search.py``.
+"""Batched generation: greedy and sampling here, beams in ``beam_search.py``,
+constrained beams in ``constrained_beam.py``, contrastive search in
+``contrastive.py``.
 
 Port of ``flamingo_mini_tpu/generation.py`` (``_prefill``, the logits
 chain, ``_select_token``, ``_generate_impl`` and ``generate``'s row
-expansion); ``generate_impl`` hands ``num_beams > 1`` to
-``beam_search.beam_generate``:
+expansion and dispatch); ``generate_impl`` hands ``force_words_ids`` to
+``constrained_beam.constrained_beam_generate``, then ``num_beams > 1``
+(beam-sample too) to ``beam_search.beam_generate``, then ``penalty_alpha >
+0`` to ``contrastive.contrastive_generate``, in the JAX package's order:
 
 * prefill runs the (left-padded) prompt through the model once, filling the
   cache; the xattn K/V are computed once and stay constant (int8 under
@@ -57,10 +61,10 @@ NEG = torch.finfo(torch.float32).min
 
 @dataclass(frozen=True)
 class DecodeConfig:
-    """The JAX package's DecodeConfig for greedy, sampling and beams, with
-    its defaults and checks. Options of the paths not ported yet
-    (contrastive, constrained and beam-sample search) raise
-    ``NotImplementedError``."""
+    """The JAX package's DecodeConfig, with its defaults and checks. The
+    megakernel refuses what it does not run (the int8 KV cache, the gather
+    reorder of beams, constrained and contrastive search) with
+    ``ValueError`` here, before vision and prefill."""
 
     max_length: int = 150
     max_new_tokens: Optional[int] = None
@@ -75,7 +79,8 @@ class DecodeConfig:
     typical_p: float = 1.0            # 1.0 = off
     epsilon_cutoff: float = 0.0       # 0.0 = off
     eta_cutoff: float = 0.0           # 0.0 = off
-    penalty_alpha: float = 0.0        # contrastive search: not ported
+    # contrastive search (penalty_alpha > 0 over top_k > 1 candidates)
+    penalty_alpha: float = 0.0
     # HF logits processors (process_logits): ((token ids...), bias) pairs
     sequence_bias: Optional[tuple] = None
     # (start_index, decay_factor)
@@ -85,7 +90,9 @@ class DecodeConfig:
     min_new_tokens: int = 0
     no_repeat_ngram_size: int = 0
     bad_words_ids: Optional[tuple] = None      # tuple of token-id tuples
-    force_words_ids: Optional[tuple] = None    # constrained beams: not ported
+    # constrained beams: a tuple of constraints, each a tuple of alternative
+    # phrases (tuples of ids); FlamingoModel.generate normalises HF's lists
+    force_words_ids: Optional[tuple] = None
     forced_bos_token_id: Optional[int] = None
     forced_eos_token_id: Optional[int] = None
     suppress_tokens: Optional[tuple] = None        # banned at every step
@@ -131,9 +138,10 @@ class DecodeConfig:
                 f"max_new_tokens must be >= 1, got {self.max_new_tokens}")
         if self.max_length < 2:
             raise ValueError(f"max_length must be >= 2, got {self.max_length}")
-        if self.output_scores and self.num_beams > 1:
+        if self.output_scores and (self.num_beams > 1 or self.penalty_alpha > 0.0
+                                   or self.force_words_ids is not None):
             raise ValueError("output_scores (per-step arrays) is greedy/sample "
-                             "only; beams return sequences_scores "
+                             "only; beam variants return sequences_scores "
                              "(return_scores=True)")
         if self.num_beam_groups > 1:
             if self.num_beams % self.num_beam_groups:
@@ -171,14 +179,29 @@ class DecodeConfig:
                 and not self.do_sample:
             raise ValueError("num_return_sequences > 1 requires do_sample=True "
                              "or num_beams >= num_return_sequences")
-        for unported, what in (
-                (self.penalty_alpha > 0.0, "penalty_alpha (contrastive search)"),
-                (self.force_words_ids is not None,
-                 "force_words_ids (constrained beam search)"),
-                (self.do_sample and self.num_beams > 1,
-                 "do_sample with num_beams > 1 (beam-sample)")):
-            if unported:
-                raise NotImplementedError(f"{what} is not ported")
+        if self.force_words_ids is not None:
+            # HF: constrained search is beams without sampling or groups
+            if self.num_beams <= 1:
+                raise ValueError("force_words_ids (constrained beam search) "
+                                 "requires num_beams > 1")
+            if self.do_sample:
+                raise ValueError("force_words_ids is incompatible with "
+                                 "do_sample=True")
+            if self.num_beam_groups > 1:
+                raise ValueError("force_words_ids is incompatible with "
+                                 "num_beam_groups > 1")
+        if self.penalty_alpha > 0.0:
+            if self.top_k <= 1:
+                raise ValueError("contrastive search (penalty_alpha > 0) needs "
+                                 "top_k > 1 candidate tokens")
+            if self.do_sample or self.num_beams > 1:
+                raise ValueError("contrastive search is a deterministic "
+                                 "single-beam strategy; do_sample and "
+                                 "num_beams are incompatible")
+        if self.megakernel and (self.force_words_ids is not None
+                                or self.penalty_alpha > 0.0):
+            raise ValueError("constrained and contrastive search run per layer "
+                             "over the head-major cache: set megakernel=False")
 
 
 def uses_flat_cache(dc: DecodeConfig) -> bool:
@@ -189,12 +212,15 @@ def uses_flat_cache(dc: DecodeConfig) -> bool:
 
 def _prefill(params: Params, config: FlamingoConfig, dc: DecodeConfig,
              policy: Policy, input_ids, media_locations, attention_mask,
-             visual_features, flat: Optional[bool] = None):
+             visual_features, flat: Optional[bool] = None,
+             with_hidden: bool = False):
     """Run the prompt, filling the cache -> (next_logits, xattn_kv, state):
     the flat cache (state "kc", "vc": the stacks; "cache": per-layer views)
     or with ``flat=False`` the head-major one (int8 under
     ``dc.int8_kv_cache``, which also quantizes the xattn K/V; "kc" and "vc"
-    None). ``flat`` None: ``uses_flat_cache(dc)``."""
+    None). ``flat`` None: ``uses_flat_cache(dc)``. With ``with_hidden`` the
+    state gains "prompt_hidden" (b, L, D): the trunk's output, the states
+    the head reads (contrastive search's penalty space)."""
     flat = uses_flat_cache(dc) if flat is None else flat
     b, L = input_ids.shape
     dev = input_ids.device
@@ -218,7 +244,7 @@ def _prefill(params: Params, config: FlamingoConfig, dc: DecodeConfig,
     # position ids from the attention mask (pads do not advance positions)
     pos = torch.clamp(torch.cumsum(attention_mask.to(torch.int32), dim=-1) - 1,
                       min=0)
-    logits, cache, _ = flamingo.apply_lm(
+    logits, cache, hidden = flamingo.apply_lm(
         params, config, input_ids, policy=policy, layer_hook=hook,
         attention_mask=mask_buf, position_ids=pos, cache=cache, cache_index=0)
     state = {
@@ -230,6 +256,8 @@ def _prefill(params: Params, config: FlamingoConfig, dc: DecodeConfig,
         "media_count": text_time[:, -1:],
         "pos_next": attention_mask.to(torch.int32).sum(-1, keepdim=True),
     }
+    if with_hidden:
+        state["prompt_hidden"] = hidden
     return logits[:, -1], xattn_kv, state
 
 
@@ -586,9 +614,13 @@ def generate_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
     ``dc.output_scores``, ``(tokens, scores, step_scores)`` with both.
     Sampling with ``dc.num_return_sequences = n`` repeats each row n times
     (rows ``i*n .. i*n+n-1`` sample prompt i). The noise comes from
-    ``generator``; None seeds one with 0 on the inputs' device.
-    ``dc.num_beams > 1``: ``beam_search.beam_generate`` (its returns), on
-    the batch as given."""
+    ``generator``; None seeds one with 0 on the inputs' device. On the
+    batch as given, with their returns: ``dc.force_words_ids``,
+    ``constrained_beam.constrained_beam_generate``; ``dc.num_beams > 1``,
+    ``beam_search.beam_generate`` (beam-sample with ``dc.do_sample``, its
+    noise from ``generator``); ``dc.penalty_alpha > 0``,
+    ``contrastive.contrastive_generate``, which refuses
+    ``dc.return_scores``."""
     if pixel_values is not None and pixel_values.ndim == 4:
         # one prompt's media (N c h w): one row of N before any repeat
         pixel_values = pixel_values[None]
@@ -596,12 +628,29 @@ def generate_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
         raise ValueError("the megakernel takes GPT-2 and pre-norm OPT trunks "
                          f"without project_in/out, width a multiple of "
                          f"{megadecode.K_CHUNK}; got {config.lm!r}")
+    # the searches import _prefill from here
+    if dc.force_words_ids is not None:
+        from .constrained_beam import constrained_beam_generate
+        return constrained_beam_generate(params, config, dc, policy, input_ids,
+                                         media_locations, attention_mask,
+                                         visual_features=visual_features,
+                                         pixel_values=pixel_values)
     if dc.num_beams > 1:
-        from .beam_search import beam_generate   # beam_search imports _prefill
+        from .beam_search import beam_generate
         return beam_generate(params, config, dc, policy, input_ids,
                              media_locations, attention_mask,
                              visual_features=visual_features,
-                             pixel_values=pixel_values)
+                             pixel_values=pixel_values, generator=generator)
+    if dc.penalty_alpha > 0.0:
+        if dc.return_scores:
+            raise ValueError("return_scores is not supported with contrastive "
+                             "search: its penalised scores are not sequence "
+                             "log-probs")
+        from .contrastive import contrastive_generate
+        return contrastive_generate(params, config, dc, policy, input_ids,
+                                    media_locations, attention_mask,
+                                    visual_features=visual_features,
+                                    pixel_values=pixel_values)
     if dc.num_return_sequences > 1:
         rep = lambda x: None if x is None else \
             x.repeat_interleave(dc.num_return_sequences, dim=0)

@@ -1,9 +1,10 @@
 """FlamingoModel: the public entry point, cut to generation and the forward.
 
 Port of ``flamingo_mini_tpu/modeling_flamingo.py::FlamingoModel`` for greedy,
-sampled and beam decoding with HF's logits processors over a GPT-2 or OPT
-trunk, per layer or through the whole-step megakernel (weight-only or
-w8a8), and the uncached forward with its loss. The policy
+sampled, beam and beam-sample decoding with HF's logits processors over a
+GPT-2 or OPT trunk, per layer or through the whole-step megakernel
+(weight-only or w8a8), constrained beams and contrastive search per layer,
+and the uncached forward with its loss. The policy
 follows ``compute_dtype`` and ``use_pallas`` (bf16 with ``use_pallas``: the
 attention kernels). Holds (config, params, policy, device); params are a
 nested dict of tensors in the JAX package's layout, made by
@@ -117,7 +118,14 @@ class FlamingoModel:
         on the model's device, seeded 0 when None, as JAX's ``rng``
         defaults to ``PRNGKey(0)``); or beam search with ``num_beams > 1``
         (HF semantics, ``beam_search.py``), diverse with ``num_beam_groups >
-        1``. Every path runs HF's logits processors: ``sequence_bias``,
+        1``, beam-sample with ``do_sample`` (the warpers after the chain,
+        the candidates drawn without replacement, the noise from
+        ``generator``, seeded 0 when None); constrained beams with
+        ``force_words_ids`` (HF's nested lists: a list of ids is a phrase,
+        a list of lists a disjunctive set; ``constrained_beam.py``); or
+        contrastive search with ``penalty_alpha > 0`` over ``top_k > 1``
+        candidates (``contrastive.py``; ``return_scores`` raises
+        ``ValueError``). Every path runs HF's logits processors: ``sequence_bias``,
         ``repetition_penalty``, ``no_repeat_ngram_size``, ``bad_words_ids``
         (a lone-EOS word dropped), ``min_length``, ``min_new_tokens``,
         ``forced_bos_token_id``, ``forced_eos_token_id``,
@@ -150,10 +158,10 @@ class FlamingoModel:
         ``ValueError``) and ``beam_reorder="gather"`` (beams reorder the
         head-major cache's live prefix; with ``megakernel`` it raises
         ``ValueError``). ``pixel_values`` of one prompt may be 4-D, ``(N c
-        h w)``. Not ported yet, raising ``NotImplementedError``:
-        ``penalty_alpha`` (contrastive), ``force_words_ids`` (constrained
-        beams), ``do_sample`` with beams, and ``mesh``, ``tensor_parallel``
-        or any other JAX option."""
+        h w)``. Constrained and contrastive search run per layer over the
+        head-major cache, as in JAX: with ``megakernel`` they raise
+        ``ValueError``. Not ported yet, raising ``NotImplementedError``:
+        ``mesh``, ``tensor_parallel`` or any other JAX option."""
         if unsupported:
             raise NotImplementedError(
                 f"generate options not ported yet: {sorted(unsupported)}")
@@ -190,6 +198,14 @@ class FlamingoModel:
         if exponential_decay_length_penalty is not None:
             start, factor = exponential_decay_length_penalty
             exponential_decay_length_penalty = (int(start), float(factor))
+        if force_words_ids is not None:
+            # HF's nested lists: a phrase becomes one alternative, a
+            # disjunctive set keeps its alternatives
+            force_words_ids = tuple(
+                tuple(tuple(int(t) for t in alt) for alt in w)
+                if w and isinstance(w[0], (list, tuple))
+                else (tuple(int(t) for t in w),)
+                for w in force_words_ids)
         dc = DecodeConfig(
             max_length=max_length, max_new_tokens=max_new_tokens,
             eos_token_id=eos, pad_token_id=eos if pad_token_id is None else pad_token_id,
@@ -201,7 +217,7 @@ class FlamingoModel:
             repetition_penalty=repetition_penalty, min_length=min_length,
             min_new_tokens=min_new_tokens, no_repeat_ngram_size=no_repeat_ngram_size,
             bad_words_ids=bad_words_ids,
-            force_words_ids=None if force_words_ids is None else tuple(force_words_ids),
+            force_words_ids=force_words_ids,
             forced_bos_token_id=forced_bos_token_id,
             forced_eos_token_id=forced_eos_token_id,
             suppress_tokens=ints(suppress_tokens),

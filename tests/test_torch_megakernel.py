@@ -392,14 +392,16 @@ def test_unported_modes_raise(model):
     jc, pc, params, tp = model
     m = port.FlamingoModel(pc, params=tp, device="cpu")
     ids = np.ones((1, 3), np.int32)
-    for knob in (dict(num_beams=3, do_sample=True),
+    # beam-sample runs on the megakernel (tests/test_torch_beam_sample.py)
+    out = m.generate(ids, max_length=8, megakernel=True, num_beams=3, do_sample=True)
+    assert out.shape == (1, 8)
+    # ported per layer, refused by the megakernel: the int8 KV cache, the
+    # gather reorder of beams (tests/test_torch_kv_cache.py), contrastive
+    # and constrained search (tests/test_torch_contrastive.py,
+    # tests/test_torch_constrained.py)
+    for knob in (dict(num_beams=3, beam_reorder="gather"), dict(int8_kv_cache=True),
                  dict(penalty_alpha=0.6, top_k=4),
                  dict(num_beams=3, force_words_ids=[[5]])):
-        with pytest.raises(NotImplementedError):
-            m.generate(ids, max_length=8, megakernel=True, **knob)
-    # ported per layer, refused by the megakernel: the int8 KV cache and the
-    # gather reorder of beams (tests/test_torch_kv_cache.py)
-    for knob in (dict(num_beams=3, beam_reorder="gather"), dict(int8_kv_cache=True)):
         with pytest.raises(ValueError, match="megakernel"):
             m.generate(ids, max_length=8, megakernel=True, **knob)
     # opt-350m: post-norm with project_in/out, which the kernel does not take

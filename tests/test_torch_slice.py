@@ -278,13 +278,13 @@ def test_greedy_slice_bf16_int8_fused_head(bf16):
 def test_generate_rejects_unported_options(f32):
     jc, pc, params, tp, jpol, ppol = f32
     model = port.FlamingoModel(pc, params=tp, device="cpu")
+    # the searches run per layer (tests/test_torch_beam_sample.py,
+    # test_torch_constrained.py and test_torch_contrastive.py hold them to
+    # JAX), and so do the KV-cache variants (tests/test_torch_kv_cache.py)
     for knob in (dict(num_beams=3, do_sample=True),
                  dict(penalty_alpha=0.6, top_k=4),
-                 dict(num_beams=3, force_words_ids=[[5]])):
-        with pytest.raises(NotImplementedError):
-            model.generate(np.ones((1, 3), np.int32), max_length=8, **knob)
-    # the KV-cache variants run (tests/test_torch_kv_cache.py holds them to JAX)
-    for knob in (dict(num_beams=3, beam_reorder="gather"), dict(int8_kv_cache=True),
+                 dict(num_beams=3, force_words_ids=[[5]]),
+                 dict(num_beams=3, beam_reorder="gather"), dict(int8_kv_cache=True),
                  dict(flat_kv_cache=False)):
         out = model.generate(np.ones((1, 3), np.int32), max_length=8, **knob)
         assert out.shape == (1, 8), knob
@@ -304,6 +304,9 @@ def test_import_without_jax():
             "import flamingo_mini_tpu_torch as p; "
             "import flamingo_mini_tpu_torch.generation, "
             "flamingo_mini_tpu_torch.beam_search, "
+            "flamingo_mini_tpu_torch.constrained_beam, "
+            "flamingo_mini_tpu_torch.contrastive, "
+            "flamingo_mini_tpu_torch.ops.topk, "
             "flamingo_mini_tpu_torch.ops.megadecode, "
             "flamingo_mini_tpu_torch.utils.params_bridge; "
             "assert 'jax' not in {m.split('.')[0] for m in sys.modules "
