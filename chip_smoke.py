@@ -238,7 +238,31 @@ stream probe and the in-situ decode and head probes, and checks them:
    noise: ``torch.sort(stable=True)`` over rows full of ties, beam-sample
    per layer at top-k 1 (ties at finfo.min) and at temperature 0.7, top-k
    20 (``compare_sampled_beams``), constrained and contrastive search
-   identical;
+   identical. Then the public entry point (``entry_point_cells``): a
+   seeded synthetic GPT-2-sized vocabulary (``synthetic_vocab``: the 256
+   byte symbols, 50,000 merges, ``<|endoftext|>`` at 50,256, loaded by
+   ``BPETokenizer.gpt2`` so ``<EOC>`` is 50,257) behind a
+   ``FlamingoProcessor`` on the card; captions of 32 seeded uint8 images
+   of mixed sizes (two grayscale) through
+   ``FlamingoModel.generate_captions`` at flamingo-mini width, prompt
+   ``"<image>A picture of"``, 128 new tokens, EOS unreachable, on the
+   megakernel, per layer and with use_pallas on the megakernel, launches
+   exact, the tokens bit-equal to ``generate`` on the processor's own
+   ids, media and pixels, the card's pixels within 1e-4 of the same
+   function on the CPU, each caption its row's decode with the tags
+   removed; BASELINE config 1 via ``from_pretrained`` (flamingo-tiny
+   seeded in float32, saved in both layouts, loaded from the npz and from
+   ``config.json`` + ``model.safetensors`` with ``vision_params``, each
+   bit-equal to the saved params; then int8 and bf16, captions from uint8
+   images per layer and on the megakernel, launches exact, tokens
+   bit-equal to the in-memory model's); ``score_sequences`` at
+   flamingo-mini width (32 candidates, a 16-token prefix after
+   ``<image>``, 8-token suffixes, tied first suffix tokens, k=8) with
+   use_pallas off and on: no decode kernel, with use_pallas 30
+   ``fused_attention`` and 2 x 24 ``fused_media_xattn``; the same top-k
+   set but at near-ties of the candidate logits (8 bf16 ulps, printed),
+   kept scores within 1.25 x the plain version's CPU-vs-card spread
+   normwise, every other row at float32 min;
 4. timing on the card: ms per decode step (two lengths) and captions/s of
    the seven flamingo-mini generate paths (w8a8 greedy and beams included),
    the head-major and int8 KV caches per layer (32 new tokens), the two
@@ -246,7 +270,11 @@ stream probe and the in-situ decode and head probes, and checks them:
    (beam-sample per layer and on the megakernel, constrained and
    contrastive per layer) and beam-sample's step work alone (the warpers
    over 96 rows; the noise and the top 6 of 32 x 150,774 keys), and the
-   four OPT-1.3B paths (top-k 50 sampling and w8a8 included), peak memory; the sampled OPT-1.3B step's full head (``lm_head`` at 8 rows,
+   four OPT-1.3B paths (top-k 50 sampling and w8a8 included), peak memory;
+   the entry point's captions/s (preprocessing and decode included) beside
+   ``generate`` alone, the preprocessing of 32 images and ``batch_decode``
+   alone, config 1 via ``from_pretrained``'s captions/s, and scored
+   sequences/s; the sampled OPT-1.3B step's full head (``lm_head`` at 8 rows,
    and its float32 weight copy alone) and chain with the draw, each alone
    on the card, as shares of that path's step; the beam
    step's full head (``lm_head`` at 96 rows) and candidate selection,
@@ -280,9 +308,11 @@ BASELINE's configurations where they have them); the last line is
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -377,6 +407,17 @@ SAMPLE_TEMPERATURE, SAMPLE_TOP_K, SAMPLE_SEED = 0.7, 50, 17
 SEARCH_NEW = 32
 FORCE_WORDS = [[464, 3290, 318], [[257, 3797], [262, 5044]]]
 CONTRAST_ALPHA, CONTRAST_TOP_K = 0.6, 4
+# the public entry point: a seeded synthetic vocabulary of GPT-2's size
+# (256 byte symbols + 50,000 merges + <|endoftext|>), BASELINE's eval prompt
+# (BASELINE.md), 32 uint8 images of these sizes, two of them grayscale
+# (2-D), for captions at flamingo-mini width (128 new tokens) and BASELINE
+# config 1 via from_pretrained (64 new tokens); scoring: 32 candidates, a
+# 16-token prefix after the image tag, 8-token suffixes, top 8 kept
+VOCAB_MERGES, CAPTION_PROMPT = 50000, "<image>A picture of"
+PROMPT_WORDS = ("image", "Ġpicture", "Ġof")     # byte symbols: "Ġ" is a space
+IMAGE_SHAPES = ((480, 640, 3), (640, 480, 3), (375, 500, 3), (224, 224, 3),
+                (100, 150, 3), (1000, 250, 3), (300, 400), (224, 224))
+SCORE_N, SCORE_PREFIX, SCORE_SUFFIX, SCORE_K = 32, 16, 8, 8
 # the card against the CPU at tests/test_torch_beam.py's small float32
 # shape (GPT-2 D=256, 4 heads, 2 layers, vocab 256, a 1-layer ViT on 32-px
 # images), batch 4, 5-token prompts, 9 new tokens
@@ -3326,6 +3367,362 @@ def search_card_vs_cpu(dev):
     stamp("search card vs CPU done")
 
 
+def synthetic_vocab(path: str, seed: int = 0, n_merges: int = VOCAB_MERGES) -> str:
+    """Write a seeded ``vocab.json`` + ``merges.txt`` of GPT-2's size into
+    the directory ``path`` -> ``path``: the 256 byte symbols (ids 0-255),
+    then ``n_merges`` merges in rank order, each of an existing symbol and
+    a printable ASCII one whose concatenation is new (it takes the next
+    id): first "Ġ<", so that "<" and " <" get different ids as in GPT-2,
+    and those spelling the prompt's words (``PROMPT_WORDS``: the prompt
+    is 6 tokens, as GPT-2's vocabulary makes it), then random ones;
+    ``<|endoftext|>`` last (id 50,256). Linear in the merges."""
+    from flamingo_mini_tpu_torch.tokenizer import bytes_to_unicode
+    byte_sym = bytes_to_unicode()
+    symbols = [byte_sym[b] for b in range(256)]
+    vocab = {sym: i for i, sym in enumerate(symbols)}
+    merges = []
+
+    def merge(a, b):
+        merges.append((a, b))
+        vocab[a + b] = len(vocab)
+        symbols.append(a + b)
+    merge("Ġ", "<")
+    for word in PROMPT_WORDS:
+        for i in range(1, len(word)):
+            merge(word[:i], word[i])
+    printable = [byte_sym[b] for b in range(ord("!"), ord("~") + 1)]
+    rs = np.random.RandomState(seed)
+    while len(merges) < n_merges:
+        a = symbols[rs.randint(len(symbols))]
+        b = printable[rs.randint(len(printable))]
+        if a + b not in vocab:
+            merge(a, b)
+    vocab["<|endoftext|>"] = len(vocab)
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    return path
+
+
+def caption_images(seed: int, n: int):
+    """n seeded uint8 images: IMAGE_SHAPES' color sizes in turn, the last
+    two grayscale."""
+    rs = np.random.RandomState(seed)
+    color = [s for s in IMAGE_SHAPES if len(s) == 3]
+    gray = [s for s in IMAGE_SHAPES if len(s) == 2]
+    shapes = [color[i % len(color)] for i in range(n - len(gray))] + gray
+    return [rs.randint(0, 256, s).astype(np.uint8) for s in shapes]
+
+
+def counted_captions(model, fn):
+    """``fn()`` (a ``generate_captions`` call on ``model``) with every launch
+    count at 0 before it -> (captions, the tokens its ``generate``
+    returned, counts)."""
+    out = {}
+    generate = model.generate
+
+    def recording(*args, **kw):
+        out["tokens"] = generate(*args, **kw)
+        return out["tokens"]
+    zero_counts()
+    model.generate = recording
+    try:
+        captions = fn()
+    finally:
+        del model.generate
+    return captions, out["tokens"], read_counts()
+
+
+def same_bits(label, got, want):
+    """Two parameter trees (``flatten_tree`` form) equal key for key, bit
+    for bit."""
+    assert sorted(got) == sorted(want), (label, sorted(set(got) ^ set(want))[:5])
+    for k, w in want.items():
+        g = got[k]
+        assert g.dtype == w.dtype and g.shape == w.shape, (label, k, g.dtype, w.dtype)
+        assert g.tobytes() == w.tobytes(), (label, k)
+    print(f"[phase 3] {label}: {len(want)} leaves bit-equal to the saved params")
+
+
+def check_captions(label, proc, captions, tokens, ids, vocab):
+    """Each caption is its row's decode (special tokens skipped) with the
+    tags removed; the output has its prompt and ids in range."""
+    check_output(tokens, ids, (ids.shape[0], tokens.shape[1]), vocab)
+    rows = tokens.tolist()
+    want = [proc.remove_tags(proc.tokenizer.decode(r, skip_special_tokens=True))
+            for r in rows]
+    assert captions == want, label
+    print(f"[phase 3] {label}: {len(captions)} captions, each its row's decode; "
+          f"caption 0 {captions[0][:60]!r}...")
+
+
+def entry_point_cells(dev, card, model, model_p, vocab_dir):
+    """Phase 3 and 4 of the public entry point on the flamingo-mini
+    ``model`` (int8, bf16) and its use_pallas twin ``model_p``: captions
+    from uint8 images through ``generate_captions`` (megakernel, per layer,
+    use_pallas megakernel), launches exact, tokens bit-equal to
+    ``generate`` on the processor's own tensors, pixels against the CPU,
+    captions against the decode; timed beside ``generate`` alone, the
+    preprocessing and ``batch_decode``."""
+    from flamingo_mini_tpu_torch import FlamingoProcessor
+    from flamingo_mini_tpu_torch.ops.image import preprocess_images
+    stamp("entry point start")
+    config = model.config
+    proc = FlamingoProcessor(config, vocab_path=vocab_dir, device=dev)
+    tok = proc.tokenizer
+    vocab = config.lm_arch.vocab_size + 1
+    assert len(tok) == vocab == 50258 and proc.eoc_token_id == 50257
+    assert tok.eos_token_id == 50256 and proc.leq_ids[0] != proc.leq_ids[1]
+    assert tok._get_native() is not None, "the C++ merger did not build"
+    images = caption_images(0, BATCH)
+    ids, media, mask = proc.encode_text(CAPTION_PROMPT)
+    L = ids.shape[1]
+    assert ids.device == dev and int(media.sum()) == 1
+    print(f"[phase 3] entry point: prompt {CAPTION_PROMPT!r} -> {L} tokens "
+          f"{ids[0].tolist()}, media {media[0].tolist()}; {len(images)} images of "
+          f"{sorted(set(im.shape for im in images))}")
+    pixels = proc.preprocess_images(images)
+    arch = config.vision_arch
+    cpu = preprocess_images(images, size=arch.image_size, crop=arch.image_size,
+                            mean=arch.image_mean, std=arch.image_std, device="cpu")
+    assert pixels.device == dev and pixels.dtype == torch.float32
+    assert tuple(pixels.shape) == (BATCH, 3, arch.image_size, arch.image_size)
+    err = float((pixels.cpu() - cpu).abs().max())
+    print(f"[phase 3] entry point: pixels on the card vs the same function on the "
+          f"CPU: max abs difference {err} (tolerance 1e-4)")
+    assert err <= 1e-4, err
+    n_layer, steps = config.lm_arch.n_layer, NEW_TOKENS - 1
+    kw = dict(max_length=L + NEW_TOKENS, max_new_tokens=NEW_TOKENS,
+              prefix_block=PREFIX_BLOCK, eos_token_id=vocab, pad_token_id=0)
+    rows = (ids.repeat(BATCH, 1), media.repeat(BATCH, 1), mask.repeat(BATCH, 1))
+
+    def captions(m, megakernel):
+        return m.generate_captions(proc, images=images, prompt=CAPTION_PROMPT,
+                                   megakernel=megakernel, **kw)
+
+    def generate(m, megakernel):
+        return m.generate(rows[0], media_locations=rows[1], attention_mask=rows[2],
+                          pixel_values=pixels[:, None], megakernel=megakernel, **kw)
+
+    pallas = dict(fused_attention=arch.num_hidden_layers + config.resampler_depth,
+                  fused_media_xattn=len(model.params["xattn"]))
+    tokens = {}
+    for path, m, megakernel, want in (
+            ("megakernel", model, True,
+             dict(decode_step_megakernel=steps, lm_head_argmax=steps)),
+            ("per layer", model, False,
+             dict(decode_attention=n_layer * steps, lm_head_argmax=steps)),
+            ("use_pallas megakernel", model_p, True,
+             dict(decode_step_megakernel=steps, lm_head_argmax=steps, **pallas))):
+        caps, tokens[path], counts = counted_captions(m, lambda: captions(m, megakernel))
+        expect(f"entry point generate_captions, {path}", counts, **want)
+        ref = generate(m, megakernel)
+        assert torch.equal(tokens[path], ref), path
+        print(f"[phase 3] entry point {path}: tokens bit-equal to generate on the "
+              "processor's ids, media and pixels")
+        check_captions(f"entry point {path}", proc, caps, tokens[path], rows[0], vocab)
+    print_agreement("entry point per layer vs megakernel", tokens["per layer"][:, L:].cpu(),
+                    tokens["megakernel"][:, L:].cpu())
+    stamp("entry point checked")
+
+    cap_ms, cap_all = timed(lambda: captions(model, True))
+    gen_ms, gen_all = timed(lambda: generate(model, True))
+    pre_ms, pre_all = timed(lambda: proc.preprocess_images(images))
+    host = tokens["megakernel"].cpu()
+    dec = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        tok.batch_decode(host, skip_special_tokens=True)
+        dec.append((time.perf_counter() - t0) * 1e3)
+    dec_ms = statistics.median(dec)
+    print(f"[phase 4] {card}: entry point, megakernel, {BATCH} images x {NEW_TOKENS} "
+          f"tokens: generate_captions median {cap_ms} ms (runs {cap_all}), "
+          f"{BATCH / (cap_ms / 1e3)} captions/s; generate alone median {gen_ms} ms "
+          f"(runs {gen_all}), {BATCH / (gen_ms / 1e3)} captions/s; preprocessing of "
+          f"{BATCH} images median {pre_ms} ms (runs {pre_all}); batch_decode median "
+          f"{dec_ms} ms (runs {dec}); the call less generate {cap_ms - gen_ms} ms")
+
+
+def config1_from_pretrained(dev, card, vocab_dir):
+    """BASELINE config 1 via ``from_pretrained``: flamingo-tiny seeded in
+    float32, saved in both layouts, loaded from the npz and from
+    ``config.json`` + ``model.safetensors`` (``vision_params``), each
+    bit-equal to the saved params; then int8 and bf16 on all three, captions
+    from uint8 images per layer and on the megakernel, launches exact, the
+    loaded models' tokens bit-equal to the in-memory model's; captions/s."""
+    from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel, FlamingoProcessor
+    from flamingo_mini_tpu_torch.modeling_flamingo import flatten_tree
+    stamp("config 1 via from_pretrained start")
+    base, b, _, new, _, _ = BASELINE_CELLS["config 1"]
+    config = FlamingoConfig(**base)
+    saved = open_gates(FlamingoModel(config, device=dev, seed=3))
+    want = flatten_tree(saved.params)
+    assert all(v.dtype == np.float32 for v in want.values())
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        both, hf = os.path.join(tmp, "both"), os.path.join(tmp, "hf")
+        t0 = time.perf_counter()
+        saved.save_pretrained(both, save_format="both")
+        save_s = time.perf_counter() - t0
+        os.makedirs(hf)
+        shutil.copy(os.path.join(both, "config.json"), hf)
+        os.link(os.path.join(both, "model.safetensors"), os.path.join(hf, "model.safetensors"))
+        sizes = {n: os.path.getsize(os.path.join(both, n)) for n in sorted(os.listdir(both))}
+        # config.json holds the architecture, not the compute dtype (as in
+        # JAX and the reference): a bf16 caller sets it on the loaded config
+        loaded = FlamingoConfig.from_pretrained(hf)
+        assert loaded.to_dict() == config.to_dict()
+        loaded.compute_dtype = config.compute_dtype
+        t0 = time.perf_counter()
+        from_npz = FlamingoModel.from_pretrained(both, config=loaded, device=dev)
+        npz_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        from_hf = FlamingoModel.from_pretrained(hf, config=loaded,
+                                                vision_params=saved.params["vision"],
+                                                device=dev)
+        hf_s = time.perf_counter() - t0
+    print(f"[phase 3] config 1 via from_pretrained: saved {sizes} in {save_s:.1f} s; "
+          f"loaded the npz in {npz_s:.1f} s, config.json + model.safetensors in "
+          f"{hf_s:.1f} s")
+    same_bits("config 1 from the npz", flatten_tree(from_npz.params), want)
+    same_bits("config 1 from model.safetensors + vision_params",
+              flatten_tree(from_hf.params), want)
+    for m in (saved, from_npz, from_hf):
+        m.quantize_int8().to_bf16()
+    proc = FlamingoProcessor(config, vocab_path=vocab_dir, device=dev)
+    images = caption_images(1, b)
+    L = proc.encode_text(CAPTION_PROMPT)[0].shape[1]
+    vocab = config.lm_arch.vocab_size + 1
+    steps, n_layer = new - 1, config.lm_arch.n_layer
+    kw = dict(max_length=L + new, max_new_tokens=new, prefix_block=PREFIX_BLOCK,
+              eos_token_id=vocab, pad_token_id=0)
+    ids = proc.encode_text(CAPTION_PROMPT)[0].repeat(b, 1)
+
+    def captions(m, megakernel):
+        return m.generate_captions(proc, images=images, prompt=CAPTION_PROMPT,
+                                   megakernel=megakernel, **kw)
+    for path, megakernel, want_counts in (
+            ("per layer", False, dict(decode_attention=n_layer * steps,
+                                      lm_head_argmax=steps)),
+            ("megakernel", True, dict(decode_step_megakernel=steps,
+                                      lm_head_argmax=steps))):
+        ref = None
+        for label, m in (("in memory", saved), ("from the npz", from_npz),
+                         ("from model.safetensors", from_hf)):
+            caps, tokens, c = counted_captions(m, lambda: captions(m, megakernel))
+            expect(f"config 1 {label}, {path}", c, **want_counts)
+            check_captions(f"config 1 {label}, {path}", proc, caps, tokens, ids, vocab)
+            if ref is None:
+                ref = tokens, caps
+            else:
+                assert torch.equal(tokens, ref[0]) and caps == ref[1], (label, path)
+                print(f"[phase 3] config 1 {label}, {path}: tokens bit-equal to the "
+                      "in-memory model's")
+    stamp("config 1 via from_pretrained checked")
+    for path, megakernel in (("per layer", False), ("megakernel", True)):
+        ms, runs = timed(lambda: captions(from_npz, megakernel))
+        print(f"[phase 4] {card}: config 1 via from_pretrained ({config.lm}, b={b}, "
+              f"{L}-token prompt, {new} new tokens), {path}: generate_captions median "
+              f"{ms} ms (runs {runs}), {b / (ms / 1e3)} captions/s")
+    del saved, from_npz, from_hf
+    torch.cuda.empty_cache()
+
+
+def scoring_cells(dev, card, model, model_p, vocab_dir):
+    """``score_sequences`` at flamingo-mini width with use_pallas off and on:
+    launches exact, the same top-k set but at near-ties of the candidate
+    logits (printed), kept scores within 1.25 x the plain version's
+    CPU-vs-card spread normwise (no 1e-2 floor: this is the only check of
+    ``fused_media_xattn`` at pass 2's shape, the chosen rows re-entering
+    the cache), every other row at float32 min; scored sequences/s."""
+    from flamingo_mini_tpu_torch import FlamingoModel, FlamingoProcessor, scoring
+    from flamingo_mini_tpu_torch.ops import topk
+    stamp("scoring start")
+    config = model.config
+    proc = FlamingoProcessor(config, vocab_path=vocab_dir, device=dev)
+    tag, tag_media, _ = proc.encode_text("<image>")
+    rs = np.random.RandomState(7)
+    prefix = rs.randint(0, 50256, SCORE_PREFIX)
+    suffix = rs.randint(0, 50256, (SCORE_N, SCORE_SUFFIX))
+    # the first suffix token from a pool of 6: rows tie in groups
+    suffix[:, 0] = rs.choice(rs.randint(0, 50256, 6), SCORE_N)
+    body = np.concatenate([np.tile(prefix, (SCORE_N, 1)), suffix], axis=1)
+    ids = torch.cat([tag.repeat(SCORE_N, 1), torch.tensor(body, device=dev)], dim=1)
+    media = torch.cat([tag_media.repeat(SCORE_N, 1),
+                       torch.zeros(body.shape, dtype=torch.int32, device=dev)], dim=1)
+    mask = torch.ones_like(media)
+    n_true = tag.shape[1] + SCORE_PREFIX
+    assert scoring.get_common_prefix_length(ids.cpu().numpy()) == n_true
+    pixels = proc.preprocess_images(caption_images(2, 1))          # (1, 3, 224, 224)
+    f32_min = torch.finfo(torch.float32).min
+    arch = config.vision_arch
+
+    def score(m):
+        return m.score_sequences(ids, media, mask, pixel_values=pixels, k=SCORE_K)
+
+    def recorded_score(m):
+        seen = {}
+
+        def rec(x, k):
+            seen["cand"] = x.float().cpu()
+            return topk.top_k(x, k)
+        with patched(scoring, "top_k", rec):
+            out = score(m)
+        return out, seen["cand"]
+
+    runs = {}
+    for path, m, want in (("use_pallas off", model, {}),
+                          ("use_pallas", model_p,
+                           dict(fused_attention=arch.num_hidden_layers + config.resampler_depth,
+                                fused_media_xattn=2 * len(model.params["xattn"])))):
+        zero_counts()
+        runs[path] = recorded_score(m)
+        expect(f"score_sequences, {path}", read_counts(), **want)
+    cpu_model = FlamingoModel(config, params=model.params, device="cpu")
+    t0 = time.perf_counter()
+    s_cpu = cpu_model.score_sequences(ids.cpu(), media.cpu(), mask.cpu(),
+                                      pixel_values=pixels.cpu(), k=SCORE_K)
+    cpu_s = time.perf_counter() - t0
+    del cpu_model
+    kept = {}
+    for path, (s, cand) in runs.items():
+        assert s.shape == (SCORE_N,) and s.dtype == torch.float32
+        keep = s != f32_min
+        assert int(keep.sum()) == SCORE_K, (path, int(keep.sum()))
+        assert bool(torch.isfinite(s[keep]).all()) and bool((s[keep] < 0).all())
+        assert bool((s[~keep] == f32_min).all())
+        kept[path] = set(keep.nonzero()[:, 0].tolist())
+        print(f"[phase 3] score_sequences, {path}: kept rows {sorted(kept[path])}, "
+              f"scores {s[keep].tolist()}; candidate logits {cand.tolist()}")
+    # rows kept by one run only: each at a near-tie of that run's k-th
+    # candidate logit (8 bf16 ulps) in both runs
+    for row in kept["use_pallas off"] ^ kept["use_pallas"]:
+        for path, (_, cand) in runs.items():
+            cut = torch.sort(cand, descending=True, stable=True)[0][SCORE_K - 1]
+            gap = float((cand[row] - cut).abs())
+            print(f"[phase 3] score_sequences: row {row} kept by one run only: "
+                  f"{path}'s candidate logit {float(cand[row])} vs its k-th "
+                  f"{float(cut)} (gap {gap}, 8 bf16 ulps {bf16_ulps(cut, 8)})")
+            assert gap <= bf16_ulps(cut, 8), (row, path, gap)
+    s_off, s_on = runs["use_pallas off"][0], runs["use_pallas"][0]
+    keep_cpu = set((s_cpu != f32_min).nonzero()[:, 0].tolist())
+    both = sorted(kept["use_pallas off"] & kept["use_pallas"] & keep_cpu)
+    err = rel_err(s_on[both], s_off[both])
+    spread = rel_err(s_cpu[both], s_off[both].cpu())
+    print(f"[phase 3] score_sequences: kept scores, use_pallas vs off: normwise "
+          f"relative error {err}; the plain version on the CPU ({cpu_s:.1f} s) vs the "
+          f"card: {spread} (tolerance: 1.25 x the spread; "
+          f"{len(both)} rows kept by all three)")
+    assert err <= 1.25 * spread, (err, spread)
+    stamp("scoring checked")
+    for path, m in (("use_pallas off", model), ("use_pallas", model_p)):
+        ms, all_ms = timed(lambda: score(m))
+        print(f"[phase 4] {card}: score_sequences, {path}, {SCORE_N} candidates of "
+              f"{ids.shape[1]} tokens ({n_true}-token common prefix), k={SCORE_K}: "
+              f"median {ms} ms (runs {all_ms}), {SCORE_N / (ms / 1e3)} scored "
+              "sequences/s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -3636,6 +4033,13 @@ def main() -> int:
     # phase 3 and 4 of the rest of search on the same flamingo-mini
     search_cells(dev, card, model, ids, media, mask, pixels)
     search_card_vs_cpu(dev)
+    # phase 3 and 4 of the public entry point: captions and scoring on the
+    # same flamingo-mini, BASELINE config 1 via from_pretrained
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as vocab_dir:
+        synthetic_vocab(vocab_dir)
+        entry_point_cells(dev, card, model, model_p, vocab_dir)
+        scoring_cells(dev, card, model, model_p, vocab_dir)
+        config1_from_pretrained(dev, card, vocab_dir)
     del model, model_p, model_f, fwd
     torch.cuda.empty_cache()
 

@@ -6,6 +6,7 @@ the ported path are hand-written CUDA C++ under ``csrc/``, built at first
 use. This package never imports jax.
 """
 from .configuration_flamingo import FlamingoConfig
+from .flamingo_processor import FlamingoProcessor
 from .modeling_flamingo import FlamingoModel
 
-__all__ = ["FlamingoConfig", "FlamingoModel"]
+__all__ = ["FlamingoConfig", "FlamingoModel", "FlamingoProcessor"]

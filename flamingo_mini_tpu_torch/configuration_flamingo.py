@@ -5,9 +5,9 @@ The same ``FlamingoConfig`` fields and defaults, ``to_dict``/``from_dict``
 ``OPTArch`` and ``CLIPViTArch`` backbone descriptions, and the offline
 tables that resolve the ``lm`` / ``clip_model_type`` hub names to them.
 
-``FlamingoConfig.from_pretrained`` reads a local directory or a
-``config.json`` path only: the port has no hub-cache resolver yet, so a hub
-id that is not a local path raises ``FileNotFoundError``.
+``FlamingoConfig.from_pretrained`` reads a local directory, a
+``config.json`` path, or a hub id resolved against the local HF cache
+(``utils/hub.py``; nothing is fetched).
 """
 from __future__ import annotations
 
@@ -207,8 +207,11 @@ class FlamingoConfig:
 
     @classmethod
     def from_pretrained(cls, path: str) -> "FlamingoConfig":
-        """``path``: a local directory holding ``config.json``, or the
-        ``config.json`` path itself."""
+        """``path``: a local directory holding ``config.json``, the
+        ``config.json`` path itself, or a hub id resolved from the local HF
+        cache."""
+        from .utils.hub import resolve_checkpoint_dir
+        path = resolve_checkpoint_dir(path)
         cfg_file = path if path.endswith(".json") else os.path.join(path, "config.json")
         with open(cfg_file) as f:
             return cls.from_dict(json.load(f))

@@ -1,31 +1,119 @@
-"""FlamingoModel: the public entry point, cut to generation and the forward.
+"""FlamingoModel: the public entry point, port of
+``flamingo_mini_tpu/modeling_flamingo.py::FlamingoModel``.
 
-Port of ``flamingo_mini_tpu/modeling_flamingo.py::FlamingoModel`` for greedy,
-sampled, beam and beam-sample decoding with HF's logits processors over a
-GPT-2 or OPT trunk, per layer or through the whole-step megakernel
-(weight-only or w8a8), constrained beams and contrastive search per layer,
-and the uncached forward with its loss. The policy
-follows ``compute_dtype`` and ``use_pallas`` (bf16 with ``use_pallas``: the
-attention kernels). Holds (config, params, policy, device); params are a
-nested dict of tensors in the JAX package's layout, made by
-``models.flamingo.init_flamingo`` from a seed or bridged from JAX by
-``utils.params_bridge.from_jax_numpy``. The model runs on the card unless
-the caller asks for another device.
+Construction from a ``FlamingoConfig`` (random weights from a seed) or a
+checkpoint (``from_pretrained``: a local directory or a hub id from the
+local HF cache, holding ``config.json`` and the port's and the JAX
+package's ``flamingo_tpu.npz`` or a reference-layout ``model.safetensors``
+/ ``pytorch_model.bin``, whose missing vision tower comes from
+``vision_params``, ``clip_checkpoint`` or a seed); ``save_pretrained`` in
+both layouts and ``push_to_hub``, which stages into the local cache;
+greedy, sampled, beam and beam-sample decoding with HF's logits processors
+over a GPT-2 or OPT trunk, per layer or through the whole-step megakernel
+(weight-only or w8a8), constrained beams and contrastive search per layer;
+``generate_captions`` (images and a prompt in, caption strings out, through
+a ``FlamingoProcessor``); ``score_sequences``; the uncached forward with
+its loss; and the freeze masks. The policy follows ``compute_dtype`` and
+``use_pallas`` (bf16 with ``use_pallas``: the attention kernels). Holds
+(config, params, policy, device); params are a nested dict of tensors in
+the JAX package's layout. The model runs on the card unless the caller
+asks for another device.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import logging
+import os
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .configuration_flamingo import FlamingoConfig
+from .flamingo_processor import FlamingoProcessor
 from .generation import DecodeConfig, generate_impl
 from .models import flamingo as F
+from .models.clip_vit import init_clip_vit
 from .ops.layers import Policy, policy_for
 from .ops.quant import (cast_params_bf16, quantize_gpt2_lm, quantize_opt_lm,
                         quantize_xattn_blocks)
+from .scoring import score_sequences as _score_sequences
+from .utils import params as param_utils
+from .utils.hf_weights import convert_clip_vit, convert_flamingo, state_dict_to_numpy
 
+logger = logging.getLogger(__name__)
 Params = Dict[str, Any]
+NPZ_NAME = "flamingo_tpu.npz"
+
+
+# ---------------------------------------------------------------------------
+# parameter tree <-> flat dict (npz persistence)
+# ---------------------------------------------------------------------------
+
+
+def flatten_tree(tree, prefix="") -> Dict[str, np.ndarray]:
+    """Flatten to {dotted.path: numpy array}. List indices are marked ``#i``
+    so digit-keyed dicts (the xattn layer map) survive the round trip; the
+    JAX package's npz keys."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flatten_tree(v, f"{prefix}{k}."))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten_tree(v, f"{prefix}#{i}."))
+    elif isinstance(tree, torch.Tensor):
+        out[prefix[:-1]] = tree.detach().cpu().numpy()
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
+
+
+def unflatten_tree(flat: Dict[str, np.ndarray]):
+    """The inverse of ``flatten_tree``: nested dicts and lists of CPU
+    tensors."""
+    root: Dict[str, Any] = {}
+    for key, val in flat.items():
+        val = np.asarray(val)
+        if val.dtype.kind == "V":
+            raise ValueError(
+                f"{key} holds raw {val.dtype.itemsize}-byte values (a bf16 "
+                "leaf numpy could not type): re-save the checkpoint before "
+                "its bf16 cast")
+        parts = key.split(".")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = torch.from_numpy(np.array(val, order="C"))
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        keys = list(node.keys())
+        if keys and all(k.startswith("#") for k in keys):
+            return [listify(node[f"#{i}"]) for i in range(len(keys))]
+        return {k: listify(v) for k, v in node.items()}
+
+    return listify(root)
+
+
+def _load_torch_state_dict(path: str) -> Optional[Dict[str, np.ndarray]]:
+    """An HF checkpoint's flat state dict as numpy (``model.safetensors``
+    preferred, read by ``utils.safetensors_io``; ``pytorch_model.bin`` by
+    ``torch.load(weights_only=True)``), or None where the directory holds
+    neither."""
+    if os.path.isdir(path):
+        for name in ("model.safetensors", "pytorch_model.bin"):
+            f = os.path.join(path, name)
+            if os.path.isfile(f):
+                path = f
+                break
+        else:
+            return None
+    if path.endswith(".safetensors"):
+        from .utils.safetensors_io import load_file
+        return state_dict_to_numpy(load_file(path))
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return state_dict_to_numpy(sd)
 
 
 class FlamingoModel:
@@ -34,13 +122,146 @@ class FlamingoModel:
     def __init__(self, config: FlamingoConfig, params: Optional[Params] = None,
                  *, device="cuda", seed: int = 0):
         """``params`` on another device are moved to ``device``."""
+        if not self.is_lm_supported(config.lm):
+            raise ValueError(f"unsupported language model {config.lm!r}")
         self.config = config
         self.device = torch.device(device)
         self.policy: Policy = policy_for(config.compute_dtype, config.use_pallas)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = F.init_flamingo(gen, config)
-        self.params = _to_device(params, self.device)
+        self.params = param_utils.tree_map(lambda t: t.to(self.device), params)
+
+    # -- registry --------------------------------------------------------
+    _LANGUAGE_MODEL_PREFIXES = ("gpt2", "facebook/opt")
+
+    @classmethod
+    def is_lm_supported(cls, lm_id: str) -> bool:
+        return any(lm_id.startswith(p) for p in cls._LANGUAGE_MODEL_PREFIXES)
+
+    # -- persistence -----------------------------------------------------
+    def save_pretrained(self, path: str, *, save_format: str = "npz") -> None:
+        """Write ``config.json`` and the weights to the directory ``path``.
+
+        ``save_format``: ``"npz"`` (``flamingo_tpu.npz``, the flat tree
+        under the JAX package's keys), ``"hf"`` (``model.safetensors`` in
+        the reference's ``flamingo.*`` layout, vision excluded; quantized
+        params raise ``ValueError``) or ``"both"``. A tree with bf16 leaves
+        raises ``ValueError``: numpy has no bf16, so save before
+        ``to_bf16()``."""
+        if save_format not in ("npz", "hf", "both"):
+            raise ValueError(f"unknown save_format {save_format!r}")
+        if any(t.dtype == torch.bfloat16
+               for _, t in param_utils.leaves_with_path(self.params)):
+            raise ValueError("the params are bf16, which numpy (and so the npz) "
+                             "cannot hold: save before to_bf16()")
+        # both layouts built before anything is written: a refusal leaves no
+        # partial checkpoint
+        flat = flatten_tree(self.params) if save_format != "hf" else None
+        state = None
+        if save_format != "npz":
+            from .utils.hf_export import export_flamingo
+            state = export_flamingo(self.params, self.config.xattn_every)
+        os.makedirs(path, exist_ok=True)
+        self.config.save_pretrained(path)
+        if flat is not None:
+            np.savez(os.path.join(path, NPZ_NAME), **flat)
+        if state is not None:
+            from .utils.hf_export import save_hf_checkpoint
+            save_hf_checkpoint(state, path)
+
+    def push_to_hub(self, repo_id: str, *, save_format: str = "both",
+                    require_upload: bool = False) -> str:
+        """Stage the checkpoint into the local HF cache layout
+        (``$HF_HOME/hub/models--org--name/snapshots``), so
+        ``from_pretrained(repo_id)`` resolves it; then, where
+        ``huggingface_hub`` imports and the hub answers, create the repo and
+        upload the snapshot. Returns the staged snapshot directory;
+        ``last_push_uploaded`` says whether the upload happened. A failed
+        upload is logged as a warning, or raised with ``require_upload``."""
+        from .utils.hub import stage_into_cache
+        snap = stage_into_cache(repo_id, save=lambda d: self.save_pretrained(
+            d, save_format=save_format))
+        self.last_push_uploaded = False
+        try:
+            from huggingface_hub import HfApi
+            api = HfApi()
+            api.create_repo(repo_id, repo_type="model", exist_ok=True)
+            api.upload_folder(folder_path=snap, repo_id=repo_id, repo_type="model")
+            self.last_push_uploaded = True
+        except Exception as e:  # offline, no token, or no package
+            if require_upload:
+                raise
+            logger.warning("hub upload failed (%s); checkpoint staged locally at "
+                           "%s: pass require_upload=True to make this an error",
+                           e, snap)
+        return snap
+
+    @classmethod
+    def from_pretrained(cls, path: str, *, config: Optional[FlamingoConfig] = None,
+                        vision_params: Optional[Params] = None,
+                        clip_checkpoint: Optional[str] = None, seed: int = 0,
+                        device="cuda") -> "FlamingoModel":
+        """Load from a local directory holding ``config.json`` and weights
+        (``flamingo_tpu.npz``, else ``model.safetensors`` /
+        ``pytorch_model.bin`` in the reference's layout), or from a hub id
+        resolved against the local HF cache (nothing is fetched). A
+        checkpoint without the vision tower (the reference's convention)
+        takes ``vision_params``, else the CLIP checkpoint
+        ``clip_checkpoint``, else a tower initialised from ``seed``. The
+        tensors land on ``device``."""
+        from .utils.hub import resolve_checkpoint_dir
+        path = resolve_checkpoint_dir(path)
+        if config is None:
+            config = FlamingoConfig.from_pretrained(path)
+
+        npz = os.path.join(path, NPZ_NAME)
+        params: Optional[Params] = None
+        if os.path.isfile(npz):
+            with np.load(npz) as data:
+                params = unflatten_tree({k: data[k] for k in data.files})
+        else:
+            sd = _load_torch_state_dict(path)
+            if sd is not None:
+                params = convert_flamingo(sd, xattn_every=config.xattn_every,
+                                          n_lm_layers=F.n_lm_layers(config))
+        if params is None:
+            raise FileNotFoundError(
+                f"no weights found under {path!r} ({NPZ_NAME}, "
+                "pytorch_model.bin or model.safetensors)")
+
+        if "vision" not in params:
+            if vision_params is not None:
+                params["vision"] = vision_params
+            elif clip_checkpoint is not None:
+                csd = _load_torch_state_dict(resolve_checkpoint_dir(clip_checkpoint))
+                if csd is None:
+                    raise FileNotFoundError(
+                        f"no CLIP weights under {clip_checkpoint!r}")
+                params["vision"] = convert_clip_vit(csd)
+            else:
+                gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
+                params["vision"] = init_clip_vit(gen, config.vision_arch)
+        return cls(config, params, device=device)
+
+    # -- freeze machinery ------------------------------------------------
+    def trainable_mask(self) -> Params:
+        lm_embed_key = "wte" if F.lm_family(self.config) == "gpt2" else "embed_tokens"
+        return param_utils.trainable_mask(
+            self.params, freeze_lm=self.config.freeze_language_model,
+            lm_embed_key=lm_embed_key)
+
+    def parameters_trainable(self):
+        """The trainable subtree (None holes where frozen)."""
+        trainable, _ = param_utils.partition_params(self.params, self.trainable_mask())
+        return trainable
+
+    def state_dict_trainable(self) -> Dict[str, torch.Tensor]:
+        return param_utils.state_dict_trainable(self.params, self.trainable_mask())
+
+    def num_parameters(self, only_trainable: bool = False) -> int:
+        return param_utils.tree_size(self.parameters_trainable() if only_trainable
+                                     else self.params)
 
     def to_bf16(self) -> "FlamingoModel":
         """Store float weights as bf16 (int8 scales stay float32). In place."""
@@ -234,11 +455,46 @@ class FlamingoModel:
                              media, mask, visual_features=visual_features,
                              pixel_values=pixel_values, generator=generator)
 
+    def generate_captions(self, processor: FlamingoProcessor, pixel_values=None,
+                          images=None, prompt: str = "<image>",
+                          max_length: int = 150, num_beams: int = 1,
+                          **kw) -> List[str]:
+        """Caption a batch of images: ``images`` (PIL images or HWC arrays,
+        through ``processor.preprocess_images``) or ``pixel_values`` (b c h
+        w) / (b N c h w); the prompt is encoded once and repeated per row;
+        ``generate`` with ``max_length``, ``num_beams`` and ``**kw``
+        (``megakernel``, ``prefix_block``, ...); the rows decoded without
+        special tokens and with the tags removed."""
+        if images is not None:
+            if pixel_values is not None:
+                raise ValueError("pass either images or pixel_values, not both")
+            pixel_values = processor.preprocess_images(images)
+        if pixel_values is None:
+            raise ValueError("need images or pixel_values")
+        pixel_values = torch.as_tensor(pixel_values, device=self.device)
+        if pixel_values.ndim == 4:
+            pixel_values = pixel_values[:, None]          # (b, N=1, c, h, w)
+        batch = pixel_values.shape[0]
+        ids, media, mask = processor.encode_text(prompt)
+        out = self.generate(
+            ids[:1].repeat(batch, 1), media_locations=media[:1].repeat(batch, 1),
+            attention_mask=mask[:1].repeat(batch, 1), pixel_values=pixel_values,
+            max_length=max_length, num_beams=num_beams, **kw)
+        texts = processor.tokenizer.batch_decode(out.cpu(), skip_special_tokens=True)
+        return processor.remove_tags(texts)
 
-def _to_device(tree, device: torch.device):
-    """The same nested dicts / lists of tensors, each on ``device``."""
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_device(v, device) for v in tree)
-    return tree.to(device)
+    def score_sequences(self, input_ids, media_locations, attention_mask,
+                        pixel_values=None, visual_features=None,
+                        k: int = 100000) -> torch.Tensor:
+        """Log-prob scores (b,) of candidate sequences sharing a prefix and
+        one visual input (``scoring.score_sequences``)."""
+        dev = self.device
+
+        def put(x, dtype=None):
+            return None if x is None else torch.as_tensor(x, device=dev, dtype=dtype)
+        return _score_sequences(
+            self.params, self.config, put(input_ids, torch.long),
+            put(media_locations, torch.int32), put(attention_mask, torch.int32),
+            policy=self.policy, pixel_values=put(pixel_values),
+            visual_features=put(visual_features), k=k)
+

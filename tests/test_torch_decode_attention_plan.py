@@ -36,6 +36,16 @@ SHAPES = {"greedy": (32, 16, 1), "opt-1.3b": (8, 32, 1), "beam96": (96, 16, 3),
 LIMITS = (1, 36, 37, 63, 64, 65, 68, 71, 127, 128, 129, 132, 192)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small tensors, many ops: one intra-op thread runs them faster, and
+    leaves the other cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _boundaries(p: da.Plan, t_lim: int):
     return [(s * p.positions, min((s + 1) * p.positions, t_lim)) for s in range(p.splits)]
 
