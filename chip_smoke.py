@@ -7,8 +7,9 @@ Drives ``flamingo_mini_tpu_torch`` through both of its decode paths, greedy
 (with and without HF's logits processors and scores), top-k sampling,
 beam search and beam-sample, constrained beams and contrastive search, the
 megakernel's w8a8 tier, the ``use_pallas``
-configuration's generate, and the uncached forward with its loss, for
-flamingo-mini (GPT-2-medium) and for OPT-1.3B and opt-350m trunks, the
+configuration's generate, the uncached forward with its loss, and training
+(``flamingo_mini_tpu_torch.train``), for
+flamingo-mini (GPT-2-medium) and for OPT-1.3B, opt-350m and OPT-125m trunks, the
 stream probe and the in-situ decode and head probes, and checks them:
 
 1. device and build: prints the card's name and power limit (nvidia-smi)
@@ -126,7 +127,10 @@ stream probe and the in-situ decode and head probes, and checks them:
    ``torch.sum(dim=0)`` over 16.78 MB;
 3. greedy captioning end to end through ``FlamingoModel.generate`` at the
    full width of flamingo-mini (GPT-2-medium with gated xattn before every
-   layer, CLIP ViT-L/14), random weights from a fixed seed, int8 trunk and
+   layer, CLIP ViT-L/14) at 12 of its 24 layers (``MINI_LAYERS``, the first
+   12 of the seeded 24-layer model: the depth cut that keeps the script
+   inside its time limit; the forward, scoring and the constrained-search
+   check run all 24), random weights from a fixed seed, int8 trunk and
    xattn, bf16, batch 32, one image + 4-token prompt, 128 new tokens,
    ``prefix_block=32``, EOS unreachable; first per layer (``megakernel``
    off), then with the whole-step megakernel. Each path's launch counts are
@@ -143,7 +147,7 @@ stream probe and the in-situ decode and head probes, and checks them:
    sequence scores; tokens against the plain fused-head greedy run under
    its near-tie rule). Then beam search on both
    paths: ``num_beams=3``, 64 new tokens, ``length_penalty=1.0``,
-   ``early_stopping``, the lazy reorder; launch counts (per layer: 24 x 63
+   ``early_stopping``, the lazy reorder; launch counts (per layer: 12 x 63
    ``decode_attention_beam``, every other kernel 0; megakernel: 63
    ``decode_step_megakernel``, every other 0), output (32, 68) with the
    prompts intact. Beam near-tie rule: rows agree up to the first step where
@@ -161,7 +165,7 @@ stream probe and the in-situ decode and head probes, and checks them:
    beam near-tie rule. Then ``use_pallas`` (the same weights): the megakernel
    generate with the ViT, the resampler and the xattn prefill on the
    attention kernels, launch counts exactly ``fused_attention`` 30,
-   ``fused_media_xattn`` 24, ``decode_step_megakernel`` 127,
+   ``fused_media_xattn`` 12, ``decode_step_megakernel`` 127,
    ``lm_head_argmax`` 127 and every other 0, tokens compared with the
    plain-version run and with the use_pallas=False run (near-ties as above,
    the prefill's pick included). Last the uncached forward with its loss
@@ -178,10 +182,11 @@ stream probe and the in-situ decode and head probes, and checks them:
    (63 ``decode_step_megakernel`` and nothing else, against the plain
    version); each run's agreement with its weight-only run printed, not
    held (another numerics tier).
-   OPT-1.3B (BASELINE config 3's shape: ViT-L/14, xattn every other
+   OPT-1.3B at 12 of its 24 layers (``CUT_LAYERS``; BASELINE config 3's
+   widths: ViT-L/14, xattn every other
    layer, int8 trunk and xattn, bf16, batch 8, one image + 8-token prompt
    with rows 0 and 1 left-padded by 2, 64 new tokens, ``prefix_block=32``,
-   EOS unreachable), greedy per layer (24 x 63 ``decode_attention``, 63
+   EOS unreachable), greedy per layer (12 x 63 ``decode_attention``, 63
    ``lm_head_argmax``) and on the megakernel (63
    ``decode_step_megakernel``, 63 ``lm_head_argmax``), each against its
    plain-version run and the two paths against each other (near-ties as
@@ -199,25 +204,27 @@ stream probe and the in-situ decode and head probes, and checks them:
    megakernel (63 + 63, against its plain-version
    run; agreement with the weight-only run printed); beams on the megakernel (3 beams, 32 new tokens: 31
    ``decode_step_megakernel`` and nothing else, output (8, 40), against the
-   plain-version run); the use_pallas forward (54 ``fused_attention``, 12
-   ``fused_media_xattn``, the forward rule). opt-350m (post-norm with
+   plain-version run); the use_pallas forward (42 ``fused_attention``, 6
+   ``fused_media_xattn``, the forward rule). opt-350m at 12 of its 24
+   layers (post-norm with
    project_in/out): per layer, 16 new tokens, batch 8, against the
    plain-version run; ``megakernel=True`` must raise ``ValueError``;
    BASELINE configs 1, 4 and 5 (``BASELINE_CELLS``, bench_extended.py's
    programs, random weights, int8 weight-only in bf16, ``prefix_block=32``):
    flamingo-tiny greedy at b=32 over one image and a 4-token prompt, 64 new
-   tokens; flamingo-mini at b=8 over four images at 16-token steps of a
+   tokens; flamingo-mini (12 layers) at b=8 over four images at 16-token steps of a
    64-token prompt, 32 new tokens (256 media latents a row); flamingo-tiny
    with ``resampler_num_time_embeds=8`` at b=8 over one 8-frame clip, 32 new
    tokens. Each per layer and on the megakernel, with use_pallas off and
-   on: launch counts exact (``decode_attention`` 12 or 24 a step or
+   on: launch counts exact (``decode_attention`` 12 a step or
    ``decode_step_megakernel`` 1, ``lm_head_argmax`` 1; under use_pallas
    also ``fused_attention`` once per ViT and resampler layer and
    ``fused_media_xattn`` once per xattn layer), tokens against
    plain-version runs, the megakernel against per layer and use_pallas
    against use_pallas=False, under the near-tie rule. Then the rest of
-   search on the same flamingo-mini: beam-sample (3 beams, temperature
-   0.7, top-k 50, 64 new tokens, a seeded CUDA generator) per layer (24 x
+   search on the same flamingo-mini (12 layers; the constrained beams'
+   check on all 24): beam-sample (3 beams, temperature
+   0.7, top-k 50, 64 new tokens, a seeded CUDA generator) per layer (12 x
    63 ``decode_attention_beam``, every other 0) and on the megakernel (63
    ``decode_step_megakernel``, every other 0), each against its
    plain-version run under the same seed and the two paths against each
@@ -262,7 +269,30 @@ stream probe and the in-situ decode and head probes, and checks them:
    ``fused_attention`` and 2 x 24 ``fused_media_xattn``; the same top-k
    set but at near-ties of the candidate logits (8 bf16 ulps, printed),
    kept scores within 1.25 x the plain version's CPU-vs-card spread
-   normwise, every other row at float32 min;
+   normwise, every other row at float32 min. Then training
+   (``training_cells``): first the recompute backward per op at the
+   training step's shapes (``TRAIN_OPS``: the resampler, both trunks
+   right- and left-padded, the media xattn), dq, dk and dv through the
+   wrappers bit for bit those of autograd through the plain versions;
+   then flamingo-mini and the reference's recipe, OPT-125m + ViT-L/14 at
+   dim 768 (``TRAIN_CELLS``), each with ``FlamingoTrainer`` in bf16 over
+   float32 parameters and float32 AdamW state, use_pallas, gates 0.5, one
+   batch of 8 x 64 tokens that ``DataCollator`` collates from
+   ``SyntheticCaptionDataset`` over the synthetic vocabulary: the loss and
+   the trainable gradients against use_pallas off within max(1e-2, 1.25 x
+   that program's CPU-vs-card spread), normwise; 12 steps (launches of the
+   first exact: 54 ``fused_attention`` and 24 ``fused_media_xattn`` for
+   flamingo-mini, 42 and 12 for OPT-125m; the backward launches none), the
+   loss finite and lower at the end, the frozen leaves bit for bit and no
+   gradient reaching the vision tower; flamingo-mini with dropout (30
+   ``fused_attention``: the trunk's attention runs plain; one seed's loss
+   twice bit-equal), with remat (108 and 48 launches: the forward and its
+   recompute; loss bit-equal, gradients within 1.25 x the spread of the
+   same step run twice, peak memory beside the run without) and one
+   ``evaluate()`` over 8 synthetic images; OPT-125m's checkpoint saved and
+   loaded into a fresh trainer, whose next step's loss equals the
+   uninterrupted run's and its parameters within 1.25 x the spread of
+   that resumed step run twice;
 4. timing on the card: ms per decode step (two lengths) and captions/s of
    the seven flamingo-mini generate paths (w8a8 greedy and beams included),
    the head-major and int8 KV caches per layer (32 new tokens), the two
@@ -274,7 +304,12 @@ stream probe and the in-situ decode and head probes, and checks them:
    the entry point's captions/s (preprocessing and decode included) beside
    ``generate`` alone, the preprocessing of 32 images and ``batch_decode``
    alone, config 1 via ``from_pretrained``'s captions/s, and scored
-   sequences/s; the sampled OPT-1.3B step's full head (``lm_head`` at 8 rows,
+   sequences/s; each training configuration's step (median ms of 10
+   steps between CUDA events, their spread, samples/s, tokens/s, peak
+   memory) and its split (encode + resample, the forward with its loss,
+   forward + backward, clip + AdamW, each its own timed call), and each
+   op's kernel forward beside its forward with the recompute backward and
+   the plain forward and backward; the sampled OPT-1.3B step's full head (``lm_head`` at 8 rows,
    and its float32 weight copy alone) and chain with the draw, each alone
    on the card, as shares of that path's step; the beam
    step's full head (``lm_head`` at 96 rows) and candidate selection,
@@ -341,11 +376,12 @@ MEGA_D, MEGA_H, MEGA_XI, MEGA_XH, MEGA_NV, MEGA_T = 1024, 16, 512, 8, 64, 192
 # the uncached GPT-2 forward's 24 at batch 8 x 64 tokens, OPT-1.3B's 24
 # (causal, two rows left-padded); flamingo-tiny's ViT-B/32 over 32 images
 # (BASELINE config 1) and the resampler over 8-frame clips (config 5: 8 x
-# 50 frame tokens and the 64 latents)
+# 50 frame tokens and the 64 latents); the OPT-125m recipe's training trunk
 HEAD_DIM = 64
 ATT_SHAPES = {"vit": (32, 16, 257, 257), "resampler": (32, 8, 64, 321),
               "gpt2 forward": (8, 16, 64, 64), "opt forward": (8, 32, 64, 64),
-              "vit-b/32": (32, 12, 50, 50), "video resampler": (8, 8, 64, 464)}
+              "vit-b/32": (32, 12, 50, 50), "video resampler": (8, 8, 64, 464),
+              "opt-125m forward": (8, 12, 64, 64)}
 GPT2_PAD = 8
 FLASH_SHAPE = (2, 16, 4000)
 # media xattn (b, n_token, n_media), 8 heads: the generate prefill (4-token
@@ -434,6 +470,12 @@ SMALL_B, SMALL_L, SMALL_MAX = 4, 5, 14
 OPT350 = dict(lm="facebook/opt-350m", clip_model_type="openai/clip-vit-large-patch14",
               dim=1024, dim_visual=1024, compute_dtype="bfloat16")
 OPT350_NEW = 16
+# depth cuts that keep the script inside its time limit beside the training
+# cells: the OPT cells (OPT-1.3B and opt-350m) at 12 of their trunks' 24
+# layers; flamingo-mini's decode paths (phase 3 and 4), BASELINE config 4,
+# the search section and the entry point at its first 12 (``first_layers``),
+# the constrained-search check, the forward and scoring at all 24
+CUT_LAYERS = MINI_LAYERS = 12
 # the w8a8 linear alone, bitwise: (K, N, slice width or None for the
 # column form) at the step's shapes: c_attn and fc at D=1024 and 2048,
 # to_out's K = XI = 512 in both forms, mlp_proj over D-wide slices of Dff
@@ -442,6 +484,27 @@ W8A8_LINEAR = ((1024, 3072, None), (2048, 8192, None), (512, 1024, None),
 # the weight-only megakernel's edge rows: each side of the wgmma N steps
 # (8, 32), of its wide mode (64) and of its 256-row passes (256)
 EDGE_ROWS = (1, 3, 8, 9, 31, 32, 33, 64, 65, 256, 257)
+# training (flamingo_mini_tpu_torch.train): flamingo-mini (bench_train.py:235-244)
+# and the reference's own recipe, OPT-125m + ViT-L/14 at dim 768
+# (bench_train.py:238-247, training/train.py:81-90), bf16 over float32
+# parameters, use_pallas, gates 0.5; one batch of 8 x 64 tokens collated by
+# DataCollator from SyntheticCaptionDataset over the synthetic vocabulary;
+# lr 1e-3 after a 1-step warm-up (step 0 at lr 0); 2 warm-up steps, then
+# the timed ones; the extra checks of each cell; evaluate() over 8 images
+OPT125 = dict(lm="facebook/opt-125m", clip_model_type="openai/clip-vit-large-patch14",
+              dim=768, dim_visual=1024, compute_dtype="bfloat16")
+TRAIN_CELLS = {"flamingo-mini": (MINI, 10, ("dropout", "remat", "eval")),
+               "OPT-125m recipe": (OPT125, 10, ("checkpoint",))}
+TRAIN_B, TRAIN_N, TRAIN_WARM, TRAIN_LR, TRAIN_EVAL_IMAGES = 8, 64, 2, 1e-3, 8
+# the recompute backward per op at the training step's shapes (b, h, n_q,
+# n_kv, padding): the resampler, the trunks (causal; rows 0 and 1 padded on
+# the right by 8 and 3, as the right-padded batches are, and on the left),
+# and the media xattn over one image of 64 latents
+TRAIN_OPS = {"resampler": (8, 8, 64, 321, None),
+             "gpt2-medium trunk": (8, 16, 64, 64, "right"),
+             "opt-125m trunk": (8, 12, 64, 64, "right"),
+             "gpt2-medium trunk, left-padded": (8, 16, 64, 64, "left"),
+             "media": (8, 8, 64, 64, None)}
 # the stream probe: a 512 MB buffer, its TPU protocol's middle chunk_rows
 STREAM_MB, STREAM_CHUNK = 512, 1024
 # the decode stream probes (tools/probe_decode_kernel.py's three kernels):
@@ -1870,7 +1933,8 @@ def phase2_fused_attention(dev, flush):
           f"resampler {ATT_SHAPES['resampler']}, ViT-B/32 {ATT_SHAPES['vit-b/32']}, "
           f"8-frame resampler {ATT_SHAPES['video resampler']} and causal GPT-2 and "
           f"OPT-1.3B forward {ATT_SHAPES['gpt2 forward']}, {ATT_SHAPES['opt forward']} "
-          f"shapes (b, h, n_q, n_kv), the last two with two rows left-padded by "
+          f"and the OPT-125m training trunk {ATT_SHAPES['opt-125m forward']} "
+          f"shapes (b, h, n_q, n_kv), the last three with two rows left-padded by "
           f"{GPT2_PAD} (fully masked pad queries), bf16 and "
           f"float32: max abs err {worst} (tolerance: f32 1e-5 of the output "
           "scale, bf16 2 ulp of it)")
@@ -2093,6 +2157,18 @@ def phase2_media_xattn(dev, flush):
               f"{n_media}: {needed[0]:.6f} ms ({needed[1]}; the attended images' K/V), "
               f"{every[0]:.6f} ms counting every key")
     return out
+
+
+def first_layers(model, n: int, **config):
+    """flamingo-mini ``model``'s first ``n`` trunk layers and their xattn
+    blocks, sharing its tensors (MINI's widths, ``config`` added)."""
+    from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel
+    p = model.params
+    return FlamingoModel(
+        FlamingoConfig(**MINI, **config, lm_arch_overrides=dict(n_layer=n)),
+        params=dict(p, lm=dict(p["lm"], blocks=p["lm"]["blocks"][:n]),
+                    xattn={k: v for k, v in p["xattn"].items() if int(k) < n}),
+        device=model.device)
 
 
 @contextlib.contextmanager
@@ -2900,11 +2976,12 @@ def sampled_head_share(dev, card, model, vocab: int, sample: dict, step_ms: floa
 
 
 def opt_setup(dev, rs):
-    """OPT-1.3B (gates open, int8 trunk and xattn, bf16) and its batch:
+    """OPT-1.3B at ``CUT_LAYERS`` layers (gates open, int8 trunk and xattn,
+    bf16) and its batch:
     8 prompts of 8 tokens, rows 0 and 1 left-padded by 2, one image each at
     the first real token -> (config, model, ids, media, mask, pixels)."""
     from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel
-    config = FlamingoConfig(**OPT13)
+    config = FlamingoConfig(**OPT13, lm_arch_overrides=dict(num_hidden_layers=CUT_LAYERS))
     model = open_gates(FlamingoModel(config, device=dev, seed=1))
     model.quantize_int8().to_bf16()
     ids = torch.tensor(rs.randint(4, 1000, (OPT_B, OPT_PROMPT)), device=dev)
@@ -2921,7 +2998,8 @@ def opt_setup(dev, rs):
 def opt_cells(dev, card):
     """Phase 3 and 4 for OPT-1.3B (greedy per layer and on the megakernel,
     beams on the megakernel, the use_pallas forward) and opt-350m (per
-    layer) -> the OPT-1.3B runs' launch counts {path: counts}."""
+    layer), both at ``CUT_LAYERS`` of their 24 layers -> the OPT-1.3B runs'
+    launch counts {path: counts}."""
     from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel
     rs = np.random.RandomState(1)
     config, model, ids, media, mask, pixels = opt_setup(dev, rs)
@@ -2929,6 +3007,8 @@ def opt_cells(dev, card):
     n_layer = config.lm_arch.num_hidden_layers
     n_x = len(model.params["xattn"])
     steps = OPT_NEW - 1
+    print(f"[phase 3] the OPT cells: OPT-1.3B and opt-350m at {n_layer} of their 24 "
+          "layers (depth cut for the time limit)")
 
     def run(megakernel, new_tokens=OPT_NEW, m=model, max_length=OPT_MAX, **kw):
         return m.generate(ids, media_locations=media, attention_mask=mask,
@@ -3012,12 +3092,13 @@ def opt_cells(dev, card):
                   p_cands, BEAMS, vocab)
 
     # the uncached forward, bf16 weights not quantized
-    model_f = open_gates(FlamingoModel(FlamingoConfig(**OPT13, use_pallas=True),
-                                       device=dev, seed=1)).to_bf16()
+    model_f = open_gates(FlamingoModel(FlamingoConfig(
+        **OPT13, use_pallas=True, lm_arch_overrides=dict(num_hidden_layers=CUT_LAYERS)),
+        device=dev, seed=1)).to_bf16()
     fwd, counts["forward"] = check_forward("OPT-1.3B", model_f, rs, n_layer, n_x)
 
     # opt-350m: post-norm with project_in/out, per layer only
-    c350 = FlamingoConfig(**OPT350)
+    c350 = FlamingoConfig(**OPT350, lm_arch_overrides=dict(num_hidden_layers=CUT_LAYERS))
     m350 = open_gates(FlamingoModel(c350, device=dev, seed=2))
     m350.quantize_int8().to_bf16()
     n350 = c350.lm_arch.num_hidden_layers
@@ -3077,7 +3158,7 @@ def kv_prefill_envelope(model, ids, media, mask, pixels):
 
 def baseline_cells(dev, card, mini, mini_p):
     """Phase 3 and 4 for BASELINE configs 1, 4 and 5 (``BASELINE_CELLS``;
-    config 4 on flamingo-mini's ``mini`` and ``mini_p``, the others on a
+    config 4 on flamingo-mini's ``mini`` and ``mini_p`` at their depth, the others on a
     flamingo-tiny model of their own): greedy per layer and on the
     megakernel, each with use_pallas off and on, launch counts exact; the
     kernels' runs against plain-version runs, the megakernel against per
@@ -3089,7 +3170,7 @@ def baseline_cells(dev, card, mini, mini_p):
         stamp(f"{key} start")
         config = FlamingoConfig(**base)
         if base is MINI:
-            model, model_p = mini, mini_p
+            model, model_p, config = mini, mini_p, mini.config
         else:
             model = open_gates(FlamingoModel(config, device=dev, seed=3))
             model.quantize_int8().to_bf16()
@@ -3153,10 +3234,11 @@ def contains(row, phrase) -> bool:
     return any(row[i:i + n] == list(phrase) for i in range(len(row) - n + 1))
 
 
-def search_cells(dev, card, model, ids, media, mask, pixels):
+def search_cells(dev, card, model, ids, media, mask, pixels, constrained_model):
     """Phase 3 and 4 of the rest of search at flamingo-mini width on
     ``model`` (int8 weight-only, bf16, batch 32, one image + 4-token
-    prompt): beam-sample per layer and on the megakernel (launches exact,
+    prompt; the constrained beams' check on ``constrained_model``, all 24
+    layers): beam-sample per layer and on the megakernel (launches exact,
     each against its plain-version run under one seed up to near-ties,
     one seed bit-equal twice), constrained beams and contrastive search per
     layer (no launches of the port's kernels, as in JAX; every hypothesis
@@ -3222,15 +3304,15 @@ def search_cells(dev, card, model, ids, media, mask, pixels):
         pools.append(tuple(t.cpu() for t in out))
         return out
 
-    def constrained_run(new_tokens=SEARCH_NEW):
-        return model.generate(ids, media_locations=media, attention_mask=mask,
+    def constrained_run(new_tokens=SEARCH_NEW, m=model):
+        return m.generate(ids, media_locations=media, attention_mask=mask,
                               pixel_values=pixels, max_length=max_length,
                               max_new_tokens=new_tokens, prefix_block=PREFIX_BLOCK,
                               eos_token_id=vocab, pad_token_id=0, num_beams=BEAMS,
                               force_words_ids=FORCE_WORDS)
     zero_counts()
     with patched(constrained_beam, "constrained_beam_impl", record_pools):
-        tokens = constrained_run()
+        tokens = constrained_run(m=constrained_model)
     expect("constrained beams per layer", read_counts())
     check_output(tokens, ids, (BATCH, max_length), vocab)
     seqs, scores, complete = pools[0]
@@ -3723,6 +3805,311 @@ def scoring_cells(dev, card, model, model_p, vocab_dir):
               "sequences/s")
 
 
+def attention_leaves(dev, b, h, n_q, n_kv, seed):
+    """``attention_inputs`` in bf16 whose (b, n, h * 64) projections are
+    leaves that require grad -> (q, k, v, [the three leaves])."""
+    q, k, v = attention_inputs(dev, torch.bfloat16, b, h, n_q, n_kv, seed)
+    leaves = [t.transpose(1, 2).reshape(b, -1, h * HEAD_DIM).detach().requires_grad_()
+              for t in (q, k, v)]
+    return (*(x.view(b, -1, h, HEAD_DIM).transpose(1, 2) for x in leaves), leaves)
+
+
+def training_ops(dev, flush, card):
+    """The recompute backward of ``fused_attention`` and ``fused_media_xattn``
+    at the training step's shapes (``TRAIN_OPS``): through the wrappers on
+    inputs that require grad, dq, dk and dv bit for bit those of autograd
+    through the plain version for the same upstream gradient, the output
+    bit for bit the kernel's under no_grad; then the kernel forward, the
+    forward with its recompute backward, and the plain forward and backward
+    timed (L2 flushed)."""
+    from flamingo_mini_tpu_torch.ops.fused_attention import (fused_attention,
+                                                             fused_attention_plain)
+    from flamingo_mini_tpu_torch.ops.media_xattn import (fused_media_xattn,
+                                                         fused_media_xattn_plain)
+    for name, (b, h, n_q, n_kv, pad) in TRAIN_OPS.items():
+        q, k, v, leaves = attention_leaves(dev, b, h, n_q, n_kv, seed=n_kv + h)
+        if name == "media":
+            tt = media_text_time(dev, b, n_q, 1, seed=3)
+            kw = dict(text_time=tt, scale=HEAD_DIM ** -0.5, n_visual=n_kv)
+            kernel = lambda q, k, v: fused_media_xattn(q, k, v, kw["text_time"],
+                                                       scale=kw["scale"], n_visual=n_kv)
+            plain = lambda q, k, v: fused_media_xattn_plain(
+                q, k, v, kw["text_time"], scale=kw["scale"], n_visual=n_kv)
+        else:
+            kw = dict(scale=HEAD_DIM ** -0.5)
+            if pad is not None:
+                pads = [GPT2_PAD, 3] + [0] * (b - 2)
+                real = torch.arange(n_kv, device=dev)[None, :]
+                lim = torch.tensor(pads, device=dev)[:, None]
+                real = real >= lim if pad == "left" else real < n_kv - lim
+                kw.update(causal=True, row_bias=torch.where(
+                    real, 0.0, torch.finfo(torch.float32).min).to(torch.bfloat16).float())
+            kernel = lambda q, k, v: fused_attention(q, k, v, **kw)
+            plain = lambda q, k, v: fused_attention_plain(q, k, v, **kw)
+        up = torch.randn((b, h, n_q, HEAD_DIM), device=dev).to(torch.bfloat16)
+        out = kernel(q, k, v)
+        got = torch.autograd.grad(out, leaves, up)
+        want = torch.autograd.grad(plain(q, k, v), leaves, up)
+        with torch.no_grad():
+            fwd = kernel(q, k, v)
+        assert torch.equal(out.detach(), fwd), name
+        for part, g, w in zip("qkv", got, want):
+            assert torch.equal(g, w), (name, part, rel_err(g, w))
+        fwd_ms = time_ms(lambda: kernel(*(t.detach() for t in (q, k, v))), 20, flush)
+        both_ms = time_ms(lambda: torch.autograd.grad(kernel(q, k, v), leaves, up), 20, flush)
+        plain_ms = time_ms(lambda: torch.autograd.grad(plain(q, k, v), leaves, up), 20,
+                           flush)
+        print(f"[phase 3] {card}: training {name} {(b, h, n_q, n_kv)} bf16: dq, dk, dv of "
+              f"the recompute backward bit-equal to autograd through the plain version; "
+              f"kernel forward {fwd_ms} ms, forward + recompute backward {both_ms} ms "
+              f"(backward {both_ms - fwd_ms} ms), plain forward + backward {plain_ms} ms "
+              "(median per call, L2 flushed)")
+
+
+@torch.no_grad()
+def grads_rel_err(got, want) -> float:
+    """Normwise relative error over a list of gradients, leaf by leaf on
+    ``want``'s device, in float64 sums."""
+    num = den = 0.0
+    for g, w in zip(got, want):
+        w = w.float()
+        num += float((g.to(w.device).float() - w).double().square().sum())
+        den += float(w.double().square().sum())
+    return (num / den) ** 0.5
+
+
+def loss_and_grads(params, config, policy, batch, mask):
+    """The training loss of ``params`` on ``batch`` under ``policy`` and its
+    gradients at the leaves ``mask`` marks trainable (pytree order)."""
+    from flamingo_mini_tpu_torch.models import flamingo as F
+    from flamingo_mini_tpu_torch.utils.params import trainable_leaves
+    leaves = [leaf for _, leaf in trainable_leaves(params, mask)]
+    loss = F.forward(params, config, batch["input_ids"], policy=policy,
+                     media_locations=batch["media_locations"],
+                     attention_mask=batch["attention_mask"],
+                     pixel_values=batch["pixel_values"], labels=batch["labels"]).loss
+    return loss.detach(), torch.autograd.grad(loss, leaves, allow_unused=True,
+                                              materialize_grads=True)
+
+
+def training_cell(dev, card, label, cfg, n_timed, vocab_dir, checks):
+    """Phase 3 and 4 of one training configuration, bf16 over float32
+    parameters, use_pallas, gates 0.5, a batch of TRAIN_B x TRAIN_N collated
+    by ``DataCollator`` from ``SyntheticCaptionDataset`` over the synthetic
+    vocabulary and put on the card by ``prefetch_to_device``: the kernels'
+    loss and gradients against use_pallas off on the card (normwise, within
+    max(1e-2, 1.25 x the same program's CPU-vs-card spread)); TRAIN_WARM +
+    ``n_timed`` steps, the first with every launch count at 0 (exact
+    counts), each between CUDA events: median step ms and spread,
+    samples/s, tokens/s, peak memory; the loss finite and lower after the
+    steps; frozen leaves bit for bit and no gradient reaching the vision
+    tower; the split (encode + resample, forward, forward + backward, clip
+    + AdamW, each its own timed call). ``checks``: the extra checks run in
+    this cell ("dropout", "remat", "eval", "checkpoint"). -> the step's
+    launch counts."""
+    from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel, FlamingoProcessor
+    from flamingo_mini_tpu_torch.models import flamingo as F
+    from flamingo_mini_tpu_torch.ops.layers import policy_for
+    from flamingo_mini_tpu_torch.tokenizer import BPETokenizer
+    from flamingo_mini_tpu_torch.train import (DataCollator, FlamingoTrainer,
+                                               SyntheticCaptionDataset, TrainingArguments)
+    from flamingo_mini_tpu_torch.train.data import SyntheticEvalDataset, prefetch_to_device
+    from flamingo_mini_tpu_torch.train.trainer import AdamW, clip_by_global_norm
+    from flamingo_mini_tpu_torch.utils.params import leaves_with_path, tree_map
+    stamp(f"training {label} start")
+    config = FlamingoConfig(**cfg, use_pallas=True)
+    model = open_gates(FlamingoModel(config, device=dev, seed=0))
+    # the synthetic GPT-2-size vocabulary for both trunks: the eos is
+    # <|endoftext|>, the pad of the right-padded batches
+    proc = FlamingoProcessor(config, tokenizer=BPETokenizer.gpt2(vocab_dir), device="cpu")
+    ds = SyntheticCaptionDataset(size=TRAIN_B)
+    host = DataCollator(proc, length=TRAIN_N)([ds[i] for i in range(TRAIN_B)])
+    (batch,) = prefetch_to_device(iter([host]), dev, cast_pixels=model.policy.cast)
+    out_dir = tempfile.mkdtemp(dir=os.path.join(REPO, "build"))
+    args = TrainingArguments(output_dir=out_dir, learning_rate=TRAIN_LR, warmup_steps=1,
+                             eval_every_steps=None, report_to="none",
+                             per_device_eval_batch_size=TRAIN_EVAL_IMAGES,
+                             eval_coco_captioning_end=TRAIN_EVAL_IMAGES)
+    trainer = FlamingoTrainer(model, args)
+    n_fa = config.vision_arch.num_hidden_layers + config.resampler_depth \
+        + F.n_lm_layers(config)
+    n_mx = len(model.params["xattn"])
+    n_train = sum(leaf.numel() for leaf in trainer.trainable_leaves)
+    print(f"[phase 3] training {label}: {len(trainer.trainable_leaves)} trainable leaves, "
+          f"{n_train} parameters; batch {TRAIN_B} x {TRAIN_N} tokens, "
+          f"{int(host['attention_mask'].sum())} real")
+
+    # the kernels against use_pallas off, at step 0's parameters
+    zero_counts()
+    loss_k, grads_k = trainer.gradients(batch)
+    expect(f"training {label} loss and gradients", read_counts(),
+           fused_attention=n_fa, fused_media_xattn=n_mx)
+    off = FlamingoConfig(**cfg)
+    fast = policy_for(off.compute_dtype, off.use_pallas)
+    loss_o, grads_o = loss_and_grads(model.params, off, fast, batch, trainer.mask)
+    t0 = time.perf_counter()
+    cpu_params = tree_map(lambda t: t.detach().cpu().requires_grad_(t.requires_grad),
+                          model.params)
+    loss_c, grads_c = loss_and_grads(cpu_params, off, fast,
+                                     {k: t.cpu() for k, t in batch.items()}, trainer.mask)
+    cpu_s = time.perf_counter() - t0
+    del cpu_params
+    for part, err, spread in (
+            ("loss", rel_err(loss_k, loss_o), rel_err(loss_c, loss_o.cpu())),
+            ("trainable gradients", grads_rel_err(grads_k, grads_o),
+             grads_rel_err(grads_o, grads_c))):
+        print(f"[phase 3] training {label} {part}: normwise relative error of the "
+              f"kernels vs use_pallas=False {err}; use_pallas=False on the CPU vs the "
+              f"card {spread} (limit: the larger of 1e-2 and 1.25 x that)")
+        assert err <= max(1e-2, 1.25 * spread), (label, part, err, spread)
+    print(f"[phase 3] training {label}: loss kernels {float(loss_k)}, use_pallas=False "
+          f"{float(loss_o)}, on the CPU {float(loss_c)} ({cpu_s:.1f} s)")
+    del grads_o, grads_c
+
+    # the steps
+    frozen = {path: leaf.detach().clone() for path, leaf in leaves_with_path(model.params)
+              if not leaf.requires_grad}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(TRAIN_WARM + n_timed):
+        if i == 0:
+            zero_counts()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        losses.append(trainer.train_step_on(batch))
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+        if i == 0:
+            step_counts = read_counts()
+            expect(f"training {label} step", step_counts, fused_attention=n_fa,
+                   fused_media_xattn=n_mx)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    for path, leaf in leaves_with_path(model.params):
+        if path in frozen:
+            assert torch.equal(leaf, frozen[path]), (label, path)
+    del frozen
+    vision = [leaf for _, leaf in leaves_with_path(model.params["vision"])]
+    for leaf in vision:
+        leaf.requires_grad_()
+    vis_grads = torch.autograd.grad(trainer.loss(batch, trainer.step), vision,
+                                    allow_unused=True)
+    assert all(g is None for g in vis_grads), label
+    for leaf in vision:
+        leaf.requires_grad_(False)
+    timed_ms = times[TRAIN_WARM:]
+    step_ms = statistics.median(timed_ms)
+    print(f"[phase 3] training {label}: losses {losses}; frozen leaves bit-equal after "
+          f"{len(losses)} steps; vision gradients None")
+    print(f"[phase 4] {card}: training {label}, batch {TRAIN_B} x {TRAIN_N}, bf16, "
+          f"use_pallas: step median {step_ms} ms over {n_timed} steps (min "
+          f"{min(timed_ms)}, max {max(timed_ms)}; steps {timed_ms}; warm-up "
+          f"{times[:TRAIN_WARM]}), {TRAIN_B / (step_ms / 1e3)} samples/s, "
+          f"{TRAIN_B * TRAIN_N / (step_ms / 1e3)} tokens/s, peak memory {peak:.2f} GiB")
+
+    # the split, each part its own timed call
+    with torch.no_grad():
+        vis_ms, _ = timed(lambda: F.encode_resample_visuals(
+            model.params, config, batch["pixel_values"], policy=model.policy))
+        fwd_ms, _ = timed(lambda: trainer.loss(batch, trainer.step))
+    fb_ms, _ = timed(lambda: trainer.gradients(batch))
+    grads = trainer.gradients(batch)[1]
+    opt = AdamW([leaf.detach().clone() for leaf in trainer.trainable_leaves],
+                lambda s: TRAIN_LR)
+
+    def opt_step():
+        clip_by_global_norm(grads, 1.0)
+        opt.update(grads)
+    opt_ms, _ = timed(opt_step)
+    del opt, grads
+    print(f"[phase 4] {card}: training {label} split (median of 5 calls each): encode + "
+          f"resample {vis_ms} ms, forward with loss {fwd_ms} ms, forward + backward "
+          f"{fb_ms} ms (backward {fb_ms - fwd_ms} ms), clip + AdamW {opt_ms} ms, the "
+          f"step's rest {step_ms - fb_ms - opt_ms} ms")
+
+    if "dropout" in checks:
+        args.enable_dropout = True
+        zero_counts()
+        loss_d, _ = trainer.gradients(batch)
+        expect(f"training {label} with dropout", read_counts(),
+               fused_attention=n_fa - F.n_lm_layers(config), fused_media_xattn=n_mx)
+        again, _ = trainer.gradients(batch)
+        args.enable_dropout = False
+        loss_n, _ = trainer.gradients(batch)
+        assert torch.equal(loss_d, again) and not torch.equal(loss_d, loss_n)
+        print(f"[phase 3] training {label} with dropout: loss {float(loss_d)} twice "
+              f"bit-equal at one seed; without dropout {float(loss_n)}")
+    if "remat" in checks:
+        runs = {}
+        for name, remat in (("plain", False), ("again", False), ("remat", True)):
+            args.remat = remat
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            runs[name] = trainer.gradients(batch)
+            runs[name] += (read_counts(), torch.cuda.max_memory_allocated() / 2**30)
+        args.remat = False
+        expect(f"training {label} with remat (forward and its recompute)", runs["remat"][2],
+               fused_attention=2 * n_fa, fused_media_xattn=2 * n_mx)
+        spread = grads_rel_err(runs["again"][1], runs["plain"][1])
+        err = grads_rel_err(runs["remat"][1], runs["plain"][1])
+        print(f"[phase 3] training {label} with remat: loss {float(runs['remat'][0])} vs "
+              f"{float(runs['plain'][0])}; gradients normwise relative error {err} "
+              f"(the same step twice without remat: {spread}); peak memory of one "
+              f"forward + backward {runs['remat'][3]:.2f} GiB with remat, "
+              f"{runs['plain'][3]:.2f} GiB without ({card})")
+        assert torch.equal(runs["remat"][0], runs["plain"][0])
+        assert err <= max(1e-6, 1.25 * spread), (err, spread)
+        del runs
+    if "eval" in checks:
+        trainer.eval_dataset = SyntheticEvalDataset(
+            SyntheticCaptionDataset(size=TRAIN_EVAL_IMAGES, seed=10_000))
+        trainer.processor = proc
+        t0 = time.perf_counter()
+        metrics = trainer.evaluate()
+        assert all(np.isfinite(v) for v in metrics.values()), metrics
+        print(f"[phase 3] training {label} evaluate() over {TRAIN_EVAL_IMAGES} synthetic "
+              f"images: {sorted(metrics)}: {metrics} ({time.perf_counter() - t0:.1f} s)")
+    if "checkpoint" in checks:
+        path = trainer.save_checkpoint()
+        want_loss = trainer.train_step_on(batch)
+        fresh = FlamingoTrainer(open_gates(FlamingoModel(config, device=dev, seed=0)), args)
+        fresh.load_checkpoint(path)
+        assert fresh.step == trainer.step - 1
+        got_loss = fresh.train_step_on(batch)
+        once = [leaf.detach().clone() for leaf in fresh.trainable_leaves]
+        fresh.load_checkpoint(path)
+        fresh.train_step_on(batch)
+        spread = grads_rel_err(fresh.trainable_leaves, once)
+        err = grads_rel_err(fresh.trainable_leaves, trainer.trainable_leaves)
+        print(f"[phase 3] training {label} checkpoint at step {fresh.step - 1}: the "
+              f"next step's loss {got_loss} resumed, {want_loss} uninterrupted; "
+              f"parameters after it normwise {err} apart (the resumed step twice: "
+              f"{spread})")
+        assert got_loss == want_loss and err <= max(1e-7, 1.25 * spread), (err, spread)
+        del fresh, once
+    shutil.rmtree(out_dir, ignore_errors=True)
+    stamp(f"training {label} done")
+    return step_counts
+
+
+def training_cells(dev, card, vocab_dir):
+    """Phase 3 and 4 of training (``flamingo_mini_tpu_torch.train``): the
+    recompute backward per op, then flamingo-mini and the OPT-125m recipe
+    (``training_cell``). -> {configuration: the step's launch counts}."""
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    training_ops(dev, flush, card)
+    del flush
+    counts = {}
+    for label, (cfg, n_timed, checks) in TRAIN_CELLS.items():
+        counts[label] = training_cell(dev, card, label, cfg, n_timed, vocab_dir, checks)
+        torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -3786,10 +4173,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     stamp("phase 2 done")
 
-    # phase 3: the slice end to end at flamingo-mini width, both paths
-    config = FlamingoConfig(**MINI)
-    model = open_gates(FlamingoModel(config, device=dev, seed=0))
-    model.quantize_int8().to_bf16()
+    # phase 3: the slice end to end at flamingo-mini width, both paths, on
+    # its first MINI_LAYERS layers (``model``); all 24 (``model24``) for the
+    # constrained-search check, the forward and scoring
+    model24 = open_gates(FlamingoModel(FlamingoConfig(**MINI), device=dev, seed=0))
+    model24.quantize_int8().to_bf16()
+    model = first_layers(model24, MINI_LAYERS)
+    config = model.config
+    print(f"[phase 3] flamingo-mini's decode paths, BASELINE config 4 and the entry "
+          f"point at {MINI_LAYERS} of its 24 layers (depth cut for the time limit)")
     rs = np.random.RandomState(0)
     ids = torch.tensor(rs.randint(0, 1000, (BATCH, PROMPT_LEN)), device=dev)
     media = torch.zeros((BATCH, PROMPT_LEN), dtype=torch.int32, device=dev)
@@ -3903,8 +4295,7 @@ def main() -> int:
     # phase 3, use_pallas: the same weights; the ViT, the resampler and the
     # xattn prefill run the attention kernels (the GPT-2 prefill writes the
     # cache and stays on attend, as in the JAX package)
-    model_p = FlamingoModel(FlamingoConfig(**MINI, use_pallas=True),
-                            params=model.params, device=dev)
+    model_p = first_layers(model24, MINI_LAYERS, use_pallas=True)
     n_vit, n_res = config.vision_arch.num_hidden_layers, config.resampler_depth
     n_x = len(model.params["xattn"])
     pallas_gaps = []
@@ -3925,7 +4316,9 @@ def main() -> int:
     # not quantized
     model_f = open_gates(FlamingoModel(FlamingoConfig(**MINI, use_pallas=True),
                                        device=dev, seed=0)).to_bf16()
-    fwd, fwd_counts = check_forward("flamingo-mini", model_f, rs, n_layer, n_x)
+    fwd, fwd_counts = check_forward("flamingo-mini", model_f, rs,
+                                    model_f.config.lm_arch.n_layer,
+                                    len(model_f.params["xattn"]))
 
     # phase 3, beams: batch 32 x 3 beams, 64 new tokens, lazy reorder
     def beam_run(megakernel, new_tokens=BEAM_NEW_TOKENS, **kw):
@@ -4031,17 +4424,21 @@ def main() -> int:
     # phase 3 and 4 of BASELINE configs 1, 4 (on the same flamingo-mini) and 5
     baseline = baseline_cells(dev, card, model, model_p)
     # phase 3 and 4 of the rest of search on the same flamingo-mini
-    search_cells(dev, card, model, ids, media, mask, pixels)
+    search_cells(dev, card, model, ids, media, mask, pixels, model24)
     search_card_vs_cpu(dev)
     # phase 3 and 4 of the public entry point: captions and scoring on the
     # same flamingo-mini, BASELINE config 1 via from_pretrained
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as vocab_dir:
         synthetic_vocab(vocab_dir)
         entry_point_cells(dev, card, model, model_p, vocab_dir)
-        scoring_cells(dev, card, model, model_p, vocab_dir)
+        scoring_cells(dev, card, model24, FlamingoModel(
+            FlamingoConfig(**MINI, use_pallas=True), params=model24.params, device=dev),
+            vocab_dir)
         config1_from_pretrained(dev, card, vocab_dir)
-    del model, model_p, model_f, fwd
-    torch.cuda.empty_cache()
+        del model, model_p, model24, model_f, fwd
+        torch.cuda.empty_cache()
+        # phase 3 and 4 of training: flamingo-mini and the OPT-125m recipe
+        train_counts = training_cells(dev, card, vocab_dir)
 
     # phase 3 and 4 of the OPT cells
     stamp("OPT cells start")
@@ -4073,6 +4470,7 @@ def main() -> int:
         ("fused_media_xattn (four images, text_time 1 then 4)", mx["four images"]),
         ("fused_attention (ViT-B/32 shape)", fa["vit-b/32"]),
         ("fused_attention (8-frame resampler shape)", fa["video resampler"]),
+        ("fused_attention (OPT-125m training trunk shape)", fa["opt-125m forward"]),
         ("decode_step_megakernel (flamingo-tiny: D=768, 12 layers, b=32)",
          mega_widths["tiny"]),
         ("decode_step_megakernel (256 media latents: D=1024, 24 layers, b=8)",
@@ -4165,6 +4563,19 @@ def main() -> int:
              "flamingo_mini_tpu/ops/pallas_xattn.py:122",
              baseline["config 4"]["use_pallas megakernel"]["fused_media_xattn"],
              mx["four images"]),
+            ("fused_attention (training step, flamingo-mini: forward; backward "
+             "recomputes the plain version)", "attention_sm90.cuh",
+             "flamingo_mini_tpu/ops/pallas_attn.py:270",
+             train_counts["flamingo-mini"]["fused_attention"], fa["gpt2 forward"]),
+            ("fused_media_xattn (training step, flamingo-mini)", "media_xattn_sm90.cuh",
+             "flamingo_mini_tpu/ops/pallas_xattn.py:122",
+             train_counts["flamingo-mini"]["fused_media_xattn"], mx["forward"]),
+            ("fused_attention (training step, OPT-125m recipe)", "attention_sm90.cuh",
+             "flamingo_mini_tpu/ops/pallas_attn.py:270",
+             train_counts["OPT-125m recipe"]["fused_attention"], fa["opt-125m forward"]),
+            ("fused_media_xattn (training step, OPT-125m recipe)", "media_xattn_sm90.cuh",
+             "flamingo_mini_tpu/ops/pallas_xattn.py:122",
+             train_counts["OPT-125m recipe"]["fused_media_xattn"], mx["forward"]),
             ("stream_sum (bandwidth probe)", "stream_probe.cu",
              "tools/probe_stream.py:24", stream["launches"], stream),
             ("attn_stream_only (decode stream probe, b-major cache)",

@@ -4,7 +4,10 @@ The decoder trunk (GPT-2 or OPT, ``lm_family``) applies a gated xattn
 block before every ``xattn_every``-th layer through ``layer_hook``; the
 visual K/V per xattn layer and ``text_time`` are explicit arguments.
 ``forward`` is the uncached full-sequence pass with the shifted
-cross-entropy (scoring, eval loss).
+cross-entropy (training, scoring, eval loss); ``dropout_generator`` turns
+on the trunk's training-mode dropout. The vision tower runs under
+``torch.no_grad()``: it never trains, whatever the freeze flags (JAX's
+``stop_gradient``).
 """
 from __future__ import annotations
 
@@ -78,6 +81,8 @@ def encode_resample_visuals(params: Params, config: FlamingoConfig,
     """Vision encoder + resampler: pixels -> (b, N, q, d_visual).
 
     Accepts ``(N c h w)`` (b=1), ``(b N c h w)`` (T=1) or ``(b N T c h w)``.
+    The vision tower runs under ``torch.no_grad()``: no gradient reaches it
+    or the pixels.
     """
     if pixel_values.ndim == 4:
         b, N, T = 1, pixel_values.shape[0], 1
@@ -88,8 +93,9 @@ def encode_resample_visuals(params: Params, config: FlamingoConfig,
     else:
         raise ValueError("pixel_values must have ndim 4, 5 or 6")
     flat = pixel_values.reshape((b * N * T,) + tuple(pixel_values.shape[-3:]))
-    feats = clip_vit.apply_clip_vit(params["vision"], flat,
-                                    arch=config.vision_arch, policy=policy)
+    with torch.no_grad():
+        feats = clip_vit.apply_clip_vit(params["vision"], flat,
+                                        arch=config.vision_arch, policy=policy)
     v, d = feats.shape[-2:]
     resampled = apply_resampler(
         params["resampler"], feats.reshape(b * N, T, v, d),
@@ -130,17 +136,19 @@ def apply_lm(params: Params, config: FlamingoConfig, input_ids: torch.Tensor,
              *, policy: Policy, layer_hook, attention_mask: Optional[torch.Tensor],
              position_ids: Optional[torch.Tensor] = None, cache=None,
              cache_index: Optional[int] = None, kv_limit: Optional[int] = None,
-             skip_head: bool = False, beam_anc: Optional[torch.Tensor] = None
+             skip_head: bool = False, beam_anc: Optional[torch.Tensor] = None,
+             dropout_generator: Optional[torch.Generator] = None
              ) -> Tuple[Optional[torch.Tensor], Any, torch.Tensor]:
     """Trunk + tied head -> (logits or None with ``skip_head``, cache,
     the trunk's output: the hidden rows the head reads). ``beam_anc``: the
-    lazy-beam ancestry table of a decode step (``gpt2.apply_gpt2``)."""
+    lazy-beam ancestry table of a decode step (``gpt2.apply_gpt2``);
+    ``dropout_generator``: the trunk's training-mode dropout."""
     apply = gpt2.apply_gpt2 if lm_family(config) == "gpt2" else opt.apply_opt
     hidden, cache = apply(
         params["lm"], input_ids, arch=config.lm_arch, policy=policy,
         position_ids=position_ids, attention_mask=attention_mask,
         layer_hook=layer_hook, cache=cache, cache_index=cache_index,
-        kv_limit=kv_limit, beam_anc=beam_anc)
+        kv_limit=kv_limit, beam_anc=beam_anc, dropout_generator=dropout_generator)
     logits = None if skip_head else lm_head(params, config, hidden)
     return logits, cache, hidden
 
@@ -166,12 +174,14 @@ def forward(params: Params, config: FlamingoConfig, input_ids: torch.Tensor,
             pixel_values: Optional[torch.Tensor] = None,
             visual_features: Optional[torch.Tensor] = None,
             labels: Optional[torch.Tensor] = None,
-            loss_reduction: str = "mean") -> FlamingoOutput:
+            loss_reduction: str = "mean",
+            dropout_generator: Optional[torch.Generator] = None) -> FlamingoOutput:
     """The uncached full-sequence forward: visual encode + resample (unless
     features are given; without either, zero features and no media),
     per-layer conditioning, trunk, tied head, and the shifted cross-entropy
     when ``labels`` are given. input_ids, media_locations, attention_mask,
-    labels: (b, n)."""
+    labels: (b, n). ``dropout_generator`` (a ``torch.Generator`` on the
+    inputs' device) turns on the trunk's dropout; None is evaluation."""
     b, n = input_ids.shape
     dev = input_ids.device
     if visual_features is None:
@@ -188,7 +198,8 @@ def forward(params: Params, config: FlamingoConfig, input_ids: torch.Tensor,
     xattn_kv = compute_xattn_kv(params, config, visual_features, policy=policy)
     hook = make_layer_hook(params, config, xattn_kv, text_time, policy=policy)
     logits, _, _ = apply_lm(params, config, input_ids, policy=policy,
-                            layer_hook=hook, attention_mask=attention_mask)
+                            layer_hook=hook, attention_mask=attention_mask,
+                            dropout_generator=dropout_generator)
     loss = None
     if labels is not None:
         loss = cross_entropy_loss(logits, labels, reduction=loss_reduction)

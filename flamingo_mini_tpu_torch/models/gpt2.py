@@ -8,7 +8,11 @@ sqrt(d_head), causal fill with finfo.min, additive padding bias, softmax.
 Under a ``pallas`` policy the uncached forward's attention is
 ``fused_attention`` (causal in the kernel, the padding bias as its per-row
 ``row_bias``); a prefill that writes the cache stays on ``attend``, as in
-the JAX package.
+the JAX package. Training-mode dropout (``dropout_generator``) at HF's
+sites and rates: the embeddings (``embd_pdrop``), the attention
+probabilities (``attn_pdrop``) and both residual branches
+(``resid_pdrop``); as in the JAX package it forces the plain attention
+path, so a forward with dropout launches no ``fused_attention``.
 
 Two cache layouts, as in the JAX package. The flat one: per layer
 ``{"kf", "vf"}`` of shape ``(T, b, D)`` with T the max length rounded up to
@@ -34,7 +38,7 @@ from ..configuration_flamingo import GPT2Arch
 from ..ops.attention import attend, attend_beam_lazy, merge_heads, split_heads
 from ..ops.decode_attention import decode_attention, decode_attention_beam
 from ..ops.fused_attention import fused_attention
-from ..ops.layers import (Policy, dot, get_activation, init_layer_norm,
+from ..ops.layers import (Policy, dot, dropout, get_activation, init_layer_norm,
                           init_linear, layer_norm, linear, normal)
 from ..ops.quant import dequantize_kv, embed_lookup, quantize_kv_write
 
@@ -194,7 +198,10 @@ def _self_attention(bp: Params, x: torch.Tensor, *, n_head: int,
                     cache_index: Optional[int], eps: float,
                     kv_limit: Optional[int],
                     npad: Optional[torch.Tensor], policy: Policy,
-                    beam_anc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    beam_anc: Optional[torch.Tensor] = None,
+                    attn_pdrop: float = 0.0,
+                    dropout_generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
     h = layer_norm(x, bp["ln_1"], eps)
     qkv = linear(h, bp["c_attn"])
     d_model = qkv.shape[-1] // 3
@@ -216,11 +223,12 @@ def _self_attention(bp: Params, x: torch.Tensor, *, n_head: int,
                                    bias=pad_bias, scale=scale)
         else:
             out = attend(qh, kh, vh, scale=scale, mask=causal_mask, bias=pad_bias)
-    elif layer_cache is None and policy.pallas:
+    elif layer_cache is None and policy.pallas and dropout_generator is None:
         out = fused_attention(qh, kh, vh, scale=scale, causal=True, row_bias=row_bias)
     else:
         # prefill (cache_index == 0) or uncached: attend over the fresh K/V
-        out = attend(qh, kh, vh, scale=scale, mask=causal_mask, bias=pad_bias)
+        out = attend(qh, kh, vh, scale=scale, mask=causal_mask, bias=pad_bias,
+                     dropout_rate=attn_pdrop, dropout_generator=dropout_generator)
     return linear(merge_heads(out), bp["c_proj"])
 
 
@@ -237,6 +245,7 @@ def apply_gpt2(
     cache_index: Optional[int] = None,             # write offset
     kv_limit: Optional[int] = None,                # attend only cache[:kv_limit]
     beam_anc: Optional[torch.Tensor] = None,       # (b // kb, kb, max_len) int32
+    dropout_generator: Optional[torch.Generator] = None,  # training mode when set
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Run the trunk -> (final-LN hidden (b, n, d), cache).
 
@@ -256,7 +265,8 @@ def apply_gpt2(
     if position_ids is None:
         position_ids = torch.arange(n, device=input_ids.device)[None, :] \
             + (cache_index or 0)
-    x = embed(p, input_ids, position_ids, policy.dtype)
+    x = dropout(embed(p, input_ids, position_ids, policy.dtype), arch.embd_pdrop,
+                dropout_generator)
 
     npad = causal = pad_bias = row_bias = None
     flat = cache is not None and is_flat(cache)
@@ -290,15 +300,16 @@ def apply_gpt2(
     for i, bp in enumerate(p["blocks"]):
         if layer_hook is not None:
             x = layer_hook(i, x)
-        x = x + _self_attention(
+        x = x + dropout(_self_attention(
             bp, x, n_head=arch.n_head, causal_mask=causal, pad_bias=pad_bias,
             row_bias=row_bias,
             layer_cache=None if cache is None else cache[i],
             cache_index=cache_index, eps=eps, kv_limit=kv_limit, npad=npad,
-            policy=policy, beam_anc=beam_anc)
+            policy=policy, beam_anc=beam_anc, attn_pdrop=arch.attn_pdrop,
+            dropout_generator=dropout_generator), arch.resid_pdrop, dropout_generator)
         h = layer_norm(x, bp["ln_2"], eps)
         h = linear(act(linear(h, bp["mlp_fc"])), bp["mlp_proj"])
-        x = x + h
+        x = x + dropout(h, arch.resid_pdrop, dropout_generator)
     return layer_norm(x, p["ln_f"], eps), cache
 
 

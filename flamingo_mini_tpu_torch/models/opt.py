@@ -25,6 +25,11 @@ views ``(T, b, D)`` of two stacked ``(n_layer, T, b, D)`` buffers, written
 in place, which the whole-step megakernel reads as they are; or the
 head-major ``(b, h, max_len, d_head)`` cache, bf16 or int8, whose steps
 attend in plain ops under one additive causal + padding bias.
+
+Training-mode dropout (``dropout_generator``) at HF's sites, rate
+``arch.dropout``: the embeddings and both residual branches (OPT's
+attention probabilities have none); as in the JAX package it forces the
+plain attention path.
 """
 from __future__ import annotations
 
@@ -35,8 +40,8 @@ import torch
 from ..configuration_flamingo import OPTArch
 from ..ops.attention import attend, attend_beam_lazy, merge_heads, split_heads
 from ..ops.fused_attention import fused_attention
-from ..ops.layers import (Policy, get_activation, init_layer_norm, init_linear,
-                          layer_norm, linear, normal)
+from ..ops.layers import (Policy, dropout, get_activation, init_layer_norm,
+                          init_linear, layer_norm, linear, normal)
 from ..ops.quant import embed_lookup
 from .gpt2 import (F32_MIN, cached_attention, head_major_slots, head_major_write,
                    is_flat, make_cache, tied_head)
@@ -110,7 +115,7 @@ def _self_attention(bp: Params, h: torch.Tensor, *, n_head: int,
                     layer_cache: Optional[Dict[str, torch.Tensor]],
                     cache_index: Optional[int], kv_limit: Optional[int],
                     npad: Optional[torch.Tensor], policy: Policy,
-                    beam_anc: Optional[torch.Tensor]) -> torch.Tensor:
+                    beam_anc: Optional[torch.Tensor], training: bool) -> torch.Tensor:
     q, k, v = (linear(h, bp[name]) for name in ("q_proj", "k_proj", "v_proj"))
     scale = (q.shape[-1] // n_head) ** -0.5
     if layer_cache is not None and "kf" in layer_cache:
@@ -127,7 +132,7 @@ def _self_attention(bp: Params, h: torch.Tensor, *, n_head: int,
             out = attend_beam_lazy(qh, kh, vh, beam_anc, bias=bias, scale=scale)
         else:
             out = attend(qh, kh, vh, scale=scale, bias=bias)
-    elif layer_cache is None and policy.pallas:
+    elif layer_cache is None and policy.pallas and not training:
         out = fused_attention(qh, kh, vh, scale=scale, causal=True, row_bias=row_bias)
     else:
         # prefill (cache_index == 0) or uncached: attend over the fresh K/V
@@ -148,6 +153,7 @@ def apply_opt(
     cache_index: Optional[int] = None,             # write offset
     kv_limit: Optional[int] = None,                # attend only cache[:kv_limit]
     beam_anc: Optional[torch.Tensor] = None,       # (b // kb, kb, max_len) int32
+    dropout_generator: Optional[torch.Generator] = None,  # training mode when set
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Run the trunk -> (hidden (b, n, word_embed_proj_dim), cache): after
     the final LayerNorm (pre-norm) and ``project_out`` (where the model has
@@ -173,7 +179,8 @@ def apply_opt(
         if cache is not None:
             position_ids = position_ids[:, cache_index:cache_index + n]
 
-    x = embed(p, input_ids, position_ids, policy.dtype)
+    x = dropout(embed(p, input_ids, position_ids, policy.dtype), arch.dropout,
+                dropout_generator)
 
     npad = bias = row_bias = None
     if flat and n == 1:
@@ -203,15 +210,17 @@ def apply_opt(
         if layer_hook is not None:
             x = layer_hook(i, x)
         h = layer_norm(x, bp["attn_ln"], eps) if pre else x
-        x = x + _self_attention(
+        x = x + dropout(_self_attention(
             bp, h, n_head=n_head, bias=bias, row_bias=row_bias,
             layer_cache=None if cache is None else cache[i],
             cache_index=cache_index, kv_limit=kv_limit, npad=npad,
-            policy=policy, beam_anc=beam_anc)
+            policy=policy, beam_anc=beam_anc,
+            training=dropout_generator is not None), arch.dropout, dropout_generator)
         if not pre:
             x = layer_norm(x, bp["attn_ln"], eps)
         h = layer_norm(x, bp["final_ln"], eps) if pre else x
-        x = x + linear(act(linear(h, bp["fc1"])), bp["fc2"])
+        x = x + dropout(linear(act(linear(h, bp["fc1"])), bp["fc2"]), arch.dropout,
+                        dropout_generator)
         if not pre:
             x = layer_norm(x, bp["final_ln"], eps)
     if "final_ln" in p:

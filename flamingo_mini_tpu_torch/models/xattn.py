@@ -83,7 +83,7 @@ def apply_masked_xattn(p: Params, y: torch.Tensor, kv: KV,
 
     sim = torch.matmul(q, k.transpose(-1, -2))
     sim = torch.where(mask, sim, const(torch.finfo(q.dtype).min, q.dtype))
-    sim = sim - sim.amax(dim=-1, keepdim=True)
+    sim = sim - sim.amax(dim=-1, keepdim=True).detach()
     alphas = softmax_f32(sim.float()).to(q.dtype)
     no_media = (text_time == 0)[:, None, :, None]
     alphas = alphas.masked_fill(no_media, 0)

@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from .layers import const
+from .layers import const, dropout
 
 
 def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -30,8 +30,9 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def softmax_f32(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softmax`` over the last axis: exp(x - max) / sum."""
-    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    """``jax.nn.softmax`` over the last axis: exp(x - max) / sum, the max
+    a constant to autograd as it is to JAX's gradient."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True).detach())
     return e / e.sum(dim=-1, keepdim=True)
 
 
@@ -44,13 +45,18 @@ def attend(
     bias: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     stabilize: bool = False,
+    dropout_rate: float = 0.0,
+    dropout_generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Scaled-dot-product attention core -> (..., n_q, d).
 
     ``mask``: boolean, False positions filled with finfo(dtype).min.
     ``bias``: additive float mask (HF convention, finfo.min where disallowed).
     ``scale``: multiplier applied to the scores after the QK product.
-    ``stabilize``: subtract the rowwise max before the softmax.
+    ``stabilize``: subtract the rowwise max (a constant to autograd) before
+    the softmax.
+    ``dropout_rate``, ``dropout_generator``: dropout on the attention
+    probabilities (training; ``layers.dropout``).
     """
     dtype = q.dtype
     sim = torch.matmul(q, k.transpose(-1, -2))
@@ -64,8 +70,9 @@ def attend(
             sim = sim + bias.to(dtype)
         sim = sim.clamp(min=neg)
     if stabilize:
-        sim = sim - sim.amax(dim=-1, keepdim=True)
+        sim = sim - sim.amax(dim=-1, keepdim=True).detach()
     alphas = softmax_f32(sim.float()).to(dtype)
+    alphas = dropout(alphas, dropout_rate, dropout_generator)
     return torch.matmul(alphas, v)
 
 

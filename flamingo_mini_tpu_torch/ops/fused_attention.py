@@ -21,9 +21,16 @@ tensors and run their plain version for CPU tensors; nothing else picks the
 path. Each counts its own launches. On the card the head dim is 64, q/k/v
 are read in place through their strides (the (b, n, h*d) projection layout
 that ``split_heads`` views), and the output is written (b, n, h, d) and
-returned as its (b, h, n, d) view, so ``merge_heads`` copies nothing. Inputs
-that require grad raise: the recompute backward (``pallas_attn.py:249-267``)
-is the training slice's work.
+returned as its (b, h, n, d) view, so ``merge_heads`` copies nothing.
+
+Training: on the card, when grad is enabled and q, k or v requires it, both
+run through ``RecomputeBackward``, the port of the JAX functions'
+``custom_vjp`` (``pallas_attn.py:241-267``): the forward launches the
+kernel and keeps q, k, v, bias and row_bias; the backward recomputes
+``fused_attention_plain`` (for the streaming mode too, as JAX's ``_bwd``
+differentiates ``_reference_attention`` for both) and differentiates it
+for the same upstream gradient. The masks are constants: their gradients
+are None. The backward launches no kernel.
 """
 from __future__ import annotations
 
@@ -91,10 +98,6 @@ def check_cuda(name: str, q, k, v) -> None:
             raise ValueError(f"{name}: each input needs a contiguous head dim, "
                              "16-byte alignment and strides that are multiples "
                              f"of 8 elements; got strides {t.stride()}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            f"{name}: no backward on the card yet (the training slice adds "
-            "the recompute backward); call it under torch.no_grad()")
 
 
 def check_tile_grid(name: str, q) -> None:
@@ -139,6 +142,44 @@ def _row_bias_f32(row_bias, b: int, n_kv: int, device) -> Optional[torch.Tensor]
     if row_bias.shape != (b, n_kv):
         raise ValueError(f"row_bias must be ({b}, {n_kv}), got {tuple(row_bias.shape)}")
     return row_bias.to(device=device, dtype=torch.float32).contiguous()
+
+
+class RecomputeBackward(torch.autograd.Function):
+    """``forward(q, k, v, *consts)`` (a kernel's launch) with the gradient of
+    ``plain(q, k, v, *consts)``, its plain version, recomputed in the
+    backward: the ``custom_vjp`` of the JAX kernels, whose ``_bwd``
+    differentiates the XLA reference. ``consts`` (masks, ``text_time``;
+    tensors or None) are saved beside q, k and v and get no gradient.
+
+    ``RecomputeBackward.apply(forward, plain, q, k, v, *consts)``; the
+    wrappers pass their launch as ``forward``, and only the tests pass
+    anything else (the plain version, to run this on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, forward, plain, q, k, v, *consts):
+        ctx.plain = plain
+        ctx.save_for_backward(q, k, v, *consts)
+        return forward(q, k, v, *consts)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, *consts = ctx.saved_tensors
+        need = ctx.needs_input_grad[2:5]
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(n) for t, n in zip((q, k, v), need)]
+            out = ctx.plain(*qkv, *consts)
+            grads = iter(torch.autograd.grad(
+                out, [t for t, n in zip(qkv, need) if n], grad_out))
+        return (None, None, *(next(grads) if n else None for n in need),
+                *(None for _ in consts))
+
+
+def recompute_backward(forward, plain, q, k, v, *consts) -> torch.Tensor:
+    """``forward(q, k, v, *consts)``, through ``RecomputeBackward`` where
+    grad is enabled and q, k or v requires it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return RecomputeBackward.apply(forward, plain, q, k, v, *consts)
+    return forward(q, k, v, *consts)
 
 
 def fused_attention_plain(q, k, v, *, scale: float = 1.0, bias=None,
@@ -208,9 +249,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     n_kv = k.shape[2]
     block_kv = min(block_q, n_kv)
     rb = _row_bias_f32(row_bias, b, n_kv, q.device)
-    flash_attention.launches += 1
-    return launch("fmt_flash_attention", q, k, v, scale=scale, causal=causal,
-                  row_bias=rb, n_kv_pad=-(-n_kv // block_kv) * block_kv)
+
+    def kernel(q, k, v, rb):
+        flash_attention.launches += 1
+        return launch("fmt_flash_attention", q, k, v, scale=scale, causal=causal,
+                      row_bias=rb, n_kv_pad=-(-n_kv // block_kv) * block_kv)
+
+    def plain(q, k, v, rb):
+        return fused_attention_plain(q, k, v, scale=scale, row_bias=rb, causal=causal)
+    return recompute_backward(kernel, plain, q, k, v, rb)
 
 
 flash_attention.launches = 0
@@ -241,12 +288,19 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      row_bias=row_bias, causal=causal)
     check_cuda("fused_attention", q, k, v)
     check_tile_grid("fused_attention", q)
-    bf = None if bias is None else \
-        bias.to(q.device).expand(b, h, n_q, n_kv).float().contiguous()
     rb = _row_bias_f32(row_bias, b, n_kv, q.device)
-    fused_attention.launches += 1
-    return launch("fmt_fused_attention", q, k, v, scale=scale, causal=causal,
-                  bias=bf, row_bias=rb)
+
+    def kernel(q, k, v, bias, rb):
+        bf = None if bias is None else \
+            bias.to(q.device).expand(b, h, n_q, n_kv).float().contiguous()
+        fused_attention.launches += 1
+        return launch("fmt_fused_attention", q, k, v, scale=scale, causal=causal,
+                      bias=bf, row_bias=rb)
+
+    def plain(q, k, v, bias, rb):
+        return fused_attention_plain(q, k, v, scale=scale, bias=bias, row_bias=rb,
+                                     causal=causal)
+    return recompute_backward(kernel, plain, q, k, v, bias, rb)
 
 
 fused_attention.launches = 0

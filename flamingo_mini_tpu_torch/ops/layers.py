@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -158,6 +158,22 @@ def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     if name not in _ACTS:
         raise ValueError(f"activation must be one of {sorted(_ACTS)}, got {name!r}")
     return _ACTS[name]
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: each value kept with probability ``1 - rate`` and
+    scaled by ``1 / (1 - rate)`` (the factor rounded to x's dtype, as JAX's
+    weakly typed constant is), the rest 0. The identity when ``generator``
+    is None or ``rate <= 0`` (evaluation). The mask comes from
+    ``generator``, a ``torch.Generator`` on x's device; JAX's bits are not
+    reproduced, only its sites and rates (the trunk's; the resampler and
+    the xattn blocks have none)."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(kept, x / const(keep, x.dtype), 0.0).to(x.dtype)
 
 
 def feed_forward(x: torch.Tensor, p: Params, act: str) -> torch.Tensor:

@@ -23,7 +23,11 @@ where the TPU kernel's 0 x V makes it NaN (the source note's NaN contract).
 ``fused_media_xattn`` launches the kernel for CUDA tensors and runs its plain
 version for CPU tensors; nothing else picks the path. It counts its
 launches. On the card the inputs are read in place through their strides
-(head dim 64) and inputs that require grad raise, as ``fused_attention``'s.
+(head dim 64). Where grad is enabled and q, k or v requires it, the call
+runs through ``fused_attention.RecomputeBackward`` (the ``custom_vjp`` of
+``pallas_xattn.py:74-119``): the kernel forward, and a backward that
+differentiates ``fused_media_xattn_plain`` recomputed, ``text_time`` a
+constant.
 The bf16 kernel takes any number of keys; a call it refuses raises and
 never runs the float32 tile.
 """
@@ -35,7 +39,8 @@ from typing import NamedTuple
 import torch
 
 from .attention import softmax_f32
-from .fused_attention import NEG, check_cuda, check_tile_grid, launch
+from .fused_attention import (NEG, check_cuda, check_tile_grid, launch,
+                              recompute_backward)
 
 # the bf16 kernel (csrc/media_xattn_sm90.cuh): keys a tile (a P V k-step),
 # the most tiles a block's shared memory holds, and a tile's K and V there
@@ -53,7 +58,7 @@ def fused_media_xattn_plain(q, k, v, text_time, *, scale: float,
     media_time = torch.arange(n_kv, device=q.device) // n_visual + 1
     tt = text_time.to(torch.int32)[:, None, :, None]
     s = torch.where(tt == media_time, s, NEG)
-    p = softmax_f32(s - s.amax(dim=-1, keepdim=True))
+    p = softmax_f32(s - s.amax(dim=-1, keepdim=True).detach())
     p = torch.where(tt == 0, 0.0, p)
     return torch.matmul(p, v.float()).to(q.dtype)
 
@@ -109,9 +114,15 @@ def fused_media_xattn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         check_tile_grid("fused_media_xattn", q)
         layout = 0
     tt = text_time.to(device=q.device, dtype=torch.int32).contiguous()
-    fused_media_xattn.launches += 1
-    return launch("fmt_media_xattn", q, k, v, scale=scale, text_time=tt,
-                  n_visual=n_visual, plan=(layout,))
+
+    def kernel(q, k, v, tt):
+        fused_media_xattn.launches += 1
+        return launch("fmt_media_xattn", q, k, v, scale=scale, text_time=tt,
+                      n_visual=n_visual, plan=(layout,))
+
+    def plain(q, k, v, tt):
+        return fused_media_xattn_plain(q, k, v, tt, scale=scale, n_visual=n_visual)
+    return recompute_backward(kernel, plain, q, k, v, tt)
 
 
 fused_media_xattn.launches = 0

@@ -16,7 +16,7 @@ so both packages give the same keys.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterator, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 import torch
 
@@ -89,8 +89,23 @@ def merge_params(trainable, frozen):
     return tree_map(lambda t, f: t if t is not None else f, trainable, frozen)
 
 
+def trainable_leaves(params, mask) -> List[Tuple[str, torch.Tensor]]:
+    """(keystr path, leaf) of the trainable leaves in pytree order: the
+    order of the leaves of JAX's trainable partition and of its optax
+    state."""
+    keep = dict(leaves_with_path(mask))
+    return [(path, leaf) for path, leaf in leaves_with_path(params) if keep[path]]
+
+
 def state_dict_trainable(params, mask) -> Dict[str, torch.Tensor]:
     """Flat {keystr path: leaf} of the trainable leaves: the reference's
     checkpoint of only the trainable weights."""
+    return dict(trainable_leaves(params, mask))
+
+
+def set_requires_grad(params, mask) -> None:
+    """``requires_grad`` on the trainable leaves and off on the frozen ones,
+    in place: autograd then differentiates only the trainable partition."""
     keep = dict(leaves_with_path(mask))
-    return {path: leaf for path, leaf in leaves_with_path(params) if keep[path]}
+    for path, leaf in leaves_with_path(params):
+        leaf.requires_grad_(bool(keep[path]))

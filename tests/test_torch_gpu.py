@@ -685,10 +685,14 @@ def test_media_xattn_bf16_refusal_raises(cuda):
 
 
 def test_attention_kernels_refuse_bad_input(cuda):
-    """Head dim 32, a head dim that is not contiguous, misaligned strides,
-    and inputs that require grad (built on the CPU, moved to the card)."""
-    from flamingo_mini_tpu_torch.ops.fused_attention import fused_attention
-    from flamingo_mini_tpu_torch.ops.media_xattn import fused_media_xattn
+    """Head dim 32, a head dim that is not contiguous and misaligned strides
+    are refused. Inputs that require grad (built on the CPU, moved to the
+    card) are taken: the kernel's output, and the recompute backward's
+    gradients bit for bit those of autograd through the plain version."""
+    from flamingo_mini_tpu_torch.ops.fused_attention import (fused_attention,
+                                                             fused_attention_plain)
+    from flamingo_mini_tpu_torch.ops.media_xattn import (fused_media_xattn,
+                                                         fused_media_xattn_plain)
     tt = torch.ones((2, 8), dtype=torch.int32, device=cuda)
     x = torch.zeros((2, 2, 8, 64), device=cuda)
     bad = [torch.zeros((2, 2, 8, 32), device=cuda),
@@ -699,13 +703,22 @@ def test_attention_kernels_refuse_bad_input(cuda):
             fused_attention(t, t, t, scale=1.0)
         with pytest.raises(ValueError):
             fused_media_xattn(t, t, t, tt, scale=1.0, n_visual=4)
-    g = torch.zeros((2, 2, 8, 64), requires_grad=True).to(cuda)
-    with pytest.raises(NotImplementedError):
-        fused_attention(g, x, x, scale=1.0)
-    with pytest.raises(NotImplementedError):
-        fused_attention(x, g, x, scale=1.0, streaming=True)
-    with pytest.raises(NotImplementedError):
-        fused_media_xattn(x, x, g, tt, scale=1.0, n_visual=4)
+    g = torch.randn((2, 2, 8, 64), requires_grad=True).to(cuda)
+    up = torch.randn((2, 2, 8, 64), device=cuda)
+    for call, plain in (
+            (lambda t: fused_attention(t, x, x, scale=1.0),
+             lambda t: fused_attention_plain(t, x, x, scale=1.0)),
+            (lambda t: fused_attention(x, t, x, scale=1.0, streaming=True),
+             lambda t: fused_attention_plain(x, t, x, scale=1.0)),
+            (lambda t: fused_media_xattn(x, x, t, tt, scale=1.0, n_visual=4),
+             lambda t: fused_media_xattn_plain(x, x, t, tt, scale=1.0, n_visual=4))):
+        out = call(g)
+        assert out.requires_grad
+        with torch.no_grad():
+            assert torch.equal(out.detach(), call(g))
+        (got,) = torch.autograd.grad(out, [g], up)
+        (want,) = torch.autograd.grad(plain(g), [g], up)
+        assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------
