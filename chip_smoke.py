@@ -292,7 +292,34 @@ stream probe and the in-situ decode and head probes, and checks them:
    ``evaluate()`` over 8 synthetic images; OPT-125m's checkpoint saved and
    loaded into a fresh trainer, whose next step's loss equals the
    uninterrupted run's and its parameters within 1.25 x the spread of
-   that resumed step run twice;
+   that resumed step run twice. Then the parallel tier (``parallel_cells``,
+   ``flamingo_mini_tpu_torch.parallel``): which collectives gloo takes on
+   CUDA tensors between two processes on the card (each op in a process
+   pair of its own; every op it does not take must be one that
+   ``parallel/comm.py`` stages through host memory), then two ranks started by ``spawn`` over gloo (NCCL
+   refuses two ranks on one card), sharing the kernels the parent built,
+   on flamingo-mini at its first 12 layers: DP greedy b=32 (16 rows a
+   rank) on the megakernel and per layer with the fused head and DP top-k
+   50 sampling (31 ``decode_step_megakernel`` + 31 ``lm_head_argmax``,
+   12 x 31 ``decode_attention`` + 31, 31 a rank), TP=2 greedy and 3 beams
+   per layer over the head-major cache with use_pallas (30
+   ``fused_attention`` and 12 ``fused_media_xattn`` a rank on its heads),
+   each against the rank's own one-rank run (tokens up to near-ties); TP's
+   weight bytes and peak memory a rank against one rank's; the megakernel's
+   generate alone on the card and beside the other rank's; 2 DP steps and
+   1 TP step of training at 8 x 64 (42 + 12 a rank), DP also against the
+   one-rank run of its two halves summed (1e-6); the ring forward with its
+   loss and gradients over 1 x 1,024 tokens (30 + 12 a rank); the bf16
+   training and ring errors against one rank within max(1e-2, 1.25 x the
+   plain programs' CPU-vs-card spread), measured in the run (the CPU part
+   while the ranks run); TP's training step and the ring again in float32
+   compute against one rank in float32 (loss 1e-5, logits and gradients
+   1e-4, normwise); a rank that fails or outlasts its time limit fails the
+   run. Then, in the parent, each attention kernel at the inputs rank 0
+   gave it (TP's ViT, resampler and media prefill on its heads, the DP
+   trunk at its 4 rows, the ring's media xattn at its 512 tokens) held to
+   its plain version (2 bf16 ulps) and timed, and the three decode kernels
+   checked and timed at a DP rank's 16 rows;
 4. timing on the card: ms per decode step (two lengths) and captions/s of
    the seven flamingo-mini generate paths (w8a8 greedy and beams included),
    the head-major and int8 KV caches per layer (32 new tokens), the two
@@ -471,10 +498,11 @@ OPT350 = dict(lm="facebook/opt-350m", clip_model_type="openai/clip-vit-large-pat
               dim=1024, dim_visual=1024, compute_dtype="bfloat16")
 OPT350_NEW = 16
 # depth cuts that keep the script inside its time limit beside the training
-# cells: the OPT cells (OPT-1.3B and opt-350m) at 12 of their trunks' 24
-# layers; flamingo-mini's decode paths (phase 3 and 4), BASELINE config 4,
-# the search section and the entry point at its first 12 (``first_layers``),
-# the constrained-search check, the forward and scoring at all 24
+# and parallel cells: the OPT cells (OPT-1.3B and opt-350m) at 12 of their
+# trunks' 24 layers; flamingo-mini's decode paths (phase 3 and 4), BASELINE
+# config 4, the search section and the entry point at its first 12
+# (``first_layers``), the parallel cells at 12 of their own; the
+# constrained-search check, the forward, training and scoring at all 24
 CUT_LAYERS = MINI_LAYERS = 12
 # the w8a8 linear alone, bitwise: (K, N, slice width or None for the
 # column form) at the step's shapes: c_attn and fc at D=1024 and 2048,
@@ -505,6 +533,22 @@ TRAIN_OPS = {"resampler": (8, 8, 64, 321, None),
              "opt-125m trunk": (8, 12, 64, 64, "right"),
              "gpt2-medium trunk, left-padded": (8, 16, 64, 64, "left"),
              "media": (8, 8, 64, 64, None)}
+# the parallel tier on the one card (flamingo_mini_tpu_torch.parallel): two
+# ranks over gloo (NCCL refuses two ranks on one GPU), flamingo-mini at its
+# first MINI_LAYERS layers; DP greedy b=32 (16 rows a rank), 32 new tokens;
+# TP=2 greedy 8 rows, 32 new tokens, 3 beams 16 new tokens; training at
+# TRAIN_B x TRAIN_N; the ring forward over one row of 1,024 tokens; the
+# ranks' time limit
+PAR_RANKS, PAR_B, PAR_NEW = 2, 32, 32
+PAR_TP_B, PAR_TP_NEW, PAR_BEAM_NEW = 8, 32, 16
+PAR_RING_B, PAR_RING_N = 1, 1024
+PAR_TIMEOUT = 400
+# TP and the ring against one rank in float32 compute, where only the order
+# of float32 sums lies between them: relative error limits, normwise
+PAR_F32_LIMITS = {"loss": 1e-5, "logits": 1e-4, "gradients": 1e-4}
+# gloo's probe names -> comm.py's ops that move data that way
+GLOO_PROBE_COMM = {"all_reduce": ("all_reduce",), "broadcast": ("broadcast",),
+                   "all_gather": ("all_gather",), "send/recv": ("ring_shift",)}
 # the stream probe: a 512 MB buffer, its TPU protocol's middle chunk_rows
 STREAM_MB, STREAM_CHUNK = 512, 1024
 # the decode stream probes (tools/probe_decode_kernel.py's three kernels):
@@ -1123,8 +1167,6 @@ def print_grids(label, packed, cfg, inputs_by_rows, cur, kv_limit, act_quant=Fal
 
 
 def phase2_megakernel(dev, flush):
-    from flamingo_mini_tpu_torch.ops.megadecode import (
-        decode_step_megakernel, decode_step_megakernel_plain)
     pairs = ((4, 36), (35, 36), (70, 100), (131, 132))
     worst, case = [0.0, 0.0, None], 0
     for n_layer, every in ((1, 1), (2, 1), (2, 2)):
@@ -1143,24 +1185,38 @@ def phase2_megakernel(dev, flush):
           f"(tolerance 2), max abs error {worst[1]}; largest at {worst[2]}")
 
     # 24 layers at the slice's shape, then the timing
+    return dict(mega_timed(dev, flush, BATCH), max_abs_err=worst[1])
+
+
+def mega_timed(dev, flush, b: int, plain_iters: int = 50):
+    """decode_step_megakernel on the slice's 24-layer trunk at ``b`` rows:
+    held to its plain version normwise (``held_normwise``), then timed
+    beside it (the median of ``plain_iters`` calls of the plain version),
+    with its bound -> a kernel row (``max_abs_err`` that check's)."""
+    from flamingo_mini_tpu_torch.ops.megadecode import (
+        decode_step_megakernel, decode_step_megakernel_plain)
     cfg, packed = random_trunk(dev, n_layer=24, xattn_every=1, seed=24)
-    inputs = mega_inputs(dev, cfg, BATCH, seed=99)
-    held_normwise("decode_step_megakernel vs plain, 24 layers, b=32", cfg, packed,
-                  inputs, 131, 132)
+    inputs = mega_inputs(dev, cfg, b, seed=99)
+    worst = {}
+    label = f"decode_step_megakernel vs plain, 24 layers, b={b}"
+    held_normwise(label, cfg, packed, inputs, 131, 132, worst=worst)
+    print(f"[phase 2] {label}: normwise relative error {worst['rel']} (share of the "
+          f"tolerance {worst['share']}: the larger of 1e-2 and 1.25 x the plain "
+          f"version's CPU-vs-card spread); max abs err {worst['err']}")
     xk, xv, kc, vc, x, npad, tt = inputs
     npad.zero_()
     call = dict(config=cfg, kv_limit=132)
-    print_grids("decode_step_megakernel", packed, cfg, {BATCH: (inputs, None)}, 131, 132)
+    print_grids("decode_step_megakernel", packed, cfg, {b: (inputs, None)}, 131, 132)
     ms = time_ms(lambda: decode_step_megakernel(packed, xk, xv, kc, vc, x, npad,
                                                 tt, 131, **call), 50, flush)
     plain_ms = time_ms(lambda: decode_step_megakernel_plain(
-        packed, xk, xv, kc, vc, x, npad, tt, 131, **call), 50, flush)
+        packed, xk, xv, kc, vc, x, npad, tt, 131, **call), plain_iters, flush)
     n_pos = int((132 - npad).sum())
     bound_ms, bound_by, n_bytes, n_ops = mega_bound(packed, cfg, inputs, n_pos, n_pos)
-    print(f"[phase 2] decode_step_megakernel bound at b=32, 24 layers, "
+    print(f"[phase 2] decode_step_megakernel bound at b={b}, 24 layers, "
           f"kv_limit 132: {n_bytes / 1e9:.4f} GB, {n_ops / 1e9:.3f} GFLOP -> "
-          f"{bound_ms:.4f} ms ({bound_by})")
-    return dict(max_abs_err=worst[1], ms=ms, plain_ms=plain_ms, library_ms=None,
+          f"{bound_ms:.4f} ms ({bound_by}); {ms} ms, plain {plain_ms} ms")
+    return dict(max_abs_err=worst["err"], ms=ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -4110,6 +4166,703 @@ def training_cells(dev, card, vocab_dir):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the parallel tier: two ranks on the one card
+# ---------------------------------------------------------------------------
+
+
+GLOO_PROBE_OPS = ("all_reduce", "broadcast", "all_gather", "send/recv")
+
+
+def start_ranks(target, *args):
+    """PAR_RANKS processes of ``target(rank, port, *args)``, started by
+    ``spawn`` (CUDA does not survive ``fork``) on a free local port."""
+    import socket
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, port, *args)) for r in range(PAR_RANKS)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def join_ranks(procs, deadline: float):
+    """Wait for the processes until ``deadline`` (``time.monotonic()``),
+    killing any still running then -> (exit codes, whether one was late)."""
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    late = [p for p in procs if p.is_alive()]
+    for p in late:
+        p.kill()
+        p.join()
+    return [p.exitcode for p in procs], bool(late)
+
+
+@contextlib.contextmanager
+def captured(store, key, module, name):
+    """``module.name`` (a kernel's wrapper, as the model code looks it up)
+    records the inputs of its first call in the block under ``key`` in
+    ``store`` (detached copies on the host), and runs as it does."""
+    fn = getattr(module, name)
+
+    def run(*args, **kw):
+        if key not in store:
+            host = lambda t: t.detach().cpu() if isinstance(t, torch.Tensor) else t
+            store[key] = (name, [host(a) for a in args],
+                          {k: host(v) for k, v in kw.items()})
+        return fn(*args, **kw)
+    with patched(module, name, run):
+        yield
+
+
+def gloo_probe_rank(rank, port, op, path):
+    """One rank of the probe of ``op`` on CUDA tensors over gloo (a pair of
+    processes of its own: an op gloo does not take on CUDA tensors may abort
+    the process, as a device pointer handed to the socket does) -> writes
+    "native" or "wrong result" to ``path`` and the rank."""
+    sys.path.insert(0, REPO)
+    import torch.distributed as dist
+    from flamingo_mini_tpu_torch.parallel import distributed_init
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    distributed_init(f"127.0.0.1:{port}", PAR_RANKS, rank, backend="gloo", timeout=60)
+    world = PAR_RANKS
+    x = torch.full((4,), float(rank + 1), device=dev)
+    if op == "all_reduce":
+        y = x.clone()
+        dist.all_reduce(y)
+        ok = bool((y == world * (world + 1) / 2).all())
+    elif op == "broadcast":
+        y = x.clone()
+        dist.broadcast(y, src=0)
+        ok = bool((y == 1).all())
+    elif op == "all_gather":
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x)
+        ok = all(bool((p == i + 1).all()) for i, p in enumerate(parts))
+    else:
+        y = torch.empty_like(x)
+        reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, x, (rank + 1) % world),
+                                       dist.P2POp(dist.irecv, y, (rank - 1) % world)])
+        for req in reqs:
+            req.wait()
+        ok = bool((y == (rank - 1) % world + 1).all())
+    torch.cuda.synchronize()
+    with open(f"{path} {rank}", "w") as f:
+        f.write("native" if ok else "wrong result")
+    dist.destroy_process_group()
+
+
+def gloo_probe(work):
+    """Start the probe of which collectives gloo takes on CUDA tensors
+    between two processes on the card, each op in a pair of processes of
+    its own, all pairs at once (``parallel/comm.py`` stages the ones outside
+    its documented ``GLOO_CUDA_OPS`` through pinned host memory by rule,
+    whatever this finds) -> a function that waits for them -> {op:
+    "native", "wrong result", or how the processes ended}."""
+    paths = {op: os.path.join(work, "probe " + op.replace("/", " ")) for op in GLOO_PROBE_OPS}
+    pairs = {op: start_ranks(gloo_probe_rank, op, paths[op]) for op in GLOO_PROBE_OPS}
+
+    def results():
+        deadline = time.monotonic() + 120
+        found = {}
+        for op, pair in pairs.items():
+            codes, _ = join_ranks(pair, deadline)
+            got = []
+            for r, code in enumerate(codes):
+                if code == 0 and os.path.exists(f"{paths[op]} {r}"):
+                    with open(f"{paths[op]} {r}") as f:
+                        got.append(f.read())
+                else:
+                    got.append(f"the process ended with code {code}")
+            found[op] = got[0] if len(set(got)) == 1 else " / ".join(got)
+        return found
+    return results
+
+
+def weight_bytes(params) -> int:
+    from flamingo_mini_tpu_torch.utils.params import leaves_with_path
+    return sum(x.numel() * x.element_size() for _, x in leaves_with_path(params))
+
+
+def par_gen(model, inputs, new_tokens, rows=None, **kw):
+    ids, media, mask, pixels = (x[:rows] for x in inputs)
+    vocab = model.config.lm_arch.vocab_size + 1
+    return model.generate(ids, media_locations=media, attention_mask=mask,
+                          pixel_values=pixels, max_length=ids.shape[1] + new_tokens,
+                          prefix_block=PREFIX_BLOCK, eos_token_id=vocab,
+                          pad_token_id=0, **kw)
+
+
+def parallel_serving(dev, rank, say):
+    """On each of the two ranks: DP greedy over a (2, 1) mesh (b=32, 16 rows
+    a rank, 32 new tokens) on the megakernel and per layer with the fused
+    head, DP top-k 50 sampling on the megakernel from a seeded CUDA
+    generator; TP=2 greedy and 3 beams over a (1, 2) mesh per layer over
+    the head-major cache, use_pallas on (the ViT, resampler and media
+    kernels on the rank's heads). Each against the rank's own one-rank run
+    on the card: greedy tokens up to the reference's near-ties (8 bf16
+    ulps), samples by ``compare_top_k_samples``, beams by ``compare_beams``.
+    The megakernel's step alone and with the other rank's beside it. The
+    weights and peak memory of one rank's TP path against the one-rank
+    path's. The inputs of TP greedy's first ViT, resampler and media-xattn
+    kernel calls (``captured``, for ``par_kernel_rows``). -> outputs and
+    counts."""
+    import torch.distributed as dist
+    from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel
+    from flamingo_mini_tpu_torch.models import clip_vit, resampler, xattn
+    from flamingo_mini_tpu_torch.ops.lm_head import lm_head_argmax
+    from flamingo_mini_tpu_torch.parallel import create_mesh
+    dp, tp = create_mesh((PAR_RANKS, 1)), create_mesh((1, PAR_RANKS))
+    cfg = dict(MINI, lm_arch_overrides=dict(n_layer=MINI_LAYERS))
+    model = open_gates(FlamingoModel(FlamingoConfig(**cfg), device=dev, seed=0))
+    model.quantize_int8().to_bf16()
+    config = model.config
+    vocab, n_layer, steps = config.lm_arch.vocab_size + 1, MINI_LAYERS, PAR_NEW - 1
+    rs = np.random.RandomState(0)
+    arch = config.vision_arch
+    ids = torch.tensor(rs.randint(0, 1000, (PAR_B, PROMPT_LEN)), device=dev)
+    media = torch.zeros((PAR_B, PROMPT_LEN), dtype=torch.int32, device=dev)
+    media[:, 0] = 1
+    mask = torch.ones((PAR_B, PROMPT_LEN), dtype=torch.int32, device=dev)
+    pixels = torch.tensor(rs.randn(PAR_B, 1, 3, arch.image_size, arch.image_size),
+                          dtype=torch.float32, device=dev).to(torch.bfloat16)
+    inputs = (ids, media, mask, pixels)
+    own = slice(rank * PAR_B // PAR_RANKS, (rank + 1) * PAR_B // PAR_RANKS)
+    out, counts = {}, {}
+
+    def dp_run(**kw):
+        zero_counts()
+        tokens = par_gen(model, inputs, PAR_NEW, mesh=dp, **kw)
+        return tokens[:, PROMPT_LEN:].cpu(), read_counts()
+
+    for path, kw, want in (
+            ("DP megakernel", dict(megakernel=True),
+             dict(decode_step_megakernel=steps, lm_head_argmax=steps)),
+            ("DP per layer", {}, dict(decode_attention=n_layer * steps,
+                                      lm_head_argmax=steps))):
+        tokens, counts[path] = dp_run(**kw)
+        expect(f"parallel rank {rank} {path}", counts[path], **want)
+        gaps = []
+        with recorded(gaps, lm_head_argmax):
+            ref = par_gen(model, inputs, PAR_NEW, **kw)[:, PROMPT_LEN:].cpu()
+        compare_tokens(f"parallel rank {rank} {path} vs one rank", tokens, ref, gaps)
+        out[path] = tokens
+    # sampling: the same seed on both ranks and in the one-rank run
+    steps_dp, steps_one = [], []
+    with recorded_picks([], steps_dp):
+        tokens, counts["DP sampling"] = dp_run(
+            megakernel=True, do_sample=True, top_k=OPT_TOP_K,
+            generator=torch.Generator(device=dev).manual_seed(SAMPLE_SEED))
+    expect(f"parallel rank {rank} DP top-k sampling", counts["DP sampling"],
+           decode_step_megakernel=steps)
+    with recorded_picks([], steps_one):
+        ref = par_gen(model, inputs, PAR_NEW, megakernel=True, do_sample=True,
+                      top_k=OPT_TOP_K, generator=torch.Generator(device=dev).manual_seed(
+                          SAMPLE_SEED))[:, PROMPT_LEN:].cpu()
+    local = [(logits[own], noise[own]) for logits, noise in steps_one]
+    compare_top_k_samples(f"parallel rank {rank} DP top-k {OPT_TOP_K} sampling vs one "
+                          "rank (this rank's rows)", tokens[own], ref[own], steps_dp,
+                          local, OPT_TOP_K)
+    out["DP sampling"] = tokens
+
+    # the megakernel's step alone on the card, then with the other rank's
+    def mega_step_ms():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        par_gen(model, inputs, PAR_NEW, rows=PAR_B // PAR_RANKS, megakernel=True)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    alone = None
+    for turn in range(PAR_RANKS):
+        dist.barrier()
+        if turn == rank:
+            mega_step_ms()
+            alone = statistics.median(mega_step_ms() for _ in range(3))
+    dist.barrier()
+    mega_step_ms()
+    together = statistics.median(mega_step_ms() for _ in range(3))
+    out["mega generate ms"] = (alone, together)
+    say(f"megakernel generate, {PAR_B // PAR_RANKS} rows, {PAR_NEW} new tokens: "
+        f"{alone} ms alone on the card, {together} ms with the other rank's beside it "
+        f"(host clock, median of 3; two processes time-slice the card)")
+
+    # TP=2, use_pallas: the one-rank run first, then the rank's slice only
+    model_p = FlamingoModel(FlamingoConfig(**cfg, use_pallas=True), params=model.params,
+                            device=dev)
+    del model
+    tp_in = tuple(x[:PAR_TP_B] for x in inputs)
+    full_bytes = weight_bytes(model_p.params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gaps = []
+    with recorded_picks(gaps):
+        ref = par_gen(model_p, tp_in, PAR_TP_NEW, flat_kv_cache=False)[:, PROMPT_LEN:].cpu()
+    one_peak = torch.cuda.max_memory_allocated()
+    ref_b, _, ref_cands = recorded_beam(
+        lambda: par_gen(model_p, tp_in, PAR_BEAM_NEW, num_beams=BEAMS,
+                        flat_kv_cache=False), tp_in[0], (PAR_TP_B, PROMPT_LEN + PAR_BEAM_NEW),
+        vocab, PAR_BEAM_NEW)
+    one_alloc = torch.cuda.memory_allocated()
+    model_p.shard_(tp)
+    torch.cuda.empty_cache()
+    tp_bytes = weight_bytes(model_p.params)
+    tp_alloc = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cap = out["captured"] = {}
+    zero_counts()
+    with captured(cap, "TP ViT", clip_vit, "fused_attention"), \
+            captured(cap, "TP resampler", resampler, "fused_attention"), \
+            captured(cap, "TP media prefill", xattn, "fused_media_xattn"):
+        tokens = par_gen(model_p, tp_in, PAR_TP_NEW, mesh=tp, tensor_parallel=True)
+    counts["TP greedy"] = read_counts()
+    tp_peak = torch.cuda.max_memory_allocated()
+    n_fa = arch.num_hidden_layers + config.resampler_depth
+    expect(f"parallel rank {rank} TP=2 greedy, use_pallas", counts["TP greedy"],
+           fused_attention=n_fa, fused_media_xattn=n_layer)
+    check_output(tokens, tp_in[0], (PAR_TP_B, PROMPT_LEN + PAR_TP_NEW), vocab)
+    compare_tokens(f"parallel rank {rank} TP=2 greedy vs one rank", tokens[:, PROMPT_LEN:].cpu(),
+                   ref, gaps)
+    out["TP greedy"] = tokens[:, PROMPT_LEN:].cpu()
+    beams, counts["TP beams"], cands = recorded_beam(
+        lambda: par_gen(model_p, tp_in, PAR_BEAM_NEW, num_beams=BEAMS, mesh=tp,
+                        tensor_parallel=True),
+        tp_in[0], (PAR_TP_B, PROMPT_LEN + PAR_BEAM_NEW), vocab, PAR_BEAM_NEW)
+    expect(f"parallel rank {rank} TP=2 beams, use_pallas", counts["TP beams"],
+           fused_attention=n_fa, fused_media_xattn=n_layer)
+    compare_beams(f"parallel rank {rank} TP=2 {BEAMS} beams vs one rank", beams, cands,
+                  ref_b, ref_cands, BEAMS, vocab)
+    out["TP beams"] = beams
+    out["memory"] = dict(full_bytes=full_bytes, tp_bytes=tp_bytes, one_peak=one_peak,
+                         tp_peak=tp_peak, one_alloc=one_alloc, tp_alloc=tp_alloc)
+    say(f"TP=2 weights on this rank {tp_bytes} bytes against {full_bytes} on one rank "
+        f"({tp_bytes / full_bytes:.4f}); allocated {tp_alloc} against {one_alloc}; peak "
+        f"during TP greedy ({PAR_TP_B} rows, {PAR_TP_NEW} new tokens) {tp_peak} bytes "
+        f"against the one-rank path's {one_peak} ({tp_peak / one_peak:.4f})")
+    del model_p
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def summed_loss_and_grads(params, config, policy, batch, mask):
+    """``loss_and_grads`` of the summed token loss: (sum, token count,
+    gradients of the sum)."""
+    from flamingo_mini_tpu_torch.models import flamingo as F
+    from flamingo_mini_tpu_torch.utils.params import trainable_leaves
+    leaves = [leaf for _, leaf in trainable_leaves(params, mask)]
+    loss = F.forward(params, config, batch["input_ids"], policy=policy,
+                     media_locations=batch["media_locations"],
+                     attention_mask=batch["attention_mask"],
+                     pixel_values=batch["pixel_values"], labels=batch["labels"],
+                     loss_reduction="none").loss.sum()
+    labels = batch["labels"]
+    return loss.detach(), labels.shape[0] * (labels.shape[1] - 1), torch.autograd.grad(
+        loss, leaves, allow_unused=True, materialize_grads=True)
+
+
+def par_train_model(dev, use_pallas=True, dtype="bfloat16"):
+    """flamingo-mini at its first MINI_LAYERS layers for the parallel
+    training and ring checks: ``dtype`` compute over float32 parameters,
+    gates 0.5, the trainable leaves requiring grad -> (model, trainable
+    mask)."""
+    from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel
+    from flamingo_mini_tpu_torch.utils.params import set_requires_grad
+    model = open_gates(FlamingoModel(FlamingoConfig(**dict(
+        MINI, lm_arch_overrides=dict(n_layer=MINI_LAYERS), use_pallas=use_pallas,
+        compute_dtype=dtype)), device=dev, seed=1))
+    mask = model.trainable_mask()
+    set_requires_grad(model.params, mask)
+    return model, mask
+
+
+def par_batch(work, dev, policy):
+    """The global training batch ``parallel_cells`` wrote, on ``dev``."""
+    batch = {k: v.to(dev) for k, v in torch.load(os.path.join(work, "batch.pt")).items()}
+    batch["pixel_values"] = policy.cast(batch["pixel_values"])
+    return batch
+
+
+def par_ring_inputs(dev, vision_arch):
+    """PAR_RING_B x PAR_RING_N tokens, two images a row (the second at
+    token 600), labels the tokens."""
+    rs = np.random.RandomState(2)
+    b, n = PAR_RING_B, PAR_RING_N
+    ids = torch.tensor(rs.randint(0, 50000, (b, n)), device=dev)
+    media = torch.zeros((b, n), dtype=torch.int32, device=dev)
+    media[:, 0] = 1
+    media[:, 600] = 1
+    pixels = torch.tensor(rs.randn(b, 2, 3, vision_arch.image_size, vision_arch.image_size),
+                          dtype=torch.float32, device=dev).to(torch.bfloat16)
+    return ids, dict(media_locations=media, pixel_values=pixels, labels=ids)
+
+
+def parallel_training(dev, rank, say, work):
+    """On each rank: two DP steps over a (2, 1) mesh and one TP step over
+    (1, 2), flamingo-mini at its first MINI_LAYERS layers (``par_train_model``),
+    use_pallas, lr 1e-3 after a 1-step warm-up (step 0 at lr 0, so both DP
+    steps see the initial parameters), the global batch of TRAIN_B x TRAIN_N
+    (4 rows a rank under DP). The rank's one-rank run on the card: the loss
+    and gradients on the global batch, and on its two halves summed in
+    float32 (what DP computes: held to 1e-6). Each step's loss and
+    gradients (TP's slices gathered) against the global one-rank run; then
+    TP's loss and gradients in float32 compute against the one-rank run in
+    float32, where no bf16 rounding lies between them. The errors are
+    returned for ``parallel_cells`` to hold; the inputs of the first DP
+    step's first trunk attention kernel call (``captured``). -> (errors,
+    counts, captured)."""
+    from flamingo_mini_tpu_torch.models import gpt2
+    from flamingo_mini_tpu_torch.train import FlamingoTrainer, TrainingArguments
+    counts, errors, cap = {}, {}, {}
+    # (label, mesh shape, TP, compute dtype, training steps)
+    runs = (("DP", (PAR_RANKS, 1), False, "bfloat16", 2),
+            ("TP", (1, PAR_RANKS), True, "bfloat16", 1),
+            ("TP float32", (1, PAR_RANKS), True, "float32", 0))
+    for label, shape, tp, dtype, steps in runs:
+        model, mask = par_train_model(dev, dtype=dtype)
+        batch = par_batch(work, dev, model.policy)
+        ref = loss_and_grads(model.params, model.config, model.policy, batch, mask)
+        if label == "DP":
+            half = TRAIN_B // PAR_RANKS
+            parts = [summed_loss_and_grads(model.params, model.config, model.policy,
+                                           {k: v[h * half:(h + 1) * half]
+                                            for k, v in batch.items()}, mask)
+                     for h in range(PAR_RANKS)]
+            count = sum(p[1] for p in parts)
+            split = (sum(p[0] for p in parts) / count,
+                     [sum(gs) / count for gs in zip(*(p[2] for p in parts))])
+        args = TrainingArguments(output_dir=os.path.join(work, f"train{rank}"),
+                                 learning_rate=TRAIN_LR, warmup_steps=1,
+                                 eval_every_steps=None, report_to="none",
+                                 mesh_shape=shape, tensor_parallel=tp)
+        trainer = FlamingoTrainer(model, args)
+        n_fa = model.config.vision_arch.num_hidden_layers + model.config.resampler_depth
+        for step in range(steps):
+            loss, grads = trainer.gradients(batch)
+            whole = [trainer.whole_leaf(n, g) for n, g in zip(trainer.trainable_names, grads)]
+            errors[f"{label} step {step} loss"] = rel_err(loss, ref[0])
+            errors[f"{label} step {step} gradients"] = grads_rel_err(whole, ref[1])
+            if label == "DP":
+                exact = (rel_err(loss, split[0]), grads_rel_err(whole, split[1]))
+                say(f"DP step {step}: loss and gradients against the one-rank run's "
+                    f"halves summed (what DP computes) {exact} (limit 1e-6)")
+                assert max(exact) <= 1e-6, exact
+            zero_counts()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with contextlib.ExitStack() as stack:
+                if label == "DP" and step == 0:
+                    stack.enter_context(captured(cap, "DP trunk", gpt2, "fused_attention"))
+                e0.record()
+                step_loss = trainer.train_step_on(batch)
+                e1.record()
+                e1.synchronize()
+            counts[f"{label} training step"] = read_counts()
+            expect(f"parallel rank {rank} {label} training step {step}",
+                   counts[f"{label} training step"],
+                   fused_attention=n_fa + MINI_LAYERS, fused_media_xattn=MINI_LAYERS)
+            say(f"{label} training step {step} (mesh {shape}): loss {step_loss}, one rank "
+                f"{float(ref[0])}; relative error of the loss "
+                f"{errors[f'{label} step {step} loss']}, of the gradients (normwise, "
+                f"{len(whole)} trainable leaves) {errors[f'{label} step {step} gradients']}; "
+                f"step {e0.elapsed_time(e1)} ms (gloo on one card: no measure of NCCL "
+                "or NVLink)")
+            assert step_loss == float(loss), (step_loss, float(loss))
+        if label == "TP float32":
+            loss, grads = trainer.gradients(batch)
+            whole = [trainer.whole_leaf(n, g) for n, g in zip(trainer.trainable_names, grads)]
+            errors["TP float32 loss"] = rel_err(loss, ref[0])
+            errors["TP float32 gradients"] = grads_rel_err(whole, ref[1])
+            say(f"TP (mesh {shape}) in float32 compute against one rank in float32: "
+                f"relative error of the loss {errors['TP float32 loss']} (loss "
+                f"{float(loss)}, one rank {float(ref[0])}), of the gradients "
+                f"{errors['TP float32 gradients']}")
+        del trainer, model, ref, grads, whole
+        torch.cuda.empty_cache()
+    return errors, counts, cap
+
+
+def parallel_ring(dev, rank, say):
+    """On each rank: flamingo-mini at its first MINI_LAYERS layers
+    (``par_train_model``) forward with its loss over ``par_ring_inputs``,
+    ``context_mesh`` over the two ranks (512 tokens a rank through ring
+    attention), the trainable gradients summed over the ranks, against the
+    rank's one-rank forward on the card; in bf16 (the launches counted, the
+    inputs of the first media-xattn kernel call ``captured``), then in
+    float32 compute. The errors of the logits, the loss and the gradients
+    are returned for ``parallel_cells`` to hold. -> (errors, counts,
+    captured)."""
+    from flamingo_mini_tpu_torch.models import xattn
+    from flamingo_mini_tpu_torch.parallel import comm, create_mesh
+    from flamingo_mini_tpu_torch.utils.params import trainable_leaves
+    mesh = create_mesh((PAR_RANKS, 1))
+    errors, counts, cap = {}, {}, {}
+    for dtype, label in (("bfloat16", "ring"), ("float32", "ring float32")):
+        model, mask = par_train_model(dev, dtype=dtype)
+        leaves = [leaf for _, leaf in trainable_leaves(model.params, mask)]
+        ids, kw = par_ring_inputs(dev, model.config.vision_arch)
+        ref = model(ids, **kw)
+        ref_grads = torch.autograd.grad(ref.loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        zero_counts()
+        with contextlib.ExitStack() as stack:
+            if dtype == "bfloat16":
+                stack.enter_context(captured(cap, "ring media", xattn, "fused_media_xattn"))
+            got = model(ids, **kw, context_mesh=mesh)
+            grads = torch.autograd.grad(got.loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        if dtype == "bfloat16":
+            counts["ring forward"] = read_counts()
+            expect(f"parallel rank {rank} ring forward with its loss and gradients",
+                   counts["ring forward"],
+                   fused_attention=model.config.vision_arch.num_hidden_layers
+                   + model.config.resampler_depth, fused_media_xattn=MINI_LAYERS)
+        grads = [comm.all_reduce(g, mesh.get_group("data")) for g in grads]
+        assert got.logits.shape == ref.logits.shape and bool(torch.isfinite(got.logits).all())
+        found = {f"{label} logits": rel_err(got.logits.detach(), ref.logits.detach()),
+                 f"{label} loss": rel_err(got.loss.detach(), ref.loss.detach()),
+                 f"{label} gradients": grads_rel_err(grads, ref_grads)}
+        say(f"ring forward ({dtype} compute) over {PAR_RING_B} x {PAR_RING_N} tokens, "
+            f"{PAR_RING_N // PAR_RANKS} a rank: relative errors against one rank {found} "
+            f"(loss {float(got.loss)} vs {float(ref.loss)})")
+        errors.update(found)
+        del model, ref, got, grads, ref_grads, leaves
+        torch.cuda.empty_cache()
+    return errors, counts, cap
+
+
+def ring_spreads(dev):
+    """The ring check's plain program's CPU-vs-card spreads (use_pallas off,
+    the one-rank forward over ``par_ring_inputs``: logits, loss, trainable
+    gradients): the card's run first (before the ranks start), then
+    ``cpu()`` runs the CPU's (while they run) -> {kind: spread}. (The bf16
+    training checks are held to 1e-2 alone, at least as tight as the rule;
+    the float32 checks are the tight ones, ``PAR_F32_LIMITS``.)"""
+    from flamingo_mini_tpu_torch.models import flamingo as F
+    from flamingo_mini_tpu_torch.ops.layers import FAST
+    from flamingo_mini_tpu_torch.utils.params import trainable_leaves, tree_map
+    model, mask = par_train_model(dev, use_pallas=False)
+    config = model.config
+    ids, kw = par_ring_inputs(dev, config.vision_arch)
+
+    def run(params, ids, kw):
+        leaves = [leaf for _, leaf in trainable_leaves(params, mask)]
+        out = F.forward(params, config, ids, policy=FAST, **kw)
+        grads = torch.autograd.grad(out.loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        return out.logits.detach().cpu(), out.loss.detach().cpu(), [g.cpu() for g in grads]
+    card = run(model.params, ids, kw)
+    cpu_params = tree_map(lambda t: t.detach().cpu().requires_grad_(t.requires_grad),
+                          model.params)
+    cpu_in = (ids.cpu(), {k: v.cpu() for k, v in kw.items()})
+    del model
+    torch.cuda.empty_cache()
+
+    def cpu():
+        t0 = time.perf_counter()
+        got = run(cpu_params, *cpu_in)
+        spreads = {"ring logits": rel_err(got[0], card[0]),
+                   "ring loss": rel_err(got[1], card[1]),
+                   "ring gradients": grads_rel_err(got[2], card[2])}
+        print(f"[phase 3] parallel: the ring program's CPU-vs-card spreads {spreads} "
+              f"({time.perf_counter() - t0:.1f} s on the CPU)")
+        return spreads
+    return cpu
+
+
+def par_kernel_rows(dev, flush, cases):
+    """The attention kernels at the inputs the ranks gave them (``captured``
+    on rank 0: its local heads under TP, its rows under DP, its 512 tokens
+    in the ring): each held to its plain version on the card by the phase-2
+    rule (2 bf16 ulps of the output's scale, ``held_to_plain``), then timed
+    beside it, the library call (SDPA; under the media mask for
+    ``fused_media_xattn``) and its bound (the keys each query needs) ->
+    {case: kernel row}."""
+    from flamingo_mini_tpu_torch.ops.fused_attention import (
+        fused_attention, fused_attention_plain)
+    from flamingo_mini_tpu_torch.ops.media_xattn import (
+        fused_media_xattn, fused_media_xattn_plain)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    on = lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t
+    out = {}
+    for key, (name, args, kw) in cases.items():
+        args, kw = [on(a) for a in args], {k: on(v) for k, v in kw.items()}
+        q, k, v = args[:3]
+        b, h, n_q, dh = q.shape
+        n_kv = k.shape[2]
+        assert dh == HEAD_DIM, (key, q.shape)
+        if name == "fused_attention":
+            kernel, plain = fused_attention, fused_attention_plain
+            lib_kw, extra, pairs = dict(scale=kw["scale"]), 0, None
+            if kw.get("causal"):
+                rb = kw.get("row_bias")
+                causal = torch.ones(n_q, n_kv, dtype=torch.bool, device=dev).tril()
+                if rb is None:
+                    lib_kw["attn_mask"] = causal
+                else:
+                    lib_kw["attn_mask"] = torch.where(
+                        causal, rb[:, None, None, :].float(), float("-inf")).to(q.dtype)
+                    extra = rb.numel() * rb.element_size()
+                pairs = b * h * n_q * (n_q + 1) // 2
+        else:
+            kernel, plain = fused_media_xattn, fused_media_xattn_plain
+            tt = args[3]
+            media_time = torch.arange(n_kv, device=dev) // kw["n_visual"] + 1
+            lib_kw = dict(scale=kw["scale"], attn_mask=(tt[:, :, None] == media_time)[:, None])
+            # each query with an image reads that image's latents
+            extra, pairs = 4 * tt.numel(), h * kw["n_visual"] * int((tt > 0).sum())
+        err = held_to_plain(f"{name} at {key} {tuple(q.shape)}, {n_kv} keys",
+                            kernel(*args, **kw), plain(*args, **kw), q.dtype)
+        ms = time_ms(lambda: kernel(*args, **kw), 50, flush)
+        plain_ms = time_ms(lambda: plain(*args, **kw), 20, flush)
+        library_ms = time_ms(lambda: sdpa(q, k, v, **lib_kw), 50, flush)
+        bound_ms, bound_by = attention_bound(b, h, n_q, n_kv, q.element_size(), extra, pairs)
+        out[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, max_abs_err=err)
+        print(f"[phase 2] {name} at {key} (rank 0's inputs: {tuple(q.shape)} q, {n_kv} "
+              f"keys, {q.dtype}): max abs err against plain {err} (2 bf16 ulps of the "
+              f"output's scale); {ms} ms, plain {plain_ms} ms, scaled_dot_product_attention "
+              f"{library_ms} ms, bound {bound_ms:.5f} ms ({bound_by}) (median per call, "
+              "L2 flushed)")
+    return out
+
+
+def par_decode_rows(dev, flush):
+    """The DP ranks' decode kernels at a rank's rows (PAR_B / PAR_RANKS):
+    ``decode_attention`` and ``lm_head_argmax`` by their phase-2 checks and
+    timing at that batch, the megakernel by ``mega_timed`` (its plain
+    version, about 0.25 s a call, timed over 5) -> {kernel: kernel row}."""
+    b = PAR_B // PAR_RANKS
+    return {"decode_attention": phase2_decode_attention(dev, flush, b=b),
+            "lm_head_argmax": phase2_lm_head(dev, flush, B=b),
+            "decode_step_megakernel": mega_timed(dev, flush, b, plain_iters=5)}
+
+
+def parallel_rank(rank, port, work):
+    """One of the two ranks of ``parallel_cells`` (a process of its own):
+    gloo on the one card, then serving, training and ring attention; its
+    outputs to ``work/rank<r>.pt``. Any failure raises: a nonzero exit."""
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    import torch.distributed as dist
+    from flamingo_mini_tpu_torch.parallel import distributed_init
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    # NCCL refuses two ranks on one card: gloo, staged through host memory
+    distributed_init(f"127.0.0.1:{port}", PAR_RANKS, rank, backend="gloo",
+                     timeout=PAR_TIMEOUT)
+
+    t0 = time.perf_counter()
+
+    def say(msg):
+        print(f"[parallel rank {rank}, {time.perf_counter() - t0:.1f} s] {msg}", flush=True)
+    out = {}
+    served, counts = parallel_serving(dev, rank, say)
+    out.update(served)
+    say("serving done")
+    errors, trained, cap_train = parallel_training(dev, rank, say, work)
+    say("training done")
+    ring_errors, ring, cap_ring = parallel_ring(dev, rank, say)
+    say("ring done")
+    out["errors"] = {**errors, **ring_errors}
+    out["counts"] = {**counts, **trained, **ring}
+    out["captured"].update({**cap_train, **cap_ring})
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def parallel_limit(name: str, spreads) -> tuple:
+    """The limit of a parallel check's relative error against one rank ->
+    (limit, how it was set): a float32 check's ``PAR_F32_LIMITS``; a bf16
+    one's the larger of 1e-2 and 1.25 x the plain program's CPU-vs-card
+    spread, where one was taken."""
+    if "float32" in name:
+        return PAR_F32_LIMITS[name.split()[-1]], "float32 compute"
+    spread = spreads.get(name)
+    how = (f"the larger of 1e-2 and 1.25 x the plain program's CPU-vs-card spread, "
+           f"{'not taken' if spread is None else spread}")
+    return max(1e-2, 1.25 * (spread or 0.0)), how
+
+
+def parallel_cells(dev, card, vocab_dir):
+    """Phase 3 and 4 of the parallel tier on the one card: the kernels are
+    built (phase 1), so the ranks load the library from ``build/`` and
+    never build; the global training batch (DataCollator over the synthetic
+    vocabulary) is written for them; gloo's probe, whose every op that does
+    not run natively on CUDA tensors must be one ``comm.py`` stages; two
+    ranks start by ``spawn`` (CUDA does not survive ``fork``) and run
+    ``parallel_rank``; a rank that fails or outlasts PAR_TIMEOUT fails the
+    run. Every rank's tokens must be the same, and every error against one
+    rank within ``parallel_limit``. Then the kernels at the ranks' shapes
+    (``par_kernel_rows``, ``par_decode_rows``). -> (rank 0's launch counts
+    per path, the kernel rows at the ranks' shapes)."""
+    from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoProcessor
+    from flamingo_mini_tpu_torch.parallel.comm import GLOO_CUDA_OPS
+    from flamingo_mini_tpu_torch.tokenizer import BPETokenizer
+    from flamingo_mini_tpu_torch.train import DataCollator, SyntheticCaptionDataset
+    stamp("parallel cells start")
+    work = tempfile.mkdtemp(dir=os.path.join(REPO, "build"))
+    config = FlamingoConfig(**MINI)
+    proc = FlamingoProcessor(config, tokenizer=BPETokenizer.gpt2(vocab_dir), device="cpu")
+    ds = SyntheticCaptionDataset(size=TRAIN_B)
+    host = DataCollator(proc, length=TRAIN_N)([ds[i] for i in range(TRAIN_B)])
+    torch.save({k: torch.as_tensor(v) for k, v in host.items()},
+               os.path.join(work, "batch.pt"))
+    probe = gloo_probe(work)
+    cpu_spreads = ring_spreads(dev)
+    torch.cuda.empty_cache()
+    procs = start_ranks(parallel_rank, work)
+    deadline = time.monotonic() + PAR_TIMEOUT
+    stamp("parallel ranks started")
+    spreads = cpu_spreads()                 # on the host while the ranks run
+    stamp("parallel CPU spreads done")
+    found = probe()
+    unstaged = [op for op, got in found.items() if got != "native"
+                and set(GLOO_PROBE_COMM[op]) & GLOO_CUDA_OPS]
+    print(f"[phase 3] parallel: gloo on CUDA tensors between two processes on the card: "
+          f"{found}; comm.py stages every op outside {sorted(GLOO_CUDA_OPS)} through "
+          f"pinned host memory, so every op that is not native here is staged: "
+          f"{not unstaged}", flush=True)
+    codes, late = join_ranks(procs, deadline)
+    assert not unstaged, f"gloo does not take {unstaged} on CUDA tensors, and comm.py " \
+        "does not stage them"
+    assert not late and codes == [0] * PAR_RANKS, \
+        f"parallel ranks: exit codes {codes}{' (past the time limit)' if late else ''}"
+    outs = [torch.load(os.path.join(work, f"rank{r}.pt")) for r in range(PAR_RANKS)]
+    shutil.rmtree(work, ignore_errors=True)
+    for key in ("DP megakernel", "DP per layer", "DP sampling", "TP greedy", "TP beams"):
+        assert torch.equal(outs[0][key], outs[1][key]), key
+    for r, out in enumerate(outs):
+        for name, err in out["errors"].items():
+            limit, how = parallel_limit(name, spreads)
+            print(f"[phase 3] parallel rank {r} {name}: relative error against one rank "
+                  f"{err} (limit {limit}: {how})")
+            assert err <= limit, (r, name, err, limit)
+    print("[phase 3] parallel: every rank returned the same tokens on every path")
+    for r, out in enumerate(outs):
+        for path, c in out["counts"].items():
+            print(f"[phase 3] parallel rank {r} {path} launches: "
+                  f"{ {k: v for k, v in c.items() if v} }")
+        m = out["memory"]
+        print(f"[phase 4] {card}: parallel rank {r} TP=2 weights {m['tp_bytes']} bytes vs "
+              f"{m['full_bytes']} one rank ({m['tp_bytes'] / m['full_bytes']:.4f}); peak "
+              f"memory during TP greedy {m['tp_peak'] / 2**30:.3f} GiB vs "
+              f"{m['one_peak'] / 2**30:.3f} GiB one rank "
+              f"({m['tp_peak'] / m['one_peak']:.4f}); megakernel generate "
+              f"{PAR_B // PAR_RANKS} rows alone {out['mega generate ms'][0]} ms, beside "
+              f"the other rank {out['mega generate ms'][1]} ms")
+    stamp("parallel cells checked")
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    rows = {**par_kernel_rows(dev, flush, outs[0]["captured"]), **par_decode_rows(dev, flush)}
+    del flush
+    torch.cuda.empty_cache()
+    stamp("parallel cells done")
+    return outs[0]["counts"], rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -4439,6 +5192,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         # phase 3 and 4 of training: flamingo-mini and the OPT-125m recipe
         train_counts = training_cells(dev, card, vocab_dir)
+        # phase 3 and 4 of the parallel tier: two ranks on the one card
+        par_counts, par_rows = parallel_cells(dev, card, vocab_dir)
 
     # phase 3 and 4 of the OPT cells
     stamp("OPT cells start")
@@ -4576,6 +5331,40 @@ def main() -> int:
             ("fused_media_xattn (training step, OPT-125m recipe)", "media_xattn_sm90.cuh",
              "flamingo_mini_tpu/ops/pallas_xattn.py:122",
              train_counts["OPT-125m recipe"]["fused_media_xattn"], mx["forward"]),
+            ("decode_step_megakernel (DP greedy over 2 ranks on the card, 16 rows a "
+             "rank: launches per rank; times at 16 rows)", "decode_megakernel_sm90.cuh",
+             "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
+             par_counts["DP megakernel"]["decode_step_megakernel"],
+             par_rows["decode_step_megakernel"]),
+            ("decode_step_megakernel (DP top-k 50 sampling over 2 ranks: launches per "
+             "rank; times at 16 rows)", "decode_megakernel_sm90.cuh",
+             "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
+             par_counts["DP sampling"]["decode_step_megakernel"],
+             par_rows["decode_step_megakernel"]),
+            ("lm_head_argmax (DP greedy over 2 ranks, megakernel path: launches per rank; "
+             "times at 16 rows)", "lm_head_argmax.cu",
+             "flamingo_mini_tpu/ops/pallas_lmhead.py:71",
+             par_counts["DP megakernel"]["lm_head_argmax"], par_rows["lm_head_argmax"]),
+            ("decode_attention (DP greedy per layer over 2 ranks: launches per rank; "
+             "times at 16 rows)", "decode_attention.cu",
+             "flamingo_mini_tpu/ops/pallas_decode.py:153",
+             par_counts["DP per layer"]["decode_attention"], par_rows["decode_attention"]),
+            ("fused_attention (TP=2 greedy and beams, a rank's 8 of 16 heads: launches "
+             "per rank per generate; times at rank 0's ViT inputs)", "attention_sm90.cuh",
+             "flamingo_mini_tpu/ops/pallas_attn.py:270",
+             par_counts["TP greedy"]["fused_attention"], par_rows["TP ViT"]),
+            ("fused_media_xattn (TP=2 prefill, a rank's 4 of 8 heads: launches per rank "
+             "per generate; times at rank 0's inputs)", "media_xattn_sm90.cuh",
+             "flamingo_mini_tpu/ops/pallas_xattn.py:122",
+             par_counts["TP greedy"]["fused_media_xattn"], par_rows["TP media prefill"]),
+            ("fused_attention (DP training step over 2 ranks, 4 rows a rank: launches per "
+             "rank; times at rank 0's trunk inputs)", "attention_sm90.cuh",
+             "flamingo_mini_tpu/ops/pallas_attn.py:270",
+             par_counts["DP training step"]["fused_attention"], par_rows["DP trunk"]),
+            ("fused_media_xattn (ring forward over 2 ranks, 512 tokens a rank: launches "
+             "per rank; times at rank 0's inputs)", "media_xattn_sm90.cuh",
+             "flamingo_mini_tpu/ops/pallas_xattn.py:122",
+             par_counts["ring forward"]["fused_media_xattn"], par_rows["ring media"]),
             ("stream_sum (bandwidth probe)", "stream_probe.cu",
              "tools/probe_stream.py:24", stream["launches"], stream),
             ("attn_stream_only (decode stream probe, b-major cache)",

@@ -59,7 +59,7 @@ from .generation import (DecodeConfig, _log_softmax, _mega_hidden,
                          _mega_prepare, _prefill, _stop, check_mega_fits,
                          process_logits, warp)
 from .models import flamingo
-from .ops.layers import Policy
+from .ops.layers import Policy, rand
 from .ops.topk import top_k as _top_k
 
 Params = Dict[str, Any]
@@ -81,9 +81,10 @@ def select_candidates(flat: torch.Tensor, n: int,
 
 def uniform_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
     """Beam-sample's float32 U, uniform on [1e-20, 1) from ``generator``, as
-    ``jax.random.uniform(key, shape, minval=1e-20)`` draws it. Looked up at
+    ``jax.random.uniform(key, shape, minval=1e-20)`` draws it (a data
+    rank's rows of the whole batch's draw: ``layers.rand``). Looked up at
     call time, so that a test can feed other noise through."""
-    u = torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+    u = rand(shape, generator, device)
     return u.clamp_min(1e-20)
 
 

@@ -39,10 +39,16 @@ Generated tokens see ``text_time`` = the prompt's media count. Prompts must
 be unpadded or left-padded. Pixels of one prompt may come 4-D, ``(N c h w)``;
 they are viewed as ``(1, N, c, h, w)`` before any row is repeated. The loop
 is a Python loop; it checks the all-EOS exit once per step.
+
+``generate_on_mesh`` is JAX's ``generate(mesh=..., tensor_parallel=...)``
+dispatch over a ``DeviceMesh`` of one process per rank: each data rank runs
+``generate_impl`` on its rows (whose decode is independent of the other
+rows') and the rows are gathered; with ``tensor_parallel`` each model rank
+computes its heads over its slice of the weights.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Dict, Optional
 
 import torch
@@ -50,9 +56,11 @@ import torch
 from .configuration_flamingo import FlamingoConfig
 from .models import flamingo, gpt2
 from .ops import lm_head, megadecode
-from .ops.layers import Policy, layer_norm
+from .ops.layers import Policy, drawn_rows, layer_norm, rand
 from .ops.lm_head import lm_head_argmax, pad_head_weights
 from .ops.quant import quantize_kv_pair
+from .parallel import comm
+from .parallel.mesh import axis_size
 
 Params = Dict[str, Any]
 HEAD_BLOCK_V = 2048
@@ -240,7 +248,7 @@ def _prefill(params: Params, config: FlamingoConfig, dc: DecodeConfig,
                                     policy=policy)
     kc, vc, cache = flamingo.trunk(config).init_cache(
         config.lm_arch, b, dc.max_length, policy.dtype, dev,
-        int8=dc.int8_kv_cache, flat=flat)
+        int8=dc.int8_kv_cache, flat=flat, shards=policy.tp_size)
     # position ids from the attention mask (pads do not advance positions)
     pos = torch.clamp(torch.cumsum(attention_mask.to(torch.int32), dim=-1) - 1,
                       min=0)
@@ -513,9 +521,10 @@ def _logits_chain_is_identity(dc: DecodeConfig) -> bool:
 
 def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
     """Standard Gumbel noise ``-log(-log(U))`` in float32, U uniform on
-    [tiny, 1) from ``generator``, as ``jax.random.gumbel`` draws it. Looked
-    up at call time, so that a test can feed other noise through."""
-    u = torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+    [tiny, 1) from ``generator``, as ``jax.random.gumbel`` draws it (a data
+    rank's rows of the whole batch's draw: ``layers.rand``). Looked up at
+    call time, so that a test can feed other noise through."""
+    u = rand(shape, generator, device)
     return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
 
 
@@ -753,3 +762,75 @@ def generate_impl(params: Params, config: FlamingoConfig, dc: DecodeConfig,
     out = (st["tokens"],) + tuple(
         s for s in (scores, step_scores) if s is not None)
     return out[0] if len(out) == 1 else out
+
+
+def generate_on_mesh(params: Params, config: FlamingoConfig, dc: DecodeConfig,
+                     policy: Policy, input_ids: torch.Tensor,
+                     media_locations: torch.Tensor, attention_mask: torch.Tensor,
+                     visual_features: Optional[torch.Tensor] = None,
+                     pixel_values: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None, *, mesh,
+                     tensor_parallel: bool = False):
+    """``generate_impl`` over ``mesh`` (a ``DeviceMesh`` whose first axis is
+    the data axis, unless it is a ``model`` axis alone), JAX's mesh dispatch
+    (``generation.py:876-921``). Every rank passes the whole batch and gets
+    the whole result back.
+
+    * A one-rank mesh is no mesh.
+    * Sampled ``num_return_sequences`` repeat the rows first, as in JAX.
+    * Greedy and sampling over the flat cache or the megakernel, where the
+      data axis divides the batch, run the whole one-device program on the
+      rank's rows: the megakernel, ``decode_attention`` and the fused head.
+      Beams, constrained and contrastive search, and tensor parallelism, run
+      with ``flat_kv_cache``, ``megakernel`` and ``w8a8`` cleared.
+    * A batch the data axis does not divide raises ``ValueError``.
+    * ``tensor_parallel``: ``params`` are the rank's slice on the mesh's
+      ``model`` axis, the vocab padded to it (``FlamingoModel.shard_``).
+    * Sampling: each data rank draws the whole batch's noise from
+      ``generator`` and keeps its rows (``layers.drawn_rows``), so the result
+      is the one-device run's. JAX folds the data index into each shard's
+      key (``generation.py:962-967``) instead; a ``torch.Generator`` cannot
+      reproduce that draw, so its samples are not matched bit for bit.
+
+    Then the rows are gathered over the data axis."""
+    if mesh.size() == 1:
+        return generate_impl(params, config, dc, policy, input_ids,
+                             media_locations, attention_mask, visual_features,
+                             pixel_values, generator)
+    if pixel_values is not None and pixel_values.ndim == 4:
+        pixel_values = pixel_values[None]
+    nrs = dc.num_return_sequences
+    if nrs > 1 and dc.num_beams == 1 and dc.do_sample:
+        rep = lambda x: None if x is None else x.repeat_interleave(nrs, dim=0)
+        input_ids, media_locations, attention_mask = (
+            rep(input_ids), rep(media_locations), rep(attention_mask))
+        visual_features, pixel_values = rep(visual_features), rep(pixel_values)
+        dc = replace(dc, num_return_sequences=1)
+    data_axis = mesh.mesh_dim_names[0]
+    if data_axis == "model":     # a model axis alone: every rank all rows
+        data_axis = None
+    n_data = 1 if data_axis is None else axis_size(mesh, data_axis)
+    b = input_ids.shape[0]
+    if dc.flat_kv_cache or dc.megakernel:
+        per_rank = (not tensor_parallel and dc.num_beams == 1
+                    and dc.force_words_ids is None and dc.penalty_alpha == 0.0
+                    and b % n_data == 0)
+        if not per_rank:
+            dc = replace(dc, flat_kv_cache=False, megakernel=False, w8a8=False)
+    if b % n_data != 0:
+        raise ValueError(f"batch {b} not divisible by the mesh data axis ({n_data})")
+    if tensor_parallel:
+        policy = replace(policy, tp=mesh.get_group("model"))
+    rank = 0 if data_axis is None else mesh.get_local_rank(data_axis)
+    n = b // n_data
+    rows = lambda x: None if x is None else x[rank * n:(rank + 1) * n]
+    with drawn_rows(rank, n_data):
+        out = generate_impl(params, config, dc, policy, rows(input_ids),
+                            rows(media_locations), rows(attention_mask),
+                            rows(visual_features), rows(pixel_values), generator)
+    if data_axis is None:
+        return out
+    data_group = mesh.get_group(data_axis)
+    if isinstance(out, tuple):
+        return tuple(comm.all_gather(x, data_group) for x in out)
+    return comm.all_gather(out, data_group)

@@ -13,7 +13,11 @@ over a GPT-2 or OPT trunk, per layer or through the whole-step megakernel
 (weight-only or w8a8), constrained beams and contrastive search per layer;
 ``generate_captions`` (images and a prompt in, caption strings out, through
 a ``FlamingoProcessor``); ``score_sequences``; the uncached forward with
-its loss; and the freeze masks. The policy follows ``compute_dtype`` and
+its loss; and the freeze masks. Over a ``DeviceMesh`` of one process per
+rank (``parallel.create_mesh``): data- and tensor-parallel ``generate``
+(``mesh``, ``tensor_parallel``; ``shard_`` keeps only the rank's slice of
+the weights) and the forward with the sequence split over the ranks
+(``context_mesh``). The policy follows ``compute_dtype`` and
 ``use_pallas`` (bf16 with ``use_pallas``: the attention kernels). Holds
 (config, params, policy, device); params are a nested dict of tensors in
 the JAX package's layout. The model runs on the card unless the caller
@@ -30,10 +34,14 @@ import torch
 
 from .configuration_flamingo import FlamingoConfig
 from .flamingo_processor import FlamingoProcessor
-from .generation import DecodeConfig, generate_impl
+from .generation import DecodeConfig, generate_impl, generate_on_mesh
 from .models import flamingo as F
 from .models.clip_vit import init_clip_vit
 from .ops.layers import Policy, policy_for
+from .parallel import comm
+from .parallel.mesh import axis_size
+from .parallel.sharding import (check_tensor_parallel, leaf_splits,
+                                pad_vocab_params, shard_params)
 from .ops.quant import (cast_params_bf16, quantize_gpt2_lm, quantize_opt_lm,
                         quantize_xattn_blocks)
 from .scoring import score_sequences as _score_sequences
@@ -131,6 +139,9 @@ class FlamingoModel:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = F.init_flamingo(gen, config)
         self.params = param_utils.tree_map(lambda t: t.to(self.device), params)
+        # (rank, size) on the model axis and the whole tree's splits, once
+        # ``shard_`` sliced the weights
+        self.tp_shard, self.tp_splits = None, None
 
     # -- registry --------------------------------------------------------
     _LANGUAGE_MODEL_PREFIXES = ("gpt2", "facebook/opt")
@@ -276,6 +287,42 @@ class FlamingoModel:
         self.params["xattn"] = quantize_xattn_blocks(self.params["xattn"])
         return self
 
+    def shard_(self, mesh) -> "FlamingoModel":
+        """Keep only this rank's tensor-parallel slice of the weights on
+        ``mesh``'s ``model`` axis (the vocab padded to it first), in place,
+        so that the rank holds its share of the memory;
+        ``generate(mesh=..., tensor_parallel=True)`` and a tensor-parallel
+        trainer run on it (the first such call shards a whole model), and
+        the other paths refuse it. ``tp_splits``: every leaf's (spec, packed
+        projections) in the whole padded tree, for gathering it back. A
+        ``model`` axis of one rank, or widths it does not divide
+        (``check_tensor_parallel``), raise ``ValueError``; so does a model
+        already sharded over another axis."""
+        n = axis_size(mesh, "model")
+        if n <= 1:
+            sizes = {name: axis_size(mesh, name) for name in mesh.mesh_dim_names}
+            raise ValueError("tensor_parallel=True needs a mesh with a 'model' "
+                             f"axis of size > 1, got axes {sizes}")
+        r = comm.rank(mesh.get_group("model"))
+        if self.tp_shard is not None:
+            if self.tp_shard != (r, n):
+                raise ValueError(f"this model holds rank {self.tp_shard[0]} of "
+                                 f"{self.tp_shard[1]}'s tensor-parallel slice, not "
+                                 f"rank {r} of {n}'s")
+            return self
+        check_tensor_parallel(self.config, n)
+        padded = pad_vocab_params(self.params, n)
+        self.tp_splits = leaf_splits(padded, n)
+        self.params = shard_params(padded, r, n)
+        self.tp_shard = (r, n)
+        return self
+
+    def _whole(self, what: str) -> None:
+        if self.tp_shard is not None:
+            raise ValueError(f"{what} needs the whole weights: this model holds "
+                             f"rank {self.tp_shard[0]} of {self.tp_shard[1]}'s "
+                             "tensor-parallel slice")
+
     def __call__(self, input_ids, **kw) -> F.FlamingoOutput:
         return self.forward(input_ids, **kw)
 
@@ -285,10 +332,15 @@ class FlamingoModel:
                 context_mesh=None) -> F.FlamingoOutput:
         """The uncached forward -> ``FlamingoOutput(logits, loss, xattn_kv)``;
         ``loss`` is the shifted cross-entropy when ``labels`` are given.
-        Context parallelism (``context_mesh``) is not ported yet and
-        raises ``NotImplementedError``."""
-        if context_mesh is not None:
-            raise NotImplementedError("context_mesh (ring attention) is not ported")
+        ``context_mesh``: context parallelism over the mesh's first (data)
+        axis, every rank with the same inputs: the sequence split in chunks
+        over its ranks, every LM self-attention through ring attention, and
+        every rank gets the whole output back (``models.flamingo.forward``'s
+        ``ring``). The sequence length must divide by the axis' size."""
+        self._whole("forward")
+        ring = None
+        if context_mesh is not None and context_mesh.size() > 1:
+            ring = context_mesh.get_group(context_mesh.mesh_dim_names[0])
         dev = self.device
 
         def put(x, dtype=None):
@@ -298,7 +350,8 @@ class FlamingoModel:
             policy=self.policy, media_locations=put(media_locations, torch.int32),
             attention_mask=put(attention_mask, torch.int32),
             pixel_values=put(pixel_values), visual_features=put(visual_features),
-            labels=put(labels, torch.long), loss_reduction=loss_reduction)
+            labels=put(labels, torch.long), loss_reduction=loss_reduction,
+            ring=ring)
 
     def encode_resample_visuals(self, pixel_values) -> torch.Tensor:
         """Pixels -> resampled visual features (b, N, q, d_visual)."""
@@ -331,7 +384,8 @@ class FlamingoModel:
                  beam_reorder: str = "lazy", flat_kv_cache: bool = True,
                  megakernel: bool = False, w8a8: bool = False,
                  fused_head: bool = True, return_scores: bool = False,
-                 output_scores: bool = False, **unsupported):
+                 output_scores: bool = False, mesh=None,
+                 tensor_parallel: bool = False, **unsupported):
         """Token ids (b, max_length): prompt, generated tokens, pads after
         EOS. Greedy; sampling with ``do_sample`` (HF's warpers: temperature,
         ``top_k``, ``top_p``, ``min_p``, ``typical_p``, ``epsilon_cutoff``,
@@ -381,8 +435,17 @@ class FlamingoModel:
         ``ValueError``). ``pixel_values`` of one prompt may be 4-D, ``(N c
         h w)``. Constrained and contrastive search run per layer over the
         head-major cache, as in JAX: with ``megakernel`` they raise
-        ``ValueError``. Not ported yet, raising ``NotImplementedError``:
-        ``mesh``, ``tensor_parallel`` or any other JAX option."""
+        ``ValueError``.
+
+        ``mesh`` (a ``DeviceMesh``, ``parallel.create_mesh``; one process per
+        rank, each passing the whole batch and getting the whole result):
+        data-parallel serving over its first axis, and with
+        ``tensor_parallel`` the weights split over its ``model`` axis (the
+        first such call keeps only the rank's slice, ``shard_``;
+        ``generation.generate_on_mesh``, JAX's dispatch: greedy and sampling
+        keep the megakernel and the fused head per data rank; beams,
+        constrained and contrastive search and tensor parallelism run
+        without them). Any other JAX option raises ``NotImplementedError``."""
         if unsupported:
             raise NotImplementedError(
                 f"generate options not ported yet: {sorted(unsupported)}")
@@ -451,6 +514,16 @@ class FlamingoModel:
             num_beam_groups=num_beam_groups, diversity_penalty=diversity_penalty,
             beam_reorder=beam_reorder, return_scores=return_scores,
             output_scores=output_scores)
+        if mesh is not None:
+            if tensor_parallel and mesh.size() > 1:
+                self.shard_(mesh)
+            else:
+                self._whole("generate without tensor_parallel")
+            return generate_on_mesh(
+                self.params, self.config, dc, self.policy, ids, media, mask,
+                visual_features=visual_features, pixel_values=pixel_values,
+                generator=generator, mesh=mesh, tensor_parallel=tensor_parallel)
+        self._whole("generate without a mesh")
         return generate_impl(self.params, self.config, dc, self.policy, ids,
                              media, mask, visual_features=visual_features,
                              pixel_values=pixel_values, generator=generator)

@@ -5,7 +5,9 @@ The patch convolution is patch extraction by reshape followed by one GEMM
 JAX package. Returns HF ``last_hidden_state`` (no post_layernorm). Under a
 ``pallas`` policy the self-attention is ``fused_attention`` on unscaled q,
 the scale applied to the float32 scores inside the kernel; otherwise
-``attend`` on q pre-scaled in the compute dtype.
+``attend`` on q pre-scaled in the compute dtype. With a model group
+(``policy.tp``) a rank computes its heads: q/k/v and fc1 column-parallel,
+out_proj and fc2 row-parallel.
 """
 from __future__ import annotations
 
@@ -16,8 +18,9 @@ import torch
 from ..configuration_flamingo import CLIPViTArch
 from ..ops.attention import attend, merge_heads, split_heads
 from ..ops.fused_attention import fused_attention
-from ..ops.layers import (Policy, const, get_activation, init_layer_norm,
-                          init_linear, layer_norm, linear, normal)
+from ..ops.layers import (Policy, column_linear, const, get_activation,
+                          init_layer_norm, init_linear, layer_norm, linear,
+                          normal, row_linear)
 
 Params = Dict[str, Any]
 
@@ -63,8 +66,8 @@ def apply_clip_vit(p: Params, pixel_values: torch.Tensor, *,
     b = pixel_values.shape[0]
     d = arch.hidden_size
     eps = arch.layer_norm_epsilon
-    n_head = arch.num_attention_heads
-    scale = (d // n_head) ** -0.5
+    scale = (d // arch.num_attention_heads) ** -0.5
+    n_head, tp = policy.local_heads(arch.num_attention_heads), policy.tp
 
     patches = patchify(policy.cast(pixel_values), arch.patch_size)
     x = linear(patches, p["patch_embedding"])
@@ -77,17 +80,16 @@ def apply_clip_vit(p: Params, pixel_values: torch.Tensor, *,
     for bp in p["layers"]:
         residual = x
         h = layer_norm(x, bp["ln_1"], eps)
-        q = split_heads(linear(h, bp["q_proj"]), n_head)
-        k = split_heads(linear(h, bp["k_proj"]), n_head)
-        v = split_heads(linear(h, bp["v_proj"]), n_head)
+        q, k, v = (split_heads(column_linear(h, bp[name], tp), n_head)
+                   for name in ("q_proj", "k_proj", "v_proj"))
         if policy.pallas:
             out = fused_attention(q, k, v, scale=scale)
         else:
             out = attend(q * const(scale, h.dtype), k, v)
-        x = residual + linear(merge_heads(out), bp["out_proj"])
+        x = residual + row_linear(merge_heads(out), bp["out_proj"], tp)
 
         residual = x
         h = layer_norm(x, bp["ln_2"], eps)
-        h = act(linear(h, bp["fc1"]))
-        x = residual + linear(h, bp["fc2"])
+        h = act(column_linear(h, bp["fc1"], tp))
+        x = residual + row_linear(h, bp["fc2"], tp)
     return x

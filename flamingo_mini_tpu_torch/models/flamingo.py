@@ -8,6 +8,13 @@ cross-entropy (training, scoring, eval loss); ``dropout_generator`` turns
 on the trunk's training-mode dropout. The vision tower runs under
 ``torch.no_grad()``: it never trains, whatever the freeze flags (JAX's
 ``stop_gradient``).
+
+A policy with a model group (``policy.tp``) runs every module on the
+rank's slice of the parameters (``parallel/sharding.py``). ``forward(...,
+ring=group)`` splits the sequence over a process group (context
+parallelism, JAX's ``context_mesh``): positions and ``text_time`` from the
+whole sequence, each rank's chunk through the trunk with ring attention,
+the logits gathered.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import torch
 
 from ..configuration_flamingo import FlamingoConfig
 from ..ops.layers import Policy
+from ..parallel import comm
 from . import clip_vit, gpt2, opt
 from .resampler import apply_resampler, init_resampler
 from .xattn import (KV, apply_gated_xattn_block, compute_visual_kv,
@@ -111,7 +119,7 @@ def compute_xattn_kv(params: Params, config: FlamingoConfig,
     constant over the decode steps."""
     visual_features = policy.cast(visual_features)
     return {idx: compute_visual_kv(block["attn"], visual_features,
-                                   heads=config.xattn_heads)
+                                   heads=config.xattn_heads, tp=policy.tp)
             for idx, block in params["xattn"].items()}
 
 
@@ -137,28 +145,30 @@ def apply_lm(params: Params, config: FlamingoConfig, input_ids: torch.Tensor,
              position_ids: Optional[torch.Tensor] = None, cache=None,
              cache_index: Optional[int] = None, kv_limit: Optional[int] = None,
              skip_head: bool = False, beam_anc: Optional[torch.Tensor] = None,
-             dropout_generator: Optional[torch.Generator] = None
+             dropout_generator: Optional[torch.Generator] = None, ring=None
              ) -> Tuple[Optional[torch.Tensor], Any, torch.Tensor]:
     """Trunk + tied head -> (logits or None with ``skip_head``, cache,
     the trunk's output: the hidden rows the head reads). ``beam_anc``: the
     lazy-beam ancestry table of a decode step (``gpt2.apply_gpt2``);
-    ``dropout_generator``: the trunk's training-mode dropout."""
+    ``dropout_generator``: the trunk's training-mode dropout; ``ring``: the
+    tokens are a chunk of a sequence split over that group."""
     apply = gpt2.apply_gpt2 if lm_family(config) == "gpt2" else opt.apply_opt
     hidden, cache = apply(
         params["lm"], input_ids, arch=config.lm_arch, policy=policy,
         position_ids=position_ids, attention_mask=attention_mask,
         layer_hook=layer_hook, cache=cache, cache_index=cache_index,
-        kv_limit=kv_limit, beam_anc=beam_anc, dropout_generator=dropout_generator)
-    logits = None if skip_head else lm_head(params, config, hidden)
+        kv_limit=kv_limit, beam_anc=beam_anc, dropout_generator=dropout_generator,
+        ring=ring)
+    logits = None if skip_head else lm_head(params, config, hidden, policy.tp)
     return logits, cache, hidden
 
 
-def lm_head(params: Params, config: FlamingoConfig,
-            hidden: torch.Tensor) -> torch.Tensor:
+def lm_head(params: Params, config: FlamingoConfig, hidden: torch.Tensor,
+            tp=None) -> torch.Tensor:
     """The family's tied head, the ``<EOC>`` row included and padded vocab
-    rows masked."""
+    rows masked (dropped over a model group ``tp``)."""
     return trunk(config).lm_head(params["lm"], hidden,
-                                 n_valid=config.lm_arch.vocab_size + 1)
+                                 n_valid=config.lm_arch.vocab_size + 1, tp=tp)
 
 
 @dataclass
@@ -175,13 +185,22 @@ def forward(params: Params, config: FlamingoConfig, input_ids: torch.Tensor,
             visual_features: Optional[torch.Tensor] = None,
             labels: Optional[torch.Tensor] = None,
             loss_reduction: str = "mean",
-            dropout_generator: Optional[torch.Generator] = None) -> FlamingoOutput:
+            dropout_generator: Optional[torch.Generator] = None,
+            ring=None) -> FlamingoOutput:
     """The uncached full-sequence forward: visual encode + resample (unless
     features are given; without either, zero features and no media),
     per-layer conditioning, trunk, tied head, and the shifted cross-entropy
     when ``labels`` are given. input_ids, media_locations, attention_mask,
     labels: (b, n). ``dropout_generator`` (a ``torch.Generator`` on the
-    inputs' device) turns on the trunk's dropout; None is evaluation."""
+    inputs' device) turns on the trunk's dropout; None is evaluation.
+
+    ``ring``: a process group of n ranks, each with the same inputs, over
+    which the sequence (n dividing it) is split in contiguous chunks:
+    positions and ``text_time`` are taken on the whole sequence, then each
+    rank runs its chunk through the trunk with ring attention, and the
+    logits are gathered, so every rank returns the whole output. The
+    gradient a rank's loss gives a parameter is that rank's share: their
+    sum over the group is the gradient of the loss."""
     b, n = input_ids.shape
     dev = input_ids.device
     if visual_features is None:
@@ -196,10 +215,29 @@ def forward(params: Params, config: FlamingoConfig, input_ids: torch.Tensor,
         media_locations = torch.zeros((b, n), dtype=torch.int32, device=dev)
     text_time = torch.cumsum(media_locations.to(torch.int32), dim=-1)
     xattn_kv = compute_xattn_kv(params, config, visual_features, policy=policy)
+    ids, mask, positions = input_ids, attention_mask, None
+    if ring is not None:
+        n_rank = comm.size(ring)
+        if n % n_rank:
+            raise ValueError(f"sequence {n} not divisible by the {n_rank} "
+                             "ranks of the context group")
+        chunk = slice(comm.rank(ring) * (n // n_rank), (comm.rank(ring) + 1) * (n // n_rank))
+        if lm_family(config) == "gpt2":
+            positions = torch.arange(n, device=dev)[None].expand(b, n)
+        else:
+            full = (attention_mask if attention_mask is not None
+                    else torch.ones((b, n), dtype=torch.int32, device=dev))
+            positions = opt.opt_position_ids(full)
+        ids, positions, text_time = (x[:, chunk] for x in (input_ids, positions,
+                                                            text_time))
+        mask = None if attention_mask is None else attention_mask[:, chunk]
     hook = make_layer_hook(params, config, xattn_kv, text_time, policy=policy)
-    logits, _, _ = apply_lm(params, config, input_ids, policy=policy,
-                            layer_hook=hook, attention_mask=attention_mask,
-                            dropout_generator=dropout_generator)
+    logits, _, _ = apply_lm(params, config, ids, policy=policy,
+                            layer_hook=hook, attention_mask=mask,
+                            position_ids=positions,
+                            dropout_generator=dropout_generator, ring=ring)
+    if ring is not None:
+        logits = comm.gather_from_model_parallel(logits, ring, dim=1)
     loss = None
     if labels is not None:
         loss = cross_entropy_loss(logits, labels, reduction=loss_reduction)

@@ -27,6 +27,15 @@ whole buffer (or its first ``kv_limit`` slots) in plain ops under a causal
 mask and the padding bias, lazy beams through ``attend_beam_lazy``. Unlike
 the JAX package, the port writes either cache in place: no copy per step,
 and no stacking copy after prefill.
+
+With a model group (``policy.tp``) a rank computes its heads: ``c_attn``
+(its head-aligned ``[q_r | k_r | v_r]``) and ``mlp_fc`` column-parallel,
+``c_proj`` and ``mlp_proj`` row-parallel; its cache holds its heads
+(``init_cache(shards=...)``); the embedding looks up the rank's vocab rows
+and sums over the group, and the tied head computes the rank's vocab
+columns and gathers them. With ``ring`` (a process group) the uncached
+forward's tokens are the rank's chunk of a sequence split over it, and the
+self-attention is ``parallel.ring_attention``.
 """
 from __future__ import annotations
 
@@ -38,9 +47,12 @@ from ..configuration_flamingo import GPT2Arch
 from ..ops.attention import attend, attend_beam_lazy, merge_heads, split_heads
 from ..ops.decode_attention import decode_attention, decode_attention_beam
 from ..ops.fused_attention import fused_attention
-from ..ops.layers import (Policy, dot, dropout, get_activation, init_layer_norm,
-                          init_linear, layer_norm, linear, normal)
+from ..ops.layers import (Policy, column_linear, dot, dropout, get_activation,
+                          init_layer_norm, init_linear, layer_norm, normal,
+                          row_linear)
 from ..ops.quant import dequantize_kv, embed_lookup, quantize_kv_write
+from ..parallel import comm
+from ..parallel.ring_attention import ring_attention
 
 Params = Dict[str, Any]
 LayerHook = Callable[[int, torch.Tensor], torch.Tensor]
@@ -90,13 +102,17 @@ def flat_cache(n_layer: int, width: int, batch: int, max_len: int, dtype,
 
 
 def make_cache(n_layer: int, n_head: int, width: int, batch: int, max_len: int,
-               dtype, device, *, int8: bool = False, flat: bool = True
+               dtype, device, *, int8: bool = False, flat: bool = True,
+               shards: int = 1
                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Cache]:
     """A trunk's zeroed caches -> (K stack, V stack, per-layer caches): the
     ``flat_cache``, or with ``flat=False`` the head-major one, per layer
     ``{"k", "v"}`` of shape ``(batch, n_head, max_len, width / n_head)`` in
     ``dtype``, with ``int8`` the int8 ``{"k8", "v8"}`` and their bf16
-    scales ``{"ks", "vs"}`` ``(batch, n_head, max_len, 1)`` (stacks None)."""
+    scales ``{"ks", "vs"}`` ``(batch, n_head, max_len, 1)`` (stacks None).
+    ``shards``: a tensor-parallel rank's cache, its ``n_head / shards``
+    heads."""
+    n_head, width = n_head // shards, width // shards
     if flat:
         if int8:
             raise ValueError("the flat cache holds bf16 or float32 K/V, not int8")
@@ -113,11 +129,11 @@ def make_cache(n_layer: int, n_head: int, width: int, batch: int, max_len: int,
 
 
 def init_cache(arch: GPT2Arch, batch: int, max_len: int, dtype, device, *,
-               int8: bool = False, flat: bool = True
+               int8: bool = False, flat: bool = True, shards: int = 1
                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Cache]:
     """``make_cache`` at the trunk's depth, heads and width."""
     return make_cache(arch.n_layer, arch.n_head, arch.n_embd, batch, max_len, dtype,
-                      device, int8=int8, flat=flat)
+                      device, int8=int8, flat=flat, shards=shards)
 
 
 def is_flat(cache: Cache) -> bool:
@@ -154,13 +170,30 @@ def head_major_write(layer_cache: Dict[str, torch.Tensor], k: torch.Tensor,
     return out[0], out[1]
 
 
-def embed(p: Params, ids: torch.Tensor, pos: torch.Tensor, dtype) -> torch.Tensor:
-    """Token embedding (int8 ``wte_q`` where quantized) plus ``wpe[pos]``."""
-    if "wte_q" in p:
-        tok_emb = embed_lookup(p["wte_q"], ids, dtype)
+def token_embedding(p: Params, key: str, ids: torch.Tensor, dtype,
+                    tp=None) -> torch.Tensor:
+    """The rows of embedding ``key`` (its int8 ``key + "_q"`` where
+    quantized) for ``ids``. Over the model group ``tp`` the table is the
+    rank's block of rows: ids outside it give 0, and the group's sum (exact:
+    one rank holds each row) is the lookup."""
+    if key + "_q" in p:
+        rows = p[key + "_q"]["w8"].shape[0]
+        lookup = lambda i: embed_lookup(p[key + "_q"], i, dtype)
     else:
-        tok_emb = p["wte"].to(dtype)[ids]
-    return tok_emb + p["wpe"].to(dtype)[pos]
+        rows = p[key].shape[0]
+        lookup = lambda i: p[key].to(dtype)[i]
+    if tp is None:
+        return lookup(ids)
+    local = ids - comm.rank(tp) * rows
+    inside = ((local >= 0) & (local < rows))[..., None]
+    emb = lookup(local.clamp(0, rows - 1)).masked_fill(~inside, 0)
+    return comm.reduce_from_model_parallel(emb.float(), tp).to(dtype)
+
+
+def embed(p: Params, ids: torch.Tensor, pos: torch.Tensor, dtype,
+          tp=None) -> torch.Tensor:
+    """Token embedding (int8 ``wte_q`` where quantized) plus ``wpe[pos]``."""
+    return token_embedding(p, EMBED, ids, dtype, tp) + p["wpe"].to(dtype)[pos]
 
 
 def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -200,10 +233,13 @@ def _self_attention(bp: Params, x: torch.Tensor, *, n_head: int,
                     npad: Optional[torch.Tensor], policy: Policy,
                     beam_anc: Optional[torch.Tensor] = None,
                     attn_pdrop: float = 0.0,
-                    dropout_generator: Optional[torch.Generator] = None
+                    dropout_generator: Optional[torch.Generator] = None,
+                    ring=None, ring_mask: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
+    """The block's attention half, ``n_head`` the rank's heads."""
+    tp = policy.tp
     h = layer_norm(x, bp["ln_1"], eps)
-    qkv = linear(h, bp["c_attn"])
+    qkv = column_linear(h, bp["c_attn"], tp)
     d_model = qkv.shape[-1] // 3
     q, k, v = qkv.split(d_model, dim=-1)
     scale = 1.0 / ((d_model // n_head) ** 0.5)
@@ -212,7 +248,7 @@ def _self_attention(bp: Params, x: torch.Tensor, *, n_head: int,
                                scale=scale, kv_limit=kv_limit, npad=npad,
                                beam_anc=beam_anc)
         if out is not None:
-            return linear(out, bp["c_proj"])
+            return row_linear(out, bp["c_proj"], tp)
     qh, kh, vh = (split_heads(t, n_head) for t in (q, k, v))
     if layer_cache is not None and "kf" not in layer_cache:
         # head-major: attend the cache's slots under the causal mask and
@@ -223,13 +259,17 @@ def _self_attention(bp: Params, x: torch.Tensor, *, n_head: int,
                                    bias=pad_bias, scale=scale)
         else:
             out = attend(qh, kh, vh, scale=scale, mask=causal_mask, bias=pad_bias)
+    elif layer_cache is None and ring is not None:
+        out = ring_attention(qh, kh, vh, group=ring, scale=scale,
+                             attention_mask=ring_mask)
     elif layer_cache is None and policy.pallas and dropout_generator is None:
         out = fused_attention(qh, kh, vh, scale=scale, causal=True, row_bias=row_bias)
     else:
         # prefill (cache_index == 0) or uncached: attend over the fresh K/V
         out = attend(qh, kh, vh, scale=scale, mask=causal_mask, bias=pad_bias,
-                     dropout_rate=attn_pdrop, dropout_generator=dropout_generator)
-    return linear(merge_heads(out), bp["c_proj"])
+                     dropout_rate=attn_pdrop, dropout_generator=dropout_generator,
+                     dropout_heads=policy.tp_heads)
+    return row_linear(merge_heads(out), bp["c_proj"], tp)
 
 
 def apply_gpt2(
@@ -246,6 +286,7 @@ def apply_gpt2(
     kv_limit: Optional[int] = None,                # attend only cache[:kv_limit]
     beam_anc: Optional[torch.Tensor] = None,       # (b // kb, kb, max_len) int32
     dropout_generator: Optional[torch.Generator] = None,  # training mode when set
+    ring=None,                                     # the sequence split over a group
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Run the trunk -> (final-LN hidden (b, n, d), cache).
 
@@ -259,13 +300,16 @@ def apply_gpt2(
     ancestry table names. With a head-major cache, the tokens attend the
     buffer's slots (the first ``kv_limit``) under the causal mask of their
     absolute positions and the padding bias, as the JAX package does;
-    ``beam_anc`` through ``attend_beam_lazy``.
+    ``beam_anc`` through ``attend_beam_lazy``. With ``ring`` (uncached) the
+    tokens, ``position_ids`` and ``attention_mask`` are this rank's chunk
+    of a sequence split over that group, attended by ring attention.
     """
     b, n = input_ids.shape
     if position_ids is None:
         position_ids = torch.arange(n, device=input_ids.device)[None, :] \
             + (cache_index or 0)
-    x = dropout(embed(p, input_ids, position_ids, policy.dtype), arch.embd_pdrop,
+    tp = policy.tp
+    x = dropout(embed(p, input_ids, position_ids, policy.dtype, tp), arch.embd_pdrop,
                 dropout_generator)
 
     npad = causal = pad_bias = row_bias = None
@@ -301,35 +345,46 @@ def apply_gpt2(
         if layer_hook is not None:
             x = layer_hook(i, x)
         x = x + dropout(_self_attention(
-            bp, x, n_head=arch.n_head, causal_mask=causal, pad_bias=pad_bias,
+            bp, x, n_head=policy.local_heads(arch.n_head), causal_mask=causal,
+            pad_bias=pad_bias,
             row_bias=row_bias,
             layer_cache=None if cache is None else cache[i],
             cache_index=cache_index, eps=eps, kv_limit=kv_limit, npad=npad,
             policy=policy, beam_anc=beam_anc, attn_pdrop=arch.attn_pdrop,
-            dropout_generator=dropout_generator), arch.resid_pdrop, dropout_generator)
+            dropout_generator=dropout_generator, ring=ring,
+            ring_mask=attention_mask), arch.resid_pdrop, dropout_generator)
         h = layer_norm(x, bp["ln_2"], eps)
-        h = linear(act(linear(h, bp["mlp_fc"])), bp["mlp_proj"])
+        h = row_linear(act(column_linear(h, bp["mlp_fc"], tp)), bp["mlp_proj"], tp)
         x = x + dropout(h, arch.resid_pdrop, dropout_generator)
     return layer_norm(x, p["ln_f"], eps), cache
 
 
 def tied_head(emb: torch.Tensor, emb_q: Optional[Params], hidden: torch.Tensor,
-              n_valid: Optional[int] = None) -> torch.Tensor:
+              n_valid: Optional[int] = None, tp=None) -> torch.Tensor:
     """Tied lm_head: logits = hidden @ emb^T (the int8 ``emb_q`` where
     given), in hidden's dtype; columns >= n_valid (padded vocab rows) are
-    masked to finfo.min."""
+    masked to finfo.min. Over the model group ``tp`` the table is the rank's
+    block of (padded) vocab rows: the rank's logits are gathered over the
+    group and the padded columns past ``n_valid`` dropped, so the logits
+    have the one-device width (JAX keeps them, masked: the same softmax and
+    argmax; the width keeps a sampling draw the one device's)."""
+    if tp is not None:
+        hidden = comm.copy_to_model_parallel(hidden, tp)
     if emb_q is not None:
         logits = torch.matmul(hidden.float(), emb_q["w8"].float().t())
         logits = (logits * emb_q["scale"]).to(hidden.dtype)
     else:
         logits = dot(hidden, emb.t())
+    if tp is not None:
+        logits = comm.gather_from_model_parallel(logits, tp, dim=-1)
+        return logits if n_valid is None else logits[..., :n_valid]
     return _mask_pad_vocab(logits, n_valid)
 
 
 def lm_head(p: Params, hidden: torch.Tensor,
-            n_valid: Optional[int] = None) -> torch.Tensor:
+            n_valid: Optional[int] = None, tp=None) -> torch.Tensor:
     """``tied_head`` over ``wte``."""
-    return tied_head(p.get(EMBED), p.get(EMBED + "_q"), hidden, n_valid)
+    return tied_head(p.get(EMBED), p.get(EMBED + "_q"), hidden, n_valid, tp)
 
 
 def _mask_pad_vocab(logits: torch.Tensor, n_valid: Optional[int]) -> torch.Tensor:

@@ -30,6 +30,12 @@ Training-mode dropout (``dropout_generator``) at HF's sites, rate
 ``arch.dropout``: the embeddings and both residual branches (OPT's
 attention probabilities have none); as in the JAX package it forces the
 plain attention path.
+
+Tensor parallelism and ring attention as in ``gpt2``: with ``policy.tp``
+q/k/v_proj and fc1 are column-parallel, out_proj and fc2 row-parallel, the
+embedding and the tied head vocab-parallel (``project_in`` / ``project_out``
+replicated); ``ring`` runs the uncached forward's self-attention over a
+sequence split in chunks over that group.
 """
 from __future__ import annotations
 
@@ -40,11 +46,12 @@ import torch
 from ..configuration_flamingo import OPTArch
 from ..ops.attention import attend, attend_beam_lazy, merge_heads, split_heads
 from ..ops.fused_attention import fused_attention
-from ..ops.layers import (Policy, dropout, get_activation, init_layer_norm,
-                          init_linear, layer_norm, linear, normal)
-from ..ops.quant import embed_lookup
+from ..ops.layers import (Policy, column_linear, dropout, get_activation,
+                          init_layer_norm, init_linear, layer_norm, linear,
+                          normal, row_linear)
+from ..parallel.ring_attention import ring_attention
 from .gpt2 import (F32_MIN, cached_attention, head_major_slots, head_major_write,
-                   is_flat, make_cache, tied_head)
+                   is_flat, make_cache, tied_head, token_embedding)
 
 Params = Dict[str, Any]
 LayerHook = Callable[[int, torch.Tensor], torch.Tensor]
@@ -82,21 +89,19 @@ def init_opt(gen: torch.Generator, arch: OPTArch, extra_tokens: int = 1) -> Para
 
 
 def init_cache(arch: OPTArch, batch: int, max_len: int, dtype, device, *,
-               int8: bool = False, flat: bool = True
+               int8: bool = False, flat: bool = True, shards: int = 1
                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Cache]:
     """``gpt2.make_cache`` at the trunk's depth, heads and width."""
     return make_cache(arch.num_hidden_layers, arch.num_attention_heads,
                       arch.hidden_size, batch, max_len, dtype, device, int8=int8,
-                      flat=flat)
+                      flat=flat, shards=shards)
 
 
-def embed(p: Params, ids: torch.Tensor, pos: torch.Tensor, dtype) -> torch.Tensor:
+def embed(p: Params, ids: torch.Tensor, pos: torch.Tensor, dtype,
+          tp=None) -> torch.Tensor:
     """Token embedding (int8 ``embed_tokens_q`` where quantized), through
     ``project_in`` where the model has it, plus ``embed_positions[pos + 2]``."""
-    if "embed_tokens_q" in p:
-        x = embed_lookup(p["embed_tokens_q"], ids, dtype)
-    else:
-        x = p["embed_tokens"].to(dtype)[ids]
+    x = token_embedding(p, EMBED, ids, dtype, tp)
     if "project_in" in p:
         x = linear(x, p["project_in"])
     return x + p["embed_positions"].to(dtype)[pos + POS_OFFSET]
@@ -115,15 +120,18 @@ def _self_attention(bp: Params, h: torch.Tensor, *, n_head: int,
                     layer_cache: Optional[Dict[str, torch.Tensor]],
                     cache_index: Optional[int], kv_limit: Optional[int],
                     npad: Optional[torch.Tensor], policy: Policy,
-                    beam_anc: Optional[torch.Tensor], training: bool) -> torch.Tensor:
-    q, k, v = (linear(h, bp[name]) for name in ("q_proj", "k_proj", "v_proj"))
+                    beam_anc: Optional[torch.Tensor], training: bool,
+                    ring=None, ring_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The layer's attention, ``n_head`` the rank's heads."""
+    tp = policy.tp
+    q, k, v = (column_linear(h, bp[name], tp) for name in ("q_proj", "k_proj", "v_proj"))
     scale = (q.shape[-1] // n_head) ** -0.5
     if layer_cache is not None and "kf" in layer_cache:
         out = cached_attention(q, k, v, layer_cache, cache_index, n_head=n_head,
                                scale=scale, kv_limit=kv_limit, npad=npad,
                                beam_anc=beam_anc)
         if out is not None:
-            return linear(out, bp["out_proj"])
+            return row_linear(out, bp["out_proj"], tp)
     qh, kh, vh = (split_heads(t, n_head) for t in (q, k, v))
     if layer_cache is not None and "kf" not in layer_cache:
         # head-major: ``bias`` holds the causal and padding masks
@@ -132,12 +140,15 @@ def _self_attention(bp: Params, h: torch.Tensor, *, n_head: int,
             out = attend_beam_lazy(qh, kh, vh, beam_anc, bias=bias, scale=scale)
         else:
             out = attend(qh, kh, vh, scale=scale, bias=bias)
+    elif layer_cache is None and ring is not None:
+        out = ring_attention(qh, kh, vh, group=ring, scale=scale,
+                             attention_mask=ring_mask)
     elif layer_cache is None and policy.pallas and not training:
         out = fused_attention(qh, kh, vh, scale=scale, causal=True, row_bias=row_bias)
     else:
         # prefill (cache_index == 0) or uncached: attend over the fresh K/V
         out = attend(qh, kh, vh, scale=scale, bias=bias)
-    return linear(merge_heads(out), bp["out_proj"])
+    return row_linear(merge_heads(out), bp["out_proj"], tp)
 
 
 def apply_opt(
@@ -154,6 +165,7 @@ def apply_opt(
     kv_limit: Optional[int] = None,                # attend only cache[:kv_limit]
     beam_anc: Optional[torch.Tensor] = None,       # (b // kb, kb, max_len) int32
     dropout_generator: Optional[torch.Generator] = None,  # training mode when set
+    ring=None,                                     # the sequence split over a group
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Run the trunk -> (hidden (b, n, word_embed_proj_dim), cache): after
     the final LayerNorm (pre-norm) and ``project_out`` (where the model has
@@ -164,7 +176,9 @@ def apply_opt(
     attends over the cache slots ``npad <= t <= cache_index`` through
     ``decode_attention``, or with ``beam_anc`` through
     ``decode_attention_beam``; over a head-major cache through ``attend``
-    or ``attend_beam_lazy`` (``gpt2.apply_gpt2``)."""
+    or ``attend_beam_lazy`` (``gpt2.apply_gpt2``). With ``ring`` (uncached)
+    the tokens, ``position_ids`` and ``attention_mask`` are this rank's
+    chunk of a sequence split over that group."""
     b, n = input_ids.shape
     dev = input_ids.device
     flat = cache is not None and is_flat(cache)
@@ -179,7 +193,8 @@ def apply_opt(
         if cache is not None:
             position_ids = position_ids[:, cache_index:cache_index + n]
 
-    x = dropout(embed(p, input_ids, position_ids, policy.dtype), arch.dropout,
+    tp = policy.tp
+    x = dropout(embed(p, input_ids, position_ids, policy.dtype, tp), arch.dropout,
                 dropout_generator)
 
     npad = bias = row_bias = None
@@ -202,7 +217,7 @@ def apply_opt(
         # values (bf16: -inf), built once for every layer
         row_bias = torch.where(pad_ok, 0.0, F32_MIN).to(policy.dtype).float()
 
-    n_head = arch.num_attention_heads
+    n_head = policy.local_heads(arch.num_attention_heads)
     eps = arch.layer_norm_epsilon
     pre = arch.do_layer_norm_before
     act = get_activation(arch.activation)
@@ -215,12 +230,13 @@ def apply_opt(
             layer_cache=None if cache is None else cache[i],
             cache_index=cache_index, kv_limit=kv_limit, npad=npad,
             policy=policy, beam_anc=beam_anc,
-            training=dropout_generator is not None), arch.dropout, dropout_generator)
+            training=dropout_generator is not None, ring=ring,
+            ring_mask=attention_mask), arch.dropout, dropout_generator)
         if not pre:
             x = layer_norm(x, bp["attn_ln"], eps)
         h = layer_norm(x, bp["final_ln"], eps) if pre else x
-        x = x + dropout(linear(act(linear(h, bp["fc1"])), bp["fc2"]), arch.dropout,
-                        dropout_generator)
+        x = x + dropout(row_linear(act(column_linear(h, bp["fc1"], tp)), bp["fc2"], tp),
+                        arch.dropout, dropout_generator)
         if not pre:
             x = layer_norm(x, bp["final_ln"], eps)
     if "final_ln" in p:
@@ -231,6 +247,6 @@ def apply_opt(
 
 
 def lm_head(p: Params, hidden: torch.Tensor,
-            n_valid: Optional[int] = None) -> torch.Tensor:
+            n_valid: Optional[int] = None, tp=None) -> torch.Tensor:
     """``gpt2.tied_head`` over ``embed_tokens``."""
-    return tied_head(p.get(EMBED), p.get(EMBED + "_q"), hidden, n_valid)
+    return tied_head(p.get(EMBED), p.get(EMBED + "_q"), hidden, n_valid, tp)

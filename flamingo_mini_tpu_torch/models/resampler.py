@@ -5,6 +5,9 @@ Latents cross-attend to ``concat(features, latents)``, q scaled by
 (attention + FeedForward) with residuals, then a final LayerNorm. Input is
 ``(b, T, v, d)``: images are videos with T=1. Under a ``pallas`` policy the
 attention is ``fused_attention`` on unscaled q with ``scale=dim_head**-0.5``.
+With a model group (``policy.tp``) a rank computes its heads: to_q, to_k,
+to_v and the FeedForward's fc1 column-parallel, to_out and fc2
+row-parallel.
 """
 from __future__ import annotations
 
@@ -14,9 +17,9 @@ import torch
 
 from ..ops.attention import attend, merge_heads, split_heads
 from ..ops.fused_attention import fused_attention
-from ..ops.layers import (Policy, const, feed_forward, init_feed_forward,
-                          init_layer_norm, init_linear, layer_norm, linear,
-                          normal)
+from ..ops.layers import (Policy, column_linear, const, feed_forward,
+                          init_feed_forward, init_layer_norm, init_linear,
+                          layer_norm, normal, row_linear)
 
 Params = Dict[str, Any]
 
@@ -51,17 +54,18 @@ def apply_perceiver_attention(p: Params, features: torch.Tensor,
                               latents: torch.Tensor, *, heads: int,
                               dim_head: int, policy: Policy) -> torch.Tensor:
     """features (b, f, dim), latents (b, q, dim) -> (b, q, dim)."""
+    tp, heads = policy.tp, policy.local_heads(heads)
     x = layer_norm(features, p["norm_media"])
     lat = layer_norm(latents, p["norm_latents"])
-    q = split_heads(linear(lat, p["to_q"]), heads)
+    q = split_heads(column_linear(lat, p["to_q"], tp), heads)
     kv_in = torch.cat([x, lat], dim=1)
-    k = split_heads(linear(kv_in, p["to_k"]), heads)
-    v = split_heads(linear(kv_in, p["to_v"]), heads)
+    k = split_heads(column_linear(kv_in, p["to_k"], tp), heads)
+    v = split_heads(column_linear(kv_in, p["to_v"], tp), heads)
     if policy.pallas:
         out = fused_attention(q, k, v, scale=dim_head ** -0.5)
     else:
         out = attend(q * const(dim_head ** -0.5, q.dtype), k, v, stabilize=True)
-    return linear(merge_heads(out), p["to_out"])
+    return row_linear(merge_heads(out), p["to_out"], tp)
 
 
 def apply_resampler(p: Params, x_f: torch.Tensor, *, heads: int,
@@ -74,5 +78,5 @@ def apply_resampler(p: Params, x_f: torch.Tensor, *, heads: int,
     for layer in p["layers"]:
         x = x + apply_perceiver_attention(layer["attn"], x_f, x, heads=heads,
                                           dim_head=dim_head, policy=policy)
-        x = x + feed_forward(x, layer["ffw"], act)
+        x = x + feed_forward(x, layer["ffw"], act, policy.tp)
     return layer_norm(x, p["norm"])

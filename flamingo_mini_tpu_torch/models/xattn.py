@@ -16,6 +16,11 @@ The visual K/V are computed once per sequence (``compute_visual_kv``) and
 passed to every call, as the (k, v) pair or, under the int8 KV cache, its
 int8 form ``{"k8", "ks", "v8", "vs"}`` (``ops.quant.quantize_kv_pair``),
 dequantized into the text's dtype at each call.
+
+With a model group (``policy.tp``; ``tp`` for ``compute_visual_kv``) a
+rank computes its heads: to_q, to_kv (its ``[k_r | v_r]`` slice, see
+``parallel/sharding.py``) and fc1 column-parallel, to_out and fc2
+row-parallel; ``heads`` is always the model's count.
 """
 from __future__ import annotations
 
@@ -24,8 +29,10 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..ops.attention import merge_heads, softmax_f32, split_heads
-from ..ops.layers import (Policy, const, feed_forward, init_feed_forward,
-                          init_layer_norm, init_linear, layer_norm, linear)
+from ..ops.layers import (Policy, column_linear, const, feed_forward,
+                          init_feed_forward, init_layer_norm, init_linear,
+                          layer_norm, row_linear)
+from ..parallel import comm
 from ..ops.media_xattn import fused_media_xattn
 from ..ops.quant import dequantize_kv
 
@@ -50,11 +57,14 @@ def init_gated_xattn_block(gen: torch.Generator, *, dim: int, dim_visual: int,
 
 
 def compute_visual_kv(p: Params, visual_features: torch.Tensor, *,
-                      heads: int) -> KV:
-    """(b, n_media, n_visual, d_visual) -> per-head K, V."""
+                      heads: int, tp=None) -> KV:
+    """(b, n_media, n_visual, d_visual) -> per-head K, V (the rank's heads
+    over the model group ``tp``)."""
     b, n_media, n_visual, d = visual_features.shape
-    kv = linear(visual_features.reshape(b, n_media * n_visual, d), p["to_kv"])
+    kv = column_linear(visual_features.reshape(b, n_media * n_visual, d),
+                       p["to_kv"], tp)
     k, v = kv.chunk(2, dim=-1)
+    heads //= comm.size(tp) if tp is not None else 1
     return split_heads(k, heads), split_heads(v, heads)
 
 
@@ -69,13 +79,14 @@ def apply_masked_xattn(p: Params, y: torch.Tensor, kv: KV,
     else:
         k, v = kv
     n_media = k.shape[2] // n_visual
+    tp = policy.tp
     y_n = layer_norm(y, p["norm"])
-    q = linear(y_n, p["to_q"])
+    q = column_linear(y_n, p["to_q"], tp)
     q = q * const(dim_head ** -0.5, q.dtype)
-    q = split_heads(q, heads)
+    q = split_heads(q, policy.local_heads(heads))
     if policy.pallas and y.shape[1] > 1:
         out = fused_media_xattn(q, k, v, text_time, scale=1.0, n_visual=n_visual)
-        return linear(merge_heads(out), p["to_out"])
+        return row_linear(merge_heads(out), p["to_out"], tp)
 
     media_time = torch.arange(1, n_media + 1, dtype=text_time.dtype,
                               device=text_time.device).repeat_interleave(n_visual)
@@ -88,7 +99,7 @@ def apply_masked_xattn(p: Params, y: torch.Tensor, kv: KV,
     no_media = (text_time == 0)[:, None, :, None]
     alphas = alphas.masked_fill(no_media, 0)
     out = torch.matmul(alphas, v)
-    return linear(merge_heads(out), p["to_out"])
+    return row_linear(merge_heads(out), p["to_out"], tp)
 
 
 def apply_gated_xattn_block(p: Params, y: torch.Tensor, kv: KV,
@@ -100,5 +111,6 @@ def apply_gated_xattn_block(p: Params, y: torch.Tensor, kv: KV,
                                   n_visual=n_visual, heads=heads,
                                   dim_head=dim_head, policy=policy)
     y = y + torch.tanh(p["alpha_attn"]).to(y.dtype) * attn_out
-    y = y + torch.tanh(p["alpha_ffw"]).to(y.dtype) * feed_forward(y, p["ffw"], act)
+    y = y + torch.tanh(p["alpha_ffw"]).to(y.dtype) * feed_forward(
+        y, p["ffw"], act, policy.tp)
     return y

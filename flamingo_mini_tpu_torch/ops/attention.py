@@ -47,6 +47,7 @@ def attend(
     stabilize: bool = False,
     dropout_rate: float = 0.0,
     dropout_generator: Optional[torch.Generator] = None,
+    dropout_heads=None,
 ) -> torch.Tensor:
     """Scaled-dot-product attention core -> (..., n_q, d).
 
@@ -56,7 +57,8 @@ def attend(
     ``stabilize``: subtract the rowwise max (a constant to autograd) before
     the softmax.
     ``dropout_rate``, ``dropout_generator``: dropout on the attention
-    probabilities (training; ``layers.dropout``).
+    probabilities (training; ``layers.dropout``); ``dropout_heads``: the
+    heads are a model-parallel rank's, (rank, size) (``layers.rand``).
     """
     dtype = q.dtype
     sim = torch.matmul(q, k.transpose(-1, -2))
@@ -72,7 +74,7 @@ def attend(
     if stabilize:
         sim = sim - sim.amax(dim=-1, keepdim=True).detach()
     alphas = softmax_f32(sim.float()).to(dtype)
-    alphas = dropout(alphas, dropout_rate, dropout_generator)
+    alphas = dropout(alphas, dropout_rate, dropout_generator, dropout_heads)
     return torch.matmul(alphas, v)
 
 

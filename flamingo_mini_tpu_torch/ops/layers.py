@@ -17,15 +17,29 @@ Two compute policies, as in the JAX package:
 Scalar constants that JAX folds into a bfloat16 op as a weakly typed value
 are rounded to the compute dtype first here too (``const``), so that both
 packages multiply by the same number.
+
+Tensor parallelism: a policy's ``tp`` is the model group of a Megatron rank
+(``parallel/sharding.py`` slices its leaves). Every model function then
+computes its rank's heads: ``column_linear`` on the input replicated over
+the group, ``row_linear`` reducing the float32 partial products over it
+before the rounding. With ``tp`` None they are ``linear``.
+
+Random draws (dropout masks, sampling noise) go through ``rand``: under
+``drawn_rows(rank, world)`` a rank of a data-parallel run draws the whole
+batch's tensor and keeps its rows, so that it draws what one device draws.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import comm
 
 Params = Dict[str, Any]
 
@@ -33,13 +47,29 @@ Params = Dict[str, Any]
 @dataclass(frozen=True)
 class Policy:
     """Compute policy threaded through all apply functions. ``pallas``:
-    route the big attention ops through the attention kernels."""
+    route the big attention ops through the attention kernels. ``tp``: the
+    model group of a tensor-parallel rank, None on one device."""
 
     dtype: torch.dtype = torch.float32
     pallas: bool = False
+    tp: Any = None
 
     def cast(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(self.dtype)
+
+    @property
+    def tp_size(self) -> int:
+        """The ranks of the model group (1 without one)."""
+        return 1 if self.tp is None else comm.size(self.tp)
+
+    def local_heads(self, heads: int) -> int:
+        """The heads of ``heads`` this rank computes."""
+        return heads // self.tp_size
+
+    @property
+    def tp_heads(self) -> Optional[Tuple[int, int]]:
+        """(rank, size) in the model group for ``rand``'s ``heads``, or None."""
+        return None if self.tp is None else (comm.rank(self.tp), self.tp_size)
 
 
 PARITY = Policy(dtype=torch.float32)
@@ -124,6 +154,30 @@ def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
     return y
 
 
+def column_linear(x: torch.Tensor, p: Params, tp=None) -> torch.Tensor:
+    """A column-parallel ``linear``: the rank's output columns (its slice of
+    ``w`` and ``b``) from the input replicated over the model group ``tp``,
+    whose gradient is summed over the group."""
+    return linear(x if tp is None else comm.copy_to_model_parallel(x, tp), p)
+
+
+def row_linear(x: torch.Tensor, p: Params, tp=None) -> torch.Tensor:
+    """A row-parallel ``linear``: the rank's input columns times its rows of
+    ``w`` (``w8``), the float32 partial products summed over the model group
+    ``tp``, then the int8 scale, one rounding to x's dtype and the
+    replicated bias, added once."""
+    if tp is None:
+        return linear(x, p)
+    y = torch.matmul(x.float(), p["w8" if "w8" in p else "w"].float())
+    y = comm.reduce_from_model_parallel(y, tp)
+    if "w8" in p:
+        y = y * p["scale"]
+    y = y.to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
 def gelu_erf(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU == torch.nn.GELU default."""
     return F.gelu(x)
@@ -160,25 +214,60 @@ def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     return _ACTS[name]
 
 
+_DRAWN_ROWS: contextvars.ContextVar = contextvars.ContextVar("drawn_rows",
+                                                             default=None)
+
+
+@contextlib.contextmanager
+def drawn_rows(rank: int, world: int):
+    """Within the block, ``rand`` draws for a batch split over ``world``
+    data-parallel ranks: the tensor of all their rows, this ``rank``'s kept."""
+    token = _DRAWN_ROWS.set((rank, world))
+    try:
+        yield
+    finally:
+        _DRAWN_ROWS.reset(token)
+
+
+def rand(shape, generator: Optional[torch.Generator], device,
+         heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """float32 uniforms on [0, 1) of ``shape`` from ``generator``, drawn as
+    one device draws them: under ``drawn_rows(rank, world)`` the rank's rows
+    (dimension 0) of the draw for every rank's rows; ``heads=(rank, world)``
+    likewise keeps the rank's block of dimension 1 (a model-parallel
+    rank's heads)."""
+    shape, keep = list(shape), [slice(None)] * len(shape)
+    for dim, split in ((0, _DRAWN_ROWS.get()), (1, heads)):
+        if split is not None and split[1] > 1:
+            r, n = split
+            keep[dim] = slice(r * shape[dim], (r + 1) * shape[dim])
+            shape[dim] *= n
+    u = torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+    return u[tuple(keep)]
+
+
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout: each value kept with probability ``1 - rate`` and
     scaled by ``1 / (1 - rate)`` (the factor rounded to x's dtype, as JAX's
     weakly typed constant is), the rest 0. The identity when ``generator``
     is None or ``rate <= 0`` (evaluation). The mask comes from
-    ``generator``, a ``torch.Generator`` on x's device; JAX's bits are not
-    reproduced, only its sites and rates (the trunk's; the resampler and
-    the xattn blocks have none)."""
+    ``generator``, a ``torch.Generator`` on x's device, through ``rand``
+    (``heads``: x's dimension 1 is a model-parallel rank's heads); JAX's
+    bits are not reproduced, only its sites and rates (the trunk's; the
+    resampler and the xattn blocks have none)."""
     if generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    kept = rand(x.shape, generator, x.device, heads) < keep
     return torch.where(kept, x / const(keep, x.dtype), 0.0).to(x.dtype)
 
 
-def feed_forward(x: torch.Tensor, p: Params, act: str) -> torch.Tensor:
-    """LayerNorm -> Linear(no bias) -> act -> Linear(no bias)."""
+def feed_forward(x: torch.Tensor, p: Params, act: str, tp=None) -> torch.Tensor:
+    """LayerNorm -> Linear(no bias) -> act -> Linear(no bias); over the model
+    group ``tp``, fc1 column- and fc2 row-parallel."""
     h = layer_norm(x, p["norm"])
-    h = linear(h, p["fc1"])
+    h = column_linear(h, p["fc1"], tp)
     h = get_activation(act)(h)
-    return linear(h, p["fc2"])
+    return row_linear(h, p["fc2"], tp)

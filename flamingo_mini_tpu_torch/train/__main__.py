@@ -9,8 +9,15 @@ torchvision, or ``--synthetic-size`` synthetic pairs) -> ``trainer.train``
 field is a flag (``--max-steps``, ``--learning-rate``, ...). The model runs
 on ``--device`` (the card by default); batches are collated on the host and
 copied ahead of each step. Without local vocabulary files a synthetic run
-uses a toy tokenizer over the synthetic words. ``--coordinator`` (multi-host
-training) is not ported and raises ``NotImplementedError``.
+uses a toy tokenizer over the synthetic words.
+
+Several processes: ``--coordinator host:port`` joins them
+(``parallel.distributed_init``; each process's rank and the world size from
+``RANK`` and ``WORLD_SIZE``, as torchrun sets them), ``--mesh-shape DxM``
+lays them out (all on the data axis by default) and ``--tensor-parallel``
+splits the weights over the model axis; ``torchrun --nproc-per-node N -m
+flamingo_mini_tpu_torch.train ...`` needs no ``--coordinator``. The first
+rank writes the checkpoints, the metrics and ``final``.
 """
 import argparse
 import dataclasses
@@ -20,6 +27,7 @@ import os
 from typing import List, Optional
 
 from .. import FlamingoConfig, FlamingoModel, FlamingoProcessor
+from ..parallel import distributed_init
 from .data import (CocoCaptionDataset, CocoCaptionEvalDataset, DataCollator,
                    SyntheticCaptionDataset, SyntheticEvalDataset)
 from .trainer import FlamingoTrainer, TrainingArguments
@@ -65,7 +73,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="JSON dict of vision arch overrides")
     p.add_argument("--resume-from-checkpoint", default=None)
     p.add_argument("--coordinator", default=None,
-                   help="multi-host coordinator address (not ported)")
+                   help="the rendezvous (host:port) of a multi-process run; "
+                        "RANK and WORLD_SIZE from the environment")
     p.add_argument("--vocab-path", default=None)
     p.add_argument("--device", default="cuda", help="the model's device")
     return p.parse_args(argv)
@@ -76,9 +85,11 @@ def main(argv: Optional[List[str]] = None) -> FlamingoTrainer:
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s - %(levelname)s - %(name)s - %(message)s")
+    backend = "gloo" if ns.device == "cpu" else None
     if ns.coordinator:
-        raise NotImplementedError(
-            "multi-host training (--coordinator) is not ported: ROADMAP queue 1 item 9")
+        distributed_init(coordinator=ns.coordinator, backend=backend)
+    else:
+        distributed_init(backend=backend)        # torchrun's environment, if any
 
     arg_names = {f.name for f in dataclasses.fields(TrainingArguments)}
     args = TrainingArguments(**{k: v for k, v in vars(ns).items() if k in arg_names})
@@ -125,7 +136,10 @@ def main(argv: Optional[List[str]] = None) -> FlamingoTrainer:
                               eval_dataset=eval_ds, collator=collator,
                               processor=processor)
     trainer.train(resume_from_checkpoint=ns.resume_from_checkpoint)
-    model.save_pretrained(os.path.join(args.output_dir, "final"))
+    whole = trainer.whole_params()
+    if trainer.is_writer:
+        FlamingoModel(config, params=whole, device=ns.device).save_pretrained(
+            os.path.join(args.output_dir, "final"))
     return trainer
 
 

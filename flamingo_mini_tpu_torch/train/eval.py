@@ -139,8 +139,10 @@ def evaluate_image_captioning(
     batch_size: int = 64,
     max_length: int = 150,
     num_beams: int = 1,
+    **generate_kw,
 ) -> Dict[str, float]:
-    """Generate captions over dataset[start:end] and score them.
+    """Generate captions over dataset[start:end] and score them;
+    ``generate_kw`` go to ``generate`` (a trainer's ``mesh``).
 
     Uses pycocoevalcap when importable (reference training/eval.py:58-62);
     otherwise the self-contained BLEU + CIDEr-D above.
@@ -155,7 +157,7 @@ def evaluate_image_captioning(
         references.extend([list(refs) for _, refs in items])
         candidates.extend(model.generate_captions(
             processor, images=images, prompt=prefix,
-            max_length=max_length, num_beams=num_beams))
+            max_length=max_length, num_beams=num_beams, **generate_kw))
 
     try:
         return _pycoco_metrics(candidates, references)

@@ -201,7 +201,8 @@ def test_cross_entropy_loss_matches_jax(reduction, weighted):
 def test_model_forward_entry_point(bf16):
     """``FlamingoModel.forward``/``__call__`` with ``use_pallas`` is the
     functional forward under FAST_PALLAS; ``encode_resample_visuals``
-    matches JAX's; ``context_mesh`` is not ported."""
+    matches JAX's; a ``context_mesh`` of one rank is the plain forward
+    (tests/test_torch_ring_attention.py splits the sequence over ranks)."""
     jc, pc, params, tp = bf16
     ids, media, mask, pixels = _batch(2)
     model = port.FlamingoModel(pc, params=tp, device="cpu")
@@ -219,8 +220,12 @@ def test_model_forward_entry_point(bf16):
                                         policy=jl.FAST_PALLAS)
     assert vf.shape == (3, 1, 8, 64)
     assert _rel(vf.float().numpy(), np.asarray(jvf, np.float32)) <= 1e-2
-    with pytest.raises(NotImplementedError):
-        model(ids, context_mesh=object())
+    class OneRank:
+        def size(self):
+            return 1
+    ring = model(ids, media_locations=media, attention_mask=mask, pixel_values=pixels,
+                 labels=ids, loss_reduction="none", context_mesh=OneRank())
+    assert torch.equal(ring.logits, out.logits) and torch.equal(ring.loss, out.loss)
 
 
 # ---------------------------------------------------------------------------

@@ -337,8 +337,10 @@ def test_dropout_forces_the_plain_trunk_attention(lm, monkeypatch):
 @pytest.mark.parametrize("kw", [dict(mesh_shape=(2, 1)), dict(mesh_shape=(4, 2)),
                                 dict(tensor_parallel=True)])
 def test_parallel_options_are_refused(kw, tmp_path):
+    """In one process: a mesh the ranks do not cover, and TP without a model
+    axis (tests/test_torch_parallel_training.py runs the meshes on ranks)."""
     jmodel = _jax_model()
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(ValueError, match="does not cover 1 ranks|'model' axis"):
         FlamingoTrainer(_port_model(jmodel), _args(TrainingArguments, tmp_path, **kw))
     FlamingoTrainer(_port_model(jmodel), _args(TrainingArguments, tmp_path,
                                                mesh_shape=(1, 1)))

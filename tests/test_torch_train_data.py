@@ -196,7 +196,7 @@ def test_train_loop_logs_evaluates_and_saves(tiny, tmp_path):
     assert open(tmp_path / "checkpoint-5" / "step.txt").read() == "5"
 
 
-def test_command_line_trains_and_saves_final(tmp_path):
+def test_command_line_trains_and_saves_final(tmp_path, monkeypatch):
     out = tmp_path / "run"
     argv = ["--device", "cpu", "--lm", "gpt2", "--dim", "32", "--dim-visual", "32",
             "--lm-arch-overrides", json.dumps(LM), "--vision-arch-overrides",
@@ -214,5 +214,8 @@ def test_command_line_trains_and_saves_final(tmp_path):
     want = dict(leaves_with_path(trainer.model.params))
     for path, leaf in leaves_with_path(loaded.params):
         assert torch.equal(leaf, want[path].detach()), path
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    # a rendezvous with no rank and world size from the environment
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(ValueError, match="WORLD_SIZE and RANK"):
         cli.main(argv + ["--coordinator", "localhost:1234"])
