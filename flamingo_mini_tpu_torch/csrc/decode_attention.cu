@@ -31,6 +31,10 @@
 // [0, kb) are never read. If [npad, cur] is empty the reference's softmax
 // is uniform over all kb * t_lim family entries, and so is this one.
 //
+// Head widths: 16, 32 and 64 (kHD, a template parameter; the wrapper
+// refuses any other). The main paths' models are all 64 wide; 16 and 32
+// are the narrow test-scale models', which run the same kernels.
+//
 // Bound: device memory, and the bytes in flight that reach it. A greedy
 // call reads 2 * t_lim * b * D * sizeof(T) bytes of K/V (about 17 MB at
 // b=32, D=1024, t_lim=132, bf16); a beam call the live positions [npad,
@@ -39,7 +43,7 @@
 // design is about bytes in flight (about 2.3 MB across the card at 3.35
 // TB/s and ~0.7 us of latency):
 // - Blocks. A block owns one (family, head group, split): `heads` (1, 2 or
-//   4) adjacent heads of its kb rows, 128-512 contiguous bytes a row and
+//   4) adjacent heads of its kb rows, 32-1,024 contiguous bytes a row and
 //   slot, over `positions` slots [t0, t1) of the live prefix, `splits`
 //   blocks along it (flash-decoding). ops/decode_attention.py's plan()
 //   picks the layout per shape: a grid the card holds in one wave with a
@@ -52,10 +56,11 @@
 //   Greedy issues at entry (nothing waits on npad); beam first loads the
 //   split's ancestry and npad in one coalesced pass, marks each (family
 //   row, slot) some beam needs, and issues those alone, each once. K lands
-//   swizzled (16-byte chunk c of slot t at c ^ (t & 7)), so a lane per slot
-//   reads its row without bank conflicts.
+//   swizzled within its head (16-byte chunk c of slot t at c ^ (t & kSwz),
+//   kSwz = min(chunks a head row, 8) - 1), so a lane per slot reads its row
+//   without bank conflicts.
 // - Math. One warp a (beam, head) pair: a lane an entry computes a whole
-//   64-wide dot from shared memory (q read by broadcast, not held in
+//   kHD-wide dot from shared memory (q read by broadcast, not held in
 //   registers: registers bound how many blocks an SM holds at once), max
 //   and sum come from warp shuffles, and the V product runs on 16-byte
 //   reads of V, 8 lanes (bf16) a slot, reduced by shuffles. (Several warps
@@ -74,10 +79,10 @@
 
 namespace {
 
-constexpr int kHeadDim = 64;
 constexpr int kMaxThreads = 512;
 constexpr int kMaxRows = 32;     // kb: the family rows a block holds
-constexpr int kPartStride = 68;  // floats a partial: 64 accumulators, max, sum, pad
+// floats a partial: kHD accumulators, max, sum, pad to 16 bytes
+__host__ __device__ constexpr int part_stride(int hd) { return hd + 4; }
 constexpr int kCombineWarps = 8;
 constexpr int kMaxSplits = 32;   // a combine warp holds a split a lane
 constexpr int kMaxPairs = kMaxRows * 4;  // (beam, head) pairs a block
@@ -166,17 +171,17 @@ struct Plan {
 
 // Dynamic shared memory of a block, in bytes; the plan's smem in
 // ops/decode_attention.py is the same sum. K and V slabs (kb rows x
-// positions x heads * 64 values each), q (kb rows x heads * 64), scores
+// positions x heads * hd values each), q (kb rows x heads * hd), scores
 // (kb * heads warps' rows of `positions` floats); beam: the ancestry
 // (kb x positions ints) and need flags (kb x positions bytes).
-size_t smem_bytes(const Plan& p, int kb, size_t itemsize, bool beam) {
-  const size_t slab = static_cast<size_t>(p.heads) * kHeadDim * itemsize;
+size_t smem_bytes(const Plan& p, int kb, int hd, size_t itemsize, bool beam) {
+  const size_t slab = static_cast<size_t>(p.heads) * hd * itemsize;
   const size_t n = static_cast<size_t>(kb) * p.positions;
   return 2 * n * slab + kb * slab + 4 * n * p.heads + (beam ? 5 * n : 0);
 }
 
-// kBeam false: the greedy kernel (kb = 1, anc unused).
-template <typename T, bool kBeam>
+// kBeam false: the greedy kernel (kb = 1, anc unused); kHD the head width.
+template <typename T, bool kBeam, int kHD>
 __global__ void __launch_bounds__(kMaxThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ npad,
@@ -184,8 +189,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         float* __restrict__ part, int b, int D, int t_lim, int cur,
                         float scale, int kb, int anc_len, Plan plan) {
   constexpr int kE = 16 / sizeof(T);     // values a 16-byte chunk
-  constexpr int kCH = kHeadDim / kE;     // chunks a head row: 8 bf16, 16 float
+  constexpr int kCH = kHD / kE;          // chunks a head row: 2-8 bf16, 4-16 float
   constexpr int kNPG = 32 / kCH;         // positions a warp step of the V product
+  constexpr int kSwz = (kCH < 8 ? kCH : 8) - 1;  // K's swizzle, within a head row
+  constexpr int kPart = part_stride(kHD);
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_lo[kMaxRows];
 
@@ -193,14 +200,14 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int split = blockIdx.x % splits;
   const int group = blockIdx.x / splits;
   const int fam = blockIdx.y;
-  const int n_head = D / kHeadDim;
+  const int n_head = D / kHD;
   const int t0 = split * positions;
   const int t1 = min(t0 + positions, t_lim);
   const int n_pos = t1 - t0;
   const int hi = min(cur, t_lim - 1);
   const int slab = heads * kCH;          // 16-byte chunks a (row, slot)
   const long long t_stride = static_cast<long long>(b) * D;
-  const int col0 = group * heads * kHeadDim;
+  const int col0 = group * heads * kHD;
   const int row0 = fam * kb;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
@@ -224,7 +231,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (!kBeam) {
     // every slot of the split: nothing waits on npad
     for (int tl = tid / slab; tl < n_pos; tl += t_step)
-      cp_async16(ks + tl * slab + (my_ch ^ (tl & 7)),
+      cp_async16(ks + tl * slab + (my_ch ^ (tl & kSwz)),
                  k + (t0 + tl) * t_stride + static_cast<long long>(row0) * D + col0
                    + my_ch * kE);
     cp_async_commit();
@@ -258,7 +265,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kb; ++j)
       for (int tl = tid / slab; tl < n_pos; tl += t_step)
         if (need[j * positions + tl])
-          cp_async16(ks + (j * positions + tl) * slab + (my_ch ^ (tl & 7)),
+          cp_async16(ks + (j * positions + tl) * slab + (my_ch ^ (tl & kSwz)),
                      k + (t0 + tl) * t_stride + static_cast<long long>(row0 + j) * D
                        + col0 + my_ch * kE);
     cp_async_commit();
@@ -298,7 +305,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
           for (int c = 0; c < kCH; ++c) {
             float f[kE], g[kE];
-            unpack(kr[c ^ (tl & 7)], f);
+            unpack(kr[c ^ (tl & kSwz)], f);
             unpack(qr[c], g);
 #pragma unroll
             for (int e2 = 0; e2 < kE; ++e2) dot += g[e2] * f[e2];
@@ -368,68 +375,73 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float o[kE];
 #pragma unroll
       for (int e = 0; e < kE; ++e) o[e] = acc[e] * inv;
-      *reinterpret_cast<uint4*>(out + static_cast<long long>(row) * D + head * kHeadDim
+      *reinterpret_cast<uint4*>(out + static_cast<long long>(row) * D + head * kHD
                                 + c * kE) = pack(o);
     } else if (pg == 0) {
       float* pp = part + (static_cast<long long>(row * n_head + head) * splits + split)
-                             * kPartStride;
+                             * kPart;
 #pragma unroll
       for (int e = 0; e < kE; e += 4)
         *reinterpret_cast<float4*>(pp + c * kE + e) =
             make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
       if (c == 0) {
-        pp[kHeadDim] = m;
-        pp[kHeadDim + 1] = l;
+        pp[kHD] = m;
+        pp[kHD + 1] = l;
       }
     }
   }
 }
 
 // Fold each (row, head)'s partials in split order: one warp a pair, lane s
-// holding split s's max and sum, two output values a lane.
-template <typename T>
+// holding split s's max and sum; output value d on lane d % 32.
+template <typename T, int kHD>
 __global__ void __launch_bounds__(kCombineWarps * 32)
 combine_kernel(const float* __restrict__ part, T* __restrict__ out, int n_pairs,
                int n_head, int splits) {
+  constexpr int kPart = part_stride(kHD);
+  constexpr int kPer = (kHD + 31) / 32;  // output values a lane
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int pair = blockIdx.x * kCombineWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (pair >= n_pairs) return;
-  const float* pp = part + static_cast<long long>(pair) * splits * kPartStride;
-  const float m = lane < splits ? pp[lane * kPartStride + kHeadDim] : -FLT_MAX;
-  const float ls = lane < splits ? pp[lane * kPartStride + kHeadDim + 1] : 0.f;
+  const float* pp = part + static_cast<long long>(pair) * splits * kPart;
+  const float m = lane < splits ? pp[lane * kPart + kHD] : -FLT_MAX;
+  const float ls = lane < splits ? pp[lane * kPart + kHD + 1] : 0.f;
   const float w = expf(m - warp_max(m));
-  float l = 0.f, a0 = 0.f, a1 = 0.f;
+  float l = 0.f, a[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) a[i] = 0.f;
   for (int s = 0; s < splits; ++s) {
     const float ws = __shfl_sync(0xffffffffu, w, s);
-    const float2 a = *reinterpret_cast<const float2*>(pp + s * kPartStride + 2 * lane);
     l += ws * __shfl_sync(0xffffffffu, ls, s);
-    a0 += ws * a.x;
-    a1 += ws * a.y;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      if (lane + 32 * i < kHD) a[i] += ws * pp[s * kPart + lane + 32 * i];
   }
   const float inv = 1.f / fmaxf(l, 1e-30f);
   const int row = pair / n_head, head = pair % n_head;
-  T* o = out + static_cast<long long>(row) * n_head * kHeadDim + head * kHeadDim + 2 * lane;
-  store_one(o, a0 * inv);
-  store_one(o + 1, a1 * inv);
+  T* o = out + static_cast<long long>(row) * n_head * kHD + head * kHD + lane;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+    if (lane + 32 * i < kHD) store_one(o + 32 * i, a[i] * inv);
 }
 
-template <typename T, bool kBeam>
+template <typename T, bool kBeam, int kHD>
 cudaError_t launch_typed(const void* q, const void* k, const void* v,
                          const int* npad, const int* anc, void* out, void* scratch,
                          int b, int D, int n_head, int t_lim, int cur, float scale,
                          int kb, int anc_len, const Plan& p, cudaStream_t s) {
-  const size_t smem = smem_bytes(p, kb, sizeof(T), kBeam);
+  const size_t smem = smem_bytes(p, kb, kHD, sizeof(T), kBeam);
   static bool granted = false;  // per instantiation: the most a plan may take
   if (!granted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_attention_kernel<T, kBeam>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxDynamicSmem);
+        decode_attention_kernel<T, kBeam, kHD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicSmem);
     if (err != cudaSuccess) return err;
     granted = true;
   }
   const dim3 grid((n_head / p.heads) * p.splits, b / kb);
-  decode_attention_kernel<T, kBeam><<<grid, p.warps * 32, smem, s>>>(
+  decode_attention_kernel<T, kBeam, kHD><<<grid, p.warps * 32, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       npad, anc, static_cast<T*>(out), static_cast<float*>(scratch), b, D, t_lim, cur,
       scale, kb, anc_len, p);
@@ -445,8 +457,26 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, combine_kernel<T>, static_cast<const float*>(scratch),
+  return cudaLaunchKernelEx(&cfg, combine_kernel<T, kHD>, static_cast<const float*>(scratch),
                             static_cast<T*>(out), n_pairs, n_head, p.splits);
+}
+
+template <typename T, bool kBeam>
+cudaError_t launch_width(const void* q, const void* k, const void* v, const int* npad,
+                         const int* anc, void* out, void* scratch, int b, int D,
+                         int n_head, int t_lim, int cur, float scale, int kb,
+                         int anc_len, const Plan& p, cudaStream_t s) {
+  switch (D / n_head) {
+    case 16:
+      return launch_typed<T, kBeam, 16>(q, k, v, npad, anc, out, scratch, b, D, n_head,
+                                        t_lim, cur, scale, kb, anc_len, p, s);
+    case 32:
+      return launch_typed<T, kBeam, 32>(q, k, v, npad, anc, out, scratch, b, D, n_head,
+                                        t_lim, cur, scale, kb, anc_len, p, s);
+    default:
+      return launch_typed<T, kBeam, 64>(q, k, v, npad, anc, out, scratch, b, D, n_head,
+                                        t_lim, cur, scale, kb, anc_len, p, s);
+  }
 }
 
 template <bool kBeam>
@@ -456,30 +486,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* npad
                    int is_bf16, void* stream, Plan p) {
   // the plan's own rules (the wrapper's plan() keeps them; a plan that
   // breaks one is refused here rather than launched)
-  const int chunks = (is_bf16 ? 8 : 16) * p.heads;  // 16-byte chunks a (row, slot)
   const size_t itemsize = is_bf16 ? 2 : 4;
-  if (D != n_head * kHeadDim || p.heads < 1 || p.heads > 4 || n_head % p.heads || kb < 1
+  const int hd = n_head > 0 ? D / n_head : 0;
+  const int chunks = hd * static_cast<int>(itemsize) / 16 * p.heads;  // a (row, slot)
+  if (n_head < 1 || D != n_head * hd || (hd != 16 && hd != 32 && hd != 64) || p.heads < 1 || p.heads > 4 || n_head % p.heads || kb < 1
       || kb > kMaxRows || b % kb || t_lim < 1 || p.positions < 1 || p.splits < 1
       || p.splits * p.positions < t_lim || (p.splits - 1) * p.positions >= t_lim
       || p.warps < 1 || p.warps * 32 > kMaxThreads || (p.warps * 32) % chunks
       || (p.splits > 1 && scratch == nullptr)
-      || p.splits > kMaxSplits || smem_bytes(p, kb, itemsize, kBeam) > kMaxDynamicSmem)
+      || p.splits > kMaxSplits || smem_bytes(p, kb, hd, itemsize, kBeam) > kMaxDynamicSmem)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* np = static_cast<const int*>(npad);
   const int* an = static_cast<const int*>(anc);
   if (is_bf16)
-    return launch_typed<__nv_bfloat16, kBeam>(q, k, v, np, an, out, scratch, b, D,
+    return launch_width<__nv_bfloat16, kBeam>(q, k, v, np, an, out, scratch, b, D,
                                               n_head, t_lim, cur, scale, kb,
                                               anc_len, p, s);
-  return launch_typed<float, kBeam>(q, k, v, np, an, out, scratch, b, D, n_head,
+  return launch_width<float, kBeam>(q, k, v, np, an, out, scratch, b, D, n_head,
                                     t_lim, cur, scale, kb, anc_len, p, s);
 }
 
 }  // namespace
 
-// scratch: (b * n_head * splits * 68) float32 partials (unused at one
-// split); heads, splits, positions, warps: the plan
+// scratch: (b * n_head * splits * (D / n_head + 4)) float32 partials (unused
+// at one split); heads, splits, positions, warps: the plan
 extern "C" int fmt_decode_attention(const void* q, const void* k,
                                     const void* v, const void* npad, void* out,
                                     int b, int D, int n_head, int t_lim,

@@ -59,7 +59,10 @@
 //
 // One kernel serves both modes: decode_megakernel_sm90.cuh (TMA weight
 // ring, wgmma, its own grid barrier; the mode a template parameter; its
-// note says what bounds it and what the design does about it).
+// note says what bounds it and what the design does about it). This file
+// is also the body of the decode_megakernel_part_*.cu units, each of which
+// compiles one of the kernels (FMT_MK_PART; the note in the .cuh says why);
+// the C interface below is this unit's alone.
 // fmt_decode_megakernel routes every call there and raises through its
 // error code. What both modes share of the arithmetic:
 //
@@ -234,6 +237,7 @@ __device__ __forceinline__ uint32_t quant4(uint32_t lo, uint32_t hi, float inv) 
 
 #include "decode_megakernel_sm90.cuh"
 
+#if !defined(FMT_MK_PART)
 // both modes: decode_megakernel_sm90.cuh's kernel; raises through its error
 // code
 extern "C" int fmt_decode_megakernel(const MegaArgs* args, void* stream) {
@@ -245,7 +249,7 @@ extern "C" int fmt_decode_megakernel(const MegaArgs* args, void* stream) {
 extern "C" int fmt_decode_megakernel_grid(const MegaArgs* args, int* blocks,
                                           int* smem) {
   *smem = mk90::layout(*args).bytes;
-  return static_cast<int>(mk90::grid_size(*args, mk90::kernel_for(*args), blocks));
+  return static_cast<int>(mk90::step_grid(*args, blocks));
 }
 
 // the shared memory a block of a launch with these arguments needs, in
@@ -314,3 +318,4 @@ extern "C" int fmt_grid_sync_test(unsigned* sync, unsigned* slots, unsigned* err
 extern "C" int fmt_decode_megakernel_args_size() {
   return static_cast<int>(sizeof(MegaArgs));
 }
+#endif  // !FMT_MK_PART

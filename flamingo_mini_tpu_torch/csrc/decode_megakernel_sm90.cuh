@@ -94,11 +94,34 @@
 //   w8a8 mode sums in float64.
 // * A section timer (`mark`) splits each block's time by section for
 //   profile_decode.py's sweep.
+//
+// Build: the step's four kernels (weight-only and w8a8, each with and
+// without the phase timer) and the w8a8 linear alone are each compiled in
+// a translation unit of their own (decode_megakernel_part_*.cu, which set
+// FMT_MK_PART and name their kernel), so that their nvcc processes run at
+// once beside the other sources'; in one unit they took most of the
+// build's three minutes. A part exports one C entry that sizes the grid of
+// its kernel and launches it; decode_megakernel.cu (no FMT_MK_PART) holds
+// the host side and calls the part a launch needs.
 #pragma once
 
 #include <type_traits>
 
 #include "sm90_common.cuh"
+
+#if !defined(FMT_MK_PART)
+// the parts' entries: a's grid (*blocks: one block per SM, or 0 if a block
+// cannot be resident), then, unless maps is null, the launch on `stream`
+extern "C" int fmt_mk_step_w(const MegaArgs* a, const void* maps, void* stream, int* blocks);
+extern "C" int fmt_mk_step_q(const MegaArgs* a, const void* maps, void* stream, int* blocks);
+extern "C" int fmt_mk_step_w_phases(const MegaArgs* a, const void* maps, void* stream,
+                                    int* blocks);
+extern "C" int fmt_mk_step_q_phases(const MegaArgs* a, const void* maps, void* stream,
+                                    int* blocks);
+// the w8a8 linear alone: maps and lin point at a Maps and a Lin
+extern "C" int fmt_mk_linear(const MegaArgs* a, const void* maps, const void* lin,
+                             void* stream, int* blocks);
+#endif
 
 namespace {
 namespace mk90 {
@@ -1586,6 +1609,7 @@ decode_megakernel_sm90(const __grid_constant__ MegaArgs a, const __grid_constant
   consumer<kQ, kPhases>(c);
 }
 
+#if defined(FMT_MK_LINEAR)
 // The w8a8 linear alone (fmt_w8a8_linear): the step's machinery with a
 // schedule of one linear phase `p` (its weights in maps.m[p.lin], slot 0)
 // and no grid barrier: staging with the quantizer, the int8 products, the
@@ -1604,7 +1628,9 @@ w8a8_linear_kernel(const __grid_constant__ MegaArgs a, const __grid_constant__ M
   Ctx c{a, smem_raw + (sbase - smem_addr(smem_raw)), sbase, L, 0, false};
   linear_phase<true>(c, p);
 }
+#endif
 
+#if !defined(FMT_MK_PART)
 // The barrier alone, for a card test: every block's consumers write a
 // stamp in each of `phases` phases (two rows of slots, alternating), and
 // after the barrier read every block's stamp back with plain loads;
@@ -1623,6 +1649,7 @@ grid_sync_test_kernel(unsigned* sync, unsigned* slots, unsigned* errors, int pha
   }
   if (bad) atomicAdd(errors, bad);
 }
+#endif
 
 // ---------------------------------------------------------------------------
 // host side
@@ -1666,15 +1693,6 @@ bool plan_ok(const MegaArgs& a) {
   return a.b <= kPassRows || max_chunks(a) <= kRing;
 }
 
-// the kernel a launch with these arguments runs
-const void* kernel_for(const MegaArgs& a) {
-  if (a.phases != nullptr)
-    return a.act_quant ? reinterpret_cast<const void*>(decode_megakernel_sm90<true, true>)
-                       : reinterpret_cast<const void*>(decode_megakernel_sm90<false, true>);
-  return a.act_quant ? reinterpret_cast<const void*>(decode_megakernel_sm90<true, false>)
-                     : reinterpret_cast<const void*>(decode_megakernel_sm90<false, false>);
-}
-
 // blocks of a grid of `kernel` with a's layout (one per SM), or 0 if a
 // block cannot be resident
 cudaError_t grid_size(const MegaArgs& a, const void* kernel, int* blocks) {
@@ -1704,18 +1722,40 @@ cudaError_t encode_all(const MegaArgs& a, Maps* maps) {
   return cudaSuccess;
 }
 
+#if defined(FMT_MK_PART)
+// a part's kernel on a's layout: its grid (*blocks), then, unless `params`
+// is null, the launch, cooperative for the step
+cudaError_t part_launch(const void* kernel, const MegaArgs& a, void** params, int* blocks,
+                        void* stream, bool cooperative) {
+  cudaError_t err = grid_size(a, kernel, blocks);
+  if (err != cudaSuccess || params == nullptr) return err;
+  if (*blocks == 0) return cudaErrorCooperativeLaunchTooLarge;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = cooperative ? cudaLaunchCooperativeKernel(kernel, dim3(*blocks), dim3(kThreads), params,
+                                                  layout(a).bytes, st)
+                    : cudaLaunchKernel(kernel, dim3(*blocks), dim3(kThreads), params,
+                                       layout(a).bytes, st);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+#else
+// the part whose kernel a launch with these arguments runs
+int (*part_for(const MegaArgs& a))(const MegaArgs*, const void*, void*, int*) {
+  if (a.phases != nullptr) return a.act_quant ? fmt_mk_step_q_phases : fmt_mk_step_w_phases;
+  return a.act_quant ? fmt_mk_step_q : fmt_mk_step_w;
+}
+
 cudaError_t launch(const MegaArgs& a, void* stream) {
   if (!plan_ok(a)) return cudaErrorInvalidValue;
   Maps maps;
-  cudaError_t err = encode_all(a, &maps);
-  int blocks = 0;
-  if (err == cudaSuccess) err = grid_size(a, kernel_for(a), &blocks);
+  const cudaError_t err = encode_all(a, &maps);
   if (err != cudaSuccess) return err;
-  if (blocks == 0) return cudaErrorCooperativeLaunchTooLarge;
-  void* params[] = {const_cast<MegaArgs*>(&a), &maps};
-  err = cudaLaunchCooperativeKernel(kernel_for(a), dim3(blocks), dim3(kThreads), params,
-                                    layout(a).bytes, static_cast<cudaStream_t>(stream));
-  return err != cudaSuccess ? err : cudaGetLastError();
+  int blocks = 0;
+  return static_cast<cudaError_t>(part_for(a)(&a, &maps, stream, &blocks));
+}
+
+// a's grid: the blocks a launch takes (0 if a block cannot be resident)
+cudaError_t step_grid(const MegaArgs& a, int* blocks) {
+  return static_cast<cudaError_t>(part_for(a)(&a, nullptr, nullptr, blocks));
 }
 
 // the w8a8 linear alone: a's plan and shapes (b rows, linear p.lin's (n, K)
@@ -1726,15 +1766,29 @@ cudaError_t launch_linear(const MegaArgs& a, const Lin& p, const int8_t* W, void
   int n, k, blocks = 0;
   lin_dims(a, p.lin, &n, &k);
   if (!encode_weights(&maps.m[p.lin], W, n, k)) return cudaErrorInvalidValue;
-  const void* kernel = reinterpret_cast<const void*>(w8a8_linear_kernel);
-  cudaError_t err = grid_size(a, kernel, &blocks);
-  if (err != cudaSuccess) return err;
-  if (blocks == 0) return cudaErrorCooperativeLaunchTooLarge;
-  void* params[] = {const_cast<MegaArgs*>(&a), &maps, const_cast<Lin*>(&p)};
-  err = cudaLaunchKernel(kernel, dim3(blocks), dim3(kThreads), params, layout(a).bytes,
-                         static_cast<cudaStream_t>(stream));
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return static_cast<cudaError_t>(fmt_mk_linear(&a, &maps, &p, stream, &blocks));
 }
+#endif
 
 }  // namespace mk90
 }  // namespace
+
+#if defined(FMT_MK_STEP)
+// this part's step kernel: decode_megakernel_sm90<FMT_MK_Q, FMT_MK_PHASES>
+extern "C" int FMT_MK_STEP(const MegaArgs* a, const void* maps, void* stream, int* blocks) {
+  void* params[] = {const_cast<MegaArgs*>(a), const_cast<void*>(maps)};
+  return static_cast<int>(mk90::part_launch(
+      reinterpret_cast<const void*>(mk90::decode_megakernel_sm90<FMT_MK_Q, FMT_MK_PHASES>), *a,
+      maps == nullptr ? nullptr : params, blocks, stream, true));
+}
+#endif
+
+#if defined(FMT_MK_LINEAR)
+extern "C" int fmt_mk_linear(const MegaArgs* a, const void* maps, const void* lin,
+                             void* stream, int* blocks) {
+  void* params[] = {const_cast<MegaArgs*>(a), const_cast<void*>(maps), const_cast<void*>(lin)};
+  return static_cast<int>(mk90::part_launch(
+      reinterpret_cast<const void*>(mk90::w8a8_linear_kernel), *a, params, blocks, stream,
+      false));
+}
+#endif

@@ -85,7 +85,11 @@ constexpr int kMaxN = 32;                     // hidden rows of a group
 constexpr int kStageBytes = 96 * 1024;        // the staged rows' budget
 constexpr int kBestWarps = kGroups * 4;
 
+// torch.argmax's order: NaN above every number, ties (between NaNs too) to
+// the lower index; a row of NaN logits picks its first row, never INT_MAX
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
+  const bool vn = v != v, bn = bv != bv;
+  if (vn || bn) return vn && (!bn || i < bi);
   return v > bv || (v == bv && i < bi);
 }
 

@@ -17,6 +17,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -96,21 +98,31 @@ def library_path() -> str:
 
 
 def _run_all(cmds):
-    """Run the commands concurrently -> [(cmd, returncode, output)]."""
+    """Run the commands concurrently -> [(cmd, returncode, output, seconds
+    it ran)]."""
+    t0 = time.monotonic()
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True))
              for cmd in cmds]
-    results = []
-    for cmd, proc in procs:
+    results = [None] * len(procs)
+
+    def wait(i):
+        cmd, proc = procs[i]
         out, _ = proc.communicate()
-        results.append((cmd, proc.returncode, out))
+        results[i] = (cmd, proc.returncode, out, time.monotonic() - t0)
+    threads = [threading.Thread(target=wait, args=(i,)) for i in range(len(procs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     return results
 
 
 def build() -> str:
     """Compile the kernels unless the library for these sources exists.
     Returns the library path; nvcc's output (registers, shared memory and
-    spills per kernel) is kept beside it as ``.log``."""
+    spills per kernel) is kept beside it as ``.log``, each command with the
+    seconds it took (``# nvcc <source or link>: <s> s``)."""
     lib = library_path()
     if os.path.isfile(lib):
         return lib
@@ -121,16 +133,17 @@ def build() -> str:
     objs = [f"{tmp}.{os.path.basename(cu)}.o" for cu in cus]
     results = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, cu]
                         for cu, obj in zip(cus, objs)])
-    if all(rc == 0 for _, rc, _ in results):
+    if all(rc == 0 for _, rc, _, _ in results):
         results += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp + ".so",
                               *objs]])
     with open(lib[:-3] + ".log", "w") as f:
-        for cmd, _, out in results:
-            f.write(" ".join(cmd) + "\n" + out)
+        for cmd, _, out, secs in results:
+            what = "link" if "-shared" in cmd else os.path.basename(cmd[-1])
+            f.write(f"{' '.join(cmd)}\n# nvcc {what}: {secs:.1f} s\n{out}")
     for obj in objs:
         if os.path.exists(obj):
             os.remove(obj)
-    failed = [(cmd, rc, out) for cmd, rc, out in results if rc != 0]
+    failed = [(cmd, rc, out) for cmd, rc, out, _ in results if rc != 0]
     if failed:
         cmd, rc, out = failed[0]
         raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
@@ -149,6 +162,19 @@ def kernels() -> ctypes.CDLL:
     return lib
 
 
-def check(err: int, name: str) -> None:
+# set by ``utils.profiling.debug_nans``: ``check`` then also looks for NaN
+# in the kernel's outputs; off, it does not touch them
+nan_checks = False
+
+
+def check(err: int, name: str, *outputs) -> None:
+    """Raise ``RuntimeError`` where the launch of the kernel ``name``
+    failed; with ``nan_checks`` on, ``FloatingPointError`` where one of its
+    floating ``outputs`` holds a NaN (this waits for the card)."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+    if nan_checks:
+        import torch
+        for t in outputs:
+            if t.is_floating_point() and bool(torch.isnan(t).any()):
+                raise FloatingPointError(f"debug_nans: {name} produced NaN")

@@ -7,7 +7,10 @@ card and how the design answers that: the live prefix split across blocks
 (flash-decoding), each block's whole K/V slab issued at once by 16-byte
 ``cp.async``, and the splits' partials folded in split order by a second
 small launch. ``plan`` picks, per shape, the heads a block holds, the
-splits and the slots a split holds, and is cached per shape.
+splits and the slots a split holds, and is cached per shape. The kernels
+take head widths 16, 32 and 64 (``HEAD_DIMS``): every model the main paths
+run is 64 wide, the narrow test-scale ones 16 or 32; a CUDA call at any
+other width raises.
 
 ``decode_attention`` and ``decode_attention_beam`` launch their kernel for
 CUDA tensors and run their plain version for CPU tensors; nothing else picks
@@ -36,7 +39,8 @@ import torch
 from . import cuda_build
 
 NEG = float(torch.finfo(torch.float32).min)
-HEAD_DIM = 64
+HEAD_DIMS = (16, 32, 64)    # the head widths the kernels take
+HEAD_DIM = 64               # the main paths' (the plan's default)
 # H100 SXM: streaming multiprocessors, shared memory an SM holds (228 KB)
 # and a block may take (227 KB) less the kernel's static arrays (2 KB);
 # the registers the kernel takes a thread at most (ptxas: 40-57)
@@ -45,8 +49,6 @@ SM_SMEM = 233472
 STATIC_SMEM = 2048
 SMEM_LIMIT = 232448 - STATIC_SMEM
 REGISTERS = 64
-# floats of one split's partial in the scratch: 64 sums, max, sum, pad
-PART_STRIDE = 68
 MAX_WARPS = 16
 MAX_SPLITS = 32
 MAX_BEAMS = 32      # the family rows a block holds (kMaxRows in the source)
@@ -83,11 +85,11 @@ def decode_attention_plain(q, k_cache, v_cache, npad, cur: int, *,
 def _check_cuda(q, k_cache, v_cache, npad, n_head: int) -> None:
     """The checks both CUDA kernels make of their common inputs."""
     max_len, b, D = k_cache.shape
+    if D // n_head not in HEAD_DIMS:
+        raise ValueError(f"CUDA decode_attention takes head dims {HEAD_DIMS}, "
+                         f"got D={D}, n_head={n_head}")
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    if D != n_head * HEAD_DIM:
-        raise ValueError(f"CUDA decode_attention takes head dim {HEAD_DIM}, "
-                         f"got D={D}, n_head={n_head}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"decode_attention: unsupported dtype {q.dtype}")
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
@@ -109,7 +111,7 @@ class Plan(NamedTuple):
     family's rows over ``positions`` slots of the live prefix, ``splits``
     blocks along it, ``warps`` warps a block; ``smem`` its dynamic shared
     memory in bytes, ``blocks`` the grid, ``pairs`` the (beam, head) pairs
-    a block's warps take."""
+    a block's warps take, ``head_dim`` the head width."""
     heads: int
     splits: int
     positions: int
@@ -117,31 +119,38 @@ class Plan(NamedTuple):
     smem: int
     blocks: int
     pairs: int
+    head_dim: int = HEAD_DIM
+
+    @property
+    def part_stride(self) -> int:
+        """Floats of one split's partial in the scratch: ``head_dim``
+        sums, max, sum, pad to 16 bytes."""
+        return self.head_dim + 4
 
 
 def plan_smem(kb: int, heads: int, positions: int, itemsize: int,
-              beam: bool) -> int:
+              beam: bool, head_dim: int = HEAD_DIM) -> int:
     """Dynamic shared memory of a block (``smem_bytes`` in the source): K
-    and V slabs of ``kb * positions`` (row, slot)s of ``heads * 64`` values,
-    q of the ``kb`` rows, a float score per (row, head, slot); beam: the
-    ancestry (int32) and a need flag (byte) per (row, slot)."""
-    slab = heads * HEAD_DIM * itemsize
+    and V slabs of ``kb * positions`` (row, slot)s of ``heads * head_dim``
+    values, q of the ``kb`` rows, a float score per (row, head, slot);
+    beam: the ancestry (int32) and a need flag (byte) per (row, slot)."""
+    slab = heads * head_dim * itemsize
     n = kb * positions
     return 2 * n * slab + kb * slab + 4 * n * heads + (5 * n if beam else 0)
 
 
 def make_plan(rows: int, n_head: int, t_lim: int, itemsize: int, *, kb: int,
-              beam: bool, heads: int, splits: int) -> Plan:
+              beam: bool, heads: int, splits: int, head_dim: int = HEAD_DIM) -> Plan:
     """The plan of ``heads`` heads a block and (at most) ``splits`` splits:
     equal splits of ``ceil(t_lim / splits)`` slots, the last one ragged."""
     positions = -(-t_lim // splits)
     splits = -(-t_lim // positions)
-    chunks = heads * HEAD_DIM * itemsize // 16     # 16-byte chunks a (row, slot)
+    chunks = heads * head_dim * itemsize // 16     # 16-byte chunks a (row, slot)
     warps = min(MAX_WARPS, kb * heads)             # a (beam, head) pair each
     warps += (32 * warps) % chunks // 32           # a whole chunk column per thread
     return Plan(heads, splits, positions, warps,
-                plan_smem(kb, heads, positions, itemsize, beam),
-                (rows // kb) * (n_head // heads) * splits, kb * heads)
+                plan_smem(kb, heads, positions, itemsize, beam, head_dim),
+                (rows // kb) * (n_head // heads) * splits, kb * heads, head_dim)
 
 
 def resident(p: Plan) -> int:
@@ -174,9 +183,10 @@ def rank(p: Plan, n_sm: int = SM_COUNT):
 
 @functools.lru_cache(maxsize=None)
 def plan(rows: int, n_head: int, t_lim: int, itemsize: int, *, kb: int = 1,
-         beam: bool = False, n_sm: int = SM_COUNT) -> Plan:
+         beam: bool = False, n_sm: int = SM_COUNT, head_dim: int = HEAD_DIM) -> Plan:
     """The kernel's layout at one shape, cached: ``rows`` query rows in
-    families of ``kb`` (1 greedy), ``t_lim`` slots of live prefix. Of the
+    families of ``kb`` (1 greedy), ``t_lim`` slots of live prefix, heads
+    ``head_dim`` wide. Of the
     plans of 4, 2 or 1 heads a block and 1 to MAX_SPLITS splits whose
     shared memory fits, the first by ``rank``. At the decode paths' shapes
     that is an unsplit grid of one head a block: the whole slab in flight
@@ -184,7 +194,7 @@ def plan(rows: int, n_head: int, t_lim: int, itemsize: int, *, kb: int = 1,
     plans = [p for heads in (4, 2, 1) if n_head % heads == 0
              for splits in range(1, min(MAX_SPLITS, t_lim) + 1)
              for p in [make_plan(rows, n_head, t_lim, itemsize, kb=kb, beam=beam,
-                                 heads=heads, splits=splits)]
+                                 heads=heads, splits=splits, head_dim=head_dim)]
              if p.splits == splits and p.smem <= SMEM_LIMIT]
     if not plans:
         raise ValueError(f"decode_attention: no plan fits {rows} rows of "
@@ -205,13 +215,16 @@ def _launch(q, k_cache, v_cache, npad, anc, cur: int, *, n_head: int,
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.data_ptr() % 16:
             raise ValueError(f"decode_attention: {name} must be 16-byte aligned")
+    if p.head_dim * n_head != q.shape[1]:
+        raise ValueError(f"decode_attention: {p} is for heads {p.head_dim} wide, the "
+                         f"inputs' are {q.shape[1] // n_head}")
     if p.smem > SMEM_LIMIT:
         raise ValueError(f"decode_attention: {p} takes {p.smem} bytes of shared "
                          f"memory, over {SMEM_LIMIT}")
     rows, D = q.shape
     scratch = None
     if p.splits > 1:
-        scratch = torch.empty(rows * n_head * p.splits * PART_STRIDE,
+        scratch = torch.empty(rows * n_head * p.splits * p.part_stride,
                               dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     lib = cuda_build.kernels()
@@ -227,7 +240,8 @@ def _launch(q, k_cache, v_cache, npad, anc, cur: int, *, n_head: int,
         err = lib.fmt_decode_attention_beam(*ptrs, anc.data_ptr(), out.data_ptr(), rows,
                                             D, n_head, t_lim, cur, float(scale), kb,
                                             anc.shape[2], *tail)
-    cuda_build.check(err, "decode_attention" if anc is None else "decode_attention_beam")
+    name = "decode_attention" if anc is None else "decode_attention_beam"
+    cuda_build.check(err, name, out)
     return out
 
 
@@ -254,7 +268,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                       kv_limit=kv_limit)
     _check_cuda(q, k_cache, v_cache, npad, n_head)
     t_lim = max_len if kv_limit is None else min(kv_limit, max_len)
-    p = plan(b, n_head, t_lim, q.element_size(), n_sm=_sm_count(q.device))
+    p = plan(b, n_head, t_lim, q.element_size(), n_sm=_sm_count(q.device),
+             head_dim=D // n_head)
     out = _launch(q, k_cache, v_cache, npad, None, cur, n_head=n_head,
                   scale=scale, kb=1, t_lim=t_lim, p=p)
     decode_attention.launches += 1
@@ -342,7 +357,7 @@ def decode_attention_beam(q: torch.Tensor, k_cache: torch.Tensor,
                          "the same device")
     t_lim = max_len if kv_limit is None else min(kv_limit, max_len)
     p = plan(B, n_head, t_lim, q.element_size(), kb=kb, beam=True,
-             n_sm=_sm_count(q.device))
+             n_sm=_sm_count(q.device), head_dim=D // n_head)
     out = _launch(q, k_cache, v_cache, npad, anc, cur, n_head=n_head,
                   scale=scale, kb=kb, t_lim=t_lim, p=p)
     decode_attention_beam.launches += 1

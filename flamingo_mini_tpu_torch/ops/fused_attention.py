@@ -129,7 +129,7 @@ def launch(fn: str, q, k, v, *, scale: float, causal: bool = False,
     err = getattr(_checked_lib(), fn)(
         args, int(q.dtype == torch.bfloat16), *plan,
         torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check(err, fn)
+    cuda_build.check(err, fn, out)
     return out
 
 

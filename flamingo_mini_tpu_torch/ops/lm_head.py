@@ -189,7 +189,7 @@ def lm_head_argmax(w8: torch.Tensor, scale: torch.Tensor, x: torch.Tensor,
         w8.data_ptr(), scale.data_ptr(), x.data_ptr(), part_max.data_ptr(),
         part_idx.data_ptr(), out.data_ptr(), Vp, D, Dw, B, n_valid,
         torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(err, "lm_head_argmax")
+    cuda_build.check(err, "lm_head_argmax", part_max)
     return out
 
 

@@ -341,7 +341,7 @@ def lin_w8a8(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
         ctypes.addressof(args), LINEARS.index(lin), x.data_ptr(), w.data_ptr(),
         s.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(err, "lin_w8a8")
+    cuda_build.check(err, "lin_w8a8", out)
     return out
 
 
@@ -905,7 +905,7 @@ def decode_step_megakernel(packed: Params, xk: torch.Tensor, xv: torch.Tensor,
     decode_step_megakernel.launches += 1
     err = lib.fmt_decode_megakernel(
         ctypes.addressof(args), torch.cuda.current_stream(x_emb.device).cuda_stream)
-    cuda_build.check(err, "decode_step_megakernel")
+    cuda_build.check(err, "decode_step_megakernel", out)
     return out
 
 

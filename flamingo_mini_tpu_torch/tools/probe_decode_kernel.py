@@ -214,7 +214,7 @@ def _launch(name: str, q: torch.Tensor, n_rows: int, block_t: int, ptrs, dims,
     err = getattr(lib, name)(q.data_ptr(), *ptrs, out.data_ptr(), *dims, n_rows, block_t,
                              group_rows(block_t), p.width, p.window,
                              torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check(err, name)
+    cuda_build.check(err, name, out)
     return out
 
 

@@ -76,7 +76,7 @@ def stream_sum(x: torch.Tensor, acc: torch.Tensor, chunk_rows: int) -> torch.Ten
                              out.data_ptr(), x.shape[0], n_blocks,
                              x.shape[0] // chunk_rows,
                              torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(err, "stream_sum")
+    cuda_build.check(err, "stream_sum", out)
     return out
 
 

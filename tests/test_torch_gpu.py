@@ -25,7 +25,8 @@ OPT mode (ReLU, q/k/v packed as one projection) at OPT-1.3B's width
 beam kernels (``decode_attention_beam``, the megakernel's beam mode) are
 held to the same tolerances at the beam path's shapes (96 rows in families
 of 3, 160 in families of 5, a 128-slot cache, a 68-slot ancestry table).
-Both decode attention kernels also at kv_limit 1, 63, 64, 65, 127, 128,
+Both decode attention kernels also at head widths 16 and 32 (the
+test-scale models'), and at kv_limit 1, 63, 64, 65, 127, 128,
 129 and 192 (greedy at flamingo-mini's and OPT-1.3B's shapes), with the
 live prefix ending on each side of every split boundary of their plan, a
 row whose [npad, cur] is empty and one whose first split is masked; under
@@ -258,12 +259,26 @@ def test_lm_head_kernel_matches_plain(cuda):
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
+@pytest.mark.parametrize("head_dim", [16, 32])
+@pytest.mark.parametrize("kb", [1, 3])
+def test_decode_attention_narrow_heads_match_plain(cuda, kb, head_dim):
+    """The test-scale models' head widths (16: the export example's and the
+    fidelity tool's smoke model), greedy (8 rows) and beams (4 families of
+    3), 4 heads, at the edges and split layouts of ``chip_smoke.py``'s
+    ``attention_edges``, which asserts the tolerances."""
+    import chip_smoke
+    rows, T = (8, 192) if kb == 1 else (12, 128)
+    edges = chip_smoke.attention_edges(cuda, rows, kb, 4 * head_dim, T, seed=head_dim,
+                                       head_dim=head_dim)
+    assert set(edges) == {str(torch.float32), str(torch.bfloat16)}
+
+
 def test_kernels_refuse_bad_input(cuda):
-    q = torch.zeros((2, 128), device=cuda)
-    kv = torch.zeros((64, 2, 128), device=cuda)
+    q = torch.zeros((2, 160), device=cuda)
+    kv = torch.zeros((64, 2, 160), device=cuda)
     npad = torch.zeros(2, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):       # head dim 32: not the kernel's 64
-        decode_attention(q, kv, kv, npad, 3, n_head=4, scale=1.0)
+    with pytest.raises(ValueError):       # head dim 80 (opt-2.7b's): not 16, 32 or 64
+        decode_attention(q, kv, kv, npad, 3, n_head=2, scale=1.0)
     with pytest.raises(ValueError):       # float32 hidden rows
         lm_head_argmax(torch.zeros((2048, 256), dtype=torch.int8, device=cuda),
                        torch.zeros((1, 2048), device=cuda),

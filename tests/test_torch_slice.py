@@ -297,18 +297,19 @@ def test_generate_rejects_unported_options(f32):
 
 def test_import_without_jax():
     """The port imports no jax and loads no file of the JAX package, by
-    import or by path."""
+    import or by path: every module of the package, found by
+    ``pkgutil.walk_packages`` (the tools, the examples and the training
+    entry point included)."""
     jax_pkg = os.path.join(REPO, "flamingo_mini_tpu") + os.sep
-    code = ("import sys; sys.modules['jax'] = None; "
+    code = ("import importlib, pkgutil, sys; sys.modules['jax'] = None; "
             "sys.modules['flamingo_mini_tpu'] = None; "
             "import flamingo_mini_tpu_torch as p; "
-            "import flamingo_mini_tpu_torch.generation, "
-            "flamingo_mini_tpu_torch.beam_search, "
-            "flamingo_mini_tpu_torch.constrained_beam, "
-            "flamingo_mini_tpu_torch.contrastive, "
-            "flamingo_mini_tpu_torch.ops.topk, "
-            "flamingo_mini_tpu_torch.ops.megadecode, "
-            "flamingo_mini_tpu_torch.utils.params_bridge; "
+            "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]; "
+            "assert {'flamingo_mini_tpu_torch.utils.profiling', "
+            "'flamingo_mini_tpu_torch.tools.int8_fidelity', "
+            "'flamingo_mini_tpu_torch.examples.export_to_torch', "
+            "'flamingo_mini_tpu_torch.train.__main__'} <= set(names), names; "
+            "[importlib.import_module(n) for n in names]; "
             "assert 'jax' not in {m.split('.')[0] for m in sys.modules "
             "if sys.modules[m] is not None}; "
             f"bad = [m for m, v in list(sys.modules.items()) if "

@@ -18,6 +18,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 
@@ -45,11 +46,13 @@ def rank_env():
 
 def wait_all(procs, timeout: float):
     """Each process's (returncode, output); every process is killed once one
-    fails or the time runs out."""
+    fails or the time runs out. ``timeout`` is one deadline for the whole
+    world, not a limit per process."""
     outs = []
+    deadline = time.monotonic() + timeout
     try:
         for p in procs:
-            out, _ = p.communicate(timeout=timeout)
+            out, _ = p.communicate(timeout=max(0.0, deadline - time.monotonic()))
             outs.append(out)
             if p.returncode != 0:
                 break
