@@ -9,7 +9,8 @@ beam search and beam-sample, constrained beams and contrastive search, the
 megakernel's w8a8 tier, the ``use_pallas``
 configuration's generate, the uncached forward with its loss, and training
 (``flamingo_mini_tpu_torch.train``), for
-flamingo-mini (GPT-2-medium) and for OPT-1.3B, opt-350m and OPT-125m trunks, the
+flamingo-mini (GPT-2-medium) and for OPT-1.3B, opt-350m and OPT-125m trunks and
+OPT-2.7B and OPT-6.7B (heads 80 and 128 wide) at full width and depth, the
 stream probe and the in-situ decode and head probes, and checks them:
 
 1. device and build: prints the card's name and power limit (nvidia-smi)
@@ -40,8 +41,7 @@ stream probe and the in-situ decode and head probes, and checks them:
    same edges as ``decode_attention``'s at 96 and 160 rows (families of 3
    and 5; split layouts at kv_limit 68); both at the same edges at the
    test-scale models' head widths 16 and 32 (8 rows, or 4 families of 3, 4
-   heads), and at opt-2.7b's width 80, which they do not take, each must
-   raise; the
+   heads), and at width 96, which they do not take, each must raise; the
    megakernel's beam mode at 1 and 2 layers and 3, 24, 96 and 160 rows
    (families of 3, 3, 3, 5) at 2 bf16 ulps, and at 24 layers and 96 rows
    under the normwise rule, with its grid at 96 and 160 rows. The
@@ -127,7 +127,14 @@ stream probe and the in-situ decode and head probes, and checks them:
    multiple of neither), bit for bit against their plain versions (which
    sum in the kernels' order); each timed at kv_limit 128 beside its plain
    version, its bound (16.78 MB at 3.35 TB/s) and, as a rate reference,
-   ``torch.sum(dim=0)`` over 16.78 MB;
+   ``torch.sum(dim=0)`` over 16.78 MB. Then the kernels taken at head
+   widths 80 and 128 (``phase2_wide_heads``) at OPT-2.7B's and OPT-6.7B's
+   shapes (b=8, 32 heads, T=128): ``decode_attention`` and
+   ``decode_attention_beam`` (24 rows in families of 3) at their edges in
+   both dtypes, ``fused_attention`` at the trunk's prefill and forward and
+   the Hopper tile's edges, ``flash_attention`` at 4,000 keys, and the
+   megakernel's OPT mode at 1 and 2 layers, greedy and beams, weight-only
+   at 2 bf16 ulps and w8a8 bit for bit;
 3. greedy captioning end to end through ``FlamingoModel.generate`` at the
    full width of flamingo-mini (GPT-2-medium with gated xattn before every
    layer, CLIP ViT-L/14) at 12 of its 24 layers (``MINI_LAYERS``, the first
@@ -189,11 +196,11 @@ stream probe and the in-situ decode and head probes, and checks them:
    widths: ViT-L/14, xattn every other
    layer, int8 trunk and xattn, bf16, batch 8, one image + 8-token prompt
    with rows 0 and 1 left-padded by 2, 64 new tokens, ``prefix_block=32``,
-   EOS unreachable), greedy per layer (12 x 63 ``decode_attention``, 63
-   ``lm_head_argmax``) and on the megakernel (63
+   EOS unreachable; ``trunk_cells``), greedy per layer (12 x 63
+   ``decode_attention``, 63 ``lm_head_argmax``) and on the megakernel (63
    ``decode_step_megakernel``, 63 ``lm_head_argmax``), each against its
    plain-version run and the two paths against each other (near-ties as
-   above); config 3 as written, ``do_sample=True, top_k=50`` on the
+   above), every launch at the trunk's head width; config 3 as written, ``do_sample=True, top_k=50`` on the
    megakernel with a seeded ``torch.Generator`` (63
    ``decode_step_megakernel``, 0 ``lm_head_argmax``, every other 0;
    every token in its own run's top 50; tokens against the plain-version
@@ -205,13 +212,21 @@ stream probe and the in-situ decode and head probes, and checks them:
    the reference run's top 50; two runs with one seed bit-equal, two seeds
    different); w8a8 on the
    megakernel (63 + 63, against its plain-version
-   run; agreement with the weight-only run printed); beams on the megakernel (3 beams, 32 new tokens: 31
-   ``decode_step_megakernel`` and nothing else, output (8, 40), against the
-   plain-version run); the use_pallas forward (42 ``fused_attention``, 6
-   ``fused_media_xattn``, the forward rule). opt-350m at 12 of its 24
+   run; agreement with the weight-only run printed); beams per layer and on
+   the megakernel (3 beams, 32 new tokens: 12 x 31 ``decode_attention_beam``
+   or 31 ``decode_step_megakernel`` and nothing else, output (8, 40), each
+   against its plain-version run, and the two paths against each other);
+   the use_pallas forward (42 ``fused_attention``, each at its tower's head
+   width, 6 ``fused_media_xattn``, the forward rule). opt-350m at 12 of its 24
    layers (post-norm with
    project_in/out): per layer, 16 new tokens, batch 8, against the
-   plain-version run; ``megakernel=True`` must raise ``ValueError``;
+   plain-version run; ``megakernel=True`` must raise ``ValueError``.
+   OPT-2.7B and OPT-6.7B at full width and all 32 layers (``WIDE``, the
+   configuration's presets; heads 80 and 128 wide) through the same
+   ``trunk_cells`` on the same traffic, the megakernel paths held to the
+   plain program over their first ``WIDE_PLAIN_NEW`` tokens and the
+   forward's logits within ``WIDE_FWD_LIMIT`` of the plain program on the
+   card (no CPU run), each model freed before the next;
    BASELINE configs 1, 4 and 5 (``BASELINE_CELLS``, bench_extended.py's
    programs, random weights, int8 weight-only in bf16, ``prefix_block=32``):
    flamingo-tiny greedy at b=32 over one image and a 4-token prompt, 64 new
@@ -349,7 +364,9 @@ stream probe and the in-situ decode and head probes, and checks them:
    (beam-sample per layer and on the megakernel, constrained and
    contrastive per layer) and beam-sample's step work alone (the warpers
    over 96 rows; the noise and the top 6 of 32 x 150,774 keys), and the
-   four OPT-1.3B paths (top-k 50 sampling and w8a8 included), peak memory;
+   four OPT-1.3B paths (top-k 50 sampling and w8a8 included) and the
+   megakernel path of OPT-2.7B and OPT-6.7B, with their 32-layer step
+   alone beside its plain version and bound, peak memory;
    the entry point's captions/s (preprocessing and decode included) beside
    ``generate`` alone, the preprocessing of 32 images and ``batch_decode``
    alone, config 1 via ``from_pretrained``'s captions/s, and scored
@@ -389,6 +406,7 @@ eleven, with the megakernel's OPT, beam and w8a8 modes and the shapes of
 BASELINE's configurations where they have them); the last line is
 ``{"ok": true, "device": ...}``.
 """
+import collections
 import contextlib
 import json
 import os
@@ -465,6 +483,30 @@ OPT_MAX = OPT_PROMPT + OPT_NEW
 OPT_D, OPT_H, OPT_T, OPT_V = 2048, 32, 128, 50273
 # (cur, kv_limit) pairs the OPT loop reaches: segments end at 40 and 71
 OPT_PAIRS = ((8, 40), (39, 40), (40, 71), (70, 71))
+# OPT-2.7B and OPT-6.7B captioning: the presets of configuration_flamingo.py
+# (heads 80 and 128 wide, 32 layers) at BASELINE config 3's traffic (OPT13's
+# batch, prompts, left padding, 64 new tokens, 3 beams of 32), full width
+# and depth, greedy per layer, on the megakernel (weight-only and w8a8),
+# 3 beams per layer and on the megakernel, and the use_pallas forward
+WIDE = {"OPT-2.7B": dict(lm="facebook/opt-2.7b", dim=2560),
+        "OPT-6.7B": dict(lm="facebook/opt-6.7b", dim=4096)}
+WIDE_COMMON = dict(clip_model_type="openai/clip-vit-large-patch14", dim_visual=1024,
+                   xattn_every=2, compute_dtype="bfloat16")
+WIDE_HEADS = {"OPT-2.7B": (2560, 32, 80), "OPT-6.7B": (4096, 32, 128)}
+# the megakernel paths' plain-version runs, which the cells are held to:
+# their first 8 tokens (the plain megakernel takes 0.35-0.65 s a step here)
+WIDE_PLAIN_NEW = 8
+# the use_pallas forward's logits against the plain program on the card,
+# normwise: the plain program on the CPU and on the card part by 0.018 at
+# both trunks' 32 layers (PERF.md section 2), as far as the kernels do
+WIDE_FWD_LIMIT = 0.03
+# the trunk's attention in the use_pallas forward (b, h, n) and the
+# streaming kernel's check (b, h, keys); the edges of the Hopper tile at
+# the new widths (n_kv by n_q, b=2, 3 heads)
+WIDE_FWD = (8, 32, 64)
+WIDE_FLASH = (1, 32, 4000)
+WIDE_N_KV = (1, 63, 64, 65, 127, 129, 257)
+WIDE_N_Q = (1, 65)
 # BASELINE's other configurations (bench_extended.py:208-241), int8
 # weight-only in bf16, prefix_block 32, EOS unreachable: (config, batch,
 # prompt tokens, new tokens, images a row, frames a clip). 1: flamingo-tiny
@@ -814,8 +856,8 @@ def narrow_attention(dev, kb: int = 1) -> float:
     narrow head widths of the test-scale models (16: the export example's
     and the fidelity tool's smoke model; 32), at their edges
     (``attention_edges``: 8 greedy rows or 4 families of ``kb``, 4 heads).
-    Then a width the kernels do not take (opt-2.7b: 32 heads of 80) must
-    raise on the card, never run plain. -> the worst error."""
+    Then a width the kernels do not take (32 heads of 96) must raise on the
+    card, never run plain. -> the worst error."""
     from flamingo_mini_tpu_torch.ops import decode_attention as da
     rows, T = (8, 192) if kb == 1 else (4 * kb, BEAM_T)
     name = "decode_attention" if kb == 1 else "decode_attention_beam"
@@ -826,8 +868,8 @@ def narrow_attention(dev, kb: int = 1) -> float:
         print_edges(f"{name} edges at head width {head_dim} ({rows} rows, 4 heads, T={T})",
                     edges)
         worst = max([worst] + [err for err, _tol, _where in edges.values()])
-    q = torch.zeros((kb, 2560), dtype=torch.bfloat16, device=dev)
-    kv = torch.zeros((16, kb, 2560), dtype=torch.bfloat16, device=dev)
+    q = torch.zeros((kb, 3072), dtype=torch.bfloat16, device=dev)
+    kv = torch.zeros((16, kb, 3072), dtype=torch.bfloat16, device=dev)
     npad = torch.zeros(kb, dtype=torch.int32, device=dev)
     try:
         if kb == 1:
@@ -835,9 +877,9 @@ def narrow_attention(dev, kb: int = 1) -> float:
         else:
             anc = torch.zeros((1, kb, 16), dtype=torch.int32, device=dev)
             da.decode_attention_beam(q, kv, kv, anc, npad, 3, n_head=32, scale=0.1, kb=kb)
-        raise AssertionError(f"{name} ran at head width 80")
+        raise AssertionError(f"{name} ran at head width 96")
     except ValueError as e:
-        print(f"[phase 2] {name} at opt-2.7b's head width 80 on the card raises: {e}")
+        print(f"[phase 2] {name} at head width 96 (not taken) on the card raises: {e}")
     return worst
 
 
@@ -851,7 +893,8 @@ def print_edges(label: str, worst: dict) -> None:
 def phase2_decode_attention(dev, flush, b=ATTN_B, D=ATTN_D, H=ATTN_H, T=ATTN_T,
                             curs=(4, 70, 131), limits=(36, 68, 132)):
     """decode_attention vs plain at (b, D, H heads, a T-slot cache) for each
-    cur and kv_limit; timed at the last of each, beside SDPA and the bound."""
+    cur and kv_limit, and at its edges (heads D / H wide); timed at the last
+    of each, beside SDPA and the bound."""
     from flamingo_mini_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_plain)
     rs = np.random.RandomState(0)
@@ -879,8 +922,8 @@ def phase2_decode_attention(dev, flush, b=ATTN_B, D=ATTN_D, H=ATTN_H, T=ATTN_T,
                 worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
     print(f"[phase 2] decode_attention vs plain at b={b}, D={D}, {H} heads, T={T}: "
           f"max abs err {worst} (tolerance: f32 1e-5, bf16 2 ulp of the output scale)")
-    edges = attention_edges(dev, b, 1, D, T, seed=b)
-    print_edges(f"decode_attention edges at b={b}, D={D}, T={T} (kv_limit "
+    edges = attention_edges(dev, b, 1, D, T, seed=b, head_dim=D // H)
+    print_edges(f"decode_attention edges at b={b}, D={D}, {H} heads, T={T} (kv_limit "
                 f"{ATTN_EDGE_LIMITS}, split layouts {ATTN_SPLIT_PLANS} at 129)", edges)
     for dtype, (err, _tol, _where) in edges.items():
         worst[dtype] = max(worst.get(dtype, 0.0), err)
@@ -1354,24 +1397,36 @@ def phase2_decode_attention_beam(dev, flush):
             worst[dtype] = max(worst.get(dtype, 0.0), err)
     # the beam loop's last step
     q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
-    cur, t_lim = 66, 68
-    kw = dict(n_head=ATTN_H, scale=scale, kb=kb, kv_limit=t_lim)
+    return dict(max_abs_err=max(worst.values()),
+                **time_beam_attention(dev, flush, q, k, v, anc, npad, 66, 68, ATTN_H, kb,
+                                      scale))
+
+
+def time_beam_attention(dev, flush, q, k, v, anc, npad, cur, t_lim, H, kb, scale):
+    """decode_attention_beam at (cur, kv_limit t_lim) on bf16 inputs: its
+    time, the plain version's, one SDPA call's over each family's kb x
+    t_lim keys (the ancestry as a boolean mask) and the bound of the
+    distinct ancestor slots it needs -> those, as a kernel row's fields."""
+    from flamingo_mini_tpu_torch.ops.decode_attention import (
+        decode_attention_beam, decode_attention_beam_plain)
+    B, D = q.shape
+    b, dh = B // kb, D // H
+    kw = dict(n_head=H, scale=scale, kb=kb, kv_limit=t_lim)
     ms = time_ms(lambda: decode_attention_beam(q, k, v, anc, npad, cur, **kw), 50, flush)
     plain_ms = time_ms(lambda: decode_attention_beam_plain(q, k, v, anc, npad, cur, **kw),
                        20, flush)
     # yardstick: one SDPA call over each family's kb x t_lim keys, the
     # ancestry as a boolean mask (all built outside the timed region)
-    dh = ATTN_D // ATTN_H
-    qf = q.view(b, kb, ATTN_H, dh).permute(0, 2, 1, 3).contiguous()
-    kf, vf = (c[:t_lim].view(t_lim, b, kb, ATTN_H, dh).permute(1, 3, 2, 0, 4)
-              .reshape(b, ATTN_H, kb * t_lim, dh).contiguous() for c in (k, v))
+    qf = q.view(b, kb, H, dh).permute(0, 2, 1, 3).contiguous()
+    kf, vf = (c[:t_lim].view(t_lim, b, kb, H, dh).permute(1, 3, 2, 0, 4)
+              .reshape(b, H, kb * t_lim, dh).contiguous() for c in (k, v))
     t = torch.arange(t_lim, device=dev)
     ok = (t >= npad.view(b, kb)[:, :, None]) & (t <= cur)            # (b, i, t)
     own = anc[:, :, :t_lim, None] == torch.arange(kb, device=dev)    # (b, i, t, j)
     mask = (own & ok[..., None]).permute(0, 1, 3, 2).reshape(b, 1, kb, kb * t_lim)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_out = sdpa(qf, kf, vf, attn_mask=mask, scale=scale)
-    lib_err = float((lib_out.permute(0, 2, 1, 3).reshape(B, ATTN_D).float()
+    lib_err = float((lib_out.permute(0, 2, 1, 3).reshape(B, D).float()
                      - decode_attention_beam(q, k, v, anc, npad, cur, **kw).float())
                     .abs().max())
     library_ms = time_ms(lambda: sdpa(qf, kf, vf, attn_mask=mask, scale=scale), 50, flush)
@@ -1381,13 +1436,14 @@ def phase2_decode_attention_beam(dev, flush):
           f"{host_us(lambda: decode_attention_beam(q, k, v, anc, npad, cur, **kw)):.1f} "
           "us a call")
     slots, n_pos = ancestor_reads(anc, npad, cur, kb)
-    n_bytes = 2 * 2 * slots * ATTN_D + 2 * 2 * B * ATTN_D + 4 * B + 4 * n_pos
-    bound_ms, bound_by = bound(n_bytes, 4 * n_pos * ATTN_D)
-    print(f"[phase 2] decode_attention_beam bound at {B} rows, cur {cur}: "
-          f"{slots} distinct ancestor slots of {b * kb * (cur + 1)}, "
-          f"{n_bytes / 1e6:.3f} MB -> {bound_ms:.5f} ms ({bound_by})")
-    return dict(max_abs_err=max(worst.values()), ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    n_bytes = 2 * 2 * slots * D + 2 * 2 * B * D + 4 * B + 4 * n_pos
+    bound_ms, bound_by = bound(n_bytes, 4 * n_pos * D)
+    print(f"[phase 2] decode_attention_beam at {B} rows, D={D}, heads of {dh}, cur {cur}: "
+          f"{ms} ms, plain {plain_ms} ms, SDPA {library_ms} ms; bound: {slots} distinct "
+          f"ancestor slots of {B * (cur + 1)}, {n_bytes / 1e6:.3f} MB -> {bound_ms:.5f} ms "
+          f"({bound_by}) (median per call, L2 flushed)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def beam_trunk_inputs(dev, cfg, rows: int, kb: int, seed: int):
@@ -1975,14 +2031,15 @@ def phase2_refusal(dev):
     torch.cuda.empty_cache()
 
 
-def attention_inputs(dev, dtype, b, h, n_q, n_kv, seed):
-    """q (b, h, n_q, 64) and k, v (b, h, n_kv, 64) as the models hand them
-    to the kernels: ``split_heads`` views of (b, n, h * 64) projections."""
+def attention_inputs(dev, dtype, b, h, n_q, n_kv, seed, head_dim=HEAD_DIM):
+    """q (b, h, n_q, d) and k, v (b, h, n_kv, d), d = ``head_dim``, as the
+    models hand them to the kernels: ``split_heads`` views of (b, n, h * d)
+    projections."""
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def proj(n):
-        x = (0.5 * torch.randn((b, n, h * HEAD_DIM), generator=gen, device=dev)).to(dtype)
-        return x.view(b, n, h, HEAD_DIM).transpose(1, 2)
+        x = (0.5 * torch.randn((b, n, h * head_dim), generator=gen, device=dev)).to(dtype)
+        return x.view(b, n, h, head_dim).transpose(1, 2)
     return proj(n_q), proj(n_kv), proj(n_kv)
 
 
@@ -2044,12 +2101,13 @@ def held_to_plain(label, got, want, dtype):
     return err
 
 
-def attention_bound(b, h, n_q, n_kv, itemsize, extra_bytes=0, pairs=None):
+def attention_bound(b, h, n_q, n_kv, itemsize, extra_bytes=0, pairs=None,
+                    head_dim=HEAD_DIM):
     """(bound ms, what bounds it): q, k, v read and the output written once;
     two multiply-adds per (query, key, dim) pair for QK^T and PV."""
-    n_bytes = itemsize * HEAD_DIM * b * h * (2 * n_q + 2 * n_kv) + extra_bytes
+    n_bytes = itemsize * head_dim * b * h * (2 * n_q + 2 * n_kv) + extra_bytes
     pairs = b * h * n_q * n_kv if pairs is None else pairs
-    return bound(n_bytes, 4 * pairs * HEAD_DIM)
+    return bound(n_bytes, 4 * pairs * head_dim)
 
 
 def phase2_fused_attention(dev, flush):
@@ -2771,13 +2829,53 @@ def open_gates(model):
     return model
 
 
-def check_forward(label, model_f, rs, n_layer, n_x):
+@contextlib.contextmanager
+def launch_widths(widths):
+    """Record the head width of every launch of the kernels taken at
+    several widths into ``widths`` ({kernel name: {width: launches}}), at
+    the point where each wrapper launches: ``decode_attention._launch``
+    (greedy and beam), ``megadecode.kernel_args`` (one a megakernel
+    launch) and ``fused_attention.launch`` (fused and streaming)."""
+    from flamingo_mini_tpu_torch.ops import decode_attention as da
+    from flamingo_mini_tpu_torch.ops import fused_attention as fa
+    from flamingo_mini_tpu_torch.ops import megadecode
+
+    def note(name, width):
+        widths.setdefault(name, {})
+        widths[name][width] = widths[name].get(width, 0) + 1
+
+    da_launch, mk_args, fa_launch = da._launch, megadecode.kernel_args, fa.launch
+
+    def da_rec(q, k, v, npad, anc, cur, **kw):
+        note("decode_attention" if anc is None else "decode_attention_beam",
+             q.shape[1] // kw["n_head"])
+        return da_launch(q, k, v, npad, anc, cur, **kw)
+
+    def mk_rec(packed, *args, config, **kw):
+        D, _Dff, _L, H = megadecode.trunk_dims(config.lm_arch)
+        note("decode_step_megakernel", D // H)
+        return mk_args(packed, *args, config=config, **kw)
+
+    def fa_rec(fn, q, *args, **kw):
+        note(fn[len("fmt_"):], q.shape[-1])
+        return fa_launch(fn, q, *args, **kw)
+    with patched(da, "_launch", da_rec), patched(megadecode, "kernel_args", mk_rec), \
+            patched(fa, "launch", fa_rec):
+        yield
+
+
+def check_forward(label, model_f, rs, n_layer, n_x, limit=None):
     """The use_pallas forward with its loss at FWD_B x FWD_N, one image per
     row at its first real token, rows 0 and 1 left-padded: exact launch
-    counts; logits (all rows, and the left-padded rows) and the loss within
-    max(1e-2, 1.25 x the plain version's CPU-vs-card spread) of the
-    plain-version run. -> (the forward, for timing; its launch counts)."""
+    counts, fused_attention's at each tower's head width; logits (all rows,
+    and the left-padded rows) and the loss within max(1e-2, 1.25 x the
+    plain version's CPU-vs-card spread) of the plain-version run; with
+    ``limit``, the logits within ``limit`` and the loss within 1e-2, and no
+    CPU run (a multi-billion-parameter trunk takes a minute or more there).
+    -> (the forward, for timing; its launch counts; fused_attention's
+    launches by head width)."""
     from flamingo_mini_tpu_torch import FlamingoModel
+    from flamingo_mini_tpu_torch.ops.megadecode import trunk_dims
     dev = model_f.device
     config = model_f.config
     arch = config.vision_arch
@@ -2791,12 +2889,22 @@ def check_forward(label, model_f, rs, n_layer, n_x):
                             dtype=torch.float32, device=dev).to(torch.bfloat16)
     fwd = dict(media_locations=f_media, attention_mask=f_mask, pixel_values=f_pixels,
                labels=f_ids)
+    widths = {}
     zero_counts()
-    out_k = model_f(f_ids, **fwd)
+    with launch_widths(widths):
+        out_k = model_f(f_ids, **fwd)
     counts = read_counts()
     expect(f"{label} forward", counts,
            fused_attention=arch.num_hidden_layers + config.resampler_depth + n_layer,
            fused_media_xattn=n_x)
+    D, _Dff, _L, H = trunk_dims(config.lm_arch)
+    want = collections.Counter()
+    want[arch.hidden_size // arch.num_attention_heads] += arch.num_hidden_layers
+    want[config.resampler_dim_head] += config.resampler_depth
+    want[D // H] += n_layer
+    assert widths == {"fused_attention": dict(want)}, (label, widths, want)
+    print(f"[phase 3] {label} forward: fused_attention launches by head width "
+          f"{widths['fused_attention']}")
     assert out_k.logits.shape == (FWD_B, FWD_N, vocab), out_k.logits.shape
     assert bool(torch.isfinite(out_k.logits).all()) and bool(torch.isfinite(out_k.loss))
     # tensors made under inference mode carry no version counter
@@ -2809,6 +2917,18 @@ def check_forward(label, model_f, rs, n_layer, n_x):
     assert err <= 1e-3, (label, err)
     with plain_attention():
         out_p = model_f(f_ids, **fwd)
+    if limit is not None:
+        for part, rows in (("logits, all rows", slice(None)),
+                           ("logits, left-padded rows", slice(0, 2))):
+            err = rel_err(out_k.logits[rows], out_p.logits[rows])
+            print(f"[phase 3] {label} forward {part}: normwise relative error of the "
+                  f"kernels vs plain {err} (tolerance {limit})")
+            assert err <= limit, (label, part, err)
+        err = rel_err(out_k.loss, out_p.loss)
+        print(f"[phase 3] {label} forward loss: kernels {float(out_k.loss)}, plain "
+              f"{float(out_p.loss)}; relative error {err} (tolerance 1e-2)")
+        assert err <= 1e-2, (label, err)
+        return (lambda: model_f(f_ids, **fwd)), counts, widths["fused_attention"]
     # the plain versions on the CPU: how far float32 sums in another order
     # move this bf16 program
     t0 = time.perf_counter()
@@ -2829,7 +2949,7 @@ def check_forward(label, model_f, rs, n_layer, n_x):
           f"relative error {err}, spread {spread} (tolerance: the larger of 1e-2 "
           "and 1.25 x the spread)")
     assert err <= max(1e-2, 1.25 * spread), (label, err, spread)
-    return (lambda: model_f(f_ids, **fwd)), counts
+    return (lambda: model_f(f_ids, **fwd)), counts, widths["fused_attention"]
 
 
 def time_generate(card, batch, paths):
@@ -3112,15 +3232,19 @@ def sampled_head_share(dev, card, model, vocab: int, sample: dict, step_ms: floa
     del flush
 
 
-def opt_setup(dev, rs):
-    """OPT-1.3B at ``CUT_LAYERS`` layers (gates open, int8 trunk and xattn,
-    bf16) and its batch:
-    8 prompts of 8 tokens, rows 0 and 1 left-padded by 2, one image each at
-    the first real token -> (config, model, ids, media, mask, pixels)."""
+def opt_model(dev):
+    """OPT-1.3B at ``CUT_LAYERS`` of its 24 layers: gates open, int8 trunk
+    and xattn, bf16, weights from seed 1."""
     from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel
     config = FlamingoConfig(**OPT13, lm_arch_overrides=dict(num_hidden_layers=CUT_LAYERS))
     model = open_gates(FlamingoModel(config, device=dev, seed=1))
-    model.quantize_int8().to_bf16()
+    return model.quantize_int8().to_bf16()
+
+
+def trunk_batch(dev, rs, config):
+    """BASELINE config 3's batch: 8 prompts of 8 tokens, rows 0 and 1
+    left-padded by 2, one image each at the first real token -> (ids,
+    media, mask, pixels)."""
     ids = torch.tensor(rs.randint(4, 1000, (OPT_B, OPT_PROMPT)), device=dev)
     mask = torch.ones((OPT_B, OPT_PROMPT), dtype=torch.int32, device=dev)
     media = torch.zeros((OPT_B, OPT_PROMPT), dtype=torch.int32, device=dev)
@@ -3129,51 +3253,131 @@ def opt_setup(dev, rs):
     size = config.vision_arch.image_size
     pixels = torch.tensor(rs.randn(OPT_B, 1, 3, size, size), dtype=torch.float32,
                           device=dev).to(torch.bfloat16)
-    return config, model, ids, media, mask, pixels
+    return ids, media, mask, pixels
+
+
+def trunk_run(model, batch, megakernel, new_tokens=OPT_NEW, max_length=OPT_MAX, **kw):
+    """``model.generate`` on ``trunk_batch``'s batch, EOS unreachable."""
+    ids, media, mask, pixels = batch
+    return model.generate(ids, media_locations=media, attention_mask=mask,
+                          pixel_values=pixels, max_length=max_length,
+                          max_new_tokens=new_tokens, prefix_block=PREFIX_BLOCK,
+                          eos_token_id=model.config.lm_arch.vocab_size + 1, pad_token_id=0,
+                          megakernel=megakernel, **kw)
+
+
+def trunk_beam_run(model, batch, megakernel, new_tokens=OPT_BEAM_NEW):
+    """3 beams (lazy reordering); a beam run returns ``max_length`` tokens,
+    so the cache ends with the new ones."""
+    return trunk_run(model, batch, megakernel, new_tokens,
+                     max_length=OPT_PROMPT + new_tokens, num_beams=BEAMS,
+                     length_penalty=1.0, early_stopping=True, beam_reorder="lazy")
+
+
+def check_widths(label, widths, counts, hd):
+    """Every launch that ``launch_widths`` recorded at the trunk's head
+    width ``hd``."""
+    for name, by_width in widths.items():
+        assert by_width == {hd: counts[name]}, (label, name, by_width)
+    print(f"[phase 3] {label}: launches by head width {widths}")
+
+
+def trunk_cells(label, model, model_f, batch, rs, plain_new=OPT_NEW, fwd_limit=None):
+    """Phase 3 for an OPT trunk (``model``: int8, gates open; ``model_f``:
+    its bf16 use_pallas twin) on ``trunk_batch``'s batch: greedy per layer,
+    on the megakernel and w8a8 on the megakernel, 3 beams per layer and on
+    the megakernel, each with its launches exact and every one at the
+    trunk's head width; each path against the plain program under the
+    near-tie rule, the per-layer paths over all their tokens and the
+    megakernel paths over their first ``plain_new`` (the plain megakernel
+    takes a third to half a second a step at 24-32 layers); the megakernel
+    paths against the per-layer ones; then the use_pallas forward
+    (``check_forward`` with ``fwd_limit``) -> ({path: launch counts},
+    {greedy path: tokens}, the forward for timing)."""
+    ids = batch[0]
+    config = model.config
+    vocab = config.lm_arch.vocab_size + 1
+    n_layer = config.lm_arch.num_hidden_layers
+    hd = config.lm_arch.hidden_size // config.lm_arch.num_attention_heads
+    steps, b_steps = OPT_NEW - 1, OPT_BEAM_NEW - 1
+    counts, tokens, gaps = {}, {}, {}
+    for path, mk, extra in (("per layer", False, {}), ("megakernel", True, {}),
+                            ("w8a8", True, dict(w8a8=True))):
+        widths, gaps[path] = {}, []
+        with launch_widths(widths):
+            tokens[path], counts[path] = counted(
+                lambda: trunk_run(model, batch, mk, **extra), gaps[path], ids,
+                (OPT_B, OPT_MAX), vocab)
+        expect(f"{label} {path} path", counts[path], lm_head_argmax=steps,
+               **(dict(decode_step_megakernel=steps) if mk
+                  else dict(decode_attention=n_layer * steps)))
+        check_widths(f"{label} {path}", widths, counts[path], hd)
+        new = plain_new if mk else OPT_NEW
+        got = tokens[path] if new == OPT_NEW else trunk_run(
+            model, batch, mk, new, OPT_PROMPT + new, **extra)[:, OPT_PROMPT:].cpu()
+        p_gaps = []
+        with plain_kernels(p_gaps):
+            want = trunk_run(model, batch, mk, new, OPT_PROMPT + new, **extra)
+        compare_tokens(f"{label} {path} vs plain ({new} tokens)", got,
+                       want[:, OPT_PROMPT:].cpu(), p_gaps)
+    compare_tokens(f"{label} megakernel path vs per-layer path", tokens["megakernel"],
+                   tokens["per layer"], gaps["per layer"])
+    print_agreement(f"{label} w8a8 vs weight-only megakernel", tokens["w8a8"],
+                    tokens["megakernel"])
+
+    beams = {}
+    for path, mk in (("beam per layer", False), ("beam megakernel", True)):
+        widths = {}
+        with launch_widths(widths):
+            b_tokens, counts[path], b_cands = recorded_beam(
+                lambda: trunk_beam_run(model, batch, mk), ids,
+                (OPT_B, OPT_PROMPT + OPT_BEAM_NEW), vocab, OPT_BEAM_NEW)
+        expect(f"{label} {path} path", counts[path],
+               **(dict(decode_step_megakernel=b_steps) if mk
+                  else dict(decode_attention_beam=n_layer * b_steps)))
+        check_widths(f"{label} {path}", widths, counts[path], hd)
+        beams[path] = (b_tokens, b_cands)
+        new = min(plain_new, OPT_BEAM_NEW) if mk else OPT_BEAM_NEW
+        shape = (OPT_B, OPT_PROMPT + new)
+        if new < OPT_BEAM_NEW:
+            b_tokens, _, b_cands = recorded_beam(
+                lambda: trunk_beam_run(model, batch, mk, new), ids, shape, vocab, new)
+        p_tokens, _, p_cands = recorded_beam(
+            lambda: trunk_beam_run(model, batch, mk, new), ids, shape, vocab, new,
+            plain=True)
+        compare_beams(f"{label} {path} vs plain ({new} tokens)", b_tokens, b_cands,
+                      p_tokens, p_cands, BEAMS, vocab)
+    compare_beams(f"{label} beam megakernel path vs per-layer path",
+                  *beams["beam megakernel"], *beams["beam per layer"], BEAMS, vocab)
+
+    fwd, counts["forward"], by_width = check_forward(
+        label, model_f, rs, n_layer, len(model_f.params["xattn"]), limit=fwd_limit)
+    counts["forward at width"] = by_width[hd]
+    return counts, tokens, fwd
 
 
 def opt_cells(dev, card):
-    """Phase 3 and 4 for OPT-1.3B (greedy per layer and on the megakernel,
-    beams on the megakernel, the use_pallas forward) and opt-350m (per
-    layer), both at ``CUT_LAYERS`` of their 24 layers -> the OPT-1.3B runs'
-    launch counts {path: counts}."""
+    """Phase 3 and 4 for OPT-1.3B (``trunk_cells``, then top-k 50 sampling
+    on the megakernel) and opt-350m (per layer), both at ``CUT_LAYERS`` of
+    their 24 layers -> the OPT-1.3B runs' launch counts {path: counts}."""
     from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel
     rs = np.random.RandomState(1)
-    config, model, ids, media, mask, pixels = opt_setup(dev, rs)
+    model = opt_model(dev)
+    config = model.config
+    batch = trunk_batch(dev, rs, config)
+    ids = batch[0]
     vocab = config.lm_arch.vocab_size + 1
-    n_layer = config.lm_arch.num_hidden_layers
-    n_x = len(model.params["xattn"])
     steps = OPT_NEW - 1
-    print(f"[phase 3] the OPT cells: OPT-1.3B and opt-350m at {n_layer} of their 24 "
+    print(f"[phase 3] the OPT cells: OPT-1.3B and opt-350m at {CUT_LAYERS} of their 24 "
           "layers (depth cut for the time limit)")
+    # the uncached forward: bf16 weights not quantized
+    model_f = open_gates(FlamingoModel(FlamingoConfig(
+        **OPT13, use_pallas=True, lm_arch_overrides=dict(num_hidden_layers=CUT_LAYERS)),
+        device=dev, seed=1)).to_bf16()
+    counts, tokens, fwd = trunk_cells("OPT-1.3B", model, model_f, batch, rs)
 
-    def run(megakernel, new_tokens=OPT_NEW, m=model, max_length=OPT_MAX, **kw):
-        return m.generate(ids, media_locations=media, attention_mask=mask,
-                          pixel_values=pixels, max_length=max_length,
-                          max_new_tokens=new_tokens, prefix_block=PREFIX_BLOCK,
-                          eos_token_id=vocab, pad_token_id=0, megakernel=megakernel,
-                          **kw)
-
-    counts = {}
-    layer_gaps, mega_gaps = [], []
-    layer_tokens, counts["per layer"] = counted(lambda: run(False), layer_gaps, ids,
-                                                (OPT_B, OPT_MAX), vocab)
-    expect("OPT-1.3B per-layer path", counts["per layer"],
-           decode_attention=n_layer * steps, lm_head_argmax=steps)
-    mega_tokens, counts["megakernel"] = counted(lambda: run(True), mega_gaps, ids,
-                                                (OPT_B, OPT_MAX), vocab)
-    expect("OPT-1.3B megakernel path", counts["megakernel"], lm_head_argmax=steps,
-           decode_step_megakernel=steps)
-    for megakernel, tokens, label in (
-            (False, layer_tokens, "OPT-1.3B per-layer kernels vs plain"),
-            (True, mega_tokens, "OPT-1.3B megakernel vs plain")):
-        gaps = []
-        with plain_kernels(gaps):
-            plain_tokens = run(megakernel)
-        torch.cuda.synchronize()
-        compare_tokens(label, tokens, plain_tokens[:, OPT_PROMPT:].cpu(), gaps)
-    compare_tokens("OPT-1.3B megakernel path vs per-layer path", mega_tokens,
-                   layer_tokens, layer_gaps)
+    def run(megakernel, new_tokens=OPT_NEW, **kw):
+        return trunk_run(model, batch, megakernel, new_tokens, **kw)
 
     # BASELINE config 3 as written: top-k 50 sampling on the megakernel,
     # the full head and the chain after each step's kernel
@@ -3198,41 +3402,8 @@ def opt_cells(dev, card):
     assert not torch.equal(other, s_tokens), "two seeds sampled the same tokens"
     print(f"[phase 3] OPT-1.3B sampled: two runs with seed 5 bit-equal; seed 6 "
           f"{float((other != s_tokens).float().mean()):.4f} of tokens other; "
-          f"{float((s_tokens != mega_tokens).float().mean()):.4f} of tokens other "
-          "than greedy's")
-
-    # w8a8 on the megakernel: the same batch, rows 0-1 left-padded
-    w8_tokens, counts["w8a8"] = counted(lambda: run(True, w8a8=True), [], ids,
-                                        (OPT_B, OPT_MAX), vocab)
-    expect("OPT-1.3B w8a8 megakernel path", counts["w8a8"], lm_head_argmax=steps,
-           decode_step_megakernel=steps)
-    gaps = []
-    with plain_kernels(gaps):
-        plain_tokens = run(True, w8a8=True)
-    compare_tokens("OPT-1.3B w8a8 megakernel vs plain", w8_tokens,
-                   plain_tokens[:, OPT_PROMPT:].cpu(), gaps)
-    print_agreement("OPT-1.3B w8a8 vs weight-only megakernel", w8_tokens, mega_tokens)
-
-    # beams on the megakernel: 3 beams, 32 new tokens
-    def beam_run(new_tokens=OPT_BEAM_NEW):
-        return run(True, new_tokens, max_length=OPT_PROMPT + OPT_BEAM_NEW,
-                   num_beams=BEAMS, length_penalty=1.0, early_stopping=True,
-                   beam_reorder="lazy")
-    beam_shape = (OPT_B, OPT_PROMPT + OPT_BEAM_NEW)
-    b_tokens, counts["beam megakernel"], b_cands = recorded_beam(
-        beam_run, ids, beam_shape, vocab, OPT_BEAM_NEW)
-    expect("OPT-1.3B beam megakernel path", counts["beam megakernel"],
-           decode_step_megakernel=OPT_BEAM_NEW - 1)
-    p_tokens, _, p_cands = recorded_beam(beam_run, ids, beam_shape, vocab,
-                                         OPT_BEAM_NEW, plain=True)
-    compare_beams("OPT-1.3B beam megakernel vs plain", b_tokens, b_cands, p_tokens,
-                  p_cands, BEAMS, vocab)
-
-    # the uncached forward, bf16 weights not quantized
-    model_f = open_gates(FlamingoModel(FlamingoConfig(
-        **OPT13, use_pallas=True, lm_arch_overrides=dict(num_hidden_layers=CUT_LAYERS)),
-        device=dev, seed=1)).to_bf16()
-    fwd, counts["forward"] = check_forward("OPT-1.3B", model_f, rs, n_layer, n_x)
+          f"{float((s_tokens != tokens['megakernel']).float().mean()):.4f} of tokens "
+          "other than greedy's")
 
     # opt-350m: post-norm with project_in/out, per layer only
     c350 = FlamingoConfig(**OPT350, lm_arch_overrides=dict(num_hidden_layers=CUT_LAYERS))
@@ -3241,17 +3412,17 @@ def opt_cells(dev, card):
     n350 = c350.lm_arch.num_hidden_layers
     max350 = OPT_PROMPT + OPT350_NEW
     gaps350 = []
-    t350, c = counted(lambda: run(False, OPT350_NEW, m=m350, max_length=max350),
+    t350, c = counted(lambda: trunk_run(m350, batch, False, OPT350_NEW, max350),
                       gaps350, ids, (OPT_B, max350), vocab)
     expect("opt-350m per-layer path", c, decode_attention=n350 * (OPT350_NEW - 1),
            lm_head_argmax=OPT350_NEW - 1)
     gaps = []
     with plain_kernels(gaps):
-        plain_tokens = run(False, OPT350_NEW, m=m350, max_length=max350)
+        plain_tokens = trunk_run(m350, batch, False, OPT350_NEW, max350)
     compare_tokens("opt-350m per-layer kernels vs plain", t350,
                    plain_tokens[:, OPT_PROMPT:].cpu(), gaps)
     try:
-        run(True, OPT350_NEW, m=m350, max_length=max350)
+        trunk_run(m350, batch, True, OPT350_NEW, max350)
     except ValueError as e:
         print(f"[phase 3] opt-350m with megakernel=True raises ValueError: {e}")
     else:
@@ -5094,6 +5265,260 @@ def parallel_cells(dev, card, vocab_dir):
     return outs[0]["counts"], rows
 
 
+# ---------------------------------------------------------------------------
+# OPT-2.7B and OPT-6.7B: head widths 80 and 128
+# ---------------------------------------------------------------------------
+
+
+def wide_decode_beam(dev, flush, D, H, hd):
+    """decode_attention_beam at a wide trunk's 3 beams (8 families, 24
+    rows, a 128-slot cache): its edges, then timed at the beam loop's last
+    step (cur 38, kv_limit 40) -> kernel row."""
+    b, kb = OPT_B, BEAMS
+    B = b * kb
+    edges = attention_edges(dev, B, kb, D, OPT_T, seed=B + hd, head_dim=hd)
+    print_edges(f"decode_attention_beam edges at {B} rows in families of {kb}, D={D}, "
+                f"{H} heads of {hd}, T={OPT_T}", edges)
+    rs = np.random.RandomState(hd)
+    q, k, v = (torch.tensor(rs.randn(*s) * 0.3, dtype=torch.float32, device=dev)
+               .to(torch.bfloat16) for s in ((B, D), (OPT_T, B, D), (OPT_T, B, D)))
+    npad = torch.tensor(np.repeat([OPT_PAD] * 2 + [0] * (b - 2), kb), dtype=torch.int32,
+                        device=dev)
+    anc = random_ancestry(dev, b, kb, seed=hd, anc_len=OPT_PROMPT + OPT_BEAM_NEW)
+    t_lim = OPT_PROMPT + OPT_BEAM_NEW
+    return dict(max_abs_err=max(err for err, _tol, _where in edges.values()),
+                **time_beam_attention(dev, flush, q, k, v, anc, npad, t_lim - 2, t_lim, H,
+                                      kb, hd ** -0.5))
+
+
+def wide_fused_attention(dev, flush, H, hd):
+    """fused_attention and flash_attention at heads ``hd`` wide against
+    their plain versions: the trunk's prefill (8, H, 8, 8) and forward
+    (8, H, 64, 64), causal with rows 0 and 1 left-padded, bf16 (the Hopper
+    tile) and float32 (the mma.sync tile); the Hopper tile at its edges
+    (WIDE_N_KV by WIDE_N_Q, b=2, 3 heads: strided, contiguous, causal and
+    left-padded, with a bias); streaming at WIDE_FLASH keys in both dtypes,
+    causal and not. The forward shape and the streaming one timed ->
+    (forward row, streaming row)."""
+    from flamingo_mini_tpu_torch.ops.fused_attention import (
+        flash_attention, flash_attention_plain, fused_attention, fused_attention_plain)
+    scale, worst, n = hd ** -0.5, 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, n_q, pad in (("prefill", OPT_PROMPT, OPT_PAD), ("forward", WIDE_FWD[2],
+                                                                   GPT2_PAD)):
+            b = WIDE_FWD[0]
+            q, k, v = attention_inputs(dev, dtype, b, H, n_q, n_q, seed=n_q + hd,
+                                       head_dim=hd)
+            kw = dict(scale=scale, causal=True, row_bias=left_pad_bias(
+                dev, dtype, b, n_q, [pad, pad] + [0] * (b - 2)))
+            worst = max(worst, held_to_plain(f"fused_attention {name} heads of {hd} {dtype}",
+                                             fused_attention(q, k, v, **kw),
+                                             fused_attention_plain(q, k, v, **kw), dtype))
+            n += 1
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(hd)
+    for n_kv in WIDE_N_KV:
+        for n_q in WIDE_N_Q:
+            q, k, v = attention_inputs(dev, bf, 2, 3, n_q, n_kv, seed=n_q * 1000 + n_kv,
+                                       head_dim=hd)
+            pads = [min(5, n_kv - 1), 0]
+            cases = {
+                "strided": (q, k, v, dict(scale=scale)),
+                "contiguous": (q.contiguous(), k.contiguous(), v.contiguous(),
+                               dict(scale=scale)),
+                "causal, left-padded": (q, k, v, dict(
+                    scale=scale, causal=True, row_bias=left_pad_bias(dev, bf, 2, n_kv, pads))),
+                "bias": (q, k, v, dict(scale=scale, bias=torch.randn(
+                    (2, 1, n_q, n_kv), generator=gen, device=dev))),
+            }
+            for label, (qq, kk, vv, kw) in cases.items():
+                worst = max(worst, held_to_plain(
+                    f"fused_attention bf16 heads of {hd} {label} (2, 3, {n_q}, {n_kv})",
+                    fused_attention(qq, kk, vv, streaming=False, **kw),
+                    fused_attention_plain(qq, kk, vv, **kw), bf))
+                n += 1
+    fb, fh, fn = WIDE_FLASH
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = attention_inputs(dev, dtype, fb, fh, fn, fn, seed=hd + 1, head_dim=hd)
+        for causal in (False, True):
+            kw = dict(scale=scale, causal=causal,
+                      row_bias=left_pad_bias(dev, dtype, fb, fn, [GPT2_PAD]))
+            worst = max(worst, held_to_plain(
+                f"flash_attention heads of {hd} causal={causal} {dtype}",
+                flash_attention(q, k, v, **kw), flash_attention_plain(q, k, v, **kw), dtype))
+            n += 1
+    print(f"[phase 2] fused_attention and flash_attention at heads of {hd}: the trunk's "
+          f"prefill (8, {H}, {OPT_PROMPT}) and forward {WIDE_FWD[:1] + (H,) + WIDE_FWD[2:]} "
+          f"causal, two rows left-padded, bf16 and float32; the Hopper tile at n_kv "
+          f"{WIDE_N_KV} by n_q {WIDE_N_Q} (strided, contiguous, causal left-padded, bias); "
+          f"streaming at {WIDE_FLASH} causal and not, both dtypes ({n} calls): max abs "
+          f"err {worst} (f32 1e-5, bf16 2 ulp of each output's scale)")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, _h, n_q = WIDE_FWD
+    q, k, v = attention_inputs(dev, bf, b, H, n_q, n_q, seed=1, head_dim=hd)
+    rb = left_pad_bias(dev, bf, b, n_q, [GPT2_PAD, GPT2_PAD] + [0] * (b - 2)).float()
+    kw = dict(scale=scale, causal=True, row_bias=rb)
+    keep = torch.ones(n_q, n_q, dtype=torch.bool, device=dev).tril()
+    lib_kw = dict(scale=scale, attn_mask=torch.where(keep, rb[:, None, None, :],
+                                                     float("-inf")).to(bf))
+    rows = {}
+    fwd_ms = time_ms(lambda: fused_attention(q, k, v, **kw), 50, flush)
+    rows["forward"] = dict(
+        ms=fwd_ms, plain_ms=time_ms(lambda: fused_attention_plain(q, k, v, **kw), 20, flush),
+        library_ms=time_ms(lambda: sdpa(q, k, v, **lib_kw), 50, flush), max_abs_err=worst,
+        **dict(zip(("bound_ms", "bound_by"), attention_bound(
+            b, H, n_q, n_q, 2, 2 * b * n_q, b * H * n_q * (n_q + 1) // 2, head_dim=hd))))
+    q, k, v = attention_inputs(dev, bf, fb, fh, fn, fn, seed=8, head_dim=hd)
+    kw = dict(scale=scale)
+    rows["flash"] = dict(
+        ms=time_ms(lambda: flash_attention(q, k, v, **kw), 20, flush),
+        plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, **kw), 5, flush),
+        library_ms=time_ms(lambda: sdpa(q, k, v, **kw), 20, flush), max_abs_err=worst,
+        **dict(zip(("bound_ms", "bound_by"), attention_bound(fb, fh, fn, fn, 2,
+                                                             head_dim=hd))))
+    for name, r in rows.items():
+        print(f"[phase 2] {'fused_attention' if name == 'forward' else 'flash_attention'} "
+              f"heads of {hd}, {name} shape bf16: {r['ms']} ms, plain {r['plain_ms']} ms, "
+              f"SDPA {r['library_ms']} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}) "
+              "(median per call, L2 flushed)")
+    return rows["forward"], rows["flash"]
+
+
+def wide_megakernel(dev, D, H, hd):
+    """The megakernel's OPT mode at a wide trunk's width (D, H heads of
+    ``hd``, ffn 4 D, xattn 8 heads of 64 before every other layer, 64
+    latents, a 128-slot cache) against its plain version, 1-2 layers:
+    greedy b in {1, 3, 8} and 3 beams of 8 families at OPT_PAIRS' (cur,
+    kv_limit), weight-only within 2 bf16 ulps, w8a8 bit for bit -> the
+    largest abs error."""
+    dims = dict(family="opt", D=D, H=H)
+    worst, n = [0.0, 0.0, None], 0
+    for n_layer, every in ((1, 1), (2, 2)):
+        cfg, packed = random_trunk(dev, n_layer=n_layer, xattn_every=every,
+                                   seed=500 + hd + n_layer, **dims)
+        for rows, kb in ((1, 1), (3, 1), (OPT_B, 1), (OPT_B * BEAMS, BEAMS)):
+            inputs = mega_inputs(dev, cfg, rows, seed=600 + rows + hd, T=OPT_T)
+            anc = None
+            if kb > 1:
+                inputs = list(inputs)
+                inputs[5] = family_npad(dev, rows // kb, kb)
+                anc = random_ancestry(dev, rows // kb, kb, seed=rows + hd, anc_len=OPT_T)
+            for cur, kv_limit in (OPT_PAIRS[n % 4], OPT_PAIRS[(n + 1) % 4]):
+                for q in (False, True):
+                    label = (f"heads of {hd} layers={n_layer} rows={rows} cur={cur} "
+                             f"kv_limit={kv_limit} {'w8a8' if q else 'weight-only'}")
+                    errs = mega_errors(cfg, packed, inputs, cur, kv_limit, beam_anc=anc,
+                                       act_quant=q)
+                    held_to_ulps(label, errs, worst)
+                    for name, (got, want) in errs.items():
+                        assert not q or torch.equal(got, want), f"{label} {name}: not bit-equal"
+                n += 1
+        del packed
+    torch.cuda.empty_cache()
+    print(f"[phase 2] decode_step_megakernel OPT mode at D={D}, {H} heads of {hd}, 1-2 "
+          f"layers, greedy b in {{1, 3, {OPT_B}}} and {BEAMS} beams of {OPT_B} families, "
+          f"{2 * n} (cur, kv_limit) cases a mode: weight-only max error {worst[0]} bf16 "
+          f"ulp (tolerance 2), max abs error {worst[1]}, largest at {worst[2]}; w8a8 bit "
+          "for bit its plain version")
+    return worst[1]
+
+
+def phase2_wide_heads(dev, flush):
+    """Every kernel taken at head widths 80 and 128 against its plain
+    version at OPT-2.7B's and OPT-6.7B's shapes and at its edges ->
+    {trunk: {kernel: row}} (the megakernel's row times come from the trunk
+    cells)."""
+    out = {}
+    for label, (D, H, hd) in WIDE_HEADS.items():
+        rows = {}
+        rows["decode_attention"] = phase2_decode_attention(
+            dev, flush, b=OPT_B, D=D, H=H, T=OPT_T, curs=(8, 39, 70), limits=(40, 71))
+        rows["decode_attention_beam"] = wide_decode_beam(dev, flush, D, H, hd)
+        rows["fused_attention"], rows["flash_attention"] = wide_fused_attention(
+            dev, flush, H, hd)
+        rows["megakernel_err"] = wide_megakernel(dev, D, H, hd)
+        out[label] = rows
+        stamp(f"phase 2 at {label}'s head width {hd} done")
+    return out
+
+
+def wide_trunk_cells(dev, card, flush):
+    """OPT-2.7B and OPT-6.7B (WIDE) at full width and 32 layers:
+    ``trunk_cells`` (the megakernel paths held to the plain program over
+    their first WIDE_PLAIN_NEW tokens, the forward to WIDE_FWD_LIMIT), the
+    forward's time, the 32-layer megakernel step timed alone, the megakernel
+    path's captions/s and ms a step once the forward's bf16 model is freed.
+    Each model freed before the next ->
+    {trunk: {path: launch counts}, "mega": {trunk: {mode: kernel row}}}."""
+    from flamingo_mini_tpu_torch import FlamingoConfig, FlamingoModel
+    from flamingo_mini_tpu_torch.ops import megadecode
+    out = {"mega": {}}
+    for label, kw in WIDE.items():
+        D, H, hd = WIDE_HEADS[label]
+        rs = np.random.RandomState(3)
+        config = FlamingoConfig(**kw, **WIDE_COMMON)
+        n_layer = config.lm_arch.num_hidden_layers
+        assert (config.lm_arch.hidden_size, config.lm_arch.num_attention_heads) == (D, H)
+        model = open_gates(FlamingoModel(config, device=dev, seed=7))
+        model.quantize_int8().to_bf16()
+        # the uncached forward: bf16 weights not quantized
+        model_f = open_gates(FlamingoModel(FlamingoConfig(**kw, **WIDE_COMMON,
+                                                          use_pallas=True),
+                                           device=dev, seed=7)).to_bf16()
+        torch.cuda.empty_cache()
+        batch = trunk_batch(dev, rs, config)
+        print(f"[phase 3] {label}: D={D}, {H} heads of {hd}, {n_layer} layers, ffn "
+              f"{config.lm_arch.ffn_dim}, xattn on {len(model.params['xattn'])} layers; "
+              f"batch {OPT_B}, {OPT_PROMPT}-token prompts, rows 0-1 left-padded by "
+              f"{OPT_PAD}")
+        out[label], _tokens, fwd = trunk_cells(label, model, model_f, batch, rs,
+                                               plain_new=WIDE_PLAIN_NEW,
+                                               fwd_limit=WIDE_FWD_LIMIT)
+        fwd_ms, fwd_all = timed(fwd)
+        print(f"[phase 4] {card}: {label} forward with loss, {FWD_B}x{FWD_N} tokens, "
+              f"use_pallas: median {fwd_ms} ms (runs {fwd_all}), "
+              f"{FWD_B * FWD_N / (fwd_ms / 1e3)} tokens/s")
+        del model_f, fwd
+        torch.cuda.empty_cache()
+
+        # the step alone at 32 layers: the model's own packed weights, the
+        # greedy loop's last step (rows 0 and 1 left-padded, every row an
+        # image); time_ms spins the card before each call
+        packed = megadecode.pack_decode_weights(model.params, config)
+        inputs = mega_inputs(dev, config, OPT_B, seed=99, T=OPT_T)
+        xk, xv, kc, vc, x, npad, tt = inputs
+        npad.copy_(torch.tensor([OPT_PAD] * 2 + [0] * (OPT_B - 2), dtype=torch.int32))
+        tt.fill_(1)
+        n_pos = int((71 - npad).sum())
+        mk_rows = {}
+        for mode, q in (("weight-only", False), ("w8a8", True)):
+            call = dict(config=config, kv_limit=71, act_quant=q)
+            ms = time_ms(lambda: megadecode.decode_step_megakernel(
+                packed, xk, xv, kc, vc, x, npad, tt, 70, **call), 20, flush)
+            plain_ms = time_ms(lambda: megadecode.decode_step_megakernel_plain(
+                packed, xk, xv, kc, vc, x, npad, tt, 70, **call), 1, flush)
+            b_ms, b_by, n_bytes, n_ops = mega_bound(packed, config, inputs, n_pos, n_pos,
+                                                    act_quant=q)
+            mk_rows[mode] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                                 bound_by=b_by)
+            print(f"[phase 4] {card}: {label} decode_step_megakernel {mode} at b={OPT_B}, "
+                  f"{n_layer} layers, kv_limit 71: {ms} ms, plain {plain_ms} ms; bound "
+                  f"{n_bytes / 1e9:.4f} GB, {n_ops / 1e9:.3f} GFLOP -> {b_ms:.4f} ms "
+                  f"({b_by}) (median per call, L2 flushed)")
+        out["mega"][label] = mk_rows
+        del packed, inputs, xk, xv, kc, vc, x
+
+        torch.cuda.empty_cache()
+        # phase 4: the megakernel path's captions/s, ms a step and peak
+        # memory with only its own model on the card
+        time_generate(card, OPT_B, ((f"{label} megakernel",
+                                     lambda n: trunk_run(model, batch, True, n), OPT_NEW),))
+        del model, batch
+        torch.cuda.empty_cache()
+        stamp(f"{label} cells done")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -5157,6 +5582,8 @@ def main() -> int:
         row["max_abs_err"] = max(row["max_abs_err"], w8_edges)
     phase2_refusal(dev)
     probe = phase2_decode_stream_probe(dev, flush)
+    stamp("phase 2 at head widths 80 and 128 start")
+    wide = phase2_wide_heads(dev, flush)
     del flush
     torch.cuda.empty_cache()
     stamp("phase 2 done")
@@ -5304,9 +5731,9 @@ def main() -> int:
     # not quantized
     model_f = open_gates(FlamingoModel(FlamingoConfig(**MINI, use_pallas=True),
                                        device=dev, seed=0)).to_bf16()
-    fwd, fwd_counts = check_forward("flamingo-mini", model_f, rs,
-                                    model_f.config.lm_arch.n_layer,
-                                    len(model_f.params["xattn"]))
+    fwd, fwd_counts, _ = check_forward("flamingo-mini", model_f, rs,
+                                       model_f.config.lm_arch.n_layer,
+                                       len(model_f.params["xattn"]))
 
     # phase 3, beams: batch 32 x 3 beams, 64 new tokens, lazy reorder
     def beam_run(megakernel, new_tokens=BEAM_NEW_TOKENS, **kw):
@@ -5436,6 +5863,11 @@ def main() -> int:
     stamp("OPT cells start")
     opt_counts = opt_cells(dev, card)
     stamp("OPT cells done")
+    # phase 3 and 4 of OPT-2.7B and OPT-6.7B (heads 80 and 128 wide)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    wide_counts = wide_trunk_cells(dev, card, flush)
+    del flush
+    torch.cuda.empty_cache()
     # phase 4: the stream probe (its own entry point's path)
     stream = phase4_stream(dev, card)
     # phase 4: the in-situ decode and head probes (their own entry points' path)
@@ -5474,6 +5906,33 @@ def main() -> int:
         ("attn_stream_only (b-major)", probe["bmajor"]),
         ("make_tmajor_stream (T-major)", probe["tmajor"]),
         ("make_tmajor_packed_loop (packed K||V)", probe["packed"]))
+    wide_rows = []   # (name, source, replaces, launches, row) at heads 80 and 128
+    for label, (D, H, hd) in WIDE_HEADS.items():
+        w, c, mk = wide[label], wide_counts[label], wide_counts["mega"][label]
+        for mode in ("weight-only", "w8a8"):
+            mk[mode]["max_abs_err"] = w["megakernel_err"]
+        shape = f"{label}: b={OPT_B}, D={D}, {H} heads of {hd}"
+        wide_rows += [
+            (f"decode_attention ({shape}, T={OPT_T})", "decode_attention.cu",
+             "flamingo_mini_tpu/ops/pallas_decode.py:153",
+             c["per layer"]["decode_attention"], w["decode_attention"]),
+            (f"decode_attention_beam ({shape}, {BEAMS} beams)", "decode_attention.cu",
+             "flamingo_mini_tpu/ops/pallas_decode.py:350",
+             c["beam per layer"]["decode_attention_beam"], w["decode_attention_beam"]),
+            (f"decode_step_megakernel OPT mode ({shape}, 32 layers)",
+             "decode_megakernel_sm90.cuh", "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
+             c["megakernel"]["decode_step_megakernel"], mk["weight-only"]),
+            (f"decode_step_megakernel act_quant OPT mode ({shape}, 32 layers)",
+             "decode_megakernel_sm90.cuh", "flamingo_mini_tpu/ops/pallas_megadecode.py:966",
+             c["w8a8"]["decode_step_megakernel"], mk["w8a8"]),
+            (f"fused_attention ({label} forward trunk: (8, {H}, 64, 64) heads of {hd}; "
+             "launches at that width)", "attention_sm90.cuh",
+             "flamingo_mini_tpu/ops/pallas_attn.py:270", c["forward at width"],
+             w["fused_attention"]),
+            (f"flash_attention ({WIDE_FLASH} heads of {hd})", "attention_sm90.cuh",
+             "flamingo_mini_tpu/ops/pallas_attn.py:156", c["forward"]["flash_attention"],
+             w["flash_attention"])]
+    kernel_rows += tuple((name, k) for name, _src, _rep, _n, k in wide_rows)
     for name, k in kernel_rows:
         print(f"[phase 4] {card}: {name} {k['ms']} ms vs plain {k['plain_ms']} "
               f"ms, library {k['library_ms']} ms, bound {k['bound_ms']} ms "
@@ -5612,7 +6071,7 @@ def main() -> int:
              insitu_counts["tmajor_stream"], probe["tmajor"]),
             ("make_tmajor_packed_loop (decode stream probe, packed K||V cache)",
              "decode_stream_probe.cu", "tools/probe_decode_kernel.py:149",
-             insitu_counts["packed_stream"], probe["packed"])):
+             insitu_counts["packed_stream"], probe["packed"]), *wide_rows):
         rows.append({"name": name, "route": "cuda",
                      "source": f"flamingo_mini_tpu_torch/csrc/{source}",
                      "replaces": replaces, "launches": launches,

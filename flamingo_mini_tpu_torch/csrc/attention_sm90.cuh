@@ -1,6 +1,7 @@
-// Hopper attention tile for bf16, head dim 64: fused_attention.cu's kFull
-// and kStream modes for bf16 inputs (float32 inputs stay on
-// attention_tile.cuh; bf16 kMedia runs media_xattn_sm90.cuh).
+// Hopper attention tile for bf16, head widths 64, 80 and 128 (kHD, a
+// template parameter): fused_attention.cu's kFull and kStream modes for
+// bf16 inputs (float32 inputs stay on attention_tile.cuh; bf16 kMedia runs
+// media_xattn_sm90.cuh).
 //
 // Replaces, for bf16, flamingo_mini_tpu/ops/pallas_attn.py::fused_attention
 // (_attn_kernel) and its streaming variant (_flash_kernel), with the same
@@ -49,6 +50,17 @@
 // (S, P in two parts, t and o), which spilled. P in one bf16 part would
 // halve P V's products but misses the 2-ulp check at the forwards' shapes.
 //
+// Wider heads (opt-2.7b's 80, opt-6.7b's 128; `Shape`): a row is two
+// 64-dim halves, each in a region of its own in the 128-byte swizzle and
+// loaded by a TMA box of its own (64 x 2 bytes, the swizzle's atom); at 80
+// the second box reaches past the tensor's 80 dims and TMA fills dims
+// 80-127 with zeros, which add nothing to Q K^T. Q K^T takes kHD / 16 K
+// steps (5 or 8: the zeros past 80 are not multiplied), P V two m64n64k16
+// products per part and 16 keys, one a half (at 80 dims 80-127 of the
+// second are zeros and not stored). With two halves of o and t in the
+// registers a tile is 64 keys (S and P of 64 keys), so the registers a
+// thread holds stay those of the 64-wide tile.
+//
 // Every key tile is visited, causally masked ones too.
 #pragma once
 
@@ -58,17 +70,24 @@
 namespace {
 namespace sm90 {
 
-constexpr int kBlockK = 128;                     // keys per tile
 constexpr int kStages = 2;                       // K/V ring depth
-constexpr int kRowBytes = kD * 2;                // one bf16 row: 128 bytes
-constexpr int kQBytes = 64 * kRowBytes;          // one item's Q rows
-constexpr int kTileBytes = kBlockK * kRowBytes;  // one K or V tile
+constexpr int kHalfRow = 128;                    // 64 bf16 dims: the swizzle's atom
 constexpr int kBlocksPerSM = 2;
 constexpr int kThreads = 256;                    // producer and consumer warpgroups
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Q, then the K and V rings
-struct Smem {
+// The tile's shape at head width kHD: a row's kHalves 64-dim halves, each
+// a region of its own; keys per tile; and the shared memory: Q, then the K
+// and V rings (a tile's halves one after the other).
+template <int kHD>
+struct Shape {
+  static_assert(kHD == 64 || kHD == 80 || kHD == 128, "head widths 64, 80, 128");
+  static constexpr int kHalves = (kHD + 63) / 64;
+  static constexpr int kBlockK = kHalves == 1 ? 128 : 64;  // keys per tile
+  static constexpr int kHalfQ = 64 * kHalfRow;             // a half of an item's Q rows
+  static constexpr int kQBytes = kHalves * kHalfQ;
+  static constexpr int kHalfTile = kBlockK * kHalfRow;     // a half of a K or V tile
+  static constexpr int kTileBytes = kHalves * kHalfTile;
   static constexpr int q = 0;
   static constexpr int k = kQBytes;
   static constexpr int v = k + kStages * kTileBytes;
@@ -85,13 +104,14 @@ struct Orders {
   MapOrder q, k, v;
 };
 
-// the coordinates of (head, row, batch) in a map's dim order
+// rows of (head, batch) from `row`, dims from d0, by the coordinates in a
+// map's dim order
 __device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map, MapOrder o,
-                                         uint32_t bar, int hd, int row, int b) {
+                                         uint32_t bar, int hd, int row, int b, int d0) {
   int c[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) c[i] = o.h == i ? hd : (o.n == i ? row : b);
-  tma_load_4d(dst, map, bar, c[0], c[1], c[2]);
+  tma_load_4d(dst, map, bar, d0, c[0], c[1], c[2]);
 }
 
 template <int N>
@@ -180,25 +200,32 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[kN / 2], uint64_t da, uint64
 
 // S = Q K^T for the first kN keys of a tile, issued and committed (not
 // waited for): acc[4 j + 2 h2 + c] is row g + 8 h2 of the warp, key
-// 8 j + 2 t4 + c
-template <int kN>
+// 8 j + 2 t4 + c. K step kk (16 dims) is in half kk / 4 of each row.
+template <int kN, int kHD>
 __device__ __forceinline__ void issue_qk(float (&acc)[kN / 2], uint64_t dq, uint64_t dk) {
+  using S = Shape<kHD>;
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) wgmma_ss<kN>(acc, dq + 2 * kk, dk + 2 * kk, kk > 0);
+  for (int kk = 0; kk < kHD / 16; ++kk)
+    wgmma_ss<kN>(acc, dq + (kk / 4) * (S::kHalfQ >> 4) + 2 * (kk % 4),
+                 dk + (kk / 4) * (S::kHalfTile >> 4) + 2 * (kk % 4), kk > 0);
   wgmma_commit();
 }
 
-// t = P V over kN keys, P as two bf16 parts, issued and committed
-template <int kN>
-__device__ __forceinline__ void issue_pv(float (&t)[32], const uint32_t (&pa)[kN / 16][2][4],
-                                         uint64_t dv) {
+// t = P V over kN keys, P as two bf16 parts, issued and committed; t[h] the
+// dims of half h
+template <int kN, int kHD>
+__device__ __forceinline__ void issue_pv(float (&t)[Shape<kHD>::kHalves][32],
+                                         const uint32_t (&pa)[kN / 16][2][4], uint64_t dv) {
+  using S = Shape<kHD>;
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kN / 16; ++kk) {
-    wgmma_rs_n64(t, pa[kk][0], dv + 128 * kk, kk > 0);
-    wgmma_rs_n64(t, pa[kk][1], dv + 128 * kk, 1);
-  }
+  for (int kk = 0; kk < kN / 16; ++kk)
+#pragma unroll
+    for (int h = 0; h < S::kHalves; ++h) {
+      wgmma_rs_n64(t[h], pa[kk][0], dv + h * (S::kHalfTile >> 4) + 128 * kk, kk > 0);
+      wgmma_rs_n64(t[h], pa[kk][1], dv + h * (S::kHalfTile >> 4) + 128 * kk, 1);
+    }
   wgmma_commit();
 }
 
@@ -322,21 +349,24 @@ __device__ __forceinline__ void exps(float (&acc)[kN / 2], const float (&m)[2], 
 
 // the consumer's view of the ring, and its running softmax. Tile `it` of
 // the current item is the ring's tile g0 + it.
+template <int kHD>
 struct Consumer {
+  using S = Shape<kHD>;
+  static constexpr int kH = S::kHalves;
   uint32_t k, v, bar_k, bar_v, bar_e, bar_qe;  // shared-memory addresses
-  uint64_t dq;                          // Q's descriptor
+  uint64_t dq;                          // Q's descriptor (its first half's)
   int g0, n_keys;
   bool plain;                           // no bias, no row bias, scale > 0
   Rows r;
   float m[2], l[2];
-  float o[32], t[32];
+  float o[kH][32], t[kH][32];           // o and a tile's P V, a half each
 
   __device__ __forceinline__ int stage(int it) const { return (g0 + it) % kStages; }
   __device__ __forceinline__ uint32_t phase(int it) const {
     return static_cast<uint32_t>(((g0 + it) / kStages) & 1);
   }
   __device__ __forceinline__ uint64_t desc(uint32_t ring, int it) const {
-    return desc_sw128(ring + stage(it) * kTileBytes);
+    return desc_sw128(ring + stage(it) * S::kTileBytes);
   }
 
   // Tile `it`, kN of its keys: Q K^T; the softmax; P V in a fresh
@@ -347,33 +377,37 @@ struct Consumer {
     float acc[kN / 2], alpha[2], sum[2] = {0.f, 0.f};
     uint32_t pa[kN / 16][2][4];
     mbar_wait(bar_k + 8 * stage(it), phase(it));
-    issue_qk<kN>(acc, dq, desc(k, it));
+    issue_qk<kN, kHD>(acc, dq, desc(k, it));
     wgmma_wait_all();
     fence_regs(acc);
     if (last) mbar_arrive(bar_qe);
-    const bool edge = row_max<kMode, kN>(acc, m, alpha, a, r, it * kBlockK, n_keys, plain);
+    const bool edge = row_max<kMode, kN>(acc, m, alpha, a, r, it * S::kBlockK, n_keys, plain);
     exps<kN>(acc, m, edge, a.scale, sum);
     pack_p<kN>(acc, pa);
     mbar_wait(bar_v + 8 * stage(it), phase(it));
-    issue_pv<kN>(t, pa, desc(v, it));
+    issue_pv<kN, kHD>(t, pa, desc(v, it));
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) l[h2] = l[h2] * alpha[h2] + quad_sum(sum[h2]);
     wgmma_wait_all();
-    fence_regs(t);
+#pragma unroll
+    for (int h = 0; h < kH; ++h) fence_regs(t[h]);
     fence_regs(pa);
     mbar_arrive(bar_e + 8 * stage(it));
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = o[i] * alpha[(i / 2) % 2] + t[i];
+    for (int h = 0; h < kH; ++h)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[h][i] = o[h][i] * alpha[(i / 2) % 2] + t[h][i];
   }
 };
 
 // an item's tiles, the last one kTail keys wide (16, 64 or 128: the fewest
 // that hold its keys; the rest of the tile is not computed). Q is released
 // once the last Q K^T is done, so that the next item's Q can arrive.
-template <int kMode, int kTail>
-__device__ __forceinline__ void consume(Consumer& c, const AttnArgs& a, int n_tiles) {
-  for (int it = 0; it + 1 < n_tiles; ++it) c.tile<kMode, kBlockK>(a, it, false);
-  c.tile<kMode, kTail>(a, n_tiles - 1, true);
+template <int kMode, int kTail, int kHD>
+__device__ __forceinline__ void consume(Consumer<kHD>& c, const AttnArgs& a, int n_tiles) {
+  for (int it = 0; it + 1 < n_tiles; ++it)
+    c.template tile<kMode, Shape<kHD>::kBlockK>(a, it, false);
+  c.template tile<kMode, kTail>(a, n_tiles - 1, true);
 }
 
 struct Items {
@@ -381,8 +415,8 @@ struct Items {
 };
 
 // the consumer's walk over the items, every last tile kTail wide
-template <int kMode, int kTail>
-__device__ __forceinline__ void consumer_loop(Consumer& c, const AttnArgs& a, Items items,
+template <int kMode, int kTail, int kHD>
+__device__ __forceinline__ void consumer_loop(Consumer<kHD>& c, const AttnArgs& a, Items items,
                                               int n_tiles, uint32_t bar_qf) {
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, g = (tid % 32) / 4, t4 = tid % 4;
@@ -400,7 +434,9 @@ __device__ __forceinline__ void consumer_loop(Consumer& c, const AttnArgs& a, It
       c.l[h2] = 0.f;
     }
 #pragma unroll
-    for (int i = 0; i < 32; ++i) c.o[i] = 0.f;
+    for (int h = 0; h < Consumer<kHD>::kH; ++h)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) c.o[h][i] = 0.f;
     mbar_wait(bar_qf, j & 1);
     consume<kMode, kTail>(c, a, n_tiles);
 
@@ -412,18 +448,23 @@ __device__ __forceinline__ void consumer_loop(Consumer& c, const AttnArgs& a, It
       const float den = fmaxf(c.l[h2], 1e-30f);
       __nv_bfloat16* orow = out + c.r.row[h2] * a.stride[3][2];
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj)
-        store2(orow + 8 * jj + 2 * t4, c.o[4 * jj + 2 * h2] / den, c.o[4 * jj + 2 * h2 + 1] / den);
+      for (int h = 0; h < Consumer<kHD>::kH; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+          if (64 * h + 8 * jj < kHD)  // at 80 the second half's dims 80-127 are not stored
+            store2(orow + 64 * h + 8 * jj + 2 * t4, c.o[h][4 * jj + 2 * h2] / den,
+                   c.o[h][4 * jj + 2 * h2 + 1] / den);
     }
   }
 }
 
-template <int kMode>
+template <int kMode, int kHD>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, const AttnArgs a,
                       const Orders ord, const Items items) {
+  using S = Shape<kHD>;
   extern __shared__ uint8_t smem_raw[];
   // Q full, Q empty; K full, V full, empty per stage
   __shared__ __align__(8) uint64_t bars[2 + 3 * kStages];
@@ -434,7 +475,7 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t bar_v = smem_addr(&bars[2 + kStages]);
   const uint32_t bar_e = smem_addr(&bars[2 + 2 * kStages]);
   const int n_keys = kMode == kStream ? a.n_kv_pad : a.n_kv;
-  const int n_tiles = (n_keys + kBlockK - 1) / kBlockK;
+  const int n_tiles = (n_keys + S::kBlockK - 1) / S::kBlockK;
 
   if (threadIdx.x == 0) {
     prefetch_map(&tq);
@@ -458,15 +499,21 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       for (int item = blockIdx.x; item < items.n; item += gridDim.x, ++j) {
         const int bh = item / items.row_blocks, b = bh / a.h, hd = bh % a.h;
         if (j > 0) mbar_wait(bar_qe, (j - 1) & 1);
-        mbar_expect_tx(bar_qf, kQBytes);
-        tma_rows(base + Smem::q, &tq, ord.q, bar_qf, hd, (item % items.row_blocks) * 64, b);
+        mbar_expect_tx(bar_qf, S::kQBytes);
+        for (int h = 0; h < S::kHalves; ++h)
+          tma_rows(base + S::q + h * S::kHalfQ, &tq, ord.q, bar_qf, hd,
+                   (item % items.row_blocks) * 64, b, 64 * h);
         for (int it = 0; it < n_tiles; ++it, ++g) {
           const int s = g % kStages, round = g / kStages;
           if (round > 0) mbar_wait(bar_e + 8 * s, (round - 1) & 1);
-          mbar_expect_tx(bar_k + 8 * s, kTileBytes);
-          tma_rows(base + Smem::k + s * kTileBytes, &tk, ord.k, bar_k + 8 * s, hd, it * kBlockK, b);
-          mbar_expect_tx(bar_v + 8 * s, kTileBytes);
-          tma_rows(base + Smem::v + s * kTileBytes, &tv, ord.v, bar_v + 8 * s, hd, it * kBlockK, b);
+          mbar_expect_tx(bar_k + 8 * s, S::kTileBytes);
+          for (int h = 0; h < S::kHalves; ++h)
+            tma_rows(base + S::k + s * S::kTileBytes + h * S::kHalfTile, &tk, ord.k,
+                     bar_k + 8 * s, hd, it * S::kBlockK, b, 64 * h);
+          mbar_expect_tx(bar_v + 8 * s, S::kTileBytes);
+          for (int h = 0; h < S::kHalves; ++h)
+            tma_rows(base + S::v + s * S::kTileBytes + h * S::kHalfTile, &tv, ord.v,
+                     bar_v + 8 * s, hd, it * S::kBlockK, b, 64 * h);
         }
       }
     }
@@ -474,40 +521,40 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-  Consumer c;
-  c.k = base + Smem::k;
-  c.v = base + Smem::v;
+  Consumer<kHD> c;
+  c.k = base + S::k;
+  c.v = base + S::v;
   c.bar_k = bar_k;
   c.bar_v = bar_v;
   c.bar_e = bar_e;
   c.bar_qe = bar_qe;
-  c.dq = desc_sw128(base + Smem::q);
+  c.dq = desc_sw128(base + S::q);
   c.g0 = 0;
   c.n_keys = n_keys;
   c.plain = a.scale > 0.f && a.bias == nullptr && a.row_bias == nullptr;
-  const int tail = n_keys - (n_tiles - 1) * kBlockK;
+  const int tail = n_keys - (n_tiles - 1) * S::kBlockK;
   if (tail <= 16) {
     consumer_loop<kMode, 16>(c, a, items, n_tiles, bar_qf);
-  } else if (tail <= 64) {
+  } else if (S::kBlockK == 64 || tail <= 64) {
     consumer_loop<kMode, 64>(c, a, items, n_tiles, bar_qf);
   } else {
-    consumer_loop<kMode, kBlockK>(c, a, items, n_tiles, bar_qf);
+    consumer_loop<kMode, S::kBlockK>(c, a, items, n_tiles, bar_qf);
   }
 }
 
 // ---------------------------------------------------------------------------
 // host side
 
-// a 4-D map over (d, h, n, b) of a bf16 tensor with element strides
-// (b, h, n) and a contiguous d, its box 64 x 1 x rows x 1, 128-byte
-// swizzle, rows past n zero-filled. Dims 1-3 are ordered by stride (size-1
-// dims last), `order` says where each went.
+// a 4-D map over (d, h, n, b) of a bf16 tensor of d dims with element
+// strides (b, h, n) and a contiguous d, its box 64 x 1 x rows x 1, 128-byte
+// swizzle, rows past n and dims past d zero-filled. Dims 1-3 are ordered by
+// stride (size-1 dims last), `order` says where each went.
 bool encode_map(CUtensorMap* map, const void* ptr, const long long (&stride)[3], int b, int h,
-                int n, int rows, MapOrder* order) {
+                int n, int d, int rows, MapOrder* order) {
   const EncodeTiled encode = encode_fn();
   if (encode == nullptr) return false;
   const long long size[3] = {h, n, b}, el[3] = {stride[1], stride[2], stride[0]};
-  long long widest = 64;
+  long long widest = d;
   for (int i = 0; i < 3; ++i)
     if (size[i] > 1 && el[i] > widest) widest = el[i];
   int idx[3] = {0, 1, 2};
@@ -519,9 +566,9 @@ bool encode_map(CUtensorMap* map, const void* ptr, const long long (&stride)[3],
         idx[i] = idx[j];
         idx[j] = t;
       }
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD), 0, 0, 0};
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), 0, 0, 0};
   cuuint64_t bytes[3];
-  cuuint32_t box[4] = {static_cast<cuuint32_t>(kD), 1, 1, 1};
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(kHalfRow / 2), 1, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   int pos[3];
   for (int p = 0; p < 3; ++p) {
@@ -548,23 +595,25 @@ int sm_count() {
 
 }  // namespace sm90
 
-// bf16 attention in the kFull or kStream mode on the Hopper tile; a shape
-// its tensor maps refuse returns cudaErrorInvalidValue (nothing launched)
-template <int kMode>
+// bf16 attention in the kFull or kStream mode on the Hopper tile at head
+// width kHD; a shape its tensor maps refuse returns cudaErrorInvalidValue
+// (nothing launched)
+template <int kMode, int kHD = kD>
 cudaError_t launch_attention_sm90(const AttnArgs* args, void* stream) {
   static_assert(kMode == kFull || kMode == kStream,
                 "bf16 kMedia runs media_xattn_sm90.cuh, float32 kMedia attention_tile.cuh");
+  using S = sm90::Shape<kHD>;
   const AttnArgs& a = *args;
   CUtensorMap tq, tk, tv;
   sm90::Orders ord;
-  if (!sm90::encode_map(&tq, a.q, a.stride[0], a.b, a.h, a.n_q, 64, &ord.q) ||
-      !sm90::encode_map(&tk, a.k, a.stride[1], a.b, a.h, a.n_kv, sm90::kBlockK, &ord.k) ||
-      !sm90::encode_map(&tv, a.v, a.stride[2], a.b, a.h, a.n_kv, sm90::kBlockK, &ord.v))
+  if (!sm90::encode_map(&tq, a.q, a.stride[0], a.b, a.h, a.n_q, kHD, 64, &ord.q) ||
+      !sm90::encode_map(&tk, a.k, a.stride[1], a.b, a.h, a.n_kv, kHD, S::kBlockK, &ord.k) ||
+      !sm90::encode_map(&tv, a.v, a.stride[2], a.b, a.h, a.n_kv, kHD, S::kBlockK, &ord.v))
     return cudaErrorInvalidValue;
   // shared memory above 48 KB, allowed on whichever device is current
-  const cudaError_t attr = cudaFuncSetAttribute(sm90::attention_sm90_kernel<kMode>,
+  const cudaError_t attr = cudaFuncSetAttribute(sm90::attention_sm90_kernel<kMode, kHD>,
                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                sm90::Smem::alloc);
+                                                S::alloc);
   if (attr != cudaSuccess) return attr;
   const int row_blocks = (a.n_q + 63) / 64;
   const long long n_items = static_cast<long long>(a.b) * a.h * row_blocks;
@@ -572,8 +621,8 @@ cudaError_t launch_attention_sm90(const AttnArgs* args, void* stream) {
   if (slots <= 0 || n_items > 0x7fffffff) return cudaErrorInvalidValue;
   const sm90::Items items{static_cast<int>(n_items), row_blocks};
   const int grid = static_cast<int>(n_items < slots ? n_items : slots);
-  sm90::attention_sm90_kernel<kMode>
-      <<<grid, sm90::kThreads, sm90::Smem::alloc, static_cast<cudaStream_t>(stream)>>>(
+  sm90::attention_sm90_kernel<kMode, kHD>
+      <<<grid, sm90::kThreads, S::alloc, static_cast<cudaStream_t>(stream)>>>(
           tq, tk, tv, a, ord, items);
   return cudaGetLastError();
 }

@@ -1,13 +1,15 @@
-// Tiled softmax attention for head dim 64 in float32, shared by
-// fused_attention.cu and media_xattn.cu: every float32 call, in all three
-// modes. bf16 calls run Hopper kernels instead, chosen by dtype alone: kFull
+// Tiled softmax attention in float32, shared by fused_attention.cu and
+// media_xattn.cu: every float32 call, in all three modes, at head width 64
+// (kD), and in the kFull and kStream modes also at 80 and 128 (the
+// template parameter kHD: the trunks of opt-2.7b and opt-6.7b). bf16 calls run Hopper kernels instead, chosen by dtype alone: kFull
 // and kStream attention_sm90.cuh's tile (TMA, wgmma, warp-specialised),
 // kMedia media_xattn_sm90.cuh's kernel (a warp per 16-row slice,
 // only the attended media's keys loaded); both reuse the fragment helpers
 // here.
 //
 // One block of 4 warps owns 64 query rows of one (batch, head); each warp
-// owns 16 rows. The block walks the keys in tiles of 64 with an online
+// owns 16 rows. The block walks the keys in tiles of 64 (32 at 128-wide
+// heads, `F32Tile`) with an online
 // softmax (running max from float32 min, running sum, rescaled
 // accumulator), and computes every product with mma.sync m16n8k16 (bf16
 // operands, float32 accumulation):
@@ -50,7 +52,8 @@
 // Bound: float32 calls are off the model paths (which run bf16); each K/V
 // tile is read once per 64-row query tile by cp.async, one tile at a time
 // (two float32 tiles fill the 48 KB of static shared memory), and read
-// element by element; Q, S and P never leave registers.
+// element by element; Q, S and P never leave registers (at 128-wide heads
+// Q's fragments and the output's take most of them).
 #pragma once
 
 #include <cfloat>
@@ -66,7 +69,6 @@ constexpr int kD = 64;            // head dim
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockQ = kWarps * 16;
-constexpr int kBlockK = 64;
 constexpr int kPitch = kD + 8;    // shared-memory row: conflict-free fragment reads
 constexpr float kNeg = -FLT_MAX;  // float32 min, the TPU kernels' fill
 
@@ -145,13 +147,25 @@ __device__ __forceinline__ void mma_parts(float (&c)[4],
       if (i + j < kTerms) mma_bf16(c, a[i], b0[j], b1[j]);
 }
 
-// rows [key0, key0 + 64) of an (n, 64) slice with row stride sn -> shared
-// memory, rows at or past n as zeros: 16-byte cp.async copies, which the
-// caller commits and waits for
-__device__ __forceinline__ void load_tile(float (*dst)[kPitch], const float* src,
+// the float32 tile's shape at head width kHD: shared-memory rows of kHD
+// floats padded by 8 (conflict-free fragment reads), key tiles of 64 keys
+// (32 at 128, so that two float32 tiles stay within the 48 KB of static
+// shared memory)
+template <int kHD>
+struct F32Tile {
+  static_assert(kHD % 16 == 0, "whole k-steps of 16 dims");
+  static constexpr int kPitch = kHD + 8;
+  static constexpr int kKeys = kHD > 80 ? 32 : 64;
+};
+
+// rows [key0, key0 + kKeys) of an (n, kHD) slice with row stride sn ->
+// shared memory, rows at or past n as zeros: 16-byte cp.async copies, which
+// the caller commits and waits for
+template <int kHD, int kKeys = F32Tile<kHD>::kKeys>
+__device__ __forceinline__ void load_tile(float (*dst)[F32Tile<kHD>::kPitch], const float* src,
                                           long long sn, int key0, int n) {
-  constexpr int kChunks = kD * 4 / 16;  // per row
-  for (int c = threadIdx.x; c < kBlockK * kChunks; c += kThreads) {
+  constexpr int kChunks = kHD * 4 / 16;  // per row
+  for (int c = threadIdx.x; c < kKeys * kChunks; c += kThreads) {
     const int r = c / kChunks, col = (c % kChunks) * 4;
     const bool in = key0 + r < n;
     const float* from = in ? src + (key0 + r) * sn + col : src;
@@ -183,17 +197,19 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 // s[n-tile][C reg] = Q K^T for this warp's 16 rows and the key tile in
 // shared memory: row g + 8 * (r / 2), key nt * 8 + 2 * t4 + r % 2
-__device__ __forceinline__ void qk(const float (*s_k)[kPitch],
-                                   const uint32_t (&qa)[4][kParts][4], float (&s)[8][4]) {
+template <int kHD, int kKeys>
+__device__ __forceinline__ void qk(const float (*s_k)[F32Tile<kHD>::kPitch],
+                                   const uint32_t (&qa)[kHD / 16][kParts][4],
+                                   float (&s)[kKeys / 8][4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int nt = 0; nt < kKeys / 8; ++nt)
 #pragma unroll
     for (int r = 0; r < 4; ++r) s[nt][r] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < kHD / 16; ++kk) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < kKeys / 8; ++nt) {
       // B fragment of n-tile nt: key nt * 8 + g, dims kk * 16 + 2 * t4 (+1)
       // and (+8, +9)
       uint32_t b0[kParts], b1[kParts];
@@ -208,16 +224,18 @@ __device__ __forceinline__ void qk(const float (*s_k)[kPitch],
 
 // o[dim n-tile][C reg] = o * alpha + P V for the V tile in shared memory,
 // the tile's products summed in a fresh fragment
-__device__ __forceinline__ void pv(const float (*s_v)[kPitch], const float (&p)[8][4],
-                                   const float (&alpha)[2], float (&o)[8][4]) {
+template <int kHD, int kKeys>
+__device__ __forceinline__ void pv(const float (*s_v)[F32Tile<kHD>::kPitch],
+                                   const float (&p)[kKeys / 8][4], const float (&alpha)[2],
+                                   float (&o)[kHD / 8][4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  float t[8][4];
+  float t[kHD / 8][4];
 #pragma unroll
-  for (int dn = 0; dn < 8; ++dn)
+  for (int dn = 0; dn < kHD / 8; ++dn)
 #pragma unroll
     for (int r = 0; r < 4; ++r) t[dn][r] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
     // A fragment of keys kk * 16 ..: regs (row g, keys 2t4..), (row g + 8,
     // ..), (row g, keys 8 + 2t4..), (row g + 8, ..)
     uint32_t pa[kParts][4];
@@ -231,7 +249,7 @@ __device__ __forceinline__ void pv(const float (*s_v)[kPitch], const float (&p)[
     }
     const int key = kk * 16 + 2 * t4;
 #pragma unroll
-    for (int dn = 0; dn < 8; ++dn) {
+    for (int dn = 0; dn < kHD / 8; ++dn) {
       // B fragment of dim tile dn: keys kk * 16 + 2 * t4 (+1) and (+8, +9),
       // dim dn * 8 + g
       uint32_t b0[kParts], b1[kParts];
@@ -242,13 +260,15 @@ __device__ __forceinline__ void pv(const float (*s_v)[kPitch], const float (&p)[
     }
   }
 #pragma unroll
-  for (int dn = 0; dn < 8; ++dn)
+  for (int dn = 0; dn < kHD / 8; ++dn)
 #pragma unroll
     for (int r = 0; r < 4; ++r) o[dn][r] = o[dn][r] * alpha[r >> 1] + t[dn][r];
 }
 
-template <int kMode>
+// kHD: the head width (64; 80 and 128 in the kFull and kStream modes)
+template <int kMode, int kHD>
 __global__ void __launch_bounds__(kThreads) attention_kernel(const AttnArgs a) {
+  constexpr int kKeys = F32Tile<kHD>::kKeys, kP = F32Tile<kHD>::kPitch;
   const int bh = blockIdx.x;
   const int b = bh / a.h, hd = bh % a.h;
   const int q0 = blockIdx.y * kBlockQ;
@@ -260,14 +280,14 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const AttnArgs a) {
   float* out = static_cast<float*>(a.out) + b * a.stride[3][0] + hd * a.stride[3][1];
   const long long k_sn = a.stride[1][2], v_sn = a.stride[2][2];
   const int n_keys = kMode == kStream ? a.n_kv_pad : a.n_kv;
-  const int n_tiles = (n_keys + kBlockK - 1) / kBlockK;
+  const int n_tiles = (n_keys + kKeys - 1) / kKeys;
 
-  __shared__ __align__(16) float s_k[kBlockK][kPitch];
-  __shared__ __align__(16) float s_v[kBlockK][kPitch];
+  __shared__ __align__(16) float s_k[kKeys][kP];
+  __shared__ __align__(16) float s_v[kKeys][kP];
 
   // the first tile's copy starts before Q is read
-  load_tile(s_k, k, k_sn, 0, a.n_kv);
-  load_tile(s_v, v, v_sn, 0, a.n_kv);
+  load_tile<kHD>(s_k, k, k_sn, 0, a.n_kv);
+  load_tile<kHD>(s_v, v, v_sn, 0, a.n_kv);
   cp_async_commit();
 
   // this thread's two query rows: C fragment rows g and g + 8
@@ -280,9 +300,9 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const AttnArgs a) {
   const bool live = q0 + warp * 16 < a.n_q;  // warp-uniform: has a real row
 
   // Q as A fragments qa[k-step][part][reg]; rows past n_q are zeros
-  uint32_t qa[4][kParts][4];
+  uint32_t qa[kHD / 16][kParts][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < kHD / 16; ++kk) {
 #pragma unroll
     for (int reg = 0; reg < 4; ++reg) {
       const int h2 = reg & 1, dim = kk * 16 + 2 * t4 + 8 * (reg >> 1);
@@ -296,26 +316,26 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const AttnArgs a) {
   }
 
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
-  float o[8][4];
+  float o[kHD / 8][4];
 #pragma unroll
-  for (int dn = 0; dn < 8; ++dn)
+  for (int dn = 0; dn < kHD / 8; ++dn)
 #pragma unroll
     for (int r = 0; r < 4; ++r) o[dn][r] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int key0 = it * kBlockK;
+    const int key0 = it * kKeys;
     cp_async_wait<0>();
     __syncthreads();  // this tile is in shared memory
     if (live) {
-      float s[8][4];
-      qk(s_k, qa, s);
+      float s[kKeys / 8][4];
+      qk<kHD, kKeys>(s_k, qa, s);
       float alpha[2];
 #pragma unroll
       for (int h2 = 0; h2 < 2; ++h2) {
         const int i = row[h2];
         float mx = kNeg;
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
+        for (int nt = 0; nt < kKeys / 8; ++nt) {
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const int j = key0 + nt * 8 + 2 * t4 + c;
@@ -338,7 +358,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const AttnArgs a) {
         const bool zero = kMode == kMedia && tt[h2] == 0;  // no preceding media
         float sum = 0.f;
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
+        for (int nt = 0; nt < kKeys / 8; ++nt) {
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const float e = zero ? 0.f : expf(s[nt][2 * h2 + c] - m_new);
@@ -350,12 +370,12 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const AttnArgs a) {
         l[h2] = l[h2] * alpha[h2] + quad_sum(sum);
         m[h2] = m_new;
       }
-      pv(s_v, s, alpha, o);
+      pv<kHD, kKeys>(s_v, s, alpha, o);
     }
     __syncthreads();  // done reading the tile before it is refilled
     if (it + 1 < n_tiles) {
-      load_tile(s_k, k, k_sn, key0 + kBlockK, a.n_kv);
-      load_tile(s_v, v, v_sn, key0 + kBlockK, a.n_kv);
+      load_tile<kHD>(s_k, k, k_sn, key0 + kKeys, a.n_kv);
+      load_tile<kHD>(s_v, v, v_sn, key0 + kKeys, a.n_kv);
       cp_async_commit();
     }
   }
@@ -367,16 +387,17 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const AttnArgs a) {
     const float den = fmaxf(l[h2], 1e-30f);
     float* orow = out + row[h2] * a.stride[3][2];
 #pragma unroll
-    for (int dn = 0; dn < 8; ++dn)
+    for (int dn = 0; dn < kHD / 8; ++dn)
       store2(orow + dn * 8 + 2 * t4, o[dn][2 * h2] / den, o[dn][2 * h2 + 1] / den);
   }
 }
 
-// float32 attention in one of the three modes
-template <int kMode>
+// float32 attention in one of the three modes at head width kHD
+template <int kMode, int kHD = kD>
 cudaError_t launch_attention(const AttnArgs* args, void* stream) {
   const dim3 grid(args->b * args->h, (args->n_q + kBlockQ - 1) / kBlockQ);
-  attention_kernel<kMode><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(*args);
+  attention_kernel<kMode, kHD>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(*args);
   return cudaGetLastError();
 }
 

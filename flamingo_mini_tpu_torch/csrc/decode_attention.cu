@@ -31,9 +31,14 @@
 // [0, kb) are never read. If [npad, cur] is empty the reference's softmax
 // is uniform over all kb * t_lim family entries, and so is this one.
 //
-// Head widths: 16, 32 and 64 (kHD, a template parameter; the wrapper
-// refuses any other). The main paths' models are all 64 wide; 16 and 32
-// are the narrow test-scale models', which run the same kernels.
+// Head widths: 16, 32, 64, 80 and 128 (kHD, a template parameter; the
+// wrapper refuses any other). GPT-2 and OPT up to 1.3B are 64 wide,
+// opt-2.7b 80 and opt-6.7b 128; 16 and 32 are the narrow test-scale
+// models', which run the same kernels. 80 is not a power of two: a head row
+// is 10 16-byte chunks in bf16 (20 in float32), so K's swizzle keeps the
+// power-of-two part of the row on the XOR rule and gives the tail its own
+// (`swz`), and the V product's lanes form 3 groups of 10 (1 of 20) with the
+// rest of the warp idle, folded by shuffles down (`fold`).
 //
 // Bound: device memory, and the bytes in flight that reach it. A greedy
 // call reads 2 * t_lim * b * D * sizeof(T) bytes of K/V (about 17 MB at
@@ -56,8 +61,9 @@
 //   Greedy issues at entry (nothing waits on npad); beam first loads the
 //   split's ancestry and npad in one coalesced pass, marks each (family
 //   row, slot) some beam needs, and issues those alone, each once. K lands
-//   swizzled within its head (16-byte chunk c of slot t at c ^ (t & kSwz),
-//   kSwz = min(chunks a head row, 8) - 1), so a lane per slot reads its row
+//   swizzled within its head (16-byte chunk c of slot t at c ^ (t & 7)
+//   within the row's whole groups of 8 chunks, a shorter row or tail at
+//   c ^ (t & (its chunks - 1)): `swz`), so a lane per slot reads its row
 //   without bank conflicts.
 // - Math. One warp a (beam, head) pair: a lane an entry computes a whole
 //   kHD-wide dot from shared memory (q read by broadcast, not held in
@@ -161,6 +167,20 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// K's swizzle: chunk c of a head row of kCH chunks at slot t. The row's
+// whole groups of 8 chunks XOR with t & 7; the tail (or a row under 8
+// chunks) with t & (its length - 1), a power of two at every width taken
+// (kCH % 8 is 0, 2 or 4, or kCH is 2 or 4), so a chunk never leaves its
+// group or the row.
+template <int kCH>
+__device__ __forceinline__ int swz(int c, int t) {
+  constexpr int kBase = kCH & ~7, kTail = kCH - kBase;
+  static_assert((kTail & (kTail - 1)) == 0, "the tail must be a power of two");
+  if constexpr (kTail == 0) return c ^ (t & 7);
+  else if constexpr (kBase == 0) return c ^ (t & (kTail - 1));
+  else return c < kBase ? c ^ (t & 7) : c ^ (t & (kTail - 1));
+}
+
 // The plan of one launch (ops/decode_attention.py's plan()).
 struct Plan {
   int heads;      // heads a block holds: 1, 2 or 4
@@ -189,9 +209,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         float* __restrict__ part, int b, int D, int t_lim, int cur,
                         float scale, int kb, int anc_len, Plan plan) {
   constexpr int kE = 16 / sizeof(T);     // values a 16-byte chunk
-  constexpr int kCH = kHD / kE;          // chunks a head row: 2-8 bf16, 4-16 float
+  constexpr int kCH = kHD / kE;          // chunks a head row: 2-16 bf16, 4-32 float
   constexpr int kNPG = 32 / kCH;         // positions a warp step of the V product
-  constexpr int kSwz = (kCH < 8 ? kCH : 8) - 1;  // K's swizzle, within a head row
   constexpr int kPart = part_stride(kHD);
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_lo[kMaxRows];
@@ -223,6 +242,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // every thread issues one chunk column of the slabs: nthr % slab == 0
   const int my_ch = tid % slab;
+  const int my_c = my_ch % kCH, my_h0 = my_ch - my_c;  // its chunk in its head's row
   const int t_step = nthr / slab;
 
   for (int x = tid; x < kb * slab; x += nthr)
@@ -231,7 +251,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (!kBeam) {
     // every slot of the split: nothing waits on npad
     for (int tl = tid / slab; tl < n_pos; tl += t_step)
-      cp_async16(ks + tl * slab + (my_ch ^ (tl & kSwz)),
+      cp_async16(ks + tl * slab + my_h0 + swz<kCH>(my_c, tl),
                  k + (t0 + tl) * t_stride + static_cast<long long>(row0) * D + col0
                    + my_ch * kE);
     cp_async_commit();
@@ -265,7 +285,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kb; ++j)
       for (int tl = tid / slab; tl < n_pos; tl += t_step)
         if (need[j * positions + tl])
-          cp_async16(ks + (j * positions + tl) * slab + (my_ch ^ (tl & kSwz)),
+          cp_async16(ks + (j * positions + tl) * slab + my_h0 + swz<kCH>(my_c, tl),
                      k + (t0 + tl) * t_stride + static_cast<long long>(row0 + j) * D
                        + col0 + my_ch * kE);
     cp_async_commit();
@@ -305,7 +325,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
           for (int c = 0; c < kCH; ++c) {
             float f[kE], g[kE];
-            unpack(kr[c ^ (tl & kSwz)], f);
+            unpack(kr[swz<kCH>(c, tl)], f);
             unpack(qr[c], g);
 #pragma unroll
             for (int e2 = 0; e2 < kE; ++e2) dot += g[e2] * f[e2];
@@ -335,8 +355,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   // The V product: lane (position group pg, chunk c) sums 16-byte chunks of
-  // V over the entries pg, pg + kNPG, ...; the groups meet by shuffles.
+  // V over the entries pg, pg + kNPG, ...; the groups meet by shuffles. At
+  // a width whose kCH does not divide 32 the lanes past kNPG * kCH idle.
   const int c = lane % kCH, pg = lane / kCH;
+  const int n_pg = pg < kNPG ? kNPG : 0;  // this lane's step; 0: it idles
   for (int pr = warp; pr < pairs; pr += nwarps) {
     const int i = pr / heads, h = pr % heads, lo = s_lo[i];
     float acc[kE];
@@ -345,7 +367,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (lo <= hi) {
       const int e0 = max(t0, lo), n_e = max(0, min(t1, hi + 1) - e0);
       const float* s = sc + pr * positions;
-      for (int e = pg; e < n_e; e += kNPG) {
+      for (int e = pg; n_pg && e < n_e; e += kNPG) {
         const int tl = e0 - t0 + e;
         const int j = kBeam ? ancs[i * positions + tl] : 0;
         if (j < 0 || j >= kb) continue;  // exp(-FLT_MAX - m) == 0: not read
@@ -356,7 +378,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int e2 = 0; e2 < kE; ++e2) acc[e2] += p * f[e2];
       }
     } else {
-      for (int e = pg; e < kb * n_pos; e += kNPG) {
+      for (int e = pg; n_pg && e < kb * n_pos; e += kNPG) {
         const int j = e / n_pos, tl = e % n_pos;
         float f[kE];
         unpack(vs[(j * positions + tl) * slab + h * kCH + c], f);
@@ -364,10 +386,21 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int e2 = 0; e2 < kE; ++e2) acc[e2] += f[e2];
       }
     }
+    if constexpr ((kCH & (kCH - 1)) == 0) {
 #pragma unroll
-    for (int o = kCH; o < 32; o <<= 1)
+      for (int o = kCH; o < 32; o <<= 1)
 #pragma unroll
-      for (int e = 0; e < kE; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+        for (int e = 0; e < kE; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+    } else {
+      // fold: group g's sums onto group 0, in group order
+#pragma unroll
+      for (int g = 1; g < kNPG; ++g)
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          const float x = __shfl_down_sync(0xffffffffu, acc[e], g * kCH);
+          if (pg == 0) acc[e] += x;
+        }
+    }
     const int row = row0 + i, head = group * heads + h;
     const float m = s_max[pr], l = s_sum[pr];
     if (pg == 0 && splits == 1) {
@@ -473,9 +506,17 @@ cudaError_t launch_width(const void* q, const void* k, const void* v, const int*
     case 32:
       return launch_typed<T, kBeam, 32>(q, k, v, npad, anc, out, scratch, b, D, n_head,
                                         t_lim, cur, scale, kb, anc_len, p, s);
-    default:
+    case 64:
       return launch_typed<T, kBeam, 64>(q, k, v, npad, anc, out, scratch, b, D, n_head,
                                         t_lim, cur, scale, kb, anc_len, p, s);
+    case 80:
+      return launch_typed<T, kBeam, 80>(q, k, v, npad, anc, out, scratch, b, D, n_head,
+                                        t_lim, cur, scale, kb, anc_len, p, s);
+    case 128:
+      return launch_typed<T, kBeam, 128>(q, k, v, npad, anc, out, scratch, b, D, n_head,
+                                         t_lim, cur, scale, kb, anc_len, p, s);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -489,7 +530,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* npad
   const size_t itemsize = is_bf16 ? 2 : 4;
   const int hd = n_head > 0 ? D / n_head : 0;
   const int chunks = hd * static_cast<int>(itemsize) / 16 * p.heads;  // a (row, slot)
-  if (n_head < 1 || D != n_head * hd || (hd != 16 && hd != 32 && hd != 64) || p.heads < 1 || p.heads > 4 || n_head % p.heads || kb < 1
+  if (n_head < 1 || D != n_head * hd
+      || (hd != 16 && hd != 32 && hd != 64 && hd != 80 && hd != 128)
+      || p.heads < 1 || p.heads > 4 || n_head % p.heads || kb < 1
       || kb > kMaxRows || b % kb || t_lim < 1 || p.positions < 1 || p.splits < 1
       || p.splits * p.positions < t_lim || (p.splits - 1) * p.positions >= t_lim
       || p.warps < 1 || p.warps * 32 > kMaxThreads || (p.warps * 32) % chunks

@@ -58,8 +58,9 @@
 // about 0.49 ms. The w8a8 mode reads the same bytes: the same bound.
 //
 // One kernel serves both modes: decode_megakernel_sm90.cuh (TMA weight
-// ring, wgmma, its own grid barrier; the mode a template parameter; its
-// note says what bounds it and what the design does about it). This file
+// ring, wgmma, its own grid barrier; the mode and the self-attention head
+// width (64, 80 or 128; xattn's stays 64) template parameters; its note
+// says what bounds it and what the design does about it). This file
 // is also the body of the decode_megakernel_part_*.cu units, each of which
 // compiles one of the kernels (FMT_MK_PART; the note in the .cuh says why);
 // the C interface below is this unit's alone.
@@ -93,7 +94,7 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int kHeadDim = 64;   // attention head dim, self and cross
+constexpr int kHeadDim = 64;   // xattn's head width, and the self-attention's but at 80, 128
 // the w8a8 quantizer's constants as JAX folds them: float32 roundings of
 // the Python doubles
 constexpr float kAmaxFloor = static_cast<float>(1e-30);

@@ -88,16 +88,18 @@
 //   block's arrival returns the count before it, and it waits for the next
 //   multiple of the grid. The per-tile counters sit after it; the last
 //   arrival resets its tile's. Nothing needs zeroing but once.
-// * Attention: a block takes a row and a group of four heads at a time, its
-//   sixteen warps a span of positions each (see `attend`); the cache's 512
-//   bytes of a slot for those heads are one 16-byte load per lane. The
-//   w8a8 mode sums in float64.
+// * Attention: a block takes a row and a group of four heads at a time (at
+//   64-wide heads; two at 128, three at 80), its sixteen warps a span of
+//   positions each (see `attend`); the cache's 480-512 bytes of a slot for
+//   those heads are one 16-byte load per lane. The w8a8 mode sums in
+//   float64.
 // * A section timer (`mark`) splits each block's time by section for
 //   profile_decode.py's sweep.
 //
-// Build: the step's four kernels (weight-only and w8a8, each with and
-// without the phase timer) and the w8a8 linear alone are each compiled in
-// a translation unit of their own (decode_megakernel_part_*.cu, which set
+// Build: the step's four kernels at 64-wide heads (weight-only and w8a8,
+// each with and without the phase timer), its two at 80 and two at 128
+// (weight-only and w8a8) and the w8a8 linear alone are each compiled in a
+// translation unit of their own (decode_megakernel_part_*.cu, which set
 // FMT_MK_PART and name their kernel), so that their nvcc processes run at
 // once beside the other sources'; in one unit they took most of the
 // build's three minutes. A part exports one C entry that sizes the grid of
@@ -118,6 +120,12 @@ extern "C" int fmt_mk_step_w_phases(const MegaArgs* a, const void* maps, void* s
                                     int* blocks);
 extern "C" int fmt_mk_step_q_phases(const MegaArgs* a, const void* maps, void* stream,
                                     int* blocks);
+// the same steps at the self-attention head widths 80 and 128 (no phase
+// timer: that is for the 64-wide kernels' profile)
+extern "C" int fmt_mk_step_w80(const MegaArgs* a, const void* maps, void* stream, int* blocks);
+extern "C" int fmt_mk_step_q80(const MegaArgs* a, const void* maps, void* stream, int* blocks);
+extern "C" int fmt_mk_step_w128(const MegaArgs* a, const void* maps, void* stream, int* blocks);
+extern "C" int fmt_mk_step_q128(const MegaArgs* a, const void* maps, void* stream, int* blocks);
 // the w8a8 linear alone: maps and lin point at a Maps and a Lin
 extern "C" int fmt_mk_linear(const MegaArgs* a, const void* maps, const void* lin,
                              void* stream, int* blocks);
@@ -1171,48 +1179,90 @@ __device__ __forceinline__ void linear_phase(Ctx& c, const Lin& p) {
 // ---------------------------------------------------------------------------
 // attention
 
-constexpr int kHeadGroup = 4;  // heads per attention item: 256 dims, 512 bytes a slot
+constexpr int kHeadGroup = 4;  // heads per attention item at 64: 256 dims, 512 bytes a slot
 
 // bytes of shared memory `attend` takes: the scores of every position for
 // each head of the item (float32), each warp's V sums, each span's maxima
-// and sums; the sums float32, or float64 in the w8a8 mode
+// and sums; the sums float32, or float64 in the w8a8 mode. Laid out for
+// 64-wide heads (4 a group, 256 dims) at every width: an item of wider
+// heads (`Heads`: 3 of 80, 2 of 128) takes no more of any part, and keeps
+// the float64 parts 8-byte aligned.
 __host__ __device__ inline int att_bytes(const MegaArgs& a) {
   const int t = a.t_lim > a.NMNV ? a.t_lim : a.NMNV, acc = a.act_quant ? 8 : 4;
   return 4 * kHeadGroup * t + acc * kCWarps * kHeadGroup * kHeadDim +
          (4 + acc) * kCWarps * kHeadGroup;
 }
 
+// An attention item of kHD-wide heads: a lane holds 8 dims (one 16-byte
+// load of a slot), a head kLanes lanes, an item kHeads heads (a warp's 32
+// lanes: 4 x 8 at 64, 2 x 16 at 128; at 80 3 x 10, lanes 30 and 31 idle).
+template <int kHD>
+struct Heads {
+  static_assert(kHD % 8 == 0 && kHD / 8 <= 32, "a head is whole 16-byte loads of a warp");
+  static constexpr int kLanes = kHD / 8;
+  static constexpr int kHeads = 32 / kLanes;
+  static constexpr int kDims = kHeads * kHD;            // dims of an item
+  static constexpr bool kRagged = kHeads * kLanes != 32;  // idle lanes
+};
+
+// x summed over the kLanes lanes of each head, the same bits on each: xor
+// shuffles where kLanes is a power of two; else adjacent pairs, then the
+// pairs gathered from the head's first lane in order
+template <int kLanes, typename T>
+__device__ __forceinline__ T head_sum(T x, int lane0) {
+  if constexpr ((kLanes & (kLanes - 1)) == 0) {
+#pragma unroll
+    for (int o = 1; o < kLanes; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    return x;
+  } else {
+    static_assert(kLanes % 2 == 0, "pairs of lanes");
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    T total = __shfl_sync(0xffffffffu, x, lane0);
+#pragma unroll
+    for (int p = 2; p < kLanes; p += 2) total += __shfl_sync(0xffffffffu, x, lane0 + p);
+    return total;
+  }
+}
+
 // decode_megakernel.cu's note on attention (the same masks, positions and
 // roundings: the scores of xattn rounded to bf16, p = exp(s - max) over
 // every position < t_lim, bf16(p) V, out = sum / max(l, 1e-30)), laid out
-// for the cache's rows: an item is a row and a group of four heads, whose
-// 512 bytes of K or V at a slot are one 16-byte load per lane (lane l:
-// head l / 8, dims 8 (l % 8) ... + 7; its dot over 8 dims, then the head's
-// 8 lanes added by xor shuffles). Warp w of the block takes the w-th span
-// of the positions and of the V walk; the max is the item's, the spans'
-// sums are added in warp order. Weight-only: float32 sums. kQ (w8a8): the
-// dot products, l and the V sums in float64 (bf16 x bf16 products are
-// exact in float32; the sums do not depend on their order), each rounded
-// to float32 once, and each row's max |output| over a D-wide slice noted
-// in `amax` (row stride amax_ld) for the next linear's quantizer.
-template <bool kQ>
+// for the cache's rows: an item is a row and a group of kHeads heads
+// (`Heads`; four at 64), whose K or V at a slot is one 16-byte load per
+// lane (lane l: head l / kLanes, dims 8 (l % kLanes) ... + 7; its dot over
+// 8 dims, then the head's lanes added by `head_sum`). Warp w of the block
+// takes the w-th span of the positions and of the V walk; the max is the
+// item's, the spans' sums are added in warp order. Weight-only: float32
+// sums. kQ (w8a8): the dot products, l and the V sums in float64 (bf16 x
+// bf16 products are exact in float32; the sums do not depend on their
+// order), each rounded to float32 once, and each row's max |output| over a
+// D-wide slice noted in `amax` (row stride amax_ld) for the next linear's
+// quantizer. kHD: the heads' width (xattn's are 64; self-attention's the
+// trunk's: 64, 80 or 128).
+template <bool kQ, int kHD>
 __device__ __forceinline__ void attend(const MegaArgs& a, const bf16* q, int ld, const bf16* K,
                                        const bf16* V, int n_head, int t_lim, float scale,
                                        bool xattn, bf16* out, float* smem, unsigned* amax,
                                        int amax_ld) {
   using Acc = typename std::conditional<kQ, double, float>::type;
+  using G = Heads<kHD>;
+  constexpr int kLanes = G::kLanes, kHeads = G::kHeads, kDims = G::kDims;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int hl = lane >> 3, dim = (lane & 7) * 8;  // the lane's head in the group, its dims
+  const bool lane_ok = !G::kRagged || lane < kHeads * kLanes;  // not an idle lane
+  const int hl = lane_ok ? lane / kLanes : 0;  // the lane's head in the group
+  const int lh = lane % kLanes, dim = lh * 8;  // its place in the head, its dims
+  const int lane0 = lane - lh;                 // the head's first lane
+  const bool lead = lh == 0 && lane_ok;        // writes the head's values
   const int t_max = a.t_lim > a.NMNV ? a.t_lim : a.NMNV;
   float* sc = smem + hl * t_max;                              // this lane's head's scores
-  Acc* part = reinterpret_cast<Acc*>(smem + kHeadGroup * t_max);  // (warp, 256) V sums
+  Acc* part = reinterpret_cast<Acc*>(smem + kHeadGroup * t_max);  // (warp, kDims) V sums
   float* span_m = reinterpret_cast<float*>(part + kCWarps * kHeadGroup * kHeadDim);  // (warp, head)
   Acc* span_l = reinterpret_cast<Acc*>(span_m + kCWarps * kHeadGroup);
-  const int groups = (n_head + kHeadGroup - 1) / kHeadGroup;
+  const int groups = (n_head + kHeads - 1) / kHeads;
   const long long t_stride = static_cast<long long>(a.b) * ld;
   for (int item = blockIdx.x; item < a.b * groups; item += gridDim.x) {
-    const int row = item / groups, head = (item % groups) * kHeadGroup + hl;
-    const bool live = head < n_head;  // a lane of a head past the last
+    const int row = item / groups, head = (item % groups) * kHeads + hl;
+    const bool live = lane_ok && head < n_head;  // a lane of a head past the last
     int lo, hi;
     if (xattn) {
       const int tt = a.text_time[row];
@@ -1222,7 +1272,7 @@ __device__ __forceinline__ void attend(const MegaArgs& a, const bf16* q, int ld,
       lo = a.npad[row];
       hi = min(a.cur, t_lim - 1);
     }
-    const long long off = static_cast<long long>(row) * ld + head * kHeadDim + dim;
+    const long long off = static_cast<long long>(row) * ld + head * kHD + dim;
     const bool beam = !xattn && a.anc != nullptr;
     const int fam0 = beam ? (row / a.kb) * a.kb : row;
     const int* anc_row = beam ? a.anc + static_cast<long long>(row) * a.anc_len : nullptr;
@@ -1275,34 +1325,30 @@ __device__ __forceinline__ void attend(const MegaArgs& a, const bf16* q, int ld,
             dot += qv[2 * j + 1] * f.y;
           }
         }
-        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-        dot += __shfl_xor_sync(0xffffffffu, dot, 4);
+        dot = head_sum<kLanes>(dot, lane0);
         float s = -FLT_MAX;
         if (prow[k] >= 0) {
           if constexpr (kQ) s = __fmul_rn(__double2float_rn(dot), scale);
           else s = dot * scale;
           if (xattn) s = rbf(s);
         }
-        if ((lane & 7) == 0) sc[t + k] = s;
+        if (lead) sc[t + k] = s;
         m = fmaxf(m, s);
       }
     }
-    if ((lane & 7) == 0) span_m[warp * kHeadGroup + hl] = m;
+    if (lead) span_m[warp * kHeadGroup + hl] = m;
     consumers_sync();
     for (int w = 0; w < kCWarps; ++w) m = fmaxf(m, span_m[w * kHeadGroup + hl]);
-    // p = exp(s - max) in place over the span, the head's 8 lanes taking
-    // every eighth position
+    // p = exp(s - max) in place over the span, the head's kLanes lanes
+    // taking every kLanes-th position
     Acc l_sum = 0;
-    for (int t = t0 + (lane & 7); t < t1; t += 8) {
+    for (int t = t0 + lh; lane_ok && t < t1; t += kLanes) {
       const float p = expf(sc[t] - m);
       sc[t] = p;
       l_sum += p;
     }
-    l_sum += __shfl_xor_sync(0xffffffffu, l_sum, 1);
-    l_sum += __shfl_xor_sync(0xffffffffu, l_sum, 2);
-    l_sum += __shfl_xor_sync(0xffffffffu, l_sum, 4);
-    if ((lane & 7) == 0) span_l[warp * kHeadGroup + hl] = l_sum;
+    l_sum = head_sum<kLanes>(l_sum, lane0);
+    if (lead) span_l[warp * kHeadGroup + hl] = l_sum;
     consumers_sync();  // every p is in place before any span's V walk
 
     // V: this warp's span of the walk [u0, u1] (slot t = u of row phys(t),
@@ -1353,19 +1399,21 @@ __device__ __forceinline__ void attend(const MegaArgs& a, const bf16* q, int ld,
         }
       }
     }
+    if (lane_ok) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) part[warp * kHeadGroup * kHeadDim + hl * kHeadDim + dim + i] = acc[i];
+      for (int i = 0; i < 8; ++i) part[warp * kDims + hl * kHD + dim + i] = acc[i];
+    }
     consumers_sync();
 
     // the spans added in warp order: a thread per dim of the group's heads
     {
-      const int i = threadIdx.x, h = i / kHeadDim, hd = (item % groups) * kHeadGroup + h;
+      const int i = threadIdx.x, h = i / kHD, hd = (item % groups) * kHeads + h;
       float stored = 0.f;  // |the bf16 output| (w8a8's amax)
-      if (i < kHeadGroup * kHeadDim && hd < n_head) {
+      if (i < kDims && hd < n_head) {
         Acc l = 0, o = 0;
         for (int w = 0; w < kCWarps; ++w) {
           l += span_l[w * kHeadGroup + h];
-          o += part[w * kHeadGroup * kHeadDim + i];
+          o += part[w * kDims + i];
         }
         float lf, of;
         if constexpr (kQ) {
@@ -1378,16 +1426,19 @@ __device__ __forceinline__ void attend(const MegaArgs& a, const bf16* q, int ld,
         if (spread) lf = __fmul_rn(lf, static_cast<float>(a.kb));
         lf = fmaxf(lf, 1e-30f);
         const bf16 v = __float2bfloat16_rn(zero ? 0.f : of / lf);
-        out[static_cast<long long>(row) * ld + (item % groups) * kHeadGroup * kHeadDim + i] = v;
+        out[static_cast<long long>(row) * ld + (item % groups) * kDims + i] = v;
         stored = fabsf(__bfloat162float(v));
       }
       if constexpr (kQ) {
-        // warps 0-7: each a row's 32 output dims, within one D-wide slice
-        if (i < kHeadGroup * kHeadDim) {
+        // the warps whose first dim is a live head's: each a row's 32
+        // output dims, within one D-wide slice (the dims past the item's
+        // or a live head's last hold 0)
+        const int i0 = threadIdx.x & ~31;
+        if (i0 < kDims && (kHD == kHeadDim || (item % groups) * kHeads + i0 / kHD < n_head)) {
           stored = warp_max(stored);
           if (lane == 0)
             atomicMax(amax + static_cast<long long>(row) * amax_ld +
-                          ((item % groups) * kHeadGroup * kHeadDim + i) / a.D,
+                          ((item % groups) * kDims + i) / a.D,
                       __float_as_uint(stored));
         }
       }
@@ -1454,8 +1505,10 @@ __device__ void producer(const MegaArgs& a, const Maps& maps, uint32_t sbase, co
 // the attention and by the fc1 / fc epilogues, read by the next linear.
 // kPhases: the phase timer's copies (note_phase) too, in a kernel of their
 // own: in the step's kernels their stores cost 13-16 % of a step (the
-// consumer body's register allocation moves with them).
-template <bool kQ, bool kPhases>
+// consumer body's register allocation moves with them). kHD: the trunk's
+// head width (self-attention; xattn's heads are 64 wide): at 64 one
+// attention call site serves both, at 80 and 128 a second one.
+template <bool kQ, bool kPhases, int kHD>
 __device__ __forceinline__ void consumer(Ctx& c) {
   const MegaArgs& a = c.a;
   const int D = a.D, QW = max(a.D, a.XI);
@@ -1514,9 +1567,18 @@ __device__ __forceinline__ void consumer(Ctx& c) {
         const bool x = ph == 1;
         const long long kv = x ? static_cast<long long>(l) * a.NMNV * a.b * a.XI
                                : static_cast<long long>(l) * a.T * slab;
-        attend<kQ>(a, qbuf, x ? a.XI : D, (x ? a.xk : a.kc) + kv, (x ? a.xv : a.vc) + kv,
-                   x ? a.x_heads : a.n_head, x ? a.NMNV : a.t_lim, x ? 1.f : a.attn_scale, x,
-                   abuf, att, amax_a, nsA);
+        if constexpr (kHD == kHeadDim) {  // one call site: both widths 64
+          attend<kQ, kHeadDim>(a, qbuf, x ? a.XI : D, (x ? a.xk : a.kc) + kv,
+                               (x ? a.xv : a.vc) + kv, x ? a.x_heads : a.n_head,
+                               x ? a.NMNV : a.t_lim, x ? 1.f : a.attn_scale, x, abuf, att,
+                               amax_a, nsA);
+        } else if (x) {
+          attend<kQ, kHeadDim>(a, qbuf, a.XI, a.xk + kv, a.xv + kv, a.x_heads, a.NMNV, 1.f,
+                               true, abuf, att, amax_a, nsA);
+        } else {
+          attend<kQ, kHD>(a, qbuf, D, a.kc + kv, a.vc + kv, a.n_head, a.t_lim, a.attn_scale,
+                          false, abuf, att, amax_a, nsA);
+        }
         mark(c, kSecAttention);
         continue;
       }
@@ -1594,8 +1656,9 @@ __device__ __forceinline__ uint32_t block_start(const MegaArgs& a, const Layout&
 }
 
 // the whole step; kQ: the w8a8 mode (a.act_quant), else weight-only;
-// kPhases: with the phase timer (a.phases set)
-template <bool kQ, bool kPhases>
+// kPhases: with the phase timer (a.phases set); kHD: the self-attention
+// heads' width (a.D / a.n_head)
+template <bool kQ, bool kPhases, int kHD>
 __global__ void __launch_bounds__(kThreads, 1)
 decode_megakernel_sm90(const __grid_constant__ MegaArgs a, const __grid_constant__ Maps maps) {
   extern __shared__ uint8_t smem_raw[];
@@ -1606,7 +1669,7 @@ decode_megakernel_sm90(const __grid_constant__ MegaArgs a, const __grid_constant
     return;
   }
   Ctx c{a, smem_raw + (sbase - smem_addr(smem_raw)), sbase, L, 0, false};
-  consumer<kQ, kPhases>(c);
+  consumer<kQ, kPhases, kHD>(c);
 }
 
 #if defined(FMT_MK_LINEAR)
@@ -1670,6 +1733,14 @@ bool encode_weights(CUtensorMap* map, const int8_t* w, long long rows, int k) {
                 unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the self-attention heads' width, or 0 if the kernels take none of these
+// shapes: 64, 80 or 128 wide, xattn's 64
+int head_width(const MegaArgs& a) {
+  if (a.n_head < 1 || a.x_heads < 1 || a.D % a.n_head || a.XI != a.x_heads * kHeadDim) return 0;
+  const int hd = a.D / a.n_head;
+  return hd == kHeadDim || hd == 80 || hd == 128 ? hd : 0;
 }
 
 // the plan's fields within the kernel's limits; w8a8: its amax words given,
@@ -1738,14 +1809,26 @@ cudaError_t part_launch(const void* kernel, const MegaArgs& a, void** params, in
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 #else
-// the part whose kernel a launch with these arguments runs
+// the part whose kernel a launch with these arguments runs, or null (a
+// head width the kernels do not take; the phase timer at 80 or 128)
 int (*part_for(const MegaArgs& a))(const MegaArgs*, const void*, void*, int*) {
-  if (a.phases != nullptr) return a.act_quant ? fmt_mk_step_q_phases : fmt_mk_step_w_phases;
-  return a.act_quant ? fmt_mk_step_q : fmt_mk_step_w;
+  switch (head_width(a)) {
+    case kHeadDim:
+      if (a.phases != nullptr) return a.act_quant ? fmt_mk_step_q_phases : fmt_mk_step_w_phases;
+      return a.act_quant ? fmt_mk_step_q : fmt_mk_step_w;
+    case 80:
+      if (a.phases != nullptr) return nullptr;
+      return a.act_quant ? fmt_mk_step_q80 : fmt_mk_step_w80;
+    case 128:
+      if (a.phases != nullptr) return nullptr;
+      return a.act_quant ? fmt_mk_step_q128 : fmt_mk_step_w128;
+    default:
+      return nullptr;
+  }
 }
 
 cudaError_t launch(const MegaArgs& a, void* stream) {
-  if (!plan_ok(a)) return cudaErrorInvalidValue;
+  if (!plan_ok(a) || part_for(a) == nullptr) return cudaErrorInvalidValue;
   Maps maps;
   const cudaError_t err = encode_all(a, &maps);
   if (err != cudaSuccess) return err;
@@ -1755,6 +1838,7 @@ cudaError_t launch(const MegaArgs& a, void* stream) {
 
 // a's grid: the blocks a launch takes (0 if a block cannot be resident)
 cudaError_t step_grid(const MegaArgs& a, int* blocks) {
+  if (part_for(a) == nullptr) return cudaErrorInvalidValue;
   return static_cast<cudaError_t>(part_for(a)(&a, nullptr, nullptr, blocks));
 }
 
@@ -1774,12 +1858,16 @@ cudaError_t launch_linear(const MegaArgs& a, const Lin& p, const int8_t* W, void
 }  // namespace
 
 #if defined(FMT_MK_STEP)
-// this part's step kernel: decode_megakernel_sm90<FMT_MK_Q, FMT_MK_PHASES>
+#if !defined(FMT_MK_HD)
+#define FMT_MK_HD 64
+#endif
+// this part's step kernel: decode_megakernel_sm90<FMT_MK_Q, FMT_MK_PHASES, FMT_MK_HD>
 extern "C" int FMT_MK_STEP(const MegaArgs* a, const void* maps, void* stream, int* blocks) {
   void* params[] = {const_cast<MegaArgs*>(a), const_cast<void*>(maps)};
   return static_cast<int>(mk90::part_launch(
-      reinterpret_cast<const void*>(mk90::decode_megakernel_sm90<FMT_MK_Q, FMT_MK_PHASES>), *a,
-      maps == nullptr ? nullptr : params, blocks, stream, true));
+      reinterpret_cast<const void*>(
+          mk90::decode_megakernel_sm90<FMT_MK_Q, FMT_MK_PHASES, FMT_MK_HD>),
+      *a, maps == nullptr ? nullptr : params, blocks, stream, true));
 }
 #endif
 

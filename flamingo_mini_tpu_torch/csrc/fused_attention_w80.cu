@@ -1,0 +1,6 @@
+// fused_attention and flash_attention at 80-wide heads, in a translation
+// unit of their own (fused_attention_wide.cuh; the entry
+// fmt_attention_w80, which fused_attention.cu calls).
+#define FMT_ATTN_HD 80
+#define FMT_ATTN_ENTRY fmt_attention_w80
+#include "fused_attention_wide.cuh"

@@ -61,9 +61,9 @@ SIGNATURES = {
     "fmt_stream_tmajor": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fmt_stream_bmajor": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "fmt_stream_packed": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # &AttnArgs (ops/fused_attention._Args), is_bf16, stream
-    "fmt_fused_attention": [_P, _I, _P],
-    "fmt_flash_attention": [_P, _I, _P],
+    # &AttnArgs (ops/fused_attention._Args), is_bf16, head width, stream
+    "fmt_fused_attention": [_P, _I, _I, _P],
+    "fmt_flash_attention": [_P, _I, _I, _P],
     # &AttnArgs, is_bf16, the bf16 kernel's plan (slices a block), stream
     "fmt_media_xattn": [_P, _I, _I, _P],
     "fmt_attention_args_size": [],

@@ -8,9 +8,9 @@ card and how the design answers that: the live prefix split across blocks
 ``cp.async``, and the splits' partials folded in split order by a second
 small launch. ``plan`` picks, per shape, the heads a block holds, the
 splits and the slots a split holds, and is cached per shape. The kernels
-take head widths 16, 32 and 64 (``HEAD_DIMS``): every model the main paths
-run is 64 wide, the narrow test-scale ones 16 or 32; a CUDA call at any
-other width raises.
+take head widths 16, 32, 64, 80 and 128 (``HEAD_DIMS``): GPT-2 and OPT up
+to 1.3B are 64 wide, opt-2.7b 80, opt-6.7b 128, the narrow test-scale
+models 16 or 32; a CUDA call at any other width raises.
 
 ``decode_attention`` and ``decode_attention_beam`` launch their kernel for
 CUDA tensors and run their plain version for CPU tensors; nothing else picks
@@ -32,6 +32,7 @@ family ``f`` attends cache row ``f * kb + j`` at position ``t`` iff
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple, Optional, Union
 
 import torch
@@ -39,8 +40,8 @@ import torch
 from . import cuda_build
 
 NEG = float(torch.finfo(torch.float32).min)
-HEAD_DIMS = (16, 32, 64)    # the head widths the kernels take
-HEAD_DIM = 64               # the main paths' (the plan's default)
+HEAD_DIMS = (16, 32, 64, 80, 128)   # the head widths the kernels take
+HEAD_DIM = 64               # flamingo-mini's (the plan's default)
 # H100 SXM: streaming multiprocessors, shared memory an SM holds (228 KB)
 # and a block may take (227 KB) less the kernel's static arrays (2 KB);
 # the registers the kernel takes a thread at most (ptxas: 40-57)
@@ -146,8 +147,11 @@ def make_plan(rows: int, n_head: int, t_lim: int, itemsize: int, *, kb: int,
     positions = -(-t_lim // splits)
     splits = -(-t_lim // positions)
     chunks = heads * head_dim * itemsize // 16     # 16-byte chunks a (row, slot)
-    warps = min(MAX_WARPS, kb * heads)             # a (beam, head) pair each
-    warps += (32 * warps) % chunks // 32           # a whole chunk column per thread
+    step = chunks // math.gcd(32, chunks)          # warps whose threads hold whole
+    warps = min(MAX_WARPS, kb * heads)             # chunk columns; a (beam, head)
+    warps = -(-warps // step) * step               # pair a warp
+    if warps > MAX_WARPS:
+        warps -= step
     return Plan(heads, splits, positions, warps,
                 plan_smem(kb, heads, positions, itemsize, beam, head_dim),
                 (rows // kb) * (n_head // heads) * splits, kb * heads, head_dim)

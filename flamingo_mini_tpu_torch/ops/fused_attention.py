@@ -18,10 +18,12 @@ min and carry V = 0. So a fully masked row averages V over its masked keys
 
 ``fused_attention`` and ``flash_attention`` launch their kernel for CUDA
 tensors and run their plain version for CPU tensors; nothing else picks the
-path. Each counts its own launches. On the card the head dim is 64, q/k/v
-are read in place through their strides (the (b, n, h*d) projection layout
-that ``split_heads`` views), and the output is written (b, n, h, d) and
-returned as its (b, h, n, d) view, so ``merge_heads`` copies nothing.
+path. Each counts its own launches. On the card the head dim is 64, 80 or
+128 (``HEAD_DIMS``: the ViT, the resampler and the trunks up to opt-1.3b
+are 64 wide, opt-2.7b 80, opt-6.7b 128; any other raises), q/k/v are read
+in place through their strides (the (b, n, h*d) projection layout that
+``split_heads`` views), and the output is written (b, n, h, d) and returned
+as its (b, h, n, d) view, so ``merge_heads`` copies nothing.
 
 Training: on the card, when grad is enabled and q, k or v requires it, both
 run through ``RecomputeBackward``, the port of the JAX functions'
@@ -45,7 +47,8 @@ from . import cuda_build
 from .attention import softmax_f32
 
 NEG = float(torch.finfo(torch.float32).min)
-HEAD_DIM = 64
+HEAD_DIM = 64           # the ViT's and the resampler's (and the 64-wide trunks')
+HEAD_DIMS = (64, 80, 128)   # the head widths the kernels take
 _BLOCK_Q = 64         # query rows per CUDA block (attention_tile.cuh kBlockQ)
 
 
@@ -74,16 +77,16 @@ def _checked_lib() -> ctypes.CDLL:
     return lib
 
 
-def check_cuda(name: str, q, k, v) -> None:
+def check_cuda(name: str, q, k, v, head_dims=HEAD_DIMS) -> None:
     """The checks the attention kernels make of q (b, h, n_q, d) and k, v
-    (b, h, n_kv, d) on the card."""
+    (b, h, n_kv, d) on the card; ``head_dims``: the widths the kernel takes."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: unsupported dtype {q.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"CUDA {name} takes (b, h, n, {HEAD_DIM}) inputs, got "
-                         f"{tuple(q.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or q.shape[-1] not in head_dims:
+        raise ValueError(f"CUDA {name} takes (b, h, n, d) inputs with d in "
+                         f"{tuple(head_dims)}, got {tuple(q.shape)}")
     b, h, n_q, d = q.shape
     if k.shape[:2] != (b, h) or k.shape[3] != d or v.shape != k.shape \
             or k.shape[2] < 1 or n_q < 1:
@@ -253,7 +256,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     def kernel(q, k, v, rb):
         flash_attention.launches += 1
         return launch("fmt_flash_attention", q, k, v, scale=scale, causal=causal,
-                      row_bias=rb, n_kv_pad=-(-n_kv // block_kv) * block_kv)
+                      row_bias=rb, n_kv_pad=-(-n_kv // block_kv) * block_kv,
+                      plan=(q.shape[3],))
 
     def plain(q, k, v, rb):
         return fused_attention_plain(q, k, v, scale=scale, row_bias=rb, causal=causal)
@@ -295,7 +299,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             bias.to(q.device).expand(b, h, n_q, n_kv).float().contiguous()
         fused_attention.launches += 1
         return launch("fmt_fused_attention", q, k, v, scale=scale, causal=causal,
-                      bias=bf, row_bias=rb)
+                      bias=bf, row_bias=rb, plan=(q.shape[3],))
 
     def plain(q, k, v, bias, rb):
         return fused_attention_plain(q, k, v, scale=scale, bias=bias, row_bias=rb,

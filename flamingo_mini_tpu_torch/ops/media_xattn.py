@@ -39,7 +39,7 @@ from typing import NamedTuple
 import torch
 
 from .attention import softmax_f32
-from .fused_attention import (NEG, check_cuda, check_tile_grid, launch,
+from .fused_attention import (HEAD_DIM, NEG, check_cuda, check_tile_grid, launch,
                               recompute_backward)
 
 # the bf16 kernel (csrc/media_xattn_sm90.cuh): keys a tile (a P V k-step),
@@ -105,7 +105,7 @@ def fused_media_xattn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return fused_media_xattn_plain(q, k, v, text_time, scale=scale,
                                        n_visual=n_visual)
-    check_cuda("fused_media_xattn", q, k, v)
+    check_cuda("fused_media_xattn", q, k, v, head_dims=(HEAD_DIM,))
     if n_visual < 1:
         raise ValueError(f"n_visual must be positive, got {n_visual}")
     if q.dtype == torch.bfloat16:

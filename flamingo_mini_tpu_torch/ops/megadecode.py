@@ -73,7 +73,8 @@ from .layers import const, gelu_tanh
 
 Params = Dict[str, Any]
 NEG = float(torch.finfo(torch.float32).min)
-HEAD_DIM = 64       # the CUDA kernel's attention head dim (self and cross)
+HEAD_DIM = 64       # the CUDA kernel's xattn head width, and its attention scratch's
+HEAD_DIMS = (64, 80, 128)   # the self-attention head widths it takes (a kernel each)
 K_CHUNK = 64        # the CUDA kernel's K step: every d_in is a multiple
 INDEX_LIMIT = 2 ** 31 - 1   # the CUDA kernel's element offsets are 32-bit ints
 # the kernel (decode_megakernel_sm90.cuh): its linears in the order of
@@ -596,9 +597,11 @@ def plan_smem_bytes(p: Dict[str, Any], D: int, Dff: int, XI: int, Dffx: int,
     B tiles (in the wide mode with room for the last warpgroup's N rows past
     the last tile), the item's tile of sums (with the warpgroups' reduction
     before it) and the attention scratch (its sums float64 in the w8a8
-    mode), the pass's statistics (with each row's scale and its reciprocal
-    in the w8a8 mode, and then the LayerNorm's scale and bias, 2 D floats),
-    the barriers, a flag; and the section timer's static words."""
+    mode; laid out for items of four 64-wide heads at every width, which
+    the 80- and 128-wide items fit), the pass's statistics
+    (with each row's scale and its reciprocal in the w8a8 mode, and then
+    the LayerNorm's scale and bias, 2 D floats), the barriers, a flag; and
+    the section timer's static words."""
     n0, tr, wide, q = p["n0"], p["tile_rows"], p["wide"], p["act_quant"]
     warps = 4 * GROUPS
     acc = 8 if q else 4
@@ -761,9 +764,13 @@ def kernel_args(packed: Params, xk, xv, kc, vc, x_emb, npad, text_time,
     XH = config.xattn_heads
     NX, Dffx = packed["w_xf1"].shape[:2]
     t_lim = T if kv_limit is None else min(kv_limit, T)
-    if D // H != HEAD_DIM or XI // XH != HEAD_DIM or D % H or XI % XH:
-        raise ValueError(f"decode_step_megakernel: the CUDA kernel takes head "
-                         f"dim {HEAD_DIM}, got D={D}/{H} heads, XI={XI}/{XH} heads")
+    if D % H or D // H not in HEAD_DIMS or XI % XH or XI // XH != HEAD_DIM:
+        raise ValueError(f"decode_step_megakernel: the CUDA kernel takes self-attention "
+                         f"heads {HEAD_DIMS} wide and xattn heads {HEAD_DIM} wide, got "
+                         f"D={D}/{H} heads, XI={XI}/{XH} heads")
+    if phase_timer is not None and D // H != HEAD_DIM:
+        raise ValueError(f"decode_step_megakernel: the phase timer runs in the "
+                         f"{HEAD_DIM}-wide kernels only, got heads {D // H} wide")
     if D % K_CHUNK or Dff % K_CHUNK or Dffx % K_CHUNK or XI % K_CHUNK:
         raise ValueError(f"decode_step_megakernel: D, Dff and XI must be "
                          f"multiples of {K_CHUNK}")

@@ -742,7 +742,9 @@ def profile_paths(dev, card, opt=False):
     """Each decode path of flamingo-mini, or with ``opt`` of OPT-1.3B."""
     import chip_smoke as cs
     if opt:
-        config, model, ids, media, mask, pixels = cs.opt_setup(dev, np.random.RandomState(1))
+        model = cs.opt_model(dev)
+        config = model.config
+        ids, media, mask, pixels = cs.trunk_batch(dev, np.random.RandomState(1), config)
         paths = ((False, 1, "OPT-1.3B per-layer"), (True, 1, "OPT-1.3B megakernel"))
     else:
         config, model, ids, media, pixels = mini_model(dev)

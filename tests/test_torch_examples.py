@@ -113,13 +113,14 @@ def test_train_sh_arguments_parse(tmp_path, coordinator):
     assert ns.coordinator == coordinator
 
 
-@pytest.mark.parametrize("head_dim", [16, 64, 80])
+@pytest.mark.parametrize("head_dim", [16, 64, 80, 128, 96])
 def test_every_head_width_takes_the_decode_attention_kernels(head_dim, monkeypatch):
     """The per-layer decode calls the kernel wrappers at every head width:
     on the CPU they run their plain versions; a tensor anywhere else goes
-    to the kernel, which takes widths 16, 32 and 64 (the export example's
-    and the fidelity tool's tiny models are 16 wide) and refuses any other,
-    such as opt-2.7b's 80, rather than running plain."""
+    to the kernel, which takes widths 16, 32, 64, 80 and 128 (the export
+    example's and the fidelity tool's tiny models are 16 wide, opt-2.7b's
+    80, opt-6.7b's 128) and refuses any other, such as 96, rather than
+    running plain."""
     from flamingo_mini_tpu_torch.ops import decode_attention as da
     calls = []
     for name in ("decode_attention", "decode_attention_beam"):
@@ -143,7 +144,7 @@ def test_every_head_width_takes_the_decode_attention_kernels(head_dim, monkeypat
         raise AssertionError("a tensor off the CPU ran the plain version")
     monkeypatch.setattr(da, "decode_attention_plain", no_plain)
     monkeypatch.setattr(da, "decode_attention_beam_plain", no_plain)
-    n_head, D = 32, 32 * head_dim             # opt-2.7b: 32 heads of 80
+    n_head, D = 32, 32 * head_dim             # opt-2.7b: 32 heads of 80, opt-6.7b of 128
     q, k, v = (torch.empty((2, 1, D), device="meta") for _ in range(3))
     cache = {"kf": torch.empty((16, 2, D), device="meta"),
              "vf": torch.empty((16, 2, D), device="meta")}

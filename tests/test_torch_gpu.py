@@ -26,7 +26,10 @@ beam kernels (``decode_attention_beam``, the megakernel's beam mode) are
 held to the same tolerances at the beam path's shapes (96 rows in families
 of 3, 160 in families of 5, a 128-slot cache, a 68-slot ancestry table).
 Both decode attention kernels also at head widths 16 and 32 (the
-test-scale models'), and at kv_limit 1, 63, 64, 65, 127, 128,
+test-scale models') and 80 and 128 (opt-2.7b's and opt-6.7b's, at their
+trunks' 32 heads; the megakernel's self-attention, fused_attention and the
+streaming kernel at those two widths too, a width of 96 refused by all
+three), and at kv_limit 1, 63, 64, 65, 127, 128,
 129 and 192 (greedy at flamingo-mini's and OPT-1.3B's shapes), with the
 live prefix ending on each side of every split boundary of their plan, a
 row whose [npad, cur] is empty and one whose first split is masked; under
@@ -273,11 +276,28 @@ def test_decode_attention_narrow_heads_match_plain(cuda, kb, head_dim):
     assert set(edges) == {str(torch.float32), str(torch.bfloat16)}
 
 
+@pytest.mark.parametrize("head_dim", [80, 128])
+@pytest.mark.parametrize("kb", [1, 3])
+def test_decode_attention_wide_heads_match_plain(cuda, kb, head_dim):
+    """opt-2.7b's and opt-6.7b's head widths at their trunks' shapes (32
+    heads, 8 greedy rows or 8 families of 3, a 128-slot cache), at the edges
+    and split layouts of ``chip_smoke.py``'s ``attention_edges``, which
+    asserts the tolerances; each call through the wrapper one launch."""
+    import chip_smoke
+    rows = 8 * kb
+    kernel = decode_attention if kb == 1 else decode_attention_beam
+    before = kernel.launches
+    edges = chip_smoke.attention_edges(cuda, rows, kb, 32 * head_dim, 128, seed=head_dim,
+                                       head_dim=head_dim)
+    assert set(edges) == {str(torch.float32), str(torch.bfloat16)}
+    assert kernel.launches > before
+
+
 def test_kernels_refuse_bad_input(cuda):
-    q = torch.zeros((2, 160), device=cuda)
-    kv = torch.zeros((64, 2, 160), device=cuda)
+    q = torch.zeros((2, 192), device=cuda)
+    kv = torch.zeros((64, 2, 192), device=cuda)
     npad = torch.zeros(2, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):       # head dim 80 (opt-2.7b's): not 16, 32 or 64
+    with pytest.raises(ValueError):       # head dim 96: not 16, 32, 64, 80 or 128
         decode_attention(q, kv, kv, npad, 3, n_head=2, scale=1.0)
     with pytest.raises(ValueError):       # float32 hidden rows
         lm_head_argmax(torch.zeros((2048, 256), dtype=torch.int8, device=cuda),
@@ -334,6 +354,37 @@ def test_megakernel_opt_mode_matches_plain(cuda, n_layer, b):
     errs = chip_smoke.mega_errors(cfg, packed, inputs, 70, 71)
     assert decode_step_megakernel.launches == before + 1
     chip_smoke.held_to_ulps(f"OPT mode layers={n_layer} b={b}", errs, [0.0, 0.0, None])
+
+
+# (D, heads) of a small OPT trunk at each wide head width; xattn 2 heads of 64
+WIDE_MEGA = {80: (320, 4), 128: (256, 2)}
+
+
+@pytest.mark.parametrize("act_quant", [False, True], ids=["weight-only", "w8a8"])
+@pytest.mark.parametrize("rows,kb", [(3, 1), (8, 1), (24, 3)])
+@pytest.mark.parametrize("head_dim", [80, 128])
+def test_megakernel_wide_heads_match_plain(cuda, head_dim, rows, kb, act_quant):
+    """The OPT mode with self-attention heads 80 and 128 wide (xattn's 64),
+    2 layers with xattn on the first, greedy and 3 beams (lazy ancestry),
+    the live prefix ending before the cache: weight-only within 2 bf16
+    ulps, w8a8 bit for bit its plain version; one launch a call."""
+    import chip_smoke
+    D, H = WIDE_MEGA[head_dim]
+    cfg, packed = chip_smoke.random_trunk(
+        cuda, n_layer=2, xattn_every=2, seed=head_dim + rows, family="opt", D=D, H=H,
+        XI=128, XH=2, n_visual=16)
+    inputs = list(chip_smoke.mega_inputs(cuda, cfg, rows, seed=rows, T=64, NMNV=16))
+    anc = None
+    if kb > 1:
+        inputs[5] = chip_smoke.family_npad(cuda, rows // kb, kb)
+        anc = chip_smoke.random_ancestry(cuda, rows // kb, kb, seed=rows, anc_len=64)
+    before = decode_step_megakernel.launches
+    errs = chip_smoke.mega_errors(cfg, packed, inputs, 35, 40, beam_anc=anc,
+                                  act_quant=act_quant)
+    assert decode_step_megakernel.launches == before + 1
+    chip_smoke.held_to_ulps(f"heads of {head_dim} rows={rows}", errs, [0.0, 0.0, None])
+    for name, (got, want) in errs.items():
+        assert not act_quant or torch.equal(got, want), (name, "not bit-equal")
 
 
 def test_megakernel_refuses_bad_input(cuda):
@@ -534,6 +585,70 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, causal):
         (before[0] + 1, before[1])
     chip_smoke.held_to_plain(f"flash_attention causal={causal} {dtype}", got,
                              flash_attention_plain(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [8, 64, 65, 257])
+@pytest.mark.parametrize("head_dim", [80, 128])
+def test_fused_attention_wide_heads_match_plain(cuda, head_dim, n, dtype):
+    """opt-2.7b's and opt-6.7b's trunk attention in the use_pallas forward
+    ((8, 32, n, head_dim), causal, two rows left-padded) and a contiguous
+    layout with a bias; one launch a call, within the tolerances."""
+    import chip_smoke
+    from flamingo_mini_tpu_torch.ops.fused_attention import (
+        fused_attention, fused_attention_plain)
+    q, k, v = chip_smoke.attention_inputs(cuda, dtype, 8, 32, n, n, seed=n,
+                                          head_dim=head_dim)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    for label, (qq, kk, vv, kw) in {
+            "causal left-padded": (q, k, v, dict(
+                scale=head_dim ** -0.5, causal=True, row_bias=chip_smoke.left_pad_bias(
+                    cuda, dtype, 8, n, [min(2, n - 1)] * 2 + [0] * 6))),
+            "contiguous, bias": (q.contiguous(), k.contiguous(), v.contiguous(), dict(
+                scale=head_dim ** -0.5, bias=torch.randn((8, 1, n, n), generator=gen,
+                                                         device=cuda)))}.items():
+        before = fused_attention.launches
+        got = fused_attention(qq, kk, vv, **kw)
+        assert fused_attention.launches == before + 1
+        chip_smoke.held_to_plain(f"fused_attention heads of {head_dim} {label} {dtype}",
+                                 got, fused_attention_plain(qq, kk, vv, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [80, 128])
+def test_flash_attention_wide_heads_match_plain(cuda, head_dim, dtype):
+    """The streaming kernel at (1, 32, 4000, head_dim), causal, left-padded
+    by 8: one launch, within the tolerances."""
+    import chip_smoke
+    from flamingo_mini_tpu_torch.ops.fused_attention import (
+        flash_attention, flash_attention_plain)
+    b, h, n = chip_smoke.WIDE_FLASH
+    q, k, v = chip_smoke.attention_inputs(cuda, dtype, b, h, n, n, seed=head_dim,
+                                          head_dim=head_dim)
+    kw = dict(scale=head_dim ** -0.5, causal=True,
+              row_bias=chip_smoke.left_pad_bias(cuda, dtype, b, n, [8]))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == before + 1
+    chip_smoke.held_to_plain(f"flash_attention heads of {head_dim} {dtype}", got,
+                             flash_attention_plain(q, k, v, **kw), dtype)
+
+
+def test_attention_kernels_refuse_an_untaken_head_width(cuda):
+    """Head width 96 (no kernel takes it) raises on the card and never runs
+    plain, in fused_attention, flash_attention and the megakernel."""
+    import chip_smoke
+    from flamingo_mini_tpu_torch.ops.fused_attention import flash_attention, fused_attention
+    q = torch.zeros((1, 2, 8, 96), dtype=torch.bfloat16, device=cuda)
+    for fn in (fused_attention, flash_attention):
+        with pytest.raises(ValueError, match="96"):
+            fn(q, q, q, scale=0.1)
+    cfg, packed = chip_smoke.random_trunk(cuda, n_layer=1, xattn_every=1, seed=1,
+                                          family="opt", D=192, H=2, XI=128, XH=2,
+                                          n_visual=16)
+    inputs = chip_smoke.mega_inputs(cuda, cfg, 2, seed=1, T=64, NMNV=16)
+    with pytest.raises(ValueError, match="self-attention"):
+        decode_step_megakernel(packed, *inputs, 3, config=cfg, kv_limit=8)
 
 
 @pytest.mark.parametrize("n_kv", [1, 63, 64, 65, 127, 128, 129, 257])

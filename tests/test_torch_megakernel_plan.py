@@ -4,7 +4,8 @@ on the CPU.
 The Hopper kernel (``csrc/decode_megakernel_sm90.cuh``) runs only on the
 card (tests/test_torch_gpu.py holds it against its plain version there);
 its plan is Python, computed from the shapes and handed to it in the
-arguments. Here, at flamingo-mini (D=1024), OPT-1.3B (D=2048) and beam
+arguments. Here, at flamingo-mini (D=1024), OPT-1.3B (D=2048), OPT-2.7B
+(D=2560, heads 80 wide), OPT-6.7B (D=4096, heads 128 wide) and beam
 shapes: every phase's work items cover each (output column tile, 64-k
 chunk) exactly once over a grid of one block per SM, in the kernel's order
 of dealing them; the row groups cover every row once at wgmma widths; the
@@ -12,7 +13,9 @@ staged activations, the ring and the shared memory of a launch stay within
 what the plan and the card allow; the trunk widths the refusal names fit
 or do not. Two pieces of the kernel's arithmetic are checked from first
 principles, in numpy mirrors of its code: the k order its A fragments and
-its staged B tile share, and its exact int8 -> bf16 conversion.
+its staged B tile share, and its exact int8 -> bf16 conversion; and its
+attention's lane map at each head width it takes, within the scratch it
+reserves.
 """
 import numpy as np
 import pytest
@@ -30,6 +33,10 @@ SHAPES = {
     "257 rows": (257, 1024, 4096, 512, 4096, 132, 64, 24),
     "OPT-1.3B b=8": (8, 2048, 8192, 512, 8192, 71, 64, 12),
     "OPT-1.3B b=32": (32, 2048, 8192, 512, 8192, 71, 64, 12),
+    "OPT-2.7B b=8": (8, 2560, 10240, 512, 10240, 71, 64, 16),
+    "OPT-2.7B beams 24 rows": (24, 2560, 10240, 512, 10240, 40, 64, 16),
+    "OPT-6.7B b=8": (8, 4096, 16384, 512, 16384, 71, 64, 16),
+    "OPT-6.7B beams 24 rows": (24, 4096, 16384, 512, 16384, 40, 64, 16),
 }
 
 
@@ -208,3 +215,39 @@ def test_int8_to_bf16_is_exact():
     f = bits.view(np.float32) - np.float32(8388736.0)
     assert (f == b.astype(np.float32)).all()
     assert (f.view(np.uint32) & 0xFFFF == 0).all()
+
+
+def _attention_scratch_bytes(t_max: int, act_quant: bool, heads: int, dims: int) -> int:
+    """The kernel's attention scratch (``att_bytes``) for items of ``heads``
+    heads and ``dims`` dims over ``t_max`` positions: a float score row per
+    head, each warp's V sums of the item's dims, each span's max (float)
+    and sum (float64 in the w8a8 mode)."""
+    warps, acc = 4 * md.GROUPS, 8 if act_quant else 4
+    return 4 * heads * t_max + acc * warps * dims + (4 + acc) * warps * heads
+
+
+@pytest.mark.parametrize("head_dim", md.HEAD_DIMS)
+def test_attention_items_fit_the_lanes_and_the_scratch(head_dim):
+    """The kernel's attention item (``Heads``): a lane 8 dims, a head
+    head_dim / 8 lanes of a warp's 32, so four heads at 64, three at 80,
+    two at 128; lane l takes head l // (head_dim / 8), dims 8 (l %
+    (head_dim / 8)) .. + 7, every (head, dim) of the item once, the lanes
+    past the last head idle (two at 80). Its scores, V sums and spans fit
+    the scratch the kernel reserves for 64-wide items (``plan_smem_bytes``),
+    in both modes and at every position count, and the float64 sums start
+    8-byte aligned."""
+    lanes = head_dim // 8
+    heads = 32 // lanes
+    dims = heads * head_dim
+    seen = np.zeros((heads, head_dim), dtype=np.int64)
+    for lane in range(heads * lanes):
+        h, d0 = lane // lanes, 8 * (lane % lanes)
+        seen[h, d0:d0 + 8] += 1
+    assert (seen == 1).all() and dims <= 256
+    assert heads == {64: 4, 80: 3, 128: 2}[head_dim]
+    assert 32 - heads * lanes == {64: 0, 80: 2, 128: 0}[head_dim]
+    for q in (False, True):
+        for t in (1, 40, 71, 132, 257, 2049):
+            reserved = _attention_scratch_bytes(t, q, 4, 4 * md.HEAD_DIM)
+            assert _attention_scratch_bytes(t, q, heads, dims) <= reserved
+            assert (4 * 4 * t) % 8 == 0
